@@ -19,8 +19,27 @@ Phases, each printing one JSON line:
               step, in float32 and in bf16 autocast; launch counts are
               reset just before and read just after this run; the logits
               are held to the same weights run with the plain attention;
-  e. kernels  one line per kernel: route, source, the TPU kernel it
-              replaces, launches in phase d, error and times.
+  e. train parity
+              the training kernels #2 (save-p forward) and #4 (attention
+              backward) against their plain versions at the shapes the
+              training path gives them (dual Swin-B, batch 32), in
+              float32 and bfloat16: out, qkv and p; dqkv and dbias; and
+              the whole op's dx, dW, db and dbias against the plain op;
+              median times of both (CUDA events, 20 reps);
+  f. train    the DGL training path at full Swin-B width (VGGSound, fps
+              1, batch 32, concat DGL, alpha 4, droppath 0.1, SGD, clip
+              40; benchmarks/run_all.py swin_dgl_bs32): seeded weights go
+              to two arms, the kernels and the plain attention, each
+              taking 1 warm-up + 4 steps on the same raw synthetic
+              batches (preprocessed inside the step) with identically
+              seeded generators, in float32 and under bf16 autocast;
+              launch counts are reset just before and read just after
+              each step; losses and float32 parameters of the two arms
+              are held to each other; then 8 more steps per arm, in
+              turns, give the median ms/step;
+  g. kernels  one line per kernel: route, source, the TPU kernel it
+              replaces, launches on its path (d for #1, the kernel arm
+              of f for #2 and #4), error and times.
 Then the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero without the ok line when CUDA is unavailable or any phase
@@ -30,7 +49,9 @@ fails. Uses one card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -47,6 +68,21 @@ TOL = {"float32": dict(atol=2e-4, rtol=2e-4), "bfloat16": dict(atol=3e-2,
 # serving logits, kernel path vs plain path with the same weights
 SERVE_ATOL = {"float32": 1e-3, "bfloat16": 5e-2}
 MIN_ARGMAX_AGREE = 15  # of 16 rows per request
+
+SAVEP = "window_attention_qkv_fused_savep"
+BWD = "window_attention_qkv_fused_bwd"
+TRAIN_BATCH = 32
+TRAIN_STEPS = 4  # after one warm-up step
+TIME_ROUNDS = 8  # timed steps per arm after the checked ones
+# training kernels vs their plain versions: forward outputs elementwise
+# (atol + rtol·|want|); gradients by their largest error against the
+# reference's largest |value|
+TRAIN_FWD_TOL = {"float32": dict(atol=2e-4, rtol=2e-4),
+                 "bfloat16": dict(atol=3e-2, rtol=1e-2)}
+TRAIN_GRAD_FRAC = {"float32": 2e-4, "bfloat16": 2e-2}
+# the training path, kernel arm vs plain arm
+LOSS_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+PARAM_ATOL = 1e-4  # float32 parameters after the checked steps
 
 
 def emit(obj) -> None:
@@ -89,7 +125,9 @@ STAGES = [(0, 1024, 128, 4, 56), (1, 256, 256, 8, 28), (2, 64, 512, 16, 14),
 DEPTHS = (2, 2, 18, 2)
 
 
-def phase_parity(failures):
+def stage_inputs(stage, bw, c, heads, res, dev):
+    """Seeded x [Bw,49,C], w [3C,C], b [3C] (numpy f32), the relative
+    position bias [H,49,49] and the masks the stage's blocks use."""
     import numpy as np
     import torch
 
@@ -97,29 +135,37 @@ def phase_parity(failures):
         relative_position_index,
         shift_attn_mask,
     )
+
+    rng = np.random.default_rng(100 + stage)
+    n = 49
+    x = rng.standard_normal((bw, n, c)).astype(np.float32)
+    w = (rng.standard_normal((3 * c, c)) * c ** -0.5).astype(np.float32)
+    b = (rng.standard_normal(3 * c) * 0.1).astype(np.float32)
+    table = (rng.standard_normal((169, heads)) * 0.5).astype(np.float32)
+    bias = np.ascontiguousarray(table[relative_position_index(7).reshape(
+        -1)].reshape(n, n, heads).transpose(2, 0, 1))
+    masks = [None]
+    if res > 7:
+        masks.append(torch.from_numpy(shift_attn_mask(res, res, 7, 3))
+                     .to(dev))
+    return (x, w, b), torch.from_numpy(bias).to(dev), masks
+
+
+def phase_parity(failures):
+    import torch
+
     from gdl_tpu_torch.ops.window_attention import (
         window_attention_qkv_fused_eval,
     )
 
     dev = torch.device("cuda")
     results = []
+    n = 49
     for stage, bw, c, heads, res in STAGES:
-        rng = np.random.default_rng(100 + stage)
-        n = 49
-        x = rng.standard_normal((bw, n, c)).astype(np.float32)
-        w = (rng.standard_normal((3 * c, c)) * c ** -0.5).astype(np.float32)
-        b = (rng.standard_normal(3 * c) * 0.1).astype(np.float32)
-        table = (rng.standard_normal((169, heads)) * 0.5).astype(np.float32)
-        bias = np.ascontiguousarray(table[relative_position_index(7).reshape(
-            -1)].reshape(n, n, heads).transpose(2, 0, 1))
-        bias_t = torch.from_numpy(bias).to(dev)
-        masks = [None]
-        if res > 7:
-            masks.append(torch.from_numpy(shift_attn_mask(res, res, 7, 3))
-                         .to(dev))
+        arrays, bias_t, masks = stage_inputs(stage, bw, c, heads, res, dev)
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
-            xs, ws, bs = (torch.from_numpy(a).to(dev, dt) for a in (x, w, b))
+            xs, ws, bs = (torch.from_numpy(a).to(dev, dt) for a in arrays)
             for mask in masks:
                 def run(impl, mask=mask):
                     return window_attention_qkv_fused_eval(
@@ -149,10 +195,10 @@ def phase_parity(failures):
     return results
 
 
-def per_request_ms(results, dtype: str, key: str) -> float:
-    """Attention time of one request (both encoders, all 48 launches)
-    from the per-shape medians: even blocks unshifted, odd blocks shifted
-    wherever the window does not cover the map."""
+def per_pass_ms(results, dtype: str, key: str) -> float:
+    """Attention time of one request or training step (both encoders, all
+    48 launches) from the per-shape medians: even blocks unshifted, odd
+    blocks shifted wherever the window does not cover the map."""
     t = {(r["stage"], r["mask"]): r[key] for r in results
          if r["dtype"] == dtype}
     total = 0.0
@@ -244,6 +290,238 @@ def phase_serve(failures):
     return launches, expected
 
 
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def _fwd_ok(got, want, dtype) -> bool:
+    tol = TRAIN_FWD_TOL[dtype]
+    bound = tol["atol"] + tol["rtol"] * want.float().abs()
+    return bool(_finite(got)) and bool(
+        ((got.float() - want.float()).abs() <= bound).all())
+
+
+def _grad_ok(got, want, dtype) -> bool:
+    return bool(_finite(got)) and _max_err(got, want) <= (
+        TRAIN_GRAD_FRAC[dtype] * float(want.float().abs().max()))
+
+
+def _finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def phase_train_parity(failures):
+    """Kernels #2 and #4, and the training op they make up, against their
+    plain versions at the batch-32 training shapes."""
+    import torch
+
+    from gdl_tpu_torch.ops.window_attention import (
+        window_attention_qkv_fused,
+        window_attention_qkv_fused_bwd,
+        window_attention_qkv_fused_fwd,
+    )
+
+    dev = torch.device("cuda")
+    scale_b = TRAIN_BATCH // BATCH
+    results = []
+    for stage, bw16, c, heads, res in STAGES:
+        bw = bw16 * scale_b
+        arrays, bias_t, masks = stage_inputs(stage, bw, c, heads, res, dev)
+        gen = torch.Generator(device=dev).manual_seed(200 + stage)
+        dout32 = torch.randn((bw, 49, c), generator=gen, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            args = [torch.from_numpy(a).to(dev, dt) for a in arrays]
+            dout = dout32.to(dt)
+            for mask in masks:
+                errs, oks = {}, []
+                with torch.no_grad():
+                    got = window_attention_qkv_fused_fwd(*args, bias_t, mask,
+                                                         heads)
+                    want = window_attention_qkv_fused_fwd(
+                        *args, bias_t, mask, heads, impl="plain")
+                    for name, g, w in zip(("out", "qkv", "p"), got, want):
+                        errs[name] = _max_err(g, w)
+                        oks.append(_fwd_ok(g, w, dtype))
+                    _, qkv, p = want
+                    gb = window_attention_qkv_fused_bwd(qkv, p, dout, heads)
+                    wb = window_attention_qkv_fused_bwd(qkv, p, dout, heads,
+                                                        impl="plain")
+                    for name, g, w in zip(("dqkv", "dbias"), gb, wb):
+                        errs[name] = _max_err(g, w)
+                        oks.append(_grad_ok(g, w, dtype))
+                grads = {}
+                for impl in ("auto", "plain"):
+                    leaves = [a.clone().requires_grad_(True)
+                              for a in args + [bias_t]]
+                    out = window_attention_qkv_fused(
+                        *leaves[:3], leaves[3], mask, heads, impl=impl)
+                    out.backward(dout)
+                    grads[impl] = [t.grad for t in leaves]
+                    del out, leaves
+                for name, g, w in zip(("op_dx", "op_dW", "op_db",
+                                       "op_dbias"), grads["auto"],
+                                      grads["plain"]):
+                    errs[name] = _max_err(g, w)
+                    oks.append(_grad_ok(g, w, dtype))
+                del grads
+                with torch.no_grad():
+                    times = {
+                        "fwd_ms": cuda_ms(lambda: window_attention_qkv_fused_fwd(
+                            *args, bias_t, mask, heads)),
+                        "fwd_plain_ms": cuda_ms(
+                            lambda: window_attention_qkv_fused_fwd(
+                                *args, bias_t, mask, heads, impl="plain")),
+                        "bwd_ms": cuda_ms(lambda: window_attention_qkv_fused_bwd(
+                            qkv, p, dout, heads)),
+                        "bwd_plain_ms": cuda_ms(
+                            lambda: window_attention_qkv_fused_bwd(
+                                qkv, p, dout, heads, impl="plain")),
+                    }
+                torch.cuda.synchronize()
+                ok = all(oks)
+                row = {"phase": "train_parity", "kernels": [SAVEP, BWD],
+                       "stage": stage, "Bw": bw, "C": c, "H": heads, "N": 49,
+                       "mask": mask is not None, "dtype": dtype,
+                       "max_abs_err": errs, "fwd_tol": TRAIN_FWD_TOL[dtype],
+                       "grad_frac_of_max": TRAIN_GRAD_FRAC[dtype], "ok": ok,
+                       **times}
+                emit(row)
+                results.append(row)
+                if not ok:
+                    failures.append(f"train parity stage {stage} {dtype} "
+                                    f"mask={mask is not None}")
+    return results
+
+
+def phase_train(failures, smi: str):
+    """The DGL training path, kernel arm and plain arm, from one set of
+    seeded weights. Returns the kernel arm's launch counts."""
+    import torch
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.config import Config
+    from gdl_tpu_torch.data.preprocess import make_train_preprocess
+    from gdl_tpu_torch.data.synthetic import synthetic_batch
+    from gdl_tpu_torch.models.swin import WindowAttention
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.train.dgl import make_dgl_train_step
+    from gdl_tpu_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    cfg = Config(dataset="VGGSound", backbone="swin", fusion_method="concat",
+                 modality="full", fps=1, batch_size=TRAIN_BATCH,
+                 log_grad_csv=False)
+    t0 = time.perf_counter()
+    base = build_model(cfg, seed=4321)  # droppath 0.1, on the CPU
+    n_params = sum(p.numel() for p in base.parameters())
+    batches = [synthetic_batch(cfg, TRAIN_BATCH, seed=300 + k)
+               for k in range(1 + TRAIN_STEPS)]
+    setup_s = time.perf_counter() - t0
+    expected = 2 * sum(DEPTHS)  # per step, of each training kernel
+    kernel_launches = {SAVEP: 0, BWD: 0}
+
+    def drive(step, batch, dtype):
+        """One step → (metrics, host ms, launch counts of this step)."""
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        with torch.autocast(dev.type, dtype=torch.bfloat16,
+                            enabled=dtype == "bfloat16"):
+            m = step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        return ({k: float(v) for k, v in m.items()}, ms,
+                dict(kernels.launch_counts))
+
+    def run_arm(impl, dtype):
+        model = copy.deepcopy(base).to(dev)
+        for m in model.modules():
+            if isinstance(m, WindowAttention):
+                m.attn_impl = impl
+        opt = make_optimizer(cfg, model.parameters(), steps_per_epoch=100)
+        gen = torch.Generator(device=dev).manual_seed(cfg.random_seed)
+        step = make_dgl_train_step(model, cfg, opt, clip_norm=40.0,
+                                   preprocess=make_train_preprocess(cfg, dev),
+                                   generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [drive(step, batch, dtype) for batch in batches]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        return dict(model=model, step=step, peak=peak,
+                    metrics=[r[0] for r in runs], ms=[r[1] for r in runs],
+                    launches=[r[2] for r in runs])
+
+    for dtype in ("float32", "bfloat16"):
+        # arms in turns: plain first in f32, kernel first in bf16
+        order = ("plain", "auto") if dtype == "float32" else ("auto",
+                                                              "plain")
+        arms = {impl: run_arm(impl, dtype) for impl in order}
+        param_err = None  # after the checked steps, before the timed ones
+        if dtype == "float32":
+            with torch.no_grad():
+                param_err = max(
+                    float((a - b).abs().max()) for a, b in
+                    zip(arms["auto"]["model"].parameters(),
+                        arms["plain"]["model"].parameters()))
+        # timing: TIME_ROUNDS more steps per arm in turns (P,K,K,P,...);
+        # the checked steps above include allocator and autotuning warm-up
+        timed = {impl: [] for impl in arms}
+        for r in range(TIME_ROUNDS):
+            for impl in (order if r % 2 == 0 else order[::-1]):
+                batch = batches[r % len(batches)]
+                timed[impl].append(drive(arms[impl]["step"], batch,
+                                         dtype)[1])
+        for impl in order:
+            arm, ms = arms[impl], sorted(timed[impl])
+            med = ms[len(ms) // 2]
+            emit({"phase": "train", "dtype": dtype,
+                  "arm": "kernel" if impl == "auto" else "plain",
+                  "batch": TRAIN_BATCH, "ms_per_step": med,
+                  "clips_per_s": TRAIN_BATCH / med * 1e3,
+                  "timed_step_ms": timed[impl],
+                  "checked_step_ms": arm["ms"], "peak_mem_gib": arm["peak"],
+                  "loss": [m["loss"] for m in arm["metrics"]],
+                  "grad_norm": [m["grad_norm"] for m in arm["metrics"]],
+                  "params": n_params, "setup_s": setup_s,
+                  "nvidia_smi": smi})
+        k_metrics, k_launch = (arms["auto"][k] for k in ("metrics",
+                                                         "launches"))
+        p_metrics, p_launch = (arms["plain"][k] for k in ("metrics",
+                                                          "launches"))
+        problems = []
+        for i, (lk, lp) in enumerate(zip(k_launch, p_launch)):
+            if (lk[SAVEP], lk[BWD], lk[KERNEL]) != (expected, expected, 0):
+                problems.append(f"step {i}: kernel arm launches {lk}")
+            if any(lp.values()):
+                problems.append(f"step {i}: plain arm launches {lp}")
+            for name in (SAVEP, BWD):
+                kernel_launches[name] += lk[name]
+        worst_rel = 0.0
+        for i, (mk, mp) in enumerate(zip(k_metrics, p_metrics)):
+            for key in ("loss", "loss_a", "loss_v", "loss_f"):
+                a, b = mk[key], mp[key]
+                if not (math.isfinite(a) and math.isfinite(b)):
+                    problems.append(f"step {i}: {key} not finite")
+                    continue
+                worst_rel = max(worst_rel, abs(a - b) / max(abs(b), 1e-12))
+        if worst_rel > LOSS_RTOL[dtype]:
+            problems.append(f"losses differ by {worst_rel} relative")
+        if param_err is not None and param_err > PARAM_ATOL:
+            problems.append(f"parameters differ by {param_err}")
+        ok = not problems
+        emit({"phase": "train_check", "dtype": dtype,
+              "max_rel_loss_diff": worst_rel, "loss_rtol": LOSS_RTOL[dtype],
+              "max_abs_param_diff": param_err,
+              "param_atol": PARAM_ATOL if dtype == "float32" else None,
+              "launches_per_step": expected, "problems": problems, "ok": ok})
+        failures.extend(f"train {dtype}: {p}" for p in problems)
+        del arms
+        torch.cuda.empty_cache()
+    return kernel_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -297,17 +575,57 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failures.append("serve raised")
 
+    try:
+        train_parity = phase_train_parity(failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("train parity raised")
+        train_parity = []
+    record["train_parity"] = train_parity
+
+    train_launches = {SAVEP: 0, BWD: 0}
+    try:
+        train_launches = phase_train(failures, smi)
+    except Exception:
+        traceback.print_exc()
+        failures.append("train raised")
+
     f32 = [r for r in parity if r["dtype"] == "float32"]
-    entry = {"name": KERNEL, "route": "cuda",
-             "source": "gdl_tpu_torch/kernels/window_attention_eval.cu",
-             "replaces": "gdl_tpu/ops/window_attention.py:1530",
-             "launches": launches[KERNEL],
-             "max_abs_err": max((r["max_abs_err"] for r in f32),
-                                default=None)}
+    t32 = [r for r in train_parity if r["dtype"] == "float32"]
+    src = "gdl_tpu_torch/kernels/"
+    entries = [
+        {"name": KERNEL, "route": "cuda",
+         "source": src + "window_attention_eval.cu",
+         "replaces": "gdl_tpu/ops/window_attention.py:1530",
+         "launches": launches[KERNEL],
+         "max_abs_err": max((r["max_abs_err"] for r in f32), default=None)},
+        {"name": SAVEP, "route": "cuda",
+         "source": src + "window_attention_train.cu",
+         "replaces": "gdl_tpu/ops/window_attention.py:1227",
+         "launches": train_launches[SAVEP],
+         "max_abs_err": max((max(r["max_abs_err"][k] for k in
+                                 ("out", "qkv", "p")) for r in t32),
+                            default=None)},
+        {"name": BWD, "route": "cuda",
+         "source": src + "window_attention_train.cu",
+         "replaces": "gdl_tpu/ops/window_attention.py:937",
+         "launches": train_launches[BWD],
+         "max_abs_err": max((max(r["max_abs_err"][k] for k in
+                                 ("dqkv", "dbias")) for r in t32),
+                            default=None)},
+    ]
+    # per request (#1, batch 16) or per training step (#2, #4, batch 32):
+    # the sum over the 48 launches of the float32 per-shape medians
     if len(f32) == 7:
-        entry["ms"] = per_request_ms(parity, "float32", "ms")
-        entry["plain_ms"] = per_request_ms(parity, "float32", "plain_ms")
-    record["kernels"] = {"kernels": [entry]}
+        entries[0]["ms"] = per_pass_ms(parity, "float32", "ms")
+        entries[0]["plain_ms"] = per_pass_ms(parity, "float32",
+                                                "plain_ms")
+    if len(t32) == 7:
+        for entry, key in ((entries[1], "fwd"), (entries[2], "bwd")):
+            entry["ms"] = per_pass_ms(train_parity, "float32", key + "_ms")
+            entry["plain_ms"] = per_pass_ms(train_parity, "float32",
+                                            key + "_plain_ms")
+    record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
     if args.out:
@@ -317,6 +635,9 @@ def main(argv=None) -> int:
             json.dump(record, f, indent=1)
     if launches[KERNEL] == 0:
         failures.append(f"{KERNEL} was never launched on the serving path")
+    for k in (SAVEP, BWD):
+        if train_launches[k] == 0:
+            failures.append(f"{k} was never launched on the training path")
     if failures:
         for f in failures:
             log(f"FAILED: {f}")

@@ -16,7 +16,9 @@ wrapper takes the plain version only for tensors on the CPU, and on a
 CUDA tensor it launches the kernel or raises.
 
 Ported so far: the dual Swin-B DGL classifier at eval, served from a
-reference-schema `.pth` checkpoint (`gdl_tpu_torch.serve`).
+reference-schema `.pth` checkpoint (`gdl_tpu_torch.serve`), and its DGL
+training step (`gdl_tpu_torch.train`: the one-backward DGL loss, clip +
+SGD + LR schedule, on-device augmentation).
 """
 
 __version__ = "0.1.0"

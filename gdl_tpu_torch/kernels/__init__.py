@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one `.cu` file in this directory with a plain C interface
-(no PyTorch headers, so nvcc takes seconds, not minutes). At first use
-it is compiled by nvcc for `sm_90a` into a shared library under
+Each library is one `.cu` file in this directory with a plain C
+interface (no PyTorch headers, so nvcc takes seconds, not minutes); code
+two libraries share lives in a `.cuh` header here. At first use a
+library is compiled by nvcc for `sm_90a` into a shared library under
 `build/` (listed in .gitignore) and loaded with ctypes. A library is
-named by a hash of its source and flags, so an edited source is rebuilt
-and a built one is reused. Nothing is compiled or loaded at import time.
+named by a hash of its source, the headers and the flags, so an edited
+source is rebuilt and a built one is reused. Nothing is compiled or
+loaded at import time.
 
 `launch_counts` holds one plain integer per kernel. Each op wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
@@ -38,9 +40,18 @@ LIBRARIES = {
         {"gdl_wa_eval_launch": ([_vp] * 6 + [_int] * 6 + [_float, _int, _vp],
                                 _int)},
     ),
+    "window_attention_train": (
+        "window_attention_train.cu",
+        {"gdl_wa_savep_launch": ([_vp] * 8 + [_int] * 6
+                                 + [_float, _int, _vp], _int),
+         "gdl_wa_bwd_launch": ([_vp] * 5 + [_int] * 6 + [_float, _int, _vp],
+                               _int)},
+    ),
 }
 
-launch_counts: Dict[str, int] = {"window_attention_qkv_fused_eval": 0}
+launch_counts: Dict[str, int] = {"window_attention_qkv_fused_eval": 0,
+                                 "window_attention_qkv_fused_savep": 0,
+                                 "window_attention_qkv_fused_bwd": 0}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -64,8 +75,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = KERNEL_DIR / LIBRARIES[name][0]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((KERNEL_DIR / LIBRARIES[name][0]).read_bytes())
+    for header in sorted(KERNEL_DIR.glob("*.cuh")):  # shared by the sources
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

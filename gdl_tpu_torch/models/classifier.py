@@ -32,16 +32,20 @@ class AVClassifierSwinDGL(nn.Module):
     returns `(out, out_a, out_v)`.
 
     attn_impl="plain" runs the window attention's plain PyTorch version
-    on any device (the reference the CUDA kernel is held to); "auto"
-    takes the kernel on the card."""
+    on any device (the reference the CUDA kernels are held to); "auto"
+    takes the kernels on the card. drop_path_rate is the encoders' (0.1
+    in gdl_tpu). The DGL train step uses `encode`, `unimodal_logits` and
+    `fused_logits`, gdl_tpu's protocol."""
 
     def __init__(self, cfg: Config, attn_impl: str = "auto",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 drop_path_rate: float = 0.1):
         super().__init__()
         kw = dict(img_size=cfg.swin_img_size, patch_size=cfg.swin_patch,
                   embed_dim=cfg.swin_embed_dim, depths=tuple(cfg.swin_depths),
                   num_heads=tuple(cfg.swin_heads), window=cfg.swin_window,
-                  attn_impl=attn_impl, generator=generator)
+                  attn_impl=attn_impl, drop_path_rate=drop_path_rate,
+                  generator=generator)
         self.audio_net = SwinTransformer("audio", **kw)
         self.visual_net = SwinTransformer("visual", **kw)
         feat_dim = cfg.swin_embed_dim * 2 ** (len(cfg.swin_depths) - 1)
@@ -49,12 +53,25 @@ class AVClassifierSwinDGL(nn.Module):
                                          dgl=True, input_dim=feat_dim,
                                          generator=generator)
 
-    def encode(self, audio, visual):
-        a_map = self.audio_net(audio)
-        v_map = self.visual_net(visual)
+    def encode(self, audio, visual,
+               generator: Optional[torch.Generator] = None):
+        """Pooled features (a, v); `generator` feeds DropPath in training
+        mode."""
+        a_map = self.audio_net(audio, generator)
+        v_map = self.visual_net(visual, generator)
         return _pool_audio(a_map), _pool_visual(v_map, audio.shape[0])
 
-    def forward(self, audio, visual):
-        a, v = self.encode(audio, visual)
+    def unimodal_logits(self, a, v):
+        """(out_a, out_v) from live features through the fusion head with
+        its parameters detached (gdl_tpu's stop_fusion_gradients)."""
+        return self.fusion_module.unimodal(a, v, detach_params=True)
+
+    def fused_logits(self, a, v):
+        """The fused logits; the head detaches the features."""
+        return self.fusion_module.fuse(a, v)
+
+    def forward(self, audio, visual,
+                generator: Optional[torch.Generator] = None):
+        a, v = self.encode(audio, visual, generator)
         a_out, v_out, out = self.fusion_module(a, v)
         return out, a_out, v_out

@@ -1,7 +1,11 @@
-"""DGL fusion heads, port of `gdl_tpu/models/fusion.py` (eval forward).
+"""DGL fusion heads, port of `gdl_tpu/models/fusion.py`.
 
 Each head's `forward(x, y)` returns the reference 3-tuple
-`(x_out, y_out, fused_out)`. Only the default DGL head, concat, is
+`(x_out, y_out, fused_out)`, and a DGL head exposes the two streams the
+DGL train step uses: `unimodal(x, y, detach_params)` (live features;
+with detach_params the head's parameters get no gradient, gdl_tpu's
+`stop_fusion_gradients`) and `fuse(x, y)` (features detached where the
+reference calls `.detach()`). Only the default DGL head, concat, is
 ported so far; the others raise NotImplementedError in `make_fusion`.
 """
 
@@ -10,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -35,9 +40,12 @@ class ConcatFusionDGL(nn.Module):
         self.fc_out = _xavier_linear(input_dim, output_dim, generator)
         self.fc_auxi = _xavier_linear(input_dim, output_dim, generator)
 
-    def unimodal(self, x, y):
-        x_out = self.fc_out(torch.cat([x, torch.zeros_like(y)], dim=-1))
-        y_out = self.fc_out(torch.cat([torch.zeros_like(x), y], dim=-1))
+    def unimodal(self, x, y, detach_params: bool = False):
+        w, b = self.fc_out.weight, self.fc_out.bias
+        if detach_params:
+            w, b = w.detach(), b.detach()
+        x_out = F.linear(torch.cat([x, torch.zeros_like(y)], dim=-1), w, b)
+        y_out = F.linear(torch.cat([torch.zeros_like(x), y], dim=-1), w, b)
         return x_out, y_out
 
     def fuse(self, x, y):

@@ -1,19 +1,26 @@
-"""Swin Transformer encoder at eval, port of `gdl_tpu/models/swin.py`.
+"""Swin Transformer encoder, port of `gdl_tpu/models/swin.py`.
 
 Submodules carry the reference's Microsoft names (`patch_embed.{proj,
 norm}`, `layers.S.blocks.B.{norm1, attn.{qkv, proj,
 relative_position_bias_table}, norm2, mlp.{fc1, fc2}}`,
 `layers.S.downsample.{norm, reduction}`, `norm`), so a reference `.pth`
-loads as it is. Eval only: DropPath is the identity, the PE heads are
-not ported, LayerNorm eps is 1e-5 and GELU is exact.
+loads as it is. LayerNorm eps is 1e-5 and GELU is exact; the PE heads
+are not ported. In training mode (`model.train()`) each block's two
+residual branches go through DropPath, at rates rising linearly from 0
+to `drop_path_rate` (0.1) over the blocks, with draws from the
+`generator` passed to `forward`. DropPath has no parameters, so the
+state dict is the same in both modes.
 
 Inputs are channel-last as in the reference package: audio
 [B, H, W, 1], visual [B, T, H, W, 3] (time folded into the batch). The
 output is the [N, h, w, C] feature map of the last stage.
 
-Window attention goes through `window_attention_qkv_fused_eval`: the
-hand-written CUDA kernel on the card, its plain version on the CPU or
-when the model is built with attn_impl="plain". Under CUDA autocast the
+Window attention goes through `window_attention_qkv_fused` in training
+mode (kernels #2 and #4 on the card) and `window_attention_qkv_fused_eval`
+otherwise (kernel #1), as gdl_tpu's `train` flag selects its Pallas
+entries; their plain versions run on the CPU or when the model is built
+with attn_impl="plain". The spatial token layout is kept (gdl_tpu's
+window-resident layout is the same math). Under CUDA autocast the
 attention operands are cast to the autocast dtype, as nn.Linear's would
 be, so a bf16 run takes the kernel's bf16 path.
 """
@@ -28,7 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gdl_tpu_torch.ops.window_attention import window_attention_qkv_fused_eval
+from gdl_tpu_torch.ops.window_attention import (
+    window_attention_qkv_fused,
+    window_attention_qkv_fused_eval,
+)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,12 +111,32 @@ class WindowAttention(nn.Module):
         if torch.is_autocast_enabled(x.device.type):
             dt = torch.get_autocast_dtype(x.device.type)
             x, w, b = x.to(dt), w.to(dt), b.to(dt)
-        out = window_attention_qkv_fused_eval(
-            x.contiguous(), w.contiguous(), b.contiguous(),
-            bias.float().contiguous(), mask, self.num_heads,
-            impl=self.attn_impl)
+        op = (window_attention_qkv_fused if self.training
+              else window_attention_qkv_fused_eval)
+        out = op(x.contiguous(), w.contiguous(), b.contiguous(),
+                 bias.float().contiguous(), mask, self.num_heads,
+                 impl=self.attn_impl)
         # the output projection stays outside the kernel, as in gdl_tpu
         return self.proj(out)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: in training mode each sample's branch is kept
+    with probability 1 - rate and then scaled by 1/(1 - rate), or zeroed
+    (gdl_tpu/models/swin.py::DropPath). The identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
 
 
 class Mlp(nn.Module):
@@ -125,7 +155,7 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, resolution: Tuple[int, int], num_heads: int,
                  window: int, shift: int, mlp_ratio: float = 4.0,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", drop_path: float = 0.0):
         super().__init__()
         self.window = min(window, *resolution)
         self.shift = shift
@@ -133,6 +163,8 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(dim, self.window, num_heads, attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
         self._masks: Dict[tuple, torch.Tensor] = {}
 
     def _mask(self, h: int, w: int, shift: int, device) -> torch.Tensor:
@@ -142,7 +174,8 @@ class SwinBlock(nn.Module):
                 shift_attn_mask(h, w, self.window, shift), device=device)
         return self._masks[key]
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         win = self.window
         shift = self.shift if win < min(h, w) else 0
         b, l, c = x.shape
@@ -155,8 +188,8 @@ class SwinBlock(nn.Module):
         y = window_reverse(y, win, h, w)
         if shift > 0:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
-        x = x + y.reshape(b, l, c)
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path1(y.reshape(b, l, c), generator)
+        return x + self.drop_path2(self.mlp(self.norm2(x)), generator)
 
 
 class PatchMerging(nn.Module):
@@ -192,11 +225,13 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, resolution: Tuple[int, int], depth: int,
                  num_heads: int, window: int, mlp_ratio: float,
-                 downsample: bool, attn_impl: str):
+                 downsample: bool, attn_impl: str,
+                 drop_paths: Sequence[float]):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinBlock(dim, resolution, num_heads, window,
-                      0 if i % 2 == 0 else window // 2, mlp_ratio, attn_impl)
+                      0 if i % 2 == 0 else window // 2, mlp_ratio, attn_impl,
+                      drop_paths[i])
             for i in range(depth)])
         self.downsample = PatchMerging(dim) if downsample else None
 
@@ -209,18 +244,22 @@ class SwinTransformer(nn.Module):
                  depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (4, 8, 16, 32), window: int = 7,
                  mlp_ratio: float = 4.0, attn_impl: str = "auto",
+                 drop_path_rate: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.modality = modality
         in_chans = 1 if modality == "audio" else 3
         self.patch_embed = PatchEmbed(in_chans, patch_size, embed_dim)
         res = img_size // patch_size
+        dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
         layers = []
         for s, depth in enumerate(depths):
             r = res // 2 ** s
+            first = sum(depths[:s])
             layers.append(BasicLayer(
                 embed_dim * 2 ** s, (r, r), depth, num_heads[s], window,
-                mlp_ratio, s < len(depths) - 1, attn_impl))
+                mlp_ratio, s < len(depths) - 1, attn_impl,
+                dpr[first:first + depth]))
         self.layers = nn.ModuleList(layers)
         self.num_features = embed_dim * 2 ** (len(depths) - 1)
         self.norm = nn.LayerNorm(self.num_features, eps=1e-5)
@@ -241,14 +280,17 @@ class SwinTransformer(nn.Module):
             elif isinstance(m, WindowAttention):
                 _trunc_normal(m.relative_position_bias_table, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` feeds the DropPath draws in training mode (None:
+        torch's default generator of x's device)."""
         if self.modality == "visual":
             b, t, h, w, c = x.shape
             x = x.reshape(b * t, h, w, c)
         x, (h, w) = self.patch_embed(x.permute(0, 3, 1, 2))
         for layer in self.layers:
             for blk in layer.blocks:
-                x = blk(x, h, w)
+                x = blk(x, h, w, generator)
             if layer.downsample is not None:
                 x = layer.downsample(x, h, w)
                 h, w = h // 2, w // 2

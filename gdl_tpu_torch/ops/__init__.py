@@ -1,2 +1,3 @@
-"""Tensor ops of the port: audio and image preprocessing, and the window
-attention op that dispatches to its CUDA kernel."""
+"""Tensor ops of the port: audio and image preprocessing (eval and train
+augmentation), and the window attention ops that dispatch to their CUDA
+kernels."""

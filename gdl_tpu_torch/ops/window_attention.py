@@ -1,20 +1,29 @@
-"""Fused window attention with the qkv projection inside, forward only.
+"""Fused window attention with the qkv projection inside.
 
-Port of `gdl_tpu/ops/window_attention.py::
-window_attention_pallas_qkv_fused_eval` (the Pallas body
-`_wa_xw_t_eval_kernel`), the Swin eval path. On a CUDA tensor
-`window_attention_qkv_fused_eval` launches the hand-written kernel in
-`gdl_tpu_torch/kernels/window_attention_eval.cu`; on a CPU tensor it
-runs `window_attention_qkv_fused_eval_ref`, the plain PyTorch version of
-the same math (`window_attention_xla_bnhd` after the qkv projection).
+Ports of two entries of `gdl_tpu/ops/window_attention.py`:
+
+- `window_attention_qkv_fused_eval`: `window_attention_pallas_qkv_fused_eval`
+  (Pallas body `_wa_xw_t_eval_kernel`), the forward-only Swin eval op. On
+  a CUDA tensor it launches `kernels/window_attention_eval.cu`.
+- `window_attention_qkv_fused`: `window_attention_pallas_qkv_fused` with
+  its default gates, the Swin training op, a `torch.autograd.Function`.
+  Its forward is the save-p kernel (`_wa_xw_t_savep_kernel`) and its
+  backward the attention backward from the saved p (`_attn_bwd_pallas_t`
+  → `_wa_qkv_t_bwd_p_kernel`) followed by the projection backward as
+  plain GEMMs, as gdl_tpu's phase-1 split runs it. On a CUDA tensor both
+  halves launch `kernels/window_attention_train.cu`.
+
+On a CPU tensor every op runs its plain PyTorch version
+(`*_ref` below), which rounds where the kernels round; impl="plain" runs
+the plain version on any device. On a CUDA tensor an op launches its
+kernel or raises; nothing falls back.
 
 Layouts are the reference package's, except that `w` is in nn.Linear
 layout: x [Bw, N, C]; w [3C, C] with rows ordered [q|k|v][head][d];
 b [3C]; bias [H, N, N]; mask [nW, N, N] or None, window i taking
-mask[i % nW]. Returns [Bw, N, C], heads concatenated.
-
-Like the Pallas kernel, the op has no backward: it raises when autograd
-would need one.
+mask[i % nW]. Outputs are [Bw, N, C], heads concatenated. The saved
+residuals are qkv [Bw, N, 3C] (after the bias add, q not yet scaled) and
+p [Bw, H, N, N], both in x's dtype.
 """
 
 from __future__ import annotations
@@ -26,52 +35,127 @@ import torch
 from gdl_tpu_torch import kernels
 
 KERNEL_NAME = "window_attention_qkv_fused_eval"
-MAX_TOKENS = 64  # N the kernel takes (a Swin window is 49)
+SAVEP_KERNEL_NAME = "window_attention_qkv_fused_savep"
+BWD_KERNEL_NAME = "window_attention_qkv_fused_bwd"
+MAX_TOKENS = 64  # N the kernels take (a Swin window is 49)
 MAX_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernel gives each block one head and a run of windows;
+# about this many blocks fill an H100's 132 SMs a few times over
+_BWD_TARGET_BLOCKS = 1024
+
+
+def _no_autocast(device: torch.device):
+    # the operands arrive already cast; products of the plain versions run
+    # in the dtypes written below, not in autocast's
+    return torch.autocast(device.type, enabled=False)
+
+
+def _rounded(scale: float, dt: torch.dtype) -> float:
+    """`scale` rounded to dt, as a Python float: a tensor times it rounds
+    once, like the kernels' product in dt (and needs no device copy)."""
+    return torch.tensor(scale, dtype=dt).item()
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """Accumulation dtype of the plain versions: f32, or f64 for f64
+    inputs (gradcheck)."""
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
+def window_attention_qkv_fused_train_ref(x, w, b, bias, mask, num_heads: int,
+                                         scale: Optional[float] = None):
+    """Plain PyTorch version of the save-p forward → (out, qkv, p), with
+    the kernels' rounding points: the projection accumulates in f32 and is
+    rounded to x's dtype before the bias add; q is scaled in x's dtype;
+    scores and softmax run in f32 and p is rounded to x's dtype; p·v
+    accumulates in f32."""
+    bw, n, c = x.shape
+    d = c // num_heads
+    scale = scale if scale is not None else d ** -0.5
+    dt, acc = x.dtype, _acc_dtype(x.dtype)
+    with _no_autocast(x.device):
+        qkv = torch.matmul(x, w.t()) + b  # f32 accumulate, rounded to dt
+        q5 = qkv.reshape(bw, n, 3, num_heads, d)
+        q = q5[:, :, 0] * _rounded(scale, dt)
+        k, v = q5[:, :, 1], q5[:, :, 2]
+        s = torch.einsum("bnhd,bmhd->bhnm", q.to(acc), k.to(acc))
+        s = s + bias[None].to(acc)
+        if mask is not None:
+            nw = mask.shape[0]
+            s = (s.reshape(bw // nw, nw, num_heads, n, n)
+                 + mask[None, :, None].to(acc)).reshape(bw, num_heads, n, n)
+        p = torch.softmax(s, dim=-1).to(dt)
+        out = torch.einsum("bhnm,bmhd->bnhd", p.to(acc), v.to(acc))
+    return out.to(dt).reshape(bw, n, c), qkv, p
 
 
 def window_attention_qkv_fused_eval_ref(x, w, b, bias, mask, num_heads: int,
                                         scale: Optional[float] = None):
-    """Plain PyTorch version, with the kernel's rounding points: the
-    projection accumulates in f32 and is rounded to x's dtype before the
-    bias add; q is scaled in x's dtype; scores, softmax and p·v
-    accumulation run in f32, with p rounded to x's dtype first."""
-    bw, n, c = x.shape
+    """Plain PyTorch version of the eval op: the save-p forward's `out`
+    (the eval kernel rounds at the same points)."""
+    return window_attention_qkv_fused_train_ref(x, w, b, bias, mask,
+                                                num_heads, scale)[0]
+
+
+def window_attention_qkv_fused_bwd_ref(qkv, p, dout, num_heads: int,
+                                       scale: Optional[float] = None):
+    """Plain PyTorch version of the attention backward from the saved p →
+    (dqkv [Bw, N, 3C] in qkv's dtype, dbias [H, N, N] f32), with kernel
+    #4's rounding points: ds = p⊙(dp − Σ_k dp⊙p) in f32 is rounded to the
+    input dtype before the dq and dk products; dq is multiplied by
+    `scale` in f32; dbias is an f32 sum over windows."""
+    bw, n, c3 = qkv.shape
+    c = c3 // 3
     d = c // num_heads
     scale = scale if scale is not None else d ** -0.5
-    dt = x.dtype
-    qkv = torch.matmul(x, w.t()) + b  # f32 accumulate, rounded to dt
-    qkv = qkv.reshape(bw, n, 3, num_heads, d)
-    q = qkv[:, :, 0] * torch.tensor(scale, dtype=dt, device=x.device)
-    k, v = qkv[:, :, 1], qkv[:, :, 2]
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
-    s = s + bias[None].float()
-    if mask is not None:
-        nw = mask.shape[0]
-        s = (s.reshape(bw // nw, nw, num_heads, n, n)
-             + mask[None, :, None].float()).reshape(bw, num_heads, n, n)
-    p = torch.softmax(s, dim=-1).to(dt)
-    out = torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float())
-    return out.to(dt).reshape(bw, n, c)
+    dt, acc = qkv.dtype, _acc_dtype(qkv.dtype)
+    with _no_autocast(qkv.device):
+        q5 = qkv.reshape(bw, n, 3, num_heads, d)
+        qs = q5[:, :, 0] * _rounded(scale, dt)
+        k, v = q5[:, :, 1].to(acc), q5[:, :, 2].to(acc)
+        pf = p.to(acc)  # [Bw, H, Nq, Nk]
+        g = dout.reshape(bw, n, num_heads, d).to(acc)
+        dv = torch.einsum("bhij,bihd->bjhd", pf, g)
+        dp = torch.einsum("bihd,bjhd->bhij", g, v)
+        ds = pf * (dp - (dp * pf).sum(-1, keepdim=True))
+        dbias = ds.sum(0)
+        ds_t = ds.to(dt).to(acc)
+        dq = torch.einsum("bhij,bjhd->bihd", ds_t, k) * scale
+        dk = torch.einsum("bhij,bihd->bjhd", ds_t, qs.to(acc))
+        dqkv = torch.stack([dq, dk, dv], dim=2).to(dt).reshape(bw, n, c3)
+    return dqkv, dbias
 
 
-def _launch(x, w, b, bias, mask, num_heads, scale):
-    bw, n, c = x.shape
+def _require_cuda(tensors, like) -> None:
+    for t in tensors:
+        if not t.is_cuda or t.device != like.device:
+            raise ValueError("all operands must be on x's CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+def _check_head_shape(name, n, c, num_heads, dtype):
     d = c // num_heads
     if n > MAX_TOKENS or d > MAX_HEAD_DIM:
-        raise ValueError(f"window_attention_qkv_fused_eval kernel takes N <= "
-                         f"{MAX_TOKENS} and head dim <= {MAX_HEAD_DIM}, got "
-                         f"N={n}, d={d}")
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"kernel takes float32 or bfloat16, got {x.dtype}")
+        raise ValueError(f"{name} kernel takes N <= {MAX_TOKENS} and head "
+                         f"dim <= {MAX_HEAD_DIM}, got N={n}, d={d}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
     if num_heads * d != c:
         raise ValueError(f"C={c} is not a multiple of num_heads={num_heads}")
-    for name, t, shape, dtype in (
+    return d
+
+
+def _check_forward_operands(name, x, w, b, bias, mask, num_heads):
+    """Validate the forward kernels' operands → (bw, n, c, d, nw)."""
+    bw, n, c = x.shape
+    d = _check_head_shape(name, n, c, num_heads, x.dtype)
+    for arg, t, shape, dtype in (
             ("w", w, (3 * c, c), x.dtype), ("b", b, (3 * c,), x.dtype),
             ("bias", bias, (num_heads, n, n), torch.float32)):
         if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: expected {shape} {dtype}, got "
+            raise ValueError(f"{arg}: expected {shape} {dtype}, got "
                              f"{tuple(t.shape)} {t.dtype}")
     nw = 1
     if mask is not None:
@@ -81,12 +165,18 @@ def _launch(x, w, b, bias, mask, num_heads, scale):
             raise ValueError(f"mask: expected [nW, {n}, {n}] float32 with "
                              f"nW dividing {bw}, got {tuple(mask.shape)} "
                              f"{mask.dtype}")
-    tensors = [x, w, b, bias] + ([mask] if mask is not None else [])
-    for t in tensors:
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError("all operands must be on x's CUDA device")
-        if not t.is_contiguous():
-            raise ValueError("operands must be contiguous")
+    _require_cuda([x, w, b, bias] + ([mask] if mask is not None else []), x)
+    return bw, n, c, d, nw
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _launch(x, w, b, bias, mask, num_heads, scale):
+    bw, n, c, d, nw = _check_forward_operands(
+        "window_attention_qkv_fused_eval", x, w, b, bias, mask, num_heads)
     lib = kernels.load("window_attention_eval")
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -95,11 +185,65 @@ def _launch(x, w, b, bias, mask, num_heads, scale):
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
         bw, n, c, num_heads, d, nw, float(scale), _DTYPE_CODES[x.dtype],
         stream)
-    if err != 0:
-        raise RuntimeError(f"window_attention_qkv_fused_eval launch failed: "
-                           f"cudaError {err}")
+    _raise_on(err, KERNEL_NAME)
     kernels.launch_counts[KERNEL_NAME] += 1
     return out
+
+
+def _launch_savep(x, w, b, bias, mask, num_heads, scale):
+    bw, n, c, d, nw = _check_forward_operands(
+        SAVEP_KERNEL_NAME, x, w, b, bias, mask, num_heads)
+    lib = kernels.load("window_attention_train")
+    out = torch.empty_like(x)
+    qkv = torch.empty((bw, n, 3 * c), dtype=x.dtype, device=x.device)
+    p = torch.empty((bw, num_heads, n, n), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.gdl_wa_savep_launch(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        qkv.data_ptr(), p.data_ptr(), bw, n, c, num_heads, d, nw,
+        float(scale), _DTYPE_CODES[x.dtype], stream)
+    _raise_on(err, SAVEP_KERNEL_NAME)
+    kernels.launch_counts[SAVEP_KERNEL_NAME] += 1
+    return out, qkv, p
+
+
+def _bwd_windows_per_block(bw: int, num_heads: int) -> int:
+    """Windows each backward block sums dbias over. A function of the
+    shape alone, so the partials and their sum are the same every run."""
+    return max(1, bw * num_heads // _BWD_TARGET_BLOCKS)
+
+
+def _launch_bwd(qkv, p, dout, num_heads, scale):
+    bw, n, c3 = qkv.shape
+    c = c3 // 3
+    d = _check_head_shape(BWD_KERNEL_NAME, n, c, num_heads, qkv.dtype)
+    for arg, t, shape in (("qkv", qkv, (bw, n, 3 * c)),
+                          ("p", p, (bw, num_heads, n, n)),
+                          ("dout", dout, (bw, n, c))):
+        if tuple(t.shape) != shape or t.dtype != qkv.dtype:
+            raise ValueError(f"{arg}: expected {shape} {qkv.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    _require_cuda([qkv, p, dout], qkv)
+    wpb = _bwd_windows_per_block(bw, num_heads)
+    lib = kernels.load("window_attention_train")
+    dqkv = torch.empty_like(qkv)
+    parts = torch.empty((-(-bw // wpb), num_heads, n, n), dtype=torch.float32,
+                        device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.gdl_wa_bwd_launch(
+        qkv.data_ptr(), p.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+        parts.data_ptr(), bw, n, c, num_heads, d, wpb, float(scale),
+        _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, BWD_KERNEL_NAME)
+    kernels.launch_counts[BWD_KERNEL_NAME] += 1
+    return dqkv, parts.sum(0)
+
+
+def _use_kernel(impl: str, x: torch.Tensor) -> bool:
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    return impl == "auto" and x.is_cuda
 
 
 def window_attention_qkv_fused_eval(x, w, b, bias, mask, num_heads: int,
@@ -110,7 +254,9 @@ def window_attention_qkv_fused_eval(x, w, b, bias, mask, num_heads: int,
     impl="auto" launches the CUDA kernel for a CUDA `x` (raising if it
     cannot) and runs the plain version for a CPU `x`. impl="plain" runs
     the plain version on any device; it exists for the tests and for
-    holding the kernel to its reference on the card."""
+    holding the kernel to its reference on the card. Like the Pallas
+    kernel, the op has no backward: it raises when autograd would need
+    one."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, b, bias, mask)):
         raise RuntimeError("window_attention_qkv_fused_eval has no backward; "
@@ -118,9 +264,77 @@ def window_attention_qkv_fused_eval(x, w, b, bias, mask, num_heads: int,
                            "torch.inference_mode()")
     d = x.shape[-1] // num_heads
     scale = scale if scale is not None else d ** -0.5
-    if impl == "plain" or (impl == "auto" and not x.is_cuda):
-        return window_attention_qkv_fused_eval_ref(x, w, b, bias, mask,
-                                                   num_heads, scale)
-    if impl != "auto":
-        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
-    return _launch(x, w, b, bias, mask, num_heads, scale)
+    if _use_kernel(impl, x):
+        return _launch(x, w, b, bias, mask, num_heads, scale)
+    return window_attention_qkv_fused_eval_ref(x, w, b, bias, mask,
+                                               num_heads, scale)
+
+
+def window_attention_qkv_fused_fwd(x, w, b, bias, mask, num_heads: int,
+                                   scale: Optional[float] = None,
+                                   impl: str = "auto"):
+    """The training op's forward alone → (out, qkv, p): kernel #2 on a
+    CUDA tensor under impl="auto", else the plain version."""
+    scale = scale if scale is not None else (x.shape[-1] // num_heads) ** -0.5
+    if _use_kernel(impl, x):
+        return _launch_savep(x, w, b, bias, mask, num_heads, scale)
+    return window_attention_qkv_fused_train_ref(x, w, b, bias, mask,
+                                                num_heads, scale)
+
+
+def window_attention_qkv_fused_bwd(qkv, p, dout, num_heads: int,
+                                   scale: Optional[float] = None,
+                                   impl: str = "auto"):
+    """The attention backward alone → (dqkv, dbias f32): kernel #4 on a
+    CUDA tensor under impl="auto", else the plain version."""
+    d = qkv.shape[-1] // 3 // num_heads
+    scale = scale if scale is not None else d ** -0.5
+    if _use_kernel(impl, qkv):
+        return _launch_bwd(qkv, p, dout, num_heads, scale)
+    return window_attention_qkv_fused_bwd_ref(qkv, p, dout, num_heads, scale)
+
+
+class _QkvFusedAttention(torch.autograd.Function):
+    """out = attention(x·Wᵀ + b); saves (x, w, qkv, p). The backward runs
+    the attention backward (kernel #4 or its plain version), then
+    dx = dqkv·W, dW = dqkvᵀ·x and db = Σ dqkv as plain GEMMs in the
+    operands' dtype (f32 accumulate). The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, bias, mask, num_heads, scale, impl):
+        out, qkv, p = window_attention_qkv_fused_fwd(x, w, b, bias, mask,
+                                                     num_heads, scale, impl)
+        ctx.save_for_backward(x, w, qkv, p)
+        ctx.num_heads, ctx.scale, ctx.impl = num_heads, scale, impl
+        ctx.bias_dtype = bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, qkv, p = ctx.saved_tensors
+        dout = dout.to(x.dtype).contiguous()
+        dqkv, dbias = window_attention_qkv_fused_bwd(
+            qkv, p, dout, ctx.num_heads, ctx.scale, ctx.impl)
+        c = x.shape[-1]
+        with _no_autocast(x.device):
+            dq2 = dqkv.reshape(-1, 3 * c)
+            dx = torch.matmul(dq2, w).reshape(x.shape)
+            dw = torch.matmul(dq2.t(), x.reshape(-1, c))
+            db = dq2.to(_acc_dtype(x.dtype)).sum(0).to(w.dtype)
+        return (dx, dw, db, dbias.to(ctx.bias_dtype), None, None, None,
+                None)
+
+
+def window_attention_qkv_fused(x, w, b, bias, mask, num_heads: int,
+                               scale: Optional[float] = None,
+                               impl: str = "auto"):
+    """Fused qkv projection + window attention with a backward (the Swin
+    training op). Gradients flow to x, w, b and bias.
+
+    impl="auto" launches kernels #2 and #4 for a CUDA `x` (raising if it
+    cannot) and runs their plain versions for a CPU `x`; impl="plain"
+    runs the plain versions on any device."""
+    d = x.shape[-1] // num_heads
+    scale = scale if scale is not None else d ** -0.5
+    return _QkvFusedAttention.apply(x, w, b, bias, mask, num_heads, scale,
+                                    impl)

@@ -1,1 +1,1 @@
-"""Steps of the port. Only the DGL eval step is ported so far."""
+"""Steps and optimizer of the port: the DGL train and eval steps, SGD."""
