@@ -37,9 +37,40 @@ Phases, each printing one JSON line:
               each step; losses and float32 parameters of the two arms
               are held to each other; then 8 more steps per arm, in
               turns, give the median ms/step;
+  h. maxpool parity
+              kernel #16 (the stem max-pool's backward) against its plain
+              version and against aten.max_pool2d_with_indices_backward
+              at the two stem shapes of the ResNet path (batch 64), in
+              float32 and bfloat16, on a ReLU-like input (half the values
+              exactly 0) and on an all-equal input: dx must be BIT-EQUAL
+              to the plain version's and across two runs; the library
+              sums the (at most four) cotangents that meet in an element
+              in another order, so it is held to 4 eps of the sum of
+              their magnitudes; median times of all three (CUDA events,
+              20 reps);
+  i. resnet   the flagship training path at full ResNet-18 width
+              (CREMA-D, fps 1, batch 64, concat DGL, alpha 5, lr 2e-3,
+              SGD, clip 40; bench.py's _measure_dgl config) through
+              build_harness, a Loader over a SyntheticDataset,
+              train_one_epoch and evaluate: seeded weights go to two
+              arms, the kernel and the plain max-pool backward, in
+              float32 and under bf16 autocast; 3 checked steps (cuDNN
+              set to its deterministic algorithms) whose losses, float32
+              parameters and BatchNorm running statistics are held to
+              each other, with exactly 2 launches of #16 per
+              kernel-arm step and none on the plain arm or at eval; then
+              timed steps per arm, in turns, over batches collected
+              beforehand, and one loader-fed epoch; one pass of evaluate;
+              the best .pth written by the loop's writer is read back by
+              run_eval and by serve.load_from_checkpoint to the same
+              accuracies and predictions;
   g. kernels  one line per kernel: route, source, the TPU kernel it
               replaces, launches on its path (d for #1, the kernel arm
-              of f for #2 and #4), error and times.
+              of f for #2 and #4, of i for #16), error, times, the
+              roofline bound of the same work (bytes moved once over
+              3.35 TB/s against operations over the float32 peak of
+              67 TFLOP/s; the times are the float32 ones) and, where one
+              PyTorch call computes the function, that call's time.
 Then the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero without the ok line when CUDA is unavailable or any phase
@@ -83,6 +114,28 @@ TRAIN_GRAD_FRAC = {"float32": 2e-4, "bfloat16": 2e-2}
 # the training path, kernel arm vs plain arm
 LOSS_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PARAM_ATOL = 1e-4  # float32 parameters after the checked steps
+
+
+POOL = "max_pool_3x3_s2_bwd"
+RESNET_BATCH = 64
+RESNET_WIDTH = 64  # ResNet-18's own stem width, stages [2, 2, 2, 2]
+# stem activations [B, H, W, C] reaching the pool at batch 64, width 64:
+# visual 224² frames and audio 257×188 spectrograms after the 7×7/2 conv
+POOL_SHAPES = {"visual": (RESNET_BATCH, 112, 112, 64),
+               "audio": (RESNET_BATCH, 129, 94, 64)}
+RESNET_CHECKED_STEPS = 3  # the first includes cuDNN's autotuning
+RESNET_TIMED_STEPS = 6    # per timed call
+RESNET_TIME_ROUNDS = 8    # timed calls per arm, in turns
+# ResNet path, kernel arm vs plain arm, checked under cuDNN's
+# deterministic algorithms. The two backward passes are bit-equal
+# (phase h), so the arms should agree far inside these tolerances.
+RESNET_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+RESNET_PARAM_ATOL = 1e-4  # float32 parameters after the checked steps
+RESNET_STAT_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}  # BN running stats
+
+# NVIDIA H100 SXM data-sheet peaks (dense), for the roofline bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def emit(obj) -> None:
@@ -206,6 +259,52 @@ def per_pass_ms(results, dtype: str, key: str) -> float:
         for i in range(depth):
             total += t[(stage, i % 2 == 1 and res > 7)]
     return 2 * total
+
+
+def attention_cost(kind: str, bw: int, c: int, heads: int, masked: bool,
+                   res: int, itemsize: int):
+    """(bytes, operations) of one launch of an attention kernel: every
+    input read once, every output written once; 2 operations per
+    multiply-add of the products, 5 per softmax element.
+    kind: 'eval' (#1), 'savep' (#2) or 'bwd' (#4)."""
+    n = 49
+    tokens, scores = bw * n * c, bw * heads * n * n
+    small = heads * n * n * 4  # the bias, or dbias, in float32
+    if kind == "bwd":  # qkv, p, dout in; dqkv, dbias out; 4 products
+        return ((3 * tokens + scores + tokens + 3 * tokens) * itemsize
+                + small, 8 * bw * n * n * c + 6 * scores)
+    nw = (res // 7) ** 2 if masked else 0
+    nbytes = ((2 * tokens + 3 * c * c + 3 * c) * itemsize + small
+              + nw * n * n * 4)
+    if kind == "savep":
+        nbytes += (3 * tokens + scores) * itemsize
+    return nbytes, 2 * bw * n * c * 3 * c + 4 * bw * n * n * c + 5 * scores
+
+
+def bound_ms(nbytes: float, ops: float, dtype: str = "float32"):
+    """The least time the card could take → (ms, 'bytes' | 'operations')."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def per_pass_bound(kind: str, batch: int, dtype: str = "float32") -> dict:
+    """The bound of one request or training step (both encoders, all 48
+    launches), each launch's bound summed as per_pass_ms sums the times."""
+    itemsize = 4 if dtype == "float32" else 2
+    total = {"ms": 0.0, "bytes": 0.0, "operations": 0.0,
+             "by": {"bytes": 0, "operations": 0}}
+    for (stage, bw16, c, heads, res), depth in zip(STAGES, DEPTHS):
+        for i in range(depth):
+            nbytes, ops = attention_cost(kind, bw16 * batch // BATCH, c,
+                                         heads, i % 2 == 1 and res > 7, res,
+                                         itemsize)
+            ms, by = bound_ms(nbytes, ops, dtype)
+            total["ms"] += 2 * ms
+            total["bytes"] += 2 * nbytes
+            total["operations"] += 2 * ops
+            total["by"][by] += 2
+    return total
 
 
 def phase_serve(failures):
@@ -522,6 +621,306 @@ def phase_train(failures, smi: str):
     return kernel_launches
 
 
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return bool(torch.equal(a.view(view), b.view(view)))
+
+
+def phase_maxpool_parity(failures):
+    """Kernel #16 against its plain version (bit-equal) and against the
+    library's max-pool backward, at the two stem shapes."""
+    import torch
+
+    from gdl_tpu_torch.ops.maxpool import max_pool_3x3_s2_bwd
+
+    dev = torch.device("cuda")
+    aten = torch.ops.aten
+    pool_args = ([3, 3], [2, 2], [1, 1], [1, 1], False)
+    results = []
+    for stem, shape in POOL_SHAPES.items():
+        b, h, w, c = shape
+        gshape = (b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c)
+        gen = torch.Generator(device=dev).manual_seed(
+            600 + len(results))
+        x32 = torch.relu(torch.randn(shape, generator=gen, device=dev))
+        g32 = torch.randn(gshape, generator=gen, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            g = g32.to(dt)
+            for kind in ("relu", "equal"):
+                x = (x32.to(dt) if kind == "relu"
+                     else torch.full(shape, 0.5, dtype=dt, device=dev))
+                with torch.no_grad():
+                    got = max_pool_3x3_s2_bwd(x, g)
+                    again = max_pool_3x3_s2_bwd(x, g)
+                    want = max_pool_3x3_s2_bwd(x, g, impl="plain")
+                    # the library call, on NCHW views of the same memory
+                    xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+                    _, idx = aten.max_pool2d_with_indices(xn, *pool_args)
+                    lib = aten.max_pool2d_with_indices_backward(
+                        gn, xn, *pool_args, idx).permute(0, 2, 3, 1)
+                    # Σ|g| over the cotangents that meet in each element
+                    mag = max_pool_3x3_s2_bwd(x, g.abs()).float()
+                    torch.cuda.synchronize()
+                    eps = torch.finfo(dt).eps
+                    lib_err = (got.float() - lib.float()).abs()
+                    checks = {
+                        "bit_equal_plain": _bit_equal(got, want),
+                        "bit_equal_rerun": _bit_equal(got, again),
+                        "library_within_4eps": bool(
+                            (lib_err <= 4 * eps * mag).all()),
+                        "finite": _finite(got),
+                        "mass": bool(torch.isclose(
+                            got.double().sum(), g.double().sum(),
+                            rtol=1e-2 if dtype == "bfloat16" else 1e-5,
+                            atol=1.0)),
+                    }
+                    row = {"phase": "maxpool_parity", "kernel": POOL,
+                           "stem": stem, "x": list(shape), "dtype": dtype,
+                           "input": kind,
+                           "max_abs_err": _max_err(got, want),
+                           "max_abs_err_vs_library": float(lib_err.max()),
+                           **checks}
+                    if kind == "relu":
+                        row["ms"] = cuda_ms(
+                            lambda: max_pool_3x3_s2_bwd(x, g))
+                        row["plain_ms"] = cuda_ms(
+                            lambda: max_pool_3x3_s2_bwd(x, g, impl="plain"),
+                            reps=5, warmup=1)
+                        row["library_ms"] = cuda_ms(
+                            lambda: aten.max_pool2d_with_indices_backward(
+                                gn, xn, *pool_args, idx))
+                        nbytes = (2 * x.numel() + g.numel()) * x.element_size()
+                        ops = 10 * g.numel()  # 9 compares and an add
+                        row["bytes"], row["operations"] = nbytes, ops
+                        row["bound_ms"], row["bound_by"] = bound_ms(
+                            nbytes, ops, dtype)
+                    del got, again, want, lib, mag, lib_err, idx
+                row["ok"] = all(checks.values())
+                emit(row)
+                results.append(row)
+                if not row["ok"]:
+                    failures.append(f"maxpool parity {stem} {dtype} {kind}: "
+                                    f"{checks}")
+        del x32, g32
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_resnet(failures, smi: str):
+    """The flagship ResNet-18 DGL training path through the port's loop,
+    kernel arm and plain arm. Returns the kernel arms' launch count of
+    #16 over the checked steps."""
+    import contextlib
+
+    import torch
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.config import Config
+    from gdl_tpu_torch.data.loader import Loader
+    from gdl_tpu_torch.data.synthetic import SyntheticDataset
+    from gdl_tpu_torch.serve import build_model, load_from_checkpoint
+    from gdl_tpu_torch.train.loop import (
+        build_harness,
+        evaluate,
+        run_eval,
+        train_one_epoch,
+    )
+    from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
+
+    def quiet():  # the loop prints the reference's progress lines
+        return contextlib.redirect_stdout(sys.stderr)
+
+    total_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        def config(dtype):
+            return Config(dataset="CREMAD", fusion_method="concat",
+                          modality="full", fps=1, batch_size=RESNET_BATCH,
+                          learning_rate=2e-3, alpha=5.0, modulation="Normal",
+                          log_grad_csv=False, compute_dtype=dtype,
+                          num_workers=8, ckpt_path=tmp,
+                          encoder_width=RESNET_WIDTH)
+
+        cfg0 = config("float32")
+        train_set = SyntheticDataset(
+            cfg0, size=RESNET_BATCH * RESNET_CHECKED_STEPS, seed=500)
+        # a sample is drawn from seed + index: the three sets share none
+        test_set = SyntheticDataset(cfg0, size=2 * RESNET_BATCH, seed=9000)
+        timed_set = SyntheticDataset(
+            cfg0, size=RESNET_BATCH * RESNET_TIMED_STEPS, seed=2000)
+
+        def loader(ds, shuffle, workers=8):
+            return Loader(ds, RESNET_BATCH, shuffle=shuffle, drop_last=True,
+                          num_workers=workers, seed=cfg0.random_seed)
+
+        t0 = time.perf_counter()
+        timed_batches = list(loader(timed_set, False))
+        host_ms_per_batch = ((time.perf_counter() - t0) * 1e3
+                             / len(timed_batches))
+
+        def run_arm(impl, dtype):
+            cfg = config(dtype)
+            model = build_model(cfg, attn_impl=impl, seed=777)
+            h = build_harness(cfg, model, steps_per_epoch=100)
+            steps = []
+            inner = h.train_step
+
+            def recording(batch):
+                before = dict(kernels.launch_counts)
+                m = inner(batch)
+                steps.append((m, {k: v - before[k] for k, v in
+                                  kernels.launch_counts.items()}))
+                return m
+
+            h.train_step = recording
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            # the checked steps ask cuDNN for its deterministic algorithms:
+            # its default float32 weight-gradient kernels sum with atomics,
+            # and a last-bit difference in a stem weight flips first-maximum
+            # choices in the pool and ReLU, so two runs of ONE arm drift
+            # apart as far as the two arms do. The timed steps run with the
+            # default setting.
+            torch.backends.cudnn.deterministic = True
+            try:
+                with quiet():
+                    train_one_epoch(h, loader(train_set, True), 0)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            launched = dict(kernels.launch_counts)
+            return dict(cfg=cfg, h=h, launched=launched,
+                        peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        metrics=[{k: float(v) for k, v in m.items()}
+                                 for m, _ in steps],
+                        launches=[c for _, c in steps])
+
+        def timed_call(arm, batches):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with quiet():
+                train_one_epoch(arm["h"], batches, 1)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / len(timed_batches)
+
+        for dtype in ("float32", "bfloat16"):
+            order = ("plain", "auto") if dtype == "float32" else ("auto",
+                                                                  "plain")
+            arms = {impl: run_arm(impl, dtype) for impl in order}
+            ka, pa = arms["auto"], arms["plain"]
+            problems = []
+            # launches: exactly 2 of #16 per kernel-arm step, nothing else
+            want = {k: 0 for k in kernels.launch_counts}
+            for i, (lk, lp) in enumerate(zip(ka["launches"],
+                                             pa["launches"])):
+                if lk != dict(want, **{POOL: 2}):
+                    problems.append(f"step {i}: kernel arm launches {lk}")
+                if lp != want:
+                    problems.append(f"step {i}: plain arm launches {lp}")
+            if len(ka["launches"]) != RESNET_CHECKED_STEPS:
+                problems.append(f"{len(ka['launches'])} steps ran")
+            total_launches += ka["launched"][POOL]
+            worst_rel = 0.0
+            for i, (mk, mp) in enumerate(zip(ka["metrics"], pa["metrics"])):
+                for key in ("loss", "loss_a", "loss_v", "loss_f",
+                            "grad_norm"):
+                    a, b = mk[key], mp[key]
+                    if not (math.isfinite(a) and math.isfinite(b)):
+                        problems.append(f"step {i}: {key} not finite")
+                        continue
+                    worst_rel = max(worst_rel,
+                                    abs(a - b) / max(abs(b), 1e-12))
+            if worst_rel > RESNET_LOSS_RTOL[dtype]:
+                problems.append(f"losses differ by {worst_rel} relative")
+            km, pm = ka["h"].model, pa["h"].model
+            with torch.no_grad():
+                param_err = max(float((a - b).abs().max()) for a, b in
+                                zip(km.parameters(), pm.parameters()))
+                stat_err = max(float((a - b).abs().max()) for (n, a), (_, b)
+                               in zip(km.named_buffers(), pm.named_buffers())
+                               if "running" in n)
+                tracked = {int(b) for n, b in km.named_buffers()
+                           if n.endswith("num_batches_tracked")}
+            if dtype == "float32" and param_err > RESNET_PARAM_ATOL:
+                problems.append(f"parameters differ by {param_err}")
+            if stat_err > RESNET_STAT_ATOL[dtype]:
+                problems.append(f"BN running stats differ by {stat_err}")
+            if tracked != {RESNET_CHECKED_STEPS}:
+                problems.append(f"BN updates per step: {tracked}")
+
+            # timing over batches collected beforehand, arms in turns
+            timed = {impl: [] for impl in arms}
+            for impl in order:  # untimed: cuDNN's default algorithms
+                timed_call(arms[impl], timed_batches)
+            for r in range(RESNET_TIME_ROUNDS):
+                for impl in (order if r % 2 == 0 else order[::-1]):
+                    timed[impl].append(timed_call(arms[impl], timed_batches))
+            # and one epoch fed by the Loader (host decode in the loop)
+            fed = {impl: timed_call(arms[impl], loader(timed_set, False))
+                   for impl in order}
+
+            # eval: no launches; then the .pth round trip
+            kernels.reset_launch_counts()
+            with quiet():
+                accs = evaluate(ka["h"], loader(test_set, False))
+            if any(kernels.launch_counts.values()):
+                problems.append(f"eval launched {kernels.launch_counts}")
+            if not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+                problems.append(f"accuracies {accs}")
+            path = save_best_checkpoint(ka["cfg"], km, 1, accs[0])
+            with quiet():
+                accs2 = run_eval(ka["cfg"], build_model(ka["cfg"], seed=1),
+                                 test_set, path)
+            if tuple(accs2) != tuple(accs):
+                problems.append(f"run_eval from the .pth: {accs2} != {accs}")
+            served = load_from_checkpoint(ka["cfg"], path, "cuda")
+            batch = next(iter(loader(test_set, False)))
+            mine = ka["h"].eval_step(batch)
+            theirs = served.eval_batch(batch)
+            for k in ("pred", "pred_a", "pred_v"):
+                if not torch.equal(mine[k], theirs[k]):
+                    problems.append(f"served {k} differs from the loop's")
+            if tuple(mine["logits"][0].shape) != (RESNET_BATCH, 6):
+                problems.append("bad logits shape")
+            os.remove(path)
+
+            n_params = sum(p.numel() for p in km.parameters())
+            for impl in order:
+                arm, ms = arms[impl], sorted(timed[impl])
+                med = ms[len(ms) // 2]
+                emit({"phase": "resnet", "dtype": dtype,
+                      "arm": "kernel" if impl == "auto" else "plain",
+                      "batch": RESNET_BATCH, "ms_per_step": med,
+                      "clips_per_s": RESNET_BATCH / med * 1e3,
+                      "timed_call_ms_per_step": timed[impl],
+                      "loader_fed_ms_per_step": fed[impl],
+                      "loader_fed_clips_per_s":
+                          RESNET_BATCH / fed[impl] * 1e3,
+                      "host_ms_per_batch_alone": host_ms_per_batch,
+                      "peak_mem_gib": arm["peak"],
+                      "loss": [m["loss"] for m in arm["metrics"]],
+                      "grad_norm": [m["grad_norm"] for m in arm["metrics"]],
+                      "params": n_params, "nvidia_smi": smi})
+            ok = not problems
+            emit({"phase": "resnet_check", "dtype": dtype,
+                  "max_rel_loss_diff": worst_rel,
+                  "loss_rtol": RESNET_LOSS_RTOL[dtype],
+                  "max_abs_param_diff": param_err,
+                  "param_atol": (RESNET_PARAM_ATOL if dtype == "float32"
+                                 else None),
+                  "max_abs_bn_stat_diff": stat_err,
+                  "bn_stat_atol": RESNET_STAT_ATOL[dtype],
+                  "launches_per_step": 2, "eval_acc": list(accs),
+                  "problems": problems, "ok": ok})
+            failures.extend(f"resnet {dtype}: {p}" for p in problems)
+            del arms, ka, pa, km, pm, served
+            torch.cuda.empty_cache()
+    return total_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -590,8 +989,25 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failures.append("train raised")
 
+    try:
+        pool_parity = phase_maxpool_parity(failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("maxpool parity raised")
+        pool_parity = []
+    record["maxpool_parity"] = pool_parity
+
+    pool_launches = 0
+    try:
+        pool_launches = phase_resnet(failures, smi)
+    except Exception:
+        traceback.print_exc()
+        failures.append("resnet raised")
+
     f32 = [r for r in parity if r["dtype"] == "float32"]
     t32 = [r for r in train_parity if r["dtype"] == "float32"]
+    p32 = [r for r in pool_parity
+           if r["dtype"] == "float32" and r["input"] == "relu"]
     src = "gdl_tpu_torch/kernels/"
     entries = [
         {"name": KERNEL, "route": "cuda",
@@ -613,7 +1029,15 @@ def main(argv=None) -> int:
          "max_abs_err": max((max(r["max_abs_err"][k] for k in
                                  ("dqkv", "dbias")) for r in t32),
                             default=None)},
+        {"name": POOL, "route": "cuda", "source": src + "maxpool_bwd.cu",
+         "replaces": "gdl_tpu/ops/maxpool.py:176",
+         "launches": pool_launches,
+         "max_abs_err": max((r["max_abs_err"] for r in pool_parity),
+                            default=None)},
     ]
+    for entry in entries:
+        entry.update(ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+                     library_ms=None)  # no single PyTorch call for #1, #2, #4
     # per request (#1, batch 16) or per training step (#2, #4, batch 32):
     # the sum over the 48 launches of the float32 per-shape medians
     if len(f32) == 7:
@@ -625,6 +1049,27 @@ def main(argv=None) -> int:
             entry["ms"] = per_pass_ms(train_parity, "float32", key + "_ms")
             entry["plain_ms"] = per_pass_ms(train_parity, "float32",
                                             key + "_plain_ms")
+    # the bound of the same pass: each launch's, summed as the times are
+    for entry, kind, batch in ((entries[0], "eval", BATCH),
+                               (entries[1], "savep", TRAIN_BATCH),
+                               (entries[2], "bwd", TRAIN_BATCH)):
+        bound = per_pass_bound(kind, batch)
+        entry["bound_ms"] = bound["ms"]
+        entry["bound_by"] = max(bound["by"], key=bound["by"].get)
+        entry["bound_launches_by"] = bound["by"]
+        entry["bytes"], entry["operations"] = (bound["bytes"],
+                                               bound["operations"])
+        entry["bound_ms_bfloat16"] = per_pass_bound(kind, batch,
+                                                    "bfloat16")["ms"]
+    # #16 per training step: its two launches, visual and audio stem
+    if len(p32) == 2:
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                    "operations"):
+            entries[3][key] = sum(r[key] for r in p32)
+        entries[3]["bound_by"] = p32[0]["bound_by"]
+        entries[3]["ms_bfloat16"] = sum(
+            r["ms"] for r in pool_parity
+            if r["dtype"] == "bfloat16" and r["input"] == "relu")
     record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
@@ -638,6 +1083,13 @@ def main(argv=None) -> int:
     for k in (SAVEP, BWD):
         if train_launches[k] == 0:
             failures.append(f"{k} was never launched on the training path")
+    if pool_launches == 0:
+        failures.append(f"{POOL} was never launched on the ResNet path")
+    for entry in entries:
+        missing = [k for k in ("ms", "plain_ms", "bound_ms", "bound_by")
+                   if entry[k] is None]
+        if missing:
+            failures.append(f"{entry['name']}: no {missing}")
     if failures:
         for f in failures:
             log(f"FAILED: {f}")

@@ -5,9 +5,11 @@ A raw batch {'wave' f32[B,N], 'frames' u8[B,T,R,R,3], 'label' i32[B]}
 frame's original H, W) is copied to `device` as it is — uint8 frames
 and the f32 waveform — and becomes {'audio' [B,F,T,1], 'visual'
 [B,T,224,224,3], 'label' [B]} there: the log-STFT, then Resize +
-Normalize at eval, RandomResizedCrop + flip + Normalize at train. The
-`--strict_compat` host-exact frames of gdl_tpu come with the ported
-datasets, not yet: such a batch raises.
+Normalize at eval, RandomResizedCrop + flip + Normalize at train. Under
+`--strict_compat` the datasets ship frames ALREADY cropped and flipped
+to 224² on the host at original resolution (the reference's exact
+single-resample pixels), marked by a 'host_exact' key in the batch; only
+Normalize then runs on the device.
 """
 
 from __future__ import annotations
@@ -19,15 +21,22 @@ import torch
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.ops.image_ops import (
     eval_preprocess,
+    normalize_images,
     random_resized_crop_flip,
 )
 from gdl_tpu_torch.ops.stft import spectrogram_for_dataset
 
 
-def _host_exact(cfg: Config, batch) -> None:
-    if getattr(cfg, "strict_compat", False) and "host_exact" in batch:
-        raise NotImplementedError(
-            "--strict_compat host-exact frames need the ported datasets")
+def _host_exact(cfg: Config, batch, frames: torch.Tensor,
+                image_size: int) -> bool:
+    """True where the batch really carries host-transformed pixels: the
+    explicit marker, never a shape coincidence (synthetic and canvas
+    batches of any size still take the device transform)."""
+    if not (getattr(cfg, "strict_compat", False) and "host_exact" in batch):
+        return False
+    assert frames.shape[-2] == image_size, \
+        "host_exact batch is not image_size²"
+    return True
 
 
 def make_train_preprocess(cfg: Config, device, image_size: int = 224):
@@ -38,15 +47,18 @@ def make_train_preprocess(cfg: Config, device, image_size: int = 224):
     device = torch.device(device)
 
     def preprocess(batch, generator: Optional[torch.Generator] = None):
-        _host_exact(cfg, batch)
         wave = torch.as_tensor(batch["wave"]).to(device)
         frames = torch.as_tensor(batch["frames"]).to(device)
-        sizes = batch.get("frame_sizes")
-        if sizes is not None:
-            sizes = torch.as_tensor(sizes).to(device)
+        if _host_exact(cfg, batch, frames, image_size):
+            visual = normalize_images(frames)
+        else:
+            sizes = batch.get("frame_sizes")
+            if sizes is not None:
+                sizes = torch.as_tensor(sizes).to(device)
+            visual = random_resized_crop_flip(
+                frames, generator, size=image_size, orig_sizes=sizes)
         return {"audio": spectrogram_for_dataset(wave, dataset, swin=swin),
-                "visual": random_resized_crop_flip(
-                    frames, generator, size=image_size, orig_sizes=sizes),
+                "visual": visual,
                 "label": torch.as_tensor(batch["label"]).to(device)}
 
     return preprocess
@@ -60,8 +72,12 @@ def make_eval_preprocess(cfg: Config, device, image_size: int = 224):
     def preprocess(batch):
         wave = torch.as_tensor(batch["wave"]).to(device)
         frames = torch.as_tensor(batch["frames"]).to(device)
+        if _host_exact(cfg, batch, frames, image_size):
+            visual = normalize_images(frames)
+        else:
+            visual = eval_preprocess(frames, size=image_size)
         return {"audio": spectrogram_for_dataset(wave, dataset, swin=swin),
-                "visual": eval_preprocess(frames, size=image_size),
+                "visual": visual,
                 "label": torch.as_tensor(batch["label"]).to(device)}
 
     return preprocess

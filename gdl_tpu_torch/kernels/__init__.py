@@ -47,11 +47,16 @@ LIBRARIES = {
          "gdl_wa_bwd_launch": ([_vp] * 5 + [_int] * 6 + [_float, _int, _vp],
                                _int)},
     ),
+    "maxpool_bwd": (
+        "maxpool_bwd.cu",
+        {"gdl_maxpool_bwd_launch": ([_vp] * 3 + [_int] * 5 + [_vp], _int)},
+    ),
 }
 
 launch_counts: Dict[str, int] = {"window_attention_qkv_fused_eval": 0,
                                  "window_attention_qkv_fused_savep": 0,
-                                 "window_attention_qkv_fused_bwd": 0}
+                                 "window_attention_qkv_fused_bwd": 0,
+                                 "max_pool_3x3_s2_bwd": 0}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

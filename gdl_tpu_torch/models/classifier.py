@@ -13,6 +13,8 @@ from torch import nn
 
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.models.fusion import make_fusion
+from gdl_tpu_torch.models.layers import xavier_linear
+from gdl_tpu_torch.models.resnet import resnet18
 from gdl_tpu_torch.models.swin import SwinTransformer
 
 
@@ -25,6 +27,74 @@ def _pool_visual(v_map: torch.Tensor, batch: int) -> torch.Tensor:
     """Unfold time from batch, adaptive_avg_pool3d + flatten."""
     bt, h, w, c = v_map.shape
     return v_map.reshape(batch, bt // batch, h, w, c).mean(dim=(1, 2, 3))
+
+
+class AVClassifierDGL(nn.Module):
+    """Dual ResNet-18 encoders + a DGL fusion head (basic_model.py:10-124).
+    `forward(audio, visual)` returns the reference tuple order
+    `(out, out_a, out_v)`; with cfg.modality "audio" or "visual" one
+    encoder and a plain linear classifier give the same logits thrice.
+
+    pool_impl="plain" runs the plain version of the stem max-pool's
+    backward on any device (the reference the CUDA kernel is held to);
+    "auto" takes the kernel on the card. The DGL train step uses
+    `encode`, `unimodal_logits` and `fused_logits`, gdl_tpu's protocol;
+    `generator` in their signatures is unused (no stochastic layers) and
+    keeps the Swin classifier's call shape."""
+
+    def __init__(self, cfg: Config, pool_impl: str = "auto",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.modality = cfg.modality
+        kw = dict(width=cfg.encoder_width, stage_sizes=cfg.encoder_stages,
+                  bn_groups=cfg.bn_groups, pool_impl=pool_impl,
+                  generator=generator)
+        n = cfg.n_classes
+        if cfg.modality == "full":
+            self.audio_net = resnet18("audio", **kw)
+            self.visual_net = resnet18("visual", **kw)
+            self.fusion_module = make_fusion(
+                cfg.fusion_method, n, dgl=True, input_dim=cfg.encoder_dim,
+                generator=generator)
+        elif cfg.modality == "visual":
+            self.visual_net = resnet18("visual", **kw)
+            self.visual_classifier = xavier_linear(cfg.encoder_dim, n,
+                                                   generator)
+        elif cfg.modality == "audio":
+            self.audio_net = resnet18("audio", **kw)
+            self.audio_classifier = xavier_linear(cfg.encoder_dim, n,
+                                                  generator)
+        else:
+            raise ValueError(f"unknown modality {cfg.modality!r}")
+
+    def encode(self, audio, visual,
+               generator: Optional[torch.Generator] = None):
+        """Pooled per-modality features (a [B, 8w], v [B, 8w])."""
+        a_map = self.audio_net(audio)
+        v_map = self.visual_net(visual)
+        return _pool_audio(a_map), _pool_visual(v_map, audio.shape[0])
+
+    def unimodal_logits(self, a, v):
+        """(out_a, out_v) from live features through the fusion head with
+        its parameters detached (gdl_tpu's stop_fusion_gradients)."""
+        return self.fusion_module.unimodal(a, v, detach_params=True)
+
+    def fused_logits(self, a, v):
+        """The fused logits; the head detaches the features."""
+        return self.fusion_module.fuse(a, v)
+
+    def forward(self, audio, visual,
+                generator: Optional[torch.Generator] = None):
+        if self.modality == "full":
+            a, v = self.encode(audio, visual)
+            a_out, v_out, out = self.fusion_module(a, v)
+            return out, a_out, v_out
+        if self.modality == "visual":
+            v = _pool_visual(self.visual_net(visual), visual.shape[0])
+            out = self.visual_classifier(v)
+        else:
+            out = self.audio_classifier(_pool_audio(self.audio_net(audio)))
+        return out, out, out
 
 
 class AVClassifierSwinDGL(nn.Module):

@@ -1,12 +1,21 @@
 """DGL fusion heads, port of `gdl_tpu/models/fusion.py`.
 
 Each head's `forward(x, y)` returns the reference 3-tuple
-`(x_out, y_out, fused_out)`, and a DGL head exposes the two streams the
-DGL train step uses: `unimodal(x, y, detach_params)` (live features;
-with detach_params the head's parameters get no gradient, gdl_tpu's
-`stop_fusion_gradients`) and `fuse(x, y)` (features detached where the
-reference calls `.detach()`). Only the default DGL head, concat, is
-ported so far; the others raise NotImplementedError in `make_fusion`.
+`(x_out, y_out, fused_out)`, and exposes the two streams the DGL train
+step uses:
+
+  - `unimodal(x, y, detach_params)`: the unimodal logits from LIVE
+    features. With detach_params the head's parameters get no gradient
+    (gdl_tpu's `stop_fusion_gradients`, the reference's erasure of the
+    fusion grads after the unimodal backward, main_dgl.py:114-119).
+  - `fuse(x, y)`: the fused logits, detached exactly where the reference
+    calls `.detach()` (fusion_modules.py:27-29, :53-56, :159-166,
+    :235-244), so the fused loss never reaches the encoders.
+
+Net gradient topology per step: encoders ← α·(loss_a + loss_v) only;
+fusion head ← loss_f only; in the gated head fc_x/fc_y get no gradient
+at all (the fused path detaches after them) and stay at their initial
+values, as does the concat head's unused `fc_auxi`.
 """
 
 from __future__ import annotations
@@ -17,17 +26,41 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def _xavier_linear(in_dim: int, out_dim: int,
-                   gen: Optional[torch.Generator]) -> nn.Linear:
-    lin = nn.Linear(in_dim, out_dim)
-    with torch.no_grad():
-        nn.init.xavier_uniform_(lin.weight, generator=gen)
-        lin.bias.zero_()
-    return lin
+from gdl_tpu_torch.models.layers import xavier_linear
 
 
-class ConcatFusionDGL(nn.Module):
+def _apply(layer: nn.Linear, x: torch.Tensor, detach: bool = False):
+    """layer(x), with the layer's parameters detached if asked."""
+    if detach:
+        return F.linear(x, layer.weight.detach(), layer.bias.detach())
+    return layer(x)
+
+
+class _FusionDGL(nn.Module):
+    def forward(self, x, y):
+        x_out, y_out = self.unimodal(x, y)
+        return x_out, y_out, self.fuse(x, y)
+
+
+class SumFusionDGL(_FusionDGL):
+    """fusion_modules.py:16-30: unimodal logits fc_x(x), fc_y(y); fused
+    logits their sum over detached features."""
+
+    def __init__(self, input_dim: int = 512, output_dim: int = 100,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc_x = xavier_linear(input_dim, output_dim, generator)
+        self.fc_y = xavier_linear(input_dim, output_dim, generator)
+
+    def unimodal(self, x, y, detach_params: bool = False):
+        return (_apply(self.fc_x, x, detach_params),
+                _apply(self.fc_y, y, detach_params))
+
+    def fuse(self, x, y):
+        return self.fc_x(x.detach()) + self.fc_y(y.detach())
+
+
+class ConcatFusionDGL(_FusionDGL):
     """The default DGL fusion (--fusion_method concat): unimodal logits
     come from the SAME fc_out fed zero-padded single-modality features,
     the fused logits from the concatenated features. The reference's
@@ -37,30 +70,93 @@ class ConcatFusionDGL(nn.Module):
     def __init__(self, input_dim: int = 1024, output_dim: int = 100,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.fc_out = _xavier_linear(input_dim, output_dim, generator)
-        self.fc_auxi = _xavier_linear(input_dim, output_dim, generator)
+        self.fc_out = xavier_linear(input_dim, output_dim, generator)
+        self.fc_auxi = xavier_linear(input_dim, output_dim, generator)
 
     def unimodal(self, x, y, detach_params: bool = False):
-        w, b = self.fc_out.weight, self.fc_out.bias
-        if detach_params:
-            w, b = w.detach(), b.detach()
-        x_out = F.linear(torch.cat([x, torch.zeros_like(y)], dim=-1), w, b)
-        y_out = F.linear(torch.cat([torch.zeros_like(x), y], dim=-1), w, b)
+        x_out = _apply(self.fc_out, torch.cat([x, torch.zeros_like(y)], -1),
+                       detach_params)
+        y_out = _apply(self.fc_out, torch.cat([torch.zeros_like(x), y], -1),
+                       detach_params)
         return x_out, y_out
 
     def fuse(self, x, y):
         return self.fc_out(torch.cat([x, y], dim=-1).detach())
 
-    def forward(self, x, y):
-        x_out, y_out = self.unimodal(x, y)
-        return x_out, y_out, self.fuse(x, y)
+
+class FiLMDGL(_FusionDGL):
+    """fusion_modules.py:126-178; named FiLM, in fact a bilinear
+    outer-product fusion. fused: outer product of detached features
+    through the shared fc/fc_out (:159-166); unimodal: per-modality outer
+    SELF-products through the same heads (:168-176)."""
+
+    def __init__(self, input_dim: int = 512, dim: int = 512,
+                 output_dim: int = 100,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc = xavier_linear(input_dim * input_dim, dim, generator)
+        self.fc_out = xavier_linear(dim, output_dim, generator)
+
+    def _head(self, z, detach: bool = False):
+        return _apply(self.fc_out, _apply(self.fc, z.flatten(1), detach),
+                      detach)
+
+    def unimodal(self, x, y, detach_params: bool = False):
+        z_x = torch.einsum("bd,be->bde", x, x)
+        z_y = torch.einsum("bd,be->bde", y, y)
+        return self._head(z_x, detach_params), self._head(z_y, detach_params)
+
+    def fuse(self, x, y):
+        return self._head(torch.einsum("bd,be->bde", x.detach(), y.detach()))
+
+
+class GatedFusionDGL(_FusionDGL):
+    """fusion_modules.py:213-250. The reference detaches AFTER fc_x/fc_y
+    in the fused path (:235-244), so fc_x/fc_y receive gradients from
+    neither stream. Unimodal logits are self-gated through the shared
+    fc_out (:246-249)."""
+
+    def __init__(self, input_dim: int = 512, dim: int = 512,
+                 output_dim: int = 100, x_gate: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.x_gate = x_gate
+        self.fc_x = xavier_linear(input_dim, dim, generator)
+        self.fc_y = xavier_linear(input_dim, dim, generator)
+        self.fc_out = xavier_linear(dim, output_dim, generator)
+
+    def unimodal(self, x, y, detach_params: bool = False):
+        out_x = _apply(self.fc_x, x, detach_params)
+        out_y = _apply(self.fc_y, y, detach_params)
+        return (_apply(self.fc_out, torch.sigmoid(out_x) * out_x,
+                       detach_params),
+                _apply(self.fc_out, torch.sigmoid(out_y) * out_y,
+                       detach_params))
+
+    def fuse(self, x, y):
+        x_d = self.fc_x(x).detach()
+        y_d = self.fc_y(y).detach()
+        if self.x_gate:
+            return self.fc_out(torch.sigmoid(x_d) * y_d)
+        return self.fc_out(x_d * torch.sigmoid(y_d))
 
 
 def make_fusion(method: str, n_classes: int, dgl: bool,
                 input_dim: int = 512,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Fusion selection mirroring gdl_tpu's make_fusion."""
-    if method == "concat" and dgl:
+    """Fusion selection mirroring gdl_tpu's make_fusion. The non-DGL
+    heads belong to the joint-training lineage, which is not ported."""
+    if not dgl:
+        raise NotImplementedError(
+            f"the non-DGL fusion heads (joint training, fusion {method!r}) "
+            f"are not ported to gdl_tpu_torch yet")
+    if method == "sum":
+        return SumFusionDGL(input_dim, n_classes, generator)
+    if method == "concat":
         return ConcatFusionDGL(2 * input_dim, n_classes, generator)
-    raise NotImplementedError(
-        f"fusion {method!r} (dgl={dgl}) is not ported to gdl_tpu_torch yet")
+    if method == "film":
+        return FiLMDGL(input_dim, output_dim=n_classes, generator=generator)
+    if method == "gated":
+        return GatedFusionDGL(input_dim, output_dim=n_classes,
+                              generator=generator)
+    raise NotImplementedError("Incorrect fusion method: {}!".format(method))

@@ -8,7 +8,7 @@
 
 The model is rebuilt from `cfg` and loaded from a reference-schema
 `.pth` ({"model": state_dict}, `module.` prefixes allowed, strict=False
-semantics). Where gdl_tpu replays a serialized jax.export artifact, the
+semantics), for either backbone (cfg.backbone "swin" or "resnet"). Where gdl_tpu replays a serialized jax.export artifact, the
 port runs the eager module: on the card its window attention launches
 the hand-written CUDA kernel.
 """
@@ -22,7 +22,10 @@ import torch
 
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.data.preprocess import make_eval_preprocess
-from gdl_tpu_torch.models.classifier import AVClassifierSwinDGL
+from gdl_tpu_torch.models.classifier import (
+    AVClassifierDGL,
+    AVClassifierSwinDGL,
+)
 from gdl_tpu_torch.train.dgl import make_eval_step
 from gdl_tpu_torch.utils.interop import load_reference_pth
 
@@ -72,12 +75,17 @@ class ServedModel:
 
 def build_model(cfg: Config, attn_impl: str = "auto",
                 seed: Optional[int] = None) -> torch.nn.Module:
-    """The classifier for `cfg`, initialised on the CPU from `seed`."""
-    if cfg.backbone != "swin":
-        raise NotImplementedError(
-            "only the Swin backbone is ported to gdl_tpu_torch so far")
+    """The DGL classifier for `cfg` (cfg.backbone "resnet" or "swin"),
+    initialised on the CPU from `seed`. attn_impl is the impl of the
+    backbone's hand-written kernels: the Swin window attention, or the
+    ResNet stem max-pool's backward ("auto": the CUDA kernels on the
+    card; "plain": their plain PyTorch versions)."""
     gen = torch.Generator().manual_seed(seed) if seed is not None else None
-    return AVClassifierSwinDGL(cfg, attn_impl=attn_impl, generator=gen)
+    if cfg.backbone == "swin":
+        return AVClassifierSwinDGL(cfg, attn_impl=attn_impl, generator=gen)
+    if cfg.backbone == "resnet":
+        return AVClassifierDGL(cfg, pool_impl=attn_impl, generator=gen)
+    raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
 def load_from_checkpoint(cfg: Config, ckpt_path: str, device,
@@ -87,13 +95,14 @@ def load_from_checkpoint(cfg: Config, ckpt_path: str, device,
     into it, and return it ready to serve on `device`.
 
     compute_dtype defaults to cfg.compute_dtype ("float32" or
-    "bfloat16"). attn_impl="plain" selects the window attention's plain
-    PyTorch version (for holding the kernel to it); "auto" launches the
-    CUDA kernel on the card."""
+    "bfloat16"). cfg.backbone selects dual Swin or dual ResNet-18
+    encoders. attn_impl="plain" selects the plain PyTorch versions of
+    the backbone's kernels (for holding the kernels to them); "auto"
+    launches the CUDA kernels on the card."""
     dev = resolve_device(device)
     dtype = _DTYPES[compute_dtype or cfg.compute_dtype]
     model = build_model(cfg, attn_impl=attn_impl, seed=0)
-    result = model.load_state_dict(load_reference_pth(ckpt_path),
+    result = model.load_state_dict(load_reference_pth(ckpt_path, cfg),
                                    strict=False)
     if result.missing_keys or result.unexpected_keys:
         warnings.warn(f"checkpoint {ckpt_path}: {len(result.missing_keys)} "

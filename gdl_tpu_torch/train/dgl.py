@@ -74,6 +74,12 @@ def make_dgl_train_step(model, cfg: Config, optimizer,
     """train_step(batch) -> metrics: one DGL step of `model` (put in
     training mode) and `optimizer` (`train.optim.make_optimizer`).
 
+    A model with BatchNorm updates its running statistics once per step:
+    the loss runs the encoders once, in training mode, as gdl_tpu's step
+    mutates its batch_stats once (`gdl_tpu/train/dgl.py:126-143`). The
+    buffers are not parameters, so they reach neither the global norm
+    nor the optimizer.
+
     With `preprocess` (`data.preprocess.make_train_preprocess`) the batch
     arrives raw and is preprocessed on the device inside the step.
     `generator` (on the model's device) feeds the augmentation and then
@@ -126,11 +132,15 @@ def make_eval_step(model, preprocess: Optional[Callable] = None) -> Callable:
     """eval_step(batch) -> per-example argmaxes of the three logits, the
     label, and the logits themselves under 'logits' (out, out_a, out_v).
 
-    The model is used as it is: the caller puts it in eval mode and
-    chooses the autocast dtype."""
+    An nn.Module is put in eval mode (BatchNorm then uses its running
+    statistics, main_dgl.py:186; the train step puts it back in training
+    mode); a plain callable is used as it is. The caller chooses the
+    autocast dtype."""
 
     @torch.inference_mode()
     def eval_step(batch):
+        if isinstance(model, torch.nn.Module):
+            model.eval()
         if preprocess is not None:
             batch = preprocess(batch)
         out, out_a, out_v = model(batch["audio"], batch["visual"])

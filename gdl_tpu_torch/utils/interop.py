@@ -94,8 +94,11 @@ def strip_module_prefix(sd: Dict[str, torch.Tensor]):
             for k, v in sd.items()}
 
 
-def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
+def load_reference_pth(path: str, cfg=None) -> Dict[str, torch.Tensor]:
     """The state dict of a reference checkpoint, `module.` stripped.
+    With `cfg`, the reference's compatibility asserts run first
+    (main_dgl.py:409-410): the file's modulation and fusion method must
+    be cfg's.
 
     Accepts the reference's saved dict ({'model': sd, 'modulation', ...})
     and a bare state dict. The caller loads it with strict=False, the
@@ -106,6 +109,12 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     loaded = torch.load(path, map_location="cpu", weights_only=False)
     if not isinstance(loaded, dict):
         raise ValueError(f"unsupported checkpoint object: {type(loaded)}")
+    if cfg is not None and "modulation" in loaded:
+        assert loaded["modulation"] == cfg.modulation, (
+            "inconsistency between modulation method of loaded model and "
+            "args !")
+        assert loaded["fusion"] == cfg.fusion_method, (
+            "inconsistency between fusion method of loaded model and args !")
     sd = loaded.get("model", loaded)
     return strip_module_prefix({k: v for k, v in sd.items()
                                 if isinstance(v, torch.Tensor)})

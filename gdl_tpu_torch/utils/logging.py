@@ -1,0 +1,46 @@
+"""CSV logging with reference formats (SURVEY §5.5), a copy of the CSV
+half of `gdl_tpu/utils/logging.py`; the TensorBoard writer is not ported.
+
+- Per-epoch accuracy CSV `{ckpt_path}/{dataset}_{modality}.csv` with the
+  sentinel row [1000, 1000, 1000] at run start (main_dgl.py:292-295,
+  :345-347).
+- Per-step encoder grad-magnitude CSV `audio_visual_grad_vanilla.csv`
+  (main_dgl.py:148-152) — buffered here and flushed at an interval instead
+  of an fopen per step, same file contents.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+from typing import Iterable, Optional
+
+
+class CSVLogger:
+    def __init__(self, path: str, sentinel: Optional[Iterable] = None,
+                 flush_every: int = 1):
+        self.path = path
+        self.flush_every = flush_every
+        self._buffer = []
+        dirname = os.path.dirname(path)
+        if dirname:
+            os.makedirs(dirname, exist_ok=True)
+        if sentinel is not None:
+            self.write_row(list(sentinel))
+            self.flush()
+
+    def write_row(self, row):
+        self._buffer.append(list(row))
+        if len(self._buffer) >= self.flush_every:
+            self.flush()
+
+    def flush(self):
+        if not self._buffer:
+            return
+        with open(self.path, "a+", newline="") as f:
+            writer = csv.writer(f, delimiter=",")
+            writer.writerows(self._buffer)
+        self._buffer.clear()
+
+    def close(self):
+        self.flush()

@@ -224,3 +224,106 @@ def test_train_kernels_refuse_what_they_cannot_take(cuda):
             torch.zeros(2, 49, 384, device=cuda),
             torch.zeros(2, 1, 49, 49, device=cuda),
             torch.zeros(2, 49, 128, device=cuda), 1)
+
+
+# --- kernel #16: the stem max-pool's backward -------------------------------
+
+POOL_SHAPES = [(64, 112, 112, 64), (64, 129, 94, 64), (2, 7, 9, 8),
+               (3, 8, 5, 3), (1, 1, 1, 4), (2, 13, 10, 20), (1, 33, 21, 72),
+               (1, 9, 40, 130)]
+
+
+def _pool_inputs(shape, dtype, cuda, kind="relu", seed=0):
+    b, h, w, c = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    x = torch.relu(x) if kind == "relu" else torch.full_like(x, 0.5)
+    g = torch.randn((b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c),
+                    generator=gen, device=cuda)
+    dt = getattr(torch, dtype)
+    return x.to(dt), g.to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["relu", "equal"])
+@pytest.mark.parametrize("shape", POOL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_maxpool_bwd_kernel_matches_plain_and_library(cuda, shape, kind,
+                                                      dtype):
+    """The two flagship stem shapes and small odd ones (a channel count
+    that is no multiple of the 16-byte vector takes the scalar variant,
+    more than 64 channels take several blocks per tile):
+    dx is bit-equal to the plain version's and across two runs; against
+    aten.max_pool2d_with_indices_backward, which sums in another order,
+    within 4 eps of Σ|g| per element. One launch is counted per kernel
+    call, none for the plain version."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.maxpool import max_pool_3x3_s2_bwd
+
+    x, g = _pool_inputs(shape, dtype, cuda, kind, seed=shape[1])
+    before = kernels.launch_counts["max_pool_3x3_s2_bwd"]
+    got = max_pool_3x3_s2_bwd(x, g)
+    again = max_pool_3x3_s2_bwd(x, g)
+    assert kernels.launch_counts["max_pool_3x3_s2_bwd"] == before + 2
+    want = max_pool_3x3_s2_bwd(x, g, impl="plain")
+    assert kernels.launch_counts["max_pool_3x3_s2_bwd"] == before + 2
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+    args = ([3, 3], [2, 2], [1, 1], [1, 1], False)
+    xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    _, idx = torch.ops.aten.max_pool2d_with_indices(xn, *args)
+    lib = torch.ops.aten.max_pool2d_with_indices_backward(
+        gn, xn, *args, idx).permute(0, 2, 3, 1)
+    mag = max_pool_3x3_s2_bwd(x, g.abs()).float()
+    err = (got.float() - lib.float()).abs()
+    assert bool((err <= 4 * torch.finfo(x.dtype).eps * mag).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_maxpool_autograd_memory_formats_and_refusals(cuda, dtype):
+    """Through the autograd Function: NCHW-contiguous, channels_last and
+    a strided channels_last view give the plain arm's dx bit for bit and
+    launch the kernel once each; under bf16 autocast's dtype the op keeps
+    x's dtype. A wrong-shaped g, a dtype the kernel does not take and a
+    CPU/CUDA mix are refused."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.maxpool import (
+        _launch_bwd,
+        max_pool_3x3_s2,
+        max_pool_3x3_s2_bwd,
+    )
+
+    x, g = _pool_inputs((4, 17, 12, 16), dtype, cuda, seed=3)
+    nchw, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    big = torch.zeros((4, 32, 17, 12), dtype=x.dtype, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    big[:, :16] = nchw
+    grads = []
+    for inp in (nchw.contiguous(),
+                nchw.contiguous(memory_format=torch.channels_last),
+                big[:, :16]):
+        for impl in ("auto", "plain"):
+            leaf = inp.detach().requires_grad_(True)
+            before = kernels.launch_counts["max_pool_3x3_s2_bwd"]
+            max_pool_3x3_s2(leaf, impl).backward(gn)
+            assert (kernels.launch_counts["max_pool_3x3_s2_bwd"] - before
+                    == (1 if impl == "auto" else 0))
+            assert leaf.grad.dtype == x.dtype
+            grads.append(leaf.grad.permute(0, 2, 3, 1).contiguous())
+    torch.cuda.synchronize()
+    for other in grads[1:]:
+        assert torch.equal(grads[0], other)
+
+    with pytest.raises(ValueError, match="expected"):
+        max_pool_3x3_s2_bwd(x, g[:, :, :-1])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        _launch_bwd(x.half(), g.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        _launch_bwd(x, g.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        _launch_bwd(x.transpose(1, 2), g.transpose(1, 2))

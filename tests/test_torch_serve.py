@@ -1,7 +1,10 @@
 """The port's serving path against gdl_tpu's: the weight bridge, a
 reference-schema `.pth` served end to end from raw requests, the import
-boundary (no jax, no flax, only gdl_tpu.config), and no silent CPU
-fallback for a CUDA request."""
+boundary (no jax, no flax, nothing of gdl_tpu), the port's own Config
+held to gdl_tpu's, and no silent CPU fallback for a CUDA request."""
+
+import argparse
+import dataclasses
 
 import os
 import subprocess
@@ -13,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import gdl_tpu.config as jax_config
+import gdl_tpu_torch.config as port_config
 from gdl_tpu.config import Config
 from gdl_tpu.data.preprocess import make_eval_preprocess as jax_preprocess
 from gdl_tpu.models.classifier import AVClassifierSwinDGL as JaxSwinDGL
@@ -109,26 +114,64 @@ def test_partial_bare_state_dict_loads_with_strict_false(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every gdl_tpu_torch module imports; neither jax nor flax is
-    loaded, and gdl_tpu contributes only gdl_tpu and gdl_tpu.config."""
+    """Every gdl_tpu_torch module and chip_smoke import; afterwards no
+    module of gdl_tpu, jax, jaxlib, flax or optax is loaded."""
     code = (
         "import pkgutil, importlib, sys, gdl_tpu_torch\n"
         "for m in pkgutil.walk_packages(gdl_tpu_torch.__path__, "
         "'gdl_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax')]\n"
+        "('gdl_tpu', 'jax', 'jaxlib', 'flax', 'optax')]\n"
         "assert not bad, bad\n"
-        "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'gdl_tpu')\n"
-        "assert ref == ['gdl_tpu', 'gdl_tpu.config'], ref\n"
         "n = sum(1 for m in sys.modules if m.startswith('gdl_tpu_torch.'))\n"
-        "assert n >= 14, n\n"
+        "assert n >= 30, n\n"
         "print('ok', n)\n")
     env = {k: v for k, v in os.environ.items() if k != "GDL_PLATFORM"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_port_config_equals_reference_config():
+    """The port's own Config against gdl_tpu's: equal field names and
+    defaults apart from `device`, equal AUDIO_PARAMS / N_CLASSES /
+    spectrogram shapes, bn_groups without jax, and equal parsed values
+    for the flagship (alpha 5) command line of scripts/cramed_dgl.sh."""
+    assert port_config.Config is not jax_config.Config
+    ref = {f.name: getattr(jax_config.Config(), f.name)
+           for f in dataclasses.fields(jax_config.Config)}
+    got = {f.name: getattr(port_config.Config(), f.name)
+           for f in dataclasses.fields(port_config.Config)}
+    assert got.pop("device") == "cuda"
+    assert got == ref
+    assert port_config.AUDIO_PARAMS == jax_config.AUDIO_PARAMS
+    assert port_config.N_CLASSES == jax_config.N_CLASSES
+    for ds in jax_config.AUDIO_PARAMS:
+        for swin in (False, True):
+            assert (port_config.spectrogram_shape(ds, swin)
+                    == jax_config.spectrogram_shape(ds, swin))
+    assert port_config.Config(sync_bn=False).bn_groups == 1
+    assert port_config.Config(sync_bn=False, dp=4).bn_groups == 4
+
+    script = open(os.path.join(REPO, "scripts", "cramed_dgl.sh")).read()
+    line = [ln for ln in script.splitlines() if "main_dgl.py" in ln][-1]
+    argv = line.split("main_dgl.py", 1)[1].split()
+    parsed = []
+    for mod in (jax_config, port_config):
+        for dgl in (True, False):
+            parser = argparse.ArgumentParser()
+            mod.add_arguments(parser, dgl=dgl)
+            extra = [] if dgl else ["--warmup", "1"]
+            parsed.append(dataclasses.asdict(
+                mod.from_args(parser.parse_args(argv + extra))))
+    for mine, theirs in zip(parsed[2:], parsed[:2]):
+        assert mine.pop("device") == "cuda"
+        assert mine == theirs
+    assert parsed[0]["alpha"] == 5.0 and parsed[0]["modulation"] == "Normal"
 
 
 def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch):

@@ -20,7 +20,11 @@ from gdl_tpu_torch.data.preprocess import (
     make_train_preprocess,
 )
 from gdl_tpu_torch.data.synthetic import synthetic_batch
-from gdl_tpu_torch.ops.image_ops import crop_resize_flip, sample_rrc_box
+from gdl_tpu_torch.ops.image_ops import (
+    crop_resize_flip,
+    normalize_images,
+    sample_rrc_box,
+)
 
 
 def _jax_draws(key, b, t, h, w, orig_sizes=None):
@@ -106,7 +110,9 @@ def test_sampler_boxes_are_valid_and_fall_back():
 def test_train_preprocess_on_a_raw_batch():
     """make_train_preprocess: the eval spectrograms, augmented 224² frames
     (finite, normalized range), equal for equal generator seeds and
-    different otherwise; a strict_compat host-exact batch raises."""
+    different otherwise; a strict_compat host-exact batch (224² frames
+    cropped on the host, marked 'host_exact') is only normalized, and a
+    marked batch of another size is refused."""
     cfg = Config(dataset="CREMAD", backbone="swin", fps=2)
     batch = synthetic_batch(cfg, 2, seed=1)
     pre = make_train_preprocess(cfg, "cpu")
@@ -123,5 +129,14 @@ def test_train_preprocess_on_a_raw_batch():
     assert torch.equal(a["label"], torch.as_tensor(batch["label"]))
     strict = make_train_preprocess(Config(dataset="CREMAD", backbone="swin",
                                           strict_compat=True), "cpu")
-    with pytest.raises(NotImplementedError, match="host-exact"):
-        strict(dict(batch, host_exact=True))
+    with pytest.raises(AssertionError, match="host_exact"):
+        strict(dict(batch, host_exact=True))  # 256² canvas frames
+    exact = dict(batch, frames=batch["frames"][:, :, :224, :224],
+                 host_exact=True)
+    got = strict(exact, torch.Generator().manual_seed(3))
+    assert torch.equal(got["visual"],
+                       normalize_images(torch.from_numpy(exact["frames"])))
+    # without the marker the same frames take the device augmentation
+    del exact["host_exact"]
+    aug = strict(exact, torch.Generator().manual_seed(3))
+    assert not torch.equal(aug["visual"], got["visual"])
