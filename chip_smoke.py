@@ -64,13 +64,46 @@ Phases, each printing one JSON line:
               the best .pth written by the loop's writer is read back by
               run_eval and by serve.load_from_checkpoint to the same
               accuracies and predictions;
+  j. sa parity
+              the fused self-attention kernels #10 (training forward),
+              #11 (backward) and #13 (eval forward) against their plain
+              versions at the two shapes the mmformer path gives them
+              ([64, 196, 512] and [64, 392, 512], 8 heads), in float32
+              and bfloat16, with no dropout, a mask read from memory and
+              a mask drawn in the kernel: out, qkv and p; dqkv; the whole
+              op's dx and dW; the bits the kernel drew must be the plain
+              generator's. Kernel #14 (the dropout-mask generator) must
+              be BIT-EQUAL to its plain version at the four mask shapes
+              of a transformer block. Median times of kernel and plain
+              (CUDA events), of F.scaled_dot_product_attention on the
+              same q, k, v, and of torch.rand + compare for the masks;
+  k. mmformer the intermediate-fusion path at full width (mmformer_n on
+              CREMA-D, fps 1, batch 64, width 64, embed 512, 8 heads,
+              mlp 4096, 196 + 196 -> 392 tokens, shared unimodal
+              streams, AUXI loss, SGD, clip 40; benchmarks/run_all.py
+              bench_intermediate) through main_intermediate's
+              build_model and build_harness, a Loader over a
+              SyntheticDataset, train_one_epoch and evaluate: seeded
+              weights go to two arms, the kernels and their plain
+              versions, with identically seeded generators (so both draw
+              the same dropout masks and PE noise), in float32 and under
+              bf16 autocast; 1 + 3 checked steps whose losses, float32
+              parameters and BatchNorm statistics are held to each
+              other, with exactly 7 launches of #10, 7 of #11, 28 of #14
+              and 2 of #16 per kernel-arm step and none on the plain
+              arm; timed steps per arm, in turns; an eval pass with 7
+              launches of #13 per batch and none of the others; the .pth
+              written by the loop's writer is served back through
+              serve.load_intermediate_from_checkpoint to the same
+              predictions;
   g. kernels  one line per kernel: route, source, the TPU kernel it
               replaces, launches on its path (d for #1, the kernel arm
-              of f for #2 and #4, of i for #16), error, times, the
-              roofline bound of the same work (bytes moved once over
-              3.35 TB/s against operations over the float32 peak of
-              67 TFLOP/s; the times are the float32 ones) and, where one
-              PyTorch call computes the function, that call's time.
+              of f for #2 and #4, of i for #16, of k for #10, #11, #13
+              and #14), error, times, the roofline bound of the same
+              work (bytes moved once over 3.35 TB/s against operations
+              over the float32 peak of 67 TFLOP/s; the times are the
+              float32 ones) and, where one PyTorch call computes the
+              function, that call's time.
 Then the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero without the ok line when CUDA is unavailable or any phase
@@ -132,6 +165,34 @@ RESNET_TIME_ROUNDS = 8    # timed calls per arm, in turns
 RESNET_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 RESNET_PARAM_ATOL = 1e-4  # float32 parameters after the checked steps
 RESNET_STAT_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}  # BN running stats
+
+SA_FWD = "self_attention_fused_fwd"
+SA_BWD = "self_attention_fused_bwd"
+SA_EVAL = "self_attention_fused_eval"
+MASK = "prng_dropout_mask"
+MM_BATCH = 64
+MM_HEADS = 8
+MM_RATE = 0.1  # the transformer blocks' dropout and attention-dropout rate
+# x [B, N, C] of the attention calls of one mmformer_n step with shared
+# streams, and how many calls a step makes at each (4 intra, 3 inter)
+SA_SHAPES = {"intra": (MM_BATCH, 196, 512), "inter": (MM_BATCH, 392, 512)}
+SA_CALLS = {"intra": 4, "inter": 3}
+# the dropout masks of one step: per block three of [B*N, 512] (after
+# proj, after the attention branch, after fc2) and one of [B*N, 4096]
+MASK_CALLS = {(12544, 512): 12, (12544, 4096): 4, (25088, 512): 9,
+              (25088, 4096): 3}
+SA_REPS = 10        # timed launches per kernel and shape
+SA_PLAIN_REPS = 3   # the plain versions are slow and only a cross-check
+MM_CHECKED_STEPS = 4  # 1 + 3; the first includes cuDNN's autotuning
+MM_TIMED_STEPS = 3    # per timed call
+MM_TIME_ROUNDS = 4    # timed calls per arm, in turns
+MM_EVAL_BATCHES = 2
+MM_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MM_PARAM_ATOL = 1e-4
+MM_STAT_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# launches of one kernel-arm training step and of one eval forward
+MM_STEP_LAUNCHES = {SA_FWD: 7, SA_BWD: 7, MASK: 28, POOL: 2}
+MM_EVAL_LAUNCHES = {SA_EVAL: 7}
 
 # NVIDIA H100 SXM data-sheet peaks (dense), for the roofline bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -921,6 +982,444 @@ def phase_resnet(failures, smi: str):
     return total_launches
 
 
+def sa_cost(kind: str, b: int, n: int, c: int, heads: int, itemsize: int):
+    """(bytes, operations) of one launch of a self-attention kernel:
+    every input read once, every output written once (the qkv scratch of
+    the eval kernel and the ds scratch of the backward are the kernels'
+    own and do not count; a mask drawn in the kernel moves 8 bytes of
+    seed); 2 operations per multiply-add of the products, 5 per softmax
+    element (6 in the backward). kind: 'fwd' (#10), 'bwd' (#11) or
+    'eval' (#13)."""
+    tokens, scores = b * n * c, b * heads * n * n
+    if kind == "bwd":  # qkv, p, dout in; dqkv out; 4 products
+        return ((3 * tokens + scores + tokens + 3 * tokens) * itemsize,
+                8 * b * n * n * c + 6 * scores)
+    nbytes = (2 * tokens + 3 * c * c) * itemsize  # x, w in; out
+    if kind == "fwd":  # plus the qkv and p residuals
+        nbytes += (3 * tokens + scores) * itemsize
+    return nbytes, 2 * b * n * c * 3 * c + 4 * b * n * n * c + 5 * scores
+
+
+def mask_cost(numel: int, itemsize: int):
+    """(bytes, operations) of one dropout mask: nothing read but two
+    seed words, every element written once; per group of four elements
+    Philox4x32-10 does 10 rounds of 2 wide multiplies (a low and a high
+    half each), 3 xors and 2 key additions, then 4 compares and selects:
+    98 integer operations, counted against the float32 rate (the table
+    of peaks has no integer one)."""
+    return numel * itemsize + 8, 98 * ((numel + 3) // 4)
+
+
+def phase_sa_parity(failures):
+    """Kernels #10, #11, #13 and the op they make up against their plain
+    versions at the mmformer shapes; kernel #14 bit-equal to its plain
+    version. Returns (attention rows, mask rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gdl_tpu_torch.ops.dropout import (
+        fold_seed_words,
+        keep_threshold,
+        prng_dropout_mask,
+    )
+    from gdl_tpu_torch.ops.self_attention import (
+        make_dropout,
+        self_attention_fused,
+        self_attention_fused_bwd,
+        self_attention_fused_eval,
+        self_attention_fused_fwd,
+    )
+
+    dev = torch.device("cuda")
+    rows, mask_rows = [], []
+    for k, (site, (b, n, c)) in enumerate(SA_SHAPES.items()):
+        gen = torch.Generator(device=dev).manual_seed(800 + k)
+        x32 = torch.randn((b, n, c), generator=gen, device=dev)
+        w32 = torch.randn((3 * c, c), generator=gen, device=dev) * c ** -0.5
+        g32 = torch.randn((b, n, c), generator=gen, device=dev)
+        words = fold_seed_words(gen, dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x, w, dout = x32.to(dt), w32.to(dt), g32.to(dt)
+            for mode in ("none", "hbm", "kernel"):
+                drop = make_dropout(x, MM_HEADS, MM_RATE, mode != "none",
+                                    "hbm" if mode == "hbm" else "kernel",
+                                    seed_words=words)
+                errs, oks = {}, []
+                with torch.no_grad():
+                    got = self_attention_fused_fwd(
+                        x, w, MM_HEADS, drop=drop, return_keep=True)
+                    want = self_attention_fused_fwd(
+                        x, w, MM_HEADS, drop=drop, impl="plain",
+                        return_keep=True)
+                    for name, a, r in zip(("out", "qkv", "p"), got, want):
+                        errs[name] = _max_err(a, r)
+                        oks.append(_fwd_ok(a, r, dtype))
+                    keep_rate = None
+                    if mode == "kernel":  # the bits the kernel drew
+                        oks.append(bool(torch.equal(got[3], want[3])))
+                        keep_rate = float(got[3].float().mean())
+                        sigma = (MM_RATE * (1 - MM_RATE)
+                                 / got[3].numel()) ** 0.5
+                        oks.append(abs(keep_rate - (1 - MM_RATE))
+                                   <= 5 * sigma)
+                    _, qkv, p, _ = want
+                    del got, want
+                    gb = self_attention_fused_bwd(qkv, p, dout, MM_HEADS,
+                                                  drop=drop)
+                    wb = self_attention_fused_bwd(qkv, p, dout, MM_HEADS,
+                                                  drop=drop, impl="plain")
+                    errs["dqkv"] = _max_err(gb, wb)
+                    oks.append(_grad_ok(gb, wb, dtype))
+                    del gb, wb
+                grads = {}
+                for impl in ("auto", "plain"):
+                    xl = x.clone().requires_grad_(True)
+                    wl = w.clone().requires_grad_(True)
+                    out = self_attention_fused(
+                        xl, wl, MM_HEADS, dropout_rate=MM_RATE,
+                        seed_words=words, train=mode != "none",
+                        dropout_impl="hbm" if mode == "hbm" else "kernel",
+                        mask=drop.mask, impl=impl)
+                    out.backward(dout)
+                    grads[impl] = (xl.grad, wl.grad)
+                    del out, xl, wl
+                for name, a, r in zip(("op_dx", "op_dW"), grads["auto"],
+                                      grads["plain"]):
+                    errs[name] = _max_err(a, r)
+                    oks.append(_grad_ok(a, r, dtype))
+                del grads
+                with torch.no_grad():
+                    times = {
+                        "fwd_ms": cuda_ms(lambda: self_attention_fused_fwd(
+                            x, w, MM_HEADS, drop=drop), reps=SA_REPS),
+                        "fwd_plain_ms": cuda_ms(
+                            lambda: self_attention_fused_fwd(
+                                x, w, MM_HEADS, drop=drop, impl="plain"),
+                            reps=SA_PLAIN_REPS, warmup=1),
+                        "bwd_ms": cuda_ms(lambda: self_attention_fused_bwd(
+                            qkv, p, dout, MM_HEADS, drop=drop),
+                            reps=SA_REPS),
+                        "bwd_plain_ms": cuda_ms(
+                            lambda: self_attention_fused_bwd(
+                                qkv, p, dout, MM_HEADS, drop=drop,
+                                impl="plain"),
+                            reps=SA_PLAIN_REPS, warmup=1),
+                    }
+                    if mode == "none":  # the eval kernel, and the library
+                        ge = self_attention_fused_eval(x, w, MM_HEADS)
+                        we = self_attention_fused_eval(x, w, MM_HEADS,
+                                                       impl="plain")
+                        errs["eval_out"] = _max_err(ge, we)
+                        oks.append(_fwd_ok(ge, we, dtype))
+                        del ge, we
+                        times["eval_ms"] = cuda_ms(
+                            lambda: self_attention_fused_eval(x, w, MM_HEADS),
+                            reps=SA_REPS)
+                        times["eval_plain_ms"] = cuda_ms(
+                            lambda: self_attention_fused_eval(
+                                x, w, MM_HEADS, impl="plain"),
+                            reps=SA_PLAIN_REPS, warmup=1)
+                        q, kk, v = (t.contiguous() for t in qkv.reshape(
+                            b, n, 3, MM_HEADS, c // MM_HEADS).permute(
+                                2, 0, 3, 1, 4))
+                        times["sdpa_ms"] = cuda_ms(
+                            lambda: F.scaled_dot_product_attention(q, kk, v),
+                            reps=SA_REPS)
+                        del q, kk, v
+                torch.cuda.synchronize()
+                ok = all(oks)
+                row = {"phase": "sa_parity",
+                       "kernels": [SA_FWD, SA_BWD, SA_EVAL], "site": site,
+                       "B": b, "N": n, "C": c, "H": MM_HEADS, "dtype": dtype,
+                       "dropout": mode, "rate": MM_RATE if mode != "none"
+                       else 0.0, "keep_rate": keep_rate,
+                       "max_abs_err": errs, "fwd_tol": TRAIN_FWD_TOL[dtype],
+                       "grad_frac_of_max": TRAIN_GRAD_FRAC[dtype], "ok": ok,
+                       **times}
+                emit(row)
+                rows.append(row)
+                if not ok:
+                    failures.append(f"sa parity {site} {dtype} {mode}: "
+                                    f"{errs}")
+                del qkv, p, drop
+                torch.cuda.empty_cache()
+        del x32, w32, g32
+
+    keep = 1.0 - MM_RATE
+    for k, shape in enumerate(MASK_CALLS):
+        gen = torch.Generator(device=dev).manual_seed(900 + k)
+        words = fold_seed_words(gen, dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            got = prng_dropout_mask(words, shape, MM_RATE, dt)
+            want = prng_dropout_mask(words, shape, MM_RATE, dt, impl="plain")
+            other = prng_dropout_mask(fold_seed_words(gen, dev), shape,
+                                      MM_RATE, dt)
+            kept = torch.tensor(1.0 / keep).to(dt)
+            rate = float((got != 0).float().mean())
+            sigma = (MM_RATE * keep / got.numel()) ** 0.5
+            checks = {
+                "bit_equal_plain": _bit_equal(got, want),
+                "values": bool(((got == 0) | (got == kept.to(dev))).all()),
+                "keep_rate_ok": abs(rate - keep) <= 5 * sigma,
+                "other_seed_differs": not torch.equal(got, other),
+            }
+            err = _max_err(got, want)
+            del want, other
+            thresh = keep_threshold(MM_RATE) / 2.0 ** 32
+            zero = torch.zeros((), dtype=dt, device=dev)
+
+            def library():
+                return torch.where(torch.rand(shape, device=dev) < thresh,
+                                   kept.to(dev), zero)
+
+            nbytes, ops = mask_cost(got.numel(), got.element_size())
+            bound, by = bound_ms(nbytes, ops)
+            row = {"phase": "mask_parity", "kernel": MASK,
+                   "shape": list(shape), "dtype": dtype, "rate": MM_RATE,
+                   "keep_rate": rate, "max_abs_err": err, **checks,
+                   "ok": all(checks.values()),
+                   "ms": cuda_ms(lambda: prng_dropout_mask(
+                       words, shape, MM_RATE, dt), reps=SA_REPS),
+                   "plain_ms": cuda_ms(lambda: prng_dropout_mask(
+                       words, shape, MM_RATE, dt, impl="plain"),
+                       reps=SA_PLAIN_REPS, warmup=1),
+                   "library_ms": cuda_ms(library, reps=SA_REPS),
+                   "bytes": nbytes, "operations": ops, "bound_ms": bound,
+                   "bound_by": by}
+            emit(row)
+            mask_rows.append(row)
+            if not row["ok"]:
+                failures.append(f"mask parity {shape} {dtype}: {checks}")
+            del got
+            torch.cuda.empty_cache()
+    return rows, mask_rows
+
+
+def phase_mmformer(failures, smi: str):
+    """The mmformer_n training and eval path through main_intermediate's
+    functions, kernel arm and plain arm. Returns the kernel arms' launch
+    counts over the checked steps and over the eval pass."""
+    import contextlib
+
+    import torch
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch import main_intermediate
+    from gdl_tpu_torch.config import Config
+    from gdl_tpu_torch.data.loader import Loader
+    from gdl_tpu_torch.data.synthetic import SyntheticDataset
+    from gdl_tpu_torch.serve import load_intermediate_from_checkpoint
+    from gdl_tpu_torch.train.loop import evaluate, train_one_epoch
+    from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
+
+    def quiet():  # the loop prints the reference's progress lines
+        return contextlib.redirect_stdout(sys.stderr)
+
+    zero = {k: 0 for k in kernels.launch_counts}
+    totals = {"train": dict(zero), "eval": dict(zero)}
+    with tempfile.TemporaryDirectory() as tmp:
+        def config(dtype):
+            return Config(dataset="CREMAD", fps=1, batch_size=MM_BATCH,
+                          modulation="Normal", log_grad_csv=False,
+                          compute_dtype=dtype, num_workers=8, ckpt_path=tmp,
+                          encoder_width=RESNET_WIDTH)
+
+        cfg0 = config("float32")
+        train_set = SyntheticDataset(
+            cfg0, size=MM_BATCH * MM_CHECKED_STEPS, seed=1500)
+        test_set = SyntheticDataset(
+            cfg0, size=MM_BATCH * MM_EVAL_BATCHES, seed=19000)
+        timed_set = SyntheticDataset(
+            cfg0, size=MM_BATCH * MM_TIMED_STEPS, seed=12000)
+
+        def loader(ds, shuffle):
+            return Loader(ds, MM_BATCH, shuffle=shuffle, drop_last=True,
+                          num_workers=8, seed=cfg0.random_seed)
+
+        timed_batches = list(loader(timed_set, False))
+        test_batches = list(loader(test_set, False))
+
+        def run_arm(impl, dtype):
+            cfg = config(dtype)
+            model, kind = main_intermediate.build_model(
+                "mmformer_n", cfg.n_classes, cfg.encoder_width,
+                share_streams=True, impl=impl, seed=777)
+            h = main_intermediate.build_harness(
+                cfg, model, kind, steps_per_epoch=100)
+            steps = []
+            inner = h.train_step
+
+            def recording(batch):
+                before = dict(kernels.launch_counts)
+                m = inner(batch)
+                steps.append((m, {k: v - before[k] for k, v in
+                                  kernels.launch_counts.items()}))
+                return m
+
+            h.train_step = recording
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            # cuDNN's deterministic algorithms for the checked steps, as
+            # in the ResNet phase; the timed steps run with the default
+            torch.backends.cudnn.deterministic = True
+            try:
+                with quiet():
+                    train_one_epoch(h, loader(train_set, True), 0)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            launched = dict(kernels.launch_counts)
+            return dict(cfg=cfg, h=h, kind=kind, launched=launched,
+                        peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        metrics=[{k: float(v) for k, v in m.items()}
+                                 for m, _ in steps],
+                        launches=[c for _, c in steps])
+
+        def timed_call(arm):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with quiet():
+                train_one_epoch(arm["h"], timed_batches, 1)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / len(timed_batches)
+
+        for dtype in ("float32", "bfloat16"):
+            order = ("plain", "auto") if dtype == "float32" else ("auto",
+                                                                  "plain")
+            arms = {impl: run_arm(impl, dtype) for impl in order}
+            ka, pa = arms["auto"], arms["plain"]
+            problems = []
+            want = dict(zero, **MM_STEP_LAUNCHES)
+            for i, (lk, lp) in enumerate(zip(ka["launches"],
+                                             pa["launches"])):
+                if lk != want:
+                    problems.append(f"step {i}: kernel arm launches {lk}")
+                if lp != zero:
+                    problems.append(f"step {i}: plain arm launches {lp}")
+            if len(ka["launches"]) != MM_CHECKED_STEPS:
+                problems.append(f"{len(ka['launches'])} steps ran")
+            for k, v in ka["launched"].items():
+                totals["train"][k] += v
+            worst_rel = 0.0
+            for i, (mk, mp) in enumerate(zip(ka["metrics"], pa["metrics"])):
+                for key in ("loss", "loss_a", "loss_v", "loss_f",
+                            "grad_norm"):
+                    a, b = mk[key], mp[key]
+                    if not (math.isfinite(a) and math.isfinite(b)):
+                        problems.append(f"step {i}: {key} not finite")
+                        continue
+                    worst_rel = max(worst_rel,
+                                    abs(a - b) / max(abs(b), 1e-12))
+            if worst_rel > MM_LOSS_RTOL[dtype]:
+                problems.append(f"losses differ by {worst_rel} relative")
+            km, pm = ka["h"].model, pa["h"].model
+            with torch.no_grad():
+                param_err = max(float((a - b).abs().max()) for a, b in
+                                zip(km.parameters(), pm.parameters()))
+                stat_err = max(float((a - b).abs().max()) for (n, a), (_, b)
+                               in zip(km.named_buffers(), pm.named_buffers())
+                               if "running" in n)
+                tracked = {n: int(b) for n, b in km.named_buffers()
+                           if n.endswith("num_batches_tracked")}
+            if dtype == "float32" and param_err > MM_PARAM_ATOL:
+                problems.append(f"parameters differ by {param_err}")
+            if stat_err > MM_STAT_ATOL[dtype]:
+                problems.append(f"BN running stats differ by {stat_err}")
+            # with shared streams a token-projection BatchNorm runs twice
+            # a step (live input, zero input), every other one once
+            for n, count in tracked.items():
+                per_step = 2 if n.startswith("project") else 1
+                if count != per_step * MM_CHECKED_STEPS:
+                    problems.append(f"{n} = {count}")
+
+            timed = {impl: [] for impl in arms}
+            for impl in order:  # untimed: cuDNN's default algorithms
+                timed_call(arms[impl])
+            for r in range(MM_TIME_ROUNDS):
+                for impl in (order if r % 2 == 0 else order[::-1]):
+                    timed[impl].append(timed_call(arms[impl]))
+
+            # eval: 7 launches of #13 per batch, nothing else
+            evals = {}
+            for impl in order:
+                h = arms[impl]["h"]
+                with quiet():
+                    evaluate(h, test_batches)  # warm-up
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with quiet():
+                    accs = evaluate(h, test_batches)
+                torch.cuda.synchronize()
+                evals[impl] = dict(
+                    accs=accs, launches=dict(kernels.launch_counts),
+                    ms=(time.perf_counter() - t) * 1e3 / len(test_batches))
+            want_eval = {k: v * MM_EVAL_BATCHES for k, v in
+                         dict(zero, **MM_EVAL_LAUNCHES).items()}
+            if evals["auto"]["launches"] != want_eval:
+                problems.append(f"eval launched {evals['auto']['launches']}")
+            if evals["plain"]["launches"] != zero:
+                problems.append(f"plain eval launched "
+                                f"{evals['plain']['launches']}")
+            for k, v in evals["auto"]["launches"].items():
+                totals["eval"][k] += v
+            accs = evals["auto"]["accs"]
+            if not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+                problems.append(f"accuracies {accs}")
+
+            # the .pth round trip through the server
+            path = save_best_checkpoint(ka["cfg"], km, 1, accs[0])
+            served = load_intermediate_from_checkpoint(
+                ka["cfg"], "mmformer_n", path, "cuda", share_streams=True)
+            mine = ka["h"].eval_step(
+                {k: torch.as_tensor(v).to("cuda")
+                 for k, v in test_batches[0].items()})
+            theirs = served.eval_batch(test_batches[0])
+            for k in ("pred", "pred_a", "pred_v"):
+                if not torch.equal(mine[k], theirs[k]):
+                    problems.append(f"served {k} differs from the loop's")
+            logits = theirs["logits"][0]
+            if tuple(logits.shape) != (MM_BATCH, 6) or not _finite(logits):
+                problems.append("bad served logits")
+            os.remove(path)
+
+            n_params = sum(p.numel() for p in km.parameters())
+            for impl in order:
+                arm, ms = arms[impl], sorted(timed[impl])
+                med = ms[len(ms) // 2]
+                emit({"phase": "mmformer", "dtype": dtype,
+                      "arm": "kernel" if impl == "auto" else "plain",
+                      "batch": MM_BATCH, "ms_per_step": med,
+                      "clips_per_s": MM_BATCH / med * 1e3,
+                      "timed_call_ms_per_step": timed[impl],
+                      "eval_ms_per_batch": evals[impl]["ms"],
+                      "eval_clips_per_s":
+                          MM_BATCH / evals[impl]["ms"] * 1e3,
+                      "peak_mem_gib": arm["peak"],
+                      "loss": [m["loss"] for m in arm["metrics"]],
+                      "grad_norm": [m["grad_norm"] for m in arm["metrics"]],
+                      "params": n_params, "nvidia_smi": smi})
+            ok = not problems
+            emit({"phase": "mmformer_check", "dtype": dtype,
+                  "max_rel_loss_diff": worst_rel,
+                  "loss_rtol": MM_LOSS_RTOL[dtype],
+                  "max_abs_param_diff": param_err,
+                  "param_atol": (MM_PARAM_ATOL if dtype == "float32"
+                                 else None),
+                  "max_abs_bn_stat_diff": stat_err,
+                  "bn_stat_atol": MM_STAT_ATOL[dtype],
+                  "launches_per_step": MM_STEP_LAUNCHES,
+                  "launches_per_eval_batch": MM_EVAL_LAUNCHES,
+                  "eval_acc": list(accs), "problems": problems, "ok": ok})
+            failures.extend(f"mmformer {dtype}: {p}" for p in problems)
+            del arms, ka, pa, km, pm, served, mine, theirs
+            torch.cuda.empty_cache()
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1004,6 +1503,22 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failures.append("resnet raised")
 
+    try:
+        sa_parity, mask_parity = phase_sa_parity(failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("sa parity raised")
+        sa_parity, mask_parity = [], []
+    record["sa_parity"], record["mask_parity"] = sa_parity, mask_parity
+
+    mm_launches = {"train": {k: 0 for k in kernels.launch_counts},
+                   "eval": {k: 0 for k in kernels.launch_counts}}
+    try:
+        mm_launches = phase_mmformer(failures, smi)
+    except Exception:
+        traceback.print_exc()
+        failures.append("mmformer raised")
+
     f32 = [r for r in parity if r["dtype"] == "float32"]
     t32 = [r for r in train_parity if r["dtype"] == "float32"]
     p32 = [r for r in pool_parity
@@ -1035,9 +1550,37 @@ def main(argv=None) -> int:
          "max_abs_err": max((r["max_abs_err"] for r in pool_parity),
                             default=None)},
     ]
+    sa32 = [r for r in sa_parity if r["dtype"] == "float32"]
+    sa_src = src + "self_attention_train.cu"
+    entries += [
+        {"name": SA_FWD, "route": "cuda", "source": sa_src,
+         "replaces": "gdl_tpu/ops/self_attention.py:444",
+         "launches": mm_launches["train"][SA_FWD],
+         "max_abs_err": max((max(r["max_abs_err"][k] for k in
+                                 ("out", "qkv", "p")) for r in sa32),
+                            default=None)},
+        {"name": SA_BWD, "route": "cuda", "source": sa_src,
+         "replaces": "gdl_tpu/ops/self_attention.py:375",
+         "launches": mm_launches["train"][SA_BWD],
+         "max_abs_err": max((r["max_abs_err"]["dqkv"] for r in sa32),
+                            default=None)},
+        {"name": SA_EVAL, "route": "cuda",
+         "source": src + "self_attention_eval.cu",
+         "replaces": "gdl_tpu/ops/self_attention.py:689",
+         "launches": mm_launches["eval"][SA_EVAL],
+         "max_abs_err": max((r["max_abs_err"]["eval_out"] for r in sa32
+                             if "eval_out" in r["max_abs_err"]),
+                            default=None)},
+        {"name": MASK, "route": "cuda", "source": src + "dropout_mask.cu",
+         "replaces": "gdl_tpu/ops/dropout.py:82",
+         "launches": mm_launches["train"][MASK],
+         "max_abs_err": max((r["max_abs_err"] for r in mask_parity),
+                            default=None)},
+    ]
     for entry in entries:
+        # no single PyTorch call computes #1, #2, #4, #10 or #11
         entry.update(ms=None, plain_ms=None, bound_ms=None, bound_by=None,
-                     library_ms=None)  # no single PyTorch call for #1, #2, #4
+                     library_ms=None)
     # per request (#1, batch 16) or per training step (#2, #4, batch 32):
     # the sum over the 48 launches of the float32 per-shape medians
     if len(f32) == 7:
@@ -1070,6 +1613,56 @@ def main(argv=None) -> int:
         entries[3]["ms_bfloat16"] = sum(
             r["ms"] for r in pool_parity
             if r["dtype"] == "bfloat16" and r["input"] == "relu")
+    # #10, #11 per training step and #13 per eval forward: the 7 launches
+    # (4 at 196 tokens, 3 at 392), from the float32 per-shape medians; the
+    # training kernels with the mask drawn in the kernel, as the model runs
+    # them. The library call beside #13 is scaled_dot_product_attention on
+    # the same q, k, v: the attention alone, without the projection.
+    def sa_rows(mode):
+        return {r["site"]: r for r in sa32 if r["dropout"] == mode}
+
+    def sa_sum(rows, key):
+        return sum(SA_CALLS[site] * rows[site][key] for site in SA_CALLS)
+
+    for entry, kind, mode, key in ((entries[4], "fwd", "kernel", "fwd"),
+                                   (entries[5], "bwd", "kernel", "bwd"),
+                                   (entries[6], "eval", "none", "eval")):
+        rows = sa_rows(mode)
+        if set(rows) != set(SA_CALLS):
+            continue
+        entry["ms"] = sa_sum(rows, key + "_ms")
+        entry["plain_ms"] = sa_sum(rows, key + "_plain_ms")
+        if kind == "eval":
+            entry["library_ms"] = sa_sum(rows, "sdpa_ms")
+        total = {"ms": 0.0, "bytes": 0, "operations": 0,
+                 "by": {"bytes": 0, "operations": 0}}
+        for site, (b, n, c) in SA_SHAPES.items():
+            nbytes, ops = sa_cost(kind, b, n, c, MM_HEADS, 4)
+            ms, by = bound_ms(nbytes, ops)
+            total["ms"] += SA_CALLS[site] * ms
+            total["bytes"] += SA_CALLS[site] * nbytes
+            total["operations"] += SA_CALLS[site] * ops
+            total["by"][by] += SA_CALLS[site]
+        entry["bound_ms"] = total["ms"]
+        entry["bound_by"] = max(total["by"], key=total["by"].get)
+        entry["bound_launches_by"] = total["by"]
+        entry["bytes"], entry["operations"] = (total["bytes"],
+                                               total["operations"])
+        entry["ms_bfloat16"] = sum(
+            SA_CALLS[r["site"]] * r[key + "_ms"] for r in sa_parity
+            if r["dtype"] == "bfloat16" and r["dropout"] == mode)
+    # #14 per training step: its 28 launches over the four mask shapes
+    m32 = {tuple(r["shape"]): r for r in mask_parity
+           if r["dtype"] == "float32"}
+    if set(m32) == set(MASK_CALLS):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                    "operations"):
+            entries[7][key] = sum(n * m32[shape][key]
+                                  for shape, n in MASK_CALLS.items())
+        entries[7]["bound_by"] = m32[(25088, 4096)]["bound_by"]
+        entries[7]["ms_bfloat16"] = sum(
+            MASK_CALLS[tuple(r["shape"])] * r["ms"] for r in mask_parity
+            if r["dtype"] == "bfloat16")
     record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
@@ -1085,6 +1678,13 @@ def main(argv=None) -> int:
             failures.append(f"{k} was never launched on the training path")
     if pool_launches == 0:
         failures.append(f"{POOL} was never launched on the ResNet path")
+    for k in (SA_FWD, SA_BWD, MASK):
+        if mm_launches["train"][k] == 0:
+            failures.append(f"{k} was never launched on the mmformer "
+                            f"training path")
+    if mm_launches["eval"][SA_EVAL] == 0:
+        failures.append(f"{SA_EVAL} was never launched on the mmformer "
+                        f"eval path")
     for entry in entries:
         missing = [k for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                    if entry[k] is None]

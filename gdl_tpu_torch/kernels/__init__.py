@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_uint, _i64 = ctypes.c_uint, ctypes.c_longlong
 
 # source file and C entry points (name -> (argtypes, restype)) per library
 LIBRARIES = {
@@ -51,12 +52,35 @@ LIBRARIES = {
         "maxpool_bwd.cu",
         {"gdl_maxpool_bwd_launch": ([_vp] * 3 + [_int] * 5 + [_vp], _int)},
     ),
+    "self_attention_eval": (
+        "self_attention_eval.cu",
+        {"gdl_sa_eval_launch": ([_vp] * 4 + [_int] * 5 + [_float, _int, _vp],
+                                _int)},
+    ),
+    "self_attention_train": (
+        "self_attention_train.cu",
+        {"gdl_sa_fwd_launch": ([_vp] * 8 + [_int] * 5
+                               + [_float, _int, _uint, _float, _int, _vp],
+                               _int),
+         "gdl_sa_bwd_launch": ([_vp] * 7 + [_int] * 5
+                               + [_float, _int, _uint, _float, _int, _vp],
+                               _int)},
+    ),
+    "dropout_mask": (
+        "dropout_mask.cu",
+        {"gdl_dropout_mask_launch": ([_vp, _i64, _vp, _uint, _float, _int,
+                                      _vp], _int)},
+    ),
 }
 
 launch_counts: Dict[str, int] = {"window_attention_qkv_fused_eval": 0,
                                  "window_attention_qkv_fused_savep": 0,
                                  "window_attention_qkv_fused_bwd": 0,
-                                 "max_pool_3x3_s2_bwd": 0}
+                                 "max_pool_3x3_s2_bwd": 0,
+                                 "self_attention_fused_fwd": 0,
+                                 "self_attention_fused_bwd": 0,
+                                 "self_attention_fused_eval": 0,
+                                 "prng_dropout_mask": 0}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

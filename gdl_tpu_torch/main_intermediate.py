@@ -1,0 +1,175 @@
+"""Trainer of the intermediate-fusion family (MMTM, SE-fusion, mmformer-N
+under the AUXI multi-task loss): CLI parity with `main_intermediate.py`.
+
+    python -m gdl_tpu_torch.main_intermediate --train --ckpt_path ckpt \
+        --dataset CREMAD --model mmformer_n --alpha 2 --learning_rate 2e-3
+
+Same flags as `main_dgl` plus `--model`, `--share_unimodal_streams`
+(tri-state: -1 resolves to on unless --strict_compat) and
+`--batched_inter`; `cfg.fps` is 1 (the AV adapter squeezes a single
+frame). Per epoch: train, evaluate, one CSV row in
+`{dataset}_{model}.csv` (after the [1000, 1000, 1000] sentinel row), and
+on a new best accuracy after epoch 0 a reference-schema `.pth`. Runs on
+one CUDA device; `--device cpu` is the one way to ask for the CPU, and
+without it a machine without CUDA raises before anything runs.
+`--export_path` / `--export_poly_batch` (gdl_tpu's jax.export serving
+artifact) are parsed and raise NotImplementedError: the port serves the
+written `.pth` through `serve.load_intermediate_from_checkpoint`.
+"""
+
+import argparse
+import os
+
+import torch
+
+from gdl_tpu_torch.config import add_arguments, from_args
+from gdl_tpu_torch.data.datasets import make_dataset
+from gdl_tpu_torch.data.loader import Loader
+from gdl_tpu_torch.models.intermediate import TripleLogits, build_intermediate
+from gdl_tpu_torch.serve import resolve_device
+from gdl_tpu_torch.train.auxi import make_auxi_train_step, make_sefusion_step
+from gdl_tpu_torch.train.loop import (
+    Harness,
+    assemble_harness,
+    check_supported,
+    evaluate,
+    train_one_epoch,
+)
+from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
+from gdl_tpu_torch.utils.logging import CSVLogger
+
+
+def get_arguments(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m gdl_tpu_torch.main_intermediate")
+    add_arguments(parser, dgl=True)
+    parser.add_argument("--model", default="mmtm",
+                        choices=["mmtm", "sefusion", "mmformer_n"])
+    parser.add_argument("--share_unimodal_streams", default=-1, type=int,
+                        help="mmformer_n only: reuse each modality's intra "
+                        "token stream across the fused/unimodal passes "
+                        "(eval outputs identical). Default -1 = on unless "
+                        "--strict_compat (the reference's three fusion "
+                        "passes draw independent dropout masks and "
+                        "triple-count BN running stats, "
+                        "surf_mmfomer.py:337-351); 0/1 force")
+    parser.add_argument("--batched_inter", default=0, type=int,
+                        help="mmformer_n only: run the three fusion "
+                        "passes' BN-free inter half as one batched [3B] "
+                        "call (eval outputs identical; train keeps the "
+                        "dropout distribution)")
+    parser.add_argument("--export_path", default=None, type=str,
+                        help="gdl_tpu's AOT serving artifact; not ported "
+                        "(raises NotImplementedError)")
+    parser.add_argument("--export_poly_batch", default=0, type=int,
+                        help="with --export_path; not ported")
+    return parser.parse_args(argv)
+
+
+def resolve_share_streams(flag: int, strict_compat: bool) -> bool:
+    """--share_unimodal_streams tri-state: -1 (default) resolves to ON
+    except under --strict_compat, which keeps the reference's independent
+    dropout masks and triple-counted BN running stats
+    (surf_mmfomer.py:337-351). 0/1 force either mode."""
+    if flag >= 0:
+        return bool(flag)
+    return not strict_compat
+
+
+def build_model(name: str, n_classes: int, width: int = 64,
+                share_streams: bool = False, batched_inter: bool = False,
+                impl: str = "auto", seed=None):
+    """(model, kind) initialised on the CPU from `seed`."""
+    gen = torch.Generator().manual_seed(seed) if seed is not None else None
+    return build_intermediate(name, n_classes, width,
+                              share_streams=share_streams,
+                              batched_inter=batched_inter, impl=impl,
+                              generator=gen)
+
+
+def build_harness(cfg, model, kind: str, steps_per_epoch: int,
+                  raw_batches: bool = True, device=None) -> Harness:
+    """The loop's `Harness` for an intermediate-family model: the AUXI
+    step (plain CE for kind 'single'), clip 40 + SGD, the eval step over
+    (out, out_a, out_v); both under bf16 autocast when
+    cfg.compute_dtype is "bfloat16" (f32 parameters)."""
+    check_supported(cfg, dgl=True)
+    if cfg.resume:  # gdl_tpu's main_intermediate.py has no resume either
+        raise NotImplementedError(
+            "--resume is not supported by gdl_tpu_torch.main_intermediate")
+
+    def make_step(model, optimizer, preprocess, generator):
+        if kind == "single":
+            return make_sefusion_step(model, cfg, optimizer,
+                                      preprocess=preprocess,
+                                      generator=generator, av_inputs=True)
+        return make_auxi_train_step(model, cfg, optimizer,
+                                    seven_tuple=kind == "seven",
+                                    preprocess=preprocess,
+                                    generator=generator, av_inputs=True)
+
+    return assemble_harness(cfg, model, steps_per_epoch, make_step,
+                            eval_model=TripleLogits(model, kind),
+                            raw_batches=raw_batches, device=device)
+
+
+def run_training(cfg, model, kind: str, model_name: str, train_set, test_set,
+                 raw_batches: bool = True, device=None) -> float:
+    """The epoch loop of main_intermediate.py:217-248 → best accuracy."""
+    train_loader = Loader(train_set, cfg.batch_size, shuffle=True,
+                          drop_last=True, num_workers=cfg.num_workers,
+                          seed=cfg.random_seed)
+    test_loader = Loader(test_set, cfg.batch_size, shuffle=False,
+                         drop_last=cfg.eval_drop_last,
+                         num_workers=cfg.num_workers, seed=cfg.random_seed)
+    h = build_harness(cfg, model, kind, max(len(train_loader), 1),
+                      raw_batches=raw_batches, device=device)
+    os.makedirs(cfg.ckpt_path, exist_ok=True)
+    acc_csv = CSVLogger(os.path.join(
+        cfg.ckpt_path, f"{cfg.dataset}_{model_name}.csv"),
+        sentinel=[1000, 1000, 1000])
+    best_acc = 0.0
+    try:
+        for epoch in range(cfg.epochs):
+            print("Epoch: {}: ".format(epoch))
+            train_loader.set_epoch(epoch)
+            means = train_one_epoch(h, train_loader, epoch)
+            acc, acc_a, acc_v = evaluate(h, test_loader)
+            acc_csv.write_row([acc, acc_a, acc_v])
+            acc_csv.flush()
+            print("Acc: {:.3f} (a {:.3f}, v {:.3f}), loss {:.3f}".format(
+                acc, acc_a, acc_v, means.get("loss", 0.0)))
+            if acc > best_acc and epoch:
+                best_acc = float(acc)
+                path = save_best_checkpoint(cfg, h.model, epoch, acc)
+                print("The best model has been saved at {}.".format(path))
+    finally:
+        acc_csv.close()
+    return best_acc
+
+
+def main(argv=None):
+    args = get_arguments(argv)
+    cfg = from_args(args)
+    cfg.fps = 1  # the AV adapter squeezes a single frame
+    share_streams = resolve_share_streams(args.share_unimodal_streams,
+                                          cfg.strict_compat)
+    print(cfg, "model:", args.model)
+    if args.export_path or args.export_poly_batch:
+        raise NotImplementedError(
+            "--export_path / --export_poly_batch (an AOT serving artifact) "
+            "are not ported to gdl_tpu_torch yet; serve the .pth with "
+            "gdl_tpu_torch.serve.load_intermediate_from_checkpoint")
+    check_supported(cfg, dgl=True)
+    resolve_device(cfg.device)  # raises before any work when CUDA is absent
+    model, kind = build_model(args.model, cfg.n_classes, cfg.encoder_width,
+                              share_streams=share_streams,
+                              batched_inter=bool(args.batched_inter),
+                              seed=cfg.random_seed)
+    train_set = make_dataset(cfg, "train")
+    test_set = make_dataset(cfg, "test")
+    run_training(cfg, model, kind, args.model, train_set, test_set)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,9 +13,66 @@ from torch import nn
 
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.models.fusion import make_fusion
-from gdl_tpu_torch.models.layers import xavier_linear
+from gdl_tpu_torch.models.layers import (
+    batch_norm,
+    lecun_normal_,
+    xavier_linear,
+)
 from gdl_tpu_torch.models.resnet import resnet18
 from gdl_tpu_torch.models.swin import SwinTransformer
+
+
+def lecun_conv(in_channels: int, features: int, kernel: int,
+               generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+    """Conv2d with bias, padding kernel // 2 and flax nn.Conv's default
+    init: lecun-normal weight (variance 1/fan_in, truncated at two
+    standard deviations), zero bias."""
+    layer = nn.Conv2d(in_channels, features, kernel, padding=kernel // 2)
+    lecun_normal_(layer.weight, in_channels * kernel * kernel, generator)
+    with torch.no_grad():
+        layer.bias.zero_()
+    return layer
+
+
+def pe_noise(shape, generator: Optional[torch.Generator],
+             device: torch.device) -> torch.Tensor:
+    """The standard-normal draw of the PE head's reparameterisation, f32
+    [B, H, W, C] on `device` from the explicit generator."""
+    src = generator.device if generator is not None else device
+    return torch.randn(tuple(shape), generator=generator, device=src,
+                       dtype=torch.float32).to(device)
+
+
+class PEHead(nn.Module):
+    """Probabilistic-embedding (DUL) head: 1x1-conv+BN mu / logvar branches
+    with a reparameterized sample in training mode, mu in eval mode
+    (reference models/swin_transformer.py:574-583, :643-667).
+
+    Input and outputs are NHWC feature maps; returns
+    (sampled_map, mu, std). The noise comes from `generator`."""
+
+    def __init__(self, features: int, in_channels: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        in_channels = features if in_channels is None else in_channels
+        self.mu_conv = lecun_conv(in_channels, features, 1, generator)
+        self.mu_bn = batch_norm(features)
+        self.logvar_conv = lecun_conv(in_channels, features, 1, generator)
+        self.logvar_bn = batch_norm(features)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = x.permute(0, 3, 1, 2).contiguous(
+            memory_format=(torch.channels_last if x.is_cuda
+                           else torch.contiguous_format))
+        mu = self.mu_bn(self.mu_conv(x)).permute(0, 2, 3, 1)
+        logvar = self.logvar_bn(self.logvar_conv(x)).permute(0, 2, 3, 1)
+        std = torch.exp(0.5 * logvar)
+        if self.training:
+            eps = pe_noise(std.shape, generator, std.device).to(std.dtype)
+            out = mu + eps * std
+        else:
+            out = mu
+        return out, mu, std
 
 
 def _pool_audio(a_map: torch.Tensor) -> torch.Tensor:

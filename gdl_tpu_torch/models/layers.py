@@ -47,6 +47,17 @@ def xavier_linear(in_dim: int, out_dim: int,
     return layer
 
 
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """flax's default kernel init (nn.Dense, nn.Conv): a normal of
+    variance 1/fan_in truncated at two standard deviations (the constant
+    restores the variance)."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+
+
 def batch_norm(features: int, groups: int = 1) -> nn.BatchNorm2d:
     """BatchNorm with torch defaults (eps 1e-5, running-stat momentum 0.1,
     weight 1, bias 0). torch stores the UNBIASED batch variance in

@@ -1,13 +1,15 @@
 """Where the time of a training step goes on the card.
 
-    python -m gdl_tpu_torch.profile_step [--backbone resnet|swin]
+    python -m gdl_tpu_torch.profile_step [--backbone resnet|swin|mmformer]
         [--dtype float32|bfloat16] [--impl auto|plain] [--steps 6]
         [--out profile.json]
 
 Builds the flagship configuration of the backbone at full width with
 seeded weights (ResNet: CREMA-D, batch 64, concat DGL, alpha 5, lr 2e-3;
-Swin: VGGSound, batch 32), takes warm-up steps through the port's
-`build_harness` and `train_one_epoch` over synthetic raw batches
+Swin: VGGSound, batch 32; mmformer: mmformer_n on CREMA-D, batch 64,
+shared unimodal streams, AUXI loss), takes warm-up steps through the
+port's `build_harness` (`main_intermediate`'s for mmformer) and
+`train_one_epoch` over synthetic raw batches
 collected beforehand, times `--steps` untraced steps (host clock, one
 synchronize at the end), then traces the same number of steps with
 `torch.profiler` and prints one JSON object: untraced ms/step, device
@@ -28,6 +30,9 @@ import time
 
 # kind → substrings of the CUDA kernel's name, first match wins
 KINDS = (
+    ("self_attention (#10, #11, #13)", ("sa_proj_kernel", "sa_tile_kernel",
+                                        "sa_bwd_kv_kernel")),
+    ("dropout_mask (#14)", ("dropout_mask_kernel",)),
     ("maxpool_bwd (#16)", ("maxpool_bwd_kernel",)),
     ("window_attention (#2, #4)", ("wa_fwd", "wa_bwd", "window_attention")),
     ("batch_norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm")),
@@ -61,7 +66,7 @@ def kind_of(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backbone", default="resnet",
-                    choices=["resnet", "swin"])
+                    choices=["resnet", "swin", "mmformer"])
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--impl", default="auto", choices=["auto", "plain"])
@@ -72,7 +77,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch import kernels, main_intermediate
     from gdl_tpu_torch.config import Config
     from gdl_tpu_torch.data.loader import Loader
     from gdl_tpu_torch.data.synthetic import SyntheticDataset
@@ -87,15 +92,25 @@ def main(argv=None) -> int:
                      batch_size=64, learning_rate=2e-3, alpha=5.0,
                      modulation="Normal", log_grad_csv=False,
                      compute_dtype=args.dtype)
-    else:
+    elif args.backbone == "swin":
         cfg = Config(dataset="VGGSound", backbone="swin",
                      fusion_method="concat", fps=1, batch_size=32,
+                     log_grad_csv=False, compute_dtype=args.dtype)
+    else:
+        cfg = Config(dataset="CREMAD", fps=1, batch_size=64,
                      log_grad_csv=False, compute_dtype=args.dtype)
     data = SyntheticDataset(cfg, size=cfg.batch_size * args.steps, seed=700)
     batches = list(Loader(data, cfg.batch_size, shuffle=False, drop_last=True,
                           num_workers=8))
-    h = build_harness(cfg, build_model(cfg, attn_impl=args.impl, seed=777),
-                      steps_per_epoch=100)
+    if args.backbone == "mmformer":
+        model, kind = main_intermediate.build_model(
+            "mmformer_n", cfg.n_classes, cfg.encoder_width,
+            share_streams=True, impl=args.impl, seed=777)
+        h = main_intermediate.build_harness(cfg, model, kind,
+                                            steps_per_epoch=100)
+    else:
+        h = build_harness(cfg, build_model(cfg, attn_impl=args.impl,
+                                           seed=777), steps_per_epoch=100)
 
     def epoch():
         with contextlib.redirect_stdout(sys.stderr):

@@ -11,6 +11,11 @@ The model is rebuilt from `cfg` and loaded from a reference-schema
 semantics), for either backbone (cfg.backbone "swin" or "resnet"). Where gdl_tpu replays a serialized jax.export artifact, the
 port runs the eager module: on the card its window attention launches
 the hand-written CUDA kernel.
+
+`load_intermediate_from_checkpoint` is the counterpart of
+`gdl_tpu/serve.py::export_intermediate_from_checkpoint` for the
+intermediate-fusion family (MMTM, SE-fusion, mmformer-N): it reads a
+`.pth` written by `python -m gdl_tpu_torch.main_intermediate`.
 """
 
 from __future__ import annotations
@@ -109,3 +114,31 @@ def load_from_checkpoint(cfg: Config, ckpt_path: str, device,
                       f"keys missing (kept current values), "
                       f"{len(result.unexpected_keys)} unused")
     return ServedModel(model, cfg, dev, dtype)
+
+
+def load_intermediate_from_checkpoint(cfg: Config, model_name: str,
+                                      ckpt_path: str, device,
+                                      share_streams: bool = False,
+                                      batched_inter: bool = False,
+                                      compute_dtype: Optional[str] = None,
+                                      impl: str = "auto") -> ServedModel:
+    """Build the intermediate-family model `model_name` ("mmtm",
+    "sefusion", "mmformer_n") at cfg.encoder_width, load a `.pth` that
+    `main_intermediate` wrote (strict: every key must match), and return
+    it ready to serve on `device`: `(audio [B,F,T,1], visual [B,1,224,224,3])
+    -> (out, out_a, out_v)`, the AV adapter inside. share_streams and
+    batched_inter do not change eval outputs. impl="plain" selects the
+    plain PyTorch versions of the family's kernels."""
+    from gdl_tpu_torch.models.intermediate import (
+        TripleLogits,
+        build_intermediate,
+    )
+
+    dev = resolve_device(device)
+    dtype = _DTYPES[compute_dtype or cfg.compute_dtype]
+    model, kind = build_intermediate(
+        model_name, cfg.n_classes, cfg.encoder_width,
+        share_streams=share_streams, batched_inter=batched_inter, impl=impl,
+        generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(load_reference_pth(ckpt_path, cfg), strict=True)
+    return ServedModel(TripleLogits(model, kind), cfg, dev, dtype)

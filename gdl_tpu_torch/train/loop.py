@@ -93,14 +93,17 @@ class Harness:
     resume_extra: dict = field(default_factory=dict)
 
 
-def build_harness(cfg: Config, model: torch.nn.Module, steps_per_epoch: int,
-                  dgl: bool = True, raw_batches: bool = True,
-                  device=None) -> Harness:
-    """Move `model` to the device, and build its optimizer, the device
-    generator (seeded from cfg.random_seed) and the train and eval steps.
-    `device` overrides cfg.device. With cfg.compute_dtype "bfloat16" both
-    steps run under bf16 autocast (f32 parameters)."""
-    check_supported(cfg, dgl)
+def assemble_harness(cfg: Config, model: torch.nn.Module,
+                     steps_per_epoch: int, make_train_step: Callable,
+                     eval_model: Optional[torch.nn.Module] = None,
+                     raw_batches: bool = True, device=None) -> Harness:
+    """Move `model` to the device, and build its optimizer (clip 40 +
+    SGD), the device generator (seeded from cfg.random_seed) and the train
+    and eval steps. `make_train_step(model, optimizer, preprocess,
+    generator)` returns the family's train step; `eval_model` (default:
+    `model`) is what the eval step calls, `(audio, visual) -> (out, out_a,
+    out_v)`. `device` overrides cfg.device. With cfg.compute_dtype
+    "bfloat16" both steps run under bf16 autocast (f32 parameters)."""
     dev = resolve_device(device if device is not None else cfg.device)
     generator = setup_seed(cfg.random_seed, dev)
     model = model.to(dev)
@@ -111,9 +114,9 @@ def build_harness(cfg: Config, model: torch.nn.Module, steps_per_epoch: int,
                                clip_norm=40.0)
     train_pre = make_train_preprocess(cfg, dev) if raw_batches else None
     eval_pre = make_eval_preprocess(cfg, dev) if raw_batches else None
-    step = make_dgl_train_step(model, cfg, optimizer, clip_norm=40.0,
-                               preprocess=train_pre, generator=generator)
-    ev = make_eval_step(model, preprocess=eval_pre)
+    step = make_train_step(model, optimizer, train_pre, generator)
+    ev = make_eval_step(model if eval_model is None else eval_model,
+                        preprocess=eval_pre)
     dtype = _DTYPES[cfg.compute_dtype]
 
     def autocast():
@@ -138,6 +141,21 @@ def build_harness(cfg: Config, model: torch.nn.Module, steps_per_epoch: int,
                    generator=generator, train_step=train_step,
                    eval_step=eval_step, start_epoch=start_epoch,
                    resume_extra=resume_extra)
+
+
+def build_harness(cfg: Config, model: torch.nn.Module, steps_per_epoch: int,
+                  dgl: bool = True, raw_batches: bool = True,
+                  device=None) -> Harness:
+    """The `Harness` of a DGL classifier (`assemble_harness` with the
+    one-backward DGL step)."""
+    check_supported(cfg, dgl)
+
+    def make_step(model, optimizer, preprocess, generator):
+        return make_dgl_train_step(model, cfg, optimizer, clip_norm=40.0,
+                                   preprocess=preprocess, generator=generator)
+
+    return assemble_harness(cfg, model, steps_per_epoch, make_step,
+                            raw_batches=raw_batches, device=device)
 
 
 def _put_batch(batch: dict, device: torch.device) -> dict:

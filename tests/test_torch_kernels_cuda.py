@@ -327,3 +327,170 @@ def test_maxpool_autograd_memory_formats_and_refusals(cuda, dtype):
         _launch_bwd(x, g.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         _launch_bwd(x.transpose(1, 2), g.transpose(1, 2))
+
+
+# ---- fused self-attention (mmformer) and the dropout-mask generator ------
+
+# the mmformer shapes of one training step (intra 196 tokens, inter 392,
+# 8 heads of 64), ragged token counts, and head dims 16, 32 and 128
+SA_SHAPES = [(64, 196, 512, 8), (64, 392, 512, 8), (3, 197, 512, 8),
+             (2, 52, 512, 8), (2, 9, 128, 8), (2, 70, 96, 3), (2, 33, 256, 2)]
+SA_IDS = ["intra", "inter", "n197", "n52", "d16_n9", "d32", "d128"]
+SA_FWD_TOL = {"float32": dict(atol=2e-4, rtol=2e-4),
+              "bfloat16": dict(atol=3e-2, rtol=1e-2)}
+SA_GRAD_FRAC = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def _sa_inputs(cuda, b, n, c, dtype, seed):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3 * c, c))
+                          * c ** -0.5).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32))
+    return x.to(cuda, dt), w.to(cuda, dt), g.to(cuda, dt)
+
+
+def _grad_close(got, want, dtype):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= SA_GRAD_FRAC[dtype] * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", ["none", "hbm", "kernel"])
+@pytest.mark.parametrize("b,n,c,heads", SA_SHAPES, ids=SA_IDS)
+def test_self_attention_kernels_match_plain(cuda, b, n, c, heads, dropout,
+                                            dtype):
+    """The training forward (out, qkv, p: f32 atol and rtol 2e-4, bf16
+    atol 3e-2 + rtol 1e-2), the backward and the whole op's dx and dW
+    (largest error within 2e-4 of the reference's largest |value| in f32,
+    2e-2 in bf16), with no dropout, a mask read from memory, and a mask
+    drawn in the kernel, whose bits must be the plain generator's."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.dropout import fold_seed_words
+    from gdl_tpu_torch.ops.self_attention import (
+        make_dropout,
+        self_attention_fused,
+        self_attention_fused_bwd,
+        self_attention_fused_fwd,
+    )
+
+    x, w, g = _sa_inputs(cuda, b, n, c, dtype, seed=n + c)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    words = fold_seed_words(gen, cuda)
+    drop = make_dropout(x, heads, 0.3, dropout != "none",
+                        "kernel" if dropout == "none" else dropout,
+                        seed_words=words)
+    before = dict(kernels.launch_counts)
+    with torch.no_grad():
+        got = self_attention_fused_fwd(x, w, heads, drop=drop,
+                                       return_keep=True)
+        want = self_attention_fused_fwd(x, w, heads, drop=drop, impl="plain",
+                                        return_keep=True)
+        for name, a, r in zip(("out", "qkv", "p"), got, want):
+            torch.testing.assert_close(a.float(), r.float(),
+                                       **SA_FWD_TOL[dtype], msg=name)
+        if dropout == "kernel":
+            assert torch.equal(got[3], want[3])
+            rate = float(got[3].float().mean())
+            sigma = (0.3 * 0.7 / got[3].numel()) ** 0.5
+            assert abs(rate - 0.7) < 5 * sigma + 1e-9, rate
+        _, qkv, p, _ = want
+        dq_got = self_attention_fused_bwd(qkv, p, g, heads, drop=drop)
+        dq_want = self_attention_fused_bwd(qkv, p, g, heads, drop=drop,
+                                           impl="plain")
+        _grad_close(dq_got, dq_want, dtype)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["self_attention_fused_fwd"] == \
+        before["self_attention_fused_fwd"] + 1
+    assert kernels.launch_counts["self_attention_fused_bwd"] == \
+        before["self_attention_fused_bwd"] + 1
+    grads = {}
+    for impl in ("auto", "plain"):
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        out = self_attention_fused(
+            xl, wl, heads, dropout_rate=0.3, seed_words=words,
+            train=dropout != "none",
+            dropout_impl="kernel" if dropout == "none" else dropout,
+            impl=impl)
+        out.backward(g)
+        grads[impl] = (xl.grad, wl.grad)
+    for a, r in zip(grads["auto"], grads["plain"]):
+        _grad_close(a, r, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,c,heads", SA_SHAPES, ids=SA_IDS)
+def test_self_attention_eval_kernel_matches_plain(cuda, b, n, c, heads,
+                                                  dtype):
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.self_attention import self_attention_fused_eval
+
+    x, w, _ = _sa_inputs(cuda, b, n, c, dtype, seed=n + c + 1)
+    before = kernels.launch_counts["self_attention_fused_eval"]
+    with torch.no_grad():
+        got = self_attention_fused_eval(x, w, heads)
+        want = self_attention_fused_eval(x, w, heads, impl="plain")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["self_attention_fused_eval"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **SA_FWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_self_attention_kernels_refuse_what_they_cannot_take(cuda):
+    from gdl_tpu_torch.ops.self_attention import (
+        self_attention_fused,
+        self_attention_fused_eval,
+    )
+
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="N <= 1024"):
+            self_attention_fused_eval(torch.zeros(1, 1025, 64, device=cuda),
+                                      torch.zeros(192, 64, device=cuda), 1)
+        with pytest.raises(ValueError, match="head dim"):
+            self_attention_fused_eval(torch.zeros(1, 8, 256, device=cuda),
+                                      torch.zeros(768, 256, device=cuda), 1)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            self_attention_fused_eval(
+                torch.zeros(1, 8, 64, device=cuda, dtype=torch.float16),
+                torch.zeros(192, 64, device=cuda, dtype=torch.float16), 1)
+        with pytest.raises(ValueError, match="w: expected"):
+            self_attention_fused(torch.zeros(1, 8, 64, device=cuda),
+                                 torch.zeros(64, 192, device=cuda), 1)
+    x = torch.zeros(1, 8, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        self_attention_fused_eval(x, torch.zeros(192, 64, device=cuda), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(12544, 512), (12544, 4096), (25088, 512),
+                                   (25088, 4096), (7, 13), (3, 5, 2)],
+                         ids=["intra512", "intra4096", "inter512",
+                              "inter4096", "ragged", "tail"])
+def test_dropout_mask_kernel_is_bit_equal_to_plain(cuda, shape, dtype):
+    """Kernel #14 against the generator in torch integer arithmetic: the
+    same bits, values exactly {0, 1/(1-rate)} in the mask's dtype."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.dropout import fold_seed_words, prng_dropout_mask
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(len(shape) + shape[0])
+    words = fold_seed_words(gen, cuda)
+    before = kernels.launch_counts["prng_dropout_mask"]
+    got = prng_dropout_mask(words, shape, 0.1, dt)
+    want = prng_dropout_mask(words, shape, 0.1, dt, impl="plain")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["prng_dropout_mask"] == before + 1
+    assert got.dtype == dt and tuple(got.shape) == tuple(shape)
+    assert torch.equal(got, want)
+    kept = torch.tensor(1.0 / 0.9, dtype=torch.float32).to(dt)
+    assert set(got.unique().tolist()) <= {0.0, float(kept)}
+    if got.numel() > 10 ** 6:
+        rate = float((got != 0).float().mean())
+        assert abs(rate - 0.9) < 5 * (0.09 / got.numel()) ** 0.5
+    other = prng_dropout_mask(fold_seed_words(gen, cuda), shape, 0.1, dt)
+    if got.numel() > 64:
+        assert not torch.equal(got, other)
