@@ -47,8 +47,7 @@ def _init(jmodel, *inputs, **kw):
 
 
 def _load(model, variables):
-    """Load gdl_tpu's variables into the port's module, strict, after
-    giving the running statistics and biases non-trivial values."""
+    """Load gdl_tpu's variables into the port's module, strict."""
     model.load_state_dict(state_dict_from_flax(
         _np_tree(variables["params"]),
         _np_tree(variables.get("batch_stats", {}))), strict=True)
@@ -77,6 +76,20 @@ def _perturb(variables, seed=3):
 def _close(got, want, msg=""):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=RTOL, atol=ATOL, err_msg=msg)
+
+
+def test_leaky_relu_has_jax_gradient_at_zero():
+    """jax.nn.leaky_relu's slope at exactly 0 is 1 (F.leaky_relu's is the
+    negative slope); MMFormerN's zero-input streams sit there at init."""
+    x = np.array([-2.0, -0.0, 0.0, 3.0], np.float32)
+    want = jax.grad(lambda v: jnp.sum(jax.nn.leaky_relu(v, 0.01)))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = port_inter.leaky_relu(xt, 0.01)
+    y.sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        y.detach().numpy(), np.asarray(jax.nn.leaky_relu(jnp.asarray(x), 0.01)))
 
 
 def test_av_adapt_matches_jax_resize():
