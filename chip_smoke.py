@@ -96,10 +96,45 @@ Phases, each printing one JSON line:
               written by the loop's writer is served back through
               serve.load_intermediate_from_checkpoint to the same
               predictions;
+  l. flag parity
+              the kernels of the Swin flag paths against their plain
+              versions at the four Swin-B stage shapes of batch 32
+              (shifted and unshifted), in float32 and bfloat16: #5 (the
+              save-p forward on a qkv computed outside: out and p), the
+              BWD_DELTA body of #4 (dqkv and dbias from given row sums;
+              also against the default #4) and #3 (attention and
+              projection backward in one: dx, dW, db and dbias; also
+              against #4 followed by the three GEMMs), and #15 (the fused
+              MLP) at the four MLP shapes [Bw*49, C] -> 4C -> C; each
+              bit-equal across two runs; median times of kernel and plain
+              (CUDA events), of F.scaled_dot_product_attention on the same
+              q, k, v with bias + mask as its mask (#5), of #4 + three
+              torch.matmul (#3) and of F.linear -> F.gelu -> F.linear
+              (#15);
+  m. flag train
+              phase f's configuration, nothing cut, built through Config
+              flags, serve.build_model and build_harness from one seed,
+              in float32 and under bf16 autocast, three arms:
+              A  --fuse_qkv_gemm 0 --fuse_mlp 1 with BWD_DELTA: per step
+                 exactly 48 of #5, 48 of #4-delta and 48 of #15 (every
+                 stage is inside mlp_kernel_supported), 0 of #2, #4, #3;
+              B  the default flags with FUSED_PROJECTION_BACKWARD: 48 of
+                 #2 and, by fused_bwd_supported, k = 48 of #3 and 48 - k
+                 = 0 of #4; 0 of #5 and #15;
+              plain  attn_impl="plain": no launch.
+              One eval pass per arm before any step (equal weights): arm
+              A, whose qkv is not fused, runs the plain eval attention
+              (0 of #1) and 48 of #15, arm B 48 of #1; logits held to
+              each other.
+              Then 1 warm-up + 3 checked steps per arm: losses and
+              float32 parameters of A and B held to the plain arm; then
+              6 timed steps per arm, in turns (median ms/step, clips/s,
+              peak memory);
   g. kernels  one line per kernel: route, source, the TPU kernel it
               replaces, launches on its path (d for #1, the kernel arm
               of f for #2 and #4, of i for #16, of k for #10, #11, #13
-              and #14), error, times, the roofline bound of the same
+              and #14, arm A of m for #5, #4-delta and #15, arm B of m
+              for #3), error, times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
               over the float32 peak of 67 TFLOP/s; the times are the
               float32 ones) and, where one PyTorch call computes the
@@ -193,6 +228,13 @@ MM_STAT_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # launches of one kernel-arm training step and of one eval forward
 MM_STEP_LAUNCHES = {SA_FWD: 7, SA_BWD: 7, MASK: 28, POOL: 2}
 MM_EVAL_LAUNCHES = {SA_EVAL: 7}
+
+QKV_SAVEP = "window_attention_qkv_savep"             # 5
+BWD_DELTA_K = "window_attention_qkv_fused_bwd_delta"   # 4, BWD_DELTA body
+BWD_FUSED = "window_attention_qkv_fused_bwd_fused"     # 3
+MLP = "mlp_fused"                                      # 15
+FLAG_STEPS = 3        # checked steps per arm after one warm-up step
+FLAG_TIME_ROUNDS = 6  # timed steps per arm, in turns
 
 # NVIDIA H100 SXM data-sheet peaks (dense), for the roofline bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -327,14 +369,25 @@ def attention_cost(kind: str, bw: int, c: int, heads: int, masked: bool,
     """(bytes, operations) of one launch of an attention kernel: every
     input read once, every output written once; 2 operations per
     multiply-add of the products, 5 per softmax element.
-    kind: 'eval' (#1), 'savep' (#2) or 'bwd' (#4)."""
+    kind: 'eval' (#1), 'savep' (#2), 'bwd' (#4), 'bwd_delta' (#4 with
+    the row sums given), 'bwd_fused' (#3) or 'qkv_savep' (#5)."""
     n = 49
     tokens, scores = bw * n * c, bw * heads * n * n
     small = heads * n * n * 4  # the bias, or dbias, in float32
-    if kind == "bwd":  # qkv, p, dout in; dqkv, dbias out; 4 products
+    if kind in ("bwd", "bwd_delta"):
+        # qkv, p, dout (and delta, f32) in; dqkv, dbias out; 4 products
+        delta = bw * heads * n * 4 if kind == "bwd_delta" else 0
         return ((3 * tokens + scores + tokens + 3 * tokens) * itemsize
-                + small, 8 * bw * n * n * c + 6 * scores)
+                + small + delta, 8 * bw * n * n * c + 6 * scores)
+    if kind == "bwd_fused":
+        # qkv, p, dout, x, W in; dx, dW, db, dbias out; the 4 attention
+        # products and the 2 projection products
+        return ((6 * tokens + scores + 6 * c * c + 3 * c) * itemsize + small,
+                8 * bw * n * n * c + 6 * scores + 12 * bw * n * c * c)
     nw = (res // 7) ** 2 if masked else 0
+    if kind == "qkv_savep":  # qkv, bias, mask in; out, p out; 2 products
+        return ((4 * tokens + scores) * itemsize + small + nw * n * n * 4,
+                4 * bw * n * n * c + 5 * scores)
     nbytes = ((2 * tokens + 3 * c * c + 3 * c) * itemsize + small
               + nw * n * n * 4)
     if kind == "savep":
@@ -556,6 +609,16 @@ def phase_train_parity(failures):
     return results
 
 
+def other_arms_bytes(model) -> int:
+    """Device memory held when an arm's steps begin, less the arm's own
+    parameters: what earlier arms keep (parameters, gradients, momentum).
+    max_memory_allocated counts it into every later arm's peak."""
+    import torch
+
+    own = sum(p.numel() * p.element_size() for p in model.parameters())
+    return torch.cuda.memory_allocated() - own
+
+
 def phase_train(failures, smi: str):
     """The DGL training path, kernel arm and plain arm, from one set of
     seeded weights. Returns the kernel arm's launch counts."""
@@ -607,9 +670,11 @@ def phase_train(failures, smi: str):
                                    generator=gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        others = other_arms_bytes(model)
         runs = [drive(step, batch, dtype) for batch in batches]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         return dict(model=model, step=step, peak=peak,
+                    peak_over_start=peak - others / 2 ** 30,
                     metrics=[r[0] for r in runs], ms=[r[1] for r in runs],
                     launches=[r[2] for r in runs])
 
@@ -642,6 +707,7 @@ def phase_train(failures, smi: str):
                   "clips_per_s": TRAIN_BATCH / med * 1e3,
                   "timed_step_ms": timed[impl],
                   "checked_step_ms": arm["ms"], "peak_mem_gib": arm["peak"],
+                  "peak_mem_over_arm_start_gib": arm["peak_over_start"],
                   "loss": [m["loss"] for m in arm["metrics"]],
                   "grad_norm": [m["grad_norm"] for m in arm["metrics"]],
                   "params": n_params, "setup_s": setup_s,
@@ -1420,6 +1486,402 @@ def phase_mmformer(failures, smi: str):
     return totals
 
 
+def mlp_cost(m: int, c: int, itemsize: int):
+    """(bytes, operations) of one launch of the fused MLP (#15) at hidden
+    = 4C: x and o and both weights and biases moved once; 2 operations
+    per multiply-add of the two products (16·M·C²)."""
+    return (2 * m * c + 8 * c * c + 5 * c) * itemsize, 16 * m * c * c
+
+
+def phase_flag_parity(failures):
+    """Kernels #5, #4-delta and #3 against their plain versions and the
+    ported default kernels at the batch-32 training shapes, and #15 at the
+    four MLP shapes; each bit-equal across two runs; times of kernel,
+    plain version and library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from gdl_tpu_torch.ops import mlp as mlp_ops
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    dev = torch.device("cuda")
+    scale_b = TRAIN_BATCH // BATCH
+    attn_rows, mlp_rows = [], []
+    for stage, bw16, c, heads, res in STAGES:
+        bw, n, d = bw16 * scale_b, 49, c // heads
+        arrays, bias_t, masks = stage_inputs(stage, bw, c, heads, res, dev)
+        gen = torch.Generator(device=dev).manual_seed(200 + stage)
+        dout32 = torch.randn((bw, n, c), generator=gen, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x, w, b = (torch.from_numpy(a).to(dev, dt) for a in arrays)
+            dout = dout32.to(dt)
+            for mask in masks:
+                errs, oks, equal = {}, [], []
+
+                def check(name, got, want, again, ok_fn):
+                    errs[name] = _max_err(got, want)
+                    oks.append(ok_fn(got, want, dtype))
+                    if again is not None:
+                        equal.append(_bit_equal(got, again))
+
+                with torch.no_grad():
+                    out, qkv, p = wa.window_attention_qkv_fused_fwd(
+                        x, w, b, bias_t, mask, heads, impl="plain")
+                    # ---- #5 -------------------------------------------
+                    g5 = wa.window_attention_qkv_fwd(qkv, bias_t, mask, heads)
+                    a5 = wa.window_attention_qkv_fwd(qkv, bias_t, mask, heads)
+                    w5 = wa.window_attention_qkv_fwd(qkv, bias_t, mask, heads,
+                                                     impl="plain")
+                    for name, g, a, wnt in zip(("out", "p"), g5, a5, w5):
+                        check("qkv_" + name, g, wnt, a, _fwd_ok)
+                    # the library yardstick: SDPA on the same q (unscaled),
+                    # k, v with the bias and mask as one additive mask
+                    q5 = qkv.reshape(bw, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+                    q_, k_, v_ = (t.contiguous() for t in q5)
+                    am = bias_t[None]
+                    if mask is not None:
+                        am = (am + mask[:, None]).repeat(
+                            bw // mask.shape[0], 1, 1, 1)
+                    am = am.expand(bw, heads, n, n).to(dt).contiguous()
+                    sd = F.scaled_dot_product_attention(q_, k_, v_,
+                                                        attn_mask=am)
+                    errs["sdpa_vs_plain"] = _max_err(
+                        sd.permute(0, 2, 1, 3).reshape(bw, n, c), w5[0])
+                    # ---- #4-delta -------------------------------------
+                    delta = wa.attention_delta(out, dout, heads)
+                    gd = wa.window_attention_qkv_fused_bwd(qkv, p, dout, heads,
+                                                           delta=delta)
+                    ad = wa.window_attention_qkv_fused_bwd(qkv, p, dout, heads,
+                                                           delta=delta)
+                    wd = wa.window_attention_qkv_fused_bwd(
+                        qkv, p, dout, heads, impl="plain", delta=delta)
+                    k4 = wa.window_attention_qkv_fused_bwd(qkv, p, dout, heads)
+                    for name, g, a, wnt, dflt in zip(("dqkv", "dbias"), gd, ad,
+                                                     wd, k4):
+                        check("delta_" + name, g, wnt, a, _grad_ok)
+                        check("delta_vs_k4_" + name, g, dflt, None, _grad_ok)
+                    # ---- #3 -------------------------------------------
+                    g3 = wa.window_attention_qkv_fused_bwd_fused(
+                        qkv, p, dout, x, w, heads)
+                    a3 = wa.window_attention_qkv_fused_bwd_fused(
+                        qkv, p, dout, x, w, heads)
+                    w3 = wa.window_attention_qkv_fused_bwd_fused(
+                        qkv, p, dout, x, w, heads, impl="plain")
+
+                    def split():  # #4, then the three library GEMMs
+                        dq, dbias = wa.window_attention_qkv_fused_bwd(
+                            qkv, p, dout, heads)
+                        return (*wa._projection_bwd(dq, x, w), dbias)
+
+                    s3 = split()
+                    for name, g, a, wnt, s in zip(("dx", "dW", "db", "dbias"),
+                                                  g3, a3, w3, s3):
+                        check("fused_" + name, g, wnt, a, _grad_ok)
+                        check("fused_vs_split_" + name, g, s, None, _grad_ok)
+                    del g5, a5, w5, sd, gd, ad, wd, k4, g3, a3, w3, s3
+                    plain = dict(reps=5, warmup=1)
+                    times = {
+                        "qkv_ms": cuda_ms(lambda: wa.window_attention_qkv_fwd(
+                            qkv, bias_t, mask, heads)),
+                        "qkv_plain_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fwd(
+                                qkv, bias_t, mask, heads, impl="plain"),
+                            **plain),
+                        "sdpa_ms": cuda_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q_, k_, v_, attn_mask=am)),
+                        "delta_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fused_bwd(
+                                qkv, p, dout, heads, delta=delta)),
+                        "delta_plain_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fused_bwd(
+                                qkv, p, dout, heads, impl="plain",
+                                delta=delta), **plain),
+                        "delta_make_ms": cuda_ms(
+                            lambda: wa.attention_delta(out, dout, heads)),
+                        "k4_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fused_bwd(
+                                qkv, p, dout, heads)),
+                        "fused_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fused_bwd_fused(
+                                qkv, p, dout, x, w, heads)),
+                        "fused_plain_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fused_bwd_fused(
+                                qkv, p, dout, x, w, heads, impl="plain"),
+                            **plain),
+                        "split_ms": cuda_ms(split),
+                    }
+                    del q_, k_, v_, am, q5, delta, out, qkv, p
+                torch.cuda.synchronize()
+                ok = all(oks) and all(equal)
+                ct, wpb = wa._fused_bwd_tiling(bw, c, heads)
+                row = {"phase": "flag_parity",
+                       "kernels": [wa.QKV_SAVEP_KERNEL_NAME,
+                                   wa.BWD_DELTA_KERNEL_NAME,
+                                   wa.BWD_FUSED_KERNEL_NAME],
+                       "stage": stage, "Bw": bw, "C": c, "H": heads, "N": n,
+                       "mask": mask is not None, "dtype": dtype,
+                       "max_abs_err": errs, "fwd_tol": TRAIN_FWD_TOL[dtype],
+                       "grad_frac_of_max": TRAIN_GRAD_FRAC[dtype],
+                       "bit_equal_rerun": all(equal),
+                       "fused_tile": ct, "fused_runs": -(-bw // wpb),
+                       "fused_dw_partial_bytes": -(-bw // wpb) * 3 * c * c * 4,
+                       "ok": ok, **times}
+                emit(row)
+                attn_rows.append(row)
+                if not ok:
+                    failures.append(f"flag parity stage {stage} {dtype} "
+                                    f"mask={mask is not None}: {errs}")
+            # ---- #15 at this stage's MLP shape ----------------------------
+            m, hidden = bw * n, 4 * c
+            rng_m = torch.Generator(device=dev).manual_seed(900 + stage)
+
+            def rand(*shape, std=1.0):
+                return (torch.randn(shape, generator=rng_m, device=dev)
+                        * std).to(dt)
+
+            args = (rand(m, c), rand(hidden, c, std=c ** -0.5),
+                    rand(hidden, std=0.1), rand(c, hidden, std=hidden ** -0.5),
+                    rand(c, std=0.1))
+            with torch.no_grad():
+                got = mlp_ops.mlp_fused_fwd(*args)
+                again = mlp_ops.mlp_fused_fwd(*args)
+                want = mlp_ops.mlp_fused_fwd(*args, impl="plain")
+
+                def chain():  # the library's calls, exact GELU
+                    return F.linear(F.gelu(F.linear(args[0], args[1], args[2]),
+                                           approximate="none"),
+                                    args[3], args[4])
+
+                lib = chain()
+                torch.cuda.synchronize()
+                nbytes, ops = mlp_cost(m, c, args[0].element_size())
+                bound, by = bound_ms(nbytes, ops, dtype)
+                row = {"phase": "flag_parity", "kernel": mlp_ops.KERNEL_NAME,
+                       "stage": stage, "M": m, "C": c, "hidden": hidden,
+                       "dtype": dtype, "max_abs_err": _max_err(got, want),
+                       "max_abs_err_vs_library": _max_err(got, lib),
+                       "fwd_tol": TRAIN_FWD_TOL[dtype],
+                       "bit_equal_rerun": _bit_equal(got, again),
+                       "supported": mlp_ops.mlp_kernel_supported(m, c, hidden,
+                                                                 dt),
+                       "ms": cuda_ms(lambda: mlp_ops.mlp_fused_fwd(*args)),
+                       "plain_ms": cuda_ms(
+                           lambda: mlp_ops.mlp_fused_fwd(*args, impl="plain"),
+                           reps=5, warmup=1),
+                       "library_ms": cuda_ms(chain),
+                       "bytes": nbytes, "operations": ops,
+                       "bound_ms": bound, "bound_by": by}
+                row["ok"] = (_fwd_ok(got, want, dtype)
+                             and _fwd_ok(got, lib, dtype)
+                             and row["bit_equal_rerun"] and row["supported"])
+                del got, again, want, lib, args
+            emit(row)
+            mlp_rows.append(row)
+            if not row["ok"]:
+                failures.append(f"flag parity mlp stage {stage} {dtype}: "
+                                f"{row['max_abs_err']}")
+        del dout32
+        torch.cuda.empty_cache()
+    return attn_rows, mlp_rows
+
+
+def flag_launches(arm: str) -> dict:
+    """The kernels that launch in one training step of a phase-m arm and
+    how often, from the port's shape rules (`fused_bwd_supported`,
+    `mlp_kernel_supported`) at the Swin-B stage shapes of batch 32; every
+    other kernel launches 0 times."""
+    import torch
+
+    from gdl_tpu_torch.ops.mlp import mlp_kernel_supported
+    from gdl_tpu_torch.ops.window_attention import fused_bwd_supported
+
+    sites = 2 * sum(DEPTHS)
+    if arm == "plain":
+        return {}
+    if arm == "A":
+        n_mlp = 2 * sum(
+            depth for (_, bw16, c, _, _), depth in zip(STAGES, DEPTHS)
+            if mlp_kernel_supported(bw16 * TRAIN_BATCH // BATCH * 49, c,
+                                    4 * c, torch.float32))
+        counts = {QKV_SAVEP: sites, BWD_DELTA_K: sites, MLP: n_mlp}
+    else:
+        k = 2 * sum(
+            depth for (_, _, c, heads, _), depth in zip(STAGES, DEPTHS)
+            if fused_bwd_supported(49, c, heads, torch.float32))
+        counts = {SAVEP: sites, BWD_FUSED: k, BWD: sites - k}
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_flag_train(failures, smi: str):
+    """The Swin-B DGL training path under its non-default kernel flags:
+    arm A (--fuse_qkv_gemm 0 --fuse_mlp 1, BWD_DELTA), arm B (defaults,
+    FUSED_PROJECTION_BACKWARD) and the plain arm, from one set of seeded
+    weights, through Config, serve.build_model and build_harness. Returns
+    the launch counts of arms A and B over the checked steps."""
+    import torch
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.config import Config
+    from gdl_tpu_torch.data.synthetic import synthetic_batch
+    from gdl_tpu_torch.ops import window_attention as wa
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.train.loop import build_harness
+
+    arms_def = {
+        # name: (Config flags, attn_impl, BWD_DELTA, FUSED_PROJECTION_BACKWARD)
+        "A": (dict(fuse_qkv_gemm=False, fuse_mlp=True), "auto", True, False),
+        "B": ({}, "auto", False, True),
+        "plain": ({}, "plain", False, False),
+    }
+    batches = None
+    totals = {"A": {k: 0 for k in kernels.launch_counts},
+              "B": {k: 0 for k in kernels.launch_counts}}
+
+    def set_switches(name):
+        wa.BWD_DELTA, wa.FUSED_PROJECTION_BACKWARD = arms_def[name][2:]
+
+    def drive(name, fn, batch):
+        """One call of an arm's step → (result, host ms, launch counts)."""
+        set_switches(name)
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        res = fn(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        return res, ms, dict(kernels.launch_counts)
+
+    try:
+        for dtype in ("float32", "bfloat16"):
+            arms = {}
+            for name, (flags, impl, _, _) in arms_def.items():
+                cfg = Config(dataset="VGGSound", backbone="swin",
+                             fusion_method="concat", modality="full", fps=1,
+                             batch_size=TRAIN_BATCH, log_grad_csv=False,
+                             compute_dtype=dtype, **flags)
+                if batches is None:
+                    batches = [synthetic_batch(cfg, TRAIN_BATCH, seed=300 + k)
+                               for k in range(1 + FLAG_STEPS)]
+                model = build_model(cfg, attn_impl=impl, seed=4321)
+                arms[name] = dict(h=build_harness(cfg, model,
+                                                  steps_per_epoch=100))
+            # ---- eval before any step: equal weights in all three ---------
+            evals = {}
+            for name in arms:
+                arms[name]["h"].model.eval()
+                res, _, counts = drive(name, arms[name]["h"].eval_step,
+                                       batches[0])
+                evals[name] = ([t.float() for t in res["logits"]], counts)
+                arms[name]["h"].model.train()
+            problems = []
+            # arm A's qkv is not fused, so its eval attention is the plain
+            # one; its MLPs are the kernel at eval as in training
+            for name, want_eval in (
+                    ("A", {k: v for k, v in flag_launches("A").items()
+                           if k == MLP}),
+                    ("B", {KERNEL: 2 * sum(DEPTHS)}), ("plain", {})):
+                ran = {k: v for k, v in evals[name][1].items() if v}
+                if ran != want_eval:
+                    problems.append(f"eval launches of arm {name}: {ran}, "
+                                    f"expected {want_eval}")
+            eval_err = max(float((a - b).abs().max()) for a, b in
+                           zip(evals["A"][0], evals["B"][0]))
+            if not eval_err <= SERVE_ATOL[dtype]:
+                problems.append(f"eval logits of arm A differ from the "
+                                f"default model's by {eval_err}")
+            # ---- 1 warm-up + FLAG_STEPS checked steps per arm --------------
+            for name, arm in arms.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                others = other_arms_bytes(arm["h"].model)
+                runs = [drive(name, arm["h"].train_step, b) for b in batches]
+                arm["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+                arm["peak_over_start"] = arm["peak"] - others / 2 ** 30
+                arm["metrics"] = [{k: float(v) for k, v in r[0].items()}
+                                  for r in runs]
+                arm["ms"] = [r[1] for r in runs]
+                arm["launches"] = [r[2] for r in runs]
+            param_err = {}
+            if dtype == "float32":
+                with torch.no_grad():
+                    for name in ("A", "B"):
+                        param_err[name] = max(
+                            float((a - b).abs().max()) for a, b in
+                            zip(arms[name]["h"].model.parameters(),
+                                arms["plain"]["h"].model.parameters()))
+            # ---- timed steps, the arms in turns ----------------------------
+            order = list(arms)
+            timed = {name: [] for name in arms}
+            for r in range(FLAG_TIME_ROUNDS):
+                for name in (order if r % 2 == 0 else order[::-1]):
+                    timed[name].append(drive(name, arms[name]["h"].train_step,
+                                             batches[r % len(batches)])[1])
+            for name, arm in arms.items():
+                ms = sorted(timed[name])
+                med = ms[len(ms) // 2]
+                emit({"phase": "flag_train", "dtype": dtype, "arm": name,
+                      "flags": arms_def[name][0],
+                      "BWD_DELTA": arms_def[name][2],
+                      "FUSED_PROJECTION_BACKWARD": arms_def[name][3],
+                      "batch": TRAIN_BATCH, "ms_per_step": med,
+                      "clips_per_s": TRAIN_BATCH / med * 1e3,
+                      "timed_step_ms": timed[name],
+                      "checked_step_ms": arm["ms"],
+                      "peak_mem_gib": arm["peak"],
+                      "peak_mem_over_arm_start_gib": arm["peak_over_start"],
+                      "loss": [m["loss"] for m in arm["metrics"]],
+                      "grad_norm": [m["grad_norm"] for m in arm["metrics"]],
+                      "launches_per_step": {k: v for k, v in
+                                            arm["launches"][-1].items() if v},
+                      "nvidia_smi": smi})
+            # ---- checks -----------------------------------------------------
+            worst = {}
+            for name in arms:
+                want = flag_launches(name)
+                for i, counts in enumerate(arms[name]["launches"]):
+                    if {k: v for k, v in counts.items() if v} != want:
+                        problems.append(f"arm {name} step {i}: launches "
+                                        f"{counts}, expected {want}")
+                    if name in totals:
+                        for k, v in counts.items():
+                            totals[name][k] += v
+            for name in ("A", "B"):
+                worst[name] = 0.0
+                for i, (mk, mp) in enumerate(zip(arms[name]["metrics"],
+                                                 arms["plain"]["metrics"])):
+                    for key in ("loss", "loss_a", "loss_v", "loss_f"):
+                        a, b = mk[key], mp[key]
+                        if not (math.isfinite(a) and math.isfinite(b)):
+                            problems.append(f"arm {name} step {i}: {key} "
+                                            f"not finite")
+                            continue
+                        worst[name] = max(worst[name],
+                                          abs(a - b) / max(abs(b), 1e-12))
+                if worst[name] > LOSS_RTOL[dtype]:
+                    problems.append(f"arm {name}: losses differ from the "
+                                    f"plain arm's by {worst[name]} relative")
+                if name in param_err and param_err[name] > PARAM_ATOL:
+                    problems.append(f"arm {name}: parameters differ from "
+                                    f"the plain arm's by {param_err[name]}")
+            ok = not problems
+            emit({"phase": "flag_train_check", "dtype": dtype,
+                  "max_rel_loss_diff": worst, "loss_rtol": LOSS_RTOL[dtype],
+                  "max_abs_param_diff": param_err or None,
+                  "param_atol": PARAM_ATOL if dtype == "float32" else None,
+                  "eval_max_abs_logit_diff_A_vs_B": eval_err,
+                  "eval_atol": SERVE_ATOL[dtype],
+                  "expected_launches_per_step": {
+                      name: flag_launches(name) for name in arms},
+                  "problems": problems, "ok": ok})
+            failures.extend(f"flag train {dtype}: {p}" for p in problems)
+            del arms, evals
+            torch.cuda.empty_cache()
+    finally:
+        wa.BWD_DELTA, wa.FUSED_PROJECTION_BACKWARD = False, False
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1519,6 +1981,22 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failures.append("mmformer raised")
 
+    try:
+        flag_attn, flag_mlp = phase_flag_parity(failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("flag parity raised")
+        flag_attn, flag_mlp = [], []
+    record["flag_parity"] = flag_attn + flag_mlp
+
+    flag_launch = {arm: {k: 0 for k in kernels.launch_counts}
+                   for arm in ("A", "B")}
+    try:
+        flag_launch = phase_flag_train(failures, smi)
+    except Exception:
+        traceback.print_exc()
+        failures.append("flag train raised")
+
     f32 = [r for r in parity if r["dtype"] == "float32"]
     t32 = [r for r in train_parity if r["dtype"] == "float32"]
     p32 = [r for r in pool_parity
@@ -1577,10 +2055,86 @@ def main(argv=None) -> int:
          "max_abs_err": max((r["max_abs_err"] for r in mask_parity),
                             default=None)},
     ]
+    fa32 = [r for r in flag_attn if r["dtype"] == "float32"]
+    fm32 = {r["stage"]: r for r in flag_mlp if r["dtype"] == "float32"}
+    wa_src = src + "window_attention_train.cu"
+
+    def flag_err(prefix):
+        return max((v for r in fa32 for k, v in r["max_abs_err"].items()
+                    if k.startswith(prefix) and "_vs_" not in k),
+                   default=None)
+
+    entries += [
+        {"name": QKV_SAVEP, "route": "cuda", "source": wa_src,
+         "replaces": "gdl_tpu/ops/window_attention.py:968",
+         "launches": flag_launch["A"][QKV_SAVEP],
+         "max_abs_err": flag_err("qkv_")},
+        {"name": BWD_DELTA_K, "route": "cuda", "source": wa_src,
+         "replaces": "gdl_tpu/ops/window_attention.py:937 (BWD_DELTA)",
+         "launches": flag_launch["A"][BWD_DELTA_K],
+         "max_abs_err": flag_err("delta_")},
+        {"name": BWD_FUSED, "route": "cuda", "source": wa_src,
+         "replaces": "gdl_tpu/ops/window_attention.py:1340",
+         "launches": flag_launch["B"][BWD_FUSED],
+         "max_abs_err": flag_err("fused_")},
+        {"name": MLP, "route": "cuda", "source": src + "mlp_fused.cu",
+         "replaces": "gdl_tpu/ops/mlp.py:136",
+         "launches": flag_launch["A"][MLP],
+         "max_abs_err": max((r["max_abs_err"] for r in fm32.values()),
+                            default=None)},
+    ]
     for entry in entries:
         # no single PyTorch call computes #1, #2, #4, #10 or #11
         entry.update(ms=None, plain_ms=None, bound_ms=None, bound_by=None,
                      library_ms=None)
+    # #5, #4-delta and #3 per training step of their arm (batch 32): the
+    # sum over the 48 launches of the float32 per-shape medians. Library
+    # yardsticks: scaled_dot_product_attention on the same q, k, v with
+    # bias + mask as its additive mask for #5; kernel #4 followed by the
+    # three torch.matmul of the split backward for #3.
+    if len(fa32) == 7:
+        for entry, key, lib_key, kind in (
+                (entries[8], "qkv", "sdpa_ms", "qkv_savep"),
+                (entries[9], "delta", None, "bwd_delta"),
+                (entries[10], "fused", "split_ms", "bwd_fused")):
+            entry["ms"] = per_pass_ms(flag_attn, "float32", key + "_ms")
+            entry["plain_ms"] = per_pass_ms(flag_attn, "float32",
+                                            key + "_plain_ms")
+            entry["ms_bfloat16"] = per_pass_ms(flag_attn, "bfloat16",
+                                               key + "_ms")
+            if lib_key:
+                entry["library_ms"] = per_pass_ms(flag_attn, "float32",
+                                                  lib_key)
+                entry["library_ms_bfloat16"] = per_pass_ms(
+                    flag_attn, "bfloat16", lib_key)
+            bound = per_pass_bound(kind, TRAIN_BATCH)
+            entry["bound_ms"] = bound["ms"]
+            entry["bound_by"] = max(bound["by"], key=bound["by"].get)
+            entry["bound_launches_by"] = bound["by"]
+            entry["bytes"], entry["operations"] = (bound["bytes"],
+                                                   bound["operations"])
+            entry["bound_ms_bfloat16"] = per_pass_bound(kind, TRAIN_BATCH,
+                                                        "bfloat16")["ms"]
+        entries[9]["delta_make_ms"] = per_pass_ms(flag_attn, "float32",
+                                                  "delta_make_ms")
+        entries[9]["default_kernel_ms"] = per_pass_ms(flag_attn, "float32",
+                                                      "k4_ms")
+    # #15 per training step: 2 encoders x depth launches at each stage
+    if len(fm32) == 4:
+        calls = {stage: 2 * depth for (stage, *_), depth in zip(STAGES,
+                                                               DEPTHS)}
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                    "operations"):
+            entries[11][key] = sum(n * fm32[s][key] for s, n in calls.items())
+        by = {"bytes": 0, "operations": 0}
+        for s, n in calls.items():
+            by[fm32[s]["bound_by"]] += n
+        entries[11]["bound_by"] = max(by, key=by.get)
+        entries[11]["bound_launches_by"] = by
+        for key in ("ms", "library_ms", "bound_ms"):
+            entries[11][key + "_bfloat16"] = sum(
+                calls[r["stage"]] * r[key] for r in flag_mlp
+                if r["dtype"] == "bfloat16")
     # per request (#1, batch 16) or per training step (#2, #4, batch 32):
     # the sum over the 48 launches of the float32 per-shape medians
     if len(f32) == 7:
@@ -1685,6 +2239,12 @@ def main(argv=None) -> int:
     if mm_launches["eval"][SA_EVAL] == 0:
         failures.append(f"{SA_EVAL} was never launched on the mmformer "
                         f"eval path")
+    for arm, names in (("A", (QKV_SAVEP, BWD_DELTA_K, MLP)),
+                       ("B", (BWD_FUSED,))):
+        for k in names:
+            if flag_launch[arm][k] == 0:
+                failures.append(f"{k} was never launched on arm {arm} of "
+                                f"the flag training path")
     for entry in entries:
         missing = [k for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                    if entry[k] is None]

@@ -13,14 +13,18 @@ resolved through `serve.resolve_device`, which raises when CUDA is asked
 for and absent. `--device cpu` is the one way to ask for the CPU.
 
 Fields of the TPU package that the port parses, keeps and IGNORES (they
-select mesh shapes, Pallas kernels or XLA lowerings that have no
-counterpart on one GPU): `dp`, `mp`, `gpu_ids`, `use_pallas_attn`,
-`use_pallas_attn_eval`, `fuse_qkv_gemm`, `fuse_mlp`,
-`swin_window_resident`, `fast_dropout_rng`, `compilation_cache_dir`
-(a flag only). The port's kernels are chosen by the `impl` / `attn_impl`
-arguments of its modules, not by flags. Options that are accepted and
-not ported yet raise NotImplementedError where they would take effect
-(`main_dgl.check_supported`).
+select TPU layouts or XLA lowerings that have no counterpart on a GPU):
+`gpu_ids`, `swin_window_resident`, `fast_dropout_rng`,
+`compilation_cache_dir` (a flag only). The four Swin kernel flags act as
+they do in gdl_tpu (`models/classifier.py::AVClassifierSwinDGL`):
+`use_pallas_attn` and `use_pallas_attn_eval` choose between the attention
+kernels and their plain versions in training and at eval,
+`fuse_qkv_gemm 0` takes the qkv projection out of the attention kernel,
+`fuse_mlp 1` runs each block's MLP as one kernel. Options that are
+accepted and not ported yet raise NotImplementedError where they would
+take effect (`train/loop.py::check_supported`): among them `dp` and `mp`
+above one device, until the multi-GPU slice (`--dp -1`, all devices, is
+the port's one device).
 """
 
 from __future__ import annotations
@@ -169,13 +173,14 @@ class Config:
     swin_window: int = 7
     swin_img_size: int = 224
     swin_patch: int = 4
-    # gdl_tpu's kernel and layout switches: parsed and kept so command
-    # lines carry over, ignored by the port
-    use_pallas_attn: bool = True
-    swin_window_resident: bool = True
-    fuse_qkv_gemm: bool = True
-    fuse_mlp: bool = False
-    use_pallas_attn_eval: bool = True
+    # gdl_tpu's Swin kernel switches, with its meanings
+    # (models/classifier.py::AVClassifierSwinDGL)
+    use_pallas_attn: bool = True  # False: plain attention
+    fuse_qkv_gemm: bool = True  # False: the qkv projection outside the
+    # attention kernel (training)
+    fuse_mlp: bool = False  # True: each block's MLP as one kernel
+    use_pallas_attn_eval: bool = True  # False: plain attention at eval
+    swin_window_resident: bool = True  # a TPU layout: parsed, ignored
     # --- the port's own ---
     device: str = "cuda"  # 'cuda' | 'cuda:N' | 'cpu'; resolved through
     # serve.resolve_device, which raises when CUDA is asked for and absent
@@ -325,16 +330,16 @@ def add_arguments(parser: argparse.ArgumentParser, dgl: bool = True) -> None:
     parser.add_argument("--use_pallas_attn_eval",
                         default=d.use_pallas_attn_eval,
                         type=lambda s: s not in ("0", "false", "False"),
-                        help="gdl_tpu's forward-only fused attention "
-                             "kernel at eval (ignored by the port)")
+                        help="0 = the plain attention at eval instead "
+                             "of the forward-only fused kernel")
     parser.add_argument("--fuse_qkv_gemm", default=d.fuse_qkv_gemm,
                         type=lambda s: s not in ("0", "false", "False"),
-                        help="gdl_tpu's in-kernel qkv projection "
-                             "(ignored by the port)")
+                        help="0 = the qkv projection as nn.Linear "
+                             "outside the training attention kernel")
     parser.add_argument("--fuse_mlp", default=d.fuse_mlp,
                         type=lambda s: s not in ("0", "false", "False"),
-                        help="gdl_tpu's fused MLP kernel (ignored by "
-                             "the port)")
+                        help="1 = each Swin block's MLP as one fused "
+                             "kernel (recompute backward)")
     parser.add_argument("--compilation_cache_dir", default=None, type=str,
                         help="gdl_tpu's XLA compile cache (ignored by "
                              "the port)")

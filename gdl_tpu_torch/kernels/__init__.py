@@ -45,8 +45,14 @@ LIBRARIES = {
         "window_attention_train.cu",
         {"gdl_wa_savep_launch": ([_vp] * 8 + [_int] * 6
                                  + [_float, _int, _vp], _int),
+         "gdl_wa_qkv_savep_launch": ([_vp] * 5 + [_int] * 6
+                                     + [_float, _int, _vp], _int),
          "gdl_wa_bwd_launch": ([_vp] * 5 + [_int] * 6 + [_float, _int, _vp],
-                               _int)},
+                               _int),
+         "gdl_wa_bwd_delta_launch": ([_vp] * 6 + [_int] * 6
+                                     + [_float, _int, _vp], _int),
+         "gdl_wa_bwd_fused_launch": ([_vp] * 9 + [_int] * 7
+                                     + [_float, _int, _vp], _int)},
     ),
     "maxpool_bwd": (
         "maxpool_bwd.cu",
@@ -71,11 +77,19 @@ LIBRARIES = {
         {"gdl_dropout_mask_launch": ([_vp, _i64, _vp, _uint, _float, _int,
                                       _vp], _int)},
     ),
+    "mlp_fused": (
+        "mlp_fused.cu",
+        {"gdl_mlp_fused_launch": ([_vp] * 6 + [_int] * 4 + [_vp], _int)},
+    ),
 }
 
 launch_counts: Dict[str, int] = {"window_attention_qkv_fused_eval": 0,
                                  "window_attention_qkv_fused_savep": 0,
                                  "window_attention_qkv_fused_bwd": 0,
+                                 "window_attention_qkv_savep": 0,
+                                 "window_attention_qkv_fused_bwd_delta": 0,
+                                 "window_attention_qkv_fused_bwd_fused": 0,
+                                 "mlp_fused": 0,
                                  "max_pool_3x3_s2_bwd": 0,
                                  "self_attention_fused_fwd": 0,
                                  "self_attention_fused_bwd": 0,

@@ -1,6 +1,7 @@
 // The fused window-attention forward, shared by window_attention_eval.cu
 // (kernel #1, forward only: SAVE=false) and window_attention_train.cu
-// (kernel #2, the training forward: SAVE=true). Per window w and head h:
+// (kernel #2, the training forward: SAVE=true; kernel #5, the same forward
+// on a qkv computed outside: PROJ=false). Per window w and head h:
 //
 //   qkv = x[w] . W_h^T (f32 accumulate) -> round to T -> + b_h (in T)
 //   q   = q * T(scale)                                   (in T)
@@ -22,6 +23,13 @@
 // softmax rows the kernel already holds. Tensor-core products
 // (mma/wgmma), TMA and sharing x across the heads of a window are later
 // work.
+//
+// PROJ=false (kernel #5, replaces _qkv_attn_savep_t_fwd / body
+// _wa_qkv_t_savep_kernel): the first line above is skipped; `x` is then the
+// qkv tensor [Bw, N, 3C] (columns [q|k|v][head][d], q unscaled) and the
+// kernel starts from "q = q * T(scale)". Without the projection the work
+// left is the two N x N x d products, and the kernel is bound by the
+// bytes of qkv, p and out.
 
 #pragma once
 
@@ -74,8 +82,9 @@ struct FwdSmem {
 };
 
 // SAVE also writes qkv [Bw, N, 3C] (after the bias add, q unscaled) and
-// p [Bw, H, N, N] in T, the residuals of the training backward.
-template <typename T, int DMAX, bool SAVE>
+// p [Bw, H, N, N] in T, the residuals of the training backward. With
+// PROJ=false x is qkv itself, w, b and qkv_out are not read or written.
+template <typename T, int DMAX, bool SAVE, bool PROJ = true>
 __global__ void __launch_bounds__(kThreads)
 wa_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
               const T* __restrict__ b, const float* __restrict__ bias,
@@ -100,74 +109,93 @@ wa_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int ty = tid / 16;
   const int d3 = 3 * d;
   const int c3 = 3 * c;
-  const T* xw = x + static_cast<size_t>(win) * n * c;
 
-  // ---- phase 1: qkv = x . W_h^T, f32 accumulate -------------------------
-  float acc[4][JT];
+  const float scale_t = Num<T>::round(scale);
+  if constexpr (PROJ) {
+    const T* xw = x + static_cast<size_t>(win) * n * c;
+    // ---- phase 1: qkv = x . W_h^T, f32 accumulate -----------------------
+    float acc[4][JT];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int j = 0; j < JT; ++j) acc[a][j] = 0.f;
+      for (int j = 0; j < JT; ++j) acc[a][j] = 0.f;
 
-  for (int k0 = 0; k0 < c; k0 += kKC) {
-    for (int e = tid; e < kNP * kKC; e += kThreads) {
-      const int r = e / kKC, kk = e % kKC;
-      xs[r * S::kLdX + kk] =
-          (r < n && k0 + kk < c)
-              ? Num<T>::load(xw + static_cast<size_t>(r) * c + k0 + kk)
-              : 0.f;
-    }
-    for (int e = tid; e < 3 * DMAX * kKC; e += kThreads) {
-      const int col = e / kKC, kk = e % kKC;
-      float v = 0.f;
-      if (col < d3 && k0 + kk < c) {
-        // W rows are ordered [q|k|v][head][d] (nn.Linear layout)
-        const int row = (col / d) * c + head * d + col % d;
-        v = Num<T>::load(w + static_cast<size_t>(row) * c + k0 + kk);
+    for (int k0 = 0; k0 < c; k0 += kKC) {
+      for (int e = tid; e < kNP * kKC; e += kThreads) {
+        const int r = e / kKC, kk = e % kKC;
+        xs[r * S::kLdX + kk] =
+            (r < n && k0 + kk < c)
+                ? Num<T>::load(xw + static_cast<size_t>(r) * c + k0 + kk)
+                : 0.f;
       }
-      ws[col * S::kLdX + kk] = v;
+      for (int e = tid; e < 3 * DMAX * kKC; e += kThreads) {
+        const int col = e / kKC, kk = e % kKC;
+        float v = 0.f;
+        if (col < d3 && k0 + kk < c) {
+          // W rows are ordered [q|k|v][head][d] (nn.Linear layout)
+          const int row = (col / d) * c + head * d + col % d;
+          v = Num<T>::load(w + static_cast<size_t>(row) * c + k0 + kk);
+        }
+        ws[col * S::kLdX + kk] = v;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < kKC; ++kk) {
+        float xv[4], wv[JT];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) xv[a] = xs[(ty + 16 * a) * S::kLdX + kk];
+#pragma unroll
+        for (int j = 0; j < JT; ++j) wv[j] = ws[(tx + 16 * j) * S::kLdX + kk];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int j = 0; j < JT; ++j) acc[a][j] = fmaf(xv[a], wv[j], acc[a][j]);
+      }
+      __syncthreads();  // phase 2 reuses xs/ws
+    }
+
+    // round to T, add the bias in T, (save qkv,) scale q in T
+    T* qkv_w = SAVE ? qkv_out + static_cast<size_t>(win) * n * c3 + head * d
+                    : nullptr;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = ty + 16 * a;
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        const int col = tx + 16 * j;
+        if (col >= d3) continue;
+        const int part = col / d, dd = col % d;
+        float v = 0.f;
+        if (r < n) {
+          v = Num<T>::round(acc[a][j]);
+          v = Num<T>::round(v + Num<T>::load(b + part * c + head * d + dd));
+          if constexpr (SAVE)
+            qkv_w[static_cast<size_t>(r) * c3 + part * c + dd] = Num<T>::store(v);
+          if (part == 0) v = Num<T>::round(v * scale_t);
+        }
+        float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
+        dst[r * S::kLdQ + dd] = v;
+      }
     }
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKC; ++kk) {
-      float xv[4], wv[JT];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) xv[a] = xs[(ty + 16 * a) * S::kLdX + kk];
-#pragma unroll
-      for (int j = 0; j < JT; ++j) wv[j] = ws[(tx + 16 * j) * S::kLdX + kk];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < JT; ++j) acc[a][j] = fmaf(xv[a], wv[j], acc[a][j]);
-    }
-    __syncthreads();  // phase 2 reuses xs/ws
-  }
-
-  // round to T, add the bias in T, (save qkv,) scale q in T
-  const float scale_t = Num<T>::round(scale);
-  T* qkv_w = SAVE ? qkv_out + static_cast<size_t>(win) * n * c3 + head * d
-                  : nullptr;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a;
-#pragma unroll
-    for (int j = 0; j < JT; ++j) {
-      const int col = tx + 16 * j;
-      if (col >= d3) continue;
-      const int part = col / d, dd = col % d;
-      float v = 0.f;
-      if (r < n) {
-        v = Num<T>::round(acc[a][j]);
-        v = Num<T>::round(v + Num<T>::load(b + part * c + head * d + dd));
-        if constexpr (SAVE)
-          qkv_w[static_cast<size_t>(r) * c3 + part * c + dd] = Num<T>::store(v);
-        if (part == 0) v = Num<T>::round(v * scale_t);
+  } else {
+    // q (scaled in T), k, v of this head straight from the qkv tensor
+    const T* qkv_w = x + static_cast<size_t>(win) * n * c3 + head * d;
+    for (int e = tid; e < kNP * DMAX; e += kThreads) {
+      const int r = e / DMAX, dd = e % DMAX;
+      float q = 0.f, k = 0.f, v = 0.f;
+      if (r < n && dd < d) {
+        const T* row = qkv_w + static_cast<size_t>(r) * c3 + dd;
+        q = Num<T>::round(Num<T>::load(row) * scale_t);
+        k = Num<T>::load(row + c);
+        v = Num<T>::load(row + 2 * c);
       }
-      float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
-      dst[r * S::kLdQ + dd] = v;
+      qs[r * S::kLdQ + dd] = q;
+      ks[r * S::kLdQ + dd] = k;
+      vs[r * S::kLdQ + dd] = v;
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // ---- phase 2: scores + bias + mask, f32 -------------------------------
   {
@@ -281,17 +309,17 @@ cudaError_t grant_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int DMAX, bool SAVE>
+template <typename T, int DMAX, bool SAVE, bool PROJ = true>
 int launch_fwd(const void* x, const void* w, const void* b,
                const void* bias, const void* mask, void* out, void* qkv,
                void* p, int bw, int n, int c, int heads, int d, int nw,
                float scale, cudaStream_t stream) {
   constexpr size_t smem = FwdSmem<DMAX>::kBytes;
   static const cudaError_t attr =
-      grant_smem(wa_fwd_kernel<T, DMAX, SAVE>, smem);
+      grant_smem(wa_fwd_kernel<T, DMAX, SAVE, PROJ>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const unsigned grid = static_cast<unsigned>(bw) * static_cast<unsigned>(heads);
-  wa_fwd_kernel<T, DMAX, SAVE><<<grid, kThreads, smem, stream>>>(
+  wa_fwd_kernel<T, DMAX, SAVE, PROJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(b), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<T*>(out),
@@ -299,19 +327,19 @@ int launch_fwd(const void* x, const void* w, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool SAVE>
+template <typename T, bool SAVE, bool PROJ = true>
 int dispatch_fwd(const void* x, const void* w, const void* b,
                  const void* bias, const void* mask, void* out, void* qkv,
                  void* p, int bw, int n, int c, int heads, int d, int nw,
                  float scale, cudaStream_t s) {
   if (d <= 16)
-    return launch_fwd<T, 16, SAVE>(x, w, b, bias, mask, out, qkv, p, bw, n,
-                                   c, heads, d, nw, scale, s);
+    return launch_fwd<T, 16, SAVE, PROJ>(x, w, b, bias, mask, out, qkv, p,
+                                         bw, n, c, heads, d, nw, scale, s);
   if (d <= 32)
-    return launch_fwd<T, 32, SAVE>(x, w, b, bias, mask, out, qkv, p, bw, n,
-                                   c, heads, d, nw, scale, s);
-  return launch_fwd<T, 64, SAVE>(x, w, b, bias, mask, out, qkv, p, bw, n, c,
-                                 heads, d, nw, scale, s);
+    return launch_fwd<T, 32, SAVE, PROJ>(x, w, b, bias, mask, out, qkv, p,
+                                         bw, n, c, heads, d, nw, scale, s);
+  return launch_fwd<T, 64, SAVE, PROJ>(x, w, b, bias, mask, out, qkv, p, bw,
+                                       n, c, heads, d, nw, scale, s);
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// Fused window attention for Swin training on Hopper: the save-p forward
-// and the attention backward from the saved p.
+// Fused window attention for Swin training on Hopper: the save-p forwards
+// and the attention backwards from the saved p.
 //
 // Forward, gdl_wa_savep_launch, replaces
 // gdl_tpu/ops/window_attention.py::window_attention_pallas_qkv_fused
@@ -7,6 +7,11 @@
 // window_attention_fwd.cuh, which computes what the eval kernel computes
 // and also writes the residuals the backward reads: qkv [Bw, N, 3C] after
 // the bias add (q not yet scaled) and p [Bw, H, N, N], both in T.
+//
+// Forward on a qkv computed outside, gdl_wa_qkv_savep_launch, replaces
+// window_attention_pallas_qkv(save_p, transposed) (_qkv_attn_savep_t_fwd,
+// kernel body _wa_qkv_t_savep_kernel): the same header with PROJ=false;
+// writes out and p.
 //
 // Backward, gdl_wa_bwd_launch, replaces _attn_bwd_pallas_t (kernel body
 // _wa_qkv_t_bwd_p_kernel, the default BWD_DELTA=False body). Per window
@@ -20,12 +25,25 @@
 //   dqkv = [dq | dk | dv] -> T         [Bw, N, 3C]
 //   dbias[h] = sum over windows of ds  (f32)
 //
+// With a delta pointer (gdl_wa_bwd_delta_launch; the BWD_DELTA body
+// _wa_qkv_t_bwd_pd_kernel) the row sum is read, not computed:
+// ds = p * (dp - delta), delta [Bw, H, N] f32 = sum_d dout * out per query,
+// made by the caller.
+//
 // T is float or bfloat16; every rounding point above is the TPU kernel's.
-// The projection backward (dx, dW, db) stays outside, as plain GEMMs, as
-// gdl_tpu runs it (its FUSED_PROJECTION_BACKWARD gate is off).
+// In those two the projection backward (dx, dW, db) stays outside, as
+// plain GEMMs, as gdl_tpu runs it with FUSED_PROJECTION_BACKWARD off.
+//
+// Fused projection backward, gdl_wa_bwd_fused_launch, replaces
+// _xw_attn_savep_t_bwd's fused branch (kernel body
+// _wa_xw_t_bwd_fused_kernel): dqkv is rounded to T and never written;
+//
+//   dx[w]  = sum over heads of dqkv_h[w] . W_h     (f32, one rounding)
+//   dW_h   = sum over windows of dqkv_h[w]^T . x[w] (f32)
+//   db_h   = sum over windows and tokens of dqkv_h  (f32)
 //
 // Design (a first, simple one). The forward is described in
-// window_attention_fwd.cuh; it is bound, like the eval kernel, by the
+// window_attention_fwd.cuh; with the projection it is bound by the
 // projection's FMAs (98% of its work) at the SIMT f32 rate. The backward
 // gives each block one head and a fixed run of `wpb` consecutive windows:
 // it loads q, k, v, dout and p of one window into shared memory (rows
@@ -39,6 +57,26 @@
 // dominates: N*N per head against 3d per token). Tensor-core products,
 // TMA and sharing a window across heads are later work.
 //
+// The fused backward has two sums that pull apart: dx sums over the heads
+// of ONE window, dW over ALL windows of one head. A block cannot own both
+// without atomics or a partial per (window, head). So one launch holds
+// blocks of two roles, and each role computes the attention backward of
+// the (window, head) pairs it needs into shared memory (dqkv_h [N, 3d],
+// rounded to T) and never writes it:
+//   - a dx block owns one window and CT columns of C. It loops over the
+//     heads, streams W_h's rows through shared memory and keeps its
+//     [N, CT] tile of dx in registers until the last head;
+//   - a dW block owns one head, CT columns of C and a run of `wpb`
+//     windows. It streams x[w] through shared memory, keeps its [3d, CT]
+//     tile of dW in registers over the run and writes one f32 partial;
+//     the blocks of the first column tile also write db and dbias
+//     partials. The wrapper sums the partials over the runs (tens of
+//     runs, so the partials are a fraction of the dqkv round trip).
+// The attention backward is so computed 2*C/CT times over; it is a
+// twentieth to a third of the projection backward's work (5N / 6C of it).
+// What bounds it: the two projection products (2 * Bw*N*3C*C MACs) at the
+// SIMT f32 rate. Fixed order everywhere, so two runs give equal bits.
+//
 // Plain C interface (no PyTorch headers), loaded with ctypes from
 // gdl_tpu_torch/kernels/__init__.py.
 
@@ -47,7 +85,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// backward from the saved p
+// attention backward of one (window, head) from the saved p
 // ---------------------------------------------------------------------------
 
 template <int DMAX>
@@ -55,96 +93,99 @@ struct BwdSmem {
   static constexpr int kLdQ = DMAX + 1;
   static constexpr int kLdP = kNP + 1;
   // qs (scaled q), ks, vs, gs (dout) [kNP][kLdQ]; ps, dss [kNP][kLdP]
-  static constexpr int kFloats = 4 * kNP * kLdQ + 2 * kNP * kLdP;
+  static constexpr int kQkvg = 4 * kNP * kLdQ;
+  static constexpr int kFloats = kQkvg + 2 * kNP * kLdP;
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-wa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-              const T* __restrict__ dout, T* __restrict__ dqkv,
-              float* __restrict__ dbias_part, int bw, int n, int c, int heads,
-              int d, int wpb, float scale) {
+// Loads q (scaled in T), k, v, dout and p of (win, head) into shared
+// memory, forms ds (adding it to dbacc: rows ty+16a, columns tx+16j) and
+// leaves dq (not yet scaled), dk, dv of rows ty+16a and head-dim columns
+// tx+16j in gq, gk, gv; padded rows and columns come out 0. Every thread
+// of the block calls it; the caller synchronises before shared memory is
+// written again. With DELTA the softmax row sums are read from
+// delta [Bw, H, N].
+template <typename T, int DMAX, bool DELTA>
+__device__ __forceinline__ void attn_bwd_tile(
+    const T* __restrict__ qkv, const T* __restrict__ p,
+    const T* __restrict__ dout, const float* __restrict__ delta, int win,
+    int head, int n, int c, int heads, int d, float scale_t, float* smem,
+    float (&dbacc)[4][4], float (&gq)[4][DMAX / 16], float (&gk)[4][DMAX / 16],
+    float (&gv)[4][DMAX / 16]) {
   using S = BwdSmem<DMAX>;
   constexpr int DT = DMAX / 16;  // head-dim columns per thread
-  extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kNP * S::kLdQ;
   float* vs = ks + kNP * S::kLdQ;
   float* gs = vs + kNP * S::kLdQ;
   float* ps = gs + kNP * S::kLdQ;
   float* dss = ps + kNP * S::kLdP;
-
-  const int chunk = blockIdx.x / heads;
-  const int head = blockIdx.x % heads;
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int c3 = 3 * c;
-  const float scale_t = Num<T>::round(scale);
 
-  // this block's share of dbias[head], rows ty+16a, columns tx+16j
-  float dbacc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dbacc[a][j] = 0.f;
-
-  const int w_end = min(bw, (chunk + 1) * wpb);
-  for (int win = chunk * wpb; win < w_end; ++win) {
-    // ---- load q (scaled in T), k, v, dout of this head; p -------------
-    const T* qkv_w = qkv + static_cast<size_t>(win) * n * c3 + head * d;
-    const T* g_w = dout + static_cast<size_t>(win) * n * c + head * d;
-    for (int e = tid; e < kNP * DMAX; e += kThreads) {
-      const int r = e / DMAX, dd = e % DMAX;
-      float q = 0.f, k = 0.f, v = 0.f, g = 0.f;
-      if (r < n && dd < d) {
-        const T* row = qkv_w + static_cast<size_t>(r) * c3 + dd;
-        q = Num<T>::round(Num<T>::load(row) * scale_t);
-        k = Num<T>::load(row + c);
-        v = Num<T>::load(row + 2 * c);
-        g = Num<T>::load(g_w + static_cast<size_t>(r) * c + dd);
-      }
-      qs[r * S::kLdQ + dd] = q;
-      ks[r * S::kLdQ + dd] = k;
-      vs[r * S::kLdQ + dd] = v;
-      gs[r * S::kLdQ + dd] = g;
+  // ---- load q (scaled in T), k, v, dout of this head; p ---------------
+  const T* qkv_w = qkv + static_cast<size_t>(win) * n * c3 + head * d;
+  const T* g_w = dout + static_cast<size_t>(win) * n * c + head * d;
+  for (int e = tid; e < kNP * DMAX; e += kThreads) {
+    const int r = e / DMAX, dd = e % DMAX;
+    float q = 0.f, k = 0.f, v = 0.f, g = 0.f;
+    if (r < n && dd < d) {
+      const T* row = qkv_w + static_cast<size_t>(r) * c3 + dd;
+      q = Num<T>::round(Num<T>::load(row) * scale_t);
+      k = Num<T>::load(row + c);
+      v = Num<T>::load(row + 2 * c);
+      g = Num<T>::load(g_w + static_cast<size_t>(r) * c + dd);
     }
-    const T* p_w = p + (static_cast<size_t>(win) * heads + head) * n * n;
-    for (int e = tid; e < kNP * kNP; e += kThreads) {
-      const int i = e / kNP, j = e % kNP;
-      ps[i * S::kLdP + j] = (i < n && j < n) ? Num<T>::load(p_w + i * n + j)
-                                             : 0.f;
-    }
-    __syncthreads();
+    qs[r * S::kLdQ + dd] = q;
+    ks[r * S::kLdQ + dd] = k;
+    vs[r * S::kLdQ + dd] = v;
+    gs[r * S::kLdQ + dd] = g;
+  }
+  const T* p_w = p + (static_cast<size_t>(win) * heads + head) * n * n;
+  for (int e = tid; e < kNP * kNP; e += kThreads) {
+    const int i = e / kNP, j = e % kNP;
+    ps[i * S::kLdP + j] = (i < n && j < n) ? Num<T>::load(p_w + i * n + j)
+                                           : 0.f;
+  }
+  __syncthreads();
 
-    // ---- dp = dout . v^T; ds = p * (dp - rowsum(dp * p)), f32 ---------
-    {
-      float dp[4][4];
+  // ---- dp = dout . v^T; ds = p * (dp - rowsum(dp * p)), f32 -----------
+  {
+    float dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dp[a][j] = 0.f;
+    for (int k = 0; k < d; ++k) {
+      float gvv[4], vv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) gvv[a] = gs[(ty + 16 * a) * S::kLdQ + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = vs[(tx + 16 * j) * S::kLdQ + k];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dp[a][j] = 0.f;
-      for (int k = 0; k < d; ++k) {
-        float gv[4], vv[4];
+        for (int j = 0; j < 4; ++j) dp[a][j] = fmaf(gvv[a], vv[j], dp[a][j]);
+    }
+    float pr[4][4], rs[4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) gv[a] = gs[(ty + 16 * a) * S::kLdQ + k];
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) vv[j] = vs[(tx + 16 * j) * S::kLdQ + k];
+      for (int j = 0; j < 4; ++j)
+        pr[a][j] = ps[(ty + 16 * a) * S::kLdP + tx + 16 * j];
+    if constexpr (DELTA) {
+      const float* dl = delta + (static_cast<size_t>(win) * heads + head) * n;
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dp[a][j] = fmaf(gv[a], vv[j], dp[a][j]);
-      }
-      float pr[4][4], rs[4];
+      for (int a = 0; a < 4; ++a)
+        rs[a] = ty + 16 * a < n ? dl[ty + 16 * a] : 0.f;
+    } else {
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         rs[a] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          pr[a][j] = ps[(ty + 16 * a) * S::kLdP + tx + 16 * j];
-          rs[a] = fmaf(dp[a][j], pr[a][j], rs[a]);
-        }
+        for (int j = 0; j < 4; ++j) rs[a] = fmaf(dp[a][j], pr[a][j], rs[a]);
       }
       // the 16 threads of a half-warp share ty, so they hold one row's
       // 64 columns between them
@@ -153,47 +194,99 @@ wa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
 #pragma unroll
         for (int a = 0; a < 4; ++a)
           rs[a] += __shfl_xor_sync(0xffffffffu, rs[a], o);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // padded rows and columns have p = 0, so ds = 0 there
-          const float ds = pr[a][j] * (dp[a][j] - rs[a]);
-          dbacc[a][j] += ds;
-          dss[(ty + 16 * a) * S::kLdP + tx + 16 * j] = Num<T>::round(ds);
-        }
     }
-    __syncthreads();
-
-    // ---- dq = ds . k, dk = ds^T . q_scaled, dv = p^T . dout -----------
-    float gq[4][DT], gk[4][DT], gv[4][DT];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int j = 0; j < DT; ++j) gq[a][j] = gk[a][j] = gv[a][j] = 0.f;
-    for (int t = 0; t < n; ++t) {
-      float ds_row[4], ds_col[4], p_col[4], kv[DT], qv[DT], dv[DT];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        ds_row[a] = dss[(ty + 16 * a) * S::kLdP + t];  // ds[i, t]
-        ds_col[a] = dss[t * S::kLdP + ty + 16 * a];    // ds[t, j]
-        p_col[a] = ps[t * S::kLdP + ty + 16 * a];      // p[t, j]
+      for (int j = 0; j < 4; ++j) {
+        // padded rows and columns have p = 0, so ds = 0 there
+        const float ds = pr[a][j] * (dp[a][j] - rs[a]);
+        dbacc[a][j] += ds;
+        dss[(ty + 16 * a) * S::kLdP + tx + 16 * j] = Num<T>::round(ds);
       }
+  }
+  __syncthreads();
+
+  // ---- dq = ds . k, dk = ds^T . q_scaled, dv = p^T . dout -------------
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < DT; ++j) gq[a][j] = gk[a][j] = gv[a][j] = 0.f;
+  for (int t = 0; t < n; ++t) {
+    float ds_row[4], ds_col[4], p_col[4], kv[DT], qv[DT], dv[DT];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      ds_row[a] = dss[(ty + 16 * a) * S::kLdP + t];  // ds[i, t]
+      ds_col[a] = dss[t * S::kLdP + ty + 16 * a];    // ds[t, j]
+      p_col[a] = ps[t * S::kLdP + ty + 16 * a];      // p[t, j]
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      kv[j] = ks[t * S::kLdQ + tx + 16 * j];
+      qv[j] = qs[t * S::kLdQ + tx + 16 * j];
+      dv[j] = gs[t * S::kLdQ + tx + 16 * j];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
-        kv[j] = ks[t * S::kLdQ + tx + 16 * j];
-        qv[j] = qs[t * S::kLdQ + tx + 16 * j];
-        dv[j] = gs[t * S::kLdQ + tx + 16 * j];
+        gq[a][j] = fmaf(ds_row[a], kv[j], gq[a][j]);
+        gk[a][j] = fmaf(ds_col[a], qv[j], gk[a][j]);
+        gv[a][j] = fmaf(p_col[a], dv[j], gv[a][j]);
       }
+  }
+}
+
+__device__ __forceinline__ void zero16(float (&acc)[4][4]) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int j = 0; j < DT; ++j) {
-          gq[a][j] = fmaf(ds_row[a], kv[j], gq[a][j]);
-          gk[a][j] = fmaf(ds_col[a], qv[j], gk[a][j]);
-          gv[a][j] = fmaf(p_col[a], dv[j], gv[a][j]);
-        }
+    for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
+}
+
+// this thread's share of a dbias partial: rows ty+16a, columns tx+16j
+__device__ __forceinline__ void store_dbias(float* part, int n,
+                                            const float (&dbacc)[4][4]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = ty + 16 * a;
+    if (i >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int jj = tx + 16 * j;
+      if (jj < n) part[i * n + jj] = dbacc[a][j];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernels #4 and #4-delta: dqkv written, the projection backward outside
+// ---------------------------------------------------------------------------
+
+template <typename T, int DMAX, bool DELTA>
+__global__ void __launch_bounds__(kThreads)
+wa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
+              const T* __restrict__ dout, const float* __restrict__ delta,
+              T* __restrict__ dqkv, float* __restrict__ dbias_part, int bw,
+              int n, int c, int heads, int d, int wpb, float scale) {
+  constexpr int DT = DMAX / 16;
+  extern __shared__ float smem[];
+  const int chunk = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int c3 = 3 * c;
+  const float scale_t = Num<T>::round(scale);
+
+  float dbacc[4][4];  // this block's share of dbias[head]
+  zero16(dbacc);
+
+  const int w_end = min(bw, (chunk + 1) * wpb);
+  for (int win = chunk * wpb; win < w_end; ++win) {
+    float gq[4][DT], gk[4][DT], gv[4][DT];
+    attn_bwd_tile<T, DMAX, DELTA>(qkv, p, dout, delta, win, head, n, c, heads,
+                                  d, scale_t, smem, dbacc, gq, gk, gv);
     T* dw = dqkv + static_cast<size_t>(win) * n * c3 + head * d;
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
@@ -211,48 +304,275 @@ wa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
     }
     __syncthreads();  // the next window overwrites shared memory
   }
-
-  float* part = dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = ty + 16 * a;
-    if (i >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int jj = tx + 16 * j;
-      if (jj < n) part[i * n + jj] = dbacc[a][j];
-    }
-  }
+  store_dbias(
+      dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n, n,
+      dbacc);
 }
 
-template <typename T, int DMAX>
-int launch_bwd(const void* qkv, const void* p, const void* dout, void* dqkv,
-               void* dbias_part, int bw, int n, int c, int heads, int d,
-               int wpb, float scale, cudaStream_t stream) {
+template <typename T, int DMAX, bool DELTA>
+int launch_bwd(const void* qkv, const void* p, const void* dout,
+               const void* delta, void* dqkv, void* dbias_part, int bw, int n,
+               int c, int heads, int d, int wpb, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = BwdSmem<DMAX>::kBytes;
-  static const cudaError_t attr = grant_smem(wa_bwd_kernel<T, DMAX>, smem);
+  static const cudaError_t attr =
+      grant_smem(wa_bwd_kernel<T, DMAX, DELTA>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const unsigned chunks = static_cast<unsigned>((bw + wpb - 1) / wpb);
   const unsigned grid = chunks * static_cast<unsigned>(heads);
-  wa_bwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(
+  wa_bwd_kernel<T, DMAX, DELTA><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(p),
-      static_cast<const T*>(dout), static_cast<T*>(dqkv),
+      static_cast<const T*>(dout), static_cast<const float*>(delta),
+      static_cast<T*>(dqkv), static_cast<float*>(dbias_part), bw, n, c, heads,
+      d, wpb, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool DELTA>
+int dispatch_bwd(const void* qkv, const void* p, const void* dout,
+                 const void* delta, void* dqkv, void* dbias_part, int bw,
+                 int n, int c, int heads, int d, int wpb, float scale,
+                 cudaStream_t s) {
+  if (d <= 16)
+    return launch_bwd<T, 16, DELTA>(qkv, p, dout, delta, dqkv, dbias_part, bw,
+                                    n, c, heads, d, wpb, scale, s);
+  if (d <= 32)
+    return launch_bwd<T, 32, DELTA>(qkv, p, dout, delta, dqkv, dbias_part, bw,
+                                    n, c, heads, d, wpb, scale, s);
+  return launch_bwd<T, 64, DELTA>(qkv, p, dout, delta, dqkv, dbias_part, bw,
+                                  n, c, heads, d, wpb, scale, s);
+}
+
+// ---------------------------------------------------------------------------
+// kernel #3: the attention backward and the projection backward in one
+// ---------------------------------------------------------------------------
+
+constexpr int kGK = 32;  // depth of the operand tile streamed per step
+
+template <int DMAX>
+struct FusedSmem {
+  static constexpr int kLdD = 3 * DMAX + 1;
+  // the attention buffers, then dqs [kNP][kLdD]: dqkv_h rounded to T. The
+  // operand tile [kGK][CT] of the projection products lies over qs..gs.
+  static constexpr int kFloats = BwdSmem<DMAX>::kFloats + kNP * kLdD;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+};
+
+template <typename T, int DMAX, int CT>
+__global__ void __launch_bounds__(kThreads)
+wa_bwd_fused_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
+                    const T* __restrict__ dout, const T* __restrict__ x,
+                    const T* __restrict__ w, T* __restrict__ dx,
+                    float* __restrict__ dw_part, float* __restrict__ db_part,
+                    float* __restrict__ dbias_part, int bw, int n, int c,
+                    int heads, int d, int wpb, float scale) {
+  using F = FusedSmem<DMAX>;
+  constexpr int DT = DMAX / 16;
+  constexpr int JC = CT / 16;        // C columns per thread
+  constexpr int RT = 3 * DMAX / 16;  // dW rows per thread
+  static_assert(kGK * CT <= BwdSmem<DMAX>::kQkvg, "operand tile too large");
+  extern __shared__ float smem[];
+  float* tile = smem;  // over qs..gs, dead once dqs is written
+  float* dqs = smem + BwdSmem<DMAX>::kFloats;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int c3 = 3 * c;
+  const int nct = (c + CT - 1) / CT;
+  const int dx_blocks = bw * nct;
+  const float scale_t = Num<T>::round(scale);
+  float dbacc[4][4];
+  zero16(dbacc);
+
+  // dqkv_h of (win, head), rounded to T, into dqs; ends synchronised
+  auto attention = [&](int win, int head) {
+    float gq[4][DT], gk[4][DT], gv[4][DT];
+    attn_bwd_tile<T, DMAX, false>(qkv, p, dout, nullptr, win, head, n, c,
+                                  heads, d, scale_t, smem, dbacc, gq, gk, gv);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        float* row = dqs + (ty + 16 * a) * F::kLdD + tx + 16 * j;
+        row[0] = Num<T>::round(gq[a][j] * scale);
+        row[DMAX] = Num<T>::round(gk[a][j]);
+        row[2 * DMAX] = Num<T>::round(gv[a][j]);
+      }
+    __syncthreads();
+  };
+
+  if (static_cast<int>(blockIdx.x) < dx_blocks) {
+    // ---- dx role: one window, CT columns, all heads ---------------------
+    const int win = blockIdx.x / nct;
+    const int ct0 = (blockIdx.x % nct) * CT;
+    float acc[4][JC];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < JC; ++j) acc[a][j] = 0.f;
+    for (int head = 0; head < heads; ++head) {
+      attention(win, head);
+      for (int part = 0; part < 3; ++part) {
+        for (int k0 = 0; k0 < d; k0 += kGK) {
+          const int kmax = min(kGK, d - k0);
+          // W rows [q|k|v][head][d], C contiguous
+          const T* wr = w + static_cast<size_t>(part * c + head * d + k0) * c;
+          for (int e = tid; e < kGK * CT; e += kThreads) {
+            const int kk = e / CT, col = e % CT;
+            tile[e] = (kk < kmax && ct0 + col < c)
+                          ? Num<T>::load(wr + static_cast<size_t>(kk) * c +
+                                         ct0 + col)
+                          : 0.f;
+          }
+          __syncthreads();
+          for (int kk = 0; kk < kmax; ++kk) {
+            float dv[4], wv[JC];
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+              dv[a] = dqs[(ty + 16 * a) * F::kLdD + part * DMAX + k0 + kk];
+#pragma unroll
+            for (int j = 0; j < JC; ++j) wv[j] = tile[kk * CT + tx + 16 * j];
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+#pragma unroll
+              for (int j = 0; j < JC; ++j)
+                acc[a][j] = fmaf(dv[a], wv[j], acc[a][j]);
+          }
+          __syncthreads();  // the tile, then the next head, is overwritten
+        }
+      }
+    }
+    T* dxw = dx + static_cast<size_t>(win) * n * c + ct0;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = ty + 16 * a;
+      if (i >= n) continue;
+#pragma unroll
+      for (int j = 0; j < JC; ++j) {
+        const int col = tx + 16 * j;
+        if (ct0 + col < c)
+          dxw[static_cast<size_t>(i) * c + col] = Num<T>::store(acc[a][j]);
+      }
+    }
+    return;
+  }
+
+  // ---- dW role: one head, CT columns, a run of wpb windows --------------
+  const int b = blockIdx.x - dx_blocks;
+  const int ct0 = (b % nct) * CT;
+  const int head = (b / nct) % heads;
+  const int run = b / (nct * heads);
+  const bool first = ct0 == 0;  // these blocks also write db and dbias
+  float acc[RT][JC];
+#pragma unroll
+  for (int a = 0; a < RT; ++a)
+#pragma unroll
+    for (int j = 0; j < JC; ++j) acc[a][j] = 0.f;
+  float dbsum = 0.f;  // column tid of dqkv_h, summed over tokens and windows
+  const int w_end = min(bw, (run + 1) * wpb);
+  for (int win = run * wpb; win < w_end; ++win) {
+    attention(win, head);
+    if (first && tid < 3 * DMAX)
+      for (int t = 0; t < n; ++t) dbsum += dqs[t * F::kLdD + tid];
+    const T* xw = x + static_cast<size_t>(win) * n * c + ct0;
+    for (int t0 = 0; t0 < n; t0 += kGK) {
+      const int tmax = min(kGK, n - t0);
+      for (int e = tid; e < kGK * CT; e += kThreads) {
+        const int tt = e / CT, col = e % CT;
+        tile[e] = (tt < tmax && ct0 + col < c)
+                      ? Num<T>::load(xw + static_cast<size_t>(t0 + tt) * c +
+                                     col)
+                      : 0.f;
+      }
+      __syncthreads();
+      for (int tt = 0; tt < tmax; ++tt) {
+        float dv[RT], xv[JC];
+#pragma unroll
+        for (int a = 0; a < RT; ++a)
+          dv[a] = dqs[(t0 + tt) * F::kLdD + ty + 16 * a];
+#pragma unroll
+        for (int j = 0; j < JC; ++j) xv[j] = tile[tt * CT + tx + 16 * j];
+#pragma unroll
+        for (int a = 0; a < RT; ++a)
+#pragma unroll
+          for (int j = 0; j < JC; ++j)
+            acc[a][j] = fmaf(dv[a], xv[j], acc[a][j]);
+      }
+      __syncthreads();  // the tile, then the next window, is overwritten
+    }
+  }
+  float* dwp = dw_part + static_cast<size_t>(run) * c3 * c;
+#pragma unroll
+  for (int a = 0; a < RT; ++a) {
+    const int r = ty + 16 * a;
+    const int part = r / DMAX, dd = r % DMAX;
+    if (dd >= d) continue;
+    float* row = dwp + static_cast<size_t>(part * c + head * d + dd) * c + ct0;
+#pragma unroll
+    for (int j = 0; j < JC; ++j) {
+      const int col = tx + 16 * j;
+      if (ct0 + col < c) row[col] = acc[a][j];
+    }
+  }
+  if (first) {
+    if (tid < 3 * DMAX && tid % DMAX < d)
+      db_part[static_cast<size_t>(run) * c3 + (tid / DMAX) * c + head * d +
+              tid % DMAX] = dbsum;
+    store_dbias(
+        dbias_part + (static_cast<size_t>(run) * heads + head) * n * n, n,
+        dbacc);
+  }
+}
+
+template <typename T, int DMAX, int CT>
+int launch_bwd_fused(const void* qkv, const void* p, const void* dout,
+                     const void* x, const void* w, void* dx, void* dw_part,
+                     void* db_part, void* dbias_part, int bw, int n, int c,
+                     int heads, int d, int wpb, float scale,
+                     cudaStream_t stream) {
+  constexpr size_t smem = FusedSmem<DMAX>::kBytes;
+  static const cudaError_t attr =
+      grant_smem(wa_bwd_fused_kernel<T, DMAX, CT>, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const unsigned nct = static_cast<unsigned>((c + CT - 1) / CT);
+  const unsigned runs = static_cast<unsigned>((bw + wpb - 1) / wpb);
+  const unsigned grid = static_cast<unsigned>(bw) * nct +
+                        runs * static_cast<unsigned>(heads) * nct;
+  wa_bwd_fused_kernel<T, DMAX, CT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(p),
+      static_cast<const T*>(dout), static_cast<const T*>(x),
+      static_cast<const T*>(w), static_cast<T*>(dx),
+      static_cast<float*>(dw_part), static_cast<float*>(db_part),
       static_cast<float*>(dbias_part), bw, n, c, heads, d, wpb, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_bwd(const void* qkv, const void* p, const void* dout,
-                 void* dqkv, void* dbias_part, int bw, int n, int c,
-                 int heads, int d, int wpb, float scale, cudaStream_t s) {
-  if (d <= 16)
-    return launch_bwd<T, 16>(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads,
-                             d, wpb, scale, s);
-  if (d <= 32)
-    return launch_bwd<T, 32>(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads,
-                             d, wpb, scale, s);
-  return launch_bwd<T, 64>(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads,
-                           d, wpb, scale, s);
+int dispatch_bwd_fused(const void* qkv, const void* p, const void* dout,
+                       const void* x, const void* w, void* dx, void* dw_part,
+                       void* db_part, void* dbias_part, int bw, int n, int c,
+                       int heads, int d, int wpb, int ct, float scale,
+                       cudaStream_t s) {
+  // the dW tile [3 DMAX, CT] lives in registers: 96 a thread at most
+  if (d > 32) {
+    if (ct != 128) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bwd_fused<T, 64, 128>(qkv, p, dout, x, w, dx, dw_part,
+                                        db_part, dbias_part, bw, n, c, heads,
+                                        d, wpb, scale, s);
+  }
+  if (ct == 128)
+    return launch_bwd_fused<T, 32, 128>(qkv, p, dout, x, w, dx, dw_part,
+                                        db_part, dbias_part, bw, n, c, heads,
+                                        d, wpb, scale, s);
+  if (ct == 256)
+    return launch_bwd_fused<T, 32, 256>(qkv, p, dout, x, w, dx, dw_part,
+                                        db_part, dbias_part, bw, n, c, heads,
+                                        d, wpb, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool bad_shape(int bw, int n, int c, int heads, int d) {
+  return n < 1 || n > kNP || d < 1 || d > 64 || heads * d != c || bw < 1;
 }
 
 }  // namespace
@@ -267,8 +587,7 @@ extern "C" int gdl_wa_savep_launch(const void* x, const void* w,
                                    void* p, int bw, int n, int c, int heads,
                                    int d, int nw, float scale, int dtype,
                                    void* stream) {
-  if (n < 1 || n > kNP || d < 1 || d > 64 || heads * d != c || bw < 1 ||
-      nw < 1 || bw % nw != 0)
+  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -281,6 +600,28 @@ extern "C" int gdl_wa_savep_launch(const void* x, const void* w,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// qkv [bw, n, 3c] in T, computed by the caller (columns [q|k|v][head][d],
+// q unscaled); bias and mask as above. Writes out [bw, n, c] and
+// p [bw, heads, n, n] in T. Returns a cudaError_t (0 on success).
+extern "C" int gdl_wa_qkv_savep_launch(const void* qkv, const void* bias,
+                                       const void* mask, void* out, void* p,
+                                       int bw, int n, int c, int heads, int d,
+                                       int nw, float scale, int dtype,
+                                       void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_fwd<float, true, false>(qkv, nullptr, nullptr, bias, mask,
+                                            out, nullptr, p, bw, n, c, heads,
+                                            d, nw, scale, s);
+  if (dtype == 1)
+    return dispatch_fwd<__nv_bfloat16, true, false>(
+        qkv, nullptr, nullptr, bias, mask, out, nullptr, p, bw, n, c, heads,
+        d, nw, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // qkv [bw, n, 3c], p [bw, heads, n, n], dout [bw, n, c] in T; writes dqkv
 // [bw, n, 3c] in T and dbias_part [ceil(bw / wpb), heads, n, n] in
 // float32, one partial per run of wpb windows (the caller sums them).
@@ -290,15 +631,63 @@ extern "C" int gdl_wa_bwd_launch(const void* qkv, const void* p,
                                  void* dbias_part, int bw, int n, int c,
                                  int heads, int d, int wpb, float scale,
                                  int dtype, void* stream) {
-  if (n < 1 || n > kNP || d < 1 || d > 64 || heads * d != c || bw < 1 ||
-      wpb < 1)
+  if (bad_shape(bw, n, c, heads, d) || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_bwd<float>(qkv, p, dout, dqkv, dbias_part, bw, n, c,
-                               heads, d, wpb, scale, s);
+    return dispatch_bwd<float, false>(qkv, p, dout, nullptr, dqkv, dbias_part,
+                                      bw, n, c, heads, d, wpb, scale, s);
   if (dtype == 1)
-    return dispatch_bwd<__nv_bfloat16>(qkv, p, dout, dqkv, dbias_part, bw, n,
-                                       c, heads, d, wpb, scale, s);
+    return dispatch_bwd<__nv_bfloat16, false>(qkv, p, dout, nullptr, dqkv,
+                                              dbias_part, bw, n, c, heads, d,
+                                              wpb, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same with the softmax row sums given: delta [bw, heads, n] float32,
+// delta[w, h, i] = sum over d of dout[w, i, h, d] * out[w, i, h, d].
+extern "C" int gdl_wa_bwd_delta_launch(const void* qkv, const void* p,
+                                       const void* dout, const void* delta,
+                                       void* dqkv, void* dbias_part, int bw,
+                                       int n, int c, int heads, int d,
+                                       int wpb, float scale, int dtype,
+                                       void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || wpb < 1 || delta == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_bwd<float, true>(qkv, p, dout, delta, dqkv, dbias_part,
+                                     bw, n, c, heads, d, wpb, scale, s);
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16, true>(qkv, p, dout, delta, dqkv,
+                                             dbias_part, bw, n, c, heads, d,
+                                             wpb, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// qkv, p, dout as above, x [bw, n, c] and w [3c, c] in T. Writes dx
+// [bw, n, c] in T and, in float32, one partial per run of wpb windows of
+// dW [runs, 3c, c], db [runs, 3c] and dbias [runs, heads, n, n], runs =
+// ceil(bw / wpb) (the caller sums them). ct is the width of a block's
+// column tile of C: 128 or 256, 128 when d > 32. dqkv is never written.
+// Returns a cudaError_t (0 on success).
+extern "C" int gdl_wa_bwd_fused_launch(const void* qkv, const void* p,
+                                       const void* dout, const void* x,
+                                       const void* w, void* dx, void* dw_part,
+                                       void* db_part, void* dbias_part,
+                                       int bw, int n, int c, int heads, int d,
+                                       int wpb, int ct, float scale,
+                                       int dtype, void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || wpb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_bwd_fused<float>(qkv, p, dout, x, w, dx, dw_part, db_part,
+                                     dbias_part, bw, n, c, heads, d, wpb, ct,
+                                     scale, s);
+  if (dtype == 1)
+    return dispatch_bwd_fused<__nv_bfloat16>(qkv, p, dout, x, w, dx, dw_part,
+                                             db_part, dbias_part, bw, n, c,
+                                             heads, d, wpb, ct, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -158,9 +158,15 @@ class AVClassifierSwinDGL(nn.Module):
     """Dual Swin encoders + a DGL fusion head. `forward(audio, visual)`
     returns `(out, out_a, out_v)`.
 
-    attn_impl="plain" runs the window attention's plain PyTorch version
-    on any device (the reference the CUDA kernels are held to); "auto"
-    takes the kernels on the card. drop_path_rate is the encoders' (0.1
+    attn_impl="plain" runs the plain PyTorch versions of the encoders'
+    kernels on any device (the reference the CUDA kernels are held to);
+    "auto" takes the kernels on the card, as cfg's four kernel flags say
+    (gdl_tpu/models/classifier.py reads the same four):
+    `use_pallas_attn=False` is attn_impl="plain" (which also takes the
+    fused MLP's plain version), `use_pallas_attn_eval=False` the plain
+    eval attention,
+    `fuse_qkv_gemm=False` the projection outside the attention kernel and
+    `fuse_mlp=True` the fused MLP. drop_path_rate is the encoders' (0.1
     in gdl_tpu). The DGL train step uses `encode`, `unimodal_logits` and
     `fused_logits`, gdl_tpu's protocol."""
 
@@ -168,11 +174,16 @@ class AVClassifierSwinDGL(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  drop_path_rate: float = 0.1):
         super().__init__()
+        eval_impl = ("auto" if cfg.use_pallas_attn
+                     and cfg.use_pallas_attn_eval else "plain")
+        if attn_impl == "auto" and not cfg.use_pallas_attn:
+            attn_impl = "plain"
         kw = dict(img_size=cfg.swin_img_size, patch_size=cfg.swin_patch,
                   embed_dim=cfg.swin_embed_dim, depths=tuple(cfg.swin_depths),
                   num_heads=tuple(cfg.swin_heads), window=cfg.swin_window,
                   attn_impl=attn_impl, drop_path_rate=drop_path_rate,
-                  generator=generator)
+                  generator=generator, fuse_qkv=cfg.fuse_qkv_gemm,
+                  fuse_mlp=cfg.fuse_mlp, attn_eval_impl=eval_impl)
         self.audio_net = SwinTransformer("audio", **kw)
         self.visual_net = SwinTransformer("visual", **kw)
         feat_dim = cfg.swin_embed_dim * 2 ** (len(cfg.swin_depths) - 1)

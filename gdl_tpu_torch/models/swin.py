@@ -23,6 +23,18 @@ with attn_impl="plain". The spatial token layout is kept (gdl_tpu's
 window-resident layout is the same math). Under CUDA autocast the
 attention operands are cast to the autocast dtype, as nn.Linear's would
 be, so a bf16 run takes the kernel's bf16 path.
+
+Two switches follow gdl_tpu's flags of the same names; neither changes a
+parameter's name, shape or initial value:
+
+- `fuse_qkv=False` (`--fuse_qkv_gemm 0`): in training mode the qkv
+  projection is the `nn.Linear` itself and `window_attention_qkv` takes
+  its output (kernel #5, then #4). At eval gdl_tpu's forward-only kernel
+  needs the fused projection, so the plain eval version runs.
+- `fuse_mlp=True` (`--fuse_mlp 1`): each block's MLP is `mlp_fused`
+  (kernel #15) where `mlp_kernel_supported`, else the `nn.Linear` chain.
+- `attn_eval_impl` ("auto" | "plain"; `--use_pallas_attn_eval 0` gives
+  "plain") is the eval attention's impl; attn_impl="plain" implies it.
 """
 
 from __future__ import annotations
@@ -35,7 +47,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gdl_tpu_torch.ops.mlp import mlp_fused, mlp_kernel_supported, mlp_ref
 from gdl_tpu_torch.ops.window_attention import (
+    window_attention_qkv,
     window_attention_qkv_fused,
     window_attention_qkv_fused_eval,
 )
@@ -87,12 +101,24 @@ def _trunc_normal(t: torch.Tensor, gen: torch.Generator) -> None:
     nn.init.trunc_normal_(t, std=0.02, generator=gen)
 
 
+def _autocast_operands(x, *params):
+    """x and the parameters in the autocast dtype where autocast is on (as
+    nn.Linear's operands would be), contiguous."""
+    if torch.is_autocast_enabled(x.device.type):
+        dt = torch.get_autocast_dtype(x.device.type)
+        x, params = x.to(dt), tuple(p.to(dt) for p in params)
+    return (x.contiguous(), *(p.contiguous() for p in params))
+
+
 class WindowAttention(nn.Module):
     def __init__(self, dim: int, window: int, num_heads: int,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", fuse_qkv: bool = True,
+                 attn_eval_impl: str = "auto"):
         super().__init__()
         self.dim, self.window, self.num_heads = dim, window, num_heads
         self.attn_impl = attn_impl
+        self.fuse_qkv = fuse_qkv
+        self.attn_eval_impl = attn_eval_impl
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
         self.qkv = nn.Linear(dim, 3 * dim)
@@ -107,15 +133,23 @@ class WindowAttention(nn.Module):
         bias = self.relative_position_bias_table[
             self.relative_position_index.reshape(-1)]
         bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
-        w, b = self.qkv.weight, self.qkv.bias
-        if torch.is_autocast_enabled(x.device.type):
-            dt = torch.get_autocast_dtype(x.device.type)
-            x, w, b = x.to(dt), w.to(dt), b.to(dt)
-        op = (window_attention_qkv_fused if self.training
-              else window_attention_qkv_fused_eval)
-        out = op(x.contiguous(), w.contiguous(), b.contiguous(),
-                 bias.float().contiguous(), mask, self.num_heads,
-                 impl=self.attn_impl)
+        bias = bias.float().contiguous()
+        if self.training and not self.fuse_qkv:
+            # the projection outside the kernel, as gdl_tpu's fuse_qkv=False
+            out = window_attention_qkv(self.qkv(x).contiguous(), bias, mask,
+                                       self.num_heads, impl=self.attn_impl)
+            return self.proj(out)
+        x, w, b = _autocast_operands(x, self.qkv.weight, self.qkv.bias)
+        if self.training:
+            out = window_attention_qkv_fused(x, w, b, bias, mask,
+                                             self.num_heads,
+                                             impl=self.attn_impl)
+        else:
+            plain = (self.attn_impl == "plain" or not self.fuse_qkv
+                     or self.attn_eval_impl == "plain")
+            out = window_attention_qkv_fused_eval(
+                x, w, b, bias, mask, self.num_heads,
+                impl="plain" if plain else self.attn_eval_impl)
         # the output projection stays outside the kernel, as in gdl_tpu
         return self.proj(out)
 
@@ -140,12 +174,29 @@ class DropPath(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    """fc1 → exact GELU → fc2. With fuse_mlp the chain is `mlp_fused` on
+    the flattened tokens where `mlp_kernel_supported` (kernel #15 on the
+    card; `mlp_ref`, the same chain in plain ops, under impl="plain");
+    the parameters are fc1's and fc2's either way."""
+
+    def __init__(self, dim: int, hidden: int, fuse_mlp: bool = False,
+                 impl: str = "auto"):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.fuse_mlp = fuse_mlp
+        self.impl = impl
 
     def forward(self, x):
+        c, hidden = x.shape[-1], self.fc1.out_features
+        m = x.numel() // c
+        if self.fuse_mlp:
+            args = _autocast_operands(x.reshape(m, c), self.fc1.weight,
+                                      self.fc1.bias, self.fc2.weight,
+                                      self.fc2.bias)
+            if mlp_kernel_supported(m, c, hidden, args[0].dtype):
+                op = mlp_ref if self.impl == "plain" else mlp_fused
+                return op(*args).reshape(x.shape)
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
@@ -155,14 +206,17 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, resolution: Tuple[int, int], num_heads: int,
                  window: int, shift: int, mlp_ratio: float = 4.0,
-                 attn_impl: str = "auto", drop_path: float = 0.0):
+                 attn_impl: str = "auto", drop_path: float = 0.0,
+                 fuse_qkv: bool = True, fuse_mlp: bool = False,
+                 attn_eval_impl: str = "auto"):
         super().__init__()
         self.window = min(window, *resolution)
         self.shift = shift
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, self.window, num_heads, attn_impl)
+        self.attn = WindowAttention(dim, self.window, num_heads, attn_impl,
+                                    fuse_qkv, attn_eval_impl)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), fuse_mlp, attn_impl)
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
         self._masks: Dict[tuple, torch.Tensor] = {}
@@ -226,12 +280,13 @@ class BasicLayer(nn.Module):
     def __init__(self, dim: int, resolution: Tuple[int, int], depth: int,
                  num_heads: int, window: int, mlp_ratio: float,
                  downsample: bool, attn_impl: str,
-                 drop_paths: Sequence[float]):
+                 drop_paths: Sequence[float], fuse_qkv: bool = True,
+                 fuse_mlp: bool = False, attn_eval_impl: str = "auto"):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinBlock(dim, resolution, num_heads, window,
                       0 if i % 2 == 0 else window // 2, mlp_ratio, attn_impl,
-                      drop_paths[i])
+                      drop_paths[i], fuse_qkv, fuse_mlp, attn_eval_impl)
             for i in range(depth)])
         self.downsample = PatchMerging(dim) if downsample else None
 
@@ -245,7 +300,9 @@ class SwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (4, 8, 16, 32), window: int = 7,
                  mlp_ratio: float = 4.0, attn_impl: str = "auto",
                  drop_path_rate: float = 0.1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fuse_qkv: bool = True, fuse_mlp: bool = False,
+                 attn_eval_impl: str = "auto"):
         super().__init__()
         self.modality = modality
         in_chans = 1 if modality == "audio" else 3
@@ -259,7 +316,8 @@ class SwinTransformer(nn.Module):
             layers.append(BasicLayer(
                 embed_dim * 2 ** s, (r, r), depth, num_heads[s], window,
                 mlp_ratio, s < len(depths) - 1, attn_impl,
-                dpr[first:first + depth]))
+                dpr[first:first + depth], fuse_qkv, fuse_mlp,
+                attn_eval_impl))
         self.layers = nn.ModuleList(layers)
         self.num_features = embed_dim * 2 ** (len(depths) - 1)
         self.norm = nn.LayerNorm(self.num_features, eps=1e-5)

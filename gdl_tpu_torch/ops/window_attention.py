@@ -1,6 +1,6 @@
-"""Fused window attention with the qkv projection inside.
+"""Fused window attention, with the qkv projection inside or outside.
 
-Ports of two entries of `gdl_tpu/ops/window_attention.py`:
+Ports of three entries of `gdl_tpu/ops/window_attention.py`:
 
 - `window_attention_qkv_fused_eval`: `window_attention_pallas_qkv_fused_eval`
   (Pallas body `_wa_xw_t_eval_kernel`), the forward-only Swin eval op. On
@@ -12,6 +12,27 @@ Ports of two entries of `gdl_tpu/ops/window_attention.py`:
   → `_wa_qkv_t_bwd_p_kernel`) followed by the projection backward as
   plain GEMMs, as gdl_tpu's phase-1 split runs it. On a CUDA tensor both
   halves launch `kernels/window_attention_train.cu`.
+- `window_attention_qkv`: `window_attention_pallas_qkv(save_p=True,
+  transposed=True)`, the training op on a qkv that the caller projected
+  (the model's `fuse_qkv=False` path). Its forward is kernel #5
+  (`_wa_qkv_t_savep_kernel`) and its backward the same attention backward.
+
+Two module switches, with gdl_tpu's names, values and defaults, are read
+when an op is called (they are no CLI flags):
+
+- `BWD_DELTA` (False | True): both training forwards also save `out`, and
+  the backward hands the attention-backward kernel the softmax row sums
+  delta = Σ_d dout·out per (window, head, query), computed in f32 with
+  plain torch ops, instead of letting it form Σ_k dp·p (kernel #4-delta,
+  `_wa_qkv_t_bwd_pd_kernel`).
+- `FUSED_PROJECTION_BACKWARD` (False | True | "auto"), for
+  `window_attention_qkv_fused` only: where `fused_bwd_supported` allows,
+  the whole backward is one launch of kernel #3
+  (`_wa_xw_t_bwd_fused_kernel`), which never writes dqkv and returns dx,
+  dW, db and dbias; elsewhere the split above. gdl_tpu's "auto" is a VMEM
+  budget; on the H100 the kernel is slower than the split at every
+  Swin-B stage (PERF.md), so there is no measured win to build a rule on
+  yet and "auto" means "wherever supported", the same as True.
 
 On a CPU tensor every op runs its plain PyTorch version
 (`*_ref` below), which rounds where the kernels round; impl="plain" runs
@@ -37,12 +58,20 @@ from gdl_tpu_torch import kernels
 KERNEL_NAME = "window_attention_qkv_fused_eval"
 SAVEP_KERNEL_NAME = "window_attention_qkv_fused_savep"
 BWD_KERNEL_NAME = "window_attention_qkv_fused_bwd"
+QKV_SAVEP_KERNEL_NAME = "window_attention_qkv_savep"
+BWD_DELTA_KERNEL_NAME = "window_attention_qkv_fused_bwd_delta"
+BWD_FUSED_KERNEL_NAME = "window_attention_qkv_fused_bwd_fused"
+BWD_DELTA = False  # False | True
+FUSED_PROJECTION_BACKWARD = False  # False | True | "auto"
 MAX_TOKENS = 64  # N the kernels take (a Swin window is 49)
 MAX_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward kernel gives each block one head and a run of windows;
 # about this many blocks fill an H100's 132 SMs a few times over
 _BWD_TARGET_BLOCKS = 1024
+# the fused backward's dW blocks each write a [3d, CT] float32 partial per
+# run of windows; about this many blocks keep the runs to tens
+_FUSED_BWD_TARGET_BLOCKS = 256
 
 
 def _no_autocast(device: torch.device):
@@ -63,19 +92,18 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
     return torch.float64 if dt == torch.float64 else torch.float32
 
 
-def window_attention_qkv_fused_train_ref(x, w, b, bias, mask, num_heads: int,
-                                         scale: Optional[float] = None):
-    """Plain PyTorch version of the save-p forward → (out, qkv, p), with
-    the kernels' rounding points: the projection accumulates in f32 and is
-    rounded to x's dtype before the bias add; q is scaled in x's dtype;
-    scores and softmax run in f32 and p is rounded to x's dtype; p·v
-    accumulates in f32."""
-    bw, n, c = x.shape
+def window_attention_qkv_train_ref(qkv, bias, mask, num_heads: int,
+                                   scale: Optional[float] = None):
+    """Plain PyTorch version of the save-p forward on a given qkv
+    [Bw, N, 3C] → (out, p), with kernel #5's rounding points: q is scaled
+    in qkv's dtype; scores and softmax run in f32 and p is rounded to
+    qkv's dtype; p·v accumulates in f32."""
+    bw, n, c3 = qkv.shape
+    c = c3 // 3
     d = c // num_heads
     scale = scale if scale is not None else d ** -0.5
-    dt, acc = x.dtype, _acc_dtype(x.dtype)
-    with _no_autocast(x.device):
-        qkv = torch.matmul(x, w.t()) + b  # f32 accumulate, rounded to dt
+    dt, acc = qkv.dtype, _acc_dtype(qkv.dtype)
+    with _no_autocast(qkv.device):
         q5 = qkv.reshape(bw, n, 3, num_heads, d)
         q = q5[:, :, 0] * _rounded(scale, dt)
         k, v = q5[:, :, 1], q5[:, :, 2]
@@ -87,7 +115,19 @@ def window_attention_qkv_fused_train_ref(x, w, b, bias, mask, num_heads: int,
                  + mask[None, :, None].to(acc)).reshape(bw, num_heads, n, n)
         p = torch.softmax(s, dim=-1).to(dt)
         out = torch.einsum("bhnm,bmhd->bnhd", p.to(acc), v.to(acc))
-    return out.to(dt).reshape(bw, n, c), qkv, p
+    return out.to(dt).reshape(bw, n, c), p
+
+
+def window_attention_qkv_fused_train_ref(x, w, b, bias, mask, num_heads: int,
+                                         scale: Optional[float] = None):
+    """Plain PyTorch version of the save-p forward → (out, qkv, p), with
+    the kernels' rounding points: the projection accumulates in f32 and is
+    rounded to x's dtype before the bias add; the rest is
+    `window_attention_qkv_train_ref`."""
+    with _no_autocast(x.device):
+        qkv = torch.matmul(x, w.t()) + b  # f32 accumulate, rounded to dt
+    out, p = window_attention_qkv_train_ref(qkv, bias, mask, num_heads, scale)
+    return out, qkv, p
 
 
 def window_attention_qkv_fused_eval_ref(x, w, b, bias, mask, num_heads: int,
@@ -98,13 +138,26 @@ def window_attention_qkv_fused_eval_ref(x, w, b, bias, mask, num_heads: int,
                                                 num_heads, scale)[0]
 
 
+def attention_delta(out, dout, num_heads: int):
+    """The softmax row sums of the attention backward, Σ_k dp·p = Σ_d
+    dout·out per (window, head, query) → [Bw, H, N] in f32 (f64 for f64
+    inputs): gdl_tpu's `_pack_delta_t` without the TPU lane packing."""
+    bw, n, c = out.shape
+    acc = _acc_dtype(out.dtype)
+    prod = out.to(acc) * dout.to(acc)
+    return prod.reshape(bw, n, num_heads, c // num_heads).sum(-1).permute(
+        0, 2, 1).contiguous()
+
+
 def window_attention_qkv_fused_bwd_ref(qkv, p, dout, num_heads: int,
-                                       scale: Optional[float] = None):
+                                       scale: Optional[float] = None,
+                                       delta=None):
     """Plain PyTorch version of the attention backward from the saved p →
     (dqkv [Bw, N, 3C] in qkv's dtype, dbias [H, N, N] f32), with kernel
     #4's rounding points: ds = p⊙(dp − Σ_k dp⊙p) in f32 is rounded to the
     input dtype before the dq and dk products; dq is multiplied by
-    `scale` in f32; dbias is an f32 sum over windows."""
+    `scale` in f32; dbias is an f32 sum over windows. With `delta`
+    [Bw, H, N] (kernel #4-delta) ds = p⊙(dp − delta)."""
     bw, n, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
@@ -118,13 +171,39 @@ def window_attention_qkv_fused_bwd_ref(qkv, p, dout, num_heads: int,
         g = dout.reshape(bw, n, num_heads, d).to(acc)
         dv = torch.einsum("bhij,bihd->bjhd", pf, g)
         dp = torch.einsum("bihd,bjhd->bhij", g, v)
-        ds = pf * (dp - (dp * pf).sum(-1, keepdim=True))
+        rows = ((dp * pf).sum(-1, keepdim=True) if delta is None
+                else delta.to(acc)[..., None])
+        ds = pf * (dp - rows)
         dbias = ds.sum(0)
         ds_t = ds.to(dt).to(acc)
         dq = torch.einsum("bhij,bjhd->bihd", ds_t, k) * scale
         dk = torch.einsum("bhij,bihd->bjhd", ds_t, qs.to(acc))
         dqkv = torch.stack([dq, dk, dv], dim=2).to(dt).reshape(bw, n, c3)
     return dqkv, dbias
+
+
+def _projection_bwd(dqkv, x, w):
+    """dx = dqkv·W, dW = dqkvᵀ·x, db = Σ dqkv: plain GEMMs in the
+    operands' dtype (f32 accumulate, one rounding each)."""
+    c = x.shape[-1]
+    with _no_autocast(x.device):
+        dq2 = dqkv.reshape(-1, 3 * c)
+        dx = torch.matmul(dq2, w).reshape(x.shape)
+        dw = torch.matmul(dq2.t(), x.reshape(-1, c))
+        db = dq2.to(_acc_dtype(x.dtype)).sum(0).to(w.dtype)
+    return dx, dw, db
+
+
+def window_attention_qkv_fused_bwd_fused_ref(qkv, p, dout, x, w,
+                                             num_heads: int,
+                                             scale: Optional[float] = None):
+    """Plain PyTorch version of kernel #3 → (dx, dW, db in x's dtype,
+    dbias f32): the attention backward with dqkv rounded to the input
+    dtype, then the three projection GEMMs, f32 accumulate, one rounding
+    each."""
+    dqkv, dbias = window_attention_qkv_fused_bwd_ref(qkv, p, dout, num_heads,
+                                                     scale)
+    return (*_projection_bwd(dqkv, x, w), dbias)
 
 
 def _require_cuda(tensors, like) -> None:
@@ -147,6 +226,19 @@ def _check_head_shape(name, n, c, num_heads, dtype):
     return d
 
 
+def _check_mask(mask, bw: int, n: int) -> int:
+    """Validate the shift mask → nW (1 without a mask)."""
+    if mask is None:
+        return 1
+    nw = mask.shape[0]
+    if (tuple(mask.shape) != (nw, n, n) or mask.dtype != torch.float32
+            or bw % nw):
+        raise ValueError(f"mask: expected [nW, {n}, {n}] float32 with "
+                         f"nW dividing {bw}, got {tuple(mask.shape)} "
+                         f"{mask.dtype}")
+    return nw
+
+
 def _check_forward_operands(name, x, w, b, bias, mask, num_heads):
     """Validate the forward kernels' operands → (bw, n, c, d, nw)."""
     bw, n, c = x.shape
@@ -157,14 +249,7 @@ def _check_forward_operands(name, x, w, b, bias, mask, num_heads):
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{arg}: expected {shape} {dtype}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    nw = 1
-    if mask is not None:
-        nw = mask.shape[0]
-        if (tuple(mask.shape) != (nw, n, n) or mask.dtype != torch.float32
-                or bw % nw):
-            raise ValueError(f"mask: expected [nW, {n}, {n}] float32 with "
-                             f"nW dividing {bw}, got {tuple(mask.shape)} "
-                             f"{mask.dtype}")
+    nw = _check_mask(mask, bw, n)
     _require_cuda([x, w, b, bias] + ([mask] if mask is not None else []), x)
     return bw, n, c, d, nw
 
@@ -214,30 +299,119 @@ def _bwd_windows_per_block(bw: int, num_heads: int) -> int:
     return max(1, bw * num_heads // _BWD_TARGET_BLOCKS)
 
 
-def _launch_bwd(qkv, p, dout, num_heads, scale):
+def _check_bwd_operands(name, qkv, p, dout, num_heads, extra=()):
+    """Validate the backward kernels' operands → (bw, n, c, d). `extra`
+    names the operands beyond qkv, p and dout as (argument, tensor, shape,
+    dtype)."""
     bw, n, c3 = qkv.shape
     c = c3 // 3
-    d = _check_head_shape(BWD_KERNEL_NAME, n, c, num_heads, qkv.dtype)
-    for arg, t, shape in (("qkv", qkv, (bw, n, 3 * c)),
-                          ("p", p, (bw, num_heads, n, n)),
-                          ("dout", dout, (bw, n, c))):
-        if tuple(t.shape) != shape or t.dtype != qkv.dtype:
-            raise ValueError(f"{arg}: expected {shape} {qkv.dtype}, got "
+    d = _check_head_shape(name, n, c, num_heads, qkv.dtype)
+    operands = (("qkv", qkv, (bw, n, 3 * c), qkv.dtype),
+                ("p", p, (bw, num_heads, n, n), qkv.dtype),
+                ("dout", dout, (bw, n, c), qkv.dtype), *extra)
+    for arg, t, shape, dtype in operands:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{arg}: expected {shape} {dtype}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    _require_cuda([qkv, p, dout], qkv)
+    _require_cuda([t for _, t, _, _ in operands], qkv)
+    return bw, n, c, d
+
+
+def _launch_bwd(qkv, p, dout, num_heads, scale, delta=None):
+    name = BWD_KERNEL_NAME if delta is None else BWD_DELTA_KERNEL_NAME
+    extra = () if delta is None else ((
+        "delta", delta, (qkv.shape[0], num_heads, qkv.shape[1]),
+        torch.float32),)
+    bw, n, c, d = _check_bwd_operands(name, qkv, p, dout, num_heads, extra)
     wpb = _bwd_windows_per_block(bw, num_heads)
     lib = kernels.load("window_attention_train")
     dqkv = torch.empty_like(qkv)
     parts = torch.empty((-(-bw // wpb), num_heads, n, n), dtype=torch.float32,
                         device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.gdl_wa_bwd_launch(
-        qkv.data_ptr(), p.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-        parts.data_ptr(), bw, n, c, num_heads, d, wpb, float(scale),
-        _DTYPE_CODES[qkv.dtype], stream)
-    _raise_on(err, BWD_KERNEL_NAME)
-    kernels.launch_counts[BWD_KERNEL_NAME] += 1
+    tail = (dqkv.data_ptr(), parts.data_ptr(), bw, n, c, num_heads, d, wpb,
+            float(scale), _DTYPE_CODES[qkv.dtype], stream)
+    if delta is None:
+        err = lib.gdl_wa_bwd_launch(qkv.data_ptr(), p.data_ptr(),
+                                    dout.data_ptr(), *tail)
+    else:
+        err = lib.gdl_wa_bwd_delta_launch(qkv.data_ptr(), p.data_ptr(),
+                                          dout.data_ptr(), delta.data_ptr(),
+                                          *tail)
+    _raise_on(err, name)
+    kernels.launch_counts[name] += 1
     return dqkv, parts.sum(0)
+
+
+def _launch_qkv_savep(qkv, bias, mask, num_heads, scale):
+    bw, n, c3 = qkv.shape
+    c = c3 // 3
+    d = _check_head_shape(QKV_SAVEP_KERNEL_NAME, n, c, num_heads, qkv.dtype)
+    if 3 * c != c3 or tuple(bias.shape) != (num_heads, n, n) \
+            or bias.dtype != torch.float32:
+        raise ValueError(f"qkv [Bw, N, 3C] and bias [{num_heads}, {n}, {n}] "
+                         f"float32 expected, got {tuple(qkv.shape)} and "
+                         f"{tuple(bias.shape)} {bias.dtype}")
+    nw = _check_mask(mask, bw, n)
+    _require_cuda([qkv, bias] + ([mask] if mask is not None else []), qkv)
+    lib = kernels.load("window_attention_train")
+    out = torch.empty((bw, n, c), dtype=qkv.dtype, device=qkv.device)
+    p = torch.empty((bw, num_heads, n, n), dtype=qkv.dtype, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.gdl_wa_qkv_savep_launch(
+        qkv.data_ptr(), bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        p.data_ptr(), bw, n, c, num_heads, d, nw, float(scale),
+        _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, QKV_SAVEP_KERNEL_NAME)
+    kernels.launch_counts[QKV_SAVEP_KERNEL_NAME] += 1
+    return out, p
+
+
+def fused_bwd_supported(n: int, c: int, num_heads: int,
+                        dtype: torch.dtype) -> bool:
+    """Where kernel #3 runs: a function of the shapes alone. Its blocks
+    tile C and keep every sum in registers, so it has no limit beyond
+    kernel #4's own (N <= 64 tokens, head dim <= 64, float32 or
+    bfloat16). All four Swin-B stages qualify."""
+    return (n <= MAX_TOKENS and c % num_heads == 0
+            and c // num_heads <= MAX_HEAD_DIM and dtype in _DTYPE_CODES)
+
+
+def _fused_bwd_tiling(bw: int, c: int, num_heads: int):
+    """(column tile of C, windows per dW block) of kernel #3, from the
+    shape alone, so the partials and their sums are the same every run.
+    The tile is 256 columns (128 when C <= 128 or the head dim is above
+    32: the dW tile [3d, CT] lives in registers)."""
+    ct = 128 if c <= 128 or c // num_heads > 32 else 256
+    runs = max(1, _FUSED_BWD_TARGET_BLOCKS // (num_heads * -(-c // ct)))
+    return ct, -(-bw // min(bw, runs))
+
+
+def _launch_bwd_fused(qkv, p, dout, x, w, num_heads, scale):
+    c = qkv.shape[2] // 3
+    extra = (("x", x, (*qkv.shape[:2], c), qkv.dtype),
+             ("w", w, (3 * c, c), qkv.dtype))
+    bw, n, c, d = _check_bwd_operands(BWD_FUSED_KERNEL_NAME, qkv, p, dout,
+                                      num_heads, extra)
+    ct, wpb = _fused_bwd_tiling(bw, c, num_heads)
+    runs = -(-bw // wpb)
+    lib = kernels.load("window_attention_train")
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    dx = torch.empty_like(x)
+    dw_parts = torch.empty((runs, 3 * c, c), **f32)
+    db_parts = torch.empty((runs, 3 * c), **f32)
+    dbias_parts = torch.empty((runs, num_heads, n, n), **f32)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.gdl_wa_bwd_fused_launch(
+        qkv.data_ptr(), p.data_ptr(), dout.data_ptr(), x.data_ptr(),
+        w.data_ptr(), dx.data_ptr(), dw_parts.data_ptr(), db_parts.data_ptr(),
+        dbias_parts.data_ptr(), bw, n, c, num_heads, d, wpb, ct, float(scale),
+        _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, BWD_FUSED_KERNEL_NAME)
+    kernels.launch_counts[BWD_FUSED_KERNEL_NAME] += 1
+    return (dx, dw_parts.sum(0).to(w.dtype), db_parts.sum(0).to(w.dtype),
+            dbias_parts.sum(0))
 
 
 def _use_kernel(impl: str, x: torch.Tensor) -> bool:
@@ -284,43 +458,89 @@ def window_attention_qkv_fused_fwd(x, w, b, bias, mask, num_heads: int,
 
 def window_attention_qkv_fused_bwd(qkv, p, dout, num_heads: int,
                                    scale: Optional[float] = None,
-                                   impl: str = "auto"):
+                                   impl: str = "auto", delta=None):
     """The attention backward alone → (dqkv, dbias f32): kernel #4 on a
-    CUDA tensor under impl="auto", else the plain version."""
+    CUDA tensor under impl="auto", else the plain version. With `delta`
+    [Bw, H, N] f32 (see `attention_delta`) it is kernel #4-delta."""
     d = qkv.shape[-1] // 3 // num_heads
     scale = scale if scale is not None else d ** -0.5
     if _use_kernel(impl, qkv):
-        return _launch_bwd(qkv, p, dout, num_heads, scale)
-    return window_attention_qkv_fused_bwd_ref(qkv, p, dout, num_heads, scale)
+        return _launch_bwd(qkv, p, dout, num_heads, scale, delta)
+    return window_attention_qkv_fused_bwd_ref(qkv, p, dout, num_heads, scale,
+                                              delta)
+
+
+def window_attention_qkv_fused_bwd_fused(qkv, p, dout, x, w, num_heads: int,
+                                         scale: Optional[float] = None,
+                                         impl: str = "auto"):
+    """The attention backward and the projection backward in one →
+    (dx, dW, db, dbias f32): kernel #3 on a CUDA tensor under impl="auto",
+    else the plain version."""
+    d = qkv.shape[-1] // 3 // num_heads
+    scale = scale if scale is not None else d ** -0.5
+    if _use_kernel(impl, qkv):
+        return _launch_bwd_fused(qkv, p, dout, x, w, num_heads, scale)
+    return window_attention_qkv_fused_bwd_fused_ref(qkv, p, dout, x, w,
+                                                    num_heads, scale)
+
+
+def window_attention_qkv_fwd(qkv, bias, mask, num_heads: int,
+                             scale: Optional[float] = None,
+                             impl: str = "auto"):
+    """The forward of `window_attention_qkv` alone → (out, p): kernel #5
+    on a CUDA tensor under impl="auto", else the plain version."""
+    d = qkv.shape[-1] // 3 // num_heads
+    scale = scale if scale is not None else d ** -0.5
+    if _use_kernel(impl, qkv):
+        return _launch_qkv_savep(qkv, bias, mask, num_heads, scale)
+    return window_attention_qkv_train_ref(qkv, bias, mask, num_heads, scale)
+
+
+def _use_fused_bwd(x, num_heads: int) -> bool:
+    mode = FUSED_PROJECTION_BACKWARD
+    if mode not in (False, True, "auto"):
+        raise ValueError(f"FUSED_PROJECTION_BACKWARD must be False, True or "
+                         f"'auto', got {mode!r}")
+    return bool(mode) and fused_bwd_supported(x.shape[1], x.shape[2],
+                                              num_heads, x.dtype)
+
+
+def _attention_bwd(ctx, qkv, p, out, dout):
+    """The attention backward of both training ops, by ctx's switches."""
+    delta = (attention_delta(out, dout, ctx.num_heads) if out is not None
+             else None)
+    return window_attention_qkv_fused_bwd(qkv, p, dout, ctx.num_heads,
+                                          ctx.scale, ctx.impl, delta=delta)
 
 
 class _QkvFusedAttention(torch.autograd.Function):
-    """out = attention(x·Wᵀ + b); saves (x, w, qkv, p). The backward runs
-    the attention backward (kernel #4 or its plain version), then
+    """out = attention(x·Wᵀ + b); saves (x, w, qkv, p), all in x's dtype,
+    and `out` as well under BWD_DELTA. The backward runs the attention
+    backward (kernel #4 or #4-delta, or their plain version), then
     dx = dqkv·W, dW = dqkvᵀ·x and db = Σ dqkv as plain GEMMs in the
-    operands' dtype (f32 accumulate). The mask gets no gradient."""
+    operands' dtype (f32 accumulate); or, under
+    FUSED_PROJECTION_BACKWARD, all of it as kernel #3. The mask gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, w, b, bias, mask, num_heads, scale, impl):
         out, qkv, p = window_attention_qkv_fused_fwd(x, w, b, bias, mask,
                                                      num_heads, scale, impl)
-        ctx.save_for_backward(x, w, qkv, p)
+        ctx.save_for_backward(x, w, qkv, p, out if BWD_DELTA else None)
         ctx.num_heads, ctx.scale, ctx.impl = num_heads, scale, impl
         ctx.bias_dtype = bias.dtype
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        x, w, qkv, p = ctx.saved_tensors
+        x, w, qkv, p, out = ctx.saved_tensors
         dout = dout.to(x.dtype).contiguous()
-        dqkv, dbias = window_attention_qkv_fused_bwd(
-            qkv, p, dout, ctx.num_heads, ctx.scale, ctx.impl)
-        c = x.shape[-1]
-        with _no_autocast(x.device):
-            dq2 = dqkv.reshape(-1, 3 * c)
-            dx = torch.matmul(dq2, w).reshape(x.shape)
-            dw = torch.matmul(dq2.t(), x.reshape(-1, c))
-            db = dq2.to(_acc_dtype(x.dtype)).sum(0).to(w.dtype)
+        if _use_fused_bwd(x, ctx.num_heads):
+            dx, dw, db, dbias = window_attention_qkv_fused_bwd_fused(
+                qkv, p, dout, x, w, ctx.num_heads, ctx.scale, ctx.impl)
+        else:
+            dqkv, dbias = _attention_bwd(ctx, qkv, p, out, dout)
+            dx, dw, db = _projection_bwd(dqkv, x, w)
         return (dx, dw, db, dbias.to(ctx.bias_dtype), None, None, None,
                 None)
 
@@ -331,10 +551,69 @@ def window_attention_qkv_fused(x, w, b, bias, mask, num_heads: int,
     """Fused qkv projection + window attention with a backward (the Swin
     training op). Gradients flow to x, w, b and bias.
 
-    impl="auto" launches kernels #2 and #4 for a CUDA `x` (raising if it
-    cannot) and runs their plain versions for a CPU `x`; impl="plain"
-    runs the plain versions on any device."""
+    impl="auto" launches kernels #2 and #4 (or #4-delta, or #3, by the
+    module switches) for a CUDA `x` (raising if it cannot) and runs their
+    plain versions for a CPU `x`; impl="plain" runs the plain versions on
+    any device."""
     d = x.shape[-1] // num_heads
     scale = scale if scale is not None else d ** -0.5
     return _QkvFusedAttention.apply(x, w, b, bias, mask, num_heads, scale,
                                     impl)
+
+
+class _QkvAttention(torch.autograd.Function):
+    """out = attention(qkv); saves (qkv, p), and `out` as well under
+    BWD_DELTA. The backward is the attention backward (kernel #4 or
+    #4-delta, or their plain version). The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, num_heads, scale, impl):
+        out, p = window_attention_qkv_fwd(qkv, bias, mask, num_heads, scale,
+                                          impl)
+        ctx.save_for_backward(qkv, p, out if BWD_DELTA else None)
+        ctx.num_heads, ctx.scale, ctx.impl = num_heads, scale, impl
+        ctx.bias_dtype = bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, p, out = ctx.saved_tensors
+        dout = dout.to(qkv.dtype).contiguous()
+        dqkv, dbias = _attention_bwd(ctx, qkv, p, out, dout)
+        return dqkv, dbias.to(ctx.bias_dtype), None, None, None, None
+
+
+def window_attention_qkv(qkv, bias, mask, num_heads: int,
+                         scale: Optional[float] = None, save_p: bool = True,
+                         transposed: bool = True, impl: str = "auto"):
+    """Window attention on the output of the qkv projection, with a
+    backward: qkv is [Bw, N, 3C] as nn.Linear gives it, or its
+    [Bw, N, 3, C] view; the result is [Bw, N, C]. Gradients flow to qkv
+    and bias.
+
+    impl="auto" launches kernels #5 and #4 (or #4-delta) for a CUDA `qkv`
+    (raising if it cannot) and runs their plain versions for a CPU `qkv`;
+    impl="plain" runs the plain versions on any device.
+
+    The kernels take N = 49 tokens as they are (up to 64), so gdl_tpu's
+    `n_valid` and its pad of the tokens to a multiple of 8 have no
+    counterpart here. Its other two variants are not ported yet:
+    save_p=False (the backward that recomputes the scores, kernel row #7)
+    and transposed=False (the row score layout, kernel row #6) raise."""
+    if not save_p:
+        raise NotImplementedError(
+            "window_attention_qkv(save_p=False), the recompute backward "
+            "(kernel row #7), is not ported to gdl_tpu_torch yet")
+    if not transposed:
+        raise NotImplementedError(
+            "window_attention_qkv(transposed=False), the row score layout "
+            "(kernel row #6), is not ported to gdl_tpu_torch yet")
+    shape = qkv.shape
+    if qkv.ndim == 4:
+        if shape[2] != 3:
+            raise ValueError(f"qkv: expected [Bw, N, 3, C], got "
+                             f"{tuple(shape)}")
+        qkv = qkv.reshape(shape[0], shape[1], 3 * shape[3])
+    d = qkv.shape[-1] // 3 // num_heads
+    scale = scale if scale is not None else d ** -0.5
+    return _QkvAttention.apply(qkv, bias, mask, num_heads, scale, impl)

@@ -2,7 +2,8 @@
 
     python -m gdl_tpu_torch.profile_step [--backbone resnet|swin|mmformer]
         [--dtype float32|bfloat16] [--impl auto|plain] [--steps 6]
-        [--out profile.json]
+        [--fuse_qkv_gemm 0] [--fuse_mlp 1] [--bwd_delta 1]
+        [--fused_projection_backward 1] [--out profile.json]
 
 Builds the flagship configuration of the backbone at full width with
 seeded weights (ResNet: CREMA-D, batch 64, concat DGL, alpha 5, lr 2e-3;
@@ -16,7 +17,9 @@ synchronize at the end), then traces the same number of steps with
 ms/step (the sum of the CUDA kernels' and copies' self time), busy share
 (device ms over untraced ms), device time by kind of kernel and the
 largest kernels by name. Needs a CUDA device; TF32 is off for matrix
-products and convolutions, as in `chip_smoke.py`.
+products and convolutions, as in `chip_smoke.py`. The last four options
+are for the Swin backbone: the CLI's two kernel flags, and the two module
+switches of `ops/window_attention.py`.
 """
 
 from __future__ import annotations
@@ -34,7 +37,10 @@ KINDS = (
                                         "sa_bwd_kv_kernel")),
     ("dropout_mask (#14)", ("dropout_mask_kernel",)),
     ("maxpool_bwd (#16)", ("maxpool_bwd_kernel",)),
-    ("window_attention (#2, #4)", ("wa_fwd", "wa_bwd", "window_attention")),
+    ("window_attention_bwd_fused (#3)", ("wa_bwd_fused",)),
+    ("window_attention (#2, #4, #5)", ("wa_fwd", "wa_bwd",
+                                       "window_attention")),
+    ("mlp_fused (#15)", ("mlp_kernel",)),
     ("batch_norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm")),
     # cuDNN's FFT convolution algorithms also call cuBLAS complex GEMMs,
     # which land under "gemm"
@@ -71,6 +77,11 @@ def main(argv=None) -> int:
                     choices=["float32", "bfloat16"])
     ap.add_argument("--impl", default="auto", choices=["auto", "plain"])
     ap.add_argument("--steps", type=int, default=6)
+    # the Swin kernel flags of the CLI, and the op module's two switches
+    ap.add_argument("--fuse_qkv_gemm", type=int, default=1)
+    ap.add_argument("--fuse_mlp", type=int, default=0)
+    ap.add_argument("--bwd_delta", type=int, default=0)
+    ap.add_argument("--fused_projection_backward", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -95,7 +106,14 @@ def main(argv=None) -> int:
     elif args.backbone == "swin":
         cfg = Config(dataset="VGGSound", backbone="swin",
                      fusion_method="concat", fps=1, batch_size=32,
-                     log_grad_csv=False, compute_dtype=args.dtype)
+                     log_grad_csv=False, compute_dtype=args.dtype,
+                     fuse_qkv_gemm=bool(args.fuse_qkv_gemm),
+                     fuse_mlp=bool(args.fuse_mlp))
+        from gdl_tpu_torch.ops import window_attention
+
+        window_attention.BWD_DELTA = bool(args.bwd_delta)
+        window_attention.FUSED_PROJECTION_BACKWARD = bool(
+            args.fused_projection_backward)
     else:
         cfg = Config(dataset="CREMAD", fps=1, batch_size=64,
                      log_grad_csv=False, compute_dtype=args.dtype)

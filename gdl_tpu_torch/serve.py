@@ -82,9 +82,12 @@ def build_model(cfg: Config, attn_impl: str = "auto",
                 seed: Optional[int] = None) -> torch.nn.Module:
     """The DGL classifier for `cfg` (cfg.backbone "resnet" or "swin"),
     initialised on the CPU from `seed`. attn_impl is the impl of the
-    backbone's hand-written kernels: the Swin window attention, or the
-    ResNet stem max-pool's backward ("auto": the CUDA kernels on the
-    card; "plain": their plain PyTorch versions)."""
+    backbone's hand-written kernels: the Swin window attention and MLP, or
+    the ResNet stem max-pool's backward ("auto": the CUDA kernels on the
+    card; "plain": their plain PyTorch versions). Under "auto" the Swin
+    encoders follow cfg's kernel flags (`use_pallas_attn`,
+    `use_pallas_attn_eval`, `fuse_qkv_gemm`, `fuse_mlp`), as
+    `AVClassifierSwinDGL` describes; an explicit "plain" wins."""
     gen = torch.Generator().manual_seed(seed) if seed is not None else None
     if cfg.backbone == "swin":
         return AVClassifierSwinDGL(cfg, attn_impl=attn_impl, generator=gen)

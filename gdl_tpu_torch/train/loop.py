@@ -76,6 +76,12 @@ def check_supported(cfg: Config, dgl: bool = True) -> None:
         raise NotImplementedError(
             "--sync_bn 0 with --dp > 1 (per-replica BatchNorm) is not "
             "ported to gdl_tpu_torch yet: it needs the multi-GPU slice")
+    for flag in ("dp", "mp"):
+        if getattr(cfg, flag) > 1:
+            raise NotImplementedError(
+                f"--{flag} {getattr(cfg, flag)} is not ported to "
+                f"gdl_tpu_torch yet: it needs the multi-GPU slice (the port "
+                f"runs on one device; --dp -1 means that one)")
 
 
 @dataclass

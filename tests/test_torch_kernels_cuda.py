@@ -494,3 +494,255 @@ def test_dropout_mask_kernel_is_bit_equal_to_plain(cuda, shape, dtype):
     other = prng_dropout_mask(fold_seed_words(gen, cuda), shape, 0.1, dt)
     if got.numel() > 64:
         assert not torch.equal(got, other)
+
+
+# ---------------------------------------------------------------------------
+# the Swin flag paths: kernels #5, #4-delta, #3 and #15
+# ---------------------------------------------------------------------------
+
+# a shape with head dim 64 (the fused backward's 128-column tile) besides
+FLAG_SHAPES = TRAIN_SHAPES + [(8, 128, 2, 14, 7)]
+FLAG_IDS = TRAIN_IDS + ["d64"]
+
+
+def _saved(cuda, bw, c, heads, res, window, dtype):
+    """(args, bias, mask, out, qkv, p, dout) from the plain forward."""
+    args, bias_t, mask_t = _train_case(cuda, bw, c, heads, res, window,
+                                       dtype)
+    with torch.no_grad():
+        out, qkv, p = window_attention_qkv_fused_fwd(*args, bias_t, mask_t,
+                                                     heads, impl="plain")
+    gen = torch.Generator(device=cuda).manual_seed(bw)
+    dout = torch.randn(args[0].shape, generator=gen, device=cuda).to(
+        args[0].dtype)
+    return args, bias_t, mask_t, out, qkv, p, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bw,c,heads,res,window", FLAG_SHAPES, ids=FLAG_IDS)
+def test_qkv_savep_kernel_matches_plain(cuda, bw, c, heads, res, window,
+                                        dtype):
+    """Kernel #5 on a given qkv: out and p against the plain forward, and
+    against kernel #2's from the same qkv (equal bits: the same code after
+    the projection); one launch counted; equal bits on a second run."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.window_attention import window_attention_qkv_fwd
+
+    args, bias_t, mask_t, _, qkv, _, _ = _saved(cuda, bw, c, heads, res,
+                                                window, dtype)
+    before = kernels.launch_counts["window_attention_qkv_savep"]
+    with torch.no_grad():
+        got = window_attention_qkv_fwd(qkv, bias_t, mask_t, heads)
+        again = window_attention_qkv_fwd(qkv, bias_t, mask_t, heads)
+        want = window_attention_qkv_fwd(qkv, bias_t, mask_t, heads,
+                                        impl="plain")
+        k2 = window_attention_qkv_fused_fwd(*args, bias_t, mask_t, heads)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["window_attention_qkv_savep"] == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        _close(g, w, dtype, "fwd")
+    if torch.equal(k2[1], qkv):  # kernel #2 projected to the same bits
+        assert torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bw,c,heads,res,window", FLAG_SHAPES, ids=FLAG_IDS)
+def test_bwd_delta_kernel_matches_plain_and_default(cuda, bw, c, heads, res,
+                                                    window, dtype):
+    """Kernel #4-delta against its plain version from the same qkv, p and
+    delta, and against the default kernel #4 (delta from the rounded out
+    differs from the f32 row sums only by out's rounding); equal bits on a
+    second run; one launch counted per call and none of #4."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.window_attention import attention_delta
+
+    _, _, _, out, qkv, p, dout = _saved(cuda, bw, c, heads, res, window,
+                                        dtype)
+    name = "window_attention_qkv_fused_bwd_delta"
+    with torch.no_grad():
+        delta = attention_delta(out, dout, heads)
+        assert delta.dtype == torch.float32
+        assert tuple(delta.shape) == (bw, heads, out.shape[1])
+        before = dict(kernels.launch_counts)
+        got = window_attention_qkv_fused_bwd(qkv, p, dout, heads, delta=delta)
+        again = window_attention_qkv_fused_bwd(qkv, p, dout, heads,
+                                               delta=delta)
+        counts = dict(kernels.launch_counts)
+        want = window_attention_qkv_fused_bwd(qkv, p, dout, heads,
+                                              impl="plain", delta=delta)
+        default = window_attention_qkv_fused_bwd(qkv, p, dout, heads)
+    torch.cuda.synchronize()
+    assert counts[name] == before[name] + 2
+    assert counts["window_attention_qkv_fused_bwd"] == \
+        before["window_attention_qkv_fused_bwd"]
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    for g, w, dflt in zip(got, want, default):
+        _close(g, w, dtype, "grad")
+        _close(g, dflt, dtype, "grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bw,c,heads,res,window", FLAG_SHAPES, ids=FLAG_IDS)
+def test_bwd_fused_kernel_matches_plain_and_split(cuda, bw, c, heads, res,
+                                                  window, dtype):
+    """Kernel #3: dx, dW, db and dbias against its plain version and
+    against kernel #4 followed by the three GEMMs; equal bits on a second
+    run; through the op under FUSED_PROJECTION_BACKWARD it replaces #4."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    args, bias_t, mask_t, _, qkv, p, dout = _saved(cuda, bw, c, heads, res,
+                                                   window, dtype)
+    x, w = args[0], args[1]
+    name = "window_attention_qkv_fused_bwd_fused"
+    with torch.no_grad():
+        before = kernels.launch_counts[name]
+        got = wa.window_attention_qkv_fused_bwd_fused(qkv, p, dout, x, w,
+                                                      heads)
+        again = wa.window_attention_qkv_fused_bwd_fused(qkv, p, dout, x, w,
+                                                        heads)
+        assert kernels.launch_counts[name] == before + 2
+        want = wa.window_attention_qkv_fused_bwd_fused(qkv, p, dout, x, w,
+                                                       heads, impl="plain")
+        dqkv, dbias = window_attention_qkv_fused_bwd(qkv, p, dout, heads)
+        split = (*wa._projection_bwd(dqkv, x, w), dbias)
+    torch.cuda.synchronize()
+    for g, a, wnt, s in zip(got, again, want, split):
+        assert g.dtype == wnt.dtype and g.shape == wnt.shape
+        assert torch.equal(g, a)
+        _close(g, wnt, dtype, "grad")
+        _close(g, s, dtype, "grad")
+
+    grads = {}
+    try:
+        for mode in (True, "auto", False):
+            wa.FUSED_PROJECTION_BACKWARD = mode
+            leaves = [a.clone().requires_grad_(True) for a in args + [bias_t]]
+            before = dict(kernels.launch_counts)
+            out = window_attention_qkv_fused(*leaves[:3], leaves[3], mask_t,
+                                             heads)
+            out.backward(dout)
+            fused = kernels.launch_counts[name] - before[name]
+            default = (kernels.launch_counts["window_attention_qkv_fused_bwd"]
+                       - before["window_attention_qkv_fused_bwd"])
+            assert (fused, default) == ((1, 0) if mode else (0, 1))
+            grads[mode] = [t.grad for t in leaves]
+    finally:
+        wa.FUSED_PROJECTION_BACKWARD = False
+    for g, a, s in zip(grads[True], grads["auto"], grads[False]):
+        assert torch.equal(g, a)
+        _close(g, s, dtype, "grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qkv_op_runs_kernels_5_and_4_or_delta(cuda, dtype):
+    """window_attention_qkv on the card: #5 forward, then #4, or #4-delta
+    under BWD_DELTA; gradients against the plain op."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    _, bias_t, mask_t, _, qkv, _, dout = _saved(cuda, 128, 512, 16, 14, 7,
+                                                dtype)
+    names = ("window_attention_qkv_savep", "window_attention_qkv_fused_bwd",
+             "window_attention_qkv_fused_bwd_delta")
+    grads = {}
+    try:
+        for delta in (False, True):
+            wa.BWD_DELTA = delta
+            for impl in ("auto", "plain"):
+                leaves = [qkv.clone().requires_grad_(True),
+                          bias_t.clone().requires_grad_(True)]
+                before = dict(kernels.launch_counts)
+                out = wa.window_attention_qkv(
+                    leaves[0].reshape(128, 49, 3, 512), leaves[1], mask_t, 16,
+                    impl=impl)
+                out.backward(dout)
+                ran = tuple(kernels.launch_counts[k] - before[k]
+                            for k in names)
+                want = (0, 0, 0) if impl == "plain" else (
+                    (1, 0, 1) if delta else (1, 1, 0))
+                assert ran == want
+                grads[(delta, impl)] = [t.grad for t in leaves]
+    finally:
+        wa.BWD_DELTA = False
+    for delta in (False, True):
+        for g, w in zip(grads[(delta, "auto")], grads[(delta, "plain")]):
+            assert g.shape == w.shape
+            _close(g, w, dtype, "grad")
+
+
+# x [M, C] of the MLP of each Swin-B stage at batch 32 (both encoders see
+# the same), a ragged M, and a C and hidden that are no multiples of 64
+MLP_SHAPES = [(100352, 128, 512), (25088, 256, 1024), (6272, 512, 2048),
+              (1568, 1024, 4096), (1000, 96, 200)]
+MLP_IDS = ["stage0", "stage1", "stage2", "stage3", "ragged"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,c,hidden", MLP_SHAPES, ids=MLP_IDS)
+def test_mlp_kernel_matches_plain(cuda, m, c, hidden, dtype):
+    """Kernel #15 against its plain version (the same erf approximation):
+    f32 atol and rtol 2e-4, bf16 atol 3e-2 and rtol 1e-2; against the
+    exact-GELU chain at the same bars; equal bits on a second run; one
+    launch counted per call; gradients are the plain chain's."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.mlp import (
+        mlp_fused,
+        mlp_fused_fwd,
+        mlp_kernel_supported,
+        mlp_ref,
+    )
+
+    rng = np.random.default_rng(m)
+    dt = getattr(torch, dtype)
+    arrays = (rng.standard_normal((m, c)),
+              rng.standard_normal((hidden, c)) * c ** -0.5,
+              rng.standard_normal(hidden) * 0.1,
+              rng.standard_normal((c, hidden)) * hidden ** -0.5,
+              rng.standard_normal(c) * 0.1)
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda, dt)
+            for a in arrays]
+    assert mlp_kernel_supported(m, c, hidden, dt)
+    before = kernels.launch_counts["mlp_fused"]
+    with torch.no_grad():
+        got = mlp_fused_fwd(*args)
+        again = mlp_fused_fwd(*args)
+        want = mlp_fused_fwd(*args, impl="plain")
+        exact = mlp_ref(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["mlp_fused"] == before + 2
+    assert got.dtype == dt and got.shape == want.shape
+    assert torch.equal(got, again)
+    _close(got, want, dtype, "fwd")
+    _close(got, exact, dtype, "fwd")
+
+    grads = {}
+    for op in (mlp_fused, mlp_ref):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        op(*leaves).backward(torch.ones_like(got))
+        grads[op] = [t.grad for t in leaves]
+    for g, w in zip(grads[mlp_fused], grads[mlp_ref]):
+        _close(g, w, dtype, "grad")
+
+
+@pytest.mark.cuda
+def test_mlp_kernel_refuses_what_it_cannot_take(cuda):
+    """Operands of mixed dtype raise; a C above 1024 is outside the
+    supported set and runs the dense chain without a launch."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.mlp import mlp_fused, mlp_fused_fwd
+
+    z = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
+    with pytest.raises(ValueError, match="w1"):
+        mlp_fused_fwd(z(4, 8), z(16, 8).bfloat16(), z(16), z(8, 16), z(8))
+    before = kernels.launch_counts["mlp_fused"]
+    out = mlp_fused(z(4, 1088), z(64, 1088), z(64), z(1088, 64), z(1088))
+    assert tuple(out.shape) == (4, 1088)
+    assert kernels.launch_counts["mlp_fused"] == before
