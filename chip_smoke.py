@@ -72,11 +72,16 @@ Phases, each printing one JSON line:
               and bfloat16, with no dropout, a mask read from memory and
               a mask drawn in the kernel: out, qkv and p; dqkv; the whole
               op's dx and dW; the bits the kernel drew must be the plain
-              generator's. Kernel #14 (the dropout-mask generator) must
-              be BIT-EQUAL to its plain version at the four mask shapes
-              of a transformer block. Median times of kernel and plain
-              (CUDA events), of F.scaled_dot_product_attention on the
-              same q, k, v, and of torch.rand + compare for the masks;
+              generator's. Kernel #12 (the training forward on a given
+              qkv, the SA_FUSED_QKV = False path) on the qkv of the
+              plain forward: out and p against its plain version and
+              BIT-EQUAL to #10's and to a rerun, the keep mask it writes
+              equal to the generator's. Kernel #14 (the dropout-mask
+              generator) must be BIT-EQUAL to its plain version at the
+              four mask shapes of a transformer block. Median times of
+              kernel and plain (CUDA events), of
+              F.scaled_dot_product_attention on the same q, k, v, and of
+              torch.rand + compare for the masks;
   k. mmformer the intermediate-fusion path at full width (mmformer_n on
               CREMA-D, fps 1, batch 64, width 64, embed 512, 8 heads,
               mlp 4096, 196 + 196 -> 392 tokens, shared unimodal
@@ -130,11 +135,44 @@ Phases, each printing one JSON line:
               float32 parameters of A and B held to the plain arm; then
               6 timed steps per arm, in turns (median ms/step, clips/s,
               peak memory);
+  n. variant parity
+              the kernels that only an argument reaches, at the seven
+              batch-32 Swin-B stage shapes, in float32 and bfloat16:
+              #6 (window_attention_qkv with transposed=False: out and p,
+              dqkv and dbias; also within 1e-6 in f32 of #5 and #4 on
+              the same inputs, the same function), #7 (save_p=False: out
+              bit-equal to #5's; the backward that computes p again,
+              against its plain version and, in f32, against #4 at phase
+              l's bars; in bf16 only its own plain version, whose p is
+              unrounded in ds), #8 and #9 (q, k, v [B, H, N, D]: against
+              window_attention_ref, bit-equal to each other and to #5);
+              each bit-equal across two runs; median times of kernel,
+              plain version and SDPA with bias + mask as a float mask
+              (for #7's pair SDPA forward + backward through autograd).
+              Then their path: the 48 attention sites of a dual Swin-B
+              pass through window_attention_qkv (transposed=False, and
+              save_p=False; forward and backward), window_attention_bhnd
+              and window_attention(use_pallas=True), float32, with the
+              launch counts reset just before and read just after:
+              exactly 48 of each of the six kernels;
+  o. mmformer switch
+              phase k's training path under SA_FUSED_QKV = False (the
+              qkv projection as nn.Linear, kernel #12 on its output):
+              the switch's kernel arm, its plain arm and the default
+              kernel arm from one seed, float32 and bf16 autocast; 1 + 3
+              checked steps per arm, exactly 7 of #12, 7 of #11, 28 of
+              #14, 2 of #16 and none of #10 per kernel-arm step; losses,
+              float32 parameters and BN statistics against the plain arm
+              at phase k's bars; the same attention seed words as the
+              default arm and losses within its bars of the default
+              arm's; timed steps of the switch and default arms in turns;
   g. kernels  one line per kernel: route, source, the TPU kernel it
               replaces, launches on its path (d for #1, the kernel arm
               of f for #2 and #4, of i for #16, of k for #10, #11, #13
               and #14, arm A of m for #5, #4-delta and #15, arm B of m
-              for #3), error, times, the roofline bound of the same
+              for #3, n's path for #6, #7, #8 and #9 (#6 and #7 a
+              forward and a backward entry each), the switch's kernel
+              arm of o for #12), error, times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
               over the float32 peak of 67 TFLOP/s; the times are the
               float32 ones) and, where one PyTorch call computes the
@@ -204,6 +242,7 @@ RESNET_STAT_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}  # BN running stats
 SA_FWD = "self_attention_fused_fwd"
 SA_BWD = "self_attention_fused_bwd"
 SA_EVAL = "self_attention_fused_eval"
+SA_QKV_FWD = "self_attention_qkv_fwd"  # 12
 MASK = "prng_dropout_mask"
 MM_BATCH = 64
 MM_HEADS = 8
@@ -228,11 +267,21 @@ MM_STAT_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # launches of one kernel-arm training step and of one eval forward
 MM_STEP_LAUNCHES = {SA_FWD: 7, SA_BWD: 7, MASK: 28, POOL: 2}
 MM_EVAL_LAUNCHES = {SA_EVAL: 7}
+# ... and of one step under SA_FUSED_QKV = False: #12 in place of #10
+MM_SWITCH_LAUNCHES = {SA_QKV_FWD: 7, SA_BWD: 7, MASK: 28, POOL: 2}
 
 QKV_SAVEP = "window_attention_qkv_savep"             # 5
 BWD_DELTA_K = "window_attention_qkv_fused_bwd_delta"   # 4, BWD_DELTA body
 BWD_FUSED = "window_attention_qkv_fused_bwd_fused"     # 3
 MLP = "mlp_fused"                                      # 15
+QKV_SAVEP_ROWS = "window_attention_qkv_savep_rows"    # 6, forward
+BWD_ROWS = "window_attention_qkv_bwd_rows"             # 6, backward
+QKV_FWD = "window_attention_qkv_fwd"                   # 7, forward
+BWD_RECOMPUTE = "window_attention_qkv_bwd_recompute"   # 7, backward
+BHND = "window_attention_bhnd"                         # 8
+PACKED = "window_attention_packed"                     # 9
+VARIANT_KERNELS = (QKV_SAVEP_ROWS, BWD_ROWS, QKV_FWD, BWD_RECOMPUTE, BHND,
+                   PACKED)
 FLAG_STEPS = 3        # checked steps per arm after one warm-up step
 FLAG_TIME_ROUNDS = 6  # timed steps per arm, in turns
 
@@ -369,11 +418,22 @@ def attention_cost(kind: str, bw: int, c: int, heads: int, masked: bool,
     """(bytes, operations) of one launch of an attention kernel: every
     input read once, every output written once; 2 operations per
     multiply-add of the products, 5 per softmax element.
-    kind: 'eval' (#1), 'savep' (#2), 'bwd' (#4), 'bwd_delta' (#4 with
-    the row sums given), 'bwd_fused' (#3) or 'qkv_savep' (#5)."""
+    kind: 'eval' (#1), 'savep' (#2), 'bwd' (#4, #6's backward),
+    'bwd_delta' (#4 with the row sums given), 'bwd_fused' (#3),
+    'qkv_savep' (#5, #6's forward), 'attn_fwd' (#7's forward, #8, #9) or
+    'bwd_recompute' (#7's backward)."""
     n = 49
     tokens, scores = bw * n * c, bw * heads * n * n
     small = heads * n * n * 4  # the bias, or dbias, in float32
+    nw = (res // 7) ** 2 if masked else 0
+    if kind == "attn_fwd":  # q, k, v (or qkv), bias, mask in; out out
+        return ((4 * tokens) * itemsize + small + nw * n * n * 4,
+                4 * bw * n * n * c + 5 * scores)
+    if kind == "bwd_recompute":
+        # qkv, dout, bias, mask in; dqkv, dbias out; the scores again and
+        # the 4 backward products
+        return ((3 * tokens + tokens + 3 * tokens) * itemsize + 2 * small
+                + nw * n * n * 4, 10 * bw * n * n * c + 11 * scores)
     if kind in ("bwd", "bwd_delta"):
         # qkv, p, dout (and delta, f32) in; dqkv, dbias out; 4 products
         delta = bw * heads * n * 4 if kind == "bwd_delta" else 0
@@ -384,7 +444,6 @@ def attention_cost(kind: str, bw: int, c: int, heads: int, masked: bool,
         # products and the 2 projection products
         return ((6 * tokens + scores + 6 * c * c + 3 * c) * itemsize + small,
                 8 * bw * n * n * c + 6 * scores + 12 * bw * n * c * c)
-    nw = (res // 7) ** 2 if masked else 0
     if kind == "qkv_savep":  # qkv, bias, mask in; out, p out; 2 products
         return ((4 * tokens + scores) * itemsize + small + nw * n * n * 4,
                 4 * bw * n * n * c + 5 * scores)
@@ -1054,12 +1113,15 @@ def sa_cost(kind: str, b: int, n: int, c: int, heads: int, itemsize: int):
     the eval kernel and the ds scratch of the backward are the kernels'
     own and do not count; a mask drawn in the kernel moves 8 bytes of
     seed); 2 operations per multiply-add of the products, 5 per softmax
-    element (6 in the backward). kind: 'fwd' (#10), 'bwd' (#11) or
-    'eval' (#13)."""
+    element (6 in the backward). kind: 'fwd' (#10), 'bwd' (#11),
+    'qkv_fwd' (#12) or 'eval' (#13)."""
     tokens, scores = b * n * c, b * heads * n * n
     if kind == "bwd":  # qkv, p, dout in; dqkv out; 4 products
         return ((3 * tokens + scores + tokens + 3 * tokens) * itemsize,
                 8 * b * n * n * c + 6 * scores)
+    if kind == "qkv_fwd":  # qkv in; out and p out; 2 products
+        return ((4 * tokens + scores) * itemsize + 8,
+                4 * b * n * n * c + 5 * scores)
     nbytes = (2 * tokens + 3 * c * c) * itemsize  # x, w in; out
     if kind == "fwd":  # plus the qkv and p residuals
         nbytes += (3 * tokens + scores) * itemsize
@@ -1094,6 +1156,7 @@ def phase_sa_parity(failures):
         self_attention_fused_bwd,
         self_attention_fused_eval,
         self_attention_fused_fwd,
+        self_attention_qkv_fwd,
     )
 
     dev = torch.device("cuda")
@@ -1130,7 +1193,29 @@ def phase_sa_parity(failures):
                         oks.append(abs(keep_rate - (1 - MM_RATE))
                                    <= 5 * sigma)
                     _, qkv, p, _ = want
-                    del got, want
+                    # #12 on the same qkv: #10's tile kernel without the
+                    # projection, so #10's out and p to the bit; with and
+                    # without the keep mask written out
+                    g12 = self_attention_qkv_fwd(qkv, MM_HEADS, drop=drop,
+                                                 return_keep=True)
+                    a12 = self_attention_qkv_fwd(qkv, MM_HEADS, drop=drop)
+                    w12 = self_attention_qkv_fwd(qkv, MM_HEADS, drop=drop,
+                                                 impl="plain",
+                                                 return_keep=True)
+                    k10 = self_attention_fused_fwd(x, w, MM_HEADS, drop=drop)
+                    for name, a, r in zip(("out", "p"), g12, w12):
+                        errs["qkv_op_" + name] = _max_err(a, r)
+                        oks.append(_fwd_ok(a, r, dtype))
+                    same = [torch.equal(g12[0], a12[0]),
+                            torch.equal(g12[1], a12[1])]
+                    if torch.equal(k10[1], qkv):  # #10 projected these bits
+                        same += [torch.equal(g12[0], k10[0]),
+                                 torch.equal(g12[1], k10[2])]
+                    if mode == "kernel":
+                        same.append(torch.equal(g12[2], w12[2]))
+                    qkv_op_same = all(same)
+                    oks.append(qkv_op_same)
+                    del got, want, g12, a12, w12, k10
                     gb = self_attention_fused_bwd(qkv, p, dout, MM_HEADS,
                                                   drop=drop)
                     wb = self_attention_fused_bwd(qkv, p, dout, MM_HEADS,
@@ -1171,6 +1256,12 @@ def phase_sa_parity(failures):
                                 qkv, p, dout, MM_HEADS, drop=drop,
                                 impl="plain"),
                             reps=SA_PLAIN_REPS, warmup=1),
+                        "qkv_fwd_ms": cuda_ms(lambda: self_attention_qkv_fwd(
+                            qkv, MM_HEADS, drop=drop), reps=SA_REPS),
+                        "qkv_fwd_plain_ms": cuda_ms(
+                            lambda: self_attention_qkv_fwd(
+                                qkv, MM_HEADS, drop=drop, impl="plain"),
+                            reps=SA_PLAIN_REPS, warmup=1),
                     }
                     if mode == "none":  # the eval kernel, and the library
                         ge = self_attention_fused_eval(x, w, MM_HEADS)
@@ -1196,13 +1287,15 @@ def phase_sa_parity(failures):
                 torch.cuda.synchronize()
                 ok = all(oks)
                 row = {"phase": "sa_parity",
-                       "kernels": [SA_FWD, SA_BWD, SA_EVAL], "site": site,
+                       "kernels": [SA_FWD, SA_BWD, SA_EVAL, SA_QKV_FWD],
+                       "site": site,
                        "B": b, "N": n, "C": c, "H": MM_HEADS, "dtype": dtype,
                        "dropout": mode, "rate": MM_RATE if mode != "none"
                        else 0.0, "keep_rate": keep_rate,
                        "max_abs_err": errs, "fwd_tol": TRAIN_FWD_TOL[dtype],
-                       "grad_frac_of_max": TRAIN_GRAD_FRAC[dtype], "ok": ok,
-                       **times}
+                       "grad_frac_of_max": TRAIN_GRAD_FRAC[dtype],
+                       "qkv_op_bit_equal_to_fused_and_rerun": qkv_op_same,
+                       "ok": ok, **times}
                 emit(row)
                 rows.append(row)
                 if not ok:
@@ -1263,133 +1356,189 @@ def phase_sa_parity(failures):
     return rows, mask_rows
 
 
-def phase_mmformer(failures, smi: str):
-    """The mmformer_n training and eval path through main_intermediate's
-    functions, kernel arm and plain arm. Returns the kernel arms' launch
-    counts over the checked steps and over the eval pass."""
-    import contextlib
+class MmRun:
+    """Phase k's configuration (mmformer_n on CREMA-D, batch 64, width 64,
+    shared streams) and its data, for the arms of phases k and o: seeded
+    weights, identically seeded generators, batches collected before the
+    timed calls."""
 
-    import torch
+    def __init__(self, tmp):
+        from gdl_tpu_torch.config import Config
+        from gdl_tpu_torch.data.loader import Loader
+        from gdl_tpu_torch.data.synthetic import SyntheticDataset
 
-    from gdl_tpu_torch import kernels
-    from gdl_tpu_torch import main_intermediate
-    from gdl_tpu_torch.config import Config
-    from gdl_tpu_torch.data.loader import Loader
-    from gdl_tpu_torch.data.synthetic import SyntheticDataset
-    from gdl_tpu_torch.serve import load_intermediate_from_checkpoint
-    from gdl_tpu_torch.train.loop import evaluate, train_one_epoch
-    from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
-
-    def quiet():  # the loop prints the reference's progress lines
-        return contextlib.redirect_stdout(sys.stderr)
-
-    zero = {k: 0 for k in kernels.launch_counts}
-    totals = {"train": dict(zero), "eval": dict(zero)}
-    with tempfile.TemporaryDirectory() as tmp:
-        def config(dtype):
-            return Config(dataset="CREMAD", fps=1, batch_size=MM_BATCH,
-                          modulation="Normal", log_grad_csv=False,
-                          compute_dtype=dtype, num_workers=8, ckpt_path=tmp,
-                          encoder_width=RESNET_WIDTH)
-
-        cfg0 = config("float32")
-        train_set = SyntheticDataset(
+        self.tmp, self._config, self._loader = tmp, Config, Loader
+        cfg0 = self.config("float32")
+        self.train_set = SyntheticDataset(
             cfg0, size=MM_BATCH * MM_CHECKED_STEPS, seed=1500)
         test_set = SyntheticDataset(
             cfg0, size=MM_BATCH * MM_EVAL_BATCHES, seed=19000)
         timed_set = SyntheticDataset(
             cfg0, size=MM_BATCH * MM_TIMED_STEPS, seed=12000)
+        self.seed = cfg0.random_seed
+        self.timed_batches = list(self.loader(timed_set, False))
+        self.test_batches = list(self.loader(test_set, False))
 
-        def loader(ds, shuffle):
-            return Loader(ds, MM_BATCH, shuffle=shuffle, drop_last=True,
-                          num_workers=8, seed=cfg0.random_seed)
+    def config(self, dtype):
+        return self._config(dataset="CREMAD", fps=1, batch_size=MM_BATCH,
+                            modulation="Normal", log_grad_csv=False,
+                            compute_dtype=dtype, num_workers=8,
+                            ckpt_path=self.tmp, encoder_width=RESNET_WIDTH)
 
-        timed_batches = list(loader(timed_set, False))
-        test_batches = list(loader(test_set, False))
+    def loader(self, ds, shuffle):
+        return self._loader(ds, MM_BATCH, shuffle=shuffle, drop_last=True,
+                            num_workers=8, seed=self.seed)
 
-        def run_arm(impl, dtype):
-            cfg = config(dtype)
-            model, kind = main_intermediate.build_model(
-                "mmformer_n", cfg.n_classes, cfg.encoder_width,
-                share_streams=True, impl=impl, seed=777)
-            h = main_intermediate.build_harness(
-                cfg, model, kind, steps_per_epoch=100)
-            steps = []
-            inner = h.train_step
+    @staticmethod
+    def switched(fused_qkv: bool):
+        """models/transformer.py's SA_FUSED_QKV for the length of a call."""
+        import contextlib
 
-            def recording(batch):
-                before = dict(kernels.launch_counts)
-                m = inner(batch)
-                steps.append((m, {k: v - before[k] for k, v in
-                                  kernels.launch_counts.items()}))
-                return m
+        from gdl_tpu_torch.models import transformer
 
-            h.train_step = recording
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launch_counts()
-            # cuDNN's deterministic algorithms for the checked steps, as
-            # in the ResNet phase; the timed steps run with the default
-            torch.backends.cudnn.deterministic = True
+        @contextlib.contextmanager
+        def ctx():
+            before = transformer.SA_FUSED_QKV
+            transformer.SA_FUSED_QKV = fused_qkv
             try:
-                with quiet():
-                    train_one_epoch(h, loader(train_set, True), 0)
-                torch.cuda.synchronize()
+                yield
             finally:
-                torch.backends.cudnn.deterministic = False
-            launched = dict(kernels.launch_counts)
-            return dict(cfg=cfg, h=h, kind=kind, launched=launched,
-                        peak=torch.cuda.max_memory_allocated() / 2 ** 30,
-                        metrics=[{k: float(v) for k, v in m.items()}
-                                 for m, _ in steps],
-                        launches=[c for _, c in steps])
+                transformer.SA_FUSED_QKV = before
+        return ctx()
 
-        def timed_call(arm):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            with quiet():
-                train_one_epoch(arm["h"], timed_batches, 1)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t) * 1e3 / len(timed_batches)
+    def run_arm(self, impl, dtype, fused_qkv=True, hook=None):
+        """Build an arm through main_intermediate and take the checked
+        steps (cuDNN's deterministic algorithms), recording each step's
+        metrics and launch counts."""
+        import torch
 
+        from gdl_tpu_torch import kernels, main_intermediate
+        from gdl_tpu_torch.train.loop import train_one_epoch
+
+        cfg = self.config(dtype)
+        model, kind = main_intermediate.build_model(
+            "mmformer_n", cfg.n_classes, cfg.encoder_width,
+            share_streams=True, impl=impl, seed=777)
+        h = main_intermediate.build_harness(cfg, model, kind,
+                                            steps_per_epoch=100)
+        steps = []
+        inner = h.train_step
+
+        def recording(batch):
+            before = dict(kernels.launch_counts)
+            m = inner(batch)
+            steps.append((m, {k: v - before[k] for k, v in
+                              kernels.launch_counts.items()}))
+            return m
+
+        h.train_step = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        # cuDNN's deterministic algorithms for the checked steps, as in
+        # the ResNet phase; the timed steps run with the default
+        torch.backends.cudnn.deterministic = True
+        try:
+            with quiet(), self.switched(fused_qkv):
+                train_one_epoch(h, self.loader(self.train_set, True), 0)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        h.train_step = inner
+        launched = dict(kernels.launch_counts)
+        return dict(cfg=cfg, h=h, kind=kind, launched=launched,
+                    fused_qkv=fused_qkv,
+                    peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    metrics=[{k: float(v) for k, v in m.items()}
+                             for m, _ in steps],
+                    launches=[c for _, c in steps])
+
+    def timed_call(self, arm):
+        import torch
+
+        from gdl_tpu_torch.train.loop import train_one_epoch
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with quiet(), self.switched(arm["fused_qkv"]):
+            train_one_epoch(arm["h"], self.timed_batches, 1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / len(self.timed_batches)
+
+    @staticmethod
+    def compare(ka, pa, dtype, problems, keys=("loss", "loss_a", "loss_v",
+                                                "loss_f", "grad_norm")):
+        """Worst relative metric difference of two arms' checked steps,
+        their largest parameter and BN-statistic differences."""
+        import torch
+
+        worst_rel = 0.0
+        for i, (mk, mp) in enumerate(zip(ka["metrics"], pa["metrics"])):
+            for key in keys:
+                a, b = mk[key], mp[key]
+                if not (math.isfinite(a) and math.isfinite(b)):
+                    problems.append(f"step {i}: {key} not finite")
+                    continue
+                worst_rel = max(worst_rel, abs(a - b) / max(abs(b), 1e-12))
+        km, pm = ka["h"].model, pa["h"].model
+        with torch.no_grad():
+            param_err = max(float((a - b).abs().max()) for a, b in
+                            zip(km.parameters(), pm.parameters()))
+            stat_err = max(float((a - b).abs().max()) for (n, a), (_, b)
+                           in zip(km.named_buffers(), pm.named_buffers())
+                           if "running" in n)
+        return worst_rel, param_err, stat_err
+
+    @staticmethod
+    def check_launches(ka, pa, want, zero, problems):
+        for i, (lk, lp) in enumerate(zip(ka["launches"], pa["launches"])):
+            if lk != want:
+                problems.append(f"step {i}: kernel arm launches {lk}")
+            if lp != zero:
+                problems.append(f"step {i}: plain arm launches {lp}")
+        if len(ka["launches"]) != MM_CHECKED_STEPS:
+            problems.append(f"{len(ka['launches'])} steps ran")
+
+
+def quiet():  # the loop prints the reference's progress lines
+    import contextlib
+
+    return contextlib.redirect_stdout(sys.stderr)
+
+
+def phase_mmformer(failures, smi: str):
+    """The mmformer_n training and eval path through main_intermediate's
+    functions, kernel arm and plain arm. Returns the kernel arms' launch
+    counts over the checked steps and over the eval pass."""
+    import torch
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.serve import load_intermediate_from_checkpoint
+    from gdl_tpu_torch.train.loop import evaluate
+    from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
+
+    zero = {k: 0 for k in kernels.launch_counts}
+    totals = {"train": dict(zero), "eval": dict(zero)}
+    with tempfile.TemporaryDirectory() as tmp:
+        run = MmRun(tmp)
+        test_batches = run.test_batches
         for dtype in ("float32", "bfloat16"):
             order = ("plain", "auto") if dtype == "float32" else ("auto",
                                                                   "plain")
-            arms = {impl: run_arm(impl, dtype) for impl in order}
+            arms = {impl: run.run_arm(impl, dtype) for impl in order}
             ka, pa = arms["auto"], arms["plain"]
             problems = []
-            want = dict(zero, **MM_STEP_LAUNCHES)
-            for i, (lk, lp) in enumerate(zip(ka["launches"],
-                                             pa["launches"])):
-                if lk != want:
-                    problems.append(f"step {i}: kernel arm launches {lk}")
-                if lp != zero:
-                    problems.append(f"step {i}: plain arm launches {lp}")
-            if len(ka["launches"]) != MM_CHECKED_STEPS:
-                problems.append(f"{len(ka['launches'])} steps ran")
+            run.check_launches(ka, pa, dict(zero, **MM_STEP_LAUNCHES), zero,
+                               problems)
             for k, v in ka["launched"].items():
                 totals["train"][k] += v
-            worst_rel = 0.0
-            for i, (mk, mp) in enumerate(zip(ka["metrics"], pa["metrics"])):
-                for key in ("loss", "loss_a", "loss_v", "loss_f",
-                            "grad_norm"):
-                    a, b = mk[key], mp[key]
-                    if not (math.isfinite(a) and math.isfinite(b)):
-                        problems.append(f"step {i}: {key} not finite")
-                        continue
-                    worst_rel = max(worst_rel,
-                                    abs(a - b) / max(abs(b), 1e-12))
+            worst_rel, param_err, stat_err = run.compare(ka, pa, dtype,
+                                                         problems)
             if worst_rel > MM_LOSS_RTOL[dtype]:
                 problems.append(f"losses differ by {worst_rel} relative")
-            km, pm = ka["h"].model, pa["h"].model
-            with torch.no_grad():
-                param_err = max(float((a - b).abs().max()) for a, b in
-                                zip(km.parameters(), pm.parameters()))
-                stat_err = max(float((a - b).abs().max()) for (n, a), (_, b)
-                               in zip(km.named_buffers(), pm.named_buffers())
-                               if "running" in n)
-                tracked = {n: int(b) for n, b in km.named_buffers()
-                           if n.endswith("num_batches_tracked")}
+            km = ka["h"].model
+            tracked = {n: int(b) for n, b in km.named_buffers()
+                       if n.endswith("num_batches_tracked")}
             if dtype == "float32" and param_err > MM_PARAM_ATOL:
                 problems.append(f"parameters differ by {param_err}")
             if stat_err > MM_STAT_ATOL[dtype]:
@@ -1403,10 +1552,10 @@ def phase_mmformer(failures, smi: str):
 
             timed = {impl: [] for impl in arms}
             for impl in order:  # untimed: cuDNN's default algorithms
-                timed_call(arms[impl])
+                run.timed_call(arms[impl])
             for r in range(MM_TIME_ROUNDS):
                 for impl in (order if r % 2 == 0 else order[::-1]):
-                    timed[impl].append(timed_call(arms[impl]))
+                    timed[impl].append(run.timed_call(arms[impl]))
 
             # eval: 7 launches of #13 per batch, nothing else
             evals = {}
@@ -1481,9 +1630,117 @@ def phase_mmformer(failures, smi: str):
                   "launches_per_eval_batch": MM_EVAL_LAUNCHES,
                   "eval_acc": list(accs), "problems": problems, "ok": ok})
             failures.extend(f"mmformer {dtype}: {p}" for p in problems)
-            del arms, ka, pa, km, pm, served, mine, theirs
+            del arms, ka, pa, km, served, mine, theirs
             torch.cuda.empty_cache()
     return totals
+
+
+def phase_mmformer_switch(failures, smi: str):
+    """Phase k's training path under SA_FUSED_QKV = False: the qkv
+    projection is nn.Linear (cuBLAS) and the attention kernel #12 on its
+    output. Three arms from one seed: the switch's kernel arm, its plain
+    arm and the default kernel arm (switch True), each with identically
+    seeded generators. Returns the switch's kernel arm's launch counts over
+    its checked steps."""
+    import torch
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.models import transformer
+
+    zero = {k: 0 for k in kernels.launch_counts}
+    total = dict(zero)
+    words_of = {}
+    fold = transformer.fold_seed_words
+
+    def recording_words(name):
+        def fold_and_keep(gen, device):
+            w = fold(gen, device)
+            words_of.setdefault(name, []).append(w.cpu())
+            return w
+        return fold_and_keep
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = MmRun(tmp)
+        arms_def = {"switch": ("auto", False), "plain": ("plain", False),
+                    "default": ("auto", True)}
+        for dtype in ("float32", "bfloat16"):
+            arms = {}
+            try:
+                for name, (impl, fused) in arms_def.items():
+                    transformer.fold_seed_words = recording_words(name)
+                    arms[name] = run.run_arm(impl, dtype, fused)
+            finally:
+                transformer.fold_seed_words = fold
+            ka, pa, da = arms["switch"], arms["plain"], arms["default"]
+            problems = []
+            want = dict(zero, **MM_SWITCH_LAUNCHES)
+            run.check_launches(ka, pa, want, zero, problems)
+            for k, v in ka["launched"].items():
+                total[k] += v
+            worst_rel, param_err, stat_err = run.compare(ka, pa, dtype,
+                                                         problems)
+            if worst_rel > MM_LOSS_RTOL[dtype]:
+                problems.append(f"losses differ from the plain arm's by "
+                                f"{worst_rel} relative")
+            if dtype == "float32" and param_err > MM_PARAM_ATOL:
+                problems.append(f"parameters differ by {param_err}")
+            if stat_err > MM_STAT_ATOL[dtype]:
+                problems.append(f"BN running stats differ by {stat_err}")
+            # against the default arm: the same dropout masks (the same
+            # seed words drawn in the same order), losses apart only by
+            # the projection's order of summation
+            same_words = (len(words_of["switch"]) == len(words_of["default"])
+                          and all(torch.equal(a, b) for a, b in zip(
+                              words_of["switch"], words_of["default"])))
+            if not same_words:
+                problems.append("the switch's arm drew other seed words")
+            vs_default, param_vs_default, _ = run.compare(
+                ka, da, dtype, problems, keys=("loss", "loss_a", "loss_v",
+                                               "loss_f"))
+            if vs_default > MM_LOSS_RTOL[dtype]:
+                problems.append(f"losses differ from the default arm's by "
+                                f"{vs_default} relative")
+            words_of.clear()
+
+            timed = {name: [] for name in ("switch", "default")}
+            order = list(timed)
+            for name in order:
+                run.timed_call(arms[name])
+            for r in range(MM_TIME_ROUNDS):
+                for name in (order if r % 2 == 0 else order[::-1]):
+                    timed[name].append(run.timed_call(arms[name]))
+            for name in order:
+                ms = sorted(timed[name])
+                med = ms[len(ms) // 2]
+                emit({"phase": "mmformer_switch", "dtype": dtype,
+                      "arm": name, "SA_FUSED_QKV": arms[name]["fused_qkv"],
+                      "batch": MM_BATCH, "ms_per_step": med,
+                      "clips_per_s": MM_BATCH / med * 1e3,
+                      "timed_call_ms_per_step": timed[name],
+                      "peak_mem_gib": arms[name]["peak"],
+                      "loss": [m["loss"] for m in arms[name]["metrics"]],
+                      "launches_per_step": {
+                          k: v for k, v in arms[name]["launches"][-1].items()
+                          if v},
+                      "nvidia_smi": smi})
+            ok = not problems
+            emit({"phase": "mmformer_switch_check", "dtype": dtype,
+                  "max_rel_loss_diff_vs_plain": worst_rel,
+                  "max_rel_loss_diff_vs_default": vs_default,
+                  "loss_rtol": MM_LOSS_RTOL[dtype],
+                  "max_abs_param_diff_vs_plain": param_err,
+                  "max_abs_param_diff_vs_default": param_vs_default,
+                  "param_atol": (MM_PARAM_ATOL if dtype == "float32"
+                                 else None),
+                  "max_abs_bn_stat_diff": stat_err,
+                  "same_seed_words_as_default": same_words,
+                  "launches_per_step": MM_SWITCH_LAUNCHES,
+                  "problems": problems, "ok": ok})
+            failures.extend(f"mmformer switch {dtype}: {p}"
+                            for p in problems)
+            del arms, ka, pa, da
+            torch.cuda.empty_cache()
+    return total
 
 
 def mlp_cost(m: int, c: int, itemsize: int):
@@ -1685,6 +1942,261 @@ def phase_flag_parity(failures):
         del dout32
         torch.cuda.empty_cache()
     return attn_rows, mlp_rows
+
+
+def swin_sites():
+    """(stage, masked) of the 48 attention sites of a dual Swin-B pass:
+    even blocks unshifted, odd blocks shifted wherever the window does not
+    cover the map, both encoders."""
+    return [(stage, i % 2 == 1 and res > 7)
+            for _ in range(2)
+            for (stage, _, _, _, res), depth in zip(STAGES, DEPTHS)
+            for i in range(depth)]
+
+
+def phase_variant_parity(failures):
+    """Kernels #6 (forward and backward), #7 (forward and backward), #8 and
+    #9 against their plain versions and the kernels they share a function
+    with, at the batch-32 Swin-B stage shapes; each bit-equal across two
+    runs; times of kernel, plain version and library yardstick. Then their
+    path: the 48 attention sites of a dual Swin-B pass, each called once
+    through the user's entry points (window_attention_qkv with
+    save_p=True, transposed=False and with save_p=False, forward and
+    backward; window_attention_bhnd; window_attention with use_pallas),
+    float32, launch counts reset just before and read just after. Returns
+    (rows, the path's launch counts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    dev = torch.device("cuda")
+    scale_b = TRAIN_BATCH // BATCH
+    rows, site_inputs = [], {}
+    for stage, bw16, c, heads, res in STAGES:
+        bw, n, d = bw16 * scale_b, 49, c // heads
+        arrays, bias_t, masks = stage_inputs(stage, bw, c, heads, res, dev)
+        gen = torch.Generator(device=dev).manual_seed(400 + stage)
+        dout32 = torch.randn((bw, n, c), generator=gen, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x, w, b = (torch.from_numpy(a).to(dev, dt) for a in arrays)
+            dout = dout32.to(dt)
+            for mask in masks:
+                errs, oks, equal = {}, [], []
+
+                def check(name, got, want, again, ok_fn):
+                    errs[name] = _max_err(got, want)
+                    oks.append(ok_fn(got, want, dtype))
+                    if again is not None:
+                        equal.append(_bit_equal(got, again))
+
+                def same(name, got, other, frac=False):
+                    """#6 is #5 and #4's function: 1e-6 in f32 (of the
+                    largest value for the sums over windows)."""
+                    errs[name] = _max_err(got, other)
+                    bar = 1e-6 * (float(other.float().abs().max())
+                                  if frac else 1.0)
+                    if dtype == "float32":
+                        oks.append(errs[name] <= bar)
+
+                with torch.no_grad():
+                    _, qkv, p = wa.window_attention_qkv_fused_fwd(
+                        x, w, b, bias_t, mask, heads, impl="plain")
+                    k5 = wa.window_attention_qkv_fwd(qkv, bias_t, mask, heads)
+                    k4 = wa.window_attention_qkv_fused_bwd(qkv, p, dout,
+                                                           heads)
+                    # ---- #6 ---------------------------------------------
+                    kw6 = dict(transposed=False)
+                    g6 = wa.window_attention_qkv_fwd(qkv, bias_t, mask, heads,
+                                                     **kw6)
+                    a6 = wa.window_attention_qkv_fwd(qkv, bias_t, mask, heads,
+                                                     **kw6)
+                    w6 = wa.window_attention_qkv_fwd(qkv, bias_t, mask, heads,
+                                                     impl="plain")
+                    for name, g, a, wnt, o in zip(("out", "p"), g6, a6, w6,
+                                                  k5):
+                        check("rows_" + name, g, wnt, a, _fwd_ok)
+                        same("rows_vs_k5_" + name, g, o)
+                    gb6 = wa.window_attention_qkv_fused_bwd(qkv, p, dout,
+                                                            heads, **kw6)
+                    ab6 = wa.window_attention_qkv_fused_bwd(qkv, p, dout,
+                                                            heads, **kw6)
+                    wb6 = wa.window_attention_qkv_fused_bwd(
+                        qkv, p, dout, heads, impl="plain")
+                    for name, g, a, wnt, o in zip(("dqkv", "dbias"), gb6, ab6,
+                                                  wb6, k4):
+                        check("rows_" + name, g, wnt, a, _grad_ok)
+                        same("rows_vs_k4_" + name, g, o, frac=True)
+                    # ---- #7 ---------------------------------------------
+                    g7 = wa.window_attention_qkv_recompute_fwd(
+                        qkv, bias_t, mask, heads)
+                    a7 = wa.window_attention_qkv_recompute_fwd(
+                        qkv, bias_t, mask, heads)
+                    w7 = wa.window_attention_qkv_recompute_fwd(
+                        qkv, bias_t, mask, heads, impl="plain")
+                    check("recompute_out", g7, w7, a7, _fwd_ok)
+                    equal.append(_bit_equal(g7, k5[0]))
+                    gb7 = wa.window_attention_qkv_recompute_bwd(
+                        qkv, bias_t, mask, dout, heads)
+                    ab7 = wa.window_attention_qkv_recompute_bwd(
+                        qkv, bias_t, mask, dout, heads)
+                    wb7 = wa.window_attention_qkv_recompute_bwd(
+                        qkv, bias_t, mask, dout, heads, impl="plain")
+                    for name, g, a, wnt, o in zip(("dqkv", "dbias"), gb7, ab7,
+                                                  wb7, k4):
+                        check("recompute_" + name, g, wnt, a, _grad_ok)
+                        # in f32 #7 is #5 + #4 at phase l's bars; in bf16
+                        # its unrounded p makes another function
+                        errs["recompute_vs_k4_" + name] = _max_err(g, o)
+                        if dtype == "float32":
+                            oks.append(_grad_ok(g, o, dtype))
+                    # ---- #8, #9 -----------------------------------------
+                    q_, k_, v_ = (t.contiguous() for t in qkv.reshape(
+                        bw, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+                    g8 = wa.window_attention_bhnd(q_, k_, v_, bias_t, mask)
+                    a8 = wa.window_attention_bhnd(q_, k_, v_, bias_t, mask)
+                    g9 = wa.window_attention_packed(q_, k_, v_, bias_t, mask)
+                    a9 = wa.window_attention_packed(q_, k_, v_, bias_t, mask)
+                    wr = wa.window_attention_ref(q_, k_, v_, bias_t, mask)
+                    check("bhnd_out", g8, wr, a8, _fwd_ok)
+                    check("packed_out", g9, wr, a9, _fwd_ok)
+                    equal.append(_bit_equal(g9, g8))
+                    equal.append(_bit_equal(
+                        g8.transpose(1, 2).reshape(bw, n, c), k5[0]))
+                    # the library yardstick: SDPA on the same q (unscaled),
+                    # k, v with bias + mask as one additive float mask
+                    am = bias_t[None]
+                    if mask is not None:
+                        am = (am + mask[:, None]).repeat(
+                            bw // mask.shape[0], 1, 1, 1)
+                    am = am.expand(bw, heads, n, n).to(dt).contiguous()
+                    sd = F.scaled_dot_product_attention(q_, k_, v_,
+                                                        attn_mask=am)
+                    errs["sdpa_vs_plain"] = _max_err(sd, wr)
+                    del g6, a6, w6, gb6, ab6, wb6, g7, a7, w7, gb7, ab7, wb7
+                    del g8, a8, g9, a9, wr, sd, k4
+
+                    def sdpa_pair():
+                        leaves = [t.detach().requires_grad_(True)
+                                  for t in (q_, k_, v_)]
+                        with torch.enable_grad():
+                            out = F.scaled_dot_product_attention(
+                                *leaves, attn_mask=am)
+                            out.backward(torch.ones_like(out))
+
+                    plain = dict(reps=5, warmup=1)
+                    times = {
+                        "rows_fwd_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fwd(
+                                qkv, bias_t, mask, heads, **kw6)),
+                        "rows_fwd_plain_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fwd(
+                                qkv, bias_t, mask, heads, impl="plain"),
+                            **plain),
+                        "rows_bwd_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fused_bwd(
+                                qkv, p, dout, heads, **kw6)),
+                        "rows_bwd_plain_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fused_bwd(
+                                qkv, p, dout, heads, impl="plain"), **plain),
+                        "recompute_fwd_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_recompute_fwd(
+                                qkv, bias_t, mask, heads)),
+                        "recompute_fwd_plain_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_recompute_fwd(
+                                qkv, bias_t, mask, heads, impl="plain"),
+                            **plain),
+                        "recompute_bwd_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_recompute_bwd(
+                                qkv, bias_t, mask, dout, heads)),
+                        "recompute_bwd_plain_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_recompute_bwd(
+                                qkv, bias_t, mask, dout, heads,
+                                impl="plain"), **plain),
+                        "bhnd_ms": cuda_ms(lambda: wa.window_attention_bhnd(
+                            q_, k_, v_, bias_t, mask)),
+                        "packed_ms": cuda_ms(
+                            lambda: wa.window_attention_packed(
+                                q_, k_, v_, bias_t, mask)),
+                        "bhnd_plain_ms": cuda_ms(
+                            lambda: wa.window_attention_ref(
+                                q_, k_, v_, bias_t, mask), **plain),
+                        "k5_ms": cuda_ms(lambda: wa.window_attention_qkv_fwd(
+                            qkv, bias_t, mask, heads)),
+                        "k4_ms": cuda_ms(
+                            lambda: wa.window_attention_qkv_fused_bwd(
+                                qkv, p, dout, heads)),
+                        "sdpa_ms": cuda_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q_, k_, v_, attn_mask=am)),
+                        "sdpa_pair_ms": cuda_ms(sdpa_pair),
+                    }
+                    times["packed_plain_ms"] = times["bhnd_plain_ms"]
+                    if dtype == "float32":
+                        site_inputs[(stage, mask is not None)] = dict(
+                            qkv=qkv, bias=bias_t, mask=mask, dout=dout,
+                            heads=heads, q=q_, k=k_, v=v_)
+                    del am, p, k5
+                torch.cuda.synchronize()
+                ok = all(oks) and all(equal)
+                row = {"phase": "variant_parity",
+                       "kernels": [wa.QKV_SAVEP_ROWS_KERNEL_NAME,
+                                   wa.BWD_ROWS_KERNEL_NAME,
+                                   wa.QKV_FWD_KERNEL_NAME,
+                                   wa.BWD_RECOMPUTE_KERNEL_NAME,
+                                   wa.BHND_KERNEL_NAME,
+                                   wa.PACKED_KERNEL_NAME],
+                       "stage": stage, "Bw": bw, "C": c, "H": heads, "N": n,
+                       "mask": mask is not None, "dtype": dtype,
+                       "head_group": wa.head_group(heads, d),
+                       "max_abs_err": errs, "fwd_tol": TRAIN_FWD_TOL[dtype],
+                       "grad_frac_of_max": TRAIN_GRAD_FRAC[dtype],
+                       "bit_equal_rerun_and_shared": all(equal),
+                       "ok": ok, **times}
+                emit(row)
+                rows.append(row)
+                if not ok:
+                    failures.append(f"variant parity stage {stage} {dtype} "
+                                    f"mask={mask is not None}: {errs}")
+        del dout32
+        torch.cuda.empty_cache()
+
+    # ---- the path: 48 sites through the user's entry points ---------------
+    def site(inp):
+        for save_p in (True, False):
+            leaves = [inp["qkv"].clone().requires_grad_(True),
+                      inp["bias"].clone().requires_grad_(True)]
+            out = wa.window_attention_qkv(
+                leaves[0].reshape(leaves[0].shape[0], 49, 3, -1), leaves[1],
+                inp["mask"], inp["heads"], save_p=save_p, transposed=False)
+            out.backward(inp["dout"])
+        with torch.no_grad():
+            args = (inp["q"], inp["k"], inp["v"], inp["bias"], inp["mask"])
+            wa.window_attention_bhnd(*args)
+            wa.window_attention(*args, use_pallas=True)
+
+    for key in site_inputs:  # warm-up
+        site(site_inputs[key])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    for key in swin_sites():
+        site(site_inputs[key])
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t) * 1e3
+    launched = dict(kernels.launch_counts)
+    want = {k: 2 * sum(DEPTHS) for k in VARIANT_KERNELS}
+    ran = {k: v for k, v in launched.items() if v}
+    ok = ran == want
+    emit({"phase": "variant_path", "sites": len(swin_sites()),
+          "launches": ran, "expected": want, "host_ms": path_ms, "ok": ok})
+    if not ok:
+        failures.append(f"variant path launched {ran}, expected {want}")
+    del site_inputs
+    torch.cuda.empty_cache()
+    return rows, launched
 
 
 def flag_launches(arm: str) -> dict:
@@ -1902,8 +2414,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     smi = nvidia_smi_line()
-    name = torch.cuda.get_device_name(0)
-    record["device"] = {"phase": "device", "name": name,
+    device_name = torch.cuda.get_device_name(0)
+    record["device"] = {"phase": "device", "name": device_name,
                         "count": torch.cuda.device_count(),
                         "nvidia_smi": smi, "torch": torch.__version__,
                         "cuda": torch.version.cuda}
@@ -1996,6 +2508,22 @@ def main(argv=None) -> int:
     except Exception:
         traceback.print_exc()
         failures.append("flag train raised")
+
+    variant_launch = {k: 0 for k in kernels.launch_counts}
+    try:
+        variant_rows, variant_launch = phase_variant_parity(failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("variant parity raised")
+        variant_rows = []
+    record["variant_parity"] = variant_rows
+
+    switch_launch = {k: 0 for k in kernels.launch_counts}
+    try:
+        switch_launch = phase_mmformer_switch(failures, smi)
+    except Exception:
+        traceback.print_exc()
+        failures.append("mmformer switch raised")
 
     f32 = [r for r in parity if r["dtype"] == "float32"]
     t32 = [r for r in train_parity if r["dtype"] == "float32"]
@@ -2217,6 +2745,99 @@ def main(argv=None) -> int:
         entries[7]["ms_bfloat16"] = sum(
             MASK_CALLS[tuple(r["shape"])] * r["ms"] for r in mask_parity
             if r["dtype"] == "bfloat16")
+    # #6, #7, #8, #9 per pass of the 48 Swin-B sites of batch 32 (the op
+    # phase's path), from the float32 per-shape medians. Library
+    # yardsticks: scaled_dot_product_attention on the same q, k, v with
+    # bias + mask as its float mask, for the forwards (#6's also writes p,
+    # as #5's does). No single call computes #6's backward; for #7's
+    # backward SDPA forward + backward through autograd is timed beside
+    # #7's pair.
+    v32 = [r for r in variant_rows if r["dtype"] == "float32"]
+    vsrc = {BHND: src + "window_attention_bhnd.cu",
+            PACKED: src + "window_attention_bhnd.cu"}
+    wa_at = "gdl_tpu/ops/window_attention.py:"
+    for kname, replaces, key, lib_key, kind, errs in (
+            (QKV_SAVEP_ROWS, wa_at + "639", "rows_fwd", "sdpa_ms",
+             "qkv_savep", ("rows_out", "rows_p")),
+            (BWD_ROWS, wa_at + "672", "rows_bwd", None, "bwd",
+             ("rows_dqkv", "rows_dbias")),
+            (QKV_FWD, wa_at + "582", "recompute_fwd", "sdpa_ms", "attn_fwd",
+             ("recompute_out",)),
+            (BWD_RECOMPUTE, wa_at + "605", "recompute_bwd", None,
+             "bwd_recompute", ("recompute_dqkv", "recompute_dbias")),
+            (BHND, wa_at + "210", "bhnd", "sdpa_ms", "attn_fwd",
+             ("bhnd_out",)),
+            (PACKED, wa_at + "325", "packed", "sdpa_ms", "attn_fwd",
+             ("packed_out",))):
+        entry = {"name": kname, "route": "cuda",
+                 "source": vsrc.get(kname, wa_src), "replaces": replaces,
+                 "launches": variant_launch[kname],
+                 "max_abs_err": max((max(r["max_abs_err"][k] for k in errs)
+                                     for r in v32), default=None),
+                 "ms": None, "plain_ms": None, "bound_ms": None,
+                 "bound_by": None, "library_ms": None}
+        if len(v32) == 7:
+            entry["ms"] = per_pass_ms(variant_rows, "float32", key + "_ms")
+            entry["plain_ms"] = per_pass_ms(variant_rows, "float32",
+                                            key + "_plain_ms")
+            entry["ms_bfloat16"] = per_pass_ms(variant_rows, "bfloat16",
+                                               key + "_ms")
+            if lib_key:
+                entry["library_ms"] = per_pass_ms(variant_rows, "float32",
+                                                  lib_key)
+                entry["library_ms_bfloat16"] = per_pass_ms(
+                    variant_rows, "bfloat16", lib_key)
+            bound = per_pass_bound(kind, TRAIN_BATCH)
+            entry["bound_ms"] = bound["ms"]
+            entry["bound_by"] = max(bound["by"], key=bound["by"].get)
+            entry["bound_launches_by"] = bound["by"]
+            entry["bytes"], entry["operations"] = (bound["bytes"],
+                                                   bound["operations"])
+            entry["bound_ms_bfloat16"] = per_pass_bound(kind, TRAIN_BATCH,
+                                                        "bfloat16")["ms"]
+            if kname == BWD_RECOMPUTE:
+                entry["pair_ms"] = entry["ms"] + per_pass_ms(
+                    variant_rows, "float32", "recompute_fwd_ms")
+                entry["sdpa_forward_backward_ms"] = per_pass_ms(
+                    variant_rows, "float32", "sdpa_pair_ms")
+                entry["k5_k4_pair_ms"] = (
+                    per_pass_ms(variant_rows, "float32", "k5_ms")
+                    + per_pass_ms(variant_rows, "float32", "k4_ms"))
+        entries.append(entry)
+    # #12 per training step under SA_FUSED_QKV = False: 7 launches, from
+    # the float32 per-shape medians with the mask drawn in the kernel; the
+    # library call beside it is SDPA on the same q, k, v, as for #13
+    entry = {"name": SA_QKV_FWD, "route": "cuda", "source": sa_src,
+             "replaces": "gdl_tpu/ops/self_attention.py:339",
+             "launches": switch_launch[SA_QKV_FWD],
+             "max_abs_err": max((max(r["max_abs_err"][k] for k in
+                                     ("qkv_op_out", "qkv_op_p"))
+                                 for r in sa32), default=None),
+             "ms": None, "plain_ms": None, "bound_ms": None,
+             "bound_by": None, "library_ms": None}
+    rows12, rows13 = sa_rows("kernel"), sa_rows("none")
+    if set(rows12) == set(SA_CALLS) and set(rows13) == set(SA_CALLS):
+        entry["ms"] = sa_sum(rows12, "qkv_fwd_ms")
+        entry["plain_ms"] = sa_sum(rows12, "qkv_fwd_plain_ms")
+        entry["library_ms"] = sa_sum(rows13, "sdpa_ms")
+        entry["ms_bfloat16"] = sum(
+            SA_CALLS[r["site"]] * r["qkv_fwd_ms"] for r in sa_parity
+            if r["dtype"] == "bfloat16" and r["dropout"] == "kernel")
+        total = {"ms": 0.0, "bytes": 0, "operations": 0,
+                 "by": {"bytes": 0, "operations": 0}}
+        for site, (b, n, c) in SA_SHAPES.items():
+            nbytes, ops = sa_cost("qkv_fwd", b, n, c, MM_HEADS, 4)
+            ms, by = bound_ms(nbytes, ops)
+            total["ms"] += SA_CALLS[site] * ms
+            total["bytes"] += SA_CALLS[site] * nbytes
+            total["operations"] += SA_CALLS[site] * ops
+            total["by"][by] += SA_CALLS[site]
+        entry["bound_ms"] = total["ms"]
+        entry["bound_by"] = max(total["by"], key=total["by"].get)
+        entry["bound_launches_by"] = total["by"]
+        entry["bytes"], entry["operations"] = total["bytes"], total[
+            "operations"]
+    entries.append(entry)
     record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
@@ -2245,6 +2866,12 @@ def main(argv=None) -> int:
             if flag_launch[arm][k] == 0:
                 failures.append(f"{k} was never launched on arm {arm} of "
                                 f"the flag training path")
+    for k in VARIANT_KERNELS:
+        if variant_launch[k] == 0:
+            failures.append(f"{k} was never launched on the variant path")
+    if switch_launch[SA_QKV_FWD] == 0:
+        failures.append(f"{SA_QKV_FWD} was never launched on the mmformer "
+                        f"training path under SA_FUSED_QKV = False")
     for entry in entries:
         missing = [k for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                    if entry[k] is None]
@@ -2256,7 +2883,7 @@ def main(argv=None) -> int:
         return 1
     emit(record["kernels"])
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
     return 0
 

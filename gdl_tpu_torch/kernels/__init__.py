@@ -52,7 +52,22 @@ LIBRARIES = {
          "gdl_wa_bwd_delta_launch": ([_vp] * 6 + [_int] * 6
                                      + [_float, _int, _vp], _int),
          "gdl_wa_bwd_fused_launch": ([_vp] * 9 + [_int] * 7
-                                     + [_float, _int, _vp], _int)},
+                                     + [_float, _int, _vp], _int),
+         "gdl_wa_qkv_fwd_launch": ([_vp] * 4 + [_int] * 6
+                                   + [_float, _int, _vp], _int),
+         "gdl_wa_bwd_recompute_launch": ([_vp] * 6 + [_int] * 7
+                                         + [_float, _int, _vp], _int),
+         "gdl_wa_qkv_savep_rows_launch": ([_vp] * 5 + [_int] * 7
+                                          + [_float, _int, _vp], _int),
+         "gdl_wa_bwd_rows_launch": ([_vp] * 5 + [_int] * 7
+                                    + [_float, _int, _vp], _int)},
+    ),
+    "window_attention_bhnd": (
+        "window_attention_bhnd.cu",
+        {"gdl_wa_bhnd_launch": ([_vp] * 6 + [_int] * 5 + [_float, _int, _vp],
+                                _int),
+         "gdl_wa_packed_launch": ([_vp] * 6 + [_int] * 6
+                                  + [_float, _int, _vp], _int)},
     ),
     "maxpool_bwd": (
         "maxpool_bwd.cu",
@@ -68,6 +83,9 @@ LIBRARIES = {
         {"gdl_sa_fwd_launch": ([_vp] * 8 + [_int] * 5
                                + [_float, _int, _uint, _float, _int, _vp],
                                _int),
+         "gdl_sa_qkv_fwd_launch": ([_vp] * 6 + [_int] * 5
+                                   + [_float, _int, _uint, _float, _int,
+                                      _vp], _int),
          "gdl_sa_bwd_launch": ([_vp] * 7 + [_int] * 5
                                + [_float, _int, _uint, _float, _int, _vp],
                                _int)},
@@ -89,9 +107,16 @@ launch_counts: Dict[str, int] = {"window_attention_qkv_fused_eval": 0,
                                  "window_attention_qkv_savep": 0,
                                  "window_attention_qkv_fused_bwd_delta": 0,
                                  "window_attention_qkv_fused_bwd_fused": 0,
+                                 "window_attention_qkv_savep_rows": 0,
+                                 "window_attention_qkv_bwd_rows": 0,
+                                 "window_attention_qkv_fwd": 0,
+                                 "window_attention_qkv_bwd_recompute": 0,
+                                 "window_attention_bhnd": 0,
+                                 "window_attention_packed": 0,
                                  "mlp_fused": 0,
                                  "max_pool_3x3_s2_bwd": 0,
                                  "self_attention_fused_fwd": 0,
+                                 "self_attention_qkv_fwd": 0,
                                  "self_attention_fused_bwd": 0,
                                  "self_attention_fused_eval": 0,
                                  "prng_dropout_mask": 0}

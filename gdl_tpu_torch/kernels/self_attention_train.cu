@@ -6,6 +6,10 @@
 //                      dropout, p . v; writes out, the qkv residual
 //                      [B, N, 3C] and the pre-dropout p residual
 //                      [B, H, N, N]
+//   gdl_sa_qkv_fwd_launch
+//                      the forward `_sa_fwd_kernel` + `_sa_attn_tail` of
+//                      self_attention_qkv: the same without the
+//                      projection, on a qkv [B, N, 3C] the caller projected
 //   gdl_sa_bwd_launch  the backward `_sa_bwd_kernel`: dqkv [B, N, 3C] from
 //                      qkv, the saved p, the same mask and dout
 //
@@ -196,6 +200,27 @@ extern "C" int gdl_sa_fwd_launch(const void* x, const void* w, void* qkv,
   if (dtype == 0) return launch_forward<float, MODE_TRAIN>(x, w, a, batch, s);
   if (dtype == 1)
     return launch_forward<__nv_bfloat16, MODE_TRAIN>(x, w, a, batch, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel #12: the forward of gdl_sa_fwd_launch on a qkv [B, N, 3C] in T
+// that the caller projected (`_sa_fwd_kernel` + `_sa_attn_tail`, reached
+// through self_attention_qkv): sa_tile_kernel<MODE_TRAIN> alone, with no
+// sa_proj_kernel before it. Writes out and the pre-dropout p residual;
+// keep_out is gdl_tpu's emit_mask output.
+extern "C" int gdl_sa_qkv_fwd_launch(const void* qkv, void* p, void* out,
+                                     const void* mask, const void* seed,
+                                     void* keep_out, int batch, int n, int c,
+                                     int heads, int d, float scale,
+                                     int dropout_mode, unsigned keep_thresh,
+                                     float inv_keep, int dtype,
+                                     void* stream) {
+  SaArgs a = make_args(qkv, out, p, mask, seed, n, c, heads, d, scale,
+                       dropout_mode, keep_thresh, inv_keep);
+  a.keep_out = static_cast<unsigned char*>(keep_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_tile<float, MODE_TRAIN>(a, batch, s);
+  if (dtype == 1) return dispatch_tile<__nv_bfloat16, MODE_TRAIN>(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

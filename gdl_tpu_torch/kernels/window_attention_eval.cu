@@ -23,13 +23,9 @@ extern "C" int gdl_wa_eval_launch(const void* x, const void* w, const void* b,
       nw < 1 || bw % nw != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_fwd<float, false>(x, w, b, bias, mask, out, nullptr,
-                                      nullptr, bw, n, c, heads, d, nw, scale,
-                                      s);
-  if (dtype == 1)
-    return dispatch_fwd<__nv_bfloat16, false>(x, w, b, bias, mask, out,
-                                              nullptr, nullptr, bw, n, c,
-                                              heads, d, nw, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return dispatch_fwd<typename decltype(t)::type, false>(
+        x, w, b, bias, mask, out, nullptr, nullptr, bw, n, c, heads, d, nw,
+        scale, s);
+  });
 }

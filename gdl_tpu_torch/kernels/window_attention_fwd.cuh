@@ -1,7 +1,12 @@
 // The fused window-attention forward, shared by window_attention_eval.cu
-// (kernel #1, forward only: SAVE=false) and window_attention_train.cu
+// (kernel #1, forward only: SAVE=false), window_attention_train.cu
 // (kernel #2, the training forward: SAVE=true; kernel #5, the same forward
-// on a qkv computed outside: PROJ=false). Per window w and head h:
+// on a qkv computed outside: PROJ=false; kernel #7's forward: PROJ=false,
+// SAVE=false; kernel #6's forward, which walks a group of heads per block)
+// and window_attention_bhnd.cu (kernels #8 and #9 on separate q, k, v
+// [B, H, N, D]). The attention of one (window, head) past the loads is one
+// device function, attn_fwd_tail, so every entry rounds alike. Per window
+// w and head h:
 //
 //   qkv = x[w] . W_h^T (f32 accumulate) -> round to T -> + b_h (in T)
 //   q   = q * T(scale)                                   (in T)
@@ -36,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -81,6 +88,147 @@ struct FwdSmem {
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
+// q (scaled in T), k and v of one head into shared memory, rows padded to
+// kNP and columns to DMAX with zeros. q, k, v point at the head's first
+// element of each; row r lies ld elements after row r - 1. The caller
+// synchronises before reading them.
+template <typename T, int DMAX>
+__device__ __forceinline__ void load_head(const T* __restrict__ q,
+                                          const T* __restrict__ k,
+                                          const T* __restrict__ v, size_t ld,
+                                          int n, int d, float scale_t,
+                                          float* qs, float* ks, float* vs) {
+  constexpr int kLdQ = DMAX + 1;
+  for (int e = threadIdx.x; e < kNP * DMAX; e += kThreads) {
+    const int r = e / DMAX, dd = e % DMAX;
+    float qv = 0.f, kv = 0.f, vv = 0.f;
+    if (r < n && dd < d) {
+      const size_t at = r * ld + dd;
+      qv = Num<T>::round(Num<T>::load(q + at) * scale_t);
+      kv = Num<T>::load(k + at);
+      vv = Num<T>::load(v + at);
+    }
+    qs[r * kLdQ + dd] = qv;
+    ks[r * kLdQ + dd] = kv;
+    vs[r * kLdQ + dd] = vv;
+  }
+}
+
+// The attention of one (window, head) once q (scaled in T), k and v lie in
+// shared memory: scores + bias[h] + mask (bh, mw: [n, n] f32, mw may be
+// null) in f32, softmax over keys, p rounded to T (and, with SAVE, written
+// to p_w [n, n]), out = p . v (f32 accumulate) written as rows of out_w
+// with row stride ldo. Shared by every forward entry. Every thread of the
+// block calls it; the caller synchronises before shared memory is
+// written again.
+template <typename T, int DMAX, bool SAVE>
+__device__ __forceinline__ void attn_fwd_tail(
+    const float* qs, const float* ks, const float* vs, float* ps,
+    const float* __restrict__ bh, const float* __restrict__ mw,
+    T* __restrict__ p_w, T* __restrict__ out_w, size_t ldo, int n, int d) {
+  constexpr int kLdQ = DMAX + 1;
+  constexpr int kLdP = kNP + 1;
+  constexpr int DT = DMAX / 16;  // output columns per thread
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+
+  // ---- phase 2: scores + bias + mask, f32 -------------------------------
+  {
+    float sacc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sacc[a][j] = 0.f;
+    for (int k = 0; k < d; ++k) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) qv[a] = qs[(ty + 16 * a) * kLdQ + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * kLdQ + k];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sacc[a][j] = fmaf(qv[a], kv[j], sacc[a][j]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = ty + 16 * a;
+      if (i >= n) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = tx + 16 * j;
+        if (jj >= n) continue;
+        float s = sacc[a][j] + bh[i * n + jj];
+        if (mw != nullptr) s += mw[i * n + jj];
+        ps[i * kLdP + jj] = s;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 3: softmax over keys, one warp per row; (save p) -----------
+  {
+    const int lane = tid % 32;
+    for (int i = tid / 32; i < n; i += kThreads / 32) {
+      float* row = ps + i * kLdP;
+      const float s0 = lane < n ? row[lane] : -CUDART_INF_F;
+      const float s1 = lane + 32 < n ? row[lane + 32] : -CUDART_INF_F;
+      float m = fmaxf(s0, s1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const float e0 = lane < n ? expf(s0 - m) : 0.f;
+      const float e1 = lane + 32 < n ? expf(s1 - m) : 0.f;
+      float sum = e0 + e1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane < n) {
+        const float p0 = Num<T>::round(e0 / sum);
+        row[lane] = p0;
+        if constexpr (SAVE) p_w[i * n + lane] = Num<T>::store(p0);
+      }
+      if (lane + 32 < n) {
+        const float p1 = Num<T>::round(e1 / sum);
+        row[lane + 32] = p1;
+        if constexpr (SAVE) p_w[i * n + lane + 32] = Num<T>::store(p1);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 4: out = p . v, f32 accumulate -----------------------------
+  {
+    float oacc[4][DT];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < DT; ++j) oacc[a][j] = 0.f;
+    for (int jj = 0; jj < n; ++jj) {
+      float pv[4], vv[DT];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pv[a] = ps[(ty + 16 * a) * kLdP + jj];
+#pragma unroll
+      for (int j = 0; j < DT; ++j) vv[j] = vs[jj * kLdQ + tx + 16 * j];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < DT; ++j) oacc[a][j] = fmaf(pv[a], vv[j], oacc[a][j]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = ty + 16 * a;
+      if (i >= n) continue;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        const int col = tx + 16 * j;
+        if (col < d) out_w[i * ldo + col] = Num<T>::store(oacc[a][j]);
+      }
+    }
+  }
+}
+
 // SAVE also writes qkv [Bw, N, 3C] (after the bias add, q unscaled) and
 // p [Bw, H, N, N] in T, the residuals of the training backward. With
 // PROJ=false x is qkv itself, w, b and qkv_out are not read or written.
@@ -93,7 +241,6 @@ wa_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
               int heads, int d, int nw, float scale) {
   using S = FwdSmem<DMAX>;
   constexpr int JT = 3 * DMAX / 16;  // projection columns per thread
-  constexpr int DT = DMAX / 16;      // output columns per thread
   extern __shared__ float smem[];
   float* xs = smem;
   float* ws = smem + kNP * S::kLdX;
@@ -177,127 +324,19 @@ wa_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
         dst[r * S::kLdQ + dd] = v;
       }
     }
-    __syncthreads();
   } else {
     // q (scaled in T), k, v of this head straight from the qkv tensor
-    const T* qkv_w = x + static_cast<size_t>(win) * n * c3 + head * d;
-    for (int e = tid; e < kNP * DMAX; e += kThreads) {
-      const int r = e / DMAX, dd = e % DMAX;
-      float q = 0.f, k = 0.f, v = 0.f;
-      if (r < n && dd < d) {
-        const T* row = qkv_w + static_cast<size_t>(r) * c3 + dd;
-        q = Num<T>::round(Num<T>::load(row) * scale_t);
-        k = Num<T>::load(row + c);
-        v = Num<T>::load(row + 2 * c);
-      }
-      qs[r * S::kLdQ + dd] = q;
-      ks[r * S::kLdQ + dd] = k;
-      vs[r * S::kLdQ + dd] = v;
-    }
-    __syncthreads();
-  }
-
-  // ---- phase 2: scores + bias + mask, f32 -------------------------------
-  {
-    float sacc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sacc[a][j] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qv[a] = qs[(ty + 16 * a) * S::kLdQ + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * S::kLdQ + k];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sacc[a][j] = fmaf(qv[a], kv[j], sacc[a][j]);
-    }
-    const float* bh = bias + static_cast<size_t>(head) * n * n;
-    const float* mw =
-        mask != nullptr ? mask + static_cast<size_t>(win % nw) * n * n
-                        : nullptr;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-      if (i >= n) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int jj = tx + 16 * j;
-        if (jj >= n) continue;
-        float s = sacc[a][j] + bh[i * n + jj];
-        if (mw != nullptr) s += mw[i * n + jj];
-        ps[i * S::kLdP + jj] = s;
-      }
-    }
+    const T* qw = x + static_cast<size_t>(win) * n * c3 + head * d;
+    load_head<T, DMAX>(qw, qw + c, qw + 2 * c, c3, n, d, scale_t, qs, ks, vs);
   }
   __syncthreads();
-
-  // ---- phase 3: softmax over keys, one warp per row; (save p) -----------
-  {
-    const int lane = tid % 32;
-    T* pw = SAVE ? p_out + (static_cast<size_t>(win) * heads + head) * n * n
-                 : nullptr;
-    for (int i = tid / 32; i < n; i += kThreads / 32) {
-      float* row = ps + i * S::kLdP;
-      const float s0 = lane < n ? row[lane] : -CUDART_INF_F;
-      const float s1 = lane + 32 < n ? row[lane + 32] : -CUDART_INF_F;
-      float m = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const float e0 = lane < n ? expf(s0 - m) : 0.f;
-      const float e1 = lane + 32 < n ? expf(s1 - m) : 0.f;
-      float sum = e0 + e1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane < n) {
-        const float p0 = Num<T>::round(e0 / sum);
-        row[lane] = p0;
-        if constexpr (SAVE) pw[i * n + lane] = Num<T>::store(p0);
-      }
-      if (lane + 32 < n) {
-        const float p1 = Num<T>::round(e1 / sum);
-        row[lane + 32] = p1;
-        if constexpr (SAVE) pw[i * n + lane + 32] = Num<T>::store(p1);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 4: out = p . v, f32 accumulate -----------------------------
-  {
-    float oacc[4][DT];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < DT; ++j) oacc[a][j] = 0.f;
-    for (int jj = 0; jj < n; ++jj) {
-      float pv[4], vv[DT];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pv[a] = ps[(ty + 16 * a) * S::kLdP + jj];
-#pragma unroll
-      for (int j = 0; j < DT; ++j) vv[j] = vs[jj * S::kLdQ + tx + 16 * j];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < DT; ++j) oacc[a][j] = fmaf(pv[a], vv[j], oacc[a][j]);
-    }
-    T* ow = out + static_cast<size_t>(win) * n * c + head * d;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-      if (i >= n) continue;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const int col = tx + 16 * j;
-        if (col < d) ow[static_cast<size_t>(i) * c + col] = Num<T>::store(oacc[a][j]);
-      }
-    }
-  }
+  attn_fwd_tail<T, DMAX, SAVE>(
+      qs, ks, vs, ps, bias + static_cast<size_t>(head) * n * n,
+      mask != nullptr ? mask + static_cast<size_t>(win % nw) * n * n
+                      : nullptr,
+      SAVE ? p_out + (static_cast<size_t>(win) * heads + head) * n * n
+           : nullptr,
+      out + static_cast<size_t>(win) * n * c + head * d, c, n, d);
 }
 
 // above 48 KB a block's shared memory has to be granted explicitly; the
@@ -307,6 +346,28 @@ cudaError_t grant_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// f(std::integral_constant<int, DMAX>) with the smallest of the three
+// register tilings (DMAX 16, 32, 64) that holds head dim d
+template <typename F>
+int with_dmax(int d, F&& f) {
+  if (d <= 16) return f(std::integral_constant<int, 16>{});
+  if (d <= 32) return f(std::integral_constant<int, 32>{});
+  return f(std::integral_constant<int, 64>{});
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<T>) for the element type of dtype code 0 (float32) or 1 (bfloat16)
+template <typename F>
+int with_dtype(int dtype, F&& f) {
+  if (dtype == 0) return f(Tag<float>{});
+  if (dtype == 1) return f(Tag<__nv_bfloat16>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int DMAX, bool SAVE, bool PROJ = true>
@@ -332,14 +393,10 @@ int dispatch_fwd(const void* x, const void* w, const void* b,
                  const void* bias, const void* mask, void* out, void* qkv,
                  void* p, int bw, int n, int c, int heads, int d, int nw,
                  float scale, cudaStream_t s) {
-  if (d <= 16)
-    return launch_fwd<T, 16, SAVE, PROJ>(x, w, b, bias, mask, out, qkv, p,
-                                         bw, n, c, heads, d, nw, scale, s);
-  if (d <= 32)
-    return launch_fwd<T, 32, SAVE, PROJ>(x, w, b, bias, mask, out, qkv, p,
-                                         bw, n, c, heads, d, nw, scale, s);
-  return launch_fwd<T, 64, SAVE, PROJ>(x, w, b, bias, mask, out, qkv, p, bw,
-                                       n, c, heads, d, nw, scale, s);
+  return with_dmax(d, [&](auto dm) {
+    return launch_fwd<T, decltype(dm)::value, SAVE, PROJ>(
+        x, w, b, bias, mask, out, qkv, p, bw, n, c, heads, d, nw, scale, s);
+  });
 }
 
 }  // namespace

@@ -34,6 +34,26 @@
 // In those two the projection backward (dx, dW, db) stays outside, as
 // plain GEMMs, as gdl_tpu runs it with FUSED_PROJECTION_BACKWARD off.
 //
+// The other two argument combinations of window_attention_pallas_qkv:
+//
+// - kernel #7 (save_p=False: _qkv_attn_fwd / _qkv_attn_bwd, bodies
+//   _wa_qkv_kernel and _wa_qkv_bwd_kernel). Forward, gdl_wa_qkv_fwd_launch:
+//   #5 without the p write. Backward, gdl_wa_bwd_recompute_launch, from
+//   qkv, bias, mask and dout alone: s = q_scaled . k^T + bias + mask and
+//   p = softmax(s) are computed again in f32, then #4's products, with
+//   two rounding points of its own: p stays UNROUNDED f32 in
+//   ds = p * (dp - rowsum(dp * p)), and is rounded to T only as the
+//   operand of dv = p^T . dout. It reads no p (N*N per head) and does one
+//   more N x N x d product per (window, head). BWD_DELTA does not reach it.
+// - kernel #6 (transposed=False: _qkv_attn_savep_fwd / _qkv_attn_savep_bwd,
+//   bodies _wa_qkv_savep_kernel and _wa_qkv_bwd_p_kernel): the same
+//   functions as #5 and #4 in the TPU's row score layout, a tiling choice
+//   of the TPU that has no counterpart here. gdl_wa_qkv_savep_rows_launch
+//   and gdl_wa_bwd_rows_launch run #5's and #4's device code per head,
+//   but a block walks a group of g heads (gdl_tpu's head group, g * d =
+//   128 where the heads allow) in turn instead of owning one head, so the
+//   grid has heads / g times fewer, longer blocks. Equal bits to #5 and #4.
+//
 // Fused projection backward, gdl_wa_bwd_fused_launch, replaces
 // _xw_attn_savep_t_bwd's fused branch (kernel body
 // _wa_xw_t_bwd_fused_kernel): dqkv is rounded to T and never written;
@@ -104,14 +124,18 @@ struct BwdSmem {
 // tx+16j in gq, gk, gv; padded rows and columns come out 0. Every thread
 // of the block calls it; the caller synchronises before shared memory is
 // written again. With DELTA the softmax row sums are read from
-// delta [Bw, H, N].
-template <typename T, int DMAX, bool DELTA>
+// delta [Bw, H, N]. With RECOMPUTE p is not read: it is computed again
+// from q, k, bias [H, N, N] and mask [nw, N, N] (or null) as the forward
+// computes it, and kept in f32; it is rounded to T only as the operand of
+// dv = p^T . dout (kernel #7's rounding points).
+template <typename T, int DMAX, bool DELTA, bool RECOMPUTE = false>
 __device__ __forceinline__ void attn_bwd_tile(
     const T* __restrict__ qkv, const T* __restrict__ p,
     const T* __restrict__ dout, const float* __restrict__ delta, int win,
     int head, int n, int c, int heads, int d, float scale_t, float* smem,
     float (&dbacc)[4][4], float (&gq)[4][DMAX / 16], float (&gk)[4][DMAX / 16],
-    float (&gv)[4][DMAX / 16]) {
+    float (&gv)[4][DMAX / 16], const float* __restrict__ bias = nullptr,
+    const float* __restrict__ mask = nullptr, int nw = 1) {
   using S = BwdSmem<DMAX>;
   constexpr int DT = DMAX / 16;  // head-dim columns per thread
   float* qs = smem;
@@ -143,11 +167,71 @@ __device__ __forceinline__ void attn_bwd_tile(
     vs[r * S::kLdQ + dd] = v;
     gs[r * S::kLdQ + dd] = g;
   }
-  const T* p_w = p + (static_cast<size_t>(win) * heads + head) * n * n;
-  for (int e = tid; e < kNP * kNP; e += kThreads) {
-    const int i = e / kNP, j = e % kNP;
-    ps[i * S::kLdP + j] = (i < n && j < n) ? Num<T>::load(p_w + i * n + j)
-                                           : 0.f;
+  if constexpr (RECOMPUTE) {
+    __syncthreads();  // q and k are in shared memory
+    // s = q . k^T + bias[h] + mask (f32), 0 outside [n, n]
+    const float* bh = bias + static_cast<size_t>(head) * n * n;
+    const float* mw =
+        mask != nullptr ? mask + static_cast<size_t>(win % nw) * n * n
+                        : nullptr;
+    float sacc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sacc[a][j] = 0.f;
+    for (int k = 0; k < d; ++k) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) qv[a] = qs[(ty + 16 * a) * S::kLdQ + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * S::kLdQ + k];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sacc[a][j] = fmaf(qv[a], kv[j], sacc[a][j]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = ty + 16 * a;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = tx + 16 * j;
+        float sv = 0.f;
+        if (i < n && jj < n) {
+          sv = sacc[a][j] + bh[i * n + jj];
+          if (mw != nullptr) sv += mw[i * n + jj];
+        }
+        ps[i * S::kLdP + jj] = sv;
+      }
+    }
+    __syncthreads();
+    // p = softmax(s) over keys in f32, one warp per row, NOT rounded;
+    // padded rows and columns stay 0
+    const int lane = tid % 32;
+    for (int i = tid / 32; i < n; i += kThreads / 32) {
+      float* row = ps + i * S::kLdP;
+      const float s0 = lane < n ? row[lane] : -CUDART_INF_F;
+      const float s1 = lane + 32 < n ? row[lane + 32] : -CUDART_INF_F;
+      float m = fmaxf(s0, s1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const float e0 = lane < n ? expf(s0 - m) : 0.f;
+      const float e1 = lane + 32 < n ? expf(s1 - m) : 0.f;
+      float sum = e0 + e1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane < n) row[lane] = e0 / sum;
+      if (lane + 32 < n) row[lane + 32] = e1 / sum;
+    }
+  } else {
+    const T* p_w = p + (static_cast<size_t>(win) * heads + head) * n * n;
+    for (int e = tid; e < kNP * kNP; e += kThreads) {
+      const int i = e / kNP, j = e % kNP;
+      ps[i * S::kLdP + j] = (i < n && j < n) ? Num<T>::load(p_w + i * n + j)
+                                             : 0.f;
+    }
   }
   __syncthreads();
 
@@ -219,6 +303,7 @@ __device__ __forceinline__ void attn_bwd_tile(
       ds_row[a] = dss[(ty + 16 * a) * S::kLdP + t];  // ds[i, t]
       ds_col[a] = dss[t * S::kLdP + ty + 16 * a];    // ds[t, j]
       p_col[a] = ps[t * S::kLdP + ty + 16 * a];      // p[t, j]
+      if constexpr (RECOMPUTE) p_col[a] = Num<T>::round(p_col[a]);
     }
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
@@ -242,6 +327,35 @@ __device__ __forceinline__ void zero16(float (&acc)[4][4]) {
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
+}
+
+// this thread's dq (scaled here, in f32), dk and dv of (win, head) into
+// dqkv [Bw, N, 3C] in T: rows ty+16a, head-dim columns tx+16j
+template <typename T, int DMAX>
+__device__ __forceinline__ void store_dqkv(T* __restrict__ dqkv, int win,
+                                           int head, int n, int c, int d,
+                                           float scale,
+                                           const float (&gq)[4][DMAX / 16],
+                                           const float (&gk)[4][DMAX / 16],
+                                           const float (&gv)[4][DMAX / 16]) {
+  constexpr int DT = DMAX / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int c3 = 3 * c;
+  T* dw = dqkv + static_cast<size_t>(win) * n * c3 + head * d;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = ty + 16 * a;
+    if (i >= n) continue;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int col = tx + 16 * j;
+      if (col >= d) continue;
+      T* row = dw + static_cast<size_t>(i) * c3 + col;
+      row[0] = Num<T>::store(gq[a][j] * scale);
+      row[c] = Num<T>::store(gk[a][j]);
+      row[2 * c] = Num<T>::store(gv[a][j]);
+    }
+  }
 }
 
 // this thread's share of a dbias partial: rows ty+16a, columns tx+16j
@@ -274,9 +388,6 @@ wa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
   extern __shared__ float smem[];
   const int chunk = blockIdx.x / heads;
   const int head = blockIdx.x % heads;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int c3 = 3 * c;
   const float scale_t = Num<T>::round(scale);
 
   float dbacc[4][4];  // this block's share of dbias[head]
@@ -287,21 +398,7 @@ wa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
     float gq[4][DT], gk[4][DT], gv[4][DT];
     attn_bwd_tile<T, DMAX, DELTA>(qkv, p, dout, delta, win, head, n, c, heads,
                                   d, scale_t, smem, dbacc, gq, gk, gv);
-    T* dw = dqkv + static_cast<size_t>(win) * n * c3 + head * d;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-      if (i >= n) continue;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const int col = tx + 16 * j;
-        if (col >= d) continue;
-        T* row = dw + static_cast<size_t>(i) * c3 + col;
-        row[0] = Num<T>::store(gq[a][j] * scale);
-        row[c] = Num<T>::store(gk[a][j]);
-        row[2 * c] = Num<T>::store(gv[a][j]);
-      }
-    }
+    store_dqkv<T, DMAX>(dqkv, win, head, n, c, d, scale, gq, gk, gv);
     __syncthreads();  // the next window overwrites shared memory
   }
   store_dbias(
@@ -333,14 +430,183 @@ int dispatch_bwd(const void* qkv, const void* p, const void* dout,
                  const void* delta, void* dqkv, void* dbias_part, int bw,
                  int n, int c, int heads, int d, int wpb, float scale,
                  cudaStream_t s) {
-  if (d <= 16)
-    return launch_bwd<T, 16, DELTA>(qkv, p, dout, delta, dqkv, dbias_part, bw,
-                                    n, c, heads, d, wpb, scale, s);
-  if (d <= 32)
-    return launch_bwd<T, 32, DELTA>(qkv, p, dout, delta, dqkv, dbias_part, bw,
-                                    n, c, heads, d, wpb, scale, s);
-  return launch_bwd<T, 64, DELTA>(qkv, p, dout, delta, dqkv, dbias_part, bw,
-                                  n, c, heads, d, wpb, scale, s);
+  return with_dmax(d, [&](auto dm) {
+    return launch_bwd<T, decltype(dm)::value, DELTA>(
+        qkv, p, dout, delta, dqkv, dbias_part, bw, n, c, heads, d, wpb,
+        scale, s);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// kernel #7's backward: p computed again from qkv, bias and mask
+// ---------------------------------------------------------------------------
+
+// #4's blocks (one head, a run of wpb windows, one dbias partial each),
+// with attn_bwd_tile<RECOMPUTE>: one more N x N x d product per (window,
+// head), the scores, and no p read.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+wa_bwd_recompute_kernel(const T* __restrict__ qkv,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ mask,
+                        const T* __restrict__ dout, T* __restrict__ dqkv,
+                        float* __restrict__ dbias_part, int bw, int n, int c,
+                        int heads, int d, int nw, int wpb, float scale) {
+  constexpr int DT = DMAX / 16;
+  extern __shared__ float smem[];
+  const int chunk = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
+  const float scale_t = Num<T>::round(scale);
+  float dbacc[4][4];
+  zero16(dbacc);
+  const int w_end = min(bw, (chunk + 1) * wpb);
+  for (int win = chunk * wpb; win < w_end; ++win) {
+    float gq[4][DT], gk[4][DT], gv[4][DT];
+    attn_bwd_tile<T, DMAX, false, true>(qkv, nullptr, dout, nullptr, win,
+                                        head, n, c, heads, d, scale_t, smem,
+                                        dbacc, gq, gk, gv, bias, mask, nw);
+    store_dqkv<T, DMAX>(dqkv, win, head, n, c, d, scale, gq, gk, gv);
+    __syncthreads();  // the next window overwrites shared memory
+  }
+  store_dbias(
+      dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n, n,
+      dbacc);
+}
+
+// ---------------------------------------------------------------------------
+// kernel #6: the save-p forward and the backward from p, a group of heads
+// per block
+// ---------------------------------------------------------------------------
+
+// The TPU's row-layout kernels hold the scores of a group of g heads
+// (gd = g * d = 128 lanes) in rows of one block. Here a block owns one
+// window (forward) or one run of windows (backward) and a group of g
+// heads, and walks the heads in turn through the device code of #5 and
+// #4; each head's arithmetic, and so every bit, is theirs.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+wa_fwd_rows_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+                   const float* __restrict__ mask, T* __restrict__ out,
+                   T* __restrict__ p_out, int n, int c, int heads, int d,
+                   int nw, int g, float scale) {
+  using S = FwdSmem<DMAX>;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + kNP * S::kLdQ;
+  float* vs = ks + kNP * S::kLdQ;
+  float* ps = smem + S::kUnion;
+  const int groups = heads / g;
+  const int win = blockIdx.x / groups;
+  const int h0 = (blockIdx.x % groups) * g;
+  const int c3 = 3 * c;
+  const float scale_t = Num<T>::round(scale);
+  const float* mw =
+      mask != nullptr ? mask + static_cast<size_t>(win % nw) * n * n : nullptr;
+  for (int head = h0; head < h0 + g; ++head) {
+    const T* qw = qkv + static_cast<size_t>(win) * n * c3 + head * d;
+    load_head<T, DMAX>(qw, qw + c, qw + 2 * c, c3, n, d, scale_t, qs, ks, vs);
+    __syncthreads();
+    attn_fwd_tail<T, DMAX, true>(
+        qs, ks, vs, ps, bias + static_cast<size_t>(head) * n * n, mw,
+        p_out + (static_cast<size_t>(win) * heads + head) * n * n,
+        out + static_cast<size_t>(win) * n * c + head * d, c, n, d);
+    __syncthreads();  // the next head overwrites shared memory
+  }
+}
+
+// one block per (run of wpb windows, group of g heads): for each head of
+// the group, #4's walk over the run and one dbias partial
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+wa_bwd_rows_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
+                   const T* __restrict__ dout, T* __restrict__ dqkv,
+                   float* __restrict__ dbias_part, int bw, int n, int c,
+                   int heads, int d, int g, int wpb, float scale) {
+  constexpr int DT = DMAX / 16;
+  extern __shared__ float smem[];
+  const int groups = heads / g;
+  const int chunk = blockIdx.x / groups;
+  const int h0 = (blockIdx.x % groups) * g;
+  const float scale_t = Num<T>::round(scale);
+  const int w_end = min(bw, (chunk + 1) * wpb);
+  for (int head = h0; head < h0 + g; ++head) {
+    float dbacc[4][4];
+    zero16(dbacc);
+    for (int win = chunk * wpb; win < w_end; ++win) {
+      float gq[4][DT], gk[4][DT], gv[4][DT];
+      attn_bwd_tile<T, DMAX, false>(qkv, p, dout, nullptr, win, head, n, c,
+                                    heads, d, scale_t, smem, dbacc, gq, gk,
+                                    gv);
+      store_dqkv<T, DMAX>(dqkv, win, head, n, c, d, scale, gq, gk, gv);
+      __syncthreads();  // the next tile overwrites shared memory
+    }
+    store_dbias(
+        dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n, n,
+        dbacc);
+  }
+}
+
+template <typename T>
+int launch_bwd_recompute(const void* qkv, const void* bias, const void* mask,
+                         const void* dout, void* dqkv, void* dbias_part,
+                         int bw, int n, int c, int heads, int d, int nw,
+                         int wpb, float scale, cudaStream_t s) {
+  return with_dmax(d, [&](auto dm) {
+    constexpr int DMAX = decltype(dm)::value;
+    constexpr size_t smem = BwdSmem<DMAX>::kBytes;
+    static const cudaError_t attr =
+        grant_smem(wa_bwd_recompute_kernel<T, DMAX>, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const unsigned grid =
+        static_cast<unsigned>((bw + wpb - 1) / wpb) * static_cast<unsigned>(heads);
+    wa_bwd_recompute_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(qkv), static_cast<const float*>(bias),
+        static_cast<const float*>(mask), static_cast<const T*>(dout),
+        static_cast<T*>(dqkv), static_cast<float*>(dbias_part), bw, n, c,
+        heads, d, nw, wpb, scale);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <typename T>
+int launch_fwd_rows(const void* qkv, const void* bias, const void* mask,
+                    void* out, void* p, int bw, int n, int c, int heads, int d,
+                    int nw, int g, float scale, cudaStream_t s) {
+  return with_dmax(d, [&](auto dm) {
+    constexpr int DMAX = decltype(dm)::value;
+    constexpr size_t smem = FwdSmem<DMAX>::kBytes;
+    static const cudaError_t attr =
+        grant_smem(wa_fwd_rows_kernel<T, DMAX>, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const unsigned grid =
+        static_cast<unsigned>(bw) * static_cast<unsigned>(heads / g);
+    wa_fwd_rows_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(qkv), static_cast<const float*>(bias),
+        static_cast<const float*>(mask), static_cast<T*>(out),
+        static_cast<T*>(p), n, c, heads, d, nw, g, scale);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <typename T>
+int launch_bwd_rows(const void* qkv, const void* p, const void* dout,
+                    void* dqkv, void* dbias_part, int bw, int n, int c,
+                    int heads, int d, int g, int wpb, float scale,
+                    cudaStream_t s) {
+  return with_dmax(d, [&](auto dm) {
+    constexpr int DMAX = decltype(dm)::value;
+    constexpr size_t smem = BwdSmem<DMAX>::kBytes;
+    static const cudaError_t attr =
+        grant_smem(wa_bwd_rows_kernel<T, DMAX>, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const unsigned grid = static_cast<unsigned>((bw + wpb - 1) / wpb) *
+                          static_cast<unsigned>(heads / g);
+    wa_bwd_rows_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(qkv), static_cast<const T*>(p),
+        static_cast<const T*>(dout), static_cast<T*>(dqkv),
+        static_cast<float*>(dbias_part), bw, n, c, heads, d, g, wpb, scale);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -590,14 +856,10 @@ extern "C" int gdl_wa_savep_launch(const void* x, const void* w,
   if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_fwd<float, true>(x, w, b, bias, mask, out, qkv, p, bw, n,
-                                     c, heads, d, nw, scale, s);
-  if (dtype == 1)
-    return dispatch_fwd<__nv_bfloat16, true>(x, w, b, bias, mask, out, qkv,
-                                             p, bw, n, c, heads, d, nw, scale,
-                                             s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return dispatch_fwd<typename decltype(t)::type, true>(
+        x, w, b, bias, mask, out, qkv, p, bw, n, c, heads, d, nw, scale, s);
+  });
 }
 
 // qkv [bw, n, 3c] in T, computed by the caller (columns [q|k|v][head][d],
@@ -611,15 +873,11 @@ extern "C" int gdl_wa_qkv_savep_launch(const void* qkv, const void* bias,
   if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_fwd<float, true, false>(qkv, nullptr, nullptr, bias, mask,
-                                            out, nullptr, p, bw, n, c, heads,
-                                            d, nw, scale, s);
-  if (dtype == 1)
-    return dispatch_fwd<__nv_bfloat16, true, false>(
+  return with_dtype(dtype, [&](auto t) {
+    return dispatch_fwd<typename decltype(t)::type, true, false>(
         qkv, nullptr, nullptr, bias, mask, out, nullptr, p, bw, n, c, heads,
         d, nw, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 // qkv [bw, n, 3c], p [bw, heads, n, n], dout [bw, n, c] in T; writes dqkv
@@ -634,14 +892,11 @@ extern "C" int gdl_wa_bwd_launch(const void* qkv, const void* p,
   if (bad_shape(bw, n, c, heads, d) || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_bwd<float, false>(qkv, p, dout, nullptr, dqkv, dbias_part,
-                                      bw, n, c, heads, d, wpb, scale, s);
-  if (dtype == 1)
-    return dispatch_bwd<__nv_bfloat16, false>(qkv, p, dout, nullptr, dqkv,
-                                              dbias_part, bw, n, c, heads, d,
-                                              wpb, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return dispatch_bwd<typename decltype(t)::type, false>(
+        qkv, p, dout, nullptr, dqkv, dbias_part, bw, n, c, heads, d, wpb,
+        scale, s);
+  });
 }
 
 // The same with the softmax row sums given: delta [bw, heads, n] float32,
@@ -655,14 +910,11 @@ extern "C" int gdl_wa_bwd_delta_launch(const void* qkv, const void* p,
   if (bad_shape(bw, n, c, heads, d) || wpb < 1 || delta == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_bwd<float, true>(qkv, p, dout, delta, dqkv, dbias_part,
-                                     bw, n, c, heads, d, wpb, scale, s);
-  if (dtype == 1)
-    return dispatch_bwd<__nv_bfloat16, true>(qkv, p, dout, delta, dqkv,
-                                             dbias_part, bw, n, c, heads, d,
-                                             wpb, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return dispatch_bwd<typename decltype(t)::type, true>(
+        qkv, p, dout, delta, dqkv, dbias_part, bw, n, c, heads, d, wpb,
+        scale, s);
+  });
 }
 
 // qkv, p, dout as above, x [bw, n, c] and w [3c, c] in T. Writes dx
@@ -681,13 +933,83 @@ extern "C" int gdl_wa_bwd_fused_launch(const void* qkv, const void* p,
   if (bad_shape(bw, n, c, heads, d) || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_bwd_fused<float>(qkv, p, dout, x, w, dx, dw_part, db_part,
-                                     dbias_part, bw, n, c, heads, d, wpb, ct,
-                                     scale, s);
-  if (dtype == 1)
-    return dispatch_bwd_fused<__nv_bfloat16>(qkv, p, dout, x, w, dx, dw_part,
-                                             db_part, dbias_part, bw, n, c,
-                                             heads, d, wpb, ct, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return dispatch_bwd_fused<typename decltype(t)::type>(
+        qkv, p, dout, x, w, dx, dw_part, db_part, dbias_part, bw, n, c, heads,
+        d, wpb, ct, scale, s);
+  });
+}
+
+// Kernel #7's forward: qkv [bw, n, 3c] in T computed by the caller, bias
+// and mask as above; writes out [bw, n, c] in T and no p. Returns a
+// cudaError_t (0 on success).
+extern "C" int gdl_wa_qkv_fwd_launch(const void* qkv, const void* bias,
+                                     const void* mask, void* out, int bw,
+                                     int n, int c, int heads, int d, int nw,
+                                     float scale, int dtype, void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dtype(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    return dispatch_fwd<T, false, false>(qkv, nullptr, nullptr, bias, mask,
+                                         out, nullptr, nullptr, bw, n, c,
+                                         heads, d, nw, scale, s);
+  });
+}
+
+// Kernel #7's backward: qkv and dout in T, bias and mask (or null) in
+// float32; computes p again, writes dqkv [bw, n, 3c] in T and dbias_part
+// [ceil(bw / wpb), heads, n, n] in float32 (the caller sums them).
+extern "C" int gdl_wa_bwd_recompute_launch(const void* qkv, const void* bias,
+                                           const void* mask, const void* dout,
+                                           void* dqkv, void* dbias_part,
+                                           int bw, int n, int c, int heads,
+                                           int d, int nw, int wpb,
+                                           float scale, int dtype,
+                                           void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0 || wpb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dtype(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    return launch_bwd_recompute<T>(qkv, bias, mask, dout, dqkv, dbias_part,
+                                   bw, n, c, heads, d, nw, wpb, scale, s);
+  });
+}
+
+// Kernel #6's forward: as gdl_wa_qkv_savep_launch (writes out and p), a
+// block per window and group of g heads (g divides heads).
+extern "C" int gdl_wa_qkv_savep_rows_launch(const void* qkv, const void* bias,
+                                            const void* mask, void* out,
+                                            void* p, int bw, int n, int c,
+                                            int heads, int d, int nw, int g,
+                                            float scale, int dtype,
+                                            void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0 || g < 1 ||
+      heads % g != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dtype(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    return launch_fwd_rows<T>(qkv, bias, mask, out, p, bw, n, c, heads, d, nw,
+                              g, scale, s);
+  });
+}
+
+// Kernel #6's backward: as gdl_wa_bwd_launch, a block per run of wpb
+// windows and group of g heads; one dbias partial per (run, head).
+extern "C" int gdl_wa_bwd_rows_launch(const void* qkv, const void* p,
+                                      const void* dout, void* dqkv,
+                                      void* dbias_part, int bw, int n, int c,
+                                      int heads, int d, int g, int wpb,
+                                      float scale, int dtype, void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || wpb < 1 || g < 1 || heads % g != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dtype(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    return launch_bwd_rows<T>(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads,
+                              d, g, wpb, scale, s);
+  });
 }

@@ -19,6 +19,14 @@ draws its mask in the kernel (`SA_DROPOUT_IMPL = "kernel"`, gdl_tpu's
 default) or reads one from memory ("hbm"). In eval mode SelfAttention
 takes the forward-only op (kernel #13). Under CUDA autocast the fused
 op's operands are cast to the autocast dtype, as nn.Linear's would be.
+
+`SA_FUSED_QKV` (True | False, gdl_tpu's name and default, read when
+SelfAttention runs): False takes, in training, the qkv projection out of
+the fused op, as gdl_tpu does: `self.qkv(x)` (nn.Linear without bias,
+cast by autocast like gdl_tpu's `jnp.dot`), then `self_attention_qkv` on
+it (kernels #12 and #11). The parameters are the same under both values
+(gdl_tpu's `_SaQkvParams` "qkv" is the projection either way), so
+`utils/interop.py` maps them alike. The eval branch does not read it.
 """
 
 from __future__ import annotations
@@ -37,11 +45,15 @@ from gdl_tpu_torch.ops.self_attention import (
     sa_kernel_supported,
     self_attention_fused,
     self_attention_fused_eval,
+    self_attention_qkv,
 )
 
 # attention-probability dropout inside the fused op: "kernel" (drawn in
 # the forward and again in the backward) or "hbm" (a mask in memory)
 SA_DROPOUT_IMPL = "kernel"
+# the qkv projection inside the fused training op (True) or before it, as
+# nn.Linear, with the attention on its output (False)
+SA_FUSED_QKV = True
 
 MODALITY_COMBINATIONS = np.array(
     [[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0], [1, 0, 1], [0, 1, 1],
@@ -85,7 +97,8 @@ class SelfAttention(nn.Module):
 
     Where `sa_kernel_supported(dim, heads)` holds, projection, softmax,
     attention-probability dropout and p·v are the fused op: the training
-    op in training mode (or whenever autograd needs a backward), the
+    op in training mode (or whenever autograd needs a backward; under
+    SA_FUSED_QKV = False `self.qkv` and then `self_attention_qkv`), the
     forward-only op otherwise. Other head configurations take the
     unfused path below, as in gdl_tpu. impl: "auto" launches the kernels
     on the card; "plain" runs their plain versions (and the plain mask
@@ -102,27 +115,38 @@ class SelfAttention(nn.Module):
         self.attn_drop = Drop(dropout_rate, impl)
         self.out_drop = Drop(dropout_rate, impl)
 
+    @staticmethod
+    def _autocast(x, w):
+        """x and w in the autocast dtype, as nn.Linear would take them."""
+        if torch.is_autocast_enabled(x.device.type):
+            dt = torch.get_autocast_dtype(x.device.type)
+            return x.to(dt), w.to(dt)
+        return x, w
+
     def forward(self, x, generator: Optional[torch.Generator] = None):
         b, n, c = x.shape
         head_dim = self.dim // self.heads
         scale = head_dim ** -0.5
         if sa_kernel_supported(self.dim, self.heads):
             w = self.qkv.weight
-            if torch.is_autocast_enabled(x.device.type):
-                dt = torch.get_autocast_dtype(x.device.type)
-                x, w = x.to(dt), w.to(dt)
             needs_grad = torch.is_grad_enabled() and (x.requires_grad
                                                       or w.requires_grad)
             if self.training or needs_grad:
                 dropping = self.training and self.dropout_rate > 0.0
                 words = (fold_seed_words(generator, x.device)
                          if dropping else None)
-                out = self_attention_fused(
-                    x.contiguous(), w.contiguous(), self.heads, scale,
-                    dropout_rate=self.dropout_rate, seed_words=words,
-                    train=self.training, dropout_impl=SA_DROPOUT_IMPL,
-                    impl=self.impl)
+                kw = dict(dropout_rate=self.dropout_rate, seed_words=words,
+                          train=self.training, dropout_impl=SA_DROPOUT_IMPL,
+                          impl=self.impl)
+                if SA_FUSED_QKV:
+                    x, w = self._autocast(x, w)
+                    out = self_attention_fused(x.contiguous(), w.contiguous(),
+                                               self.heads, scale, **kw)
+                else:
+                    out = self_attention_qkv(self.qkv(x).contiguous(),
+                                             self.heads, scale, **kw)
             else:
+                x, w = self._autocast(x, w)
                 out = self_attention_fused_eval(
                     x.contiguous(), w.contiguous(), self.heads, scale,
                     impl=self.impl)

@@ -1,6 +1,5 @@
-"""Fused multi-head self-attention with the qkv projection inside, for
-the mmformer transformer stack. Ports of three entries of
-`gdl_tpu/ops/self_attention.py`:
+"""Fused multi-head self-attention for the mmformer transformer stack.
+Ports of four entries of `gdl_tpu/ops/self_attention.py`:
 
 - `self_attention_fused`: the training op (`_sa_xw_core`), a
   `torch.autograd.Function`. Its forward is the fused-projection forward
@@ -10,6 +9,11 @@ the mmformer transformer stack. Ports of three entries of
   saved p (`_sa_bwd_kernel`) followed by dx = dqkv·W and dW = dqkvᵀ·x as
   plain GEMMs, the split of gdl_tpu's `_sa_xw_bwd`. On a CUDA tensor both
   halves launch `kernels/self_attention_train.cu`.
+- `self_attention_qkv`: the same training op on a qkv that the caller
+  projected (`_sa_core`, the `SA_FUSED_QKV = False` path of the model).
+  Its forward is `_sa_fwd_kernel` + `_sa_attn_tail` (kernel #12: #10's
+  attention without the projection, on `kernels/self_attention_train.cu`)
+  and its backward the same attention backward #11.
 - `self_attention_fused_eval`: the forward-only op (`_sa_xw_eval_kernel`),
   no residuals, no dropout, no backward. On a CUDA tensor it launches
   `kernels/self_attention_eval.cu`.
@@ -49,6 +53,7 @@ from gdl_tpu_torch.ops.dropout import (
 )
 
 FWD_KERNEL_NAME = "self_attention_fused_fwd"
+QKV_FWD_KERNEL_NAME = "self_attention_qkv_fwd"
 BWD_KERNEL_NAME = "self_attention_fused_bwd"
 EVAL_KERNEL_NAME = "self_attention_fused_eval"
 MAX_TOKENS = 1024   # the [32, N] f32 score tile must fit shared memory
@@ -126,20 +131,19 @@ class _Dropout:
 _NO_DROPOUT = _Dropout()
 
 
-def self_attention_fused_train_ref(x, w, num_heads: int,
-                                   scale: Optional[float] = None,
-                                   drop: _Dropout = _NO_DROPOUT):
-    """Plain PyTorch version of the training forward → (out, qkv, p), with
-    the kernels' rounding points: the projection accumulates in f32 and is
-    rounded to x's dtype; q is scaled in x's dtype; scores, softmax and
-    the dropout multiply run in f32; p is stored rounded, before dropout;
-    p·m is rounded to x's dtype for p·v, which accumulates in f32."""
-    b, n, c = x.shape
-    d = c // num_heads
+def self_attention_qkv_train_ref(qkv, num_heads: int,
+                                 scale: Optional[float] = None,
+                                 drop: _Dropout = _NO_DROPOUT):
+    """Plain PyTorch version of the training forward on a given qkv
+    [B, N, 3C] → (out, p), with the kernels' rounding points: q is scaled
+    in qkv's dtype; scores, softmax and the dropout multiply run in f32; p
+    is stored rounded, before dropout; p·m is rounded to qkv's dtype for
+    p·v, which accumulates in f32."""
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // num_heads
     scale = scale if scale is not None else d ** -0.5
-    dt, acc = x.dtype, _acc_dtype(x.dtype)
-    with _no_autocast(x.device):
-        qkv = torch.matmul(x, w.t())
+    dt, acc = qkv.dtype, _acc_dtype(qkv.dtype)
+    with _no_autocast(qkv.device):
         q5 = qkv.reshape(b, n, 3, num_heads, d)
         q = q5[:, :, 0] * _rounded(scale, dt)
         k, v = q5[:, :, 1], q5[:, :, 2]
@@ -148,7 +152,19 @@ def self_attention_fused_train_ref(x, w, num_heads: int,
         m = drop.multiplier(pf.shape, acc)
         pd = (pf if m is None else pf * m).to(dt)
         out = torch.einsum("bhnm,bmhd->bnhd", pd.to(acc), v.to(acc))
-    return out.to(dt).reshape(b, n, c), qkv, pf.to(dt)
+    return out.to(dt).reshape(b, n, c3 // 3), pf.to(dt)
+
+
+def self_attention_fused_train_ref(x, w, num_heads: int,
+                                   scale: Optional[float] = None,
+                                   drop: _Dropout = _NO_DROPOUT):
+    """Plain PyTorch version of the training forward → (out, qkv, p): the
+    projection accumulates in f32 and is rounded to x's dtype, then
+    `self_attention_qkv_train_ref`."""
+    with _no_autocast(x.device):
+        qkv = torch.matmul(x, w.t())
+    out, p = self_attention_qkv_train_ref(qkv, num_heads, scale, drop)
+    return out, qkv, p
 
 
 def self_attention_fused_eval_ref(x, w, num_heads: int,
@@ -264,15 +280,46 @@ def _launch_fwd(x, w, num_heads, scale, drop: _Dropout,
     return (out, qkv, p, keep) if return_keep else (out, qkv, p)
 
 
-def _launch_bwd(qkv, p, dout, num_heads, scale, drop: _Dropout):
+def _check_qkv(name, qkv, num_heads):
+    """Validate a qkv [B, N, 3C] for the kernels → (b, n, c, d)."""
     b, n, c3 = qkv.shape
     c = c3 // 3
-    d = c // num_heads
-    if n > MAX_TOKENS or d > MAX_HEAD_DIM or num_heads * d != c:
-        raise ValueError(f"{BWD_KERNEL_NAME} kernel takes N <= {MAX_TOKENS} "
-                         f"and head dim <= {MAX_HEAD_DIM}, got N={n}, d={d}")
+    d = c // num_heads if num_heads > 0 else 0
+    if num_heads <= 0 or 3 * c != c3 or num_heads * d != c:
+        raise ValueError(f"qkv: expected [B, N, 3C] with C a multiple of "
+                         f"num_heads={num_heads}, got {tuple(qkv.shape)}")
+    if n > MAX_TOKENS or d > MAX_HEAD_DIM:
+        raise ValueError(f"{name} kernel takes N <= {MAX_TOKENS} and head "
+                         f"dim <= {MAX_HEAD_DIM}, got N={n}, d={d}")
     if qkv.dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {qkv.dtype}")
+    return b, n, c, d
+
+
+def _launch_qkv_fwd(qkv, num_heads, scale, drop: _Dropout,
+                    return_keep: bool = False):
+    b, n, c, d = _check_qkv(QKV_FWD_KERNEL_NAME, qkv, num_heads)
+    _require_cuda([qkv], qkv)
+    pshape = (b, num_heads, n, n)
+    _check_dropout(drop, qkv, pshape)
+    lib = kernels.load("self_attention_train")
+    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    p = torch.empty(pshape, dtype=qkv.dtype, device=qkv.device)
+    keep = (torch.empty(pshape, dtype=torch.uint8, device=qkv.device)
+            if return_keep and drop.mode == 2 else None)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.gdl_sa_qkv_fwd_launch(
+        qkv.data_ptr(), p.data_ptr(), out.data_ptr(), _ptr(drop.mask),
+        _ptr(drop.seed_words), _ptr(keep), b, n, c, num_heads, d,
+        float(scale), drop.mode, drop.keep_thresh, drop.inv_keep,
+        _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, QKV_FWD_KERNEL_NAME)
+    kernels.launch_counts[QKV_FWD_KERNEL_NAME] += 1
+    return (out, p, keep) if return_keep else (out, p)
+
+
+def _launch_bwd(qkv, p, dout, num_heads, scale, drop: _Dropout):
+    b, n, c, d = _check_qkv(BWD_KERNEL_NAME, qkv, num_heads)
     pshape = (b, num_heads, n, n)
     for arg, t, shape in (("p", p, pshape), ("dout", dout, (b, n, c))):
         if tuple(t.shape) != shape or t.dtype != qkv.dtype:
@@ -382,6 +429,78 @@ def self_attention_fused_bwd(qkv, p, dout, num_heads: int,
         with torch.cuda.device(qkv.device):
             return _launch_bwd(qkv, p, dout, num_heads, scale, drop)
     return self_attention_fused_bwd_ref(qkv, p, dout, num_heads, scale, drop)
+
+
+def self_attention_qkv_fwd(qkv, num_heads: int,
+                           scale: Optional[float] = None,
+                           drop: _Dropout = _NO_DROPOUT, impl: str = "auto",
+                           return_keep: bool = False):
+    """The forward of `self_attention_qkv` alone on qkv [B, N, 3C] →
+    (out, p): kernel #12 on a CUDA tensor, else the plain version. With
+    return_keep a third value is the keep mask drawn in 'kernel' dropout
+    mode (uint8 [B, H, N, N], gdl_tpu's `emit_mask`; None otherwise)."""
+    scale = _default_scale(qkv.shape[-1] // 3, num_heads, scale)
+    if _use_kernel(impl, qkv):
+        with torch.cuda.device(qkv.device):
+            return _launch_qkv_fwd(qkv, num_heads, scale, drop, return_keep)
+    res = self_attention_qkv_train_ref(qkv, num_heads, scale, drop)
+    if not return_keep:
+        return res
+    keep = None
+    if drop.mode == 2:
+        keep = philox_keep_mask(drop.seed_words, res[1].shape,
+                                drop.rate).to(torch.uint8)
+    return res + (keep,)
+
+
+class _SelfAttentionQkv(torch.autograd.Function):
+    """out = attention(qkv); saves (qkv, p) and the dropout's mask or seed
+    words. The backward is the attention backward (kernel #11, or its
+    plain version); dqkv is the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, drop, impl):
+        out, p = self_attention_qkv_fwd(qkv, num_heads, scale, drop, impl)
+        ctx.save_for_backward(qkv, p)
+        ctx.num_heads, ctx.scale, ctx.drop, ctx.impl = (num_heads, scale,
+                                                        drop, impl)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, p = ctx.saved_tensors
+        dout = dout.to(qkv.dtype).contiguous()
+        dqkv = self_attention_fused_bwd(qkv, p, dout, ctx.num_heads,
+                                        ctx.scale, ctx.drop, ctx.impl)
+        return dqkv, None, None, None, None
+
+
+def self_attention_qkv(qkv, num_heads: int, scale: Optional[float] = None,
+                       dropout_rate: float = 0.0,
+                       seed_words: Optional[torch.Tensor] = None,
+                       train: bool = False, dropout_impl: str = "kernel",
+                       mask: Optional[torch.Tensor] = None,
+                       impl: str = "auto"):
+    """Fused multi-head self-attention on the output of the qkv
+    projection, with a backward: qkv is [B, N, 3C] as nn.Linear gives it
+    (columns [q|k|v][head][d]), or its [B, N, 3, C] view; the result is
+    [B, N, C]. Gradients flow to qkv. Dropout as in `self_attention_fused`:
+    the same seed words draw the same mask in both ops (keyed on the flat
+    [B, H, N, N] index), so past the projection the two compute the same
+    function.
+
+    impl="auto" launches kernels #12 and #11 for a CUDA `qkv` (raising if
+    it cannot) and runs their plain versions for a CPU `qkv`;
+    impl="plain" runs the plain versions on any device."""
+    if qkv.dim() == 4:
+        if qkv.shape[2] != 3:
+            raise ValueError(f"qkv: expected [B, N, 3, C], got "
+                             f"{tuple(qkv.shape)}")
+        qkv = qkv.reshape(qkv.shape[0], qkv.shape[1], -1)
+    scale = _default_scale(qkv.shape[-1] // 3, num_heads, scale)
+    drop = make_dropout(qkv, num_heads, dropout_rate, train, dropout_impl,
+                        seed_words, mask, impl)
+    return _SelfAttentionQkv.apply(qkv, num_heads, scale, drop, impl)
 
 
 class _SelfAttentionFused(torch.autograd.Function):

@@ -1,6 +1,6 @@
 """Fused window attention, with the qkv projection inside or outside.
 
-Ports of three entries of `gdl_tpu/ops/window_attention.py`:
+Ports of the window-attention entries of `gdl_tpu/ops/window_attention.py`:
 
 - `window_attention_qkv_fused_eval`: `window_attention_pallas_qkv_fused_eval`
   (Pallas body `_wa_xw_t_eval_kernel`), the forward-only Swin eval op. On
@@ -12,16 +12,31 @@ Ports of three entries of `gdl_tpu/ops/window_attention.py`:
   → `_wa_qkv_t_bwd_p_kernel`) followed by the projection backward as
   plain GEMMs, as gdl_tpu's phase-1 split runs it. On a CUDA tensor both
   halves launch `kernels/window_attention_train.cu`.
-- `window_attention_qkv`: `window_attention_pallas_qkv(save_p=True,
-  transposed=True)`, the training op on a qkv that the caller projected
-  (the model's `fuse_qkv=False` path). Its forward is kernel #5
-  (`_wa_qkv_t_savep_kernel`) and its backward the same attention backward.
+- `window_attention_qkv`: `window_attention_pallas_qkv`, the training op
+  on a qkv that the caller projected (the model's `fuse_qkv=False` path),
+  with gdl_tpu's three argument combinations:
+  - save_p=True, transposed=True (the default): forward kernel #5
+    (`_wa_qkv_t_savep_kernel`), backward the attention backward #4;
+  - save_p=True, transposed=False: kernel #6 (`_wa_qkv_savep_kernel`,
+    `_wa_qkv_bwd_p_kernel`), the same functions in the TPU's row score
+    layout; here the row layout means blocks that walk a group of heads;
+  - save_p=False, either layout, as gdl_tpu routes it: kernel #7
+    (`_wa_qkv_kernel`, `_wa_qkv_bwd_kernel`), a forward that saves no p
+    and a backward that computes the scores and the softmax again from
+    qkv, bias and mask; p stays unrounded f32 in ds there.
+- `window_attention_bhnd` (kernel #8, `window_attention_pallas`) and
+  `window_attention_packed` (kernel #9, `window_attention_pallas_packed`):
+  forward-only attention on separate q, k, v [B, H, N, D], and the
+  `window_attention` dispatcher over `window_attention_packed` and the
+  plain, differentiable `window_attention_ref` (`window_attention_xla`).
 
 Two module switches, with gdl_tpu's names, values and defaults, are read
 when an op is called (they are no CLI flags):
 
-- `BWD_DELTA` (False | True): both training forwards also save `out`, and
-  the backward hands the attention-backward kernel the softmax row sums
+- `BWD_DELTA` (False | True): both training forwards (of
+  `window_attention_qkv` only its default, transposed save-p variant, as
+  in gdl_tpu) also save `out`, and the backward hands the
+  attention-backward kernel the softmax row sums
   delta = Σ_d dout·out per (window, head, query), computed in f32 with
   plain torch ops, instead of letting it form Σ_k dp·p (kernel #4-delta,
   `_wa_qkv_t_bwd_pd_kernel`).
@@ -61,6 +76,12 @@ BWD_KERNEL_NAME = "window_attention_qkv_fused_bwd"
 QKV_SAVEP_KERNEL_NAME = "window_attention_qkv_savep"
 BWD_DELTA_KERNEL_NAME = "window_attention_qkv_fused_bwd_delta"
 BWD_FUSED_KERNEL_NAME = "window_attention_qkv_fused_bwd_fused"
+QKV_SAVEP_ROWS_KERNEL_NAME = "window_attention_qkv_savep_rows"    # 6
+BWD_ROWS_KERNEL_NAME = "window_attention_qkv_bwd_rows"            # 6
+QKV_FWD_KERNEL_NAME = "window_attention_qkv_fwd"                  # 7
+BWD_RECOMPUTE_KERNEL_NAME = "window_attention_qkv_bwd_recompute"  # 7
+BHND_KERNEL_NAME = "window_attention_bhnd"                        # 8
+PACKED_KERNEL_NAME = "window_attention_packed"                    # 9
 BWD_DELTA = False  # False | True
 FUSED_PROJECTION_BACKWARD = False  # False | True | "auto"
 MAX_TOKENS = 64  # N the kernels take (a Swin window is 49)
@@ -92,30 +113,41 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
     return torch.float64 if dt == torch.float64 else torch.float32
 
 
+def _add_mask(s, mask):
+    """s [B, H, N, N] + mask[i % nW] for window i (any B)."""
+    if mask is None:
+        return s
+    idx = torch.arange(s.shape[0], device=s.device) % mask.shape[0]
+    return s + mask[idx][:, None].to(s.dtype)
+
+
+def _qkv_scores(qkv, bias, mask, num_heads: int, scale: float):
+    """(q, k, v [Bw, N, H, d] in qkv's dtype, q scaled in it; the scores
+    s = q·kᵀ + bias + mask [Bw, H, N, N] in f32, f64 for f64 inputs)."""
+    bw, n, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    dt, acc = qkv.dtype, _acc_dtype(qkv.dtype)
+    q5 = qkv.reshape(bw, n, 3, num_heads, d)
+    q = q5[:, :, 0] * _rounded(scale, dt)
+    k, v = q5[:, :, 1], q5[:, :, 2]
+    s = torch.einsum("bnhd,bmhd->bhnm", q.to(acc), k.to(acc))
+    return q, k, v, _add_mask(s + bias[None].to(acc), mask)
+
+
 def window_attention_qkv_train_ref(qkv, bias, mask, num_heads: int,
                                    scale: Optional[float] = None):
     """Plain PyTorch version of the save-p forward on a given qkv
-    [Bw, N, 3C] → (out, p), with kernel #5's rounding points: q is scaled
-    in qkv's dtype; scores and softmax run in f32 and p is rounded to
-    qkv's dtype; p·v accumulates in f32."""
+    [Bw, N, 3C] → (out, p), with kernel #5's rounding points (and #6's,
+    and #7's for out): q is scaled in qkv's dtype; scores and softmax run
+    in f32 and p is rounded to qkv's dtype; p·v accumulates in f32."""
     bw, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
-    scale = scale if scale is not None else d ** -0.5
+    scale = scale if scale is not None else (c3 // 3 // num_heads) ** -0.5
     dt, acc = qkv.dtype, _acc_dtype(qkv.dtype)
     with _no_autocast(qkv.device):
-        q5 = qkv.reshape(bw, n, 3, num_heads, d)
-        q = q5[:, :, 0] * _rounded(scale, dt)
-        k, v = q5[:, :, 1], q5[:, :, 2]
-        s = torch.einsum("bnhd,bmhd->bhnm", q.to(acc), k.to(acc))
-        s = s + bias[None].to(acc)
-        if mask is not None:
-            nw = mask.shape[0]
-            s = (s.reshape(bw // nw, nw, num_heads, n, n)
-                 + mask[None, :, None].to(acc)).reshape(bw, num_heads, n, n)
+        _, _, v, s = _qkv_scores(qkv, bias, mask, num_heads, scale)
         p = torch.softmax(s, dim=-1).to(dt)
         out = torch.einsum("bhnm,bmhd->bnhd", p.to(acc), v.to(acc))
-    return out.to(dt).reshape(bw, n, c), p
+    return out.to(dt).reshape(bw, n, c3 // 3), p
 
 
 def window_attention_qkv_fused_train_ref(x, w, b, bias, mask, num_heads: int,
@@ -149,37 +181,88 @@ def attention_delta(out, dout, num_heads: int):
         0, 2, 1).contiguous()
 
 
+def _attn_bwd_ref(q, k, v, pf, pd, dout, scale: float, delta=None):
+    """The attention backward's products from q (scaled), k, v
+    [Bw, N, H, d] in the input dtype, the p of ds (pf) and the p operand of
+    dv (pd), both [Bw, H, N, N] in the accumulation dtype → (dqkv
+    [Bw, N, 3C] in the input dtype, dbias [H, N, N] in the accumulation
+    dtype): ds = pf⊙(dp − Σ_k dp⊙pf) (or dp − delta) is rounded to the
+    input dtype before the dq and dk products; dq is multiplied by `scale`
+    in f32; dbias is the sum of ds over windows."""
+    bw, n, heads, d = q.shape
+    dt, acc = q.dtype, pf.dtype
+    k, v = k.to(acc), v.to(acc)
+    g = dout.reshape(bw, n, heads, d).to(acc)
+    dv = torch.einsum("bhij,bihd->bjhd", pd, g)
+    dp = torch.einsum("bihd,bjhd->bhij", g, v)
+    rows = ((dp * pf).sum(-1, keepdim=True) if delta is None
+            else delta.to(acc)[..., None])
+    ds = pf * (dp - rows)
+    dbias = ds.sum(0)
+    ds_t = ds.to(dt).to(acc)
+    dq = torch.einsum("bhij,bjhd->bihd", ds_t, k) * scale
+    dk = torch.einsum("bhij,bihd->bjhd", ds_t, q.to(acc))
+    return torch.stack([dq, dk, dv], dim=2).to(dt).reshape(bw, n, -1), dbias
+
+
 def window_attention_qkv_fused_bwd_ref(qkv, p, dout, num_heads: int,
                                        scale: Optional[float] = None,
                                        delta=None):
     """Plain PyTorch version of the attention backward from the saved p →
     (dqkv [Bw, N, 3C] in qkv's dtype, dbias [H, N, N] f32), with kernel
-    #4's rounding points: ds = p⊙(dp − Σ_k dp⊙p) in f32 is rounded to the
-    input dtype before the dq and dk products; dq is multiplied by
-    `scale` in f32; dbias is an f32 sum over windows. With `delta`
-    [Bw, H, N] (kernel #4-delta) ds = p⊙(dp − delta)."""
+    #4's rounding points (and #6's): ds = p⊙(dp − Σ_k dp⊙p) in f32 is
+    rounded to the input dtype before the dq and dk products; dq is
+    multiplied by `scale` in f32; dbias is an f32 sum over windows. With
+    `delta` [Bw, H, N] (kernel #4-delta) ds = p⊙(dp − delta)."""
     bw, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
+    d = c3 // 3 // num_heads
     scale = scale if scale is not None else d ** -0.5
     dt, acc = qkv.dtype, _acc_dtype(qkv.dtype)
     with _no_autocast(qkv.device):
         q5 = qkv.reshape(bw, n, 3, num_heads, d)
         qs = q5[:, :, 0] * _rounded(scale, dt)
-        k, v = q5[:, :, 1].to(acc), q5[:, :, 2].to(acc)
-        pf = p.to(acc)  # [Bw, H, Nq, Nk]
-        g = dout.reshape(bw, n, num_heads, d).to(acc)
-        dv = torch.einsum("bhij,bihd->bjhd", pf, g)
-        dp = torch.einsum("bihd,bjhd->bhij", g, v)
-        rows = ((dp * pf).sum(-1, keepdim=True) if delta is None
-                else delta.to(acc)[..., None])
-        ds = pf * (dp - rows)
-        dbias = ds.sum(0)
-        ds_t = ds.to(dt).to(acc)
-        dq = torch.einsum("bhij,bjhd->bihd", ds_t, k) * scale
-        dk = torch.einsum("bhij,bihd->bjhd", ds_t, qs.to(acc))
-        dqkv = torch.stack([dq, dk, dv], dim=2).to(dt).reshape(bw, n, c3)
-    return dqkv, dbias
+        pf = p.to(acc)
+        return _attn_bwd_ref(qs, q5[:, :, 1], q5[:, :, 2], pf, pf, dout,
+                             scale, delta)
+
+
+def window_attention_qkv_recompute_bwd_ref(qkv, bias, mask, dout,
+                                           num_heads: int,
+                                           scale: Optional[float] = None):
+    """Plain PyTorch version of kernel #7's backward → (dqkv [Bw, N, 3C]
+    in qkv's dtype, dbias [H, N, N] f32), with `_wa_qkv_bwd_kernel`'s
+    rounding points: the scores and p = softmax(s) are computed again in
+    f32 as the forward computes them; p stays UNROUNDED in
+    ds = p⊙(dp − Σ_k dp⊙p) and is rounded to qkv's dtype only as the
+    operand of dv = pᵀ·dout; the rest as in
+    `window_attention_qkv_fused_bwd_ref`."""
+    scale = scale if scale is not None else (
+        qkv.shape[-1] // 3 // num_heads) ** -0.5
+    dt = qkv.dtype
+    with _no_autocast(qkv.device):
+        q, k, v, s = _qkv_scores(qkv, bias, mask, num_heads, scale)
+        pf = torch.softmax(s, dim=-1)
+        return _attn_bwd_ref(q, k, v, pf, pf.to(dt).to(pf.dtype), dout,
+                             scale)
+
+
+def window_attention_ref(q, k, v, bias, mask=None,
+                         scale: Optional[float] = None):
+    """Plain PyTorch version of kernels #8 and #9, gdl_tpu's
+    `window_attention_xla` on q, k, v [B, H, N, D] → [B, H, N, D], with its
+    rounding points: q is scaled in q's dtype; scores, bias, mask and the
+    softmax in f32; p rounded to q's dtype for p·v, which accumulates in
+    f32. Window i takes mask[i % nW]. Differentiable."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    dt, acc = q.dtype, _acc_dtype(q.dtype)
+    with _no_autocast(q.device):
+        s = torch.einsum("bhnd,bhmd->bhnm", (q * _rounded(scale, dt)).to(acc),
+                         k.to(acc))
+        s = _add_mask(s + bias[None].to(acc), mask)
+        p = torch.softmax(s, dim=-1).to(dt)
+        out = torch.einsum("bhnm,bhmd->bhnd", p.to(acc), v.to(acc))
+    return out.to(dt)
 
 
 def _projection_bwd(dqkv, x, w):
@@ -317,36 +400,52 @@ def _check_bwd_operands(name, qkv, p, dout, num_heads, extra=()):
     return bw, n, c, d
 
 
-def _launch_bwd(qkv, p, dout, num_heads, scale, delta=None):
-    name = BWD_KERNEL_NAME if delta is None else BWD_DELTA_KERNEL_NAME
+def head_group(num_heads: int, d: int) -> int:
+    """gdl_tpu's head group g (`window_attention_pallas_qkv`): the most
+    heads, up to 128 / d, that divide num_heads. The blocks of kernels #6
+    and #9 walk a group of g heads."""
+    g = max(1, min(num_heads, 128 // d))
+    while num_heads % g:
+        g -= 1
+    return g
+
+
+def _launch_bwd(qkv, p, dout, num_heads, scale, delta=None, rows=False):
+    if rows:
+        name = BWD_ROWS_KERNEL_NAME
+    else:
+        name = BWD_KERNEL_NAME if delta is None else BWD_DELTA_KERNEL_NAME
     extra = () if delta is None else ((
         "delta", delta, (qkv.shape[0], num_heads, qkv.shape[1]),
         torch.float32),)
     bw, n, c, d = _check_bwd_operands(name, qkv, p, dout, num_heads, extra)
-    wpb = _bwd_windows_per_block(bw, num_heads)
+    g = head_group(num_heads, d) if rows else 1
+    wpb = _bwd_windows_per_block(bw, num_heads // g)
     lib = kernels.load("window_attention_train")
     dqkv = torch.empty_like(qkv)
     parts = torch.empty((-(-bw // wpb), num_heads, n, n), dtype=torch.float32,
                         device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    ptrs = (qkv.data_ptr(), p.data_ptr(), dout.data_ptr())
     tail = (dqkv.data_ptr(), parts.data_ptr(), bw, n, c, num_heads, d, wpb,
             float(scale), _DTYPE_CODES[qkv.dtype], stream)
-    if delta is None:
-        err = lib.gdl_wa_bwd_launch(qkv.data_ptr(), p.data_ptr(),
-                                    dout.data_ptr(), *tail)
+    if rows:
+        err = lib.gdl_wa_bwd_rows_launch(*ptrs, *tail[:7], g, *tail[7:])
+    elif delta is None:
+        err = lib.gdl_wa_bwd_launch(*ptrs, *tail)
     else:
-        err = lib.gdl_wa_bwd_delta_launch(qkv.data_ptr(), p.data_ptr(),
-                                          dout.data_ptr(), delta.data_ptr(),
-                                          *tail)
+        err = lib.gdl_wa_bwd_delta_launch(*ptrs, delta.data_ptr(), *tail)
     _raise_on(err, name)
     kernels.launch_counts[name] += 1
     return dqkv, parts.sum(0)
 
 
-def _launch_qkv_savep(qkv, bias, mask, num_heads, scale):
+def _check_qkv_operands(name, qkv, bias, mask, num_heads):
+    """Validate the operands of the forwards on a given qkv →
+    (bw, n, c, d, nw)."""
     bw, n, c3 = qkv.shape
     c = c3 // 3
-    d = _check_head_shape(QKV_SAVEP_KERNEL_NAME, n, c, num_heads, qkv.dtype)
+    d = _check_head_shape(name, n, c, num_heads, qkv.dtype)
     if 3 * c != c3 or tuple(bias.shape) != (num_heads, n, n) \
             or bias.dtype != torch.float32:
         raise ValueError(f"qkv [Bw, N, 3C] and bias [{num_heads}, {n}, {n}] "
@@ -354,18 +453,99 @@ def _launch_qkv_savep(qkv, bias, mask, num_heads, scale):
                          f"{tuple(bias.shape)} {bias.dtype}")
     nw = _check_mask(mask, bw, n)
     _require_cuda([qkv, bias] + ([mask] if mask is not None else []), qkv)
+    return bw, n, c, d, nw
+
+
+def _launch_qkv_savep(qkv, bias, mask, num_heads, scale, rows=False):
+    name = QKV_SAVEP_ROWS_KERNEL_NAME if rows else QKV_SAVEP_KERNEL_NAME
+    bw, n, c, d, nw = _check_qkv_operands(name, qkv, bias, mask, num_heads)
     lib = kernels.load("window_attention_train")
     out = torch.empty((bw, n, c), dtype=qkv.dtype, device=qkv.device)
     p = torch.empty((bw, num_heads, n, n), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.gdl_wa_qkv_savep_launch(
-        qkv.data_ptr(), bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        p.data_ptr(), bw, n, c, num_heads, d, nw, float(scale),
-        _DTYPE_CODES[qkv.dtype], stream)
-    _raise_on(err, QKV_SAVEP_KERNEL_NAME)
-    kernels.launch_counts[QKV_SAVEP_KERNEL_NAME] += 1
+    head = (qkv.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr(),
+            p.data_ptr(), bw, n, c, num_heads, d, nw)
+    tail = (float(scale), _DTYPE_CODES[qkv.dtype], stream)
+    if rows:
+        err = lib.gdl_wa_qkv_savep_rows_launch(*head, head_group(num_heads, d),
+                                               *tail)
+    else:
+        err = lib.gdl_wa_qkv_savep_launch(*head, *tail)
+    _raise_on(err, name)
+    kernels.launch_counts[name] += 1
     return out, p
+
+
+def _launch_qkv_fwd(qkv, bias, mask, num_heads, scale):
+    bw, n, c, d, nw = _check_qkv_operands(QKV_FWD_KERNEL_NAME, qkv, bias,
+                                          mask, num_heads)
+    lib = kernels.load("window_attention_train")
+    out = torch.empty((bw, n, c), dtype=qkv.dtype, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.gdl_wa_qkv_fwd_launch(
+        qkv.data_ptr(), bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(), bw, n,
+        c, num_heads, d, nw, float(scale), _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, QKV_FWD_KERNEL_NAME)
+    kernels.launch_counts[QKV_FWD_KERNEL_NAME] += 1
+    return out
+
+
+def _launch_bwd_recompute(qkv, bias, mask, dout, num_heads, scale):
+    name = BWD_RECOMPUTE_KERNEL_NAME
+    bw, n, c, d, nw = _check_qkv_operands(name, qkv, bias, mask, num_heads)
+    if tuple(dout.shape) != (bw, n, c) or dout.dtype != qkv.dtype:
+        raise ValueError(f"dout: expected {(bw, n, c)} {qkv.dtype}, got "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    _require_cuda([dout], qkv)
+    wpb = _bwd_windows_per_block(bw, num_heads)
+    lib = kernels.load("window_attention_train")
+    dqkv = torch.empty_like(qkv)
+    parts = torch.empty((-(-bw // wpb), num_heads, n, n), dtype=torch.float32,
+                        device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    err = lib.gdl_wa_bwd_recompute_launch(
+        qkv.data_ptr(), bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, dout.data_ptr(),
+        dqkv.data_ptr(), parts.data_ptr(), bw, n, c, num_heads, d, nw, wpb,
+        float(scale), _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, name)
+    kernels.launch_counts[name] += 1
+    return dqkv, parts.sum(0)
+
+
+def _launch_bhnd(q, k, v, bias, mask, scale, packed):
+    name = PACKED_KERNEL_NAME if packed else BHND_KERNEL_NAME
+    b, h, n, d = q.shape
+    _check_head_shape(name, n, h * d, h, q.dtype)
+    for arg, t, shape, dtype in (
+            ("k", k, (b, h, n, d), q.dtype), ("v", v, (b, h, n, d), q.dtype),
+            ("bias", bias, (h, n, n), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{arg}: expected {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    nw = 1
+    if mask is not None:
+        nw = mask.shape[0]
+        if tuple(mask.shape) != (nw, n, n) or mask.dtype != torch.float32:
+            raise ValueError(f"mask: expected [nW, {n}, {n}] float32, got "
+                             f"{tuple(mask.shape)} {mask.dtype}")
+    _require_cuda([q, k, v, bias] + ([mask] if mask is not None else []), q)
+    lib = kernels.load("window_attention_bhnd")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr(),
+            b, n, h, d, nw)
+    tail = (float(scale), _DTYPE_CODES[q.dtype], stream)
+    if packed:
+        err = lib.gdl_wa_packed_launch(*head, head_group(h, d), *tail)
+    else:
+        err = lib.gdl_wa_bhnd_launch(*head, *tail)
+    _raise_on(err, name)
+    kernels.launch_counts[name] += 1
+    return out
 
 
 def fused_bwd_supported(n: int, c: int, num_heads: int,
@@ -420,6 +600,13 @@ def _use_kernel(impl: str, x: torch.Tensor) -> bool:
     return impl == "auto" and x.is_cuda
 
 
+def _forward_only(name, tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward; call it under "
+                           f"torch.no_grad() or torch.inference_mode()")
+
+
 def window_attention_qkv_fused_eval(x, w, b, bias, mask, num_heads: int,
                                     scale: Optional[float] = None,
                                     impl: str = "auto"):
@@ -431,11 +618,7 @@ def window_attention_qkv_fused_eval(x, w, b, bias, mask, num_heads: int,
     holding the kernel to its reference on the card. Like the Pallas
     kernel, the op has no backward: it raises when autograd would need
     one."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w, b, bias, mask)):
-        raise RuntimeError("window_attention_qkv_fused_eval has no backward; "
-                           "call it under torch.no_grad() or "
-                           "torch.inference_mode()")
+    _forward_only("window_attention_qkv_fused_eval", (x, w, b, bias, mask))
     d = x.shape[-1] // num_heads
     scale = scale if scale is not None else d ** -0.5
     if _use_kernel(impl, x):
@@ -458,14 +641,20 @@ def window_attention_qkv_fused_fwd(x, w, b, bias, mask, num_heads: int,
 
 def window_attention_qkv_fused_bwd(qkv, p, dout, num_heads: int,
                                    scale: Optional[float] = None,
-                                   impl: str = "auto", delta=None):
+                                   impl: str = "auto", delta=None,
+                                   transposed: bool = True):
     """The attention backward alone → (dqkv, dbias f32): kernel #4 on a
     CUDA tensor under impl="auto", else the plain version. With `delta`
-    [Bw, H, N] f32 (see `attention_delta`) it is kernel #4-delta."""
+    [Bw, H, N] f32 (see `attention_delta`) it is kernel #4-delta; with
+    transposed=False kernel #6's backward (the same function), which takes
+    no delta."""
     d = qkv.shape[-1] // 3 // num_heads
     scale = scale if scale is not None else d ** -0.5
+    if not transposed and delta is not None:
+        raise ValueError("the row-layout backward (kernel #6) takes no delta")
     if _use_kernel(impl, qkv):
-        return _launch_bwd(qkv, p, dout, num_heads, scale, delta)
+        return _launch_bwd(qkv, p, dout, num_heads, scale, delta,
+                           rows=not transposed)
     return window_attention_qkv_fused_bwd_ref(qkv, p, dout, num_heads, scale,
                                               delta)
 
@@ -486,14 +675,43 @@ def window_attention_qkv_fused_bwd_fused(qkv, p, dout, x, w, num_heads: int,
 
 def window_attention_qkv_fwd(qkv, bias, mask, num_heads: int,
                              scale: Optional[float] = None,
-                             impl: str = "auto"):
-    """The forward of `window_attention_qkv` alone → (out, p): kernel #5
-    on a CUDA tensor under impl="auto", else the plain version."""
+                             impl: str = "auto", transposed: bool = True):
+    """The save-p forward of `window_attention_qkv` alone → (out, p):
+    kernel #5 (or #6 with transposed=False) on a CUDA tensor under
+    impl="auto", else the plain version."""
     d = qkv.shape[-1] // 3 // num_heads
     scale = scale if scale is not None else d ** -0.5
     if _use_kernel(impl, qkv):
-        return _launch_qkv_savep(qkv, bias, mask, num_heads, scale)
+        return _launch_qkv_savep(qkv, bias, mask, num_heads, scale,
+                                 rows=not transposed)
     return window_attention_qkv_train_ref(qkv, bias, mask, num_heads, scale)
+
+
+def window_attention_qkv_recompute_fwd(qkv, bias, mask, num_heads: int,
+                                       scale: Optional[float] = None,
+                                       impl: str = "auto"):
+    """Kernel #7's forward alone → out (no p): the kernel on a CUDA tensor
+    under impl="auto", else the plain version."""
+    d = qkv.shape[-1] // 3 // num_heads
+    scale = scale if scale is not None else d ** -0.5
+    if _use_kernel(impl, qkv):
+        return _launch_qkv_fwd(qkv, bias, mask, num_heads, scale)
+    return window_attention_qkv_train_ref(qkv, bias, mask, num_heads,
+                                          scale)[0]
+
+
+def window_attention_qkv_recompute_bwd(qkv, bias, mask, dout, num_heads: int,
+                                       scale: Optional[float] = None,
+                                       impl: str = "auto"):
+    """Kernel #7's backward alone, from qkv, bias, mask and dout →
+    (dqkv, dbias f32): the kernel on a CUDA tensor under impl="auto", else
+    the plain version."""
+    d = qkv.shape[-1] // 3 // num_heads
+    scale = scale if scale is not None else d ** -0.5
+    if _use_kernel(impl, qkv):
+        return _launch_bwd_recompute(qkv, bias, mask, dout, num_heads, scale)
+    return window_attention_qkv_recompute_bwd_ref(qkv, bias, mask, dout,
+                                                  num_heads, scale)
 
 
 def _use_fused_bwd(x, num_heads: int) -> bool:
@@ -562,25 +780,46 @@ def window_attention_qkv_fused(x, w, b, bias, mask, num_heads: int,
 
 
 class _QkvAttention(torch.autograd.Function):
-    """out = attention(qkv); saves (qkv, p), and `out` as well under
-    BWD_DELTA. The backward is the attention backward (kernel #4 or
-    #4-delta, or their plain version). The mask gets no gradient."""
+    """out = attention(qkv), by `variant`:
+    - "t" (save_p, transposed): saves (qkv, p), and `out` as well under
+      BWD_DELTA; backward kernel #4 or #4-delta;
+    - "rows" (save_p, row layout): saves (qkv, p); backward kernel #6's;
+    - "recompute" (no save_p): saves (qkv, bias, mask), no p; backward
+      kernel #7's, which computes p again.
+    The plain versions stand in for the kernels on the CPU or under
+    impl="plain". The mask gets no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, mask, num_heads, scale, impl):
-        out, p = window_attention_qkv_fwd(qkv, bias, mask, num_heads, scale,
-                                          impl)
-        ctx.save_for_backward(qkv, p, out if BWD_DELTA else None)
+    def forward(ctx, qkv, bias, mask, num_heads, scale, impl, variant):
+        if variant == "recompute":
+            out = window_attention_qkv_recompute_fwd(qkv, bias, mask,
+                                                     num_heads, scale, impl)
+            ctx.save_for_backward(qkv, bias, mask)
+        else:
+            out, p = window_attention_qkv_fwd(qkv, bias, mask, num_heads,
+                                              scale, impl,
+                                              transposed=variant == "t")
+            delta_out = out if BWD_DELTA and variant == "t" else None
+            ctx.save_for_backward(qkv, p, delta_out)
         ctx.num_heads, ctx.scale, ctx.impl = num_heads, scale, impl
-        ctx.bias_dtype = bias.dtype
+        ctx.variant, ctx.bias_dtype = variant, bias.dtype
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, p, out = ctx.saved_tensors
-        dout = dout.to(qkv.dtype).contiguous()
-        dqkv, dbias = _attention_bwd(ctx, qkv, p, out, dout)
-        return dqkv, dbias.to(ctx.bias_dtype), None, None, None, None
+        saved = ctx.saved_tensors
+        dout = dout.to(saved[0].dtype).contiguous()
+        if ctx.variant == "recompute":
+            qkv, bias, mask = saved
+            dqkv, dbias = window_attention_qkv_recompute_bwd(
+                qkv, bias, mask, dout, ctx.num_heads, ctx.scale, ctx.impl)
+        elif ctx.variant == "rows":
+            dqkv, dbias = window_attention_qkv_fused_bwd(
+                saved[0], saved[1], dout, ctx.num_heads, ctx.scale, ctx.impl,
+                transposed=False)
+        else:
+            dqkv, dbias = _attention_bwd(ctx, *saved, dout)
+        return dqkv, dbias.to(ctx.bias_dtype), None, None, None, None, None
 
 
 def window_attention_qkv(qkv, bias, mask, num_heads: int,
@@ -591,23 +830,17 @@ def window_attention_qkv(qkv, bias, mask, num_heads: int,
     [Bw, N, 3, C] view; the result is [Bw, N, C]. Gradients flow to qkv
     and bias.
 
-    impl="auto" launches kernels #5 and #4 (or #4-delta) for a CUDA `qkv`
-    (raising if it cannot) and runs their plain versions for a CPU `qkv`;
-    impl="plain" runs the plain versions on any device.
+    The arguments pick gdl_tpu's kernels: save_p=True, transposed=True
+    (default) #5 and #4 (or #4-delta under BWD_DELTA); save_p=True,
+    transposed=False #6; save_p=False #7 whatever `transposed` is, as in
+    gdl_tpu. BWD_DELTA reaches only the default, as in gdl_tpu.
+    impl="auto" launches the kernels for a CUDA `qkv` (raising if it
+    cannot) and runs their plain versions for a CPU `qkv`; impl="plain"
+    runs the plain versions on any device.
 
     The kernels take N = 49 tokens as they are (up to 64), so gdl_tpu's
     `n_valid` and its pad of the tokens to a multiple of 8 have no
-    counterpart here. Its other two variants are not ported yet:
-    save_p=False (the backward that recomputes the scores, kernel row #7)
-    and transposed=False (the row score layout, kernel row #6) raise."""
-    if not save_p:
-        raise NotImplementedError(
-            "window_attention_qkv(save_p=False), the recompute backward "
-            "(kernel row #7), is not ported to gdl_tpu_torch yet")
-    if not transposed:
-        raise NotImplementedError(
-            "window_attention_qkv(transposed=False), the row score layout "
-            "(kernel row #6), is not ported to gdl_tpu_torch yet")
+    counterpart here."""
     shape = qkv.shape
     if qkv.ndim == 4:
         if shape[2] != 3:
@@ -616,4 +849,48 @@ def window_attention_qkv(qkv, bias, mask, num_heads: int,
         qkv = qkv.reshape(shape[0], shape[1], 3 * shape[3])
     d = qkv.shape[-1] // 3 // num_heads
     scale = scale if scale is not None else d ** -0.5
-    return _QkvAttention.apply(qkv, bias, mask, num_heads, scale, impl)
+    variant = "recompute" if not save_p else ("t" if transposed else "rows")
+    return _QkvAttention.apply(qkv, bias, mask, num_heads, scale, impl,
+                               variant)
+
+
+def window_attention_bhnd(q, k, v, bias, mask=None,
+                          scale: Optional[float] = None, impl: str = "auto"):
+    """Window attention on separate q, k, v [B, H, N, D] → [B, H, N, D],
+    forward only (gdl_tpu's `window_attention_pallas`, kernel #8): bias
+    [H, N, N], mask [nW, N, N] or None, window i taking mask[i % nW] for
+    any B. impl="auto" launches the kernel for a CUDA `q` (raising if it
+    cannot) and runs `window_attention_ref` for a CPU `q`; impl="plain"
+    runs it on any device. Raises when autograd would need a backward."""
+    _forward_only("window_attention_bhnd", (q, k, v, bias, mask))
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _use_kernel(impl, q):
+        return _launch_bhnd(q, k, v, bias, mask, scale, packed=False)
+    return window_attention_ref(q, k, v, bias, mask, scale)
+
+
+def window_attention_packed(q, k, v, bias, mask=None,
+                            scale: Optional[float] = None,
+                            impl: str = "auto"):
+    """`window_attention_bhnd`'s function with the heads packed in groups
+    (gdl_tpu's `window_attention_pallas_packed`, kernel #9). Like it, it
+    raises ValueError when a mask is given and B is no multiple of nW."""
+    _forward_only("window_attention_packed", (q, k, v, bias, mask))
+    if mask is not None and q.shape[0] % mask.shape[0]:
+        raise ValueError(f"windows {q.shape[0]} not a multiple of nW "
+                         f"{mask.shape[0]}")
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _use_kernel(impl, q):
+        return _launch_bhnd(q, k, v, bias, mask, scale, packed=True)
+    return window_attention_ref(q, k, v, bias, mask, scale)
+
+
+def window_attention(q, k, v, bias, mask=None, scale: Optional[float] = None,
+                     use_pallas: bool = False, impl: str = "auto"):
+    """The dispatcher over the [B, H, N, D] forms, gdl_tpu's stable entry
+    point for external callers: use_pallas=True → `window_attention_packed`
+    (kernel #9, forward only); otherwise `window_attention_ref`, plain and
+    differentiable."""
+    if use_pallas:
+        return window_attention_packed(q, k, v, bias, mask, scale, impl)
+    return window_attention_ref(q, k, v, bias, mask, scale)

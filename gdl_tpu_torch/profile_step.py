@@ -3,7 +3,8 @@
     python -m gdl_tpu_torch.profile_step [--backbone resnet|swin|mmformer]
         [--dtype float32|bfloat16] [--impl auto|plain] [--steps 6]
         [--fuse_qkv_gemm 0] [--fuse_mlp 1] [--bwd_delta 1]
-        [--fused_projection_backward 1] [--out profile.json]
+        [--fused_projection_backward 1] [--sa_fused_qkv 0]
+        [--out profile.json]
 
 Builds the flagship configuration of the backbone at full width with
 seeded weights (ResNet: CREMA-D, batch 64, concat DGL, alpha 5, lr 2e-3;
@@ -16,10 +17,12 @@ synchronize at the end), then traces the same number of steps with
 `torch.profiler` and prints one JSON object: untraced ms/step, device
 ms/step (the sum of the CUDA kernels' and copies' self time), busy share
 (device ms over untraced ms), device time by kind of kernel and the
-largest kernels by name. Needs a CUDA device; TF32 is off for matrix
-products and convolutions, as in `chip_smoke.py`. The last four options
+largest kernels by name, and every kernel of the kind "other" by name.
+Needs a CUDA device; TF32 is off for matrix products and convolutions,
+as in `chip_smoke.py`. `--fuse_qkv_gemm` to `--fused_projection_backward`
 are for the Swin backbone: the CLI's two kernel flags, and the two module
-switches of `ops/window_attention.py`.
+switches of `ops/window_attention.py`; `--sa_fused_qkv 0` sets
+`models/transformer.py`'s SA_FUSED_QKV for the mmformer backbone.
 """
 
 from __future__ import annotations
@@ -33,13 +36,19 @@ import time
 
 # kind → substrings of the CUDA kernel's name, first match wins
 KINDS = (
-    ("self_attention (#10, #11, #13)", ("sa_proj_kernel", "sa_tile_kernel",
-                                        "sa_bwd_kv_kernel")),
+    ("self_attention (#10, #11, #12, #13)", ("sa_proj_kernel",
+                                             "sa_tile_kernel",
+                                             "sa_bwd_kv_kernel")),
     ("dropout_mask (#14)", ("dropout_mask_kernel",)),
     ("maxpool_bwd (#16)", ("maxpool_bwd_kernel",)),
     ("window_attention_bwd_fused (#3)", ("wa_bwd_fused",)),
-    ("window_attention (#2, #4, #5)", ("wa_fwd", "wa_bwd",
-                                       "window_attention")),
+    ("window_attention_rows (#6)", ("wa_fwd_rows_kernel",
+                                    "wa_bwd_rows_kernel")),
+    ("window_attention_bwd_recompute (#7)", ("wa_bwd_recompute_kernel",)),
+    ("window_attention_bhnd (#8, #9)", ("wa_bhnd_kernel",
+                                        "wa_packed_kernel")),
+    ("window_attention (#1, #2, #4, #5, #7 forward)", ("wa_fwd_kernel",
+                                                      "wa_bwd_kernel")),
     ("mlp_fused (#15)", ("mlp_kernel",)),
     ("batch_norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm")),
     # cuDNN's FFT convolution algorithms also call cuBLAS complex GEMMs,
@@ -47,11 +56,15 @@ KINDS = (
     ("gemm", ("cublas", "gemv")),
     ("convolution", ("cudnn", "conv", "wgrad", "dgrad", "xmma", "implicit",
                      "nchwToNhwc", "nhwcToNchw", "fft2d",
-                     "pointwise_mult_and_sum_complex")),
+                     "pointwise_mult_and_sum_complex", "flip_filter")),
     ("gemm", ("gemm", "cutlass", "nvjet")),
     ("layer_norm", ("layer_norm", "layernorm", "GammaBeta")),
     ("roll", ("roll_cuda",)),
-    ("pool_forward", ("max_pool",)),
+    ("pooling", ("max_pool", "avg_pool")),
+    ("pad", ("reflection_pad",)),
+    # cub's radix sort: the backward of an index with repeats (Swin's
+    # relative-position-bias gather) sorts the indices first
+    ("sort", ("RadixSort",)),
     ("fft", ("fft",)),
     ("optimizer_foreach", ("multi_tensor", "foreach")),
     ("copy", ("memcpy", "memset", "copy", "cat")),
@@ -82,6 +95,7 @@ def main(argv=None) -> int:
     ap.add_argument("--fuse_mlp", type=int, default=0)
     ap.add_argument("--bwd_delta", type=int, default=0)
     ap.add_argument("--fused_projection_backward", type=int, default=0)
+    ap.add_argument("--sa_fused_qkv", type=int, default=1)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -117,6 +131,9 @@ def main(argv=None) -> int:
     else:
         cfg = Config(dataset="CREMAD", fps=1, batch_size=64,
                      log_grad_csv=False, compute_dtype=args.dtype)
+        from gdl_tpu_torch.models import transformer
+
+        transformer.SA_FUSED_QKV = bool(args.sa_fused_qkv)
     data = SyntheticDataset(cfg, size=cfg.batch_size * args.steps, seed=700)
     batches = list(Loader(data, cfg.batch_size, shuffle=False, drop_last=True,
                           num_workers=8))
@@ -168,6 +185,8 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip()
     result = {
         "backbone": args.backbone, "dtype": args.dtype, "impl": args.impl,
+        "sa_fused_qkv": (bool(args.sa_fused_qkv)
+                         if args.backbone == "mmformer" else None),
         "batch": cfg.batch_size, "steps": args.steps,
         "untraced_ms_per_step": untraced, "traced_ms_per_step": traced,
         "clips_per_s": cfg.batch_size / untraced * 1e3,
@@ -180,6 +199,9 @@ def main(argv=None) -> int:
                                          key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(by_name.items(),
                                       key=lambda kv: -kv[1])[:20]),
+        "other_kernels_ms": dict(sorted(
+            ((k, v) for k, v in by_name.items() if kind_of(k) == "other"),
+            key=lambda kv: -kv[1])),
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
     }
     if device == 0.0:

@@ -746,3 +746,262 @@ def test_mlp_kernel_refuses_what_it_cannot_take(cuda):
     out = mlp_fused(z(4, 1088), z(64, 1088), z(64), z(1088, 64), z(1088))
     assert tuple(out.shape) == (4, 1088)
     assert kernels.launch_counts["mlp_fused"] == before
+
+
+# ---------------------------------------------------------------------------
+# the last rows: kernels #6, #7 (window_attention_qkv's other arguments),
+# #8, #9 (q, k, v [B, H, N, D]) and #12 (self_attention_qkv)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bw,c,heads,res,window", FLAG_SHAPES, ids=FLAG_IDS)
+def test_rows_kernels_match_plain_and_transposed(cuda, bw, c, heads, res,
+                                                 window, dtype):
+    """Kernel #6 (transposed=False): forward out and p, backward dqkv and
+    dbias against the plain versions; out, p and dqkv BIT-EQUAL to #5's
+    and #4's (the same device code per head), dbias within the gradient
+    bar (other runs of windows per partial); equal bits on a rerun; one
+    launch counted per call."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.window_attention import window_attention_qkv_fwd
+
+    _, bias_t, mask_t, _, qkv, p, dout = _saved(cuda, bw, c, heads, res,
+                                                window, dtype)
+    names = ("window_attention_qkv_savep_rows",
+             "window_attention_qkv_bwd_rows")
+    with torch.no_grad():
+        before = dict(kernels.launch_counts)
+        got = window_attention_qkv_fwd(qkv, bias_t, mask_t, heads,
+                                       transposed=False)
+        again = window_attention_qkv_fwd(qkv, bias_t, mask_t, heads,
+                                         transposed=False)
+        gb = window_attention_qkv_fused_bwd(qkv, p, dout, heads,
+                                            transposed=False)
+        ab = window_attention_qkv_fused_bwd(qkv, p, dout, heads,
+                                            transposed=False)
+        counts = dict(kernels.launch_counts)
+        want = window_attention_qkv_fwd(qkv, bias_t, mask_t, heads,
+                                        impl="plain")
+        wb = window_attention_qkv_fused_bwd(qkv, p, dout, heads,
+                                            impl="plain")
+        t5 = window_attention_qkv_fwd(qkv, bias_t, mask_t, heads)
+        t4 = window_attention_qkv_fused_bwd(qkv, p, dout, heads)
+    torch.cuda.synchronize()
+    assert [counts[k] - before[k] for k in names] == [2, 2]
+    for g, a, w, t in zip(got, again, want, t5):
+        assert torch.equal(g, a) and torch.equal(g, t)
+        _close(g, w, dtype, "fwd")
+    assert torch.equal(gb[0], ab[0]) and torch.equal(gb[1], ab[1])
+    assert torch.equal(gb[0], t4[0])
+    for g, w, t in zip(gb, wb, t4):
+        _close(g, w, dtype, "grad")
+        _close(g, t, dtype, "grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bw,c,heads,res,window", FLAG_SHAPES, ids=FLAG_IDS)
+def test_recompute_kernels_match_plain(cuda, bw, c, heads, res, window,
+                                       dtype):
+    """Kernel #7 (save_p=False): the forward's out bit-equal to #5's and
+    within the forward bar of the plain version; the backward, which
+    computes p again, against its plain version and, in f32, against #4
+    from the saved p; equal bits on a rerun."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    _, bias_t, mask_t, _, qkv, p, dout = _saved(cuda, bw, c, heads, res,
+                                                window, dtype)
+    names = ("window_attention_qkv_fwd", "window_attention_qkv_bwd_recompute")
+    with torch.no_grad():
+        before = dict(kernels.launch_counts)
+        out = wa.window_attention_qkv_recompute_fwd(qkv, bias_t, mask_t,
+                                                    heads)
+        gb = wa.window_attention_qkv_recompute_bwd(qkv, bias_t, mask_t, dout,
+                                                   heads)
+        ab = wa.window_attention_qkv_recompute_bwd(qkv, bias_t, mask_t, dout,
+                                                   heads)
+        counts = dict(kernels.launch_counts)
+        want = wa.window_attention_qkv_recompute_fwd(qkv, bias_t, mask_t,
+                                                     heads, impl="plain")
+        wb = wa.window_attention_qkv_recompute_bwd(qkv, bias_t, mask_t, dout,
+                                                   heads, impl="plain")
+        t5 = wa.window_attention_qkv_fwd(qkv, bias_t, mask_t, heads)[0]
+        t4 = window_attention_qkv_fused_bwd(qkv, p, dout, heads)
+    torch.cuda.synchronize()
+    assert [counts[k] - before[k] for k in names] == [1, 2]
+    assert torch.equal(out, t5)
+    _close(out, want, dtype, "fwd")
+    assert torch.equal(gb[0], ab[0]) and torch.equal(gb[1], ab[1])
+    for g, w, t in zip(gb, wb, t4):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close(g, w, dtype, "grad")
+        if dtype == "float32":
+            _close(g, t, dtype, "grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qkv_op_variants_launch_their_kernels(cuda, dtype):
+    """window_attention_qkv's three argument combinations on the card:
+    each launches its own forward and backward once, BWD_DELTA reaches
+    only the default one, and the gradients match the plain op."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    _, bias_t, mask_t, _, qkv, _, dout = _saved(cuda, 128, 512, 16, 14, 7,
+                                                dtype)
+    want = {(True, True): ("window_attention_qkv_savep",
+                           "window_attention_qkv_fused_bwd_delta"),
+            (True, False): ("window_attention_qkv_savep_rows",
+                            "window_attention_qkv_bwd_rows"),
+            (False, True): ("window_attention_qkv_fwd",
+                            "window_attention_qkv_bwd_recompute"),
+            (False, False): ("window_attention_qkv_fwd",
+                             "window_attention_qkv_bwd_recompute")}
+    try:
+        wa.BWD_DELTA = True
+        for (save_p, transposed), names in want.items():
+            grads = {}
+            for impl in ("auto", "plain"):
+                leaves = [qkv.clone().requires_grad_(True),
+                          bias_t.clone().requires_grad_(True)]
+                before = dict(kernels.launch_counts)
+                out = wa.window_attention_qkv(
+                    leaves[0], leaves[1], mask_t, 16, save_p=save_p,
+                    transposed=transposed, impl=impl)
+                out.backward(dout)
+                ran = {k: v - before[k] for k, v in
+                       kernels.launch_counts.items() if v != before[k]}
+                assert ran == ({} if impl == "plain"
+                               else {k: 1 for k in names}), ran
+                grads[impl] = [t.grad for t in leaves]
+            for g, w in zip(grads["auto"], grads["plain"]):
+                _close(g, w, dtype, "grad")
+    finally:
+        wa.BWD_DELTA = False
+
+
+def _bhnd(cuda, b, c, heads, res, window, dtype):
+    """q, k, v [B, H, N, D] from a seeded qkv, bias, mask."""
+    x, _, _, bias = _inputs(b, c, heads, seed=res + 2, window=window)
+    n, d = window * window, c // heads
+    rng = np.random.default_rng(res + 3)
+    qkv = rng.standard_normal((b, n, 3, heads, d)).astype(np.float32)
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(
+        qkv[:, :, i].transpose(0, 2, 1, 3))).to(cuda, getattr(torch, dtype))
+        for i in range(3))
+    mask_t = (torch.from_numpy(shift_attn_mask(res, res, window,
+                                               window // 2)).to(cuda)
+              if res > window else None)
+    return q, k, v, torch.from_numpy(bias).to(cuda), mask_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bw,c,heads,res,window", FLAG_SHAPES, ids=FLAG_IDS)
+def test_bhnd_kernels_match_plain(cuda, bw, c, heads, res, window, dtype):
+    """Kernels #8 and #9 on q, k, v [B, H, N, D]: against
+    window_attention_ref, bit-equal to each other, to a rerun and to #5 on
+    the same values in the qkv layout; the dispatcher with use_pallas
+    launches #9."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    q, k, v, bias_t, mask_t = _bhnd(cuda, bw, c, heads, res, window, dtype)
+    names = ("window_attention_bhnd", "window_attention_packed")
+    with torch.no_grad():
+        before = dict(kernels.launch_counts)
+        g8 = wa.window_attention_bhnd(q, k, v, bias_t, mask_t)
+        a8 = wa.window_attention_bhnd(q, k, v, bias_t, mask_t)
+        g9 = wa.window_attention_packed(q, k, v, bias_t, mask_t)
+        d9 = wa.window_attention(q, k, v, bias_t, mask_t, use_pallas=True)
+        counts = dict(kernels.launch_counts)
+        want = wa.window_attention_ref(q, k, v, bias_t, mask_t)
+        plain = wa.window_attention(q, k, v, bias_t, mask_t)
+        b, h, n, d = q.shape
+        qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], 2)
+        t5 = wa.window_attention_qkv_fwd(qkv.reshape(b, n, 3 * h * d).
+                                         contiguous(), bias_t, mask_t, h)[0]
+    torch.cuda.synchronize()
+    assert [counts[k] - before[k] for k in names] == [2, 2]
+    assert torch.equal(plain, want)
+    for got in (a8, g9, d9):
+        assert torch.equal(got, g8)
+    assert torch.equal(g8.transpose(1, 2).reshape(b, n, h * d), t5)
+    _close(g8, want, dtype, "fwd")
+
+
+@pytest.mark.cuda
+def test_bhnd_kernels_take_any_window_count_or_refuse(cuda):
+    """#8 takes B that nW does not divide (window i takes mask[i % nW]);
+    #9 raises there, as gdl_tpu's packed kernel does; both refuse
+    autograd and a mismatched k."""
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    q, k, v, bias_t, mask_t = _bhnd(cuda, 6, 64, 2, 14, 7, "float32")
+    with torch.no_grad():
+        got = wa.window_attention_bhnd(q, k, v, bias_t, mask_t)
+        want = wa.window_attention_ref(q, k, v, bias_t, mask_t)
+        _close(got, want, "float32", "fwd")
+        with pytest.raises(ValueError, match="not a multiple of nW"):
+            wa.window_attention_packed(q, k, v, bias_t, mask_t)
+        with pytest.raises(ValueError, match="k: expected"):
+            wa.window_attention_bhnd(q, k[:, :1], v, bias_t, None)
+    for op in (wa.window_attention_bhnd, wa.window_attention_packed):
+        with pytest.raises(RuntimeError, match="no backward"):
+            op(q.clone().requires_grad_(True), k, v, bias_t, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", ["none", "hbm", "kernel"])
+@pytest.mark.parametrize("b,n,c,heads", SA_SHAPES, ids=SA_IDS)
+def test_self_attention_qkv_kernel_matches_plain(cuda, b, n, c, heads,
+                                                 dropout, dtype):
+    """Kernel #12 on the qkv kernel #10 projected: out and p bit-equal to
+    #10's (the same tile kernel), within the forward bar of the plain
+    version, with and without the keep mask written out (the bits the
+    plain generator draws); the op's dqkv (through #11) against the plain
+    op."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.dropout import fold_seed_words
+    from gdl_tpu_torch.ops import self_attention as sa
+
+    x, w, g = _sa_inputs(cuda, b, n, c, dtype, seed=n + c + 2)
+    gen = torch.Generator(device=cuda).manual_seed(n + 1)
+    words = fold_seed_words(gen, cuda)
+    drop = sa.make_dropout(x, heads, 0.3, dropout != "none",
+                           "kernel" if dropout == "none" else dropout,
+                           seed_words=words)
+    name = "self_attention_qkv_fwd"
+    with torch.no_grad():
+        o10, qkv, p10 = sa.self_attention_fused_fwd(x, w, heads, drop=drop)
+        before = kernels.launch_counts[name]
+        got = sa.self_attention_qkv_fwd(qkv, heads, drop=drop,
+                                        return_keep=True)
+        bare = sa.self_attention_qkv_fwd(qkv, heads, drop=drop)
+        assert kernels.launch_counts[name] == before + 2
+        want = sa.self_attention_qkv_fwd(qkv, heads, drop=drop, impl="plain",
+                                         return_keep=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], o10) and torch.equal(got[1], p10)
+    assert torch.equal(bare[0], got[0]) and torch.equal(bare[1], got[1])
+    for a, r in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a.float(), r.float(), **SA_FWD_TOL[dtype])
+    if dropout == "kernel":
+        assert torch.equal(got[2], want[2])
+    else:
+        assert got[2] is None and want[2] is None
+    grads = {}
+    for impl in ("auto", "plain"):
+        leaf = qkv.clone().requires_grad_(True)
+        out = sa.self_attention_qkv(
+            leaf.reshape(b, n, 3, c), heads, dropout_rate=0.3,
+            seed_words=words, train=dropout != "none",
+            dropout_impl="kernel" if dropout == "none" else dropout,
+            mask=drop.mask, impl=impl)
+        out.backward(g)
+        grads[impl] = leaf.grad
+    _grad_close(grads["auto"], grads["plain"], dtype)

@@ -290,19 +290,6 @@ def test_cpu_dispatch_is_the_plain_version_and_counts_nothing(monkeypatch):
         out.sum().backward()
 
 
-def test_unported_variants_raise_by_name():
-    """save_p=False and transposed=False name the kernel rows they wait
-    for; a 4-D qkv whose third axis is not 3 is refused."""
-    qkv = torch.zeros(2, 49, 3, 32)
-    bias = torch.zeros(2, 49, 49)
-    with pytest.raises(NotImplementedError, match="#7"):
-        wa.window_attention_qkv(qkv, bias, None, 2, save_p=False)
-    with pytest.raises(NotImplementedError, match="#6"):
-        wa.window_attention_qkv(qkv, bias, None, 2, transposed=False)
-    with pytest.raises(ValueError, match=r"\[Bw, N, 3, C\]"):
-        wa.window_attention_qkv(torch.zeros(2, 49, 2, 48), bias, None, 2)
-
-
 def test_fused_backward_rules_are_functions_of_the_shape():
     """fused_bwd_supported holds at the four Swin-B stages and fails past
     the kernels' token and head-dim limits; the tiling keeps the dW
