@@ -80,8 +80,9 @@ Phases, each printing one JSON line:
               generator) must be BIT-EQUAL to its plain version at the
               four mask shapes of a transformer block. Median times of
               kernel and plain (CUDA events), of
-              F.scaled_dot_product_attention on the same q, k, v, and of
-              torch.rand + compare for the masks;
+              F.scaled_dot_product_attention on the same q, k, v, of
+              F.linear + SDPA on its split output (#13's work in two
+              library calls), and of torch.rand + compare for the masks;
   k. mmformer the intermediate-fusion path at full width (mmformer_n on
               CREMA-D, fps 1, batch 64, width 64, embed 512, 8 heads,
               mlp 4096, 196 + 196 -> 392 tokens, shared unimodal
@@ -1284,6 +1285,16 @@ def phase_sa_parity(failures):
                             lambda: F.scaled_dot_product_attention(q, kk, v),
                             reps=SA_REPS)
                         del q, kk, v
+
+                        def linear_sdpa():  # #13's work in two library calls
+                            q5 = F.linear(x, w).reshape(
+                                b, n, 3, MM_HEADS, c // MM_HEADS).permute(
+                                    2, 0, 3, 1, 4)
+                            return F.scaled_dot_product_attention(
+                                q5[0], q5[1], q5[2])
+
+                        times["eval_linear_sdpa_ms"] = cuda_ms(
+                            linear_sdpa, reps=SA_REPS)
                 torch.cuda.synchronize()
                 ok = all(oks)
                 row = {"phase": "sa_parity",
@@ -2716,6 +2727,14 @@ def main(argv=None) -> int:
         entry["plain_ms"] = sa_sum(rows, key + "_plain_ms")
         if kind == "eval":
             entry["library_ms"] = sa_sum(rows, "sdpa_ms")
+            entry["library_linear_sdpa_ms"] = sa_sum(rows,
+                                                     "eval_linear_sdpa_ms")
+            rows16 = {r["site"]: r for r in sa_parity
+                      if r["dtype"] == "bfloat16" and r["dropout"] == mode}
+            if set(rows16) == set(SA_CALLS):
+                entry["library_ms_bfloat16"] = sa_sum(rows16, "sdpa_ms")
+                entry["library_linear_sdpa_ms_bfloat16"] = sa_sum(
+                    rows16, "eval_linear_sdpa_ms")
         total = {"ms": 0.0, "bytes": 0, "operations": 0,
                  "by": {"bytes": 0, "operations": 0}}
         for site, (b, n, c) in SA_SHAPES.items():
@@ -2733,6 +2752,10 @@ def main(argv=None) -> int:
         entry["ms_bfloat16"] = sum(
             SA_CALLS[r["site"]] * r[key + "_ms"] for r in sa_parity
             if r["dtype"] == "bfloat16" and r["dropout"] == mode)
+        entry["bound_ms_bfloat16"] = sum(
+            SA_CALLS[site] * bound_ms(*sa_cost(kind, b, n, c, MM_HEADS, 2),
+                                      "bfloat16")[0]
+            for site, (b, n, c) in SA_SHAPES.items())
     # #14 per training step: its 28 launches over the four mask shapes
     m32 = {tuple(r["shape"]): r for r in mask_parity
            if r["dtype"] == "float32"}

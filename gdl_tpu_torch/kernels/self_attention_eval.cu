@@ -1,15 +1,17 @@
-// Eval/serving forward of the fused self-attention: the qkv projection
-// and softmax(q k^T) v with no residual outputs and no dropout. Replaces
-// the TPU kernel `_sa_xw_eval_kernel` behind `self_attention_fused_eval`
-// (gdl_tpu/ops/self_attention.py). It is the training forward of
-// self_attention_fwd.cuh without the p write and the mask; see the
-// design note there. `qkv` is a scratch buffer [B, N, 3C] in T that the
-// wrapper allocates.
+// Kernel #13: the eval/serving forward of the fused self-attention: the
+// qkv projection and softmax(q k^T) v with no residual outputs and no
+// dropout. Replaces the TPU kernel `_sa_xw_eval_kernel` behind
+// `self_attention_fused_eval` (gdl_tpu/ops/self_attention.py:637). In
+// float32 it is the training forward of self_attention_fwd.cuh without
+// the p write and the mask (see the design note there); in bfloat16 the projection is
+// gemm_tile.cuh's mma.sync tile, then the same row tiles.
+// `qkv` is a scratch buffer [B, N, 3C] in T that the wrapper allocates.
 //
 // Plain C interface: pointers are device pointers, `stream` a
 // cudaStream_t; dtype 0 = float32, 1 = bfloat16. Returns the error code
 // of cudaGetLastError() after the launches (0 = success).
 
+#include "gemm_tile.cuh"
 #include "self_attention_fwd.cuh"
 
 extern "C" int gdl_sa_eval_launch(const void* x, const void* w, void* qkv,
@@ -27,7 +29,11 @@ extern "C" int gdl_sa_eval_launch(const void* x, const void* w, void* qkv,
   a.inv_keep = 1.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_forward<float, MODE_EVAL>(x, w, a, batch, s);
-  if (dtype == 1)
-    return launch_forward<__nv_bfloat16, MODE_EVAL>(x, w, a, batch, s);
+  if (dtype == 1) {
+    const int err =
+        gemm::launch<__nv_bfloat16>(x, w, qkv, batch * n, 3 * c, c, s);
+    if (err != 0) return err;
+    return dispatch_tile<__nv_bfloat16, MODE_EVAL>(a, batch, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

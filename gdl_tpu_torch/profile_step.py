@@ -36,9 +36,12 @@ import time
 
 # kind → substrings of the CUDA kernel's name, first match wins
 KINDS = (
+    # gemm_tile_kernel is #13's projection (kernels/gemm_tile.cuh)
     ("self_attention (#10, #11, #12, #13)", ("sa_proj_kernel",
                                              "sa_tile_kernel",
-                                             "sa_bwd_kv_kernel")),
+                                             "sa_bwd_kv_kernel",
+                                             "sa_eval_kernel",
+                                             "gemm_tile_kernel")),
     ("dropout_mask (#14)", ("dropout_mask_kernel",)),
     ("maxpool_bwd (#16)", ("maxpool_bwd_kernel",)),
     ("window_attention_bwd_fused (#3)", ("wa_bwd_fused",)),

@@ -332,10 +332,17 @@ def test_maxpool_autograd_memory_formats_and_refusals(cuda, dtype):
 # ---- fused self-attention (mmformer) and the dropout-mask generator ------
 
 # the mmformer shapes of one training step (intra 196 tokens, inter 392,
-# 8 heads of 64), ragged token counts, and head dims 16, 32 and 128
+# 8 heads of 64), ragged token counts, and head dims 16, 32 and 128; then
+# the edges of #13's tiles: N = MAX_TOKENS (its 32-row blocks), N = 1000
+# at d = 128 (f32: one chunk buffer, two do not fit), one token, C = 80
+# (not a multiple of the projection's 32-deep K step) and d = 12 (bf16
+# rows of q, k, v off 16 bytes: copied element by element)
 SA_SHAPES = [(64, 196, 512, 8), (64, 392, 512, 8), (3, 197, 512, 8),
-             (2, 52, 512, 8), (2, 9, 128, 8), (2, 70, 96, 3), (2, 33, 256, 2)]
-SA_IDS = ["intra", "inter", "n197", "n52", "d16_n9", "d32", "d128"]
+             (2, 52, 512, 8), (2, 9, 128, 8), (2, 70, 96, 3), (2, 33, 256, 2),
+             (1, 1024, 512, 8), (1, 1000, 256, 2), (2, 1, 64, 1),
+             (3, 45, 80, 5), (2, 20, 36, 3)]
+SA_IDS = ["intra", "inter", "n197", "n52", "d16_n9", "d32", "d128",
+          "n1024", "n1000_d128", "n1", "c80_d16", "c36_d12"]
 SA_FWD_TOL = {"float32": dict(atol=2e-4, rtol=2e-4),
               "bfloat16": dict(atol=3e-2, rtol=1e-2)}
 SA_GRAD_FRAC = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -436,6 +443,24 @@ def test_self_attention_eval_kernel_matches_plain(cuda, b, n, c, heads,
     torch.cuda.synchronize()
     assert kernels.launch_counts["self_attention_fused_eval"] == before + 1
     torch.testing.assert_close(got.float(), want.float(), **SA_FWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,c,heads", SA_SHAPES[:2], ids=SA_IDS[:2])
+def test_self_attention_eval_kernel_is_bit_equal_across_launches(
+        cuda, b, n, c, heads, dtype):
+    """#13 sums every output in one fixed order (no atomics, no split
+    across blocks): two launches on the same inputs give the same bits."""
+    from gdl_tpu_torch.ops.self_attention import self_attention_fused_eval
+
+    x, w, _ = _sa_inputs(cuda, b, n, c, dtype, seed=n + c + 2)
+    with torch.no_grad():
+        first = self_attention_fused_eval(x, w, heads)
+        second = self_attention_fused_eval(x, w, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert bool(torch.isfinite(first.float()).all())
 
 
 @pytest.mark.cuda
