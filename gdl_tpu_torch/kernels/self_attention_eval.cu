@@ -4,36 +4,352 @@
 // `self_attention_fused_eval` (gdl_tpu/ops/self_attention.py:637). In
 // float32 it is the training forward of self_attention_fwd.cuh without
 // the p write and the mask (see the design note there); in bfloat16 the projection is
-// gemm_tile.cuh's mma.sync tile, then the same row tiles.
+// gemm_tile.cuh's mma.sync tile and the attention sa_eval_kernel below
+// (mma.sync, cp.async chunks).
 // `qkv` is a scratch buffer [B, N, 3C] in T that the wrapper allocates.
 //
 // Plain C interface: pointers are device pointers, `stream` a
 // cudaStream_t; dtype 0 = float32, 1 = bfloat16. Returns the error code
 // of cudaGetLastError() after the launches (0 = success).
 
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <cstdint>
+#include <type_traits>
+
 #include "gemm_tile.cuh"
 #include "self_attention_fwd.cuh"
+
+namespace sa_eval {
+
+using gemm::cp_async_commit;
+using gemm::cp_async_wait;
+using gemm::ldsm_x2;
+using gemm::ldsm_x2_trans;
+using gemm::ldsm_x4;
+using gemm::load_tile;
+using gemm::mma_bf16;
+using gemm::pack_bf16;
+
+constexpr int kMaxSmem = 232448;  // a block's 227 KB on sm_90
+
+struct Args {
+  const void* qkv;  // [B, N, 3C]
+  void* out;        // [B, N, C]
+  int n, c, d;
+  float scale;
+  int lds;       // row stride of the score tile, in floats
+  int s_floats;  // floats of the score tile's region
+  int nbuf;      // chunk buffers: 2, or 1 where two do not fit
+  int vec;       // 1: 16-byte cp.async copies (rows and pointer aligned)
+};
+
+__device__ inline float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// ---- bf16: mma.sync --------------------------------------------------------
+
+template <int DMAX, int R>
+struct PathBf16 {
+  using T = __nv_bfloat16;
+  static constexpr int KC = 64;        // keys per chunk
+  static constexpr int LDK = DMAX + 8;  // 16-byte rows off the bank period
+  static constexpr int KS = DMAX / 16;  // k16 steps of q . k^T
+  static constexpr int RG = R / 16;     // row groups (one warp each)
+  static constexpr int NTD = DMAX / 16;  // 8-column tiles of out per warp
+
+  struct State {
+    uint32_t q[KS][4];  // q * scale, A fragments
+    float o[NTD][4];    // out, C fragments
+  };
+
+  __device__ static void init(State& st, const T* qs, float scale_t,
+                              int tid) {
+    const int lane = tid % 32, rg = (tid / 32) % RG;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      ldsm_x4(st.q[ks], qs + (rg * 16 + lane % 16) * LDK + ks * 16 +
+                            (lane / 16) * 8);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const __nv_bfloat162 v =
+            *reinterpret_cast<const __nv_bfloat162*>(&st.q[ks][t]);
+        st.q[ks][t] = pack_bf16(__low2float(v) * scale_t,
+                                __high2float(v) * scale_t);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NTD; ++u)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) st.o[u][t] = 0.f;
+  }
+
+  // S[:, j0 .. j0 + KC) = q . k^T for this warp's 16 rows and half of the
+  // chunk's 8-key tiles (q is in registers)
+  __device__ static void scores(State& st, float* S, int lds, const T*,
+                                const T* ks_, int j0, int n, int tid) {
+    const int lane = tid % 32, warp = tid / 32;
+    const int rg = warp % RG, sp = warp / RG;
+    const int g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int u = 0; u < KC / 16; ++u) {
+      const int nt = sp * (KC / 16) + u;
+      if (j0 + nt * 8 >= n) break;  // the same for the whole warp
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t bk[2];
+        ldsm_x2(bk, ks_ + (nt * 8 + lane % 8) * LDK + ks * 16 +
+                        ((lane / 8) % 2) * 8);
+        mma_bf16(acc, st.q[ks], bk);
+      }
+      const int col = j0 + nt * 8 + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* dst = S + (rg * 16 + g + 8 * h) * lds + col;
+        if (col + 1 < n) {
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(acc[2 * h], acc[2 * h + 1]);
+        } else if (col < n) {
+          dst[0] = acc[2 * h];
+        }
+      }
+    }
+  }
+
+  // out += p . v over the chunk's keys (p already normalised in the tile)
+  __device__ static void pv(State& st, const float* S, int lds, const T* vs,
+                            int j0, int npad, int d, int tid) {
+    const int lane = tid % 32, warp = tid / 32;
+    const int rg = warp % RG, sp = warp / RG;
+    const int g = lane / 4, q = lane % 4;
+    const int steps = (npad - j0 < KC ? npad - j0 : KC) / 16;
+    const float* r0 = S + (rg * 16 + g) * lds + j0 + 2 * q;
+    const float* r8 = r0 + 8 * lds;
+    for (int ks = 0; ks < steps; ++ks) {
+      const int k = ks * 16;
+      const float2 p00 = *reinterpret_cast<const float2*>(r0 + k);
+      const float2 p10 = *reinterpret_cast<const float2*>(r8 + k);
+      const float2 p01 = *reinterpret_cast<const float2*>(r0 + k + 8);
+      const float2 p11 = *reinterpret_cast<const float2*>(r8 + k + 8);
+      const uint32_t a[4] = {pack_bf16(p00.x, p00.y), pack_bf16(p10.x, p10.y),
+                             pack_bf16(p01.x, p01.y), pack_bf16(p11.x, p11.y)};
+#pragma unroll
+      for (int u = 0; u < NTD; ++u) {
+        const int nt = sp * NTD + u;
+        if (nt * 8 >= d) break;
+        uint32_t bv[2];
+        ldsm_x2_trans(bv, vs + (k + lane % 16) * LDK + nt * 8);
+        mma_bf16(st.o[u], a, bv);
+      }
+    }
+  }
+
+  __device__ static void finish(const State& st, float*, T* out, int i0,
+                                int n, int c, int d, int tid) {
+    const int lane = tid % 32, warp = tid / 32;
+    const int rg = warp % RG, sp = warp / RG;
+    const int g = lane / 4, q = lane % 4;
+    const bool pairs = d % 2 == 0 && c % 2 == 0;
+#pragma unroll
+    for (int u = 0; u < NTD; ++u) {
+      const int col = (sp * NTD + u) * 8 + 2 * q;
+      if (col >= d) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + rg * 16 + g + 8 * h;
+        if (i >= n) continue;
+        T* dst = out + static_cast<size_t>(i) * c + col;
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(st.o[u][2 * h], st.o[u][2 * h + 1]);
+        } else {
+          dst[0] = __float2bfloat16_rn(st.o[u][2 * h]);
+          if (col + 1 < d) dst[1] = __float2bfloat16_rn(st.o[u][2 * h + 1]);
+        }
+      }
+    }
+  }
+};
+
+template <typename T, int DMAX, int R>
+using Path = PathBf16<DMAX, R>;
+
+// the whole-row softmax in f32, in place: p = exp(s - max) / sum for the
+// n keys, 0 for the padding keys n .. npad that phase 3 reads
+template <int R>
+__device__ void softmax_rows(float* S, int lds, int n, int npad, int tid) {
+  const int lane = tid % 32;
+  for (int r = tid / 32; r < R; r += R / 8) {
+    float* row = S + r * lds;
+    float mx = -CUDART_INF_F;
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, row[j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float ex = expf(row[j] - mx);
+      row[j] = ex;
+      sum += ex;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    for (int j = lane; j < npad; j += 32) row[j] = j < n ? row[j] / sum : 0.f;
+  }
+}
+
+// one block per (batch, head, R query rows); 4R threads
+template <typename T, int DMAX, int R>
+__global__ void __launch_bounds__(4 * R) sa_eval_kernel(Args a) {
+  using P = Path<T, DMAX, R>;
+  constexpr int THREADS = 4 * R, KC = P::KC, LDK = P::LDK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* S = reinterpret_cast<float*>(smem_raw);  // [R][lds] score tile
+  T* qs = reinterpret_cast<T*>(S + a.s_floats);   // [R][LDK]
+  T* kv = qs + R * LDK;                           // nbuf x [KC][LDK]
+
+  const int n = a.n, c = a.c, d = a.d, c3 = 3 * c, lds = a.lds;
+  const int npad = (n + 15) / 16 * 16;
+  const int i0 = blockIdx.x * R, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const bool vec = a.vec != 0;
+  const T* base =
+      static_cast<const T*>(a.qkv) + static_cast<size_t>(b) * n * c3 + head * d;
+  const int nc = (n + KC - 1) / KC;  // chunks of k, then as many of v
+
+  // chunk t: keys (t % nc) * KC .. of k (t < nc) or v
+  auto issue = [&](int t, T* buf) {
+    const int j0 = (t % nc) * KC;
+    load_tile<T, THREADS>(buf, LDK,
+                          base + (t < nc ? c : 2 * c) +
+                              static_cast<size_t>(j0) * c3,
+                          c3, KC, DMAX, n - j0, d, vec, tid);
+    cp_async_commit();
+  };
+
+  load_tile<T, THREADS>(qs, LDK, base + static_cast<size_t>(i0) * c3, c3, R,
+                        DMAX, n - i0, d, vec, tid);
+  issue(0, kv);
+
+  typename P::State st;
+  const float scale_t =
+      std::is_same<T, float>::value ? a.scale : bf16_round(a.scale);
+  for (int t = 0; t < 2 * nc; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk t is in; every thread is done with chunk t - 1
+    if (t == 0) {
+      P::init(st, qs, scale_t, tid);
+      __syncthreads();
+    }
+    const bool more = t + 1 < 2 * nc;
+    if (a.nbuf == 2 && more) issue(t + 1, kv + ((t + 1) & 1) * KC * LDK);
+    const T* cur = kv + (a.nbuf == 2 ? (t & 1) : 0) * KC * LDK;
+    const int j0 = (t % nc) * KC;
+    if (t < nc) {
+      P::scores(st, S, lds, qs, cur, j0, n, tid);
+      if (t == nc - 1) {
+        __syncthreads();  // the score tile is complete
+        softmax_rows<R>(S, lds, n, npad, tid);
+      }
+    } else {
+      P::pv(st, S, lds, cur, j0, npad, d, tid);
+    }
+    if (a.nbuf == 1 && more) {
+      __syncthreads();
+      issue(t + 1, kv);
+    }
+  }
+  P::finish(st, S,
+            static_cast<T*>(a.out) + static_cast<size_t>(b) * n * c + head * d,
+            i0, n, c, d, tid);
+}
+
+template <typename T, int DMAX, int R>
+size_t smem_bytes(int n, int nbuf, int* lds, int* s_floats) {
+  using P = Path<T, DMAX, R>;
+  // rows of 16 keys, the stride = 8 (mod 16) floats: the float2 reads of
+  // the bf16 fragments and the float4 reads of f32 meet no bank twice
+  *lds = (n + 15) / 16 * 16 + 8;
+  // f32 also holds the key groups' partial sums [SPLITS][R][DMAX] there
+  const int part = std::is_same<T, float>::value ? 128 : 0;
+  *s_floats = R * (*lds > part ? *lds : part);
+  return sizeof(float) * static_cast<size_t>(*s_floats) +
+         sizeof(T) * static_cast<size_t>(R + nbuf * P::KC) * P::LDK;
+}
+
+template <typename T, int DMAX, int R>
+int launch_rows(Args a, int nbuf, int batch, int heads, cudaStream_t s) {
+  const size_t smem = smem_bytes<T, DMAX, R>(a.n, nbuf, &a.lds, &a.s_floats);
+  a.nbuf = nbuf;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(sa_eval_kernel<T, DMAX, R>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((a.n + R - 1) / R, heads, batch);
+  sa_eval_kernel<T, DMAX, R><<<grid, 4 * R, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// R = 64 where its tile fits, else 32; two chunk buffers where they fit
+template <typename T, int DMAX>
+int launch_dmax(const Args& a, int batch, int heads, cudaStream_t s) {
+  int lds, sf;
+  if (smem_bytes<T, DMAX, 64>(a.n, 2, &lds, &sf) <= kMaxSmem)
+    return launch_rows<T, DMAX, 64>(a, 2, batch, heads, s);
+  for (int nbuf = 2; nbuf >= 1; --nbuf)
+    if (smem_bytes<T, DMAX, 32>(a.n, nbuf, &lds, &sf) <= kMaxSmem)
+      return launch_rows<T, DMAX, 32>(a, nbuf, batch, heads, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch(const void* x, const void* w, void* qkv, void* out, int batch,
+           int n, int c, int heads, int d, float scale, cudaStream_t s) {
+  int err = gemm::launch<T>(x, w, qkv, batch * n, 3 * c, c, s);
+  if (err != 0) return err;
+  Args a{};
+  a.qkv = qkv;
+  a.out = out;
+  a.n = n;
+  a.c = c;
+  a.d = d;
+  a.scale = scale;
+  a.vec = (d * sizeof(T)) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(qkv) % 16 == 0;
+  if (d <= 16) return launch_dmax<T, 16>(a, batch, heads, s);
+  if (d <= 32) return launch_dmax<T, 32>(a, batch, heads, s);
+  if (d <= 64) return launch_dmax<T, 64>(a, batch, heads, s);
+  if (d <= 128) return launch_dmax<T, 128>(a, batch, heads, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace sa_eval
 
 extern "C" int gdl_sa_eval_launch(const void* x, const void* w, void* qkv,
                                   void* out, int batch, int n, int c,
                                   int heads, int d, float scale, int dtype,
                                   void* stream) {
-  SaArgs a{};
-  a.qkv = qkv;
-  a.out = out;
-  a.n = n;
-  a.c = c;
-  a.heads = heads;
-  a.d = d;
-  a.scale = scale;
-  a.inv_keep = 1.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_forward<float, MODE_EVAL>(x, w, a, batch, s);
-  if (dtype == 1) {
-    const int err =
-        gemm::launch<__nv_bfloat16>(x, w, qkv, batch * n, 3 * c, c, s);
-    if (err != 0) return err;
-    return dispatch_tile<__nv_bfloat16, MODE_EVAL>(a, batch, s);
+  if (dtype == 0) {
+    SaArgs a{};
+    a.qkv = qkv;
+    a.out = out;
+    a.n = n;
+    a.c = c;
+    a.heads = heads;
+    a.d = d;
+    a.scale = scale;
+    a.inv_keep = 1.f;
+    return launch_forward<float, MODE_EVAL>(x, w, a, batch, s);
   }
+  if (dtype == 1)
+    return sa_eval::launch<__nv_bfloat16>(x, w, qkv, out, batch, n, c, heads,
+                                          d, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
