@@ -30,7 +30,11 @@
 //     (4 x 4 fragments, 64 f32 sums a thread). The tile rows are padded to
 //     40 elements (80 bytes), so the eight rows an ldmatrix phase reads
 //     fall on distinct banks;
-//   - f32: not yet (the f32 projection is still sa_proj_kernel).
+//   - f32: register-blocked FMA, 8 x 8 sums a thread (rows ty + 16 i,
+//     columns tx + 16 j), float4 reads along K from rows padded to 36
+//     floats: 16 shared-memory reads for every 256 FMAs. No TF32 anywhere:
+//     f32 stays f32, as torch.backends.cuda.matmul.allow_tf32 = False keeps
+//     the plain version.
 // Not here yet: wgmma, TMA, warp specialisation, persistent blocks.
 //
 // Each output element is one thread's sum in a fixed order, so a launch
@@ -206,6 +210,58 @@ struct Policy<__nv_bfloat16> {
         fn(r, c, acc.c[i][j][0], acc.c[i][j][1]);
         fn(r + 8, c, acc.c[i][j][2], acc.c[i][j][3]);
       }
+  }
+};
+
+// f32 on SIMT FMA; thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// ty + 16 i and columns tx + 16 j, i, j < 8
+template <>
+struct Policy<float> {
+  using T = float;
+  static constexpr int LDS = kBK + 4;  // 36 floats: float4 rows, no conflicts
+  struct Acc {
+    float c[8][8];
+  };
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc.c[i][j] = 0.f;
+  }
+
+  __device__ static void step(Acc& acc, const T* as, const T* bs, int tid) {
+    const int tx = tid % 16, ty = tid / 16;
+#pragma unroll 2
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * LDS + kk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * LDS + kk);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float s = acc.c[i][j];
+          s = fmaf(a[i].x, b.x, s);
+          s = fmaf(a[i].y, b.y, s);
+          s = fmaf(a[i].z, b.z, s);
+          s = fmaf(a[i].w, b.w, s);
+          acc.c[i][j] = s;
+        }
+      }
+    }
+  }
+
+  template <typename F>
+  __device__ static void each(const Acc& acc, int tid, F fn) {
+    const int tx = tid % 16, ty = tid / 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) fn(ty + 16 * i, tx + 16 * j, acc.c[i][j]);
   }
 };
 

@@ -1,11 +1,11 @@
 // Kernel #13: the eval/serving forward of the fused self-attention: the
 // qkv projection and softmax(q k^T) v with no residual outputs and no
 // dropout. Replaces the TPU kernel `_sa_xw_eval_kernel` behind
-// `self_attention_fused_eval` (gdl_tpu/ops/self_attention.py:637). In
-// float32 it is the training forward of self_attention_fwd.cuh without
-// the p write and the mask (see the design note there); in bfloat16 the projection is
-// gemm_tile.cuh's mma.sync tile and the attention sa_eval_kernel below
-// (mma.sync, cp.async chunks).
+// `self_attention_fused_eval` (gdl_tpu/ops/self_attention.py:637). Both
+// dtypes project with gemm_tile.cuh (mma.sync in bfloat16, 8 x 8 FMA
+// tiles in float32). The float32 attention is still self_attention_fwd.cuh's
+// row tile without the p write and the mask; the bfloat16 attention is
+// sa_eval_kernel below (mma.sync, cp.async chunks).
 // `qkv` is a scratch buffer [B, N, 3C] in T that the wrapper allocates.
 //
 // Plain C interface: pointers are device pointers, `stream` a
@@ -346,7 +346,9 @@ extern "C" int gdl_sa_eval_launch(const void* x, const void* w, void* qkv,
     a.d = d;
     a.scale = scale;
     a.inv_keep = 1.f;
-    return launch_forward<float, MODE_EVAL>(x, w, a, batch, s);
+    const int err = gemm::launch<float>(x, w, qkv, batch * n, 3 * c, c, s);
+    if (err != 0) return err;
+    return dispatch_tile<float, MODE_EVAL>(a, batch, s);
   }
   if (dtype == 1)
     return sa_eval::launch<__nv_bfloat16>(x, w, qkv, out, batch, n, c, heads,
