@@ -1,16 +1,60 @@
-// Kernel #13: the eval/serving forward of the fused self-attention: the
+// Kernel #13: the eval/serving forward of the fused self-attention, the
 // qkv projection and softmax(q k^T) v with no residual outputs and no
 // dropout. Replaces the TPU kernel `_sa_xw_eval_kernel` behind
-// `self_attention_fused_eval` (gdl_tpu/ops/self_attention.py:637). Both
-// dtypes project with gemm_tile.cuh (mma.sync in bfloat16, 8 x 8 FMA
-// tiles in float32). The float32 attention is still self_attention_fwd.cuh's
-// row tile without the p write and the mask; the bfloat16 attention is
-// sa_eval_kernel below (mma.sync, cp.async chunks).
-// `qkv` is a scratch buffer [B, N, 3C] in T that the wrapper allocates.
+// `self_attention_fused_eval` (gdl_tpu/ops/self_attention.py:637,
+// pallas_call at :689). For batch row b and head h, over N tokens:
+//
+//   qkv = round_T(x[b] . W^T)          (f32 sums; gemm_tile.cuh)  [N, 3C]
+//   q   = round_T(q * round_T(scale))
+//   s   = q . k^T                       (f32)
+//   p   = round_T(softmax(s))           (the whole row, in f32)
+//   out[b, :, h*d:(h+1)*d] = round_T(p . v)   (f32 sums)
+//
+// T is float or bfloat16; these rounding points are the TPU kernel's and
+// the plain version's (`self_attention_fused_eval_ref`).
+//
+// What bounds it on this card. Per eval forward of mmformer_n (batch 64,
+// 4 calls at N = 196 and 3 at N = 392, C = 512, 8 heads of 64) the work
+// is 197 GFLOP of projection and 82 GFLOP of attention against 0.5 GB of
+// operands: bound by operations in both dtypes (989 TFLOP/s bf16 on the
+// tensor cores, 67 TFLOP/s f32 on SIMT FMA). The first design ran both
+// dtypes on SIMT FMA (bf16 widened on load), its attention bound by
+// shared-memory loads (8 loads for 16 FMAs) and its chunks loaded by
+// scalar copies that did not overlap compute.
+//
+// What this design does about it. One entry point, two kernels:
+//   1. gemm::gemm_tile_kernel (gemm_tile.cuh): qkv = x . W^T over all B*N
+//      rows into a scratch buffer the wrapper allocates; mma.sync in bf16,
+//      8 x 8 register tiles in f32.
+//   2. sa_eval_kernel: one block per (batch, head, R query rows), R = 64
+//      where the f32 score tile [R, N] and the chunk buffers fit in a
+//      block's 227 KB (N up to about 540 in f32, 800 in bf16), else 32, so
+//      N up to 1024 is taken. 4R threads. K, then V, stream through the
+//      block in chunks of KC keys by cp.async, double-buffered (one buffer
+//      where two do not fit), so the next chunk loads under this one's
+//      products; the first V chunk loads under the softmax.
+//      - bf16: each warp owns 16 query rows and half of a chunk's keys
+//        (phase 1) or half of the head's columns (phase 3). q's A
+//        fragments stay in registers, scaled in f32 and rounded;
+//        S = q . k^T runs on mma.sync with k's fragments from ldmatrix
+//        and goes to the f32 score tile; P . V runs on mma.sync with p's
+//        A fragments packed from the tile (rounded to bf16) and v's
+//        fragments from ldmatrix.trans. KC = 64.
+//      - f32: the same structure on SIMT FMA: S in 4 x 8 register tiles
+//        (4 rows, 8 keys), P . V in 4 x 8 tiles (4 rows, 8 columns) with
+//        the keys of a chunk split over 128 / DMAX groups of threads whose
+//        partial sums are added in a fixed order at the end; every read is
+//        a float4 along the summed dimension, 12 reads for 128 FMAs.
+//        KC = 128.
+//      The softmax keeps the whole row, as the TPU kernel does: no online
+//      (rescaled) softmax, which would move bf16's rounding point of p.
+// Not here yet: wgmma, TMA, warp specialisation, persistent blocks.
+// No atomics: a launch gives the same bits every time.
 //
 // Plain C interface: pointers are device pointers, `stream` a
-// cudaStream_t; dtype 0 = float32, 1 = bfloat16. Returns the error code
-// of cudaGetLastError() after the launches (0 = success).
+// cudaStream_t; dtype 0 = float32, 1 = bfloat16. `qkv` is a scratch
+// buffer [B, N, 3C] in T. Returns the error code of cudaGetLastError()
+// after the launches (0 = success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -20,7 +64,6 @@
 #include <type_traits>
 
 #include "gemm_tile.cuh"
-#include "self_attention_fwd.cuh"
 
 namespace sa_eval {
 
@@ -175,8 +218,140 @@ struct PathBf16 {
   }
 };
 
+// ---- f32: register-blocked SIMT FMA ----------------------------------------
+
+template <int DMAX, int R>
+struct PathF32 {
+  using T = float;
+  static constexpr int KC = 128;       // keys per chunk
+  static constexpr int LDK = DMAX + 4;  // float4 rows off the bank period
+  static constexpr int RY = R / 4;      // row groups: rows ry + RY * i
+  static constexpr int CG = DMAX / 8;   // column groups of phase 3
+  static constexpr int SPLITS = 128 / DMAX;  // key groups of phase 3
+
+  struct State {
+    float o[4][8];  // rows ry + RY i; columns cx*4 + e, DMAX/2 + cx*4 + e
+  };
+
+  __device__ static void init(State& st, T* qs, float scale_t, int tid) {
+    // q * scale in place (f32: the product is already rounded); the caller
+    // synchronises before the tile is read
+    for (int e = tid; e < R * DMAX; e += 4 * R) {
+      const int r = e / DMAX, k = e % DMAX;
+      qs[r * LDK + k] *= scale_t;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) st.o[i][j] = 0.f;
+  }
+
+  // S[:, j0 .. j0 + KC): thread (ty, tx) takes rows ty + RY i and keys
+  // tx + 16 j
+  __device__ static void scores(State&, float* S, int lds, const T* qs,
+                                const T* ks_, int j0, int n, int tid) {
+    const int tx = tid % 16, ty = tid / 16;
+    const int jn = (n - j0 + 15) / 16;  // 16-key groups with a valid key
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < DMAX; k += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + (ty + RY * i) * LDK + k);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= jn) break;
+        const float4 b =
+            *reinterpret_cast<const float4*>(ks_ + (tx + 16 * j) * LDK + k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float s = acc[i][j];
+          s = fmaf(a[i].x, b.x, s);
+          s = fmaf(a[i].y, b.y, s);
+          s = fmaf(a[i].z, b.z, s);
+          s = fmaf(a[i].w, b.w, s);
+          acc[i][j] = s;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = j0 + tx + 16 * j;
+        if (col < n) S[(ty + RY * i) * lds + col] = acc[i][j];
+      }
+  }
+
+  // out += p . v: the key quads 4m with m % SPLITS == sp
+  __device__ static void pv(State& st, const float* S, int lds, const T* vs,
+                            int j0, int npad, int, int tid) {
+    const int cx = tid % CG, ry = (tid / CG) % RY, sp = tid / (CG * RY);
+    const int kn = npad - j0 < KC ? npad - j0 : KC;
+    for (int m = sp; m < kn / 4; m += SPLITS) {
+      const int k = 4 * m;
+      float4 p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[i] = *reinterpret_cast<const float4*>(S + (ry + RY * i) * lds + j0 +
+                                                k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              vs + (k + kk) * LDK + h * (DMAX / 2) + cx * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pk = kk == 0   ? p[i].x
+                             : kk == 1 ? p[i].y
+                             : kk == 2 ? p[i].z
+                                       : p[i].w;
+            st.o[i][4 * h + 0] = fmaf(pk, v.x, st.o[i][4 * h + 0]);
+            st.o[i][4 * h + 1] = fmaf(pk, v.y, st.o[i][4 * h + 1]);
+            st.o[i][4 * h + 2] = fmaf(pk, v.z, st.o[i][4 * h + 2]);
+            st.o[i][4 * h + 3] = fmaf(pk, v.w, st.o[i][4 * h + 3]);
+          }
+        }
+      }
+    }
+  }
+
+  // the key groups' partial sums meet in the score tile's region, added
+  // in the order of the groups
+  __device__ static void finish(const State& st, float* part, T* out, int i0,
+                                int n, int c, int d, int tid) {
+    const int cx = tid % CG, ry = (tid / CG) % RY, sp = tid / (CG * RY);
+    __syncthreads();  // every thread is done reading the score tile
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(part + (sp * R + ry + RY * i) * DMAX +
+                                   h * (DMAX / 2) + cx * 4) =
+            make_float4(st.o[i][4 * h], st.o[i][4 * h + 1],
+                        st.o[i][4 * h + 2], st.o[i][4 * h + 3]);
+    __syncthreads();
+    for (int e = tid; e < R * d; e += 4 * R) {
+      const int r = e / d, col = e % d;
+      if (i0 + r >= n) break;  // rows ascend with e
+      float s = part[r * DMAX + col];
+#pragma unroll
+      for (int t = 1; t < SPLITS; ++t) s += part[(t * R + r) * DMAX + col];
+      out[static_cast<size_t>(i0 + r) * c + col] = s;
+    }
+  }
+};
+
 template <typename T, int DMAX, int R>
-using Path = PathBf16<DMAX, R>;
+using Path = typename std::conditional<std::is_same<T, float>::value,
+                                       PathF32<DMAX, R>,
+                                       PathBf16<DMAX, R>>::type;
 
 // the whole-row softmax in f32, in place: p = exp(s - max) / sum for the
 // n keys, 0 for the padding keys n .. npad that phase 3 reads
@@ -336,20 +511,9 @@ extern "C" int gdl_sa_eval_launch(const void* x, const void* w, void* qkv,
                                   int heads, int d, float scale, int dtype,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    SaArgs a{};
-    a.qkv = qkv;
-    a.out = out;
-    a.n = n;
-    a.c = c;
-    a.heads = heads;
-    a.d = d;
-    a.scale = scale;
-    a.inv_keep = 1.f;
-    const int err = gemm::launch<float>(x, w, qkv, batch * n, 3 * c, c, s);
-    if (err != 0) return err;
-    return dispatch_tile<float, MODE_EVAL>(a, batch, s);
-  }
+  if (dtype == 0)
+    return sa_eval::launch<float>(x, w, qkv, out, batch, n, c, heads, d,
+                                  scale, s);
   if (dtype == 1)
     return sa_eval::launch<__nv_bfloat16>(x, w, qkv, out, batch, n, c, heads,
                                           d, scale, s);

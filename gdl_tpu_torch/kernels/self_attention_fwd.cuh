@@ -1,9 +1,9 @@
 // Fused multi-head self-attention for the mmformer transformer stack,
-// shared by self_attention_eval.cu (the eval forward, TPU kernel
-// `_sa_xw_eval_kernel`) and self_attention_train.cu (the training forward
-// `_sa_xw_fwd_kernel` + `_sa_attn_tail`, and the backward `_sa_bwd_kernel`),
-// all of gdl_tpu/ops/self_attention.py. For batch row b and head h, over
-// N tokens (no padding of N on this card, so every key is valid):
+// the kernels of self_attention_train.cu: the training forward
+// `_sa_xw_fwd_kernel` + `_sa_attn_tail` and the backward `_sa_bwd_kernel`
+// of gdl_tpu/ops/self_attention.py. (The eval forward has kernels of its
+// own, self_attention_eval.cu.) For batch row b and head h, over N tokens
+// (no padding of N on this card, so every key is valid):
 //
 //   qkv = x[b] . W^T (no bias; f32 accumulate) -> round to T     [N, 3C]
 //   q   = q * T(scale)                                           (in T)
@@ -32,8 +32,7 @@
 // saved. So one entry point enqueues two kernels on the stream:
 //   1. sa_proj_kernel: qkv = x . W^T as a tiled GEMM over all B*N rows
 //      (64 x 192 tiles, 4 x 12 register tiles), written once to the qkv
-//      residual (training) or to a scratch buffer the wrapper allocates
-//      (eval). Projecting inside the attention blocks would repeat K and
+//      residual. Projecting inside the attention blocks would repeat K and
 //      V of all N tokens once per row tile (N/32 times the work).
 //   2. sa_tile_kernel: one 128-thread block per (batch, head, 32 query
 //      rows). The [32, N] score tile lives in shared memory; K, then V,
@@ -45,8 +44,9 @@
 // [64, 392, 512]: about 0.1 ms at the memory rate, against milliseconds
 // of FMAs), and K and V are re-read N/32 times from L2. What bounds it:
 // the FMAs (2*B*N*3C*C for the projection, 4*B*N*N*C for the attention)
-// at the SIMT f32 rate, far below the tensor cores'; mma/wgmma tiles and
-// TMA loads are later work.
+// at the SIMT f32 rate, far below the tensor cores'; the eval forward's
+// tensor-core tiles (gemm_tile.cuh, self_attention_eval.cu) are the
+// pattern for these kernels' redesign.
 //
 // The backward is two kernels as well, so that no sum crosses blocks
 // (bit-reproducible, no atomics):
@@ -186,7 +186,6 @@ constexpr int kTR = 32;  // query rows per block
 constexpr int kKT = 64;  // keys per chunk streamed through shared memory
 constexpr int kMaxSmem = 232448;  // a block's 227 KB on sm_90
 
-constexpr int MODE_EVAL = 0;   // forward, no residuals, no dropout
 constexpr int MODE_TRAIN = 1;  // forward, writes p, applies dropout
 constexpr int MODE_BWD = 2;    // backward part A: ds scratch and dq
 
@@ -256,7 +255,7 @@ __global__ void __launch_bounds__(kTileThreads) sa_tile_kernel(SaArgs a) {
   const float scale_t = Num<T>::round(a.scale);
 
   uint32_t k0 = 0, k1 = 0;
-  if (MODE != MODE_EVAL && a.dropout_mode == 2) {
+  if (a.dropout_mode == 2) {
     k0 = static_cast<uint32_t>(a.seed[0]);
     k1 = static_cast<uint32_t>(a.seed[1]);
   }
@@ -351,21 +350,15 @@ __global__ void __launch_bounds__(kTileThreads) sa_tile_kernel(SaArgs a) {
           const int valid = n - j < 4 ? n - j : 4;
           float m[4];
           bool keep[4];
-          if (MODE == MODE_TRAIN) {
-            mask4<T>(a, rb + j, valid, k0, k1, m, keep);
-          }
+          mask4<T>(a, rb + j, valid, k0, k1, m, keep);
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
             if (t >= valid) break;
             const float pf = row[j + t] / sum;
-            if (MODE == MODE_TRAIN) {
-              static_cast<T*>(a.p)[rb + j + t] = Num<T>::store(pf);
-              if (a.keep_out != nullptr && a.dropout_mode == 2)
-                a.keep_out[rb + j + t] = keep[t] ? 1 : 0;
-              row[j + t] = Num<T>::round(pf * m[t]);
-            } else {
-              row[j + t] = Num<T>::round(pf);
-            }
+            static_cast<T*>(a.p)[rb + j + t] = Num<T>::store(pf);
+            if (a.keep_out != nullptr && a.dropout_mode == 2)
+              a.keep_out[rb + j + t] = keep[t] ? 1 : 0;
+            row[j + t] = Num<T>::round(pf * m[t]);
           }
         }
       } else {
@@ -481,7 +474,7 @@ int dispatch_tile(const SaArgs& a, int batch, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the forward of both libraries: projection, then the row tiles
+// the training forward: projection, then the row tiles
 template <typename T, int MODE>
 int launch_forward(const void* x, const void* w, const SaArgs& a, int batch,
                    cudaStream_t s) {
