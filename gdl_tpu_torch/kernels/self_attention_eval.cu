@@ -27,27 +27,30 @@
 //      rows into a scratch buffer the wrapper allocates; mma.sync in bf16,
 //      8 x 8 register tiles in f32.
 //   2. sa_eval_kernel: one block per (batch, head, R query rows), R = 64
-//      where the f32 score tile [R, N] and the chunk buffers fit in a
+//      where the f32 score tile [R, N] and two chunk buffers fit in a
 //      block's 227 KB (N up to about 540 in f32, 800 in bf16), else 32, so
 //      N up to 1024 is taken. 4R threads. K, then V, stream through the
-//      block in chunks of KC keys by cp.async, double-buffered (one buffer
-//      where two do not fit), so the next chunk loads under this one's
-//      products; the first V chunk loads under the softmax.
+//      block in chunks of KC keys by cp.async, through a ring of up to 8
+//      buffers: every chunk of the head is in flight at once where the
+//      ring fits (keeping two blocks an SM where it can), so the block
+//      waits for the L2 once, not once a chunk.
 //      - bf16: each warp owns 16 query rows and half of a chunk's keys
 //        (phase 1) or half of the head's columns (phase 3). q's A
 //        fragments stay in registers, scaled in f32 and rounded;
 //        S = q . k^T runs on mma.sync with k's fragments from ldmatrix
 //        and goes to the f32 score tile; P . V runs on mma.sync with p's
-//        A fragments packed from the tile (rounded to bf16) and v's
-//        fragments from ldmatrix.trans. KC = 64.
+//        A fragments packed from the tile (e / sum, rounded to bf16) and
+//        v's fragments from ldmatrix.trans. KC = 64.
 //      - f32: the same structure on SIMT FMA: S in 4 x 8 register tiles
 //        (4 rows, 8 keys), P . V in 4 x 8 tiles (4 rows, 8 columns) with
 //        the keys of a chunk split over 128 / DMAX groups of threads whose
-//        partial sums are added in a fixed order at the end; every read is
-//        a float4 along the summed dimension, 12 reads for 128 FMAs.
-//        KC = 128.
+//        partial sums are added in a fixed order at the end, then divided
+//        by the row's sum; every read is a float4 along the summed
+//        dimension, 12 reads for 128 FMAs. KC = 128.
 //      The softmax keeps the whole row, as the TPU kernel does: no online
 //      (rescaled) softmax, which would move bf16's rounding point of p.
+//      Phase 1 keeps each row's maximum in registers, so the softmax is
+//      one pass over the tile (exponentials and their sum).
 // Not here yet: wgmma, TMA, warp specialisation, persistent blocks.
 // No atomics: a launch gives the same bits every time.
 //
@@ -77,6 +80,9 @@ using gemm::mma_bf16;
 using gemm::pack_bf16;
 
 constexpr int kMaxSmem = 232448;  // a block's 227 KB on sm_90
+// two blocks an SM: the SM's 228 KB less 1 KB the runtime keeps per block
+constexpr int kHalfSmem = 115712;
+constexpr int kMaxBuf = 8;  // chunk buffers in the ring
 
 struct Args {
   const void* qkv;  // [B, N, 3C]
@@ -85,13 +91,35 @@ struct Args {
   float scale;
   int lds;       // row stride of the score tile, in floats
   int s_floats;  // floats of the score tile's region
-  int nbuf;      // chunk buffers: 2, or 1 where two do not fit
+  int nbuf;      // chunk buffers in the ring, 1 .. kMaxBuf
   int vec;       // 1: 16-byte cp.async copies (rows and pointer aligned)
 };
 
 __device__ inline float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
+
+// wait until at most n copy groups of this thread are in flight; a count
+// above 6 waits for more than it must
+__device__ inline void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+// Row statistics beside the score tile: mx[2][R], the row maxima that two
+// groups of threads found in phase 1 (the whole row's is their maximum),
+// and inv[R] = 1 / sum of the row's exponentials.
+struct Stats {
+  float* mx;
+  float* inv;
+};
 
 // ---- bf16: mma.sync --------------------------------------------------------
 
@@ -107,6 +135,7 @@ struct PathBf16 {
   struct State {
     uint32_t q[KS][4];  // q * scale, A fragments
     float o[NTD][4];    // out, C fragments
+    float m[2];         // maxima of rows g and g + 8 over this thread's keys
   };
 
   __device__ static void init(State& st, const T* qs, float scale_t,
@@ -128,71 +157,101 @@ struct PathBf16 {
     for (int u = 0; u < NTD; ++u)
 #pragma unroll
       for (int t = 0; t < 4; ++t) st.o[u][t] = 0.f;
+    st.m[0] = st.m[1] = -CUDART_INF_F;
   }
 
   // S[:, j0 .. j0 + KC) = q . k^T for this warp's 16 rows and half of the
-  // chunk's 8-key tiles (q is in registers)
+  // chunk's 8-key tiles (q is in registers; k rows past N are zeros)
   __device__ static void scores(State& st, float* S, int lds, const T*,
                                 const T* ks_, int j0, int n, int tid) {
     const int lane = tid % 32, warp = tid / 32;
     const int rg = warp % RG, sp = warp / RG;
     const int g = lane / 4, q = lane % 4;
+    constexpr int NT = KC / 16;  // 8-key tiles a warp
+    float acc[NT][4];
 #pragma unroll
-    for (int u = 0; u < KC / 16; ++u) {
-      const int nt = sp * (KC / 16) + u;
-      if (j0 + nt * 8 >= n) break;  // the same for the whole warp
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int u = 0; u < NT; ++u)
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t bk[2];
-        ldsm_x2(bk, ks_ + (nt * 8 + lane % 8) * LDK + ks * 16 +
-                        ((lane / 8) % 2) * 8);
-        mma_bf16(acc, st.q[ks], bk);
+      for (int t = 0; t < 4; ++t) acc[u][t] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int u = 0; u < NT; u += 2) {  // two 8-key tiles a load
+        uint32_t b[4];
+        ldsm_x4(b, ks_ + ((sp * NT + u) * 8 + lane % 8 + (lane / 16) * 8) *
+                             LDK +
+                         ks * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16(acc[u], st.q[ks], b);
+        mma_bf16(acc[u + 1], st.q[ks], b + 2);
       }
-      const int col = j0 + nt * 8 + 2 * q;
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      const int col = j0 + (sp * NT + u) * 8 + 2 * q;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float* dst = S + (rg * 16 + g + 8 * h) * lds + col;
+        const float v0 = acc[u][2 * h], v1 = acc[u][2 * h + 1];
         if (col + 1 < n) {
-          *reinterpret_cast<float2*>(dst) =
-              make_float2(acc[2 * h], acc[2 * h + 1]);
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          st.m[h] = fmaxf(st.m[h], fmaxf(v0, v1));
         } else if (col < n) {
-          dst[0] = acc[2 * h];
+          dst[0] = v0;
+          st.m[h] = fmaxf(st.m[h], v0);
         }
       }
     }
   }
 
-  // out += p . v over the chunk's keys (p already normalised in the tile)
-  __device__ static void pv(State& st, const float* S, int lds, const T* vs,
-                            int j0, int npad, int d, int tid) {
+  // after the last k chunk: this warp's row maxima to mx[sp]
+  __device__ static void row_max(State& st, Stats ss, int tid) {
+    const int lane = tid % 32, warp = tid / 32;
+    const int rg = warp % RG, sp = warp / RG;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = st.m[h];
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      if (lane % 4 == 0) ss.mx[sp * R + rg * 16 + lane / 4 + 8 * h] = m;
+    }
+  }
+
+  // out += p . v over the chunk's keys, p = round_bf16(e / sum) packed
+  // from the tile of exponentials e
+  __device__ static void pv(State& st, const float* S, Stats ss, int lds,
+                            const T* vs, int j0, int npad, int d, int tid) {
     const int lane = tid % 32, warp = tid / 32;
     const int rg = warp % RG, sp = warp / RG;
     const int g = lane / 4, q = lane % 4;
     const int steps = (npad - j0 < KC ? npad - j0 : KC) / 16;
+    const float i0 = ss.inv[rg * 16 + g], i8 = ss.inv[rg * 16 + g + 8];
     const float* r0 = S + (rg * 16 + g) * lds + j0 + 2 * q;
     const float* r8 = r0 + 8 * lds;
-    for (int ks = 0; ks < steps; ++ks) {
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      if (ks >= steps) break;
       const int k = ks * 16;
       const float2 p00 = *reinterpret_cast<const float2*>(r0 + k);
       const float2 p10 = *reinterpret_cast<const float2*>(r8 + k);
       const float2 p01 = *reinterpret_cast<const float2*>(r0 + k + 8);
       const float2 p11 = *reinterpret_cast<const float2*>(r8 + k + 8);
-      const uint32_t a[4] = {pack_bf16(p00.x, p00.y), pack_bf16(p10.x, p10.y),
-                             pack_bf16(p01.x, p01.y), pack_bf16(p11.x, p11.y)};
+      const uint32_t a[4] = {pack_bf16(p00.x * i0, p00.y * i0),
+                             pack_bf16(p10.x * i8, p10.y * i8),
+                             pack_bf16(p01.x * i0, p01.y * i0),
+                             pack_bf16(p11.x * i8, p11.y * i8)};
 #pragma unroll
       for (int u = 0; u < NTD; ++u) {
         const int nt = sp * NTD + u;
-        if (nt * 8 >= d) break;
-        uint32_t bv[2];
-        ldsm_x2_trans(bv, vs + (k + lane % 16) * LDK + nt * 8);
-        mma_bf16(st.o[u], a, bv);
+        if (nt * 8 < d) {
+          uint32_t bv[2];
+          ldsm_x2_trans(bv, vs + (k + lane % 16) * LDK + nt * 8);
+          mma_bf16(st.o[u], a, bv);
+        }
       }
     }
   }
 
-  __device__ static void finish(const State& st, float*, T* out, int i0,
-                                int n, int c, int d, int tid) {
+  __device__ static void finish(const State& st, float*, Stats, T* out,
+                                int i0, int n, int c, int d, int tid) {
     const int lane = tid % 32, warp = tid / 32;
     const int rg = warp % RG, sp = warp / RG;
     const int g = lane / 4, q = lane % 4;
@@ -231,6 +290,7 @@ struct PathF32 {
 
   struct State {
     float o[4][8];  // rows ry + RY i; columns cx*4 + e, DMAX/2 + cx*4 + e
+    float m[4];     // maxima of rows ty + RY i over this thread's keys
   };
 
   __device__ static void init(State& st, T* qs, float scale_t, int tid) {
@@ -241,14 +301,16 @@ struct PathF32 {
       qs[r * LDK + k] *= scale_t;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
+      st.m[i] = -CUDART_INF_F;
 #pragma unroll
       for (int j = 0; j < 8; ++j) st.o[i][j] = 0.f;
+    }
   }
 
   // S[:, j0 .. j0 + KC): thread (ty, tx) takes rows ty + RY i and keys
   // tx + 16 j
-  __device__ static void scores(State&, float* S, int lds, const T* qs,
+  __device__ static void scores(State& st, float* S, int lds, const T* qs,
                                 const T* ks_, int j0, int n, int tid) {
     const int tx = tid % 16, ty = tid / 16;
     const int jn = (n - j0 + 15) / 16;  // 16-key groups with a valid key
@@ -284,13 +346,31 @@ struct PathF32 {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = j0 + tx + 16 * j;
-        if (col < n) S[(ty + RY * i) * lds + col] = acc[i][j];
+        if (col < n) {
+          S[(ty + RY * i) * lds + col] = acc[i][j];
+          st.m[i] = fmaxf(st.m[i], acc[i][j]);
+        }
       }
   }
 
-  // out += p . v: the key quads 4m with m % SPLITS == sp
-  __device__ static void pv(State& st, const float* S, int lds, const T* vs,
-                            int j0, int npad, int, int tid) {
+  // after the last k chunk: the 16 threads of a row group hold the row's
+  // keys between them
+  __device__ static void row_max(State& st, Stats ss, int tid) {
+    const int tx = tid % 16, ty = tid / 16;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float m = st.m[i];
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (tx == 0) ss.mx[ty + RY * i] = ss.mx[R + ty + RY * i] = m;
+    }
+  }
+
+  // out += e . v over the key quads 4m with m % SPLITS == sp; the sums are
+  // divided by the row's sum at the end
+  __device__ static void pv(State& st, const float* S, Stats, int lds,
+                            const T* vs, int j0, int npad, int, int tid) {
     const int cx = tid % CG, ry = (tid / CG) % RY, sp = tid / (CG * RY);
     const int kn = npad - j0 < KC ? npad - j0 : KC;
     for (int m = sp; m < kn / 4; m += SPLITS) {
@@ -323,9 +403,10 @@ struct PathF32 {
   }
 
   // the key groups' partial sums meet in the score tile's region, added
-  // in the order of the groups
-  __device__ static void finish(const State& st, float* part, T* out, int i0,
-                                int n, int c, int d, int tid) {
+  // in the order of the groups, then divided by the row's sum
+  __device__ static void finish(const State& st, float* part, Stats ss,
+                                T* out, int i0, int n, int c, int d,
+                                int tid) {
     const int cx = tid % CG, ry = (tid / CG) % RY, sp = tid / (CG * RY);
     __syncthreads();  // every thread is done reading the score tile
 #pragma unroll
@@ -343,7 +424,7 @@ struct PathF32 {
       float s = part[r * DMAX + col];
 #pragma unroll
       for (int t = 1; t < SPLITS; ++t) s += part[(t * R + r) * DMAX + col];
-      out[static_cast<size_t>(i0 + r) * c + col] = s;
+      out[static_cast<size_t>(i0 + r) * c + col] = s * ss.inv[r];
     }
   }
 };
@@ -353,28 +434,25 @@ using Path = typename std::conditional<std::is_same<T, float>::value,
                                        PathF32<DMAX, R>,
                                        PathBf16<DMAX, R>>::type;
 
-// the whole-row softmax in f32, in place: p = exp(s - max) / sum for the
-// n keys, 0 for the padding keys n .. npad that phase 3 reads
+// one pass over each row of the tile: e = exp(s - max) for the n keys, 0
+// for the padding keys n .. npad that phase 3 reads; inv = 1 / sum e
 template <int R>
-__device__ void softmax_rows(float* S, int lds, int n, int npad, int tid) {
+__device__ void softmax_rows(float* S, Stats ss, int lds, int n, int npad,
+                             int tid) {
   const int lane = tid % 32;
   for (int r = tid / 32; r < R; r += R / 8) {
     float* row = S + r * lds;
-    float mx = -CUDART_INF_F;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, row[j]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float mx = fmaxf(ss.mx[r], ss.mx[R + r]);
     float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float ex = expf(row[j] - mx);
+    for (int j = lane; j < npad; j += 32) {
+      const float ex = j < n ? expf(row[j] - mx) : 0.f;
       row[j] = ex;
       sum += ex;
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < npad; j += 32) row[j] = j < n ? row[j] / sum : 0.f;
+    if (lane == 0) ss.inv[r] = 1.f / sum;
   }
 }
 
@@ -385,10 +463,12 @@ __global__ void __launch_bounds__(4 * R) sa_eval_kernel(Args a) {
   constexpr int THREADS = 4 * R, KC = P::KC, LDK = P::LDK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* S = reinterpret_cast<float*>(smem_raw);  // [R][lds] score tile
-  T* qs = reinterpret_cast<T*>(S + a.s_floats);   // [R][LDK]
-  T* kv = qs + R * LDK;                           // nbuf x [KC][LDK]
+  const Stats ss{S + a.s_floats, S + a.s_floats + 2 * R};
+  T* qs = reinterpret_cast<T*>(S + a.s_floats + 3 * R);  // [R][LDK]
+  T* ring = qs + R * LDK;  // nbuf x [KC][LDK]
 
   const int n = a.n, c = a.c, d = a.d, c3 = 3 * c, lds = a.lds;
+  const int nb = a.nbuf;
   const int npad = (n + 15) / 16 * 16;
   const int i0 = blockIdx.x * R, head = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -396,50 +476,56 @@ __global__ void __launch_bounds__(4 * R) sa_eval_kernel(Args a) {
   const T* base =
       static_cast<const T*>(a.qkv) + static_cast<size_t>(b) * n * c3 + head * d;
   const int nc = (n + KC - 1) / KC;  // chunks of k, then as many of v
+  const int total = 2 * nc;
 
-  // chunk t: keys (t % nc) * KC .. of k (t < nc) or v
-  auto issue = [&](int t, T* buf) {
-    const int j0 = (t % nc) * KC;
-    load_tile<T, THREADS>(buf, LDK,
-                          base + (t < nc ? c : 2 * c) +
-                              static_cast<size_t>(j0) * c3,
-                          c3, KC, DMAX, n - j0, d, vec, tid);
+  // chunk t (keys (t % nc) * KC .. of k, or of v from t = nc) into ring
+  // slot t % nb; a group is committed even past the end, so that the
+  // count of groups in flight stays nb - 1
+  auto issue = [&](int t) {
+    if (t < total) {
+      const int j0 = (t % nc) * KC;
+      load_tile<T, THREADS>(ring + (t % nb) * KC * LDK, LDK,
+                            base + (t < nc ? c : 2 * c) +
+                                static_cast<size_t>(j0) * c3,
+                            c3, KC, DMAX, n - j0, d, vec, tid);
+    }
     cp_async_commit();
   };
 
   load_tile<T, THREADS>(qs, LDK, base + static_cast<size_t>(i0) * c3, c3, R,
                         DMAX, n - i0, d, vec, tid);
-  issue(0, kv);
+  issue(0);  // one group: q and chunk 0
+  for (int t = 1; t < nb - 1; ++t) issue(t);
 
   typename P::State st;
   const float scale_t =
       std::is_same<T, float>::value ? a.scale : bf16_round(a.scale);
-  for (int t = 0; t < 2 * nc; ++t) {
-    cp_async_wait<0>();
+  for (int t = 0; t < total; ++t) {
+    cp_async_wait_n(nb > 1 ? nb - 2 : 0);
     __syncthreads();  // chunk t is in; every thread is done with chunk t - 1
     if (t == 0) {
       P::init(st, qs, scale_t, tid);
       __syncthreads();
     }
-    const bool more = t + 1 < 2 * nc;
-    if (a.nbuf == 2 && more) issue(t + 1, kv + ((t + 1) & 1) * KC * LDK);
-    const T* cur = kv + (a.nbuf == 2 ? (t & 1) : 0) * KC * LDK;
+    if (nb > 1) issue(t + nb - 1);  // into the slot chunk t - 1 used
+    const T* cur = ring + (t % nb) * KC * LDK;
     const int j0 = (t % nc) * KC;
     if (t < nc) {
       P::scores(st, S, lds, qs, cur, j0, n, tid);
       if (t == nc - 1) {
-        __syncthreads();  // the score tile is complete
-        softmax_rows<R>(S, lds, n, npad, tid);
+        P::row_max(st, ss, tid);
+        __syncthreads();  // the score tile and the row maxima are complete
+        softmax_rows<R>(S, ss, lds, n, npad, tid);
       }
     } else {
-      P::pv(st, S, lds, cur, j0, npad, d, tid);
+      P::pv(st, S, ss, lds, cur, j0, npad, d, tid);
     }
-    if (a.nbuf == 1 && more) {
+    if (nb == 1 && t + 1 < total) {
       __syncthreads();
-      issue(t + 1, kv);
+      issue(t + 1);
     }
   }
-  P::finish(st, S,
+  P::finish(st, S, ss,
             static_cast<T*>(a.out) + static_cast<size_t>(b) * n * c + head * d,
             i0, n, c, d, tid);
 }
@@ -453,8 +539,26 @@ size_t smem_bytes(int n, int nbuf, int* lds, int* s_floats) {
   // f32 also holds the key groups' partial sums [SPLITS][R][DMAX] there
   const int part = std::is_same<T, float>::value ? 128 : 0;
   *s_floats = R * (*lds > part ? *lds : part);
-  return sizeof(float) * static_cast<size_t>(*s_floats) +
+  return sizeof(float) * static_cast<size_t>(*s_floats + 3 * R) +
          sizeof(T) * static_cast<size_t>(R + nbuf * P::KC) * P::LDK;
+}
+
+// The ring's depth: every chunk of the head in flight at once where the
+// SM still holds two blocks (at least four buffers), else as many as one
+// block can hold; up to kMaxBuf. 0: the tile does not fit.
+template <typename T, int DMAX, int R>
+int ring_depth(int n) {
+  using P = Path<T, DMAX, R>;
+  int lds, sf;
+  const long base = static_cast<long>(smem_bytes<T, DMAX, R>(n, 0, &lds, &sf));
+  const long slot = static_cast<long>(sizeof(T)) * P::KC * P::LDK;
+  const int chunks = 2 * ((n + P::KC - 1) / P::KC);
+  const int want = chunks < kMaxBuf ? chunks : kMaxBuf;
+  const long two = (kHalfSmem - base) / slot, one = (kMaxSmem - base) / slot;
+  if (base <= kHalfSmem && two >= (want < 4 ? want : 4))
+    return static_cast<int>(two < want ? two : want);
+  if (base > kMaxSmem) return 0;
+  return static_cast<int>(one < want ? one : want);
 }
 
 template <typename T, int DMAX, int R>
@@ -471,15 +575,13 @@ int launch_rows(Args a, int nbuf, int batch, int heads, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// R = 64 where its tile fits, else 32; two chunk buffers where they fit
+// R = 64 where its tile and two chunk buffers fit, else 32
 template <typename T, int DMAX>
 int launch_dmax(const Args& a, int batch, int heads, cudaStream_t s) {
-  int lds, sf;
-  if (smem_bytes<T, DMAX, 64>(a.n, 2, &lds, &sf) <= kMaxSmem)
-    return launch_rows<T, DMAX, 64>(a, 2, batch, heads, s);
-  for (int nbuf = 2; nbuf >= 1; --nbuf)
-    if (smem_bytes<T, DMAX, 32>(a.n, nbuf, &lds, &sf) <= kMaxSmem)
-      return launch_rows<T, DMAX, 32>(a, nbuf, batch, heads, s);
+  const int nb64 = ring_depth<T, DMAX, 64>(a.n);
+  if (nb64 >= 2) return launch_rows<T, DMAX, 64>(a, nb64, batch, heads, s);
+  const int nb32 = ring_depth<T, DMAX, 32>(a.n);
+  if (nb32 >= 1) return launch_rows<T, DMAX, 32>(a, nb32, batch, heads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
