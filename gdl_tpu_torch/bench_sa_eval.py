@@ -6,9 +6,12 @@ forward on the GPU, and compare checkouts of this repository in turns.
 One eval forward of mmformer_n at batch 64 makes 7 launches of #13: 4 at
 x [64, 196, 512] and 3 at [64, 392, 512], 8 heads. For each dtype
 (float32, TF32 off; bfloat16) the script times, with CUDA events (median
-of REPS calls after a warm-up), at each shape: the kernel, SDPA on the
-same q, k, v (the attention alone) and F.linear + SDPA (the same work in
-two library calls), and sums them over the 7 launches. Then a
+of REPS calls after a warm-up, one call between two events), at each
+shape: the kernel, SDPA on the same q, k, v (the attention alone) and
+F.linear + SDPA (the same work in two library calls), and sums them over
+the 7 launches; `run_ms` times the kernel and `plain_run_ms` its plain
+version over a run of calls between two events instead, so that the
+host's time to enqueue a call hides behind the card's work. Then a
 torch.profiler trace of ten launches at each shape splits the kernel's
 device time into the projection and the attention, by kernel name.
 
@@ -55,6 +58,23 @@ def _cuda_ms(fn, reps=REPS, warmup=3):
     return times[len(times) // 2]
 
 
+def _run_ms(fn, reps=REPS):
+    """Device ms of one call within a run of `reps` calls between two
+    CUDA events (the host enqueues ahead, so its own time hides)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def _split_ms(fn):
     """Device ms of one call, by kernel: (projection, attention, names)."""
     import torch
@@ -96,8 +116,9 @@ def worker() -> dict:
     out = {"device": torch.cuda.get_device_name(0), "dtypes": {}}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        tot = {"ms": 0.0, "sdpa_ms": 0.0, "linear_sdpa_ms": 0.0,
-               "projection_ms": 0.0, "attention_ms": 0.0}
+        tot = {"ms": 0.0, "run_ms": 0.0, "plain_run_ms": 0.0, "sdpa_ms": 0.0,
+               "linear_sdpa_ms": 0.0, "projection_ms": 0.0,
+               "attention_ms": 0.0}
         sites = {}
         for k, (site, ((b, n, c), calls)) in enumerate(SITES.items()):
             gen = torch.Generator(device=dev).manual_seed(800 + k)
@@ -119,6 +140,10 @@ def worker() -> dict:
                                                           q5[2])
 
                 row = {"ms": _cuda_ms(kernel),
+                       "run_ms": _run_ms(kernel),
+                       "plain_run_ms": _run_ms(
+                           lambda: self_attention_fused_eval(
+                               x, w, HEADS, impl="plain"), reps=5),
                        "sdpa_ms": _cuda_ms(
                            lambda: F.scaled_dot_product_attention(q, kk, v)),
                        "linear_sdpa_ms": _cuda_ms(linear_sdpa)}

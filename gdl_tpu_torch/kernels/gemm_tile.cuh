@@ -17,7 +17,8 @@
 // and compute, at about 22 TFLOP/s.
 //
 // What the design does about it:
-//   - a 128 x 128 block tile over 32-deep K steps, 256 threads (8 warps);
+//   - a 128 x 128 block tile over K steps 64 deep (bf16) or 32 (f32),
+//     256 threads (8 warps);
 //   - the operand tiles come in through a ring of kStages cp.async stages
 //     in dynamic shared memory (16-byte copies), so the loads of step
 //     k + 2 run under the products of step k. The ragged M, N and K edges
@@ -28,7 +29,7 @@
 //   - bf16: mma.sync m16n8k16 (bf16 in, f32 sums) on fragments from
 //     ldmatrix, on the tensor cores. Each warp owns a 64 x 32 sub-tile
 //     (4 x 4 fragments, 64 f32 sums a thread). The tile rows are padded to
-//     40 elements (80 bytes), so the eight rows an ldmatrix phase reads
+//     72 elements (144 bytes), so the eight rows an ldmatrix phase reads
 //     fall on distinct banks;
 //   - f32: register-blocked FMA, 8 x 8 sums a thread (rows ty + 16 i,
 //     columns tx + 16 j), float4 reads along K from rows padded to 36
@@ -52,7 +53,6 @@ namespace gemm {
 constexpr int kThreads = 256;
 constexpr int kBM = 128;  // rows of C per block
 constexpr int kBN = 128;  // columns of C per block
-constexpr int kBK = 32;   // K per stage
 constexpr int kStages = 3;
 
 // ---- PTX helpers (shared with the attention kernels) ----------------------
@@ -159,7 +159,9 @@ struct Policy;
 template <>
 struct Policy<__nv_bfloat16> {
   using T = __nv_bfloat16;
-  static constexpr int LDS = kBK + 8;  // 80-byte rows
+  static constexpr int BK = 64;        // K per stage
+  static constexpr int LDS = BK + 8;   // 144-byte rows
+  static constexpr int MIN_BLOCKS = 2;  // an SM: at most 128 registers
   static constexpr int MT = 4, NT = 4;  // 16 x 8 fragments a warp
   struct Acc {
     float c[MT][NT][4];
@@ -178,7 +180,7 @@ struct Policy<__nv_bfloat16> {
     const int lane = tid % 32, warp = tid / 32;
     const int wm = warp % 2, wn = warp / 2;
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
+    for (int kk = 0; kk < BK; kk += 16) {
       uint32_t a[MT][4], b[NT][2];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
@@ -218,7 +220,9 @@ struct Policy<__nv_bfloat16> {
 template <>
 struct Policy<float> {
   using T = float;
-  static constexpr int LDS = kBK + 4;  // 36 floats: float4 rows, no conflicts
+  static constexpr int BK = 32;        // K per stage
+  static constexpr int LDS = BK + 4;   // 36 floats: float4 rows, no conflicts
+  static constexpr int MIN_BLOCKS = 1;  // the 8 x 8 tile needs > 128 registers
   struct Acc {
     float c[8][8];
   };
@@ -233,7 +237,7 @@ struct Policy<float> {
   __device__ static void step(Acc& acc, const T* as, const T* bs, int tid) {
     const int tx = tid % 16, ty = tid / 16;
 #pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
+    for (int kk = 0; kk < BK; kk += 4) {
       float4 a[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -281,9 +285,10 @@ struct Args {
 // C = round_T(A . B^T). Grid: (ceil(n / 128), ceil(m / 128)); the blocks of
 // one row of tiles run next to each other and share A's rows in L2.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) gemm_tile_kernel(Args p) {
+__global__ void __launch_bounds__(kThreads, Policy<T>::MIN_BLOCKS)
+    gemm_tile_kernel(Args p) {
   using P = Policy<T>;
-  constexpr int LDS = P::LDS;
+  constexpr int LDS = P::LDS, kBK = P::BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x;

@@ -226,14 +226,20 @@ struct PathBf16 {
     const float i0 = ss.inv[rg * 16 + g], i8 = ss.inv[rg * 16 + g + 8];
     const float* r0 = S + (rg * 16 + g) * lds + j0 + 2 * q;
     const float* r8 = r0 + 8 * lds;
+    // every step runs, the ones past the tile's padded width on zeros (v
+    // rows past N are zeros too), so that the loads of all four steps can
+    // be in flight together
 #pragma unroll
     for (int ks = 0; ks < KC / 16; ++ks) {
-      if (ks >= steps) break;
       const int k = ks * 16;
-      const float2 p00 = *reinterpret_cast<const float2*>(r0 + k);
-      const float2 p10 = *reinterpret_cast<const float2*>(r8 + k);
-      const float2 p01 = *reinterpret_cast<const float2*>(r0 + k + 8);
-      const float2 p11 = *reinterpret_cast<const float2*>(r8 + k + 8);
+      const bool in = ks < steps;
+      const float2 z = make_float2(0.f, 0.f);
+      const float2 p00 = in ? *reinterpret_cast<const float2*>(r0 + k) : z;
+      const float2 p10 = in ? *reinterpret_cast<const float2*>(r8 + k) : z;
+      const float2 p01 =
+          in ? *reinterpret_cast<const float2*>(r0 + k + 8) : z;
+      const float2 p11 =
+          in ? *reinterpret_cast<const float2*>(r8 + k + 8) : z;
       const uint32_t a[4] = {pack_bf16(p00.x * i0, p00.y * i0),
                              pack_bf16(p10.x * i8, p10.y * i8),
                              pack_bf16(p01.x * i0, p01.y * i0),
@@ -313,7 +319,6 @@ struct PathF32 {
   __device__ static void scores(State& st, float* S, int lds, const T* qs,
                                 const T* ks_, int j0, int n, int tid) {
     const int tx = tid % 16, ty = tid / 16;
-    const int jn = (n - j0 + 15) / 16;  // 16-key groups with a valid key
     float acc[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -326,8 +331,7 @@ struct PathF32 {
       for (int i = 0; i < 4; ++i)
         a[i] = *reinterpret_cast<const float4*>(qs + (ty + RY * i) * LDK + k);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j >= jn) break;
+      for (int j = 0; j < 8; ++j) {  // k rows past N are zeros
         const float4 b =
             *reinterpret_cast<const float4*>(ks_ + (tx + 16 * j) * LDK + k);
 #pragma unroll
@@ -373,6 +377,7 @@ struct PathF32 {
                             const T* vs, int j0, int npad, int, int tid) {
     const int cx = tid % CG, ry = (tid / CG) % RY, sp = tid / (CG * RY);
     const int kn = npad - j0 < KC ? npad - j0 : KC;
+#pragma unroll 2
     for (int m = sp; m < kn / 4; m += SPLITS) {
       const int k = 4 * m;
       float4 p[4];
@@ -457,8 +462,11 @@ __device__ void softmax_rows(float* S, Stats ss, int lds, int n, int npad,
 }
 
 // one block per (batch, head, R query rows); 4R threads
+// (f32: min. 1 block an SM, or ptxas holds it to 128 registers and spills
+// its tiles; bf16: 2, so that it stays within 128 and two blocks fit)
 template <typename T, int DMAX, int R>
-__global__ void __launch_bounds__(4 * R) sa_eval_kernel(Args a) {
+__global__ void __launch_bounds__(4 * R, std::is_same<T, float>::value ? 1 : 2)
+    sa_eval_kernel(Args a) {
   using P = Path<T, DMAX, R>;
   constexpr int THREADS = 4 * R, KC = P::KC, LDK = P::LDK;
   extern __shared__ __align__(16) unsigned char smem_raw[];

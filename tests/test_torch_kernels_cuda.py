@@ -335,7 +335,7 @@ def test_maxpool_autograd_memory_formats_and_refusals(cuda, dtype):
 # 8 heads of 64), ragged token counts, and head dims 16, 32 and 128; then
 # the edges of #13's tiles: N = MAX_TOKENS (its 32-row blocks), N = 1000
 # at d = 128 (f32: one chunk buffer, two do not fit), one token, C = 80
-# (not a multiple of the projection's 32-deep K step) and d = 12 (bf16
+# (not a multiple of the projection's K step, 32 or 64) and d = 12 (bf16
 # rows of q, k, v off 16 bytes: copied element by element)
 SA_SHAPES = [(64, 196, 512, 8), (64, 392, 512, 8), (3, 197, 512, 8),
              (2, 52, 512, 8), (2, 9, 128, 8), (2, 70, 96, 3), (2, 33, 256, 2),
