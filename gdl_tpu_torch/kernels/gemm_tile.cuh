@@ -1,12 +1,14 @@
-// A block-tile GEMM for Hopper: C[M, N] = round_T(A[M, K] . B[N, K]^T),
+// A block-tile GEMM for Hopper: C[M, N] = round_T(epi(A[M, K] . B[N, K]^T)),
 // both operands K-contiguous (x [rows, C] and a weight in nn.Linear layout
-// [out, in]), sums in f32, one rounding to T in the epilogue.
+// [out, in]), sums in f32, an epilogue in f32 on each sum, one rounding to
+// T at the store.
 //
 // What it replaces. The qkv projection of `_sa_xw_eval_kernel`
 // (gdl_tpu/ops/self_attention.py:637, the product at :644-648: x . W in
-// f32, rounded to T) for kernel #13; written so that #15's fc1 and fc2
-// (`_mlp_kernel`, gdl_tpu/ops/mlp.py:69) can take it with an epilogue of
-// their own.
+// f32, rounded to T) for kernel #13, with the identity epilogue; and #15's
+// fc1 and fc2 (`_mlp_kernel`, gdl_tpu/ops/mlp.py:69), with the bias and
+// GELU epilogues of mlp_fused.cu. The epilogue is a type parameter of the
+// kernel, so each caller's instantiation has its own symbol.
 //
 // What bounds it on this card. At the mmformer shapes (M = 64 * 392 rows,
 // K = 512, N = 1536) the product is 2MNK = 39.5 GFLOP against 0.1 GB of
@@ -18,7 +20,8 @@
 //
 // What the design does about it:
 //   - a 128 x 128 block tile over K steps 64 deep (bf16) or 32 (f32),
-//     256 threads (8 warps);
+//     256 threads (8 warps); or 64 x 128 (the BM parameter), which a
+//     caller takes where the 128-row grid would leave SMs idle;
 //   - the operand tiles come in through a ring of kStages cp.async stages
 //     in dynamic shared memory (16-byte copies), so the loads of step
 //     k + 2 run under the products of step k. The ragged M, N and K edges
@@ -27,11 +30,11 @@
 //     pointer off 16 bytes) the tile is copied element by element through
 //     registers instead: the same ring, synchronous copies;
 //   - bf16: mma.sync m16n8k16 (bf16 in, f32 sums) on fragments from
-//     ldmatrix, on the tensor cores. Each warp owns a 64 x 32 sub-tile
-//     (4 x 4 fragments, 64 f32 sums a thread). The tile rows are padded to
-//     72 elements (144 bytes), so the eight rows an ldmatrix phase reads
-//     fall on distinct banks;
-//   - f32: register-blocked FMA, 8 x 8 sums a thread (rows ty + 16 i,
+//     ldmatrix, on the tensor cores. Each warp owns a BM/2 x 32 sub-tile
+//     (BM/32 x 4 fragments, BM/2 f32 sums a thread). The tile rows are
+//     padded to 72 elements (144 bytes), so the eight rows an ldmatrix
+//     phase reads fall on distinct banks;
+//   - f32: register-blocked FMA, BM/16 x 8 sums a thread (rows ty + 16 i,
 //     columns tx + 16 j), float4 reads along K from rows padded to 36
 //     floats: 16 shared-memory reads for every 256 FMAs. No TF32 anywhere:
 //     f32 stays f32, as torch.backends.cuda.matmul.allow_tf32 = False keeps
@@ -51,9 +54,15 @@
 namespace gemm {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 128;  // rows of C per block
+constexpr int kBM = 128;  // rows of C per block (64 is the other choice)
 constexpr int kBN = 128;  // columns of C per block
 constexpr int kStages = 3;
+
+// The epilogue maps the f32 sum of output (row, col) to the f32 value
+// that is rounded to T and stored: epi(v, col). The identity is #13's.
+struct Identity {
+  __device__ float operator()(float v, int) const { return v; }
+};
 
 // ---- PTX helpers (shared with the attention kernels) ----------------------
 
@@ -151,18 +160,19 @@ __device__ inline void load_tile(T* dst, int lds, const T* src, size_t ld,
 
 // ---- the two inner-product policies ---------------------------------------
 
-template <typename T>
+template <typename T, int BM>
 struct Policy;
 
-// bf16 on the tensor cores; warp (wm, wn) owns rows wm*64 .. +63 and
+// bf16 on the tensor cores; warp (wm, wn) owns rows wm*BM/2 .. +BM/2-1 and
 // columns wn*32 .. +31 of the block tile
-template <>
-struct Policy<__nv_bfloat16> {
+template <int BM>
+struct Policy<__nv_bfloat16, BM> {
+  static_assert(BM == 64 || BM == 128, "row tile");
   using T = __nv_bfloat16;
   static constexpr int BK = 64;        // K per stage
   static constexpr int LDS = BK + 8;   // 144-byte rows
   static constexpr int MIN_BLOCKS = 2;  // an SM: at most 128 registers
-  static constexpr int MT = 4, NT = 4;  // 16 x 8 fragments a warp
+  static constexpr int MT = BM / 32, NT = 4;  // 16 x 8 fragments a warp
   struct Acc {
     float c[MT][NT][4];
   };
@@ -184,7 +194,7 @@ struct Policy<__nv_bfloat16> {
       uint32_t a[MT][4], b[NT][2];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        ldsm_x4(a[i], as + (wm * 64 + i * 16 + lane % 16) * LDS + kk +
+        ldsm_x4(a[i], as + (wm * (BM / 2) + i * 16 + lane % 16) * LDS + kk +
                           (lane / 16) * 8);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -208,7 +218,7 @@ struct Policy<__nv_bfloat16> {
     for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const int r = wm * 64 + i * 16 + g, c = wn * 32 + j * 8 + 2 * q;
+        const int r = wm * (BM / 2) + i * 16 + g, c = wn * 32 + j * 8 + 2 * q;
         fn(r, c, acc.c[i][j][0], acc.c[i][j][1]);
         fn(r + 8, c, acc.c[i][j][2], acc.c[i][j][3]);
       }
@@ -216,20 +226,23 @@ struct Policy<__nv_bfloat16> {
 };
 
 // f32 on SIMT FMA; thread (ty, tx) = (tid / 16, tid % 16) owns rows
-// ty + 16 i and columns tx + 16 j, i, j < 8
-template <>
-struct Policy<float> {
+// ty + 16 i and columns tx + 16 j, i < MI = BM / 16, j < 8
+template <int BM>
+struct Policy<float, BM> {
+  static_assert(BM == 64 || BM == 128, "row tile");
   using T = float;
   static constexpr int BK = 32;        // K per stage
   static constexpr int LDS = BK + 4;   // 36 floats: float4 rows, no conflicts
-  static constexpr int MIN_BLOCKS = 1;  // the 8 x 8 tile needs > 128 registers
+  static constexpr int MI = BM / 16;
+  // the 8 x 8 tile needs > 128 registers, the 4 x 8 tile fewer
+  static constexpr int MIN_BLOCKS = BM == 128 ? 1 : 2;
   struct Acc {
-    float c[8][8];
+    float c[MI][8];
   };
 
   __device__ static void zero(Acc& acc) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc.c[i][j] = 0.f;
   }
@@ -238,16 +251,16 @@ struct Policy<float> {
     const int tx = tid % 16, ty = tid / 16;
 #pragma unroll 2
     for (int kk = 0; kk < BK; kk += 4) {
-      float4 a[8];
+      float4 a[MI];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < MI; ++i)
         a[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * LDS + kk);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float4 b =
             *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * LDS + kk);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < MI; ++i) {
           float s = acc.c[i][j];
           s = fmaf(a[i].x, b.x, s);
           s = fmaf(a[i].y, b.y, s);
@@ -263,15 +276,15 @@ struct Policy<float> {
   __device__ static void each(const Acc& acc, int tid, F fn) {
     const int tx = tid % 16, ty = tid / 16;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) fn(ty + 16 * i, tx + 16 * j, acc.c[i][j]);
   }
 };
 
-template <typename T>
+template <typename T, int BM>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * kStages * (kBM + kBN) * Policy<T>::LDS;
+  return sizeof(T) * kStages * (BM + kBN) * Policy<T, BM>::LDS;
 }
 
 struct Args {
@@ -282,31 +295,32 @@ struct Args {
   int vec;  // 1: rows and pointers are 16-byte aligned
 };
 
-// C = round_T(A . B^T). Grid: (ceil(n / 128), ceil(m / 128)); the blocks of
-// one row of tiles run next to each other and share A's rows in L2.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, Policy<T>::MIN_BLOCKS)
-    gemm_tile_kernel(Args p) {
-  using P = Policy<T>;
+// C = round_T(epi(A . B^T)). Grid: (ceil(n / 128), ceil(m / BM)); the
+// blocks of one row of tiles run next to each other and share A's rows in
+// L2.
+template <typename T, int BM = kBM, typename Epi = Identity>
+__global__ void __launch_bounds__(kThreads, Policy<T, BM>::MIN_BLOCKS)
+    gemm_tile_kernel(Args p, Epi epi) {
+  using P = Policy<T, BM>;
   constexpr int LDS = P::LDS, kBK = P::BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.y * kBM, c0 = blockIdx.x * kBN;
+  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kBN;
   const T* a = static_cast<const T*>(p.a) + static_cast<size_t>(r0) * p.k;
   const T* b = static_cast<const T*>(p.b) + static_cast<size_t>(c0) * p.k;
   const int vr = p.m - r0, vc = p.n - c0;
   const bool vec = p.vec != 0;
   const int steps = (p.k + kBK - 1) / kBK;
 
-  auto stage_a = [&](int s) { return smem + s * (kBM + kBN) * LDS; };
+  auto stage_a = [&](int s) { return smem + s * (BM + kBN) * LDS; };
   auto issue = [&](int kt) {
     if (kt < steps) {
       T* as = stage_a(kt % kStages);
       const int k0 = kt * kBK;
-      load_tile<T, kThreads>(as, LDS, a + k0, p.k, kBM, kBK, vr, p.k - k0,
+      load_tile<T, kThreads>(as, LDS, a + k0, p.k, BM, kBK, vr, p.k - k0,
                              vec, tid);
-      load_tile<T, kThreads>(as + kBM * LDS, LDS, b + k0, p.k, kBN, kBK, vc,
+      load_tile<T, kThreads>(as + BM * LDS, LDS, b + k0, p.k, kBN, kBK, vc,
                              p.k - k0, vec, tid);
     }
     cp_async_commit();  // an empty group past the end keeps the count
@@ -321,7 +335,7 @@ __global__ void __launch_bounds__(kThreads, Policy<T>::MIN_BLOCKS)
     __syncthreads();  // ... for every thread; and step kt - 1 is consumed
     issue(kt + kStages - 1);  // into the slot step kt - 1 used
     const T* as = stage_a(kt % kStages);
-    P::step(acc, as, as + kBM * LDS, tid);
+    P::step(acc, as, as + BM * LDS, tid);
   }
   cp_async_wait<0>();
 
@@ -332,17 +346,20 @@ __global__ void __launch_bounds__(kThreads, Policy<T>::MIN_BLOCKS)
       const int gr = r0 + r, gc = c0 + col;
       if (gr >= p.m || gc >= p.n) return;
       T* dst = c + static_cast<size_t>(gr) * p.n + gc;
-      if (pairs) {
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+      const float e0 = epi(v0, gc);
+      if (pairs) {  // n even: gc is even and gc + 1 < n
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(e0, epi(v1, gc + 1));
       } else {
-        dst[0] = __float2bfloat16_rn(v0);
-        if (gc + 1 < p.n) dst[1] = __float2bfloat16_rn(v1);
+        dst[0] = __float2bfloat16_rn(e0);
+        if (gc + 1 < p.n) dst[1] = __float2bfloat16_rn(epi(v1, gc + 1));
       }
     });
   } else {
     P::each(acc, tid, [&](int r, int col, float v) {
       const int gr = r0 + r, gc = c0 + col;
-      if (gr < p.m && gc < p.n) c[static_cast<size_t>(gr) * p.n + gc] = v;
+      if (gr < p.m && gc < p.n)
+        c[static_cast<size_t>(gr) * p.n + gc] = epi(v, gc);
     });
   }
 }
@@ -354,17 +371,22 @@ inline bool aligned16(const void* a, const void* b, int k, size_t item) {
          reinterpret_cast<uintptr_t>(b) % 16 == 0;
 }
 
-template <typename T>
+// blocks of the grid at row tile bm
+inline long grid_blocks(int m, int n, int bm) {
+  return static_cast<long>((n + kBN - 1) / kBN) * ((m + bm - 1) / bm);
+}
+
+template <typename T, int BM = kBM, typename Epi = Identity>
 int launch(const void* a, const void* b, void* c, int m, int n, int k,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T>();
+           cudaStream_t stream, Epi epi = Epi()) {
+  constexpr size_t smem = smem_bytes<T, BM>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      gemm_tile_kernel<T, BM, Epi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   Args p{a, b, c, m, n, k, aligned16(a, b, k, sizeof(T)) ? 1 : 0};
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  gemm_tile_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((n + kBN - 1) / kBN, (m + BM - 1) / BM);
+  gemm_tile_kernel<T, BM, Epi><<<grid, kThreads, smem, stream>>>(p, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
