@@ -116,7 +116,8 @@ Phases, each printing one JSON line:
               (CUDA events), of F.scaled_dot_product_attention on the same
               q, k, v with bias + mask as its mask (#5), of #4 + three
               torch.matmul (#3) and of F.linear -> F.gelu -> F.linear
-              (#15);
+              (#15); #15's device time split into its fc1 and fc2
+              launches by a torch.profiler trace;
   m. flag train
               phase f's configuration, nothing cut, built through Config
               flags, serve.build_model and build_harness from one seed,
@@ -1769,6 +1770,8 @@ def phase_flag_parity(failures):
     import torch
     import torch.nn.functional as F
 
+    from gdl_tpu_torch.bench_common import split_ms
+    from gdl_tpu_torch.bench_mlp import mlp_part
     from gdl_tpu_torch.ops import mlp as mlp_ops
     from gdl_tpu_torch.ops import window_attention as wa
 
@@ -1941,6 +1944,11 @@ def phase_flag_parity(failures):
                        "library_ms": cuda_ms(chain),
                        "bytes": nbytes, "operations": ops,
                        "bound_ms": bound, "bound_by": by}
+                # device ms of one call by product (torch.profiler)
+                split, _ = split_ms(lambda: mlp_ops.mlp_fused_fwd(*args),
+                                    mlp_part, traced=5)
+                row["fc1_ms"] = split.get("fc1", 0.0)
+                row["fc2_ms"] = split.get("fc2", 0.0)
                 row["ok"] = (_fwd_ok(got, want, dtype)
                              and _fwd_ok(got, lib, dtype)
                              and row["bit_equal_rerun"] and row["supported"])
@@ -2663,14 +2671,14 @@ def main(argv=None) -> int:
         calls = {stage: 2 * depth for (stage, *_), depth in zip(STAGES,
                                                                DEPTHS)}
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
-                    "operations"):
+                    "operations", "fc1_ms", "fc2_ms"):
             entries[11][key] = sum(n * fm32[s][key] for s, n in calls.items())
         by = {"bytes": 0, "operations": 0}
         for s, n in calls.items():
             by[fm32[s]["bound_by"]] += n
         entries[11]["bound_by"] = max(by, key=by.get)
         entries[11]["bound_launches_by"] = by
-        for key in ("ms", "library_ms", "bound_ms"):
+        for key in ("ms", "library_ms", "bound_ms", "fc1_ms", "fc2_ms"):
             entries[11][key + "_bfloat16"] = sum(
                 calls[r["stage"]] * r[key] for r in flag_mlp
                 if r["dtype"] == "bfloat16")

@@ -6,7 +6,7 @@ forward on the GPU, and compare checkouts of this repository in turns.
 One eval forward of mmformer_n at batch 64 makes 7 launches of #13: 4 at
 x [64, 196, 512] and 3 at [64, 392, 512], 8 heads. For each dtype
 (float32, TF32 off; bfloat16) the script times, with CUDA events (median
-of REPS calls after a warm-up, one call between two events), at each
+of 20 calls after a warm-up, one call between two events), at each
 shape: the kernel, SDPA on the same q, k, v (the attention alone) and
 F.linear + SDPA (the same work in two library calls), and sums them over
 the 7 launches; `run_ms` times the kernel and `plain_run_ms` its plain
@@ -28,78 +28,34 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
+
+import gdl_tpu_torch
+
+# run by path for another checkout (--roots), whose package comes first:
+# the bench helpers are found beside this file (see bench_common)
+_HERE = os.path.dirname(os.path.abspath(__file__))
+if _HERE not in gdl_tpu_torch.__path__:
+    gdl_tpu_torch.__path__.append(_HERE)
+from gdl_tpu_torch.bench_common import (  # noqa: E402
+    cuda_ms,
+    nvidia_smi,
+    run_ms,
+    run_roots,
+    split_ms,
+)
 
 SITES = {"intra": ((64, 196, 512), 4), "inter": ((64, 392, 512), 3)}
 HEADS = 8
-REPS = 20
 TRACED = 10
 # kernel names of the projection, in this version and in earlier ones
 PROJECTION_NAMES = ("gemm", "proj")
 MARK = "bench_sa_eval "  # the result line, among whatever else is printed
 
 
-def _cuda_ms(fn, reps=REPS, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def _run_ms(fn, reps=REPS):
-    """Device ms of one call within a run of `reps` calls between two
-    CUDA events (the host enqueues ahead, so its own time hides)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def _split_ms(fn):
-    """Device ms of one call, by kernel: (projection, attention, names)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACED):
-            fn()
-        torch.cuda.synchronize()
-    split = {"projection": 0.0, "attention": 0.0}
-    names = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = ev.cuda_time_total
-        if t <= 0 or ev.key.startswith("cudaLaunch"):
-            continue
-        name = ev.key
-        part = ("projection" if any(k in name for k in PROJECTION_NAMES)
-                else "attention")
-        split[part] += t / 1e3 / TRACED
-        names[name[:80]] = t / 1e3 / TRACED
-    return split, names
+def _part(name: str) -> str:
+    return ("projection" if any(k in name for k in PROJECTION_NAMES)
+            else "attention")
 
 
 def worker() -> dict:
@@ -139,17 +95,17 @@ def worker() -> dict:
                     return F.scaled_dot_product_attention(q5[0], q5[1],
                                                           q5[2])
 
-                row = {"ms": _cuda_ms(kernel),
-                       "run_ms": _run_ms(kernel),
-                       "plain_run_ms": _run_ms(
+                row = {"ms": cuda_ms(kernel),
+                       "run_ms": run_ms(kernel),
+                       "plain_run_ms": run_ms(
                            lambda: self_attention_fused_eval(
                                x, w, HEADS, impl="plain"), reps=5),
-                       "sdpa_ms": _cuda_ms(
+                       "sdpa_ms": cuda_ms(
                            lambda: F.scaled_dot_product_attention(q, kk, v)),
-                       "linear_sdpa_ms": _cuda_ms(linear_sdpa)}
-                split, names = _split_ms(kernel)
-            row["projection_ms"] = split["projection"]
-            row["attention_ms"] = split["attention"]
+                       "linear_sdpa_ms": cuda_ms(linear_sdpa)}
+                split, names = split_ms(kernel, _part, TRACED)
+            row["projection_ms"] = split.get("projection", 0.0)
+            row["attention_ms"] = split.get("attention", 0.0)
             row["traced_kernels_ms"] = names
             sites[site] = row
             for key in tot:
@@ -179,27 +135,12 @@ def main(argv=None) -> int:
         runs = [res]
     else:
         runs = []
-        for root in args.roots:
-            root = os.path.abspath(root)
-            env = dict(os.environ, PYTHONPATH=root)
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--worker"],
-                cwd=root, env=env, capture_output=True, text=True,
-                check=True)
-            lines = [ln for ln in proc.stdout.splitlines()
-                     if ln.startswith(MARK)]
-            if not lines:
-                raise RuntimeError(f"{root}: no result\n{proc.stdout[-2000:]}"
-                                   f"\n{proc.stderr[-2000:]}")
-            res = json.loads(lines[-1][len(MARK):])
-            res["root"] = root
+        for res in run_roots(__file__, args.roots, MARK):
             runs.append(res)
-            print(json.dumps({"root": root, **{
+            print(json.dumps({"root": res["root"], **{
                 dt: r["per_eval_forward"] for dt, r in res["dtypes"].items()}}),
                 flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = nvidia_smi()
     print(smi, flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -97,7 +97,7 @@ LIBRARIES = {
     ),
     "mlp_fused": (
         "mlp_fused.cu",
-        {"gdl_mlp_fused_launch": ([_vp] * 6 + [_int] * 4 + [_vp], _int)},
+        {"gdl_mlp_fused_launch": ([_vp] * 7 + [_int] * 4 + [_vp], _int)},
     ),
 }
 

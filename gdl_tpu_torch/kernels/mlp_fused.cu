@@ -1,31 +1,36 @@
-// Fused transformer MLP (fc1 + exact GELU + fc2) forward for Hopper.
+// Transformer MLP (fc1 + exact GELU + fc2) forward for Hopper: kernel #15.
 //
 // gdl_mlp_fused_launch replaces gdl_tpu/ops/mlp.py::mlp_fused (kernel body
-// _mlp_kernel). On x [M, C], with the weights in nn.Linear layout
-// (w1 [hidden, C], w2 [C, hidden]):
+// _mlp_kernel, pallas_call at :136). On x [M, C], with the weights in
+// nn.Linear layout (w1 [hidden, C], w2 [C, hidden]):
 //
 //   h = x . w1^T + b1   (f32 accumulate, bias added in f32) -> round to T
 //   g = gelu(h)         (f32, erf by Abramowitz & Stegun 7.1.26) -> T
 //   o = g . w2^T + b2   (f32 accumulate, bias added in f32) -> round to T
 //
-// T is float or bfloat16; the rounding points are the TPU kernel's. The
-// [M, hidden] intermediates h and g never reach device memory. Forward
-// only: the backward recomputes them with plain ops, as gdl_tpu's does.
+// T is float or bfloat16; the rounding points are the TPU kernel's.
+// Forward only: the backward recomputes h and g with plain ops, as
+// gdl_tpu's does.
 //
-// Design (a first, simple one). A 256-thread block owns BM rows of x and
-// all C output columns, whose f32 sums it keeps in registers (BM * C / 256
-// a thread: 128 at most, which is what caps C at 1024 with BM = 32). It
-// walks the hidden axis in chunks of 64: the chunk of h is a [BM, 64]
-// product over C with x and w1 streamed through shared memory 32 columns
-// at a time (x is read again for every chunk, from L2); bias, rounding,
-// GELU and rounding leave g [BM, 64] in shared memory; then 16 hidden
-// columns of w2 at a time are staged and o += g . w2^T. Both products run
-// on the CUDA cores in f32 FMA. What bounds it on the H100: the
-// 4 * M * C * hidden operations at the SIMT f32 rate; each block re-reads
-// both weight matrices from L2 (M / BM times over in all), so small M per
-// weight byte is the expensive corner. One block of 8 warps fits an SM
-// (registers), so loads and FMAs overlap little. Tensor-core products,
-// TMA and double buffering are later work.
+// What bounds it on the H100. 4 M C hidden operations against
+// (2 M C + 2 C hidden) elements moved once: at the Swin-B shapes
+// (hidden = 4C, C = 128 .. 1024) thousands of operations a byte, far on
+// the operations side in both dtypes (989 TFLOP/s bf16 on the tensor
+// cores, 67 TFLOP/s f32 on SIMT FMA).
+//
+// Design: two launches of the shared block-tile GEMM (gemm_tile.cuh) on
+// the caller's stream, each with an epilogue of its own:
+//   fc1: g [M, hidden] = round_T(gelu(round_T(x . w1^T + b1)))   K = C
+//   fc2: o [M, C]      = round_T(g . w2^T + b2)                  K = hidden
+// bf16 runs on the tensor cores (mma.sync); f32 still runs the first
+// design (namespace first below) for now. g goes through device memory in T, which is where
+// the TPU kernel rounds it: a tile that kept all C output columns of a
+// row block on the chip (what a single fused launch needs, as the TPU
+// keeps them in VMEM) would hold 128 x 1024 f32 sums at C = 1024, twice an
+// SM's register file. The round trip costs 2 M hidden elements of
+// traffic a call, small beside the products at these shapes (it is not
+// counted in the function's bound). K is never split: every output is one
+// thread's sum in a fixed order, so a call gives the same bits every time.
 //
 // expf is the accurate one (not __expf): with it the erf above is within
 // 1.5e-7 of the exact one, as on the TPU.
@@ -36,34 +41,25 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "gemm_tile.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kHC = 64;   // hidden columns per chunk
-constexpr int kKC = 32;   // C columns of x and w1 staged per step
-constexpr int kHS = 16;   // hidden columns of w2 staged per step
+namespace mlp {
 
 template <typename T>
 struct Num;
 
 template <>
 struct Num<float> {
-  __device__ static float load(const float* p) { return *p; }
+  __device__ static float f32(float v) { return v; }
   __device__ static float round(float v) { return v; }
-  __device__ static float store(float v) { return v; }
 };
 
 template <>
 struct Num<__nv_bfloat16> {
-  __device__ static float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
+  __device__ static float f32(__nv_bfloat16 v) { return __bfloat162float(v); }
   // round-to-nearest-even, as XLA's and PyTorch's bf16 casts
   __device__ static float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  __device__ static __nv_bfloat16 store(float v) {
-    return __float2bfloat16_rn(v);
   }
 };
 
@@ -82,6 +78,72 @@ __device__ __forceinline__ float erf_as(float x) {
 __device__ __forceinline__ float gelu_as(float x) {
   return x * 0.5f * (1.0f + erf_as(x * 0.70710678118654752440f));
 }
+
+// fc1's epilogue: gelu(round_T(v + b1[col])); the store rounds g to T
+template <typename T>
+struct Fc1Gelu {
+  const T* bias;
+  __device__ float operator()(float v, int col) const {
+    return gelu_as(Num<T>::round(v + Num<T>::f32(bias[col])));
+  }
+};
+
+// fc2's epilogue: v + b2[col]; the store rounds o to T
+template <typename T>
+struct Fc2Bias {
+  const T* bias;
+  __device__ float operator()(float v, int col) const {
+    return v + Num<T>::f32(bias[col]);
+  }
+};
+
+// c [m, n] = round_T(epi(a [m, k] . b [n, k]^T))
+template <typename T, typename Epi>
+int product(const void* a, const void* b, void* c, int m, int n, int k,
+            Epi epi, cudaStream_t s) {
+  return gemm::launch<T, 128>(a, b, c, m, n, k, s, epi);
+}
+
+template <typename T>
+int launch(const void* x, const void* w1, const void* b1, const void* w2,
+           const void* b2, void* g, void* o, int m, int c, int hidden,
+           cudaStream_t s) {
+  const int err = product<T>(x, w1, g, m, hidden, c,
+                             Fc1Gelu<T>{static_cast<const T*>(b1)}, s);
+  if (err != 0) return err;
+  return product<T>(g, w2, o, m, c, hidden,
+                    Fc2Bias<T>{static_cast<const T*>(b2)}, s);
+}
+
+namespace first {
+constexpr int kThreads = 256;
+constexpr int kHC = 64;   // hidden columns per chunk
+constexpr int kKC = 32;   // C columns of x and w1 staged per step
+constexpr int kHS = 16;   // hidden columns of w2 staged per step
+
+template <typename T>
+struct OldNum;
+
+template <>
+struct OldNum<float> {
+  __device__ static float load(const float* p) { return *p; }
+  __device__ static float round(float v) { return v; }
+  __device__ static float store(float v) { return v; }
+};
+
+template <>
+struct OldNum<__nv_bfloat16> {
+  __device__ static float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  // round-to-nearest-even, as XLA's and PyTorch's bf16 casts
+  __device__ static float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  __device__ static __nv_bfloat16 store(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
 
 template <int BM, int NJ>
 struct MlpSmem {
@@ -133,14 +195,14 @@ mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
         const int r = e / kKC, kk = e % kKC;
         xs[r * S::kLdK + kk] =
             (row0 + r < m && k0 + kk < c)
-                ? Num<T>::load(x + static_cast<size_t>(row0 + r) * c + k0 + kk)
+                ? OldNum<T>::load(x + static_cast<size_t>(row0 + r) * c + k0 + kk)
                 : 0.f;
       }
       for (int e = tid; e < kHC * kKC; e += kThreads) {
         const int hh = e / kKC, kk = e % kKC;
         w1s[hh * S::kLdK + kk] =
             (h0 + hh < hidden && k0 + kk < c)
-                ? Num<T>::load(w1 + static_cast<size_t>(h0 + hh) * c + k0 + kk)
+                ? OldNum<T>::load(w1 + static_cast<size_t>(h0 + hh) * c + k0 + kk)
                 : 0.f;
       }
       __syncthreads();
@@ -168,8 +230,8 @@ mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
         float g = 0.f;
         if (h0 + hh < hidden) {
           const float h =
-              Num<T>::round(hacc[a][j] + Num<T>::load(b1 + h0 + hh));
-          g = Num<T>::round(gelu_as(h));
+              OldNum<T>::round(hacc[a][j] + OldNum<T>::load(b1 + h0 + hh));
+          g = OldNum<T>::round(gelu_as(h));
         }
         gs[(ty + 16 * a) * S::kLdG + hh] = g;
       }
@@ -181,7 +243,7 @@ mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
         const int col = e / kHS, hh = e % kHS;
         w2s[hh * S::kLdC + col] =
             (col < c && h0 + hs + hh < hidden)
-                ? Num<T>::load(w2 + static_cast<size_t>(col) * hidden + h0 +
+                ? OldNum<T>::load(w2 + static_cast<size_t>(col) * hidden + h0 +
                                hs + hh)
                 : 0.f;
       }
@@ -209,12 +271,12 @@ mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   for (int j = 0; j < NJ; ++j) {
     const int col = tc + 64 * j;
     if (col >= c) continue;
-    const float bias = Num<T>::load(b2 + col);
+    const float bias = OldNum<T>::load(b2 + col);
 #pragma unroll
     for (int a = 0; a < RM; ++a) {
       const int r = row0 + rg * RM + a;
       if (r < m)
-        o[static_cast<size_t>(r) * c + col] = Num<T>::store(oacc[a][j] + bias);
+        o[static_cast<size_t>(r) * c + col] = OldNum<T>::store(oacc[a][j] + bias);
     }
   }
 }
@@ -251,21 +313,26 @@ int dispatch(const void* x, const void* w1, const void* b1, const void* w2,
   return launch<T, 32, 16>(x, w1, b1, w2, b2, o, m, c, hidden, s);
 }
 
-}  // namespace
+}  // namespace first
+
+}  // namespace mlp
 
 // x [m, c], w1 [hidden, c], b1 [hidden], w2 [c, hidden], b2 [c] in T
-// (dtype 0: float32, 1: bfloat16); writes o [m, c] in T. c <= 1024.
-// Returns a cudaError_t (0 on success).
+// (dtype 0: float32, 1: bfloat16); g [m, hidden] in T is the caller's
+// workspace for gelu(fc1); writes o [m, c] in T. Returns a cudaError_t
+// (0 on success).
 extern "C" int gdl_mlp_fused_launch(const void* x, const void* w1,
                                     const void* b1, const void* w2,
-                                    const void* b2, void* o, int m, int c,
-                                    int hidden, int dtype, void* stream) {
+                                    const void* b2, void* g, void* o, int m,
+                                    int c, int hidden, int dtype,
+                                    void* stream) {
   if (m < 1 || c < 1 || c > 1024 || hidden < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(x, w1, b1, w2, b2, o, m, c, hidden, s);
+    return mlp::first::dispatch<float>(x, w1, b1, w2, b2, o, m, c, hidden, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, w1, b1, w2, b2, o, m, c, hidden, s);
+    return mlp::launch<__nv_bfloat16>(x, w1, b1, w2, b2, g, o, m, c, hidden,
+                                      s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

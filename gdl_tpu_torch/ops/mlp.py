@@ -9,10 +9,13 @@
 
 with the weights in nn.Linear layout (w1 [hidden, C], w2 [C, hidden];
 gdl_tpu stores their transposes). On a CUDA tensor the forward is one
-launch of `kernels/mlp_fused.cu` (kernel #15, Pallas body `_mlp_kernel`),
-which keeps the [M, hidden] intermediates on the chip. Like gdl_tpu's, the
-op saves nothing score-sized: its backward recomputes h and g from the
-inputs with plain ops (`mlp_ref`) and takes that chain's gradients.
+call of `kernels/mlp_fused.cu` (kernel #15, Pallas body `_mlp_kernel`):
+two launches of the shared GEMM tile on the current stream, fc1 with the
+bias and GELU in its epilogue, then fc2 with its bias, g passing between
+them in x's dtype through a workspace this wrapper allocates. Like
+gdl_tpu's, the op saves nothing score-sized: its backward recomputes h and
+g from the inputs with plain ops (`mlp_ref`) and takes that chain's
+gradients.
 
 Three plain versions, as in gdl_tpu: `mlp_ref` is the dense chain at the
 kernel's dtype staging with the exact GELU (the chain the model runs when
@@ -41,7 +44,7 @@ from gdl_tpu_torch.ops.window_attention import (
 )
 
 KERNEL_NAME = "mlp_fused"
-# a block keeps BM x C float32 sums in registers, 128 a thread at BM = 32
+# kept from the first design (see mlp_kernel_supported)
 MAX_C = 1024
 
 
@@ -90,12 +93,12 @@ def mlp_fused_ref(x, w1, b1, w2, b2):
 
 def mlp_kernel_supported(m: int, c: int, hidden: int,
                          dtype: torch.dtype) -> bool:
-    """Where kernel #15 runs: float32 or bfloat16 and C <= 1024. A block
-    keeps its [BM, C] float32 output sums in registers (BM·C/256 a thread,
-    128 at BM = 32 and C = 1024) and stages 16 hidden columns of w2 for
-    all C in shared memory (64 KB there); M and hidden are free (ragged
-    edges are masked). All four Swin-B stages qualify. Unlike gdl_tpu's
-    rule, the weights need not fit on the chip: they stream from L2."""
+    """Where kernel #15 runs: float32 or bfloat16 and C <= 1024; M and
+    hidden are free (ragged edges are masked). All four Swin-B stages
+    qualify. The cap on C is kept from the first design, whose block held
+    all C output sums of its rows in registers, so that no model path
+    changes which op it runs; the GEMM tile of the present design takes
+    any C. Unlike gdl_tpu's rule, the weights need not fit on the chip."""
     return dtype in _DTYPE_CODES and 1 <= c <= MAX_C and m >= 1 \
         and hidden >= 1
 
@@ -110,12 +113,13 @@ def _launch(x, w1, b1, w2, b2):
                              f"{tuple(t.shape)} {t.dtype}")
     _require_cuda([x, w1, b1, w2, b2], x)
     lib = kernels.load("mlp_fused")
+    g = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.gdl_mlp_fused_launch(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), m, c, hidden, _DTYPE_CODES[x.dtype],
-        stream)
+        b2.data_ptr(), g.data_ptr(), out.data_ptr(), m, c, hidden,
+        _DTYPE_CODES[x.dtype], stream)
     _raise_on(err, KERNEL_NAME)
     kernels.launch_counts[KERNEL_NAME] += 1
     return out

@@ -36,7 +36,10 @@ import time
 
 # kind → substrings of the CUDA kernel's name, first match wins
 KINDS = (
-    # gemm_tile_kernel is #13's projection (kernels/gemm_tile.cuh)
+    # #15's fc1 and fc2 are gemm_tile_kernel (kernels/gemm_tile.cuh) with
+    # the epilogues of namespace mlp in their symbols; every other
+    # gemm_tile_kernel is #13's projection, so this row comes first
+    ("mlp_fused (#15)", ("mlp::",)),
     ("self_attention (#10, #11, #12, #13)", ("sa_proj_kernel",
                                              "sa_tile_kernel",
                                              "sa_bwd_kv_kernel",
@@ -52,7 +55,6 @@ KINDS = (
                                         "wa_packed_kernel")),
     ("window_attention (#1, #2, #4, #5, #7 forward)", ("wa_fwd_kernel",
                                                       "wa_bwd_kernel")),
-    ("mlp_fused (#15)", ("mlp_kernel",)),
     ("batch_norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm")),
     # cuDNN's FFT convolution algorithms also call cuBLAS complex GEMMs,
     # which land under "gemm"

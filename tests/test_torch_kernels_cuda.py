@@ -703,10 +703,16 @@ def test_qkv_op_runs_kernels_5_and_4_or_delta(cuda, dtype):
 
 
 # x [M, C] of the MLP of each Swin-B stage at batch 32 (both encoders see
-# the same), a ragged M, and a C and hidden that are no multiples of 64
+# the same), a ragged M, and a C and hidden that are no multiples of 64;
+# then the edges of the GEMM tile: C = 100 (bf16 rows of x and w1 off 16
+# bytes: the element-by-element copies), an odd hidden (fc1's unpaired
+# bf16 store, and g's rows off 16 bytes for fc2), one row, and M = 1568 at
+# C = 512, where f32's fc1 takes the 64-row tile (as fc2 does at stage2)
 MLP_SHAPES = [(100352, 128, 512), (25088, 256, 1024), (6272, 512, 2048),
-              (1568, 1024, 4096), (1000, 96, 200)]
-MLP_IDS = ["stage0", "stage1", "stage2", "stage3", "ragged"]
+              (1568, 1024, 4096), (1000, 96, 200), (777, 100, 400),
+              (300, 64, 255), (1, 128, 512), (1568, 512, 2048)]
+MLP_IDS = ["stage0", "stage1", "stage2", "stage3", "ragged", "c100",
+           "odd_hidden", "m1", "m1568_bm64"]
 
 
 @pytest.mark.cuda
