@@ -22,8 +22,8 @@
 // the caller's stream, each with an epilogue of its own:
 //   fc1: g [M, hidden] = round_T(gelu(round_T(x . w1^T + b1)))   K = C
 //   fc2: o [M, C]      = round_T(g . w2^T + b2)                  K = hidden
-// bf16 runs on the tensor cores (mma.sync); f32 still runs the first
-// design (namespace first below) for now. g goes through device memory in T, which is where
+// bf16 runs on the tensor cores (mma.sync), f32 on the register-blocked
+// FMA tile (no TF32). g goes through device memory in T, which is where
 // the TPU kernel rounds it: a tile that kept all C output columns of a
 // row block on the chip (what a single fused launch needs, as the TPU
 // keeps them in VMEM) would hold 128 x 1024 f32 sums at C = 1024, twice an
@@ -115,206 +115,6 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
                     Fc2Bias<T>{static_cast<const T*>(b2)}, s);
 }
 
-namespace first {
-constexpr int kThreads = 256;
-constexpr int kHC = 64;   // hidden columns per chunk
-constexpr int kKC = 32;   // C columns of x and w1 staged per step
-constexpr int kHS = 16;   // hidden columns of w2 staged per step
-
-template <typename T>
-struct OldNum;
-
-template <>
-struct OldNum<float> {
-  __device__ static float load(const float* p) { return *p; }
-  __device__ static float round(float v) { return v; }
-  __device__ static float store(float v) { return v; }
-};
-
-template <>
-struct OldNum<__nv_bfloat16> {
-  __device__ static float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  // round-to-nearest-even, as XLA's and PyTorch's bf16 casts
-  __device__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  __device__ static __nv_bfloat16 store(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
-
-template <int BM, int NJ>
-struct MlpSmem {
-  static constexpr int kLdK = kKC + 1;
-  static constexpr int kLdG = kHC + 1;
-  static constexpr int kLdC = 64 * NJ + 1;
-  // xs [BM][kLdK], w1s [kHC][kLdK], gs [BM][kLdG], w2s [kHS][kLdC]
-  static constexpr int kFloats =
-      BM * kLdK + kHC * kLdK + BM * kLdG + kHS * kLdC;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
-};
-
-// NJ = ceil(C / 64) output columns per thread; BM rows per block
-template <typename T, int BM, int NJ>
-__global__ void __launch_bounds__(kThreads)
-mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-           const T* __restrict__ b1, const T* __restrict__ w2,
-           const T* __restrict__ b2, T* __restrict__ o, int m, int c,
-           int hidden) {
-  using S = MlpSmem<BM, NJ>;
-  constexpr int RA = BM / 16;  // fc1: rows ty + 16a, columns tx + 16j, j < 4
-  constexpr int RM = BM / 4;   // fc2: rows rg * RM + a, columns tc + 64j
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* w1s = xs + BM * S::kLdK;
-  float* gs = w1s + kHC * S::kLdK;
-  float* w2s = gs + BM * S::kLdG;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int tc = tid % 64, rg = tid / 64;
-  const int row0 = blockIdx.x * BM;
-
-  float oacc[RM][NJ];
-#pragma unroll
-  for (int a = 0; a < RM; ++a)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) oacc[a][j] = 0.f;
-
-  for (int h0 = 0; h0 < hidden; h0 += kHC) {
-    // ---- h chunk = x tile . w1[h0 : h0 + 64]^T, f32 accumulate ----------
-    float hacc[RA][4];
-#pragma unroll
-    for (int a = 0; a < RA; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) hacc[a][j] = 0.f;
-    for (int k0 = 0; k0 < c; k0 += kKC) {
-      for (int e = tid; e < BM * kKC; e += kThreads) {
-        const int r = e / kKC, kk = e % kKC;
-        xs[r * S::kLdK + kk] =
-            (row0 + r < m && k0 + kk < c)
-                ? OldNum<T>::load(x + static_cast<size_t>(row0 + r) * c + k0 + kk)
-                : 0.f;
-      }
-      for (int e = tid; e < kHC * kKC; e += kThreads) {
-        const int hh = e / kKC, kk = e % kKC;
-        w1s[hh * S::kLdK + kk] =
-            (h0 + hh < hidden && k0 + kk < c)
-                ? OldNum<T>::load(w1 + static_cast<size_t>(h0 + hh) * c + k0 + kk)
-                : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kKC; ++kk) {
-        float xv[RA], wv[4];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) xv[a] = xs[(ty + 16 * a) * S::kLdK + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = w1s[(tx + 16 * j) * S::kLdK + kk];
-#pragma unroll
-        for (int a = 0; a < RA; ++a)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            hacc[a][j] = fmaf(xv[a], wv[j], hacc[a][j]);
-      }
-      __syncthreads();  // xs and w1s are overwritten by the next step
-    }
-    // ---- + b1 (f32) -> T -> gelu (f32) -> T, into gs ---------------------
-#pragma unroll
-    for (int a = 0; a < RA; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int hh = tx + 16 * j;
-        float g = 0.f;
-        if (h0 + hh < hidden) {
-          const float h =
-              OldNum<T>::round(hacc[a][j] + OldNum<T>::load(b1 + h0 + hh));
-          g = OldNum<T>::round(gelu_as(h));
-        }
-        gs[(ty + 16 * a) * S::kLdG + hh] = g;
-      }
-    // (the first barrier of the loop below orders gs before its reads)
-
-    // ---- o += g chunk . w2[:, h0 : h0 + 64]^T, f32 accumulate ------------
-    for (int hs = 0; hs < kHC; hs += kHS) {
-      for (int e = tid; e < kHS * 64 * NJ; e += kThreads) {
-        const int col = e / kHS, hh = e % kHS;
-        w2s[hh * S::kLdC + col] =
-            (col < c && h0 + hs + hh < hidden)
-                ? OldNum<T>::load(w2 + static_cast<size_t>(col) * hidden + h0 +
-                               hs + hh)
-                : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int hh = 0; hh < kHS; ++hh) {
-        float gv[RM], wv[NJ];
-#pragma unroll
-        for (int a = 0; a < RM; ++a)
-          gv[a] = gs[(rg * RM + a) * S::kLdG + hs + hh];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) wv[j] = w2s[hh * S::kLdC + tc + 64 * j];
-#pragma unroll
-        for (int a = 0; a < RM; ++a)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            oacc[a][j] = fmaf(gv[a], wv[j], oacc[a][j]);
-      }
-      __syncthreads();  // w2s, then gs, are overwritten
-    }
-  }
-
-  // ---- + b2 (f32) -> T ---------------------------------------------------
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int col = tc + 64 * j;
-    if (col >= c) continue;
-    const float bias = OldNum<T>::load(b2 + col);
-#pragma unroll
-    for (int a = 0; a < RM; ++a) {
-      const int r = row0 + rg * RM + a;
-      if (r < m)
-        o[static_cast<size_t>(r) * c + col] = OldNum<T>::store(oacc[a][j] + bias);
-    }
-  }
-}
-
-template <typename T, int BM, int NJ>
-int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, void* o, int m, int c, int hidden,
-           cudaStream_t stream) {
-  constexpr size_t smem = MlpSmem<BM, NJ>::kBytes;
-  // above 48 KB a block's shared memory has to be granted explicitly
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      mlp_kernel<T, BM, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const unsigned grid = static_cast<unsigned>((m + BM - 1) / BM);
-  mlp_kernel<T, BM, NJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(o), m, c, hidden);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* x, const void* w1, const void* b1, const void* w2,
-             const void* b2, void* o, int m, int c, int hidden,
-             cudaStream_t s) {
-  // BM * 64 NJ / 256 sums a thread: 32, 64, 128, 128
-  if (c <= 128)
-    return launch<T, 64, 2>(x, w1, b1, w2, b2, o, m, c, hidden, s);
-  if (c <= 256)
-    return launch<T, 64, 4>(x, w1, b1, w2, b2, o, m, c, hidden, s);
-  if (c <= 512)
-    return launch<T, 64, 8>(x, w1, b1, w2, b2, o, m, c, hidden, s);
-  return launch<T, 32, 16>(x, w1, b1, w2, b2, o, m, c, hidden, s);
-}
-
-}  // namespace first
-
 }  // namespace mlp
 
 // x [m, c], w1 [hidden, c], b1 [hidden], w2 [c, hidden], b2 [c] in T
@@ -330,7 +130,7 @@ extern "C" int gdl_mlp_fused_launch(const void* x, const void* w1,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return mlp::first::dispatch<float>(x, w1, b1, w2, b2, o, m, c, hidden, s);
+    return mlp::launch<float>(x, w1, b1, w2, b2, g, o, m, c, hidden, s);
   if (dtype == 1)
     return mlp::launch<__nv_bfloat16>(x, w1, b1, w2, b2, g, o, m, c, hidden,
                                       s);

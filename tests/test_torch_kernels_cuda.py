@@ -764,6 +764,53 @@ def test_mlp_kernel_matches_plain(cuda, m, c, hidden, dtype):
 
 
 @pytest.mark.cuda
+def test_mlp_and_projection_gemms_are_distinct_instantiations(cuda):
+    """#15 and #13 both run the shared GEMM tile. A call of each counts
+    one launch under its own name only, and a profiler trace of the two
+    shows #15's fc1 and fc2 under symbols of their own epilogues (namespace
+    mlp), which profile_step files under #15, and #13's projection under
+    the identity's, filed under #13."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.mlp import mlp_fused_fwd
+    from gdl_tpu_torch.ops.self_attention import self_attention_fused_eval
+    from gdl_tpu_torch.profile_step import kind_of
+
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    rand = lambda *s: torch.randn(s, generator=gen, device=cuda)  # noqa
+    margs = (rand(256, 128), rand(512, 128), rand(512), rand(128, 512),
+             rand(128))
+    x, w = rand(2, 64, 128), rand(384, 128) * 128 ** -0.5
+    names = ("mlp_fused", "self_attention_fused_eval")
+    with torch.no_grad():
+        mlp_fused_fwd(*margs)
+        self_attention_fused_eval(x, w, 4)
+        torch.cuda.synchronize()
+        before = dict(kernels.launch_counts)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mlp_fused_fwd(*margs)
+            torch.cuda.synchronize()
+        mid = dict(kernels.launch_counts)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_sa:
+            self_attention_fused_eval(x, w, 4)
+            torch.cuda.synchronize()
+    after = kernels.launch_counts
+    assert [mid[n] - before[n] for n in names] == [1, 0]
+    assert [after[n] - mid[n] for n in names] == [0, 1]
+    mlp_gemms = {e.key for e in prof.key_averages()
+                 if "gemm_tile_kernel" in e.key}
+    sa_gemms = {e.key for e in prof_sa.key_averages()
+                if "gemm_tile_kernel" in e.key}
+    assert len(mlp_gemms) == 2 and len(sa_gemms) == 1, (mlp_gemms, sa_gemms)
+    assert not mlp_gemms & sa_gemms
+    assert {kind_of(k) for k in mlp_gemms} == {"mlp_fused (#15)"}
+    assert any("Fc1" in k for k in mlp_gemms)
+    assert any("Fc2" in k for k in mlp_gemms)
+    assert "#13" in kind_of(sa_gemms.pop())
+
+
+@pytest.mark.cuda
 def test_mlp_kernel_refuses_what_it_cannot_take(cuda):
     """Operands of mixed dtype raise; a C above 1024 is outside the
     supported set and runs the dense chain without a launch."""
