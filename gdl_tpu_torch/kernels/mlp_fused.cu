@@ -29,8 +29,11 @@
 // keeps them in VMEM) would hold 128 x 1024 f32 sums at C = 1024, twice an
 // SM's register file. The round trip costs 2 M hidden elements of
 // traffic a call, small beside the products at these shapes (it is not
-// counted in the function's bound). K is never split: every output is one
-// thread's sum in a fixed order, so a call gives the same bits every time.
+// counted in the function's bound). In f32, where the 128-row grid of a
+// product would end in a part-empty wave (fc2 at stage 2), that product
+// takes the 64-row tile, of which an SM holds two (see product). K is
+// never split: every output is one thread's sum in a fixed order, so a
+// call gives the same bits every time.
 //
 // expf is the accurate one (not __expf): with it the erf above is within
 // 1.5e-7 of the exact one, as on the TPU.
@@ -97,10 +100,32 @@ struct Fc2Bias {
   }
 };
 
-// c [m, n] = round_T(epi(a [m, k] . b [n, k]^T))
+// c [m, n] = round_T(epi(a [m, k] . b [n, k]^T)) on the 128-row tile, or
+// on the 64-row tile where that holds more blocks an SM (f32: two against
+// one; bf16 holds two of either) and the 128-row grid takes more than one
+// wave of resident blocks but less than two, so its last wave would leave
+// SMs idle. Measured at the Swin-B shapes: f32 fc2 at stage 2 (196 blocks)
+// 15% faster on the 64-row tile, fc2 at stage 3 (104 blocks, under one
+// wave) 12% slower; in bf16 the 64-row tile was as fast or slower
+// everywhere.
 template <typename T, typename Epi>
 int product(const void* a, const void* b, void* c, int m, int n, int k,
             Epi epi, cudaStream_t s) {
+  using P64 = gemm::Policy<T, 64>;
+  using P128 = gemm::Policy<T, 128>;
+  if constexpr (P64::MIN_BLOCKS > P128::MIN_BLOCKS) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // MIN_BLOCKS is what an SM holds of a tile: the launch bounds ask for
+    // it, and registers or shared memory allow no more
+    const long wave = static_cast<long>(P128::MIN_BLOCKS) * sms;
+    const long blocks = gemm::grid_blocks(m, n, 128);
+    if (blocks > wave && blocks < 2 * wave)
+      return gemm::launch<T, 64>(a, b, c, m, n, k, s, epi);
+  }
   return gemm::launch<T, 128>(a, b, c, m, n, k, s, epi);
 }
 
