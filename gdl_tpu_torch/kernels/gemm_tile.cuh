@@ -207,6 +207,21 @@ struct Policy<__nv_bfloat16, BM> {
     }
   }
 
+  // replaces every sum this thread holds by fn(col, sum), col in the tile
+  template <typename F>
+  __device__ static void map(Acc& acc, int tid, F fn) {
+    const int wn = tid / 64, q = tid % 4;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = wn * 32 + j * 8 + 2 * q;
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          acc.c[i][j][t] = fn(c + t % 2, acc.c[i][j][t]);
+      }
+  }
+
   // visits every element of the block tile this thread holds:
   // fn(row, col, v0, v1) for the column pair (col, col + 1)
   template <typename F>
@@ -270,6 +285,15 @@ struct Policy<float, BM> {
         }
       }
     }
+  }
+
+  template <typename F>
+  __device__ static void map(Acc& acc, int tid, F fn) {
+    const int tx = tid % 16;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc.c[i][j] = fn(tx + 16 * j, acc.c[i][j]);
   }
 
   template <typename F>
@@ -339,6 +363,13 @@ __global__ void __launch_bounds__(kThreads, Policy<T, BM>::MIN_BLOCKS)
   }
   cp_async_wait<0>();
 
+  // the epilogue on every sum, then the stores: the sums' epilogues are
+  // independent of each other and of the stores, so they interleave. A
+  // column past n takes the last column's arguments; it is never stored.
+  P::map(acc, tid, [&](int col, float v) {
+    const int gc = c0 + col;
+    return epi(v, gc < p.n ? gc : p.n - 1);
+  });
   T* c = static_cast<T*>(p.c);
   if constexpr (sizeof(T) == 2) {
     const bool pairs = p.n % 2 == 0;
@@ -346,20 +377,17 @@ __global__ void __launch_bounds__(kThreads, Policy<T, BM>::MIN_BLOCKS)
       const int gr = r0 + r, gc = c0 + col;
       if (gr >= p.m || gc >= p.n) return;
       T* dst = c + static_cast<size_t>(gr) * p.n + gc;
-      const float e0 = epi(v0, gc);
       if (pairs) {  // n even: gc is even and gc + 1 < n
-        *reinterpret_cast<__nv_bfloat162*>(dst) =
-            __floats2bfloat162_rn(e0, epi(v1, gc + 1));
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
       } else {
-        dst[0] = __float2bfloat16_rn(e0);
-        if (gc + 1 < p.n) dst[1] = __float2bfloat16_rn(epi(v1, gc + 1));
+        dst[0] = __float2bfloat16_rn(v0);
+        if (gc + 1 < p.n) dst[1] = __float2bfloat16_rn(v1);
       }
     });
   } else {
     P::each(acc, tid, [&](int r, int col, float v) {
       const int gr = r0 + r, gc = c0 + col;
-      if (gr < p.m && gc < p.n)
-        c[static_cast<size_t>(gr) * p.n + gc] = epi(v, gc);
+      if (gr < p.m && gc < p.n) c[static_cast<size_t>(gr) * p.n + gc] = v;
     });
   }
 }
