@@ -1758,8 +1758,12 @@ def phase_mmformer_switch(failures, smi: str):
 def mlp_cost(m: int, c: int, itemsize: int):
     """(bytes, operations) of one launch of the fused MLP (#15) at hidden
     = 4C: x and o and both weights and biases moved once; 2 operations
-    per multiply-add of the two products (16·M·C²)."""
-    return (2 * m * c + 8 * c * c + 5 * c) * itemsize, 16 * m * c * c
+    per multiply-add of the two products (16·M·C²). The bound is the
+    function's: g's round trip between the kernel's two products is not
+    counted."""
+    from gdl_tpu_torch.bench_mlp import cost
+
+    return cost(m, c, itemsize)[:2]
 
 
 def phase_flag_parity(failures):
