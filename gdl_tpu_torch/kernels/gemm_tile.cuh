@@ -52,6 +52,10 @@
 #include <cstdint>
 
 namespace gemm {
+// internal to each library that includes it: a static of a template here
+// (a launcher's attribute guard) must not be one object across the
+// libraries loaded into a process
+namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBM = 128;  // rows of C per block (64 is the other choice)
@@ -418,4 +422,5 @@ int launch(const void* a, const void* b, void* c, int m, int n, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
 }  // namespace gemm

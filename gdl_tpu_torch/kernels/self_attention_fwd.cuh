@@ -68,6 +68,7 @@
 
 #include <cstdint>
 
+#include "gemm_tile.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -95,89 +96,6 @@ struct Num<__nv_bfloat16> {
     return __float2bfloat16_rn(v);
   }
 };
-
-// ---- 1. the projection ---------------------------------------------------
-
-constexpr int kProjThreads = 256;
-constexpr int kProjTM = 64;   // rows of x per block
-constexpr int kProjTN = 192;  // columns of qkv per block
-constexpr int kProjKC = 32;   // C-chunk streamed through shared memory
-
-// out[M, n3] = round_T(x[M, c] . w[n3, c]^T), w in nn.Linear layout
-template <typename T>
-__global__ void __launch_bounds__(kProjThreads)
-sa_proj_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               T* __restrict__ out, int m, int c, int n3) {
-  constexpr int LD = kProjKC + 1;
-  constexpr int JT = kProjTN / 16;
-  __shared__ float xs[kProjTM * LD];
-  __shared__ float ws[kProjTN * LD];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int r0 = blockIdx.x * kProjTM;
-  const int c0 = blockIdx.y * kProjTN;
-
-  float acc[4][JT];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < JT; ++j) acc[a][j] = 0.f;
-
-  for (int k0 = 0; k0 < c; k0 += kProjKC) {
-    for (int e = tid; e < kProjTM * kProjKC; e += kProjThreads) {
-      const int r = e / kProjKC, kk = e % kProjKC;
-      xs[r * LD + kk] =
-          (r0 + r < m && k0 + kk < c)
-              ? Num<T>::load(x + static_cast<size_t>(r0 + r) * c + k0 + kk)
-              : 0.f;
-    }
-    for (int e = tid; e < kProjTN * kProjKC; e += kProjThreads) {
-      const int col = e / kProjKC, kk = e % kProjKC;
-      ws[col * LD + kk] =
-          (c0 + col < n3 && k0 + kk < c)
-              ? Num<T>::load(w + static_cast<size_t>(c0 + col) * c + k0 + kk)
-              : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kProjKC; ++kk) {
-      float xv[4], wv[JT];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) xv[a] = xs[(ty + 16 * a) * LD + kk];
-#pragma unroll
-      for (int j = 0; j < JT; ++j) wv[j] = ws[(tx + 16 * j) * LD + kk];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < JT; ++j) acc[a][j] = fmaf(xv[a], wv[j], acc[a][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = r0 + ty + 16 * a;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < JT; ++j) {
-      const int col = c0 + tx + 16 * j;
-      if (col < n3)
-        out[static_cast<size_t>(r) * n3 + col] = Num<T>::store(acc[a][j]);
-    }
-  }
-}
-
-template <typename T>
-int launch_proj(const void* x, const void* w, void* qkv, int rows, int c,
-                cudaStream_t stream) {
-  const int n3 = 3 * c;
-  const dim3 grid((rows + kProjTM - 1) / kProjTM,
-                  (n3 + kProjTN - 1) / kProjTN);
-  sa_proj_kernel<T><<<grid, kProjThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(qkv), rows, c, n3);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- 2. the row-tile kernel ----------------------------------------------
 
@@ -478,8 +396,8 @@ int dispatch_tile(const SaArgs& a, int batch, cudaStream_t s) {
 template <typename T, int MODE>
 int launch_forward(const void* x, const void* w, const SaArgs& a, int batch,
                    cudaStream_t s) {
-  const int err =
-      launch_proj<T>(x, w, const_cast<void*>(a.qkv), batch * a.n, a.c, s);
+  const int err = gemm::launch<T>(x, w, const_cast<void*>(a.qkv),
+                                  batch * a.n, 3 * a.c, a.c, s);
   if (err != 0) return err;
   return dispatch_tile<T, MODE>(a, batch, s);
 }
