@@ -26,31 +26,19 @@
 //   1. gemm::gemm_tile_kernel (gemm_tile.cuh): qkv = x . W^T over all B*N
 //      rows into a scratch buffer the wrapper allocates; mma.sync in bf16,
 //      8 x 8 register tiles in f32.
-//   2. sa_eval_kernel: one block per (batch, head, R query rows), R = 64
-//      where the f32 score tile [R, N] and two chunk buffers fit in a
-//      block's 227 KB (N up to about 540 in f32, 800 in bf16), else 32, so
-//      N up to 1024 is taken. 4R threads. K, then V, stream through the
-//      block in chunks of KC keys by cp.async, through a ring of up to 8
-//      buffers: every chunk of the head is in flight at once where the
-//      ring fits (keeping two blocks an SM where it can), so the block
-//      waits for the L2 once, not once a chunk.
-//      - bf16: each warp owns 16 query rows and half of a chunk's keys
-//        (phase 1) or half of the head's columns (phase 3). q's A
-//        fragments stay in registers, scaled in f32 and rounded;
-//        S = q . k^T runs on mma.sync with k's fragments from ldmatrix
-//        and goes to the f32 score tile; P . V runs on mma.sync with p's
-//        A fragments packed from the tile (e / sum, rounded to bf16) and
-//        v's fragments from ldmatrix.trans. KC = 64.
-//      - f32: the same structure on SIMT FMA: S in 4 x 8 register tiles
-//        (4 rows, 8 keys), P . V in 4 x 8 tiles (4 rows, 8 columns) with
-//        the keys of a chunk split over 128 / DMAX groups of threads whose
-//        partial sums are added in a fixed order at the end, then divided
-//        by the row's sum; every read is a float4 along the summed
-//        dimension, 12 reads for 128 FMAs. KC = 128.
+//   2. sa_rows::sa_eval_kernel (self_attention_rows.cuh, the row tile it
+//      shares with the training forward #10 / #12): one block per (batch,
+//      head, R query rows), R = 64 where the f32 score tile [R, N] and two
+//      chunk buffers fit in a block's 227 KB (N up to about 540 in f32,
+//      800 in bf16), else 32, so N up to 1024 is taken. K, then V, stream
+//      through the block by cp.async through a ring of up to 8 chunk
+//      buffers, so the block waits for the L2 once, not once a chunk.
+//      bf16 runs S = q . k^T and P . V on mma.sync with ldmatrix
+//      fragments, P = round_bf16(e * (1 / sum)) packed from the f32 tile;
+//      f32 runs the same structure in register-blocked SIMT FMA (float4
+//      reads, 12 reads for 128 FMAs) and multiplies its sums by 1 / sum.
 //      The softmax keeps the whole row, as the TPU kernel does: no online
 //      (rescaled) softmax, which would move bf16's rounding point of p.
-//      Phase 1 keeps each row's maximum in registers, so the softmax is
-//      one pass over the tile (exponentials and their sum).
 // Not here yet: wgmma, TMA, warp specialisation, persistent blocks.
 // No atomics: a launch gives the same bits every time.
 //
@@ -59,559 +47,24 @@
 // buffer [B, N, 3C] in T. Returns the error code of cudaGetLastError()
 // after the launches (0 = success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#include <cstdint>
-#include <type_traits>
-
-#include "gemm_tile.cuh"
+#include "self_attention_rows.cuh"
 
 namespace sa_eval {
-
-using gemm::cp_async_commit;
-using gemm::cp_async_wait;
-using gemm::ldsm_x2;
-using gemm::ldsm_x2_trans;
-using gemm::ldsm_x4;
-using gemm::load_tile;
-using gemm::mma_bf16;
-using gemm::pack_bf16;
-
-constexpr int kMaxSmem = 232448;  // a block's 227 KB on sm_90
-// two blocks an SM: the SM's 228 KB less 1 KB the runtime keeps per block
-constexpr int kHalfSmem = 115712;
-constexpr int kMaxBuf = 8;  // chunk buffers in the ring
-
-struct Args {
-  const void* qkv;  // [B, N, 3C]
-  void* out;        // [B, N, C]
-  int n, c, d;
-  float scale;
-  int lds;       // row stride of the score tile, in floats
-  int s_floats;  // floats of the score tile's region
-  int nbuf;      // chunk buffers in the ring, 1 .. kMaxBuf
-  int vec;       // 1: 16-byte cp.async copies (rows and pointer aligned)
-};
-
-__device__ inline float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// wait until at most n copy groups of this thread are in flight; a count
-// above 6 waits for more than it must
-__device__ inline void cp_async_wait_n(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    default: cp_async_wait<6>(); break;
-  }
-}
-
-// Row statistics beside the score tile: mx[2][R], the row maxima that two
-// groups of threads found in phase 1 (the whole row's is their maximum),
-// and inv[R] = 1 / sum of the row's exponentials.
-struct Stats {
-  float* mx;
-  float* inv;
-};
-
-// ---- bf16: mma.sync --------------------------------------------------------
-
-template <int DMAX, int R>
-struct PathBf16 {
-  using T = __nv_bfloat16;
-  static constexpr int KC = 64;        // keys per chunk
-  static constexpr int LDK = DMAX + 8;  // 16-byte rows off the bank period
-  static constexpr int KS = DMAX / 16;  // k16 steps of q . k^T
-  static constexpr int RG = R / 16;     // row groups (one warp each)
-  static constexpr int NTD = DMAX / 16;  // 8-column tiles of out per warp
-
-  struct State {
-    uint32_t q[KS][4];  // q * scale, A fragments
-    float o[NTD][4];    // out, C fragments
-    float m[2];         // maxima of rows g and g + 8 over this thread's keys
-  };
-
-  __device__ static void init(State& st, const T* qs, float scale_t,
-                              int tid) {
-    const int lane = tid % 32, rg = (tid / 32) % RG;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      ldsm_x4(st.q[ks], qs + (rg * 16 + lane % 16) * LDK + ks * 16 +
-                            (lane / 16) * 8);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const __nv_bfloat162 v =
-            *reinterpret_cast<const __nv_bfloat162*>(&st.q[ks][t]);
-        st.q[ks][t] = pack_bf16(__low2float(v) * scale_t,
-                                __high2float(v) * scale_t);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < NTD; ++u)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) st.o[u][t] = 0.f;
-    st.m[0] = st.m[1] = -CUDART_INF_F;
-  }
-
-  // S[:, j0 .. j0 + KC) = q . k^T for this warp's 16 rows and half of the
-  // chunk's 8-key tiles (q is in registers; k rows past N are zeros)
-  __device__ static void scores(State& st, float* S, int lds, const T*,
-                                const T* ks_, int j0, int n, int tid) {
-    const int lane = tid % 32, warp = tid / 32;
-    const int rg = warp % RG, sp = warp / RG;
-    const int g = lane / 4, q = lane % 4;
-    constexpr int NT = KC / 16;  // 8-key tiles a warp
-    float acc[NT][4];
-#pragma unroll
-    for (int u = 0; u < NT; ++u)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[u][t] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int u = 0; u < NT; u += 2) {  // two 8-key tiles a load
-        uint32_t b[4];
-        ldsm_x4(b, ks_ + ((sp * NT + u) * 8 + lane % 8 + (lane / 16) * 8) *
-                             LDK +
-                         ks * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(acc[u], st.q[ks], b);
-        mma_bf16(acc[u + 1], st.q[ks], b + 2);
-      }
-#pragma unroll
-    for (int u = 0; u < NT; ++u) {
-      const int col = j0 + (sp * NT + u) * 8 + 2 * q;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* dst = S + (rg * 16 + g + 8 * h) * lds + col;
-        const float v0 = acc[u][2 * h], v1 = acc[u][2 * h + 1];
-        if (col + 1 < n) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-          st.m[h] = fmaxf(st.m[h], fmaxf(v0, v1));
-        } else if (col < n) {
-          dst[0] = v0;
-          st.m[h] = fmaxf(st.m[h], v0);
-        }
-      }
-    }
-  }
-
-  // after the last k chunk: this warp's row maxima to mx[sp]
-  __device__ static void row_max(State& st, Stats ss, int tid) {
-    const int lane = tid % 32, warp = tid / 32;
-    const int rg = warp % RG, sp = warp / RG;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float m = st.m[h];
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      if (lane % 4 == 0) ss.mx[sp * R + rg * 16 + lane / 4 + 8 * h] = m;
-    }
-  }
-
-  // out += p . v over the chunk's keys, p = round_bf16(e / sum) packed
-  // from the tile of exponentials e
-  __device__ static void pv(State& st, const float* S, Stats ss, int lds,
-                            const T* vs, int j0, int npad, int d, int tid) {
-    const int lane = tid % 32, warp = tid / 32;
-    const int rg = warp % RG, sp = warp / RG;
-    const int g = lane / 4, q = lane % 4;
-    const int steps = (npad - j0 < KC ? npad - j0 : KC) / 16;
-    const float i0 = ss.inv[rg * 16 + g], i8 = ss.inv[rg * 16 + g + 8];
-    const float* r0 = S + (rg * 16 + g) * lds + j0 + 2 * q;
-    const float* r8 = r0 + 8 * lds;
-    // every step runs, the ones past the tile's padded width on zeros (v
-    // rows past N are zeros too), so that the loads of all four steps can
-    // be in flight together
-#pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      const int k = ks * 16;
-      const bool in = ks < steps;
-      const float2 z = make_float2(0.f, 0.f);
-      const float2 p00 = in ? *reinterpret_cast<const float2*>(r0 + k) : z;
-      const float2 p10 = in ? *reinterpret_cast<const float2*>(r8 + k) : z;
-      const float2 p01 =
-          in ? *reinterpret_cast<const float2*>(r0 + k + 8) : z;
-      const float2 p11 =
-          in ? *reinterpret_cast<const float2*>(r8 + k + 8) : z;
-      const uint32_t a[4] = {pack_bf16(p00.x * i0, p00.y * i0),
-                             pack_bf16(p10.x * i8, p10.y * i8),
-                             pack_bf16(p01.x * i0, p01.y * i0),
-                             pack_bf16(p11.x * i8, p11.y * i8)};
-#pragma unroll
-      for (int u = 0; u < NTD; ++u) {
-        const int nt = sp * NTD + u;
-        if (nt * 8 < d) {
-          uint32_t bv[2];
-          ldsm_x2_trans(bv, vs + (k + lane % 16) * LDK + nt * 8);
-          mma_bf16(st.o[u], a, bv);
-        }
-      }
-    }
-  }
-
-  __device__ static void finish(const State& st, float*, Stats, T* out,
-                                int i0, int n, int c, int d, int tid) {
-    const int lane = tid % 32, warp = tid / 32;
-    const int rg = warp % RG, sp = warp / RG;
-    const int g = lane / 4, q = lane % 4;
-    const bool pairs = d % 2 == 0 && c % 2 == 0;
-#pragma unroll
-    for (int u = 0; u < NTD; ++u) {
-      const int col = (sp * NTD + u) * 8 + 2 * q;
-      if (col >= d) break;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = i0 + rg * 16 + g + 8 * h;
-        if (i >= n) continue;
-        T* dst = out + static_cast<size_t>(i) * c + col;
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(st.o[u][2 * h], st.o[u][2 * h + 1]);
-        } else {
-          dst[0] = __float2bfloat16_rn(st.o[u][2 * h]);
-          if (col + 1 < d) dst[1] = __float2bfloat16_rn(st.o[u][2 * h + 1]);
-        }
-      }
-    }
-  }
-};
-
-// ---- f32: register-blocked SIMT FMA ----------------------------------------
-
-template <int DMAX, int R>
-struct PathF32 {
-  using T = float;
-  static constexpr int KC = 128;       // keys per chunk
-  static constexpr int LDK = DMAX + 4;  // float4 rows off the bank period
-  static constexpr int RY = R / 4;      // row groups: rows ry + RY * i
-  static constexpr int CG = DMAX / 8;   // column groups of phase 3
-  static constexpr int SPLITS = 128 / DMAX;  // key groups of phase 3
-
-  struct State {
-    float o[4][8];  // rows ry + RY i; columns cx*4 + e, DMAX/2 + cx*4 + e
-    float m[4];     // maxima of rows ty + RY i over this thread's keys
-  };
-
-  __device__ static void init(State& st, T* qs, float scale_t, int tid) {
-    // q * scale in place (f32: the product is already rounded); the caller
-    // synchronises before the tile is read
-    for (int e = tid; e < R * DMAX; e += 4 * R) {
-      const int r = e / DMAX, k = e % DMAX;
-      qs[r * LDK + k] *= scale_t;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      st.m[i] = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) st.o[i][j] = 0.f;
-    }
-  }
-
-  // S[:, j0 .. j0 + KC): thread (ty, tx) takes rows ty + RY i and keys
-  // tx + 16 j
-  __device__ static void scores(State& st, float* S, int lds, const T* qs,
-                                const T* ks_, int j0, int n, int tid) {
-    const int tx = tid % 16, ty = tid / 16;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-    for (int k = 0; k < DMAX; k += 4) {
-      float4 a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(qs + (ty + RY * i) * LDK + k);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {  // k rows past N are zeros
-        const float4 b =
-            *reinterpret_cast<const float4*>(ks_ + (tx + 16 * j) * LDK + k);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float s = acc[i][j];
-          s = fmaf(a[i].x, b.x, s);
-          s = fmaf(a[i].y, b.y, s);
-          s = fmaf(a[i].z, b.z, s);
-          s = fmaf(a[i].w, b.w, s);
-          acc[i][j] = s;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = j0 + tx + 16 * j;
-        if (col < n) {
-          S[(ty + RY * i) * lds + col] = acc[i][j];
-          st.m[i] = fmaxf(st.m[i], acc[i][j]);
-        }
-      }
-  }
-
-  // after the last k chunk: the 16 threads of a row group hold the row's
-  // keys between them
-  __device__ static void row_max(State& st, Stats ss, int tid) {
-    const int tx = tid % 16, ty = tid / 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float m = st.m[i];
-#pragma unroll
-      for (int o = 1; o < 16; o <<= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if (tx == 0) ss.mx[ty + RY * i] = ss.mx[R + ty + RY * i] = m;
-    }
-  }
-
-  // out += e . v over the key quads 4m with m % SPLITS == sp; the sums are
-  // divided by the row's sum at the end
-  __device__ static void pv(State& st, const float* S, Stats, int lds,
-                            const T* vs, int j0, int npad, int, int tid) {
-    const int cx = tid % CG, ry = (tid / CG) % RY, sp = tid / (CG * RY);
-    const int kn = npad - j0 < KC ? npad - j0 : KC;
-#pragma unroll 2
-    for (int m = sp; m < kn / 4; m += SPLITS) {
-      const int k = 4 * m;
-      float4 p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p[i] = *reinterpret_cast<const float4*>(S + (ry + RY * i) * lds + j0 +
-                                                k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              vs + (k + kk) * LDK + h * (DMAX / 2) + cx * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pk = kk == 0   ? p[i].x
-                             : kk == 1 ? p[i].y
-                             : kk == 2 ? p[i].z
-                                       : p[i].w;
-            st.o[i][4 * h + 0] = fmaf(pk, v.x, st.o[i][4 * h + 0]);
-            st.o[i][4 * h + 1] = fmaf(pk, v.y, st.o[i][4 * h + 1]);
-            st.o[i][4 * h + 2] = fmaf(pk, v.z, st.o[i][4 * h + 2]);
-            st.o[i][4 * h + 3] = fmaf(pk, v.w, st.o[i][4 * h + 3]);
-          }
-        }
-      }
-    }
-  }
-
-  // the key groups' partial sums meet in the score tile's region, added
-  // in the order of the groups, then divided by the row's sum
-  __device__ static void finish(const State& st, float* part, Stats ss,
-                                T* out, int i0, int n, int c, int d,
-                                int tid) {
-    const int cx = tid % CG, ry = (tid / CG) % RY, sp = tid / (CG * RY);
-    __syncthreads();  // every thread is done reading the score tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float4*>(part + (sp * R + ry + RY * i) * DMAX +
-                                   h * (DMAX / 2) + cx * 4) =
-            make_float4(st.o[i][4 * h], st.o[i][4 * h + 1],
-                        st.o[i][4 * h + 2], st.o[i][4 * h + 3]);
-    __syncthreads();
-    for (int e = tid; e < R * d; e += 4 * R) {
-      const int r = e / d, col = e % d;
-      if (i0 + r >= n) break;  // rows ascend with e
-      float s = part[r * DMAX + col];
-#pragma unroll
-      for (int t = 1; t < SPLITS; ++t) s += part[(t * R + r) * DMAX + col];
-      out[static_cast<size_t>(i0 + r) * c + col] = s * ss.inv[r];
-    }
-  }
-};
-
-template <typename T, int DMAX, int R>
-using Path = typename std::conditional<std::is_same<T, float>::value,
-                                       PathF32<DMAX, R>,
-                                       PathBf16<DMAX, R>>::type;
-
-// one pass over each row of the tile: e = exp(s - max) for the n keys, 0
-// for the padding keys n .. npad that phase 3 reads; inv = 1 / sum e
-template <int R>
-__device__ void softmax_rows(float* S, Stats ss, int lds, int n, int npad,
-                             int tid) {
-  const int lane = tid % 32;
-  for (int r = tid / 32; r < R; r += R / 8) {
-    float* row = S + r * lds;
-    const float mx = fmaxf(ss.mx[r], ss.mx[R + r]);
-    float sum = 0.f;
-    for (int j = lane; j < npad; j += 32) {
-      const float ex = j < n ? expf(row[j] - mx) : 0.f;
-      row[j] = ex;
-      sum += ex;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) ss.inv[r] = 1.f / sum;
-  }
-}
-
-// one block per (batch, head, R query rows); 4R threads
-// (f32: min. 1 block an SM, or ptxas holds it to 128 registers and spills
-// its tiles; bf16: 2, so that it stays within 128 and two blocks fit)
-template <typename T, int DMAX, int R>
-__global__ void __launch_bounds__(4 * R, std::is_same<T, float>::value ? 1 : 2)
-    sa_eval_kernel(Args a) {
-  using P = Path<T, DMAX, R>;
-  constexpr int THREADS = 4 * R, KC = P::KC, LDK = P::LDK;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* S = reinterpret_cast<float*>(smem_raw);  // [R][lds] score tile
-  const Stats ss{S + a.s_floats, S + a.s_floats + 2 * R};
-  T* qs = reinterpret_cast<T*>(S + a.s_floats + 3 * R);  // [R][LDK]
-  T* ring = qs + R * LDK;  // nbuf x [KC][LDK]
-
-  const int n = a.n, c = a.c, d = a.d, c3 = 3 * c, lds = a.lds;
-  const int nb = a.nbuf;
-  const int npad = (n + 15) / 16 * 16;
-  const int i0 = blockIdx.x * R, head = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const bool vec = a.vec != 0;
-  const T* base =
-      static_cast<const T*>(a.qkv) + static_cast<size_t>(b) * n * c3 + head * d;
-  const int nc = (n + KC - 1) / KC;  // chunks of k, then as many of v
-  const int total = 2 * nc;
-
-  // chunk t (keys (t % nc) * KC .. of k, or of v from t = nc) into ring
-  // slot t % nb; a group is committed even past the end, so that the
-  // count of groups in flight stays nb - 1
-  auto issue = [&](int t) {
-    if (t < total) {
-      const int j0 = (t % nc) * KC;
-      load_tile<T, THREADS>(ring + (t % nb) * KC * LDK, LDK,
-                            base + (t < nc ? c : 2 * c) +
-                                static_cast<size_t>(j0) * c3,
-                            c3, KC, DMAX, n - j0, d, vec, tid);
-    }
-    cp_async_commit();
-  };
-
-  load_tile<T, THREADS>(qs, LDK, base + static_cast<size_t>(i0) * c3, c3, R,
-                        DMAX, n - i0, d, vec, tid);
-  issue(0);  // one group: q and chunk 0
-  for (int t = 1; t < nb - 1; ++t) issue(t);
-
-  typename P::State st;
-  const float scale_t =
-      std::is_same<T, float>::value ? a.scale : bf16_round(a.scale);
-  for (int t = 0; t < total; ++t) {
-    cp_async_wait_n(nb > 1 ? nb - 2 : 0);
-    __syncthreads();  // chunk t is in; every thread is done with chunk t - 1
-    if (t == 0) {
-      P::init(st, qs, scale_t, tid);
-      __syncthreads();
-    }
-    if (nb > 1) issue(t + nb - 1);  // into the slot chunk t - 1 used
-    const T* cur = ring + (t % nb) * KC * LDK;
-    const int j0 = (t % nc) * KC;
-    if (t < nc) {
-      P::scores(st, S, lds, qs, cur, j0, n, tid);
-      if (t == nc - 1) {
-        P::row_max(st, ss, tid);
-        __syncthreads();  // the score tile and the row maxima are complete
-        softmax_rows<R>(S, ss, lds, n, npad, tid);
-      }
-    } else {
-      P::pv(st, S, ss, lds, cur, j0, npad, d, tid);
-    }
-    if (nb == 1 && t + 1 < total) {
-      __syncthreads();
-      issue(t + 1);
-    }
-  }
-  P::finish(st, S, ss,
-            static_cast<T*>(a.out) + static_cast<size_t>(b) * n * c + head * d,
-            i0, n, c, d, tid);
-}
-
-template <typename T, int DMAX, int R>
-size_t smem_bytes(int n, int nbuf, int* lds, int* s_floats) {
-  using P = Path<T, DMAX, R>;
-  // rows of 16 keys, the stride = 8 (mod 16) floats: the float2 reads of
-  // the bf16 fragments and the float4 reads of f32 meet no bank twice
-  *lds = (n + 15) / 16 * 16 + 8;
-  // f32 also holds the key groups' partial sums [SPLITS][R][DMAX] there
-  const int part = std::is_same<T, float>::value ? 128 : 0;
-  *s_floats = R * (*lds > part ? *lds : part);
-  return sizeof(float) * static_cast<size_t>(*s_floats + 3 * R) +
-         sizeof(T) * static_cast<size_t>(R + nbuf * P::KC) * P::LDK;
-}
-
-// The ring's depth: every chunk of the head in flight at once where the
-// SM still holds two blocks (at least four buffers), else as many as one
-// block can hold; up to kMaxBuf. 0: the tile does not fit.
-template <typename T, int DMAX, int R>
-int ring_depth(int n) {
-  using P = Path<T, DMAX, R>;
-  int lds, sf;
-  const long base = static_cast<long>(smem_bytes<T, DMAX, R>(n, 0, &lds, &sf));
-  const long slot = static_cast<long>(sizeof(T)) * P::KC * P::LDK;
-  const int chunks = 2 * ((n + P::KC - 1) / P::KC);
-  const int want = chunks < kMaxBuf ? chunks : kMaxBuf;
-  const long two = (kHalfSmem - base) / slot, one = (kMaxSmem - base) / slot;
-  if (base <= kHalfSmem && two >= (want < 4 ? want : 4))
-    return static_cast<int>(two < want ? two : want);
-  if (base > kMaxSmem) return 0;
-  return static_cast<int>(one < want ? one : want);
-}
-
-template <typename T, int DMAX, int R>
-int launch_rows(Args a, int nbuf, int batch, int heads, cudaStream_t s) {
-  const size_t smem = smem_bytes<T, DMAX, R>(a.n, nbuf, &a.lds, &a.s_floats);
-  a.nbuf = nbuf;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(sa_eval_kernel<T, DMAX, R>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((a.n + R - 1) / R, heads, batch);
-  sa_eval_kernel<T, DMAX, R><<<grid, 4 * R, smem, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// R = 64 where its tile and two chunk buffers fit, else 32
-template <typename T, int DMAX>
-int launch_dmax(const Args& a, int batch, int heads, cudaStream_t s) {
-  const int nb64 = ring_depth<T, DMAX, 64>(a.n);
-  if (nb64 >= 2) return launch_rows<T, DMAX, 64>(a, nb64, batch, heads, s);
-  const int nb32 = ring_depth<T, DMAX, 32>(a.n);
-  if (nb32 >= 1) return launch_rows<T, DMAX, 32>(a, nb32, batch, heads, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
 
 template <typename T>
 int launch(const void* x, const void* w, void* qkv, void* out, int batch,
            int n, int c, int heads, int d, float scale, cudaStream_t s) {
   int err = gemm::launch<T>(x, w, qkv, batch * n, 3 * c, c, s);
   if (err != 0) return err;
-  Args a{};
+  sa_rows::Args a{};
   a.qkv = qkv;
   a.out = out;
   a.n = n;
   a.c = c;
   a.d = d;
+  a.heads = heads;
   a.scale = scale;
-  a.vec = (d * sizeof(T)) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(qkv) % 16 == 0;
-  if (d <= 16) return launch_dmax<T, 16>(a, batch, heads, s);
-  if (d <= 32) return launch_dmax<T, 32>(a, batch, heads, s);
-  if (d <= 64) return launch_dmax<T, 64>(a, batch, heads, s);
-  if (d <= 128) return launch_dmax<T, 128>(a, batch, heads, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return sa_rows::launch_attention<T, false>(a, batch, s);
 }
 
 }  // namespace sa_eval

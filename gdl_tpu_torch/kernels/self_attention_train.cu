@@ -1,32 +1,69 @@
 // Training kernels of the fused self-attention (gdl_tpu/ops/
 // self_attention.py):
 //
-//   gdl_sa_fwd_launch  the forward `_sa_xw_fwd_kernel` + `_sa_attn_tail`:
-//                      qkv projection, softmax, attention-probability
+//   gdl_sa_fwd_launch  kernel #10, the forward `_sa_xw_fwd_kernel` +
+//                      `_sa_attn_tail` (pallas_call at :444): qkv
+//                      projection, softmax, attention-probability
 //                      dropout, p . v; writes out, the qkv residual
 //                      [B, N, 3C] and the pre-dropout p residual
 //                      [B, H, N, N]
 //   gdl_sa_qkv_fwd_launch
-//                      the forward `_sa_fwd_kernel` + `_sa_attn_tail` of
-//                      self_attention_qkv: the same without the
-//                      projection, on a qkv [B, N, 3C] the caller projected
-//   gdl_sa_bwd_launch  the backward `_sa_bwd_kernel`: dqkv [B, N, 3C] from
-//                      qkv, the saved p, the same mask and dout
+//                      kernel #12, the forward `_sa_fwd_kernel` +
+//                      `_sa_attn_tail` of self_attention_qkv (:339): the
+//                      same without the projection, on a qkv [B, N, 3C]
+//                      the caller projected
+//   gdl_sa_bwd_launch  kernel #11, the backward `_sa_bwd_kernel` (:375):
+//                      dqkv [B, N, 3C] from qkv, the saved p, the same mask
+//                      and dout
 //
-// The arithmetic, the rounding points and the design of both are in
-// self_attention_fwd.cuh. dropout_mode: 0 none; 1 the mask [B, H, N, N]
-// in T with values {0, 1/(1-rate)} is read from `mask`; 2 the mask is
-// drawn in the kernel by Philox from the two seed words at `seed` (device
-// memory), keeping an element iff its word < keep_thresh, and drawn
-// again, bit for bit, in the backward. `keep_out`, if not null, receives
-// the mode-2 keep mask as bytes (a debug output for holding the kernel's
-// bits to the plain generator's).
+// For batch row b and head h over N tokens the forwards compute, with the
+// TPU kernels' rounding points (T float or bfloat16):
+//
+//   qkv = round_T(x . W^T)                      (#10 only; f32 sums)
+//   q   = round_T(q * round_T(scale));  s = q . k^T        (f32)
+//   p   = softmax(s) over the whole row (f32; exp(s - max) / sum)
+//   p residual = round_T(p), stored BEFORE dropout
+//   P   = round_T(p * m), m in {0, float32(1 / (1 - rate))} or 1
+//   out[b, :, h*d:(h+1)*d] = round_T(P . v)     (f32 sums)
+//
+// dropout_mode: 0 none; 1 the mask [B, H, N, N] in T with values
+// {0, 1/(1-rate)} is read from `mask`; 2 the mask is drawn in the kernel
+// by Philox from the two seed words at `seed` (device memory), keyed on
+// the flat [B, H, N, N] index, keeping an element iff its word <
+// keep_thresh, and drawn again, bit for bit, in the backward. `keep_out`,
+// if not null, receives the mode-2 keep mask as bytes (gdl_tpu's
+// emit_mask output; a debug output for holding the kernel's bits to the
+// plain generator's).
+//
+// What bounds the forwards. Per mmformer_n step (batch 64, 4 calls at
+// N = 196 and 3 at N = 392, C = 512, 8 heads of 64) #12 is 82 GFLOP
+// against 2.3 GB in f32 (1.1 GB in bf16), #10 adds a 197-GFLOP
+// projection: in f32 both are bound by operations at the SIMT rate
+// (67 TFLOP/s), in bf16 #12 by bytes (the p residual) and #10 by bytes
+// too (0.34 / 0.38 ms). The first design ran everything on SIMT f32 FMA,
+// the attention at 11% of its f32 bound.
+//
+// What the design does about it:
+//   1. #10's projection is gemm::gemm_tile_kernel (gemm_tile.cuh, #13's
+//      and #15's GEMM tile, the identity epilogue) into the qkv residual:
+//      mma.sync with cp.async stages in bf16, register tiles in f32.
+//   2. The attention of both is sa_rows::sa_train_kernel, the row tile of
+//      #13's eval kernel (self_attention_rows.cuh: bf16 on mma.sync with
+//      a cp.async ring holding every K/V chunk of a head, 64-row blocks,
+//      a one-pass whole-row softmax; f32 register-blocked) with one more
+//      pass over each row of the score tile, one warp a row: it divides
+//      by the row's sum, stores the p residual along the row, draws one
+//      Philox word group per four keys (or reads the mask), writes the
+//      keep bytes, and leaves round_T(p * m) in the tile for P . V.
+// The backward (#11) is the first design's two SIMT kernels: the
+// self_attention_fwd.cuh part A and sa_bwd_kv_kernel below.
 //
 // Plain C interface: pointers are device pointers, `stream` a
 // cudaStream_t; dtype 0 = float32, 1 = bfloat16. Each returns the error
 // code of cudaGetLastError() after its launches (0 = success).
 
 #include "self_attention_fwd.cuh"
+#include "self_attention_rows.cuh"
 
 namespace {
 
@@ -164,14 +201,14 @@ int launch_backward(const SaArgs& a, int batch, cudaStream_t s) {
   return launch_kv<T, 128>(a, batch, s);
 }
 
-SaArgs make_args(const void* qkv, void* out, void* p, const void* mask,
-                 const void* seed, int n, int c, int heads, int d,
-                 float scale, int dropout_mode, unsigned keep_thresh,
+SaArgs make_args(const void* qkv, void* out, const void* p,
+                 const void* mask, const void* seed, int n, int c, int heads,
+                 int d, float scale, int dropout_mode, unsigned keep_thresh,
                  float inv_keep) {
   SaArgs a{};
   a.qkv = qkv;
   a.out = out;
-  a.p = p;
+  a.p = const_cast<void*>(p);
   a.mask = mask;
   a.seed = static_cast<const int*>(seed);
   a.n = n;
@@ -185,6 +222,56 @@ SaArgs make_args(const void* qkv, void* out, void* p, const void* mask,
   return a;
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the forwards: the projection into qkv when x is given, then the row
+// tiles
+template <typename T>
+int launch_forward(const void* x, const void* w, void* qkv, void* p,
+                   void* out, const void* mask, const void* seed,
+                   void* keep_out, int batch, int n, int c, int heads, int d,
+                   float scale, int dropout_mode, unsigned keep_thresh,
+                   float inv_keep, cudaStream_t s) {
+  if (x != nullptr) {
+    const int err = gemm::launch<T>(x, w, qkv, batch * n, 3 * c, c, s);
+    if (err != 0) return err;
+  }
+  if (true && std::is_same<T, float>::value) {  // the first design
+    SaArgs o = make_args(qkv, out, p, mask, seed, n, c, heads, d, scale,
+                         dropout_mode, keep_thresh, inv_keep);
+    o.keep_out = static_cast<unsigned char*>(keep_out);
+    return dispatch_tile<T, MODE_TRAIN>(o, batch, s);
+  }
+  sa_rows::Args a{};
+  a.qkv = qkv;
+  a.out = out;
+  a.n = n;
+  a.c = c;
+  a.d = d;
+  a.heads = heads;
+  a.scale = scale;
+  a.p = p;
+  a.mask = mask;
+  a.seed = static_cast<const int*>(seed);
+  a.keep_out = static_cast<unsigned char*>(keep_out);
+  a.dropout_mode = dropout_mode;
+  a.keep_thresh = keep_thresh;
+  a.inv_keep = inv_keep;
+  a.rowvec = n % 4 == 0 && aligned16(p) &&
+             (dropout_mode != 1 || aligned16(mask)) &&
+             (keep_out == nullptr || aligned16(keep_out));
+  return sa_rows::launch_attention<T, true>(a, batch, s);
+}
+
+template <typename... A>
+int forward(int dtype, A... args) {
+  if (dtype == 0) return launch_forward<float>(args...);
+  if (dtype == 1) return launch_forward<__nv_bfloat16>(args...);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" int gdl_sa_fwd_launch(const void* x, const void* w, void* qkv,
@@ -193,21 +280,12 @@ extern "C" int gdl_sa_fwd_launch(const void* x, const void* w, void* qkv,
                                  int n, int c, int heads, int d, float scale,
                                  int dropout_mode, unsigned keep_thresh,
                                  float inv_keep, int dtype, void* stream) {
-  SaArgs a = make_args(qkv, out, p, mask, seed, n, c, heads, d, scale,
-                       dropout_mode, keep_thresh, inv_keep);
-  a.keep_out = static_cast<unsigned char*>(keep_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_forward<float, MODE_TRAIN>(x, w, a, batch, s);
-  if (dtype == 1)
-    return launch_forward<__nv_bfloat16, MODE_TRAIN>(x, w, a, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return forward(dtype, x, w, qkv, p, out, mask, seed, keep_out, batch, n, c,
+                 heads, d, scale, dropout_mode, keep_thresh, inv_keep,
+                 static_cast<cudaStream_t>(stream));
 }
 
-// Kernel #12: the forward of gdl_sa_fwd_launch on a qkv [B, N, 3C] in T
-// that the caller projected (`_sa_fwd_kernel` + `_sa_attn_tail`, reached
-// through self_attention_qkv): sa_tile_kernel<MODE_TRAIN> alone, with no
-// sa_proj_kernel before it. Writes out and the pre-dropout p residual;
-// keep_out is gdl_tpu's emit_mask output.
+// kernel #12: the row tiles of gdl_sa_fwd_launch alone, on a qkv in T
 extern "C" int gdl_sa_qkv_fwd_launch(const void* qkv, void* p, void* out,
                                      const void* mask, const void* seed,
                                      void* keep_out, int batch, int n, int c,
@@ -215,13 +293,11 @@ extern "C" int gdl_sa_qkv_fwd_launch(const void* qkv, void* p, void* out,
                                      int dropout_mode, unsigned keep_thresh,
                                      float inv_keep, int dtype,
                                      void* stream) {
-  SaArgs a = make_args(qkv, out, p, mask, seed, n, c, heads, d, scale,
-                       dropout_mode, keep_thresh, inv_keep);
-  a.keep_out = static_cast<unsigned char*>(keep_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_tile<float, MODE_TRAIN>(a, batch, s);
-  if (dtype == 1) return dispatch_tile<__nv_bfloat16, MODE_TRAIN>(a, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return forward(dtype, static_cast<const void*>(nullptr),
+                 static_cast<const void*>(nullptr), const_cast<void*>(qkv), p,
+                 out, mask, seed, keep_out, batch, n, c, heads, d, scale,
+                 dropout_mode, keep_thresh, inv_keep,
+                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gdl_sa_bwd_launch(const void* qkv, const void* p,
@@ -231,8 +307,8 @@ extern "C" int gdl_sa_bwd_launch(const void* qkv, const void* p,
                                  float scale, int dropout_mode,
                                  unsigned keep_thresh, float inv_keep,
                                  int dtype, void* stream) {
-  SaArgs a = make_args(qkv, dqkv, const_cast<void*>(p), mask, seed, n, c,
-                       heads, d, scale, dropout_mode, keep_thresh, inv_keep);
+  SaArgs a = make_args(qkv, dqkv, p, mask, seed, n, c, heads, d, scale,
+                       dropout_mode, keep_thresh, inv_keep);
   a.dout = dout;
   a.ds = ds;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
