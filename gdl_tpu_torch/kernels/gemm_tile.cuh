@@ -5,16 +5,17 @@
 //
 // What it replaces. The qkv projection of `_sa_xw_eval_kernel`
 // (gdl_tpu/ops/self_attention.py:637, the product at :644-648: x . W in
-// f32, rounded to T) for kernel #13, with the identity epilogue; and #15's
-// fc1 and fc2 (`_mlp_kernel`, gdl_tpu/ops/mlp.py:69), with the bias and
-// GELU epilogues of mlp_fused.cu. The epilogue is a type parameter of the
-// kernel, so each caller's instantiation has its own symbol.
+// f32, rounded to T) for kernel #13 and of `_sa_xw_fwd_kernel` (:154) for
+// #10, with the identity epilogue; and #15's fc1 and fc2 (`_mlp_kernel`,
+// gdl_tpu/ops/mlp.py:69), with the bias and GELU epilogues of
+// mlp_fused.cu. The epilogue is a type parameter of the kernel, so each
+// caller's instantiation has its own symbol.
 //
 // What bounds it on this card. At the mmformer shapes (M = 64 * 392 rows,
 // K = 512, N = 1536) the product is 2MNK = 39.5 GFLOP against 0.1 GB of
 // operands: far on the operations side of the roofline in both dtypes
 // (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 on SIMT FMA). The
-// first design (sa_proj_kernel, self_attention_fwd.cuh) ran both dtypes
+// first design (sa_proj_kernel, since deleted) ran both dtypes
 // on SIMT FMA with scalar loads into shared memory and no overlap of load
 // and compute, at about 22 TFLOP/s.
 //

@@ -1,19 +1,11 @@
-// Fused multi-head self-attention for the mmformer transformer stack,
-// the kernels of self_attention_train.cu: the training forward
-// `_sa_xw_fwd_kernel` + `_sa_attn_tail` and the backward `_sa_bwd_kernel`
-// of gdl_tpu/ops/self_attention.py. (The eval forward has kernels of its
-// own, self_attention_eval.cu.) For batch row b and head h, over N tokens
-// (no padding of N on this card, so every key is valid):
-//
-//   qkv = x[b] . W^T (no bias; f32 accumulate) -> round to T     [N, 3C]
-//   q   = q * T(scale)                                           (in T)
-//   s   = q . k^T                                                (f32)
-//   p   = softmax(s) over all N keys (f32); the training forward stores
-//         round_T(p), BEFORE dropout, as the backward's residual
-//   p_d = round_T(p * m),  m = dropout mask {0, 1/(1-rate)} or 1
-//   out[b, :, h*d:(h+1)*d] = p_d . v (f32 accumulate) -> T
-//
-// and the backward, from the ROUNDED p residual and the same m:
+// The backward of the fused self-attention for the mmformer transformer
+// stack, part A of `_sa_bwd_kernel` (gdl_tpu/ops/self_attention.py, kernel
+// #11; part B and the entry points are in self_attention_train.cu), and
+// what the backward shares: the rounding helpers and the dropout
+// multiplier. (The forwards, #10, #12 and #13, run on the row tile of
+// self_attention_rows.cuh.) For batch row b and head h, over N tokens,
+// from the qkv residual [B, N, 3C], the ROUNDED pre-dropout p residual
+// [B, H, N, N] that the training forward stored and the same mask m:
 //
 //   p_d = round_T(p * m);  dv = p_d^T . dout;  dp = (dout . v^T) * m
 //   ds  = p * (dp - sum_j dp * p)  (f32) -> round to T
@@ -25,50 +17,33 @@
 // (philox.cuh), so the forward, both backward kernels and the plain
 // PyTorch version see the same bits whatever their tiling.
 //
-// Design (a first, simple one; CUDA cores, f32 FMA, no tensor cores).
-// The TPU kernel keeps a whole [N, N] score tile of a head group in 16 MB
-// of VMEM. One head at N = 392 is 615 KB of f32 against 227 KB of shared
-// memory here, and the softmax must be the whole row's because p is
-// saved. So one entry point enqueues two kernels on the stream:
-//   1. sa_proj_kernel: qkv = x . W^T as a tiled GEMM over all B*N rows
-//      (64 x 192 tiles, 4 x 12 register tiles), written once to the qkv
-//      residual. Projecting inside the attention blocks would repeat K and
-//      V of all N tokens once per row tile (N/32 times the work).
-//   2. sa_tile_kernel: one 128-thread block per (batch, head, 32 query
-//      rows). The [32, N] score tile lives in shared memory; K, then V,
-//      stream through it in 64-key chunks, re-read from L2. Row maximum,
-//      sum, normalisation, the p write and the dropout are one warp per
-//      row.
-// What this costs against the TPU design: qkv makes one trip through
-// device memory (B*N*3C elements written and read back, 154 MB in f32 at
-// [64, 392, 512]: about 0.1 ms at the memory rate, against milliseconds
-// of FMAs), and K and V are re-read N/32 times from L2. What bounds it:
-// the FMAs (2*B*N*3C*C for the projection, 4*B*N*N*C for the attention)
-// at the SIMT f32 rate, far below the tensor cores'; the eval forward's
-// tensor-core tiles (gemm_tile.cuh, self_attention_eval.cu) are the
-// pattern for these kernels' redesign.
+// What bounds it. Per mmformer_n step (7 calls) the backward is 163 GFLOP
+// against 3.1 GB in f32: bound by operations at the SIMT f32 rate; in
+// bf16 by bytes (0.46 ms), far from either on this design.
 //
-// The backward is two kernels as well, so that no sum crosses blocks
-// (bit-reproducible, no atomics):
-//   A. sa_tile_kernel<MODE_BWD>, per 32 query rows: dp = dout . v^T into
-//      the score tile, then per row m, delta and ds; ds goes to a scratch
-//      buffer [B, H, N, N] in T, and dq = (ds . k) * scale is written.
+// The design (a first, simple one; CUDA cores, f32 FMA, no tensor
+// cores): two kernels, so that no sum crosses blocks (bit-reproducible,
+// no atomics):
+//   A. sa_tile_kernel, one 128-thread block per (batch, head, 32 query
+//      rows): dp = dout . v^T into a [32, N] f32 score tile in shared
+//      memory (v streams through in 64-key chunks, re-read from L2), then
+//      per row (one warp) m, delta and ds; ds goes to a scratch buffer
+//      [B, H, N, N] in T, and dq = (ds . k) * scale is written.
 //   B. sa_bwd_kv_kernel, per 32 keys: walks the query rows in chunks of
 //      32, rebuilding p_d from p and m and reading ds back, and
 //      accumulates dv = p_d^T . dout and dk = ds^T . q_s in registers.
 // The ds scratch costs one write and one read of a score-sized array
 // (315 MB in f32 at N = 392); recomputing dp in B instead would cost a
-// fifth N^2*d product.
+// fifth N^2*d product. The forwards' tensor-core row tile is the pattern
+// for its redesign.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include <cstdint>
 
-#include "gemm_tile.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -97,26 +72,21 @@ struct Num<__nv_bfloat16> {
   }
 };
 
-// ---- 2. the row-tile kernel ----------------------------------------------
+// ---- the row tile of part A ----------------------------------------------
 
 constexpr int kTileThreads = 128;
 constexpr int kTR = 32;  // query rows per block
 constexpr int kKT = 64;  // keys per chunk streamed through shared memory
 constexpr int kMaxSmem = 232448;  // a block's 227 KB on sm_90
 
-constexpr int MODE_TRAIN = 1;  // forward, writes p, applies dropout
-constexpr int MODE_BWD = 2;    // backward part A: ds scratch and dq
-
 struct SaArgs {
   const void* qkv;          // [B, N, 3C]
-  void* out;                // forward: out [B, N, C]; backward: dqkv
-  void* p;                  // [B, H, N, N]: written (TRAIN), read (BWD)
+  void* out;                // dqkv [B, N, 3C]
+  const void* p;            // [B, H, N, N], the forward's residual
   const void* mask;         // dropout_mode 1: [B, H, N, N] in T
   const int* seed;          // dropout_mode 2: two words on the device
-  const void* dout;         // backward: [B, N, C]
-  void* ds;                 // backward: scratch [B, H, N, N] in T
-  unsigned char* keep_out;  // TRAIN, dropout_mode 2: the drawn keep mask
-                            // [B, H, N, N] as bytes, or null
+  const void* dout;         // [B, N, C]
+  void* ds;                 // scratch [B, H, N, N] in T
   int n, c, heads, d;
   float scale;
   int dropout_mode;
@@ -150,13 +120,14 @@ constexpr size_t tile_smem_floats(int n) {
          static_cast<size_t>(kTR) * (n | 1);
 }
 
-template <typename T, int DMAX, int MODE>
+// part A: dp = dout . v^T, ds, dq for 32 query rows
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(kTileThreads) sa_tile_kernel(SaArgs a) {
   constexpr int LDQ = DMAX + 1;
   constexpr int DT = DMAX / 16;
   extern __shared__ float smem[];
-  float* as = smem;             // [kTR][LDQ]: q * scale, or dout
-  float* bs = as + kTR * LDQ;   // [kKT][LDQ]: a chunk of k or v
+  float* as = smem;             // [kTR][LDQ]: dout
+  float* bs = as + kTR * LDQ;   // [kKT][LDQ]: a chunk of v, then of k
   float* S = bs + kKT * LDQ;    // [kTR][lds]: the score tile
 
   const int n = a.n, c = a.c, d = a.d, heads = a.heads;
@@ -178,27 +149,20 @@ __global__ void __launch_bounds__(kTileThreads) sa_tile_kernel(SaArgs a) {
     k1 = static_cast<uint32_t>(a.seed[1]);
   }
 
-  // the A tile: q rows scaled in T (forward) or dout rows (backward)
+  // the A tile: dout rows
   for (int e = tid; e < kTR * DMAX; e += kTileThreads) {
     const int r = e / DMAX, dd = e % DMAX;
-    float v = 0.f;
-    if (i0 + r < n && dd < d) {
-      if (MODE == MODE_BWD) {
-        v = Num<T>::load(static_cast<const T*>(a.dout) +
-                         (static_cast<size_t>(b) * n + i0 + r) * c + head * d +
-                         dd);
-      } else {
-        v = Num<T>::round(
-            Num<T>::load(qkv_b + static_cast<size_t>(i0 + r) * c3 + dd) *
-            scale_t);
-      }
-    }
-    as[r * LDQ + dd] = v;
+    as[r * LDQ + dd] =
+        (i0 + r < n && dd < d)
+            ? Num<T>::load(static_cast<const T*>(a.dout) +
+                           (static_cast<size_t>(b) * n + i0 + r) * c +
+                           head * d + dd)
+            : 0.f;
   }
 
-  // ---- phase 1: S = A . B^T, B = k (forward) or v (backward) -------------
+  // ---- phase 1: S = dout . v^T ---------------------------------------------
   {
-    const T* bsrc = qkv_b + (MODE == MODE_BWD ? 2 * c : c);
+    const T* bsrc = qkv_b + 2 * c;
     for (int j0 = 0; j0 < n; j0 += kKT) {
       __syncthreads();  // the chunk buffer is free; `as` is complete
       for (int e = tid; e < kKT * DMAX; e += kTileThreads) {
@@ -247,74 +211,40 @@ __global__ void __launch_bounds__(kTileThreads) sa_tile_kernel(SaArgs a) {
       float* row = S + r * lds;
       const uint64_t rb =
           ((static_cast<uint64_t>(b) * heads + head) * n + i) * n;
-      if (MODE != MODE_BWD) {
-        float mx = -CUDART_INF_F;
-        for (int j = lane; j < n; j += 32) mx = fmaxf(mx, row[j]);
+      // dp = (dout . v^T) * m; delta = sum_j dp * p
+      const T* pin = static_cast<const T*>(a.p) + rb;
+      float delta = 0.f;
+      for (int q = lane; q < nquads; q += 32) {
+        const int j = 4 * q;
+        const int valid = n - j < 4 ? n - j : 4;
+        float m[4];
+        bool keep[4];
+        mask4<T>(a, rb + j, valid, k0, k1, m, keep);
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        float sum = 0.f;
-        for (int j = lane; j < n; j += 32) {
-          const float ex = expf(row[j] - mx);
-          row[j] = ex;
-          sum += ex;
+        for (int t = 0; t < 4; ++t) {
+          if (t >= valid) break;
+          const float dp = row[j + t] * m[t];
+          row[j + t] = dp;
+          delta = fmaf(dp, Num<T>::load(pin + j + t), delta);
         }
+      }
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        __syncwarp();
-        for (int q = lane; q < nquads; q += 32) {
-          const int j = 4 * q;
-          const int valid = n - j < 4 ? n - j : 4;
-          float m[4];
-          bool keep[4];
-          mask4<T>(a, rb + j, valid, k0, k1, m, keep);
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            if (t >= valid) break;
-            const float pf = row[j + t] / sum;
-            static_cast<T*>(a.p)[rb + j + t] = Num<T>::store(pf);
-            if (a.keep_out != nullptr && a.dropout_mode == 2)
-              a.keep_out[rb + j + t] = keep[t] ? 1 : 0;
-            row[j + t] = Num<T>::round(pf * m[t]);
-          }
-        }
-      } else {
-        // dp = (dout . v^T) * m; delta = sum_j dp * p
-        const T* pin = static_cast<const T*>(a.p) + rb;
-        float delta = 0.f;
-        for (int q = lane; q < nquads; q += 32) {
-          const int j = 4 * q;
-          const int valid = n - j < 4 ? n - j : 4;
-          float m[4];
-          bool keep[4];
-          mask4<T>(a, rb + j, valid, k0, k1, m, keep);
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            if (t >= valid) break;
-            const float dp = row[j + t] * m[t];
-            row[j + t] = dp;
-            delta = fmaf(dp, Num<T>::load(pin + j + t), delta);
-          }
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          delta += __shfl_xor_sync(0xffffffffu, delta, o);
-        __syncwarp();
-        T* dsout = static_cast<T*>(a.ds) + rb;
-        for (int j = lane; j < n; j += 32) {
-          const float ds =
-              Num<T>::round(Num<T>::load(pin + j) * (row[j] - delta));
-          dsout[j] = Num<T>::store(ds);
-          row[j] = ds;
-        }
+      for (int o = 16; o > 0; o >>= 1)
+        delta += __shfl_xor_sync(0xffffffffu, delta, o);
+      __syncwarp();
+      T* dsout = static_cast<T*>(a.ds) + rb;
+      for (int j = lane; j < n; j += 32) {
+        const float ds =
+            Num<T>::round(Num<T>::load(pin + j) * (row[j] - delta));
+        dsout[j] = Num<T>::store(ds);
+        row[j] = ds;
       }
     }
   }
 
-  // ---- phase 3: O = S . B, B = v (forward) or k (backward) ----------------
+  // ---- phase 3: dq = (ds . k) * scale --------------------------------------
   {
-    const T* bsrc = qkv_b + (MODE == MODE_BWD ? c : 2 * c);
+    const T* bsrc = qkv_b + c;
     float acc[4][DT];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
@@ -344,10 +274,8 @@ __global__ void __launch_bounds__(kTileThreads) sa_tile_kernel(SaArgs a) {
           for (int j = 0; j < DT; ++j) acc[r][j] = fmaf(pv[r], vv[j], acc[r][j]);
       }
     }
-    // forward: out [B, N, C]; backward: the dq third of dqkv [B, N, 3C]
-    const int ldo = MODE == MODE_BWD ? c3 : c;
-    const float post = MODE == MODE_BWD ? a.scale : 1.f;
-    T* ob = static_cast<T*>(a.out) + static_cast<size_t>(b) * n * ldo + head * d;
+    // the dq third of dqkv [B, N, 3C]
+    T* ob = static_cast<T*>(a.out) + static_cast<size_t>(b) * n * c3 + head * d;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int i = i0 + ty + 8 * r;
@@ -356,8 +284,8 @@ __global__ void __launch_bounds__(kTileThreads) sa_tile_kernel(SaArgs a) {
       for (int j = 0; j < DT; ++j) {
         const int col = tx + 16 * j;
         if (col < d)
-          ob[static_cast<size_t>(i) * ldo + col] =
-              Num<T>::store(acc[r][j] * post);
+          ob[static_cast<size_t>(i) * c3 + col] =
+              Num<T>::store(acc[r][j] * a.scale);
       }
     }
   }
@@ -371,35 +299,25 @@ cudaError_t grant_smem(K kernel) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
 }
 
-template <typename T, int DMAX, int MODE>
+template <typename T, int DMAX>
 int launch_tile(const SaArgs& a, int batch, cudaStream_t stream) {
   const size_t smem = sizeof(float) * tile_smem_floats<DMAX>(a.n);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = grant_smem(sa_tile_kernel<T, DMAX, MODE>);
+  static const cudaError_t attr = grant_smem(sa_tile_kernel<T, DMAX>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((a.n + kTR - 1) / kTR, a.heads, batch);
-  sa_tile_kernel<T, DMAX, MODE><<<grid, kTileThreads, smem, stream>>>(a);
+  sa_tile_kernel<T, DMAX><<<grid, kTileThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int MODE>
+template <typename T>
 int dispatch_tile(const SaArgs& a, int batch, cudaStream_t s) {
-  if (a.d <= 16) return launch_tile<T, 16, MODE>(a, batch, s);
-  if (a.d <= 32) return launch_tile<T, 32, MODE>(a, batch, s);
-  if (a.d <= 64) return launch_tile<T, 64, MODE>(a, batch, s);
-  if (a.d <= 128) return launch_tile<T, 128, MODE>(a, batch, s);
+  if (a.d <= 16) return launch_tile<T, 16>(a, batch, s);
+  if (a.d <= 32) return launch_tile<T, 32>(a, batch, s);
+  if (a.d <= 64) return launch_tile<T, 64>(a, batch, s);
+  if (a.d <= 128) return launch_tile<T, 128>(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the training forward: projection, then the row tiles
-template <typename T, int MODE>
-int launch_forward(const void* x, const void* w, const SaArgs& a, int batch,
-                   cudaStream_t s) {
-  const int err = gemm::launch<T>(x, w, const_cast<void*>(a.qkv),
-                                  batch * a.n, 3 * a.c, a.c, s);
-  if (err != 0) return err;
-  return dispatch_tile<T, MODE>(a, batch, s);
 }
 
 }  // namespace

@@ -193,7 +193,7 @@ int launch_kv(const SaArgs& a, int batch, cudaStream_t stream) {
 
 template <typename T>
 int launch_backward(const SaArgs& a, int batch, cudaStream_t s) {
-  int err = dispatch_tile<T, MODE_BWD>(a, batch, s);
+  int err = dispatch_tile<T>(a, batch, s);
   if (err != 0) return err;
   if (a.d <= 16) return launch_kv<T, 16>(a, batch, s);
   if (a.d <= 32) return launch_kv<T, 32>(a, batch, s);
@@ -208,7 +208,7 @@ SaArgs make_args(const void* qkv, void* out, const void* p,
   SaArgs a{};
   a.qkv = qkv;
   a.out = out;
-  a.p = const_cast<void*>(p);
+  a.p = p;
   a.mask = mask;
   a.seed = static_cast<const int*>(seed);
   a.n = n;
@@ -237,12 +237,6 @@ int launch_forward(const void* x, const void* w, void* qkv, void* p,
   if (x != nullptr) {
     const int err = gemm::launch<T>(x, w, qkv, batch * n, 3 * c, c, s);
     if (err != 0) return err;
-  }
-  if (false && std::is_same<T, float>::value) {  // the first design
-    SaArgs o = make_args(qkv, out, p, mask, seed, n, c, heads, d, scale,
-                         dropout_mode, keep_thresh, inv_keep);
-    o.keep_out = static_cast<unsigned char*>(keep_out);
-    return dispatch_tile<T, MODE_TRAIN>(o, batch, s);
   }
   sa_rows::Args a{};
   a.qkv = qkv;
