@@ -1195,29 +1195,28 @@ def phase_sa_parity(failures):
                         oks.append(abs(keep_rate - (1 - MM_RATE))
                                    <= 5 * sigma)
                     _, qkv, p, _ = want
-                    # #12 on the same qkv: #10's tile kernel without the
-                    # projection, so #10's out and p to the bit; with and
-                    # without the keep mask written out
-                    g12 = self_attention_qkv_fwd(qkv, MM_HEADS, drop=drop,
+                    # #12 on the qkv #10 projected: #10's row tile without
+                    # the projection, so #10's out, p and keep bits to the
+                    # bit; with and without the keep mask written out
+                    g12 = self_attention_qkv_fwd(got[1], MM_HEADS, drop=drop,
                                                  return_keep=True)
-                    a12 = self_attention_qkv_fwd(qkv, MM_HEADS, drop=drop)
-                    w12 = self_attention_qkv_fwd(qkv, MM_HEADS, drop=drop,
+                    a12 = self_attention_qkv_fwd(got[1], MM_HEADS, drop=drop)
+                    w12 = self_attention_qkv_fwd(got[1], MM_HEADS, drop=drop,
                                                  impl="plain",
                                                  return_keep=True)
-                    k10 = self_attention_fused_fwd(x, w, MM_HEADS, drop=drop)
                     for name, a, r in zip(("out", "p"), g12, w12):
                         errs["qkv_op_" + name] = _max_err(a, r)
                         oks.append(_fwd_ok(a, r, dtype))
                     same = [torch.equal(g12[0], a12[0]),
-                            torch.equal(g12[1], a12[1])]
-                    if torch.equal(k10[1], qkv):  # #10 projected these bits
-                        same += [torch.equal(g12[0], k10[0]),
-                                 torch.equal(g12[1], k10[2])]
+                            torch.equal(g12[1], a12[1]),
+                            torch.equal(g12[0], got[0]),
+                            torch.equal(g12[1], got[2])]
                     if mode == "kernel":
-                        same.append(torch.equal(g12[2], w12[2]))
+                        same += [torch.equal(g12[2], w12[2]),
+                                 torch.equal(g12[2], got[3])]
                     qkv_op_same = all(same)
                     oks.append(qkv_op_same)
-                    del got, want, g12, a12, w12, k10
+                    del got, want, g12, a12, w12
                     gb = self_attention_fused_bwd(qkv, p, dout, MM_HEADS,
                                                   drop=drop)
                     wb = self_attention_fused_bwd(qkv, p, dout, MM_HEADS,
@@ -1265,6 +1264,13 @@ def phase_sa_parity(failures):
                                 qkv, MM_HEADS, drop=drop, impl="plain"),
                             reps=SA_PLAIN_REPS, warmup=1),
                     }
+                    q, kk, v = (t.contiguous() for t in qkv.reshape(
+                        b, n, 3, MM_HEADS, c // MM_HEADS).permute(
+                            2, 0, 3, 1, 4))
+                    if mode == "kernel":  # the library call with dropout
+                        times["sdpa_dropout_ms"] = cuda_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q, kk, v, dropout_p=MM_RATE), reps=SA_REPS)
                     if mode == "none":  # the eval kernel, and the library
                         ge = self_attention_fused_eval(x, w, MM_HEADS)
                         we = self_attention_fused_eval(x, w, MM_HEADS,
@@ -1279,13 +1285,9 @@ def phase_sa_parity(failures):
                             lambda: self_attention_fused_eval(
                                 x, w, MM_HEADS, impl="plain"),
                             reps=SA_PLAIN_REPS, warmup=1)
-                        q, kk, v = (t.contiguous() for t in qkv.reshape(
-                            b, n, 3, MM_HEADS, c // MM_HEADS).permute(
-                                2, 0, 3, 1, 4))
                         times["sdpa_ms"] = cuda_ms(
                             lambda: F.scaled_dot_product_attention(q, kk, v),
                             reps=SA_REPS)
-                        del q, kk, v
 
                         def linear_sdpa():  # #13's work in two library calls
                             q5 = F.linear(x, w).reshape(
@@ -1296,6 +1298,7 @@ def phase_sa_parity(failures):
 
                         times["eval_linear_sdpa_ms"] = cuda_ms(
                             linear_sdpa, reps=SA_REPS)
+                    del q, kk, v
                 torch.cuda.synchronize()
                 ok = all(oks)
                 row = {"phase": "sa_parity",
@@ -2777,6 +2780,9 @@ def main(argv=None) -> int:
             entries[7][key] = sum(n * m32[shape][key]
                                   for shape, n in MASK_CALLS.items())
         entries[7]["bound_by"] = m32[(25088, 4096)]["bound_by"]
+        entries[7]["bound_ms_bfloat16"] = sum(
+            n * bound_ms(*mask_cost(shape[0] * shape[1], 2))[0]
+            for shape, n in MASK_CALLS.items())
         entries[7]["ms_bfloat16"] = sum(
             MASK_CALLS[tuple(r["shape"])] * r["ms"] for r in mask_parity
             if r["dtype"] == "bfloat16")
@@ -2841,7 +2847,8 @@ def main(argv=None) -> int:
         entries.append(entry)
     # #12 per training step under SA_FUSED_QKV = False: 7 launches, from
     # the float32 per-shape medians with the mask drawn in the kernel; the
-    # library call beside it is SDPA on the same q, k, v, as for #13
+    # library call beside it is SDPA on the same q, k, v, as for #13, and
+    # SDPA with dropout_p = MM_RATE beside it (neither writes p)
     entry = {"name": SA_QKV_FWD, "route": "cuda", "source": sa_src,
              "replaces": "gdl_tpu/ops/self_attention.py:339",
              "launches": switch_launch[SA_QKV_FWD],
@@ -2855,9 +2862,20 @@ def main(argv=None) -> int:
         entry["ms"] = sa_sum(rows12, "qkv_fwd_ms")
         entry["plain_ms"] = sa_sum(rows12, "qkv_fwd_plain_ms")
         entry["library_ms"] = sa_sum(rows13, "sdpa_ms")
-        entry["ms_bfloat16"] = sum(
-            SA_CALLS[r["site"]] * r["qkv_fwd_ms"] for r in sa_parity
-            if r["dtype"] == "bfloat16" and r["dropout"] == "kernel")
+        entry["library_dropout_ms"] = sa_sum(rows12, "sdpa_dropout_ms")
+        rows12_16 = {r["site"]: r for r in sa_parity
+                     if r["dtype"] == "bfloat16" and r["dropout"] == "kernel"}
+        rows13_16 = {r["site"]: r for r in sa_parity
+                     if r["dtype"] == "bfloat16" and r["dropout"] == "none"}
+        if set(rows12_16) == set(SA_CALLS) == set(rows13_16):
+            entry["ms_bfloat16"] = sa_sum(rows12_16, "qkv_fwd_ms")
+            entry["library_ms_bfloat16"] = sa_sum(rows13_16, "sdpa_ms")
+            entry["library_dropout_ms_bfloat16"] = sa_sum(rows12_16,
+                                                          "sdpa_dropout_ms")
+        entry["bound_ms_bfloat16"] = sum(
+            SA_CALLS[site] * bound_ms(*sa_cost("qkv_fwd", b, n, c, MM_HEADS,
+                                               2), "bfloat16")[0]
+            for site, (b, n, c) in SA_SHAPES.items())
         total = {"ms": 0.0, "bytes": 0, "operations": 0,
                  "by": {"bytes": 0, "operations": 0}}
         for site, (b, n, c) in SA_SHAPES.items():

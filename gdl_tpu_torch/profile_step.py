@@ -38,9 +38,10 @@ import time
 KINDS = (
     # #15's fc1 and fc2 are gemm_tile_kernel (kernels/gemm_tile.cuh) with
     # the epilogues of namespace mlp in their symbols; every other
-    # gemm_tile_kernel is #13's projection, so this row comes first
+    # gemm_tile_kernel (the identity epilogue) is the qkv projection of #10
+    # or #13, so this row comes first
     ("mlp_fused (#15)", ("mlp::",)),
-    ("self_attention (#10, #11, #12, #13)", ("sa_proj_kernel",
+    ("self_attention (#10, #11, #12, #13)", ("sa_train_kernel",
                                              "sa_tile_kernel",
                                              "sa_bwd_kv_kernel",
                                              "sa_eval_kernel",

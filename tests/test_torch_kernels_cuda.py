@@ -464,6 +464,47 @@ def test_self_attention_eval_kernel_is_bit_equal_across_launches(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", ["none", "hbm", "kernel"])
+@pytest.mark.parametrize("b,n,c,heads", SA_SHAPES[:2] + SA_SHAPES[7:9],
+                         ids=SA_IDS[:2] + SA_IDS[7:9])
+def test_self_attention_train_kernels_are_bit_equal_across_launches(
+        cuda, b, n, c, heads, dropout, dtype):
+    """#10 (out, qkv, p, keep) and #12 (out, p, keep) sum every output in
+    one fixed order and draw the mask from the flat index alone: two
+    launches on the same inputs give the same bits, finite and with p's
+    rows summing to 1."""
+    from gdl_tpu_torch.ops.dropout import fold_seed_words
+    from gdl_tpu_torch.ops import self_attention as sa
+
+    x, w, _ = _sa_inputs(cuda, b, n, c, dtype, seed=n + c + 3)
+    words = fold_seed_words(torch.Generator(device=cuda).manual_seed(n + 2),
+                            cuda)
+    drop = sa.make_dropout(x, heads, 0.1, dropout != "none",
+                           "kernel" if dropout == "none" else dropout,
+                           seed_words=words)
+    with torch.no_grad():
+        first = sa.self_attention_fused_fwd(x, w, heads, drop=drop,
+                                            return_keep=True)
+        second = sa.self_attention_fused_fwd(x, w, heads, drop=drop,
+                                             return_keep=True)
+        qkv = first[1]
+        q1 = sa.self_attention_qkv_fwd(qkv, heads, drop=drop,
+                                       return_keep=True)
+        q2 = sa.self_attention_qkv_fwd(qkv, heads, drop=drop,
+                                       return_keep=True)
+    torch.cuda.synchronize()
+    for a, r in list(zip(first, second)) + list(zip(q1, q2)):
+        assert (a is None and r is None) or torch.equal(a, r)
+    for t in first[:3] + q1[:2]:
+        assert bool(torch.isfinite(t.float()).all())
+    rows = first[2].float().sum(-1)
+    torch.testing.assert_close(rows, torch.ones_like(rows),
+                               atol=2e-5 if dtype == "float32" else 3e-2,
+                               rtol=0.0)
+
+
+@pytest.mark.cuda
 def test_self_attention_kernels_refuse_what_they_cannot_take(cuda):
     from gdl_tpu_torch.ops.self_attention import (
         self_attention_fused,
