@@ -63,7 +63,6 @@ namespace {
 
 using gemm::cp_async_commit;
 using gemm::cp_async_wait;
-using gemm::ldsm_x2;
 using gemm::ldsm_x2_trans;
 using gemm::ldsm_x4;
 using gemm::load_tile;
