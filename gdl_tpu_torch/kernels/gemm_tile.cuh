@@ -1,15 +1,25 @@
-// A block-tile GEMM for Hopper: C[M, N] = round_T(epi(A[M, K] . B[N, K]^T)),
-// both operands K-contiguous (x [rows, C] and a weight in nn.Linear layout
-// [out, in]), sums in f32, an epilogue in f32 on each sum, one rounding to
-// T at the store.
+// A block-tile GEMM for Hopper: C[M, N] = store(epi(A . B)), sums in f32,
+// an epilogue in f32 on each sum, one rounding to the output type at the
+// store. Each operand comes in one of two layouts, a type parameter:
+//   - KInner: K contiguous. A [M, K] (x [rows, C]), B [N, K] (a weight in
+//     nn.Linear layout [out, in]): the tile's first layout pair;
+//   - KOuter: K is the row index. A [K, M], B [K, N], M or N contiguous:
+//     W [3C, C] read as [K, N] for dx = dqkv . W, and dqkv and x read
+//     along their tokens for dW = dqkv^T . x (kernel #3's products).
+// The output type is T, or float for an unrounded f32 partial. K may be
+// split over gridDim.z: block z sums k in [z kc, (z + 1) kc) and stores
+// its partial at C + z M N; the caller sums the partials in a fixed order.
 //
 // What it replaces. The qkv projection of `_sa_xw_eval_kernel`
 // (gdl_tpu/ops/self_attention.py:637, the product at :644-648: x . W in
 // f32, rounded to T) for kernel #13 and of `_sa_xw_fwd_kernel` (:154) for
-// #10, with the identity epilogue; and #15's fc1 and fc2 (`_mlp_kernel`,
+// #10, with the identity epilogue; #15's fc1 and fc2 (`_mlp_kernel`,
 // gdl_tpu/ops/mlp.py:69), with the bias and GELU epilogues of
-// mlp_fused.cu. The epilogue is a type parameter of the kernel, so each
-// caller's instantiation has its own symbol.
+// mlp_fused.cu; and #3's projection backward (`_wa_xw_t_bwd_fused_kernel`,
+// gdl_tpu/ops/window_attention.py:1167-1199), dx and the split dW, with
+// the epilogues of namespace wa3 in window_attention_train.cu. The
+// epilogue, the layouts and the output type are type parameters of the
+// kernel, so each caller's instantiation has its own symbol.
 //
 // What bounds it on this card. At the mmformer shapes (M = 64 * 392 rows,
 // K = 512, N = 1536) the product is 2MNK = 39.5 GFLOP against 0.1 GB of
@@ -25,25 +35,30 @@
 //     caller takes where the 128-row grid would leave SMs idle;
 //   - the operand tiles come in through a ring of kStages cp.async stages
 //     in dynamic shared memory (16-byte copies), so the loads of step
-//     k + 2 run under the products of step k. The ragged M, N and K edges
-//     are zero-filled by the copy's source size, never read past the end.
-//     Where a row is not 16-byte aligned (K * sizeof(T) % 16 != 0, or a
-//     pointer off 16 bytes) the tile is copied element by element through
-//     registers instead: the same ring, synchronous copies;
+//     k + 2 run under the products of step k. A tile is stored as it lies
+//     in memory: [rows][K] for KInner, [K][rows] for KOuter. The ragged
+//     M, N and K edges are zero-filled by the copy's source size, never
+//     read past the end. Where a row is not 16-byte aligned (its stride
+//     times the item size % 16 != 0, or a pointer off 16 bytes) the tile
+//     is copied element by element through registers instead: the same
+//     ring, synchronous copies;
 //   - bf16: mma.sync m16n8k16 (bf16 in, f32 sums) on fragments from
-//     ldmatrix, on the tensor cores. Each warp owns a BM/2 x 32 sub-tile
-//     (BM/32 x 4 fragments, BM/2 f32 sums a thread). The tile rows are
-//     padded to 72 elements (144 bytes), so the eight rows an ldmatrix
-//     phase reads fall on distinct banks;
-//   - f32: register-blocked FMA, BM/16 x 8 sums a thread (rows ty + 16 i,
-//     columns tx + 16 j), float4 reads along K from rows padded to 36
-//     floats: 16 shared-memory reads for every 256 FMAs. No TF32 anywhere:
-//     f32 stays f32, as torch.backends.cuda.matmul.allow_tf32 = False keeps
-//     the plain version.
+//     ldmatrix, on the tensor cores; ldmatrix.trans for a KOuter tile.
+//     Each warp owns a BM/2 x 32 sub-tile (BM/32 x 4 fragments, BM/2 f32
+//     sums a thread). Tile rows are padded by 8 elements (16 bytes), so
+//     the eight rows an ldmatrix phase reads fall on distinct banks;
+//   - f32: register-blocked FMA, BM/16 x 8 sums a thread, float4 reads
+//     from rows padded by 4 floats: 16 shared-memory reads for every 256
+//     FMAs. A KInner operand gives the thread rows (or columns) t + 16 i
+//     and is read along K; a KOuter one gives it runs of four, 4 t + 64 i
+//     + 0..3, read across them at each k. No TF32 anywhere: f32 stays
+//     f32, as torch.backends.cuda.matmul.allow_tf32 = False keeps the
+//     plain version.
 // Not here yet: wgmma, TMA, warp specialisation, persistent blocks.
 //
-// Each output element is one thread's sum in a fixed order, so a launch
-// gives the same bits every time (no atomics, no split K).
+// Each output element (of each partial) is one thread's sum over k in
+// order, so a launch gives the same bits every time (no atomics); the
+// layouts change where the operands lie, not the sums.
 
 #pragma once
 
@@ -51,6 +66,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace gemm {
 // internal to each library that includes it: a static of a template here
@@ -68,6 +84,15 @@ constexpr int kStages = 3;
 struct Identity {
   __device__ float operator()(float v, int) const { return v; }
 };
+
+// operand layouts (see the header): K contiguous, or K the row index
+struct KInner {};
+struct KOuter {};
+
+template <typename L>
+constexpr bool k_inner() {
+  return std::is_same<L, KInner>::value;
+}
 
 // ---- PTX helpers (shared with the attention kernels) ----------------------
 
@@ -106,6 +131,14 @@ __device__ inline void ldsm_x2(uint32_t r[2], const void* p) {
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p))
                : "memory");
+}
+
+__device__ inline void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
 }
 
 __device__ inline void ldsm_x2_trans(uint32_t r[2], const void* p) {
@@ -165,17 +198,25 @@ __device__ inline void load_tile(T* dst, int lds, const T* src, size_t ld,
 
 // ---- the two inner-product policies ---------------------------------------
 
-template <typename T, int BM>
+// Policy<T, BM, LA, LB>: the K depth of a stage, the shared tiles of A and
+// B in their layouts (A_ELEMS, B_ELEMS elements, row strides LDA, LDB),
+// the sums a thread holds and the inner product of one stage.
+template <typename T, int BM, typename LA = KInner, typename LB = KInner>
 struct Policy;
 
 // bf16 on the tensor cores; warp (wm, wn) owns rows wm*BM/2 .. +BM/2-1 and
 // columns wn*32 .. +31 of the block tile
-template <int BM>
-struct Policy<__nv_bfloat16, BM> {
+template <int BM, typename LA, typename LB>
+struct Policy<__nv_bfloat16, BM, LA, LB> {
   static_assert(BM == 64 || BM == 128, "row tile");
   using T = __nv_bfloat16;
-  static constexpr int BK = 64;        // K per stage
-  static constexpr int LDS = BK + 8;   // 144-byte rows
+  static constexpr bool AK = k_inner<LA>(), BKI = k_inner<LB>();
+  static constexpr int BK = 64;  // K per stage
+  // 144-byte rows ([rows][K]) or 272-byte rows ([K][rows])
+  static constexpr int LDA = AK ? BK + 8 : BM + 8;
+  static constexpr int LDB = BKI ? BK + 8 : kBN + 8;
+  static constexpr int A_ELEMS = (AK ? BM : BK) * LDA;
+  static constexpr int B_ELEMS = (BKI ? kBN : BK) * LDB;
   static constexpr int MIN_BLOCKS = 2;  // an SM: at most 128 registers
   static constexpr int MT = BM / 32, NT = 4;  // 16 x 8 fragments a warp
   struct Acc {
@@ -191,6 +232,18 @@ struct Policy<__nv_bfloat16, BM> {
         for (int t = 0; t < 4; ++t) acc.c[i][j][t] = 0.f;
   }
 
+  // A fragment i: rows m0 .. m0 + 15 of the warp, K kk .. kk + 15. From
+  // a [K][rows] tile the four 8 x 8 matrices are read transposed: lanes
+  // 8 t .. 8 t + 7 give K rows kk + 8 (t / 2) + 0..7 at rows m0 + 8 (t % 2)
+  __device__ static void load_a(uint32_t a[4], const T* as, int m0, int kk,
+                                int lane) {
+    if constexpr (AK)
+      ldsm_x4(a, as + (m0 + lane % 16) * LDA + kk + (lane / 16) * 8);
+    else
+      ldsm_x4_trans(a, as + (kk + (lane / 16) * 8 + lane % 8) * LDA + m0 +
+                           ((lane / 8) % 2) * 8);
+  }
+
   __device__ static void step(Acc& acc, const T* as, const T* bs, int tid) {
     const int lane = tid % 32, warp = tid / 32;
     const int wm = warp % 2, wn = warp / 2;
@@ -199,12 +252,27 @@ struct Policy<__nv_bfloat16, BM> {
       uint32_t a[MT][4], b[NT][2];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        ldsm_x4(a[i], as + (wm * (BM / 2) + i * 16 + lane % 16) * LDS + kk +
-                          (lane / 16) * 8);
+        load_a(a[i], as, wm * (BM / 2) + i * 16, kk, lane);
+      if constexpr (BKI) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        ldsm_x2(b[j], bs + (wn * 32 + j * 8 + lane % 8) * LDS + kk +
-                          ((lane / 8) % 2) * 8);
+        for (int j = 0; j < NT; ++j)
+          ldsm_x2(b[j], bs + (wn * 32 + j * 8 + lane % 8) * LDB + kk +
+                            ((lane / 8) % 2) * 8);
+      } else {
+        // B fragments j, j + 1 from a [K][N] tile, transposed: lanes
+        // 8 t .. 8 t + 7 give K rows kk + 8 (t % 2) + 0..7 at columns
+        // n0 + 8 (t / 2)
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, bs + (kk + ((lane / 8) % 2) * 8 + lane % 8) * LDB +
+                               wn * 32 + j * 8 + (lane / 16) * 8);
+          b[j][0] = r[0];
+          b[j][1] = r[1];
+          b[j + 1][0] = r[2];
+          b[j + 1][1] = r[3];
+        }
+      }
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -245,20 +313,37 @@ struct Policy<__nv_bfloat16, BM> {
   }
 };
 
-// f32 on SIMT FMA; thread (ty, tx) = (tid / 16, tid % 16) owns rows
-// ty + 16 i and columns tx + 16 j, i < MI = BM / 16, j < 8
-template <int BM>
-struct Policy<float, BM> {
+// f32 on SIMT FMA; thread (ty, tx) = (tid / 16, tid % 16) owns MI = BM / 16
+// rows and 8 columns: rows ty + 16 i for a KInner A, 4 ty + 64 (i / 4) +
+// i % 4 for a KOuter A (runs of four, one float4 at each k); columns
+// likewise from tx by B's layout
+template <int BM, typename LA, typename LB>
+struct Policy<float, BM, LA, LB> {
   static_assert(BM == 64 || BM == 128, "row tile");
   using T = float;
-  static constexpr int BK = 32;        // K per stage
-  static constexpr int LDS = BK + 4;   // 36 floats: float4 rows, no conflicts
+  static constexpr bool AK = k_inner<LA>(), BKI = k_inner<LB>();
+  static constexpr int BK = 32;  // K per stage
+  // 36 floats ([rows][K]: float4 rows, no conflicts) or BM + 4 ([K][rows])
+  static constexpr int LDA = AK ? BK + 4 : BM + 4;
+  static constexpr int LDB = BKI ? BK + 4 : kBN + 4;
+  static constexpr int A_ELEMS = (AK ? BM : BK) * LDA;
+  static constexpr int B_ELEMS = (BKI ? kBN : BK) * LDB;
   static constexpr int MI = BM / 16;
   // the 8 x 8 tile needs > 128 registers, the 4 x 8 tile fewer
   static constexpr int MIN_BLOCKS = BM == 128 ? 1 : 2;
   struct Acc {
     float c[MI][8];
   };
+
+  __device__ static int row(int tid, int i) {
+    const int ty = tid / 16;
+    return AK ? ty + 16 * i : 4 * ty + 64 * (i / 4) + i % 4;
+  }
+
+  __device__ static int col(int tid, int j) {
+    const int tx = tid % 16;
+    return BKI ? tx + 16 * j : 4 * tx + 64 * (j / 4) + j % 4;
+  }
 
   __device__ static void zero(Acc& acc) {
 #pragma unroll
@@ -267,90 +352,160 @@ struct Policy<float, BM> {
       for (int j = 0; j < 8; ++j) acc.c[i][j] = 0.f;
   }
 
+  // v[r][u] = the operand at the thread's r-th row (or column) and K
+  // kk + u, from a tile of R rows in layout KIN (stride LD)
+  template <bool KIN, int R, int LD>
+  __device__ static void load4(float (&v)[R][4], const T* s, int t, int kk) {
+    if constexpr (KIN) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(s + (t + 16 * r) * LD + kk);
+        v[r][0] = x.x;
+        v[r][1] = x.y;
+        v[r][2] = x.z;
+        v[r][3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int r = 0; r < R; r += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              s + (kk + u) * LD + 4 * t + 16 * r);
+          v[r][u] = x.x;
+          v[r + 1][u] = x.y;
+          v[r + 2][u] = x.z;
+          v[r + 3][u] = x.w;
+        }
+    }
+  }
+
   __device__ static void step(Acc& acc, const T* as, const T* bs, int tid) {
     const int tx = tid % 16, ty = tid / 16;
+    if constexpr (AK && BKI) {
 #pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 a[MI];
+      for (int kk = 0; kk < BK; kk += 4) {
+        float4 a[MI];
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
-        a[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * LDS + kk);
+        for (int i = 0; i < MI; ++i)
+          a[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * LDA +
+                                                  kk);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 b =
-            *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * LDS + kk);
+        for (int j = 0; j < 8; ++j) {
+          const float4 b =
+              *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * LDB + kk);
 #pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          float s = acc.c[i][j];
-          s = fmaf(a[i].x, b.x, s);
-          s = fmaf(a[i].y, b.y, s);
-          s = fmaf(a[i].z, b.z, s);
-          s = fmaf(a[i].w, b.w, s);
-          acc.c[i][j] = s;
+          for (int i = 0; i < MI; ++i) {
+            float s = acc.c[i][j];
+            s = fmaf(a[i].x, b.x, s);
+            s = fmaf(a[i].y, b.y, s);
+            s = fmaf(a[i].z, b.z, s);
+            s = fmaf(a[i].w, b.w, s);
+            acc.c[i][j] = s;
+          }
         }
+      }
+    } else {
+      // the same sums in the same order (k ascending, one fmaf each)
+#pragma unroll 2
+      for (int kk = 0; kk < BK; kk += 4) {
+        float a[MI][4], b[8][4];
+        load4<AK, MI, LDA>(a, as, ty, kk);
+        load4<BKI, 8, LDB>(b, bs, tx, kk);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            float s = acc.c[i][j];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) s = fmaf(a[i][u], b[j][u], s);
+            acc.c[i][j] = s;
+          }
       }
     }
   }
 
   template <typename F>
   __device__ static void map(Acc& acc, int tid, F fn) {
-    const int tx = tid % 16;
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc.c[i][j] = fn(tx + 16 * j, acc.c[i][j]);
+      for (int j = 0; j < 8; ++j) acc.c[i][j] = fn(col(tid, j), acc.c[i][j]);
   }
 
   template <typename F>
   __device__ static void each(const Acc& acc, int tid, F fn) {
-    const int tx = tid % 16, ty = tid / 16;
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) fn(ty + 16 * i, tx + 16 * j, acc.c[i][j]);
+      for (int j = 0; j < 8; ++j) fn(row(tid, i), col(tid, j), acc.c[i][j]);
   }
 };
 
-template <typename T, int BM>
+template <typename P>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * kStages * (BM + kBN) * Policy<T, BM>::LDS;
+  return sizeof(typename P::T) * kStages * (P::A_ELEMS + P::B_ELEMS);
 }
 
 struct Args {
-  const void* a;  // [m, k]
-  const void* b;  // [n, k]
-  void* c;        // [m, n]
+  const void* a;  // [m, k] (KInner) or [k, m] (KOuter)
+  const void* b;  // [n, k] (KInner) or [k, n] (KOuter)
+  void* c;        // [ceil(k / kc), m, n]
   int m, n, k;
+  int kc;   // K per split: block z sums k in [z kc, min(k, (z + 1) kc))
   int vec;  // 1: rows and pointers are 16-byte aligned
 };
 
-// C = round_T(epi(A . B^T)). Grid: (ceil(n / 128), ceil(m / BM)); the
-// blocks of one row of tiles run next to each other and share A's rows in
-// L2.
-template <typename T, int BM = kBM, typename Epi = Identity>
-__global__ void __launch_bounds__(kThreads, Policy<T, BM>::MIN_BLOCKS)
+// C = store(epi(A . B)) with A, B in layouts LA, LB, stored as Out (T, or
+// float for an unrounded partial). Grid: (ceil(n / 128), ceil(m / BM),
+// splits); the blocks of one row of tiles run next to each other and share
+// A's rows in L2.
+template <typename T, int BM = kBM, typename Epi = Identity,
+          typename LA = KInner, typename LB = KInner, typename Out = T>
+__global__ void __launch_bounds__(kThreads,
+                                  Policy<T, BM, LA, LB>::MIN_BLOCKS)
     gemm_tile_kernel(Args p, Epi epi) {
-  using P = Policy<T, BM>;
-  constexpr int LDS = P::LDS, kBK = P::BK;
+  using P = Policy<T, BM, LA, LB>;
+  static_assert(std::is_same<Out, T>::value || std::is_same<Out, float>::value,
+                "the store rounds to T or keeps f32");
+  constexpr int kBK = P::BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x;
   const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kBN;
-  const T* a = static_cast<const T*>(p.a) + static_cast<size_t>(r0) * p.k;
-  const T* b = static_cast<const T*>(p.b) + static_cast<size_t>(c0) * p.k;
+  const int kb = blockIdx.z * p.kc;
+  const int klen = min(p.k - kb, p.kc);
+  // row strides, and the block's first element of A and B
+  const size_t lda = P::AK ? p.k : p.m, ldb = P::BKI ? p.k : p.n;
+  const T* a = static_cast<const T*>(p.a) +
+               (P::AK ? static_cast<size_t>(r0) * lda + kb
+                      : static_cast<size_t>(kb) * lda + r0);
+  const T* b = static_cast<const T*>(p.b) +
+               (P::BKI ? static_cast<size_t>(c0) * ldb + kb
+                       : static_cast<size_t>(kb) * ldb + c0);
   const int vr = p.m - r0, vc = p.n - c0;
   const bool vec = p.vec != 0;
-  const int steps = (p.k + kBK - 1) / kBK;
+  const int steps = (klen + kBK - 1) / kBK;
 
-  auto stage_a = [&](int s) { return smem + s * (BM + kBN) * LDS; };
+  auto stage_a = [&](int s) { return smem + s * (P::A_ELEMS + P::B_ELEMS); };
   auto issue = [&](int kt) {
     if (kt < steps) {
       T* as = stage_a(kt % kStages);
+      T* bs = as + P::A_ELEMS;
       const int k0 = kt * kBK;
-      load_tile<T, kThreads>(as, LDS, a + k0, p.k, BM, kBK, vr, p.k - k0,
-                             vec, tid);
-      load_tile<T, kThreads>(as + BM * LDS, LDS, b + k0, p.k, kBN, kBK, vc,
-                             p.k - k0, vec, tid);
+      if constexpr (P::AK)
+        load_tile<T, kThreads>(as, P::LDA, a + k0, lda, BM, kBK, vr,
+                               klen - k0, vec, tid);
+      else
+        load_tile<T, kThreads>(as, P::LDA, a + k0 * lda, lda, kBK, BM,
+                               klen - k0, vr, vec, tid);
+      if constexpr (P::BKI)
+        load_tile<T, kThreads>(bs, P::LDB, b + k0, ldb, kBN, kBK, vc,
+                               klen - k0, vec, tid);
+      else
+        load_tile<T, kThreads>(bs, P::LDB, b + k0 * ldb, ldb, kBK, kBN,
+                               klen - k0, vc, vec, tid);
     }
     cp_async_commit();  // an empty group past the end keeps the count
   };
@@ -364,7 +519,7 @@ __global__ void __launch_bounds__(kThreads, Policy<T, BM>::MIN_BLOCKS)
     __syncthreads();  // ... for every thread; and step kt - 1 is consumed
     issue(kt + kStages - 1);  // into the slot step kt - 1 used
     const T* as = stage_a(kt % kStages);
-    P::step(acc, as, as + BM * LDS, tid);
+    P::step(acc, as, as + P::A_ELEMS, tid);
   }
   cp_async_wait<0>();
 
@@ -375,14 +530,22 @@ __global__ void __launch_bounds__(kThreads, Policy<T, BM>::MIN_BLOCKS)
     const int gc = c0 + col;
     return epi(v, gc < p.n ? gc : p.n - 1);
   });
-  T* c = static_cast<T*>(p.c);
+  Out* c = static_cast<Out*>(p.c) +
+           static_cast<size_t>(blockIdx.z) * p.m * p.n;
   if constexpr (sizeof(T) == 2) {
     const bool pairs = p.n % 2 == 0;
     P::each_pair(acc, tid, [&](int r, int col, float v0, float v1) {
       const int gr = r0 + r, gc = c0 + col;
       if (gr >= p.m || gc >= p.n) return;
-      T* dst = c + static_cast<size_t>(gr) * p.n + gc;
-      if (pairs) {  // n even: gc is even and gc + 1 < n
+      Out* dst = c + static_cast<size_t>(gr) * p.n + gc;
+      if constexpr (std::is_same<Out, float>::value) {
+        if (pairs) {  // n even: gc is even and gc + 1 < n
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (gc + 1 < p.n) dst[1] = v1;
+        }
+      } else if (pairs) {
         *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
       } else {
         dst[0] = __float2bfloat16_rn(v0);
@@ -397,9 +560,11 @@ __global__ void __launch_bounds__(kThreads, Policy<T, BM>::MIN_BLOCKS)
   }
 }
 
-// the rows of a and b and both pointers 16-byte aligned
-inline bool aligned16(const void* a, const void* b, int k, size_t item) {
-  return (k * item) % 16 == 0 &&
+// both operands' rows (strides lda, ldb elements) and pointers 16-byte
+// aligned
+inline bool aligned16(const void* a, const void* b, size_t lda, size_t ldb,
+                      size_t item) {
+  return (lda * item) % 16 == 0 && (ldb * item) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(b) % 16 == 0;
 }
@@ -409,18 +574,53 @@ inline long grid_blocks(int m, int n, int bm) {
   return static_cast<long>((n + kBN - 1) / kBN) * ((m + bm - 1) / bm);
 }
 
-template <typename T, int BM = kBM, typename Epi = Identity>
+// c = store(epi(a . b)). kc < k splits K into ceil(k / kc) partials
+// (c [splits, m, n]); kc must then keep a KInner operand's rows aligned
+// (a multiple of 64 does in both dtypes).
+template <typename T, int BM = kBM, typename Epi = Identity,
+          typename LA = KInner, typename LB = KInner, typename Out = T>
 int launch(const void* a, const void* b, void* c, int m, int n, int k,
-           cudaStream_t stream, Epi epi = Epi()) {
-  constexpr size_t smem = smem_bytes<T, BM>();
+           cudaStream_t stream, Epi epi = Epi(), int kc = 0) {
+  using P = Policy<T, BM, LA, LB>;
+  constexpr size_t smem = smem_bytes<P>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_tile_kernel<T, BM, Epi>,
+      gemm_tile_kernel<T, BM, Epi, LA, LB, Out>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  Args p{a, b, c, m, n, k, aligned16(a, b, k, sizeof(T)) ? 1 : 0};
-  const dim3 grid((n + kBN - 1) / kBN, (m + BM - 1) / BM);
-  gemm_tile_kernel<T, BM, Epi><<<grid, kThreads, smem, stream>>>(p, epi);
+  if (kc <= 0 || kc > k) kc = k;
+  const size_t lda = P::AK ? k : m, ldb = P::BKI ? k : n;
+  Args p{a, b, c, m, n, k, kc, aligned16(a, b, lda, ldb, sizeof(T)) ? 1 : 0};
+  const dim3 grid((n + kBN - 1) / kBN, (m + BM - 1) / BM, (k + kc - 1) / kc);
+  gemm_tile_kernel<T, BM, Epi, LA, LB, Out>
+      <<<grid, kThreads, smem, stream>>>(p, epi);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The row tile of an [m, n] product: 64 where that holds more blocks an
+// SM (f32: two against one; bf16 holds two of either) and the 128-row grid
+// takes more than one wave of resident blocks but less than two, so its
+// last wave would leave SMs idle; else 128. Measured at the Swin-B shapes
+// (#15): f32 fc2 at stage 2 (196 blocks) 15% faster on the 64-row tile,
+// fc2 at stage 3 (104 blocks, under one wave) 12% slower; in bf16 the
+// 64-row tile was as fast or slower everywhere. Returns a cudaError_t.
+template <typename T>
+int row_tile(int m, int n, int* bm) {
+  *bm = 128;
+  using P64 = Policy<T, 64>;
+  using P128 = Policy<T, 128>;
+  if constexpr (P64::MIN_BLOCKS > P128::MIN_BLOCKS) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // MIN_BLOCKS is what an SM holds of a tile: the launch bounds ask for
+    // it, and registers or shared memory allow no more
+    const long wave = static_cast<long>(P128::MIN_BLOCKS) * sms;
+    const long blocks = grid_blocks(m, n, 128);
+    if (blocks > wave && blocks < 2 * wave) *bm = 64;
+  }
+  return 0;
 }
 
 }  // namespace

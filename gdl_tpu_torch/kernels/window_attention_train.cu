@@ -100,6 +100,7 @@
 // Plain C interface (no PyTorch headers), loaded with ctypes from
 // gdl_tpu_torch/kernels/__init__.py.
 
+#include "gemm_tile.cuh"
 #include "window_attention_fwd.cuh"
 
 namespace {
@@ -843,6 +844,48 @@ bool bad_shape(int bw, int n, int c, int heads, int d) {
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// kernel #3's projection products on the GEMM tile (gemm_tile.cuh)
+// ---------------------------------------------------------------------------
+
+// Epilogue types of #3's own, so that its instantiations of the tile have
+// symbols of their own (profile_step files them under #3).
+namespace wa3 {
+
+// dx = dqkv . W: the f32 sum over all heads, rounded once to T
+struct Dx {
+  __device__ float operator()(float v, int) const { return v; }
+};
+
+// a K-split partial of dW = dqkv^T . x, stored unrounded in f32
+struct DwPart {
+  __device__ float operator()(float v, int) const { return v; }
+};
+
+// dx [tokens, c] = dqkv [tokens, 3c] . w [3c, c] in T (A along K, B along
+// N; the row tile by gemm::row_tile); dw_part [ceil(tokens / kc), 3c, c]
+// f32 = the partials of dqkv^T . x [tokens, c] over runs of kc tokens
+// (both operands along M and N)
+template <typename T>
+int products(const void* dqkv, const void* x, const void* w, void* dx,
+             void* dw_part, int tokens, int c, int kc, cudaStream_t s) {
+  using gemm::KInner;
+  using gemm::KOuter;
+  int bm = 128;
+  int err = gemm::row_tile<T>(tokens, c, &bm);
+  if (err != 0) return err;
+  err = bm == 64
+            ? gemm::launch<T, 64, Dx, KInner, KOuter>(dqkv, w, dx, tokens, c,
+                                                      3 * c, s)
+            : gemm::launch<T, 128, Dx, KInner, KOuter>(dqkv, w, dx, tokens,
+                                                       c, 3 * c, s);
+  if (err != 0) return err;
+  return gemm::launch<T, 128, DwPart, KOuter, KOuter, float>(
+      dqkv, x, dw_part, 3 * c, c, tokens, s, DwPart(), kc);
+}
+
+}  // namespace wa3
+
 // x [bw, n, c], w [3c, c], b [3c] in T (dtype 0: float32, 1: bfloat16);
 // bias [heads, n, n] and mask [nw, n, n] (or null) in float32. Writes
 // out [bw, n, c], qkv [bw, n, 3c] and p [bw, heads, n, n], all in T.
@@ -1011,5 +1054,24 @@ extern "C" int gdl_wa_bwd_rows_launch(const void* qkv, const void* p,
     using T = typename decltype(t)::type;
     return launch_bwd_rows<T>(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads,
                               d, g, wpb, scale, s);
+  });
+}
+
+// Kernel #3's projection products alone, on a dqkv [tokens, 3c] in T
+// given by the caller: dx [tokens, c] in T and dW's partials dw_part
+// [ceil(tokens / kc), 3c, c] in float32 over runs of kc tokens (kc >=
+// tokens: one partial; else a multiple of 64). x [tokens, c], w [3c, c]
+// in T. Returns a cudaError_t (0 on success).
+extern "C" int gdl_wa_bwd_fused_products_launch(const void* dqkv,
+                                                const void* x, const void* w,
+                                                void* dx, void* dw_part,
+                                                int tokens, int c, int kc,
+                                                int dtype, void* stream) {
+  if (tokens < 1 || c < 1 || kc < 1 || (kc < tokens && kc % 64 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dtype(dtype, [&](auto t) {
+    return wa3::products<typename decltype(t)::type>(dqkv, x, w, dx, dw_part,
+                                                     tokens, c, kc, s);
   });
 }

@@ -76,6 +76,8 @@ BWD_KERNEL_NAME = "window_attention_qkv_fused_bwd"
 QKV_SAVEP_KERNEL_NAME = "window_attention_qkv_savep"
 BWD_DELTA_KERNEL_NAME = "window_attention_qkv_fused_bwd_delta"
 BWD_FUSED_KERNEL_NAME = "window_attention_qkv_fused_bwd_fused"
+# #3's projection products alone, on a given dqkv (the tile's test entry)
+BWD_PRODUCTS_KERNEL_NAME = "window_attention_qkv_fused_bwd_products"
 QKV_SAVEP_ROWS_KERNEL_NAME = "window_attention_qkv_savep_rows"    # 6
 BWD_ROWS_KERNEL_NAME = "window_attention_qkv_bwd_rows"            # 6
 QKV_FWD_KERNEL_NAME = "window_attention_qkv_fwd"                  # 7
@@ -93,6 +95,11 @@ _BWD_TARGET_BLOCKS = 1024
 # the fused backward's dW blocks each write a [3d, CT] float32 partial per
 # run of windows; about this many blocks keep the runs to tens
 _FUSED_BWD_TARGET_BLOCKS = 256
+# kernel #3's dW = dqkvᵀ·x splits its K (the tokens) until its grid of
+# 128 x 128 tiles holds two blocks for each of an H100's SMs
+_SMS = 132
+_DW_SPLIT_QUANTUM = 64  # tokens: a split keeps the tile's 16-byte rows
+_DW_SPLIT_MIN = 256     # tokens a split sums at least
 
 
 def _no_autocast(device: torch.device):
@@ -566,6 +573,49 @@ def _fused_bwd_tiling(bw: int, c: int, num_heads: int):
     ct = 128 if c <= 128 or c // num_heads > 32 else 256
     runs = max(1, _FUSED_BWD_TARGET_BLOCKS // (num_heads * -(-c // ct)))
     return ct, -(-bw // min(bw, runs))
+
+
+def _fused_bwd_split(tokens: int, c: int) -> int:
+    """Tokens per K split of kernel #3's dW = dqkvᵀ·x, from the shape
+    alone (so the partials and their sum are the same every run). Where
+    the [3C, C] grid of 128 x 128 tiles is under a wave of the H100's 132
+    SMs, K is split until the grid holds about two blocks an SM, in runs
+    of at least 256 tokens that are a multiple of 64; else one partial
+    (returns `tokens`). The partials number ceil(tokens / kc)."""
+    tiles = -(-3 * c // 128) * -(-c // 128)
+    if tiles >= _SMS:
+        return tokens
+    splits = min(-(-2 * _SMS // tiles), max(1, tokens // _DW_SPLIT_MIN))
+    kc = -(-tokens // splits)
+    kc = -(-kc // _DW_SPLIT_QUANTUM) * _DW_SPLIT_QUANTUM
+    return min(kc, tokens)
+
+
+def _launch_bwd_products(dqkv, x, w, kc: int):
+    """#3's projection products on the GEMM tile, on a dqkv [.., 3C] given
+    in x's dtype → (dx [tokens, C] in x's dtype, dW's float32 partials
+    [ceil(tokens / kc), 3C, C], unrounded). The tile's test entry."""
+    c = x.shape[-1]
+    tokens = x.numel() // c
+    for arg, t, shape in (("dqkv", dqkv, (tokens, 3 * c)),
+                          ("x", x, (tokens, c)), ("w", w, (3 * c, c))):
+        if t.numel() != shape[0] * shape[1] or t.dtype != x.dtype:
+            raise ValueError(f"{arg}: expected {shape} {x.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"dtype {x.dtype} is not supported")
+    _require_cuda((dqkv, x, w), x)
+    lib = kernels.load("window_attention_train")
+    dx = torch.empty((tokens, c), dtype=x.dtype, device=x.device)
+    parts = torch.empty((-(-tokens // kc), 3 * c, c), dtype=torch.float32,
+                        device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.gdl_wa_bwd_fused_products_launch(
+        dqkv.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(),
+        parts.data_ptr(), tokens, c, kc, _DTYPE_CODES[x.dtype], stream)
+    _raise_on(err, BWD_PRODUCTS_KERNEL_NAME)
+    kernels.launch_counts[BWD_PRODUCTS_KERNEL_NAME] += 1
+    return dx, parts
 
 
 def _launch_bwd_fused(qkv, p, dout, x, w, num_heads, scale):

@@ -36,10 +36,15 @@ import time
 
 # kind → substrings of the CUDA kernel's name, first match wins
 KINDS = (
-    # #15's fc1 and fc2 are gemm_tile_kernel (kernels/gemm_tile.cuh) with
-    # the epilogues of namespace mlp in their symbols; every other
-    # gemm_tile_kernel (the identity epilogue) is the qkv projection of #10
-    # or #13, so this row comes first
+    # #3's three launches: its attention stage (wa_bwd_fused_attn_kernel)
+    # and its dx and dW products, gemm_tile_kernel (kernels/gemm_tile.cuh)
+    # with the epilogues of namespace wa3 in their symbols. This row comes
+    # first: the rows of #13 and #4 below would otherwise take them
+    ("window_attention_bwd_fused (#3)", ("wa3::", "wa_bwd_fused")),
+    # #15's fc1 and fc2 are gemm_tile_kernel with the epilogues of
+    # namespace mlp in their symbols; every other gemm_tile_kernel (the
+    # identity epilogue) is the qkv projection of #10 or #13, so this row
+    # comes before theirs
     ("mlp_fused (#15)", ("mlp::",)),
     ("self_attention (#10, #11, #12, #13)", ("sa_train_kernel",
                                              "sa_tile_kernel",
@@ -48,7 +53,6 @@ KINDS = (
                                              "gemm_tile_kernel")),
     ("dropout_mask (#14)", ("dropout_mask_kernel",)),
     ("maxpool_bwd (#16)", ("maxpool_bwd_kernel",)),
-    ("window_attention_bwd_fused (#3)", ("wa_bwd_fused",)),
     ("window_attention_rows (#6)", ("wa_fwd_rows_kernel",
                                     "wa_bwd_rows_kernel")),
     ("window_attention_bwd_recompute (#7)", ("wa_bwd_recompute_kernel",)),

@@ -10,6 +10,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
 the suite.)
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -806,14 +808,17 @@ def test_mlp_kernel_matches_plain(cuda, m, c, hidden, dtype):
 
 @pytest.mark.cuda
 def test_mlp_and_projection_gemms_are_distinct_instantiations(cuda):
-    """#15 and #13 both run the shared GEMM tile. A call of each counts
-    one launch under its own name only, and a profiler trace of the two
-    shows #15's fc1 and fc2 under symbols of their own epilogues (namespace
-    mlp), which profile_step files under #15, and #13's projection under
-    the identity's, filed under #13."""
+    """#15, #13 and #3 all run the shared GEMM tile. A call of each counts
+    one launch under its own name only, and a profiler trace of each shows
+    #15's fc1 and fc2 under symbols of their own epilogues (namespace
+    mlp), which profile_step files under #15, #13's projection under the
+    identity's, filed under #13, and #3's dx and dW products under the
+    epilogues of namespace wa3, filed under #3, in both dtypes. Every
+    kernel symbol a trace saw is printed, so a failure shows them."""
     from torch.profiler import ProfilerActivity, profile
 
     from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import window_attention as wa
     from gdl_tpu_torch.ops.mlp import mlp_fused_fwd
     from gdl_tpu_torch.ops.self_attention import self_attention_fused_eval
     from gdl_tpu_torch.profile_step import kind_of
@@ -823,32 +828,193 @@ def test_mlp_and_projection_gemms_are_distinct_instantiations(cuda):
     margs = (rand(256, 128), rand(512, 128), rand(512), rand(128, 512),
              rand(128))
     x, w = rand(2, 64, 128), rand(384, 128) * 128 ** -0.5
-    names = ("mlp_fused", "self_attention_fused_eval")
+    pargs = {dt: (rand(300, 384).to(dt), rand(300, 128).to(dt),
+                  rand(384, 128).to(dt))
+             for dt in (torch.float32, torch.bfloat16)}
+    calls = {
+        "mlp_fused": lambda: mlp_fused_fwd(*margs),
+        "self_attention_fused_eval": lambda: self_attention_fused_eval(x, w,
+                                                                       4),
+        wa.BWD_PRODUCTS_KERNEL_NAME: lambda: [
+            wa._launch_bwd_products(*a, 128) for a in pargs.values()],
+    }
+    gemms = {}
     with torch.no_grad():
-        mlp_fused_fwd(*margs)
-        self_attention_fused_eval(x, w, 4)
-        torch.cuda.synchronize()
-        before = dict(kernels.launch_counts)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            mlp_fused_fwd(*margs)
+        for name, call in calls.items():
+            call()  # built, loaded and warm before the trace
             torch.cuda.synchronize()
-        mid = dict(kernels.launch_counts)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof_sa:
-            self_attention_fused_eval(x, w, 4)
-            torch.cuda.synchronize()
-    after = kernels.launch_counts
-    assert [mid[n] - before[n] for n in names] == [1, 0]
-    assert [after[n] - mid[n] for n in names] == [0, 1]
-    mlp_gemms = {e.key for e in prof.key_averages()
-                 if "gemm_tile_kernel" in e.key}
-    sa_gemms = {e.key for e in prof_sa.key_averages()
-                if "gemm_tile_kernel" in e.key}
-    assert len(mlp_gemms) == 2 and len(sa_gemms) == 1, (mlp_gemms, sa_gemms)
-    assert not mlp_gemms & sa_gemms
-    assert {kind_of(k) for k in mlp_gemms} == {"mlp_fused (#15)"}
-    assert any("Fc1" in k for k in mlp_gemms)
-    assert any("Fc2" in k for k in mlp_gemms)
-    assert "#13" in kind_of(sa_gemms.pop())
+            before = dict(kernels.launch_counts)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            after = dict(kernels.launch_counts)
+            seen = sorted({e.key for e in prof.key_averages()})
+            print(name, "traced:", seen)
+            calls_made = 2 if name == wa.BWD_PRODUCTS_KERNEL_NAME else 1
+            assert {k for k in calls if after[k] != before[k]} == {name}, \
+                (name, seen)
+            assert after[name] - before[name] == calls_made, (name, seen)
+            gemms[name] = {k for k in seen if "gemm_tile_kernel" in k}
+    mlp_gemms = gemms["mlp_fused"]
+    sa_gemms = gemms["self_attention_fused_eval"]
+    wa3_gemms = gemms[wa.BWD_PRODUCTS_KERNEL_NAME]
+    assert len(mlp_gemms) == 2 and len(sa_gemms) == 1, gemms
+    assert len(wa3_gemms) == 4, gemms  # dx and dW, in two dtypes
+    assert not (mlp_gemms & sa_gemms or mlp_gemms & wa3_gemms
+                or sa_gemms & wa3_gemms), gemms
+    assert {kind_of(k) for k in mlp_gemms} == {"mlp_fused (#15)"}, gemms
+    assert any("Fc1" in k for k in mlp_gemms), gemms
+    assert any("Fc2" in k for k in mlp_gemms), gemms
+    assert "#13" in kind_of(next(iter(sa_gemms))), gemms
+    assert {kind_of(k) for k in wa3_gemms} == {
+        "window_attention_bwd_fused (#3)"}, gemms
+    assert sum("wa3::Dx" in k for k in wa3_gemms) == 2, gemms
+    assert sum("wa3::DwPart" in k for k in wa3_gemms) == 2, gemms
+
+
+# ---- kernel #3's products on the GEMM tile's second and third layouts -----
+
+# (tokens, C, kc): the four Swin-B stages at batch 32 with the split rule
+# (kc None), then the tile's edges: a ragged M (1000 tokens) and a ragged
+# last K split (1000 = 3 x 256 + 232), C = 100 (bf16 rows of dqkv, x and W
+# off 16 bytes: the element-by-element copies), C = 1 (N = 1, f32 rows
+# off 16 bytes too), one token
+PRODUCT_SHAPES = [(100352, 128, None), (25088, 256, None), (6272, 512, None),
+                  (1568, 1024, None), (1000, 96, 256), (777, 100, 320),
+                  (300, 1, 300), (1, 64, 1)]
+PRODUCT_IDS = ["stage0", "stage1", "stage2", "stage3", "ragged_split",
+               "c100", "n1", "one_token"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tokens,c,kc", PRODUCT_SHAPES, ids=PRODUCT_IDS)
+def test_gemm_tile_layouts_match_matmul(cuda, tokens, c, kc, dtype):
+    """#3's products on the GEMM tile: dx = dqkv·W (A along K, B = W
+    [3C, C] along N) against torch.matmul in the same dtype at the forward
+    bar; each f32 partial of dW = dqkvᵀ·x (both operands along M and N),
+    unrounded, against the f32 product of its run of tokens, within 2e-4
+    of the largest |value| in both dtypes (a rounding to bf16 would be 4e-3
+    off); their sum likewise against the whole product; equal bits on a
+    second run."""
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    rng = np.random.default_rng(tokens + c)
+    dt = getattr(torch, dtype)
+    dqkv = torch.from_numpy(rng.standard_normal(
+        (tokens, 3 * c)).astype(np.float32)).to(cuda, dt)
+    x = torch.from_numpy(rng.standard_normal(
+        (tokens, c)).astype(np.float32)).to(cuda, dt)
+    w = torch.from_numpy((rng.standard_normal((3 * c, c))
+                          * c ** -0.5).astype(np.float32)).to(cuda, dt)
+    kc = wa._fused_bwd_split(tokens, c) if kc is None else kc
+    with torch.no_grad():
+        dx, parts = wa._launch_bwd_products(dqkv, x, w, kc)
+        dx2, parts2 = wa._launch_bwd_products(dqkv, x, w, kc)
+        want_dx = torch.matmul(dqkv, w)
+        f32 = (dqkv.float(), x.float())
+        want_parts = [torch.matmul(f32[0][k:k + kc].t(), f32[1][k:k + kc])
+                      for k in range(0, tokens, kc)]
+        want_dw = torch.matmul(f32[0].t(), f32[1])
+    torch.cuda.synchronize()
+    assert dx.dtype == dt and tuple(dx.shape) == (tokens, c)
+    assert parts.dtype == torch.float32
+    assert tuple(parts.shape) == (len(want_parts), 3 * c, c)
+    assert torch.equal(dx, dx2) and torch.equal(parts, parts2)
+    _close(dx, want_dx, dtype, "fwd")
+    for got, want in zip(parts, want_parts):
+        _close(got, want, "float32", "grad")
+    _close(parts.sum(0), want_dw, "float32", "grad")
+
+
+def _bits(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes."""
+    t = t.detach().contiguous()
+    t = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def _tile_digests(cuda) -> dict:
+    """The bits of #13's, #10's and #15's instantiations of the GEMM tile
+    on fixed inputs (numpy seeds): #13's eval output, #10's out, qkv (its
+    projection) and p, and #15's output at stage 2 (f32 fc2 on the 64-row
+    tile), M = 1568 at C = 512 (f32 fc1 on it), C = 100 (rows off 16
+    bytes) and an odd hidden; both dtypes. Name -> SHA-256."""
+    from gdl_tpu_torch.ops import self_attention as sa
+    from gdl_tpu_torch.ops.mlp import mlp_fused_fwd
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        x, w, _ = _sa_inputs(cuda, 8, 196, 512, dtype, seed=1310)
+        with torch.no_grad():
+            out["13_eval_" + dtype] = _bits(sa.self_attention_fused_eval(
+                x, w, 8))
+            for name, t in zip(("out", "qkv", "p"),
+                               sa.self_attention_fused_fwd(x, w, 8)):
+                out[f"10_{name}_{dtype}"] = _bits(t)
+            for m, c, hidden in ((6272, 512, 2048), (1568, 512, 2048),
+                                 (777, 100, 400), (300, 64, 255)):
+                rng = np.random.default_rng(m + c + hidden)
+                arrays = (rng.standard_normal((m, c)),
+                          rng.standard_normal((hidden, c)) * c ** -0.5,
+                          rng.standard_normal(hidden) * 0.1,
+                          rng.standard_normal((c, hidden)) * hidden ** -0.5,
+                          rng.standard_normal(c) * 0.1)
+                args = [torch.from_numpy(a.astype(np.float32)).to(cuda, dt)
+                        for a in arrays]
+                out[f"15_{m}_{c}_{hidden}_{dtype}"] = _bits(
+                    mlp_fused_fwd(*args))
+    return out
+
+
+# _tile_digests as the tree gave them before #3's layouts and f32 partial
+# store were added to the tile (the parent commit's kernels, run on an
+# NVIDIA H100 80GB HBM3 by this file's _tile_digests)
+TILE_DIGESTS_BEFORE = {
+    "10_out_bfloat16":
+        "8da876e277de4982d8967b59b61477b704f2caa81e5bd33fd8bdf831d59bd2d7",
+    "10_out_float32":
+        "bdf1883b0ab1937e43d1d7f29d45e89399405d86b0568a1697f739bc9bcef288",
+    "10_p_bfloat16":
+        "11ef4ff637475dcd9be75d7588ae810f3dbaed01d01d00f775b09d5917d5c8e0",
+    "10_p_float32":
+        "95efabddfdc8698bc2dbe00075e3c7705f0183fb10a8af8862cbaa49ba5af1b4",
+    "10_qkv_bfloat16":
+        "16197adb9a3e0a296a6ff8ac53d1afc01247d64e2808a114aeaab638a38762bc",
+    "10_qkv_float32":
+        "48f59b82c5d0c6b4256041ef95f718f0550f78e5a823c390c8e65a33fe0d0bc2",
+    "13_eval_bfloat16":
+        "cd69569b6f21a620523094cd4cb8b73c777ccaac3d769297f7a69047a8a8d016",
+    "13_eval_float32":
+        "1c00502c1050accec177c00008df9e3fc7c80f5a3c26d4754c9b875a35699612",
+    "15_1568_512_2048_bfloat16":
+        "bd9455517de644950e956876c8f51631fd67d9c5ef18869f6c12534c77545f60",
+    "15_1568_512_2048_float32":
+        "b3e1d06b0c9621c8c7b3f3953c716f9ace2cfedc4dfcead02b3c7991e2545034",
+    "15_300_64_255_bfloat16":
+        "f0764ced057018bd1a61af7b5869e9d0cf9def4178b507c6b37272b162ac938a",
+    "15_300_64_255_float32":
+        "3f9e034cc466338e11fdfebb810cb68d5ca9024b3e6b7d208a655709c0815011",
+    "15_6272_512_2048_bfloat16":
+        "3e4da79881fc4a46d0aad50cf5301982fad8de82988c89e70089dd7d92549086",
+    "15_6272_512_2048_float32":
+        "8f17abbe42d3b00552ec303a79e72f99437c1677c5091ef8f26668dd819b56f7",
+    "15_777_100_400_bfloat16":
+        "750bb257ee4c55bd86d28f6ce7630d7c285c45cc722f56e961fa7a1819073ae2",
+    "15_777_100_400_float32":
+        "ded6524ec8eda385a1b688dfce6e5a08486855b687fa7f84e2e589c989cf7843",
+}
+
+
+@pytest.mark.cuda
+def test_tile_instantiations_of_13_10_15_keep_their_bits(cuda):
+    """#13's, #10's and #15's instantiations of the GEMM tile give the
+    same bits as before the tile took #3's layouts and partial store."""
+    got = _tile_digests(cuda)
+    assert set(got) == set(TILE_DIGESTS_BEFORE)
+    changed = sorted(k for k in got if got[k] != TILE_DIGESTS_BEFORE[k])
+    assert not changed, changed
 
 
 @pytest.mark.cuda
