@@ -51,7 +51,7 @@ LIBRARIES = {
                                _int),
          "gdl_wa_bwd_delta_launch": ([_vp] * 6 + [_int] * 6
                                      + [_float, _int, _vp], _int),
-         "gdl_wa_bwd_fused_launch": ([_vp] * 9 + [_int] * 7
+         "gdl_wa_bwd_fused_launch": ([_vp] * 10 + [_int] * 7
                                      + [_float, _int, _vp], _int),
          "gdl_wa_qkv_fwd_launch": ([_vp] * 4 + [_int] * 6
                                    + [_float, _int, _vp], _int),

@@ -439,6 +439,101 @@ int dispatch_bwd(const void* qkv, const void* p, const void* dout,
 }
 
 // ---------------------------------------------------------------------------
+// kernel #3, stage A: #4's attention backward into a dqkv workspace, with
+// db partials
+// ---------------------------------------------------------------------------
+
+// #4's blocks and device code (one head, a run of wpb windows; dqkv in T,
+// one dbias partial a block), and one db partial a block: db_part[run,
+// [q|k|v][head][d]] = the f32 sum over the run's windows and tokens of the
+// dqkv values the block stored, rounded to T (dq scaled before rounding,
+// as store_dqkv scales it). Each thread sums its rows in order over the
+// windows; the 16 row groups are added in order at the end, through
+// shared memory. A kernel of #3's own, so #4's keeps its bits and count.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+wa_bwd_fused_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
+                         const T* __restrict__ dout, T* __restrict__ dqkv,
+                         float* __restrict__ db_part,
+                         float* __restrict__ dbias_part, int bw, int n, int c,
+                         int heads, int d, int wpb, float scale) {
+  constexpr int DT = DMAX / 16;
+  extern __shared__ float smem[];
+  const int chunk = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float scale_t = Num<T>::round(scale);
+
+  float dbacc[4][4];  // this block's share of dbias[head]
+  zero16(dbacc);
+  float dbq[DT], dbk[DT], dbv[DT];  // columns tx + 16 j, rows ty + 16 a
+#pragma unroll
+  for (int j = 0; j < DT; ++j) dbq[j] = dbk[j] = dbv[j] = 0.f;
+
+  const int w_end = min(bw, (chunk + 1) * wpb);
+  for (int win = chunk * wpb; win < w_end; ++win) {
+    float gq[4][DT], gk[4][DT], gv[4][DT];
+    attn_bwd_tile<T, DMAX, false>(qkv, p, dout, nullptr, win, head, n, c,
+                                  heads, d, scale_t, smem, dbacc, gq, gk, gv);
+    store_dqkv<T, DMAX>(dqkv, win, head, n, c, d, scale, gq, gk, gv);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (ty + 16 * a >= n) continue;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        dbq[j] += Num<T>::round(gq[a][j] * scale);
+        dbk[j] += Num<T>::round(gk[a][j]);
+        dbv[j] += Num<T>::round(gv[a][j]);
+      }
+    }
+    __syncthreads();  // the next window overwrites shared memory
+  }
+  store_dbias(
+      dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n, n,
+      dbacc);
+  // red[ty][[q|k|v] DMAX + col]: the 16 row groups' column sums
+  float* red = smem;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    red[ty * 3 * DMAX + tx + 16 * j] = dbq[j];
+    red[ty * 3 * DMAX + DMAX + tx + 16 * j] = dbk[j];
+    red[ty * 3 * DMAX + 2 * DMAX + tx + 16 * j] = dbv[j];
+  }
+  __syncthreads();
+  for (int col = threadIdx.x; col < 3 * DMAX; col += kThreads) {
+    const int part = col / DMAX, dd = col % DMAX;
+    if (dd >= d) continue;
+    float sum = 0.f;
+    for (int r = 0; r < 16; ++r) sum += red[r * 3 * DMAX + col];
+    db_part[static_cast<size_t>(chunk) * 3 * c + part * c + head * d + dd] =
+        sum;
+  }
+}
+
+template <typename T>
+int launch_bwd_fused_attn(const void* qkv, const void* p, const void* dout,
+                          void* dqkv, void* db_part, void* dbias_part, int bw,
+                          int n, int c, int heads, int d, int wpb,
+                          float scale, cudaStream_t s) {
+  return with_dmax(d, [&](auto dm) {
+    constexpr int DMAX = decltype(dm)::value;
+    constexpr size_t smem = BwdSmem<DMAX>::kBytes;
+    static_assert(16 * 3 * DMAX <= BwdSmem<DMAX>::kFloats, "db reduction");
+    static const cudaError_t attr =
+        grant_smem(wa_bwd_fused_attn_kernel<T, DMAX>, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const unsigned grid = static_cast<unsigned>((bw + wpb - 1) / wpb) *
+                          static_cast<unsigned>(heads);
+    wa_bwd_fused_attn_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(qkv), static_cast<const T*>(p),
+        static_cast<const T*>(dout), static_cast<T*>(dqkv),
+        static_cast<float*>(db_part), static_cast<float*>(dbias_part), bw, n,
+        c, heads, d, wpb, scale);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// ---------------------------------------------------------------------------
 // kernel #7's backward: p computed again from qkv, bias and mask
 // ---------------------------------------------------------------------------
 
@@ -960,26 +1055,39 @@ extern "C" int gdl_wa_bwd_delta_launch(const void* qkv, const void* p,
   });
 }
 
-// qkv, p, dout as above, x [bw, n, c] and w [3c, c] in T. Writes dx
-// [bw, n, c] in T and, in float32, one partial per run of wpb windows of
-// dW [runs, 3c, c], db [runs, 3c] and dbias [runs, heads, n, n], runs =
-// ceil(bw / wpb) (the caller sums them). ct is the width of a block's
-// column tile of C: 128 or 256, 128 when d > 32. dqkv is never written.
-// Returns a cudaError_t (0 on success).
+// Kernel #3. qkv, p, dout as above, x [bw, n, c] and w [3c, c] in T;
+// dqkv [bw, n, 3c] in T is the caller's workspace. Three launches on the
+// stream: the attention backward into dqkv, with db [runs, 3c] and dbias
+// [runs, heads, n, n] float32 partials per run of wpb windows, runs =
+// ceil(bw / wpb); dx [bw, n, c] in T = dqkv . w; dW's float32 partials
+// dw_part [ceil(bw n / kc), 3c, c] over runs of kc tokens (kc >= bw n: one
+// partial; else a multiple of 64). The caller sums the partials. Returns
+// a cudaError_t (0 on success).
 extern "C" int gdl_wa_bwd_fused_launch(const void* qkv, const void* p,
                                        const void* dout, const void* x,
-                                       const void* w, void* dx, void* dw_part,
-                                       void* db_part, void* dbias_part,
-                                       int bw, int n, int c, int heads, int d,
-                                       int wpb, int ct, float scale,
-                                       int dtype, void* stream) {
-  if (bad_shape(bw, n, c, heads, d) || wpb < 1)
+                                       const void* w, void* dqkv, void* dx,
+                                       void* dw_part, void* db_part,
+                                       void* dbias_part, int bw, int n, int c,
+                                       int heads, int d, int wpb, int kc,
+                                       float scale, int dtype, void* stream) {
+  const int tokens = bw * n;
+  if (bad_shape(bw, n, c, heads, d) || wpb < 1 || kc < 1 ||
+      (kc < tokens && kc % 64 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {  // the first design, until f32 moves over
+    const int ct = c <= 128 || d > 32 ? 128 : 256;
+    return dispatch_bwd_fused<float>(qkv, p, dout, x, w, dx, dw_part,
+                                     db_part, dbias_part, bw, n, c, heads, d,
+                                     wpb, ct, scale, s);
+  }
   return with_dtype(dtype, [&](auto t) {
-    return dispatch_bwd_fused<typename decltype(t)::type>(
-        qkv, p, dout, x, w, dx, dw_part, db_part, dbias_part, bw, n, c, heads,
-        d, wpb, ct, scale, s);
+    using T = typename decltype(t)::type;
+    const int err = launch_bwd_fused_attn<T>(qkv, p, dout, dqkv, db_part,
+                                             dbias_part, bw, n, c, heads, d,
+                                             wpb, scale, s);
+    if (err != 0) return err;
+    return wa3::products<T>(dqkv, x, w, dx, dw_part, tokens, c, kc, s);
   });
 }
 
