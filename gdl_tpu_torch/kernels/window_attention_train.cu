@@ -1075,12 +1075,6 @@ extern "C" int gdl_wa_bwd_fused_launch(const void* qkv, const void* p,
       (kc < tokens && kc % 64 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {  // the first design, until f32 moves over
-    const int ct = c <= 128 || d > 32 ? 128 : 256;
-    return dispatch_bwd_fused<float>(qkv, p, dout, x, w, dx, dw_part,
-                                     db_part, dbias_part, bw, n, c, heads, d,
-                                     wpb, ct, scale, s);
-  }
   return with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     const int err = launch_bwd_fused_attn<T>(qkv, p, dout, dqkv, db_part,

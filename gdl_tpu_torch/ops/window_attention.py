@@ -625,19 +625,14 @@ def _launch_bwd_fused(qkv, p, dout, x, w, num_heads, scale):
     bw, n, c, d = _check_bwd_operands(BWD_FUSED_KERNEL_NAME, qkv, p, dout,
                                       num_heads, extra)
     tokens = bw * n
-    if qkv.dtype == torch.float32:  # the first design, until f32 moves over
-        _, wpb = _fused_bwd_tiling(bw, c, num_heads)
-        kc = tokens  # unused: one dW partial per run of windows
-    else:
-        wpb = _bwd_windows_per_block(bw, num_heads)
-        kc = _fused_bwd_split(tokens, c)
+    wpb = _bwd_windows_per_block(bw, num_heads)
+    kc = _fused_bwd_split(tokens, c)
     runs = -(-bw // wpb)
     lib = kernels.load("window_attention_train")
     f32 = dict(dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)  # the workspace: dqkv in T
     dx = torch.empty_like(x)
-    dw_parts = torch.empty((runs if qkv.dtype == torch.float32
-                            else -(-tokens // kc), 3 * c, c), **f32)
+    dw_parts = torch.empty((-(-tokens // kc), 3 * c, c), **f32)
     db_parts = torch.empty((runs, 3 * c), **f32)
     dbias_parts = torch.empty((runs, num_heads, n, n), **f32)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
