@@ -1893,7 +1893,8 @@ def phase_flag_parity(failures):
                     del q_, k_, v_, am, q5, delta, out, qkv, p
                 torch.cuda.synchronize()
                 ok = all(oks) and all(equal)
-                ct, wpb = wa._fused_bwd_tiling(bw, c, heads)
+                runs = -(-bw // wa._bwd_windows_per_block(bw, heads))
+                splits = -(-bw * n // wa._fused_bwd_split(bw * n, c))
                 row = {"phase": "flag_parity",
                        "kernels": [wa.QKV_SAVEP_KERNEL_NAME,
                                    wa.BWD_DELTA_KERNEL_NAME,
@@ -1903,8 +1904,8 @@ def phase_flag_parity(failures):
                        "max_abs_err": errs, "fwd_tol": TRAIN_FWD_TOL[dtype],
                        "grad_frac_of_max": TRAIN_GRAD_FRAC[dtype],
                        "bit_equal_rerun": all(equal),
-                       "fused_tile": ct, "fused_runs": -(-bw // wpb),
-                       "fused_dw_partial_bytes": -(-bw // wpb) * 3 * c * c * 4,
+                       "fused_runs": runs, "fused_dw_splits": splits,
+                       "fused_dw_partial_bytes": splits * 3 * c * c * 4,
                        "ok": ok, **times}
                 emit(row)
                 attn_rows.append(row)

@@ -54,48 +54,58 @@
 //   128 where the heads allow) in turn instead of owning one head, so the
 //   grid has heads / g times fewer, longer blocks. Equal bits to #5 and #4.
 //
-// Fused projection backward, gdl_wa_bwd_fused_launch, replaces
-// _xw_attn_savep_t_bwd's fused branch (kernel body
-// _wa_xw_t_bwd_fused_kernel): dqkv is rounded to T and never written;
-//
-//   dx[w]  = sum over heads of dqkv_h[w] . W_h     (f32, one rounding)
-//   dW_h   = sum over windows of dqkv_h[w]^T . x[w] (f32)
-//   db_h   = sum over windows and tokens of dqkv_h  (f32)
-//
-// Design (a first, simple one). The forward is described in
-// window_attention_fwd.cuh; with the projection it is bound by the
-// projection's FMAs (98% of its work) at the SIMT f32 rate. The backward
-// gives each block one head and a fixed run of `wpb` consecutive windows:
-// it loads q, k, v, dout and p of one window into shared memory (rows
-// padded to 64 there only), runs the five small products on the CUDA
-// cores in f32 FMA, writes dqkv, and keeps its share of dbias in
-// registers across the run. Each block writes one dbias partial
-// [H, N, N]; the wrapper sums the partials. No atomics: the sum has a
-// fixed order, so two runs give equal bits. The backward does 5 N x N x d
-// products per (window, head), about 2.5x the forward's attention work
-// and a tenth of its projection, and reads qkv, p and dout once (p
+// Design of the backwards (a first, simple one for #4, #6 and #7). The
+// forward is described in window_attention_fwd.cuh; with the projection
+// it is bound by the projection's FMAs (98% of its work) at the SIMT f32
+// rate. The backward gives each block one head and a fixed run of `wpb`
+// consecutive windows: it loads q, k, v, dout and p of one window into
+// shared memory (rows padded to 64 there only), runs the five small
+// products on the CUDA cores in f32 FMA, writes dqkv, and keeps its share
+// of dbias in registers across the run. Each block writes one dbias
+// partial [H, N, N]; the wrapper sums the partials. No atomics: the sum
+// has a fixed order, so two runs give equal bits. The backward does 5 N x
+// N x d products per (window, head), about 2.5x the forward's attention
+// work and a tenth of its projection, and reads qkv, p and dout once (p
 // dominates: N*N per head against 3d per token). Tensor-core products,
 // TMA and sharing a window across heads are later work.
 //
-// The fused backward has two sums that pull apart: dx sums over the heads
-// of ONE window, dW over ALL windows of one head. A block cannot own both
-// without atomics or a partial per (window, head). So one launch holds
-// blocks of two roles, and each role computes the attention backward of
-// the (window, head) pairs it needs into shared memory (dqkv_h [N, 3d],
-// rounded to T) and never writes it:
-//   - a dx block owns one window and CT columns of C. It loops over the
-//     heads, streams W_h's rows through shared memory and keeps its
-//     [N, CT] tile of dx in registers until the last head;
-//   - a dW block owns one head, CT columns of C and a run of `wpb`
-//     windows. It streams x[w] through shared memory, keeps its [3d, CT]
-//     tile of dW in registers over the run and writes one f32 partial;
-//     the blocks of the first column tile also write db and dbias
-//     partials. The wrapper sums the partials over the runs (tens of
-//     runs, so the partials are a fraction of the dqkv round trip).
-// The attention backward is so computed 2*C/CT times over; it is a
-// twentieth to a third of the projection backward's work (5N / 6C of it).
-// What bounds it: the two projection products (2 * Bw*N*3C*C MACs) at the
-// SIMT f32 rate. Fixed order everywhere, so two runs give equal bits.
+// Kernel #3, the fused projection backward, gdl_wa_bwd_fused_launch,
+// replaces _xw_attn_savep_t_bwd's fused branch (kernel body
+// _wa_xw_t_bwd_fused_kernel, gdl_tpu/ops/window_attention.py:1112):
+//
+//   dqkv   = #4's attention backward, rounded to T   [Bw, N, 3C]
+//   dx     = dqkv . W     (f32 over all heads, one rounding to T)
+//   dW     = dqkv^T . x   (f32 over all windows, one rounding to w's T)
+//   db     = f32 sum over windows and tokens of the rounded dqkv
+//   dbias  = f32 sum over windows of ds
+//
+// The TPU kernel rounds dqkv to T at the point where the backward splits
+// into these sums, and keeps it in VMEM. Here it goes through device
+// memory in T at that same rounding point, as #15's g does: the two sums
+// pull apart (dx over the heads of ONE window, dW over ALL windows of a
+// head), and a block that owned both would need atomics or would compute
+// the attention backward more than once (the first design did, 2C/CT
+// times over). The round trip (dqkv written once and read twice: 3.6 GB
+// a bf16 arm-B step, 7.1 GB f32, 1.1 / 2.1 ms at 3.35 TB/s) is small
+// beside the products; the bound does not count it. Three launches on the
+// caller's stream:
+//   A. wa_bwd_fused_attn_kernel: #4's grid and device code (attn_bwd_tile,
+//      store_dqkv) into the caller's dqkv workspace, with #4's dbias
+//      partials and a db partial [runs, 3C] per run of windows. Bound like
+//      #4: by the bytes of p and qkv, at the SIMT rate of its five small
+//      products in practice;
+//   B. dx [Bw N, C] = dqkv . W on gemm_tile.cuh (A along K, B = W [3C, C]
+//      along N: ldmatrix.trans fragments in bf16), with the epilogue type
+//      wa3::Dx; the 64-row tile where gemm::row_tile asks for it;
+//   C. dW = dqkv^T . x on the tile with both operands along the tokens
+//      (ldmatrix.trans for both in bf16), K split into runs of kc tokens
+//      so that the [3C, C] grid of 128 x 128 tiles fills the card (stages
+//      0-2 have 3, 12 and 48 tiles); each run stores an unrounded f32
+//      partial (epilogue wa3::DwPart, float store).
+// B and C are bound by their operations: 2 * Bw N 3C C multiply-adds each,
+// on the tensor cores in bf16 and on the SIMT FMA tile in f32. The
+// wrapper sums the dW, db and dbias partials in a fixed order and rounds
+// once: no atomics anywhere, two runs give equal bits.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes from
 // gdl_tpu_torch/kernels/__init__.py.
@@ -703,234 +713,6 @@ int launch_bwd_rows(const void* qkv, const void* p, const void* dout,
         static_cast<float*>(dbias_part), bw, n, c, heads, d, g, wpb, scale);
     return static_cast<int>(cudaGetLastError());
   });
-}
-
-// ---------------------------------------------------------------------------
-// kernel #3: the attention backward and the projection backward in one
-// ---------------------------------------------------------------------------
-
-constexpr int kGK = 32;  // depth of the operand tile streamed per step
-
-template <int DMAX>
-struct FusedSmem {
-  static constexpr int kLdD = 3 * DMAX + 1;
-  // the attention buffers, then dqs [kNP][kLdD]: dqkv_h rounded to T. The
-  // operand tile [kGK][CT] of the projection products lies over qs..gs.
-  static constexpr int kFloats = BwdSmem<DMAX>::kFloats + kNP * kLdD;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
-};
-
-template <typename T, int DMAX, int CT>
-__global__ void __launch_bounds__(kThreads)
-wa_bwd_fused_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-                    const T* __restrict__ dout, const T* __restrict__ x,
-                    const T* __restrict__ w, T* __restrict__ dx,
-                    float* __restrict__ dw_part, float* __restrict__ db_part,
-                    float* __restrict__ dbias_part, int bw, int n, int c,
-                    int heads, int d, int wpb, float scale) {
-  using F = FusedSmem<DMAX>;
-  constexpr int DT = DMAX / 16;
-  constexpr int JC = CT / 16;        // C columns per thread
-  constexpr int RT = 3 * DMAX / 16;  // dW rows per thread
-  static_assert(kGK * CT <= BwdSmem<DMAX>::kQkvg, "operand tile too large");
-  extern __shared__ float smem[];
-  float* tile = smem;  // over qs..gs, dead once dqs is written
-  float* dqs = smem + BwdSmem<DMAX>::kFloats;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int c3 = 3 * c;
-  const int nct = (c + CT - 1) / CT;
-  const int dx_blocks = bw * nct;
-  const float scale_t = Num<T>::round(scale);
-  float dbacc[4][4];
-  zero16(dbacc);
-
-  // dqkv_h of (win, head), rounded to T, into dqs; ends synchronised
-  auto attention = [&](int win, int head) {
-    float gq[4][DT], gk[4][DT], gv[4][DT];
-    attn_bwd_tile<T, DMAX, false>(qkv, p, dout, nullptr, win, head, n, c,
-                                  heads, d, scale_t, smem, dbacc, gq, gk, gv);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        float* row = dqs + (ty + 16 * a) * F::kLdD + tx + 16 * j;
-        row[0] = Num<T>::round(gq[a][j] * scale);
-        row[DMAX] = Num<T>::round(gk[a][j]);
-        row[2 * DMAX] = Num<T>::round(gv[a][j]);
-      }
-    __syncthreads();
-  };
-
-  if (static_cast<int>(blockIdx.x) < dx_blocks) {
-    // ---- dx role: one window, CT columns, all heads ---------------------
-    const int win = blockIdx.x / nct;
-    const int ct0 = (blockIdx.x % nct) * CT;
-    float acc[4][JC];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < JC; ++j) acc[a][j] = 0.f;
-    for (int head = 0; head < heads; ++head) {
-      attention(win, head);
-      for (int part = 0; part < 3; ++part) {
-        for (int k0 = 0; k0 < d; k0 += kGK) {
-          const int kmax = min(kGK, d - k0);
-          // W rows [q|k|v][head][d], C contiguous
-          const T* wr = w + static_cast<size_t>(part * c + head * d + k0) * c;
-          for (int e = tid; e < kGK * CT; e += kThreads) {
-            const int kk = e / CT, col = e % CT;
-            tile[e] = (kk < kmax && ct0 + col < c)
-                          ? Num<T>::load(wr + static_cast<size_t>(kk) * c +
-                                         ct0 + col)
-                          : 0.f;
-          }
-          __syncthreads();
-          for (int kk = 0; kk < kmax; ++kk) {
-            float dv[4], wv[JC];
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-              dv[a] = dqs[(ty + 16 * a) * F::kLdD + part * DMAX + k0 + kk];
-#pragma unroll
-            for (int j = 0; j < JC; ++j) wv[j] = tile[kk * CT + tx + 16 * j];
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-              for (int j = 0; j < JC; ++j)
-                acc[a][j] = fmaf(dv[a], wv[j], acc[a][j]);
-          }
-          __syncthreads();  // the tile, then the next head, is overwritten
-        }
-      }
-    }
-    T* dxw = dx + static_cast<size_t>(win) * n * c + ct0;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-      if (i >= n) continue;
-#pragma unroll
-      for (int j = 0; j < JC; ++j) {
-        const int col = tx + 16 * j;
-        if (ct0 + col < c)
-          dxw[static_cast<size_t>(i) * c + col] = Num<T>::store(acc[a][j]);
-      }
-    }
-    return;
-  }
-
-  // ---- dW role: one head, CT columns, a run of wpb windows --------------
-  const int b = blockIdx.x - dx_blocks;
-  const int ct0 = (b % nct) * CT;
-  const int head = (b / nct) % heads;
-  const int run = b / (nct * heads);
-  const bool first = ct0 == 0;  // these blocks also write db and dbias
-  float acc[RT][JC];
-#pragma unroll
-  for (int a = 0; a < RT; ++a)
-#pragma unroll
-    for (int j = 0; j < JC; ++j) acc[a][j] = 0.f;
-  float dbsum = 0.f;  // column tid of dqkv_h, summed over tokens and windows
-  const int w_end = min(bw, (run + 1) * wpb);
-  for (int win = run * wpb; win < w_end; ++win) {
-    attention(win, head);
-    if (first && tid < 3 * DMAX)
-      for (int t = 0; t < n; ++t) dbsum += dqs[t * F::kLdD + tid];
-    const T* xw = x + static_cast<size_t>(win) * n * c + ct0;
-    for (int t0 = 0; t0 < n; t0 += kGK) {
-      const int tmax = min(kGK, n - t0);
-      for (int e = tid; e < kGK * CT; e += kThreads) {
-        const int tt = e / CT, col = e % CT;
-        tile[e] = (tt < tmax && ct0 + col < c)
-                      ? Num<T>::load(xw + static_cast<size_t>(t0 + tt) * c +
-                                     col)
-                      : 0.f;
-      }
-      __syncthreads();
-      for (int tt = 0; tt < tmax; ++tt) {
-        float dv[RT], xv[JC];
-#pragma unroll
-        for (int a = 0; a < RT; ++a)
-          dv[a] = dqs[(t0 + tt) * F::kLdD + ty + 16 * a];
-#pragma unroll
-        for (int j = 0; j < JC; ++j) xv[j] = tile[tt * CT + tx + 16 * j];
-#pragma unroll
-        for (int a = 0; a < RT; ++a)
-#pragma unroll
-          for (int j = 0; j < JC; ++j)
-            acc[a][j] = fmaf(dv[a], xv[j], acc[a][j]);
-      }
-      __syncthreads();  // the tile, then the next window, is overwritten
-    }
-  }
-  float* dwp = dw_part + static_cast<size_t>(run) * c3 * c;
-#pragma unroll
-  for (int a = 0; a < RT; ++a) {
-    const int r = ty + 16 * a;
-    const int part = r / DMAX, dd = r % DMAX;
-    if (dd >= d) continue;
-    float* row = dwp + static_cast<size_t>(part * c + head * d + dd) * c + ct0;
-#pragma unroll
-    for (int j = 0; j < JC; ++j) {
-      const int col = tx + 16 * j;
-      if (ct0 + col < c) row[col] = acc[a][j];
-    }
-  }
-  if (first) {
-    if (tid < 3 * DMAX && tid % DMAX < d)
-      db_part[static_cast<size_t>(run) * c3 + (tid / DMAX) * c + head * d +
-              tid % DMAX] = dbsum;
-    store_dbias(
-        dbias_part + (static_cast<size_t>(run) * heads + head) * n * n, n,
-        dbacc);
-  }
-}
-
-template <typename T, int DMAX, int CT>
-int launch_bwd_fused(const void* qkv, const void* p, const void* dout,
-                     const void* x, const void* w, void* dx, void* dw_part,
-                     void* db_part, void* dbias_part, int bw, int n, int c,
-                     int heads, int d, int wpb, float scale,
-                     cudaStream_t stream) {
-  constexpr size_t smem = FusedSmem<DMAX>::kBytes;
-  static const cudaError_t attr =
-      grant_smem(wa_bwd_fused_kernel<T, DMAX, CT>, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const unsigned nct = static_cast<unsigned>((c + CT - 1) / CT);
-  const unsigned runs = static_cast<unsigned>((bw + wpb - 1) / wpb);
-  const unsigned grid = static_cast<unsigned>(bw) * nct +
-                        runs * static_cast<unsigned>(heads) * nct;
-  wa_bwd_fused_kernel<T, DMAX, CT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(p),
-      static_cast<const T*>(dout), static_cast<const T*>(x),
-      static_cast<const T*>(w), static_cast<T*>(dx),
-      static_cast<float*>(dw_part), static_cast<float*>(db_part),
-      static_cast<float*>(dbias_part), bw, n, c, heads, d, wpb, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_bwd_fused(const void* qkv, const void* p, const void* dout,
-                       const void* x, const void* w, void* dx, void* dw_part,
-                       void* db_part, void* dbias_part, int bw, int n, int c,
-                       int heads, int d, int wpb, int ct, float scale,
-                       cudaStream_t s) {
-  // the dW tile [3 DMAX, CT] lives in registers: 96 a thread at most
-  if (d > 32) {
-    if (ct != 128) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_bwd_fused<T, 64, 128>(qkv, p, dout, x, w, dx, dw_part,
-                                        db_part, dbias_part, bw, n, c, heads,
-                                        d, wpb, scale, s);
-  }
-  if (ct == 128)
-    return launch_bwd_fused<T, 32, 128>(qkv, p, dout, x, w, dx, dw_part,
-                                        db_part, dbias_part, bw, n, c, heads,
-                                        d, wpb, scale, s);
-  if (ct == 256)
-    return launch_bwd_fused<T, 32, 256>(qkv, p, dout, x, w, dx, dw_part,
-                                        db_part, dbias_part, bw, n, c, heads,
-                                        d, wpb, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 bool bad_shape(int bw, int n, int c, int heads, int d) {

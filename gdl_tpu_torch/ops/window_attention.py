@@ -42,12 +42,13 @@ when an op is called (they are no CLI flags):
   `_wa_qkv_t_bwd_pd_kernel`).
 - `FUSED_PROJECTION_BACKWARD` (False | True | "auto"), for
   `window_attention_qkv_fused` only: where `fused_bwd_supported` allows,
-  the whole backward is one launch of kernel #3
-  (`_wa_xw_t_bwd_fused_kernel`), which never writes dqkv and returns dx,
-  dW, db and dbias; elsewhere the split above. gdl_tpu's "auto" is a VMEM
-  budget; on the H100 the kernel is slower than the split at every
-  Swin-B stage (PERF.md), so there is no measured win to build a rule on
-  yet and "auto" means "wherever supported", the same as True.
+  the whole backward is kernel #3 (`_wa_xw_t_bwd_fused_kernel`), which
+  returns dx, dW, db and dbias: three launches on one stream, the
+  attention backward into a dqkv workspace in x's dtype (where the TPU
+  kernel rounds dqkv), then dx = dqkv·W and dW = dqkvᵀ·x on the GEMM
+  tile; elsewhere the split above. gdl_tpu's "auto" is a VMEM budget
+  with no counterpart here, so "auto" means "wherever supported", the
+  same as True.
 
 On a CPU tensor every op runs its plain PyTorch version
 (`*_ref` below), which rounds where the kernels round; impl="plain" runs
@@ -92,9 +93,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward kernel gives each block one head and a run of windows;
 # about this many blocks fill an H100's 132 SMs a few times over
 _BWD_TARGET_BLOCKS = 1024
-# the fused backward's dW blocks each write a [3d, CT] float32 partial per
-# run of windows; about this many blocks keep the runs to tens
-_FUSED_BWD_TARGET_BLOCKS = 256
 # kernel #3's dW = dqkvᵀ·x splits its K (the tokens) until its grid of
 # 128 x 128 tiles holds two blocks for each of an H100's SMs
 _SMS = 132
@@ -557,22 +555,21 @@ def _launch_bhnd(q, k, v, bias, mask, scale, packed):
 
 def fused_bwd_supported(n: int, c: int, num_heads: int,
                         dtype: torch.dtype) -> bool:
-    """Where kernel #3 runs: a function of the shapes alone. Its blocks
-    tile C and keep every sum in registers, so it has no limit beyond
-    kernel #4's own (N <= 64 tokens, head dim <= 64, float32 or
-    bfloat16). All four Swin-B stages qualify."""
+    """Where kernel #3 runs: a function of the shapes alone. Its
+    attention stage is kernel #4's device code and its products the GEMM
+    tile, so it has no limit beyond #4's own (N <= 64 tokens, head dim
+    <= 64, float32 or bfloat16). All four Swin-B stages qualify.
+
+    A recorded divergence from gdl_tpu: under True or "auto" gdl_tpu runs
+    its fused kernel only where its f32 dW slab fits
+    (`gdl_tpu/ops/window_attention.py:1279-1313`: hg·c·3·gd·4 bytes <=
+    _DW_SLAB_FEASIBLE, 9 MB, and under "auto" a 4 MB cap), so Swin-B
+    stage 3 (C = 1024: 3C²·4 = 12.6 MB) takes its split there: 44
+    launches of #3 and 4 of #4 an arm-B step, where the port makes 48 of
+    #3. The port's #3 holds no slab, and both routes compute the same
+    function within the tolerances."""
     return (n <= MAX_TOKENS and c % num_heads == 0
             and c // num_heads <= MAX_HEAD_DIM and dtype in _DTYPE_CODES)
-
-
-def _fused_bwd_tiling(bw: int, c: int, num_heads: int):
-    """(column tile of C, windows per dW block) of kernel #3, from the
-    shape alone, so the partials and their sums are the same every run.
-    The tile is 256 columns (128 when C <= 128 or the head dim is above
-    32: the dW tile [3d, CT] lives in registers)."""
-    ct = 128 if c <= 128 or c // num_heads > 32 else 256
-    runs = max(1, _FUSED_BWD_TARGET_BLOCKS // (num_heads * -(-c // ct)))
-    return ct, -(-bw // min(bw, runs))
 
 
 def _fused_bwd_split(tokens: int, c: int) -> int:

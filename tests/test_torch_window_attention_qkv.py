@@ -292,19 +292,35 @@ def test_cpu_dispatch_is_the_plain_version_and_counts_nothing(monkeypatch):
 
 def test_fused_backward_rules_are_functions_of_the_shape():
     """fused_bwd_supported holds at the four Swin-B stages and fails past
-    the kernels' token and head-dim limits; the tiling keeps the dW
-    partials to tens of runs at the batch-32 stage shapes."""
+    the kernels' token and head-dim limits. Kernel #3's attention stage
+    takes #4's runs of windows and its dW product a K split, both
+    functions of the shape alone: at the batch-32 stage shapes the split
+    keeps the dW partials under 20 MiB, and at stages 0-2 (whose [3C, C]
+    grids of 128 x 128 tiles are under a wave) it fills at least one wave
+    of the H100's 132 SMs."""
+    kcs = []
     for bw, c, heads in ((2048, 128, 4), (512, 256, 8), (128, 512, 16),
                          (32, 1024, 32)):
         assert wa.fused_bwd_supported(49, c, heads, torch.float32)
         assert wa.fused_bwd_supported(49, c, heads, torch.bfloat16)
-        ct, wpb = wa._fused_bwd_tiling(bw, c, heads)
+        wpb = wa._bwd_windows_per_block(bw, heads)
         runs = -(-bw // wpb)
-        assert ct == (128 if c == 128 else 256)
-        assert 2 <= runs <= 64 and runs * wpb >= bw
-        assert runs * 3 * c * c * 4 <= 26 * 2 ** 20  # bytes of dW partials
-    assert wa._fused_bwd_tiling(8, 128, 2)[0] == 128  # head dim 64
-    assert wa._fused_bwd_tiling(3, 64, 2) == (128, 1)
+        assert runs * wpb >= bw and (runs - 1) * wpb < bw
+        assert runs * heads >= 132  # stage A's blocks fill a wave too
+        tokens = bw * 49
+        kc = wa._fused_bwd_split(tokens, c)
+        splits = -(-tokens // kc)
+        assert kc == tokens or kc % 64 == 0  # the tile's aligned rows
+        assert (splits - 1) * kc < tokens  # no empty partial
+        assert splits * 3 * c * c * 4 <= 20 * 2 ** 20  # bytes of partials
+        tiles = -(-3 * c // 128) * -(-c // 128)
+        if c <= 512:
+            assert tiles < 132 <= tiles * splits
+        else:
+            assert splits == 1
+        kcs.append(kc)
+    assert kcs == [1152, 1152, 1088, 1568]
+    assert wa._fused_bwd_split(3 * 49, 64) == 3 * 49  # one short partial
     assert not wa.fused_bwd_supported(65, 128, 4, torch.float32)
     assert not wa.fused_bwd_supported(49, 256, 2, torch.float32)
     assert not wa.fused_bwd_supported(49, 128, 4, torch.float64)
