@@ -109,15 +109,18 @@ Phases, each printing one JSON line:
               save-p forward on a qkv computed outside: out and p), the
               BWD_DELTA body of #4 (dqkv and dbias from given row sums;
               also against the default #4) and #3 (attention and
-              projection backward in one: dx, dW, db and dbias; also
-              against #4 followed by the three GEMMs), and #15 (the fused
-              MLP) at the four MLP shapes [Bw*49, C] -> 4C -> C; each
-              bit-equal across two runs; median times of kernel and plain
-              (CUDA events), of F.scaled_dot_product_attention on the same
-              q, k, v with bias + mask as its mask (#5), of #4 + three
+              projection backward: dx, dW, db and dbias; also against #4
+              followed by the three GEMMs), and #15 (the fused MLP) at
+              the four MLP shapes [Bw*49, C] -> 4C -> C; each bit-equal
+              across two runs; median times of kernel and plain (CUDA
+              events), of F.scaled_dot_product_attention on the same q,
+              k, v with bias + mask as its mask (#5), of #4 + three
               torch.matmul (#3) and of F.linear -> F.gelu -> F.linear
-              (#15); #15's device time split into its fc1 and fc2
-              launches by a torch.profiler trace;
+              (#15); by a torch.profiler trace, #3's device time split
+              into its three launches (attention into the dqkv
+              workspace, dx, dW's K-split partials) and the partial sums,
+              and #15's into its fc1 and fc2 launches; #3's runs, dW
+              splits, partial bytes and dqkv round trip;
   m. flag train
               phase f's configuration, nothing cut, built through Config
               flags, serve.build_model and build_harness from one seed,
@@ -127,7 +130,11 @@ Phases, each printing one JSON line:
                  stage is inside mlp_kernel_supported), 0 of #2, #4, #3;
               B  the default flags with FUSED_PROJECTION_BACKWARD: 48 of
                  #2 and, by fused_bwd_supported, k = 48 of #3 and 48 - k
-                 = 0 of #4; 0 of #5 and #15;
+                 = 0 of #4; 0 of #5 and #15. (gdl_tpu sends stage 3,
+                 C = 1024, to the split instead: its dW slab 3C^2 * 4 =
+                 12.6 MB exceeds _DW_SLAB_FEASIBLE and the "auto" cap,
+                 so it makes 44 of #3 and 4 of #4 a step; the port's #3
+                 has no slab and both routes compute the same function);
               plain  attn_impl="plain": no launch.
               One eval pass per arm before any step (equal weights): arm
               A, whose qkv is not fused, runs the plain eval attention
@@ -172,7 +179,8 @@ Phases, each printing one JSON line:
               replaces, launches on its path (d for #1, the kernel arm
               of f for #2 and #4, of i for #16, of k for #10, #11, #13
               and #14, arm A of m for #5, #4-delta and #15, arm B of m
-              for #3, n's path for #6, #7, #8 and #9 (#6 and #7 a
+              for #3 (with its stages and dqkv's round trip beside the
+              bound), n's path for #6, #7, #8 and #9 (#6 and #7 a
               forward and a backward entry each), the switch's kernel
               arm of o for #12), error, times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
@@ -1779,6 +1787,8 @@ def phase_flag_parity(failures):
 
     from gdl_tpu_torch.bench_common import split_ms
     from gdl_tpu_torch.bench_mlp import mlp_part
+    from gdl_tpu_torch.bench_wa_bwd import cost as wa_bwd_cost
+    from gdl_tpu_torch.bench_wa_bwd import wa_bwd_part
     from gdl_tpu_torch.ops import mlp as mlp_ops
     from gdl_tpu_torch.ops import window_attention as wa
 
@@ -1890,6 +1900,12 @@ def phase_flag_parity(failures):
                             **plain),
                         "split_ms": cuda_ms(split),
                     }
+                    # #3's device ms of one call by stage (torch.profiler)
+                    parts, _ = split_ms(
+                        lambda: wa.window_attention_qkv_fused_bwd_fused(
+                            qkv, p, dout, x, w, heads), wa_bwd_part, traced=5)
+                    for part in ("attention", "dx", "dw", "sums"):
+                        times[f"fused_{part}_ms"] = parts.get(part, 0.0)
                     del q_, k_, v_, am, q5, delta, out, qkv, p
                 torch.cuda.synchronize()
                 ok = all(oks) and all(equal)
@@ -1906,6 +1922,8 @@ def phase_flag_parity(failures):
                        "bit_equal_rerun": all(equal),
                        "fused_runs": runs, "fused_dw_splits": splits,
                        "fused_dw_partial_bytes": splits * 3 * c * c * 4,
+                       "fused_dqkv_round_trip_bytes": wa_bwd_cost(
+                           bw, c, heads, x.element_size())[2],
                        "ok": ok, **times}
                 emit(row)
                 attn_rows.append(row)
@@ -2672,6 +2690,17 @@ def main(argv=None) -> int:
                                                         "bfloat16")["ms"]
         entries[9]["delta_make_ms"] = per_pass_ms(flag_attn, "float32",
                                                   "delta_make_ms")
+        # #3 by stage (attention, dx, dW, partial sums; profiler device
+        # ms) and dqkv's round trip through device memory (written once,
+        # read by dx and by dW), beside the bound and not counted in it
+        for dtype, sfx in (("float32", ""), ("bfloat16", "_bfloat16")):
+            for part in ("attention", "dx", "dw", "sums"):
+                entries[10][f"{part}_ms{sfx}"] = per_pass_ms(
+                    flag_attn, dtype, f"fused_{part}_ms")
+            rt = per_pass_ms(flag_attn, dtype, "fused_dqkv_round_trip_bytes")
+            entries[10]["dqkv_round_trip_bytes" + sfx] = rt
+            entries[10]["dqkv_round_trip_ms" + sfx] = (rt / HBM_BYTES_PER_S
+                                                      * 1e3)
         entries[9]["default_kernel_ms"] = per_pass_ms(flag_attn, "float32",
                                                       "k4_ms")
     # #15 per training step: 2 encoders x depth launches at each stage
