@@ -451,9 +451,10 @@ def attention_cost(kind: str, bw: int, c: int, heads: int, masked: bool,
                 + small + delta, 8 * bw * n * n * c + 6 * scores)
     if kind == "bwd_fused":
         # qkv, p, dout, x, W in; dx, dW, db, dbias out; the 4 attention
-        # products and the 2 projection products
-        return ((6 * tokens + scores + 6 * c * c + 3 * c) * itemsize + small,
-                8 * bw * n * n * c + 6 * scores + 12 * bw * n * c * c)
+        # products and the 2 projection products (bench_wa_bwd.cost)
+        from gdl_tpu_torch.bench_wa_bwd import cost
+
+        return cost(bw, c, heads, itemsize)[:2]
     if kind == "qkv_savep":  # qkv, bias, mask in; out, p out; 2 products
         return ((4 * tokens + scores) * itemsize + small + nw * n * n * 4,
                 4 * bw * n * n * c + 5 * scores)

@@ -6,9 +6,10 @@
 //   - KOuter: K is the row index. A [K, M], B [K, N], M or N contiguous:
 //     W [3C, C] read as [K, N] for dx = dqkv . W, and dqkv and x read
 //     along their tokens for dW = dqkv^T . x (kernel #3's products).
-// The output type is T, or float for an unrounded f32 partial. K may be
-// split over gridDim.z: block z sums k in [z kc, (z + 1) kc) and stores
-// its partial at C + z M N; the caller sums the partials in a fixed order.
+// The store is a type parameter too: RoundT rounds each sum to T once;
+// F32Partial splits K over gridDim.z (block z sums k in [z kc, (z + 1)
+// kc)) and stores each split's sums unrounded in f32 at C + z M N, for the
+// caller to add in a fixed order.
 //
 // What it replaces. The qkv projection of `_sa_xw_eval_kernel`
 // (gdl_tpu/ops/self_attention.py:637, the product at :644-648: x . W in
@@ -88,6 +89,10 @@ struct Identity {
 // operand layouts (see the header): K contiguous, or K the row index
 struct KInner {};
 struct KOuter {};
+
+// stores (see the header): round to T, or an f32 partial of a K split
+struct RoundT {};
+struct F32Partial {};
 
 template <typename L>
 constexpr bool k_inner() {
@@ -381,48 +386,23 @@ struct Policy<float, BM, LA, LB> {
     }
   }
 
+  // each sum takes its k in ascending order, one fmaf each
   __device__ static void step(Acc& acc, const T* as, const T* bs, int tid) {
     const int tx = tid % 16, ty = tid / 16;
-    if constexpr (AK && BKI) {
 #pragma unroll 2
-      for (int kk = 0; kk < BK; kk += 4) {
-        float4 a[MI];
+    for (int kk = 0; kk < BK; kk += 4) {
+      float a[MI][4], b[8][4];
+      load4<AK, MI, LDA>(a, as, ty, kk);
+      load4<BKI, 8, LDB>(b, bs, tx, kk);
 #pragma unroll
-        for (int i = 0; i < MI; ++i)
-          a[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * LDA +
-                                                  kk);
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 b =
-              *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * LDB + kk);
+        for (int i = 0; i < MI; ++i) {
+          float s = acc.c[i][j];
 #pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            float s = acc.c[i][j];
-            s = fmaf(a[i].x, b.x, s);
-            s = fmaf(a[i].y, b.y, s);
-            s = fmaf(a[i].z, b.z, s);
-            s = fmaf(a[i].w, b.w, s);
-            acc.c[i][j] = s;
-          }
+          for (int u = 0; u < 4; ++u) s = fmaf(a[i][u], b[j][u], s);
+          acc.c[i][j] = s;
         }
-      }
-    } else {
-      // the same sums in the same order (k ascending, one fmaf each)
-#pragma unroll 2
-      for (int kk = 0; kk < BK; kk += 4) {
-        float a[MI][4], b[8][4];
-        load4<AK, MI, LDA>(a, as, ty, kk);
-        load4<BKI, 8, LDB>(b, bs, tx, kk);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            float s = acc.c[i][j];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) s = fmaf(a[i][u], b[j][u], s);
-            acc.c[i][j] = s;
-          }
-      }
     }
   }
 
@@ -451,31 +431,30 @@ constexpr size_t smem_bytes() {
 struct Args {
   const void* a;  // [m, k] (KInner) or [k, m] (KOuter)
   const void* b;  // [n, k] (KInner) or [k, n] (KOuter)
-  void* c;        // [ceil(k / kc), m, n]
+  void* c;        // [m, n], or [ceil(k / kc), m, n] f32 partials
   int m, n, k;
-  int kc;   // K per split: block z sums k in [z kc, min(k, (z + 1) kc))
+  int kc;   // F32Partial: block z sums k in [z kc, min(k, (z + 1) kc))
   int vec;  // 1: rows and pointers are 16-byte aligned
 };
 
-// C = store(epi(A . B)) with A, B in layouts LA, LB, stored as Out (T, or
-// float for an unrounded partial). Grid: (ceil(n / 128), ceil(m / BM),
-// splits); the blocks of one row of tiles run next to each other and share
-// A's rows in L2.
+// C = store(epi(A . B)) with A, B in layouts LA, LB and the store Store.
+// Grid: (ceil(n / 128), ceil(m / BM), K splits); the blocks of one row of
+// tiles run next to each other and share A's rows in L2.
 template <typename T, int BM = kBM, typename Epi = Identity,
-          typename LA = KInner, typename LB = KInner, typename Out = T>
+          typename LA = KInner, typename LB = KInner, typename Store = RoundT>
 __global__ void __launch_bounds__(kThreads,
                                   Policy<T, BM, LA, LB>::MIN_BLOCKS)
     gemm_tile_kernel(Args p, Epi epi) {
   using P = Policy<T, BM, LA, LB>;
-  static_assert(std::is_same<Out, T>::value || std::is_same<Out, float>::value,
-                "the store rounds to T or keeps f32");
+  constexpr bool kPartial = std::is_same<Store, F32Partial>::value;
+  using Out = std::conditional_t<kPartial, float, T>;
   constexpr int kBK = P::BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int tid = threadIdx.x;
   const int r0 = blockIdx.y * BM, c0 = blockIdx.x * kBN;
-  const int kb = blockIdx.z * p.kc;
-  const int klen = min(p.k - kb, p.kc);
+  const int kb = kPartial ? blockIdx.z * p.kc : 0;
+  const int klen = kPartial ? min(p.k - kb, p.kc) : p.k;
   // row strides, and the block's first element of A and B
   const size_t lda = P::AK ? p.k : p.m, ldb = P::BKI ? p.k : p.n;
   const T* a = static_cast<const T*>(p.a) +
@@ -530,15 +509,15 @@ __global__ void __launch_bounds__(kThreads,
     const int gc = c0 + col;
     return epi(v, gc < p.n ? gc : p.n - 1);
   });
-  Out* c = static_cast<Out*>(p.c) +
-           static_cast<size_t>(blockIdx.z) * p.m * p.n;
+  Out* c = static_cast<Out*>(p.c);
+  if constexpr (kPartial) c += static_cast<size_t>(blockIdx.z) * p.m * p.n;
   if constexpr (sizeof(T) == 2) {
     const bool pairs = p.n % 2 == 0;
     P::each_pair(acc, tid, [&](int r, int col, float v0, float v1) {
       const int gr = r0 + r, gc = c0 + col;
       if (gr >= p.m || gc >= p.n) return;
       Out* dst = c + static_cast<size_t>(gr) * p.n + gc;
-      if constexpr (std::is_same<Out, float>::value) {
+      if constexpr (kPartial) {
         if (pairs) {  // n even: gc is even and gc + 1 < n
           *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
         } else {
@@ -574,24 +553,24 @@ inline long grid_blocks(int m, int n, int bm) {
   return static_cast<long>((n + kBN - 1) / kBN) * ((m + bm - 1) / bm);
 }
 
-// c = store(epi(a . b)). kc < k splits K into ceil(k / kc) partials
-// (c [splits, m, n]); kc must then keep a KInner operand's rows aligned
-// (a multiple of 64 does in both dtypes).
+// c = store(epi(a . b)). With F32Partial, K is split into ceil(k / kc)
+// f32 partials (c [splits, m, n]); kc < k must keep a KInner operand's
+// rows aligned (a multiple of 64 does in both dtypes).
 template <typename T, int BM = kBM, typename Epi = Identity,
-          typename LA = KInner, typename LB = KInner, typename Out = T>
+          typename LA = KInner, typename LB = KInner, typename Store = RoundT>
 int launch(const void* a, const void* b, void* c, int m, int n, int k,
            cudaStream_t stream, Epi epi = Epi(), int kc = 0) {
   using P = Policy<T, BM, LA, LB>;
   constexpr size_t smem = smem_bytes<P>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_tile_kernel<T, BM, Epi, LA, LB, Out>,
+      gemm_tile_kernel<T, BM, Epi, LA, LB, Store>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (kc <= 0 || kc > k) kc = k;
+  if (!std::is_same<Store, F32Partial>::value || kc <= 0 || kc > k) kc = k;
   const size_t lda = P::AK ? k : m, ldb = P::BKI ? k : n;
   Args p{a, b, c, m, n, k, kc, aligned16(a, b, lda, ldb, sizeof(T)) ? 1 : 0};
   const dim3 grid((n + kBN - 1) / kBN, (m + BM - 1) / BM, (k + kc - 1) / kc);
-  gemm_tile_kernel<T, BM, Epi, LA, LB, Out>
+  gemm_tile_kernel<T, BM, Epi, LA, LB, Store>
       <<<grid, kThreads, smem, stream>>>(p, epi);
   return static_cast<int>(cudaGetLastError());
 }

@@ -757,7 +757,7 @@ int products(const void* dqkv, const void* x, const void* w, void* dx,
             : gemm::launch<T, 128, Dx, KInner, KOuter>(dqkv, w, dx, tokens,
                                                        c, 3 * c, s);
   if (err != 0) return err;
-  return gemm::launch<T, 128, DwPart, KOuter, KOuter, float>(
+  return gemm::launch<T, 128, DwPart, KOuter, KOuter, gemm::F32Partial>(
       dqkv, x, dw_part, 3 * c, c, tokens, s, DwPart(), kc);
 }
 
