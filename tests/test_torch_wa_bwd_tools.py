@@ -27,20 +27,20 @@ K13 = "self_attention (#10, #11, #12, #13)"
      "int, int, int, int, int, int, float)", K3),
     ("void gemm::(anonymous namespace)::gemm_tile_kernel<__nv_bfloat16, "
      "128, wa3::Dx, gemm::(anonymous namespace)::KInner, gemm::(anonymous "
-     "namespace)::KOuter, __nv_bfloat16>(gemm::(anonymous namespace)::Args,"
-     " wa3::Dx)", K3),
+     "namespace)::KOuter, gemm::(anonymous namespace)::RoundT>(gemm::"
+     "(anonymous namespace)::Args, wa3::Dx)", K3),
     ("void gemm::(anonymous namespace)::gemm_tile_kernel<float, 64, "
      "wa3::Dx, gemm::(anonymous namespace)::KInner, gemm::(anonymous "
-     "namespace)::KOuter, float>(gemm::(anonymous namespace)::Args, "
-     "wa3::Dx)", K3),
+     "namespace)::KOuter, gemm::(anonymous namespace)::RoundT>(gemm::"
+     "(anonymous namespace)::Args, wa3::Dx)", K3),
     ("void gemm::(anonymous namespace)::gemm_tile_kernel<__nv_bfloat16, "
      "128, wa3::DwPart, gemm::(anonymous namespace)::KOuter, "
-     "gemm::(anonymous namespace)::KOuter, float>(gemm::(anonymous "
-     "namespace)::Args, wa3::DwPart)", K3),
+     "gemm::(anonymous namespace)::KOuter, gemm::(anonymous namespace)::"
+     "F32Partial>(gemm::(anonymous namespace)::Args, wa3::DwPart)", K3),
     ("void gemm::(anonymous namespace)::gemm_tile_kernel<float, 128, "
      "wa3::DwPart, gemm::(anonymous namespace)::KOuter, gemm::(anonymous "
-     "namespace)::KOuter, float>(gemm::(anonymous namespace)::Args, "
-     "wa3::DwPart)", K3),
+     "namespace)::KOuter, gemm::(anonymous namespace)::F32Partial>(gemm::"
+     "(anonymous namespace)::Args, wa3::DwPart)", K3),
     # #4 and #4-delta keep their own kernel and row; #13's projection keeps
     # the identity epilogue and its row
     ("void (anonymous namespace)::wa_bwd_kernel<__nv_bfloat16, 32, false>("
@@ -52,8 +52,9 @@ K13 = "self_attention (#10, #11, #12, #13)"
      "int, int, int, int, int, int, float)", K4),
     ("void gemm::(anonymous namespace)::gemm_tile_kernel<float, 128, "
      "gemm::(anonymous namespace)::Identity, gemm::(anonymous namespace)::"
-     "KInner, gemm::(anonymous namespace)::KInner, float>(gemm::(anonymous "
-     "namespace)::Args, gemm::(anonymous namespace)::Identity)", K13),
+     "KInner, gemm::(anonymous namespace)::KInner, gemm::(anonymous "
+     "namespace)::RoundT>(gemm::(anonymous namespace)::Args, "
+     "gemm::(anonymous namespace)::Identity)", K13),
 ])
 def test_profile_kinds_file_kernel_3_under_3(symbol, kind):
     """#3's attention stage and its dx and dW products are filed under #3,
