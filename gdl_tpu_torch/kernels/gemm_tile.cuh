@@ -1,6 +1,6 @@
 // A block-tile GEMM for Hopper: C[M, N] = store(epi(A . B)), sums in f32,
-// an epilogue in f32 on each sum, one rounding to the output type at the
-// store. Each operand comes in one of two layouts, a type parameter:
+// an epilogue in f32 on each sum, then the store. Each operand comes in
+// one of two layouts, a type parameter:
 //   - KInner: K contiguous. A [M, K] (x [rows, C]), B [N, K] (a weight in
 //     nn.Linear layout [out, in]): the tile's first layout pair;
 //   - KOuter: K is the row index. A [K, M], B [K, N], M or N contiguous:
@@ -19,8 +19,8 @@
 // mlp_fused.cu; and #3's projection backward (`_wa_xw_t_bwd_fused_kernel`,
 // gdl_tpu/ops/window_attention.py:1167-1199), dx and the split dW, with
 // the epilogues of namespace wa3 in window_attention_train.cu. The
-// epilogue, the layouts and the output type are type parameters of the
-// kernel, so each caller's instantiation has its own symbol.
+// epilogue, the layouts and the store are type parameters of the kernel,
+// so each caller's instantiation has its own symbol.
 //
 // What bounds it on this card. At the mmformer shapes (M = 64 * 392 rows,
 // K = 512, N = 1536) the product is 2MNK = 39.5 GFLOP against 0.1 GB of

@@ -101,7 +101,7 @@
 //      (ldmatrix.trans for both in bf16), K split into runs of kc tokens
 //      so that the [3C, C] grid of 128 x 128 tiles fills the card (stages
 //      0-2 have 3, 12 and 48 tiles); each run stores an unrounded f32
-//      partial (epilogue wa3::DwPart, float store).
+//      partial (epilogue wa3::DwPart, store gemm::F32Partial).
 // B and C are bound by their operations: 2 * Bw N 3C C multiply-adds each,
 // on the tensor cores in bf16 and on the SIMT FMA tile in f32. The
 // wrapper sums the dW, db and dbias partials in a fixed order and rounds
