@@ -179,8 +179,8 @@ Phases, each printing one JSON line:
               replaces, launches on its path (d for #1, the kernel arm
               of f for #2 and #4, of i for #16, of k for #10, #11, #13
               and #14, arm A of m for #5, #4-delta and #15, arm B of m
-              for #3 (with its stages and dqkv's round trip beside the
-              bound), n's path for #6, #7, #8 and #9 (#6 and #7 a
+              for #3 (with its stages and dqkv's round trip in bytes
+              beside the bound), n's path for #6, #7, #8 and #9 (#6 and #7 a
               forward and a backward entry each), the switch's kernel
               arm of o for #12), error, times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
@@ -2692,16 +2692,15 @@ def main(argv=None) -> int:
         entries[9]["delta_make_ms"] = per_pass_ms(flag_attn, "float32",
                                                   "delta_make_ms")
         # #3 by stage (attention, dx, dW, partial sums; profiler device
-        # ms) and dqkv's round trip through device memory (written once,
-        # read by dx and by dW), beside the bound and not counted in it
+        # ms) and the bytes of dqkv's round trip through device memory
+        # (written once, read by dx and by dW), beside the bound and not
+        # counted in it
         for dtype, sfx in (("float32", ""), ("bfloat16", "_bfloat16")):
             for part in ("attention", "dx", "dw", "sums"):
                 entries[10][f"{part}_ms{sfx}"] = per_pass_ms(
                     flag_attn, dtype, f"fused_{part}_ms")
-            rt = per_pass_ms(flag_attn, dtype, "fused_dqkv_round_trip_bytes")
-            entries[10]["dqkv_round_trip_bytes" + sfx] = rt
-            entries[10]["dqkv_round_trip_ms" + sfx] = (rt / HBM_BYTES_PER_S
-                                                      * 1e3)
+            entries[10]["dqkv_round_trip_bytes" + sfx] = per_pass_ms(
+                flag_attn, dtype, "fused_dqkv_round_trip_bytes")
         entries[9]["default_kernel_ms"] = per_pass_ms(flag_attn, "float32",
                                                       "k4_ms")
     # #15 per training step: 2 encoders x depth launches at each stage

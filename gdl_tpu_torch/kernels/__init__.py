@@ -60,9 +60,7 @@ LIBRARIES = {
          "gdl_wa_qkv_savep_rows_launch": ([_vp] * 5 + [_int] * 7
                                           + [_float, _int, _vp], _int),
          "gdl_wa_bwd_rows_launch": ([_vp] * 5 + [_int] * 7
-                                    + [_float, _int, _vp], _int),
-         "gdl_wa_bwd_fused_products_launch": ([_vp] * 5 + [_int] * 4
-                                              + [_vp], _int)},
+                                    + [_float, _int, _vp], _int)},
     ),
     "window_attention_bhnd": (
         "window_attention_bhnd.cu",
@@ -109,7 +107,6 @@ launch_counts: Dict[str, int] = {"window_attention_qkv_fused_eval": 0,
                                  "window_attention_qkv_savep": 0,
                                  "window_attention_qkv_fused_bwd_delta": 0,
                                  "window_attention_qkv_fused_bwd_fused": 0,
-                                 "window_attention_qkv_fused_bwd_products": 0,
                                  "window_attention_qkv_savep_rows": 0,
                                  "window_attention_qkv_bwd_rows": 0,
                                  "window_attention_qkv_fwd": 0,

@@ -89,11 +89,11 @@
 // a bf16 arm-B step, 7.1 GB f32, 1.1 / 2.1 ms at 3.35 TB/s) is small
 // beside the products; the bound does not count it. Three launches on the
 // caller's stream:
-//   A. wa_bwd_fused_attn_kernel: #4's grid and device code (attn_bwd_tile,
-//      store_dqkv) into the caller's dqkv workspace, with #4's dbias
-//      partials and a db partial [runs, 3C] per run of windows. Bound like
-//      #4: by the bytes of p and qkv, at the SIMT rate of its five small
-//      products in practice;
+//   A. wa_bwd_fused_attn_kernel: #4's grid and device body (bwd_windows:
+//      attn_bwd_tile, store_dqkv) into the caller's dqkv workspace, with
+//      #4's dbias partials and, switched on for #3 alone, a db partial
+//      [runs, 3C] per run of windows. Bound like #4: by the bytes of p
+//      and qkv, at the SIMT rate of its five small products in practice;
 //   B. dx [Bw N, C] = dqkv . W on gemm_tile.cuh (A along K, B = W [3C, C]
 //      along N: ldmatrix.trans fragments in bf16), with the epilogue type
 //      wa3::Dx; the 64-row tile where gemm::row_tile asks for it;
@@ -386,87 +386,26 @@ __device__ __forceinline__ void store_dbias(float* part, int n,
 }
 
 // ---------------------------------------------------------------------------
-// kernels #4 and #4-delta: dqkv written, the projection backward outside
+// kernels #4 and #4-delta (dqkv written, the projection backward outside)
+// and kernel #3's stage A (the same into a dqkv workspace, with db)
 // ---------------------------------------------------------------------------
 
-template <typename T, int DMAX, bool DELTA>
-__global__ void __launch_bounds__(kThreads)
-wa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-              const T* __restrict__ dout, const float* __restrict__ delta,
-              T* __restrict__ dqkv, float* __restrict__ dbias_part, int bw,
-              int n, int c, int heads, int d, int wpb, float scale) {
-  constexpr int DT = DMAX / 16;
-  extern __shared__ float smem[];
-  const int chunk = blockIdx.x / heads;
-  const int head = blockIdx.x % heads;
-  const float scale_t = Num<T>::round(scale);
-
-  float dbacc[4][4];  // this block's share of dbias[head]
-  zero16(dbacc);
-
-  const int w_end = min(bw, (chunk + 1) * wpb);
-  for (int win = chunk * wpb; win < w_end; ++win) {
-    float gq[4][DT], gk[4][DT], gv[4][DT];
-    attn_bwd_tile<T, DMAX, DELTA>(qkv, p, dout, delta, win, head, n, c, heads,
-                                  d, scale_t, smem, dbacc, gq, gk, gv);
-    store_dqkv<T, DMAX>(dqkv, win, head, n, c, d, scale, gq, gk, gv);
-    __syncthreads();  // the next window overwrites shared memory
-  }
-  store_dbias(
-      dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n, n,
-      dbacc);
-}
-
-template <typename T, int DMAX, bool DELTA>
-int launch_bwd(const void* qkv, const void* p, const void* dout,
-               const void* delta, void* dqkv, void* dbias_part, int bw, int n,
-               int c, int heads, int d, int wpb, float scale,
-               cudaStream_t stream) {
-  constexpr size_t smem = BwdSmem<DMAX>::kBytes;
-  static const cudaError_t attr =
-      grant_smem(wa_bwd_kernel<T, DMAX, DELTA>, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const unsigned chunks = static_cast<unsigned>((bw + wpb - 1) / wpb);
-  const unsigned grid = chunks * static_cast<unsigned>(heads);
-  wa_bwd_kernel<T, DMAX, DELTA><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(p),
-      static_cast<const T*>(dout), static_cast<const float*>(delta),
-      static_cast<T*>(dqkv), static_cast<float*>(dbias_part), bw, n, c, heads,
-      d, wpb, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, bool DELTA>
-int dispatch_bwd(const void* qkv, const void* p, const void* dout,
-                 const void* delta, void* dqkv, void* dbias_part, int bw,
-                 int n, int c, int heads, int d, int wpb, float scale,
-                 cudaStream_t s) {
-  return with_dmax(d, [&](auto dm) {
-    return launch_bwd<T, decltype(dm)::value, DELTA>(
-        qkv, p, dout, delta, dqkv, dbias_part, bw, n, c, heads, d, wpb,
-        scale, s);
-  });
-}
-
-// ---------------------------------------------------------------------------
-// kernel #3, stage A: #4's attention backward into a dqkv workspace, with
-// db partials
-// ---------------------------------------------------------------------------
-
-// #4's blocks and device code (one head, a run of wpb windows; dqkv in T,
-// one dbias partial a block), and one db partial a block: db_part[run,
-// [q|k|v][head][d]] = the f32 sum over the run's windows and tokens of the
-// dqkv values the block stored, rounded to T (dq scaled before rounding,
-// as store_dqkv scales it). Each thread sums its rows in order over the
-// windows; the 16 row groups are added in order at the end, through
-// shared memory. A kernel of #3's own, so #4's keeps its bits and count.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-wa_bwd_fused_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-                         const T* __restrict__ dout, T* __restrict__ dqkv,
-                         float* __restrict__ db_part,
-                         float* __restrict__ dbias_part, int bw, int n, int c,
-                         int heads, int d, int wpb, float scale) {
+// The blocks of #4 and of #3's stage A: one head and a run of wpb
+// windows. Each (window, head) goes through attn_bwd_tile into dqkv in T;
+// the block keeps its share of dbias in registers and writes one dbias
+// partial. With DB (#3) it also writes one db partial: db_part[run,
+// [q|k|v][head][d]] = the f32 sum over the run's windows and tokens of
+// the dqkv values the block stored, rounded to T (dq scaled before
+// rounding, as store_dqkv scales it). Each thread sums its rows in order
+// over the windows; the 16 row groups are added in order at the end,
+// through shared memory.
+template <typename T, int DMAX, bool DELTA, bool DB>
+__device__ __forceinline__ void bwd_windows(
+    const T* __restrict__ qkv, const T* __restrict__ p,
+    const T* __restrict__ dout, const float* __restrict__ delta,
+    T* __restrict__ dqkv, float* __restrict__ dbias_part,
+    float* __restrict__ db_part, int bw, int n, int c, int heads, int d,
+    int wpb, float scale) {
   constexpr int DT = DMAX / 16;
   extern __shared__ float smem[];
   const int chunk = blockIdx.x / heads;
@@ -476,24 +415,26 @@ wa_bwd_fused_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
 
   float dbacc[4][4];  // this block's share of dbias[head]
   zero16(dbacc);
-  float dbq[DT], dbk[DT], dbv[DT];  // columns tx + 16 j, rows ty + 16 a
+  float dbq[DT], dbk[DT], dbv[DT];  // DB: columns tx + 16 j, rows ty + 16 a
 #pragma unroll
   for (int j = 0; j < DT; ++j) dbq[j] = dbk[j] = dbv[j] = 0.f;
 
   const int w_end = min(bw, (chunk + 1) * wpb);
   for (int win = chunk * wpb; win < w_end; ++win) {
     float gq[4][DT], gk[4][DT], gv[4][DT];
-    attn_bwd_tile<T, DMAX, false>(qkv, p, dout, nullptr, win, head, n, c,
-                                  heads, d, scale_t, smem, dbacc, gq, gk, gv);
+    attn_bwd_tile<T, DMAX, DELTA>(qkv, p, dout, delta, win, head, n, c, heads,
+                                  d, scale_t, smem, dbacc, gq, gk, gv);
     store_dqkv<T, DMAX>(dqkv, win, head, n, c, d, scale, gq, gk, gv);
+    if constexpr (DB) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      if (ty + 16 * a >= n) continue;
+      for (int a = 0; a < 4; ++a) {
+        if (ty + 16 * a >= n) continue;
 #pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        dbq[j] += Num<T>::round(gq[a][j] * scale);
-        dbk[j] += Num<T>::round(gk[a][j]);
-        dbv[j] += Num<T>::round(gv[a][j]);
+        for (int j = 0; j < DT; ++j) {
+          dbq[j] += Num<T>::round(gq[a][j] * scale);
+          dbk[j] += Num<T>::round(gk[a][j]);
+          dbv[j] += Num<T>::round(gv[a][j]);
+        }
       }
     }
     __syncthreads();  // the next window overwrites shared memory
@@ -501,45 +442,87 @@ wa_bwd_fused_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
   store_dbias(
       dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n, n,
       dbacc);
-  // red[ty][[q|k|v] DMAX + col]: the 16 row groups' column sums
-  float* red = smem;
+  if constexpr (DB) {
+    static_assert(16 * 3 * DMAX <= BwdSmem<DMAX>::kFloats, "db reduction");
+    // red[ty][[q|k|v] DMAX + col]: the 16 row groups' column sums
+    float* red = smem;
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    red[ty * 3 * DMAX + tx + 16 * j] = dbq[j];
-    red[ty * 3 * DMAX + DMAX + tx + 16 * j] = dbk[j];
-    red[ty * 3 * DMAX + 2 * DMAX + tx + 16 * j] = dbv[j];
-  }
-  __syncthreads();
-  for (int col = threadIdx.x; col < 3 * DMAX; col += kThreads) {
-    const int part = col / DMAX, dd = col % DMAX;
-    if (dd >= d) continue;
-    float sum = 0.f;
-    for (int r = 0; r < 16; ++r) sum += red[r * 3 * DMAX + col];
-    db_part[static_cast<size_t>(chunk) * 3 * c + part * c + head * d + dd] =
-        sum;
+    for (int j = 0; j < DT; ++j) {
+      red[ty * 3 * DMAX + tx + 16 * j] = dbq[j];
+      red[ty * 3 * DMAX + DMAX + tx + 16 * j] = dbk[j];
+      red[ty * 3 * DMAX + 2 * DMAX + tx + 16 * j] = dbv[j];
+    }
+    __syncthreads();
+    for (int col = threadIdx.x; col < 3 * DMAX; col += kThreads) {
+      const int part = col / DMAX, dd = col % DMAX;
+      if (dd >= d) continue;
+      float sum = 0.f;
+      for (int r = 0; r < 16; ++r) sum += red[r * 3 * DMAX + col];
+      db_part[static_cast<size_t>(chunk) * 3 * c + part * c + head * d + dd] =
+          sum;
+    }
   }
 }
 
-template <typename T>
-int launch_bwd_fused_attn(const void* qkv, const void* p, const void* dout,
-                          void* dqkv, void* db_part, void* dbias_part, int bw,
-                          int n, int c, int heads, int d, int wpb,
-                          float scale, cudaStream_t s) {
+// Two kernels on one body, so that the profiler and the launch counts tell
+// #4 from #3's stage A, and #4 keeps its bits
+template <typename T, int DMAX, bool DELTA>
+__global__ void __launch_bounds__(kThreads)
+wa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
+              const T* __restrict__ dout, const float* __restrict__ delta,
+              T* __restrict__ dqkv, float* __restrict__ dbias_part,
+              float* __restrict__ db_part, int bw, int n, int c, int heads,
+              int d, int wpb, float scale) {
+  bwd_windows<T, DMAX, DELTA, false>(qkv, p, dout, delta, dqkv, dbias_part,
+                                     db_part, bw, n, c, heads, d, wpb, scale);
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+wa_bwd_fused_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ delta, T* __restrict__ dqkv,
+                         float* __restrict__ dbias_part,
+                         float* __restrict__ db_part, int bw, int n, int c,
+                         int heads, int d, int wpb, float scale) {
+  bwd_windows<T, DMAX, false, true>(qkv, p, dout, delta, dqkv, dbias_part,
+                                    db_part, bw, n, c, heads, d, wpb, scale);
+}
+
+// #4 (DB false) or #3's stage A (DB true, no delta): ceil(bw / wpb) runs
+// x heads blocks
+template <typename T, int DMAX, bool DELTA, bool DB>
+int launch_bwd(const void* qkv, const void* p, const void* dout,
+               const void* delta, void* dqkv, void* dbias_part, void* db_part,
+               int bw, int n, int c, int heads, int d, int wpb, float scale,
+               cudaStream_t stream) {
+  static_assert(!(DB && DELTA), "#3's stage A takes no delta");
+  constexpr size_t smem = BwdSmem<DMAX>::kBytes;
+  const auto kernel = [] {
+    if constexpr (DB) return wa_bwd_fused_attn_kernel<T, DMAX>;
+    else return wa_bwd_kernel<T, DMAX, DELTA>;
+  }();
+  static const cudaError_t attr = grant_smem(kernel, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const unsigned chunks = static_cast<unsigned>((bw + wpb - 1) / wpb);
+  const unsigned grid = chunks * static_cast<unsigned>(heads);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(p),
+      static_cast<const T*>(dout), static_cast<const float*>(delta),
+      static_cast<T*>(dqkv), static_cast<float*>(dbias_part),
+      static_cast<float*>(db_part), bw, n, c, heads, d, wpb, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool DELTA, bool DB = false>
+int dispatch_bwd(const void* qkv, const void* p, const void* dout,
+                 const void* delta, void* dqkv, void* dbias_part,
+                 void* db_part, int bw, int n, int c, int heads, int d,
+                 int wpb, float scale, cudaStream_t s) {
   return with_dmax(d, [&](auto dm) {
-    constexpr int DMAX = decltype(dm)::value;
-    constexpr size_t smem = BwdSmem<DMAX>::kBytes;
-    static_assert(16 * 3 * DMAX <= BwdSmem<DMAX>::kFloats, "db reduction");
-    static const cudaError_t attr =
-        grant_smem(wa_bwd_fused_attn_kernel<T, DMAX>, smem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    const unsigned grid = static_cast<unsigned>((bw + wpb - 1) / wpb) *
-                          static_cast<unsigned>(heads);
-    wa_bwd_fused_attn_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(qkv), static_cast<const T*>(p),
-        static_cast<const T*>(dout), static_cast<T*>(dqkv),
-        static_cast<float*>(db_part), static_cast<float*>(dbias_part), bw, n,
-        c, heads, d, wpb, scale);
-    return static_cast<int>(cudaGetLastError());
+    return launch_bwd<T, decltype(dm)::value, DELTA, DB>(
+        qkv, p, dout, delta, dqkv, dbias_part, db_part, bw, n, c, heads, d,
+        wpb, scale, s);
   });
 }
 
@@ -814,8 +797,8 @@ extern "C" int gdl_wa_bwd_launch(const void* qkv, const void* p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dtype(dtype, [&](auto t) {
     return dispatch_bwd<typename decltype(t)::type, false>(
-        qkv, p, dout, nullptr, dqkv, dbias_part, bw, n, c, heads, d, wpb,
-        scale, s);
+        qkv, p, dout, nullptr, dqkv, dbias_part, nullptr, bw, n, c, heads, d,
+        wpb, scale, s);
   });
 }
 
@@ -832,8 +815,8 @@ extern "C" int gdl_wa_bwd_delta_launch(const void* qkv, const void* p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dtype(dtype, [&](auto t) {
     return dispatch_bwd<typename decltype(t)::type, true>(
-        qkv, p, dout, delta, dqkv, dbias_part, bw, n, c, heads, d, wpb,
-        scale, s);
+        qkv, p, dout, delta, dqkv, dbias_part, nullptr, bw, n, c, heads, d,
+        wpb, scale, s);
   });
 }
 
@@ -859,9 +842,9 @@ extern "C" int gdl_wa_bwd_fused_launch(const void* qkv, const void* p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
-    const int err = launch_bwd_fused_attn<T>(qkv, p, dout, dqkv, db_part,
-                                             dbias_part, bw, n, c, heads, d,
-                                             wpb, scale, s);
+    const int err = dispatch_bwd<T, false, true>(qkv, p, dout, nullptr, dqkv,
+                                                 dbias_part, db_part, bw, n,
+                                                 c, heads, d, wpb, scale, s);
     if (err != 0) return err;
     return wa3::products<T>(dqkv, x, w, dx, dw_part, tokens, c, kc, s);
   });
@@ -938,24 +921,5 @@ extern "C" int gdl_wa_bwd_rows_launch(const void* qkv, const void* p,
     using T = typename decltype(t)::type;
     return launch_bwd_rows<T>(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads,
                               d, g, wpb, scale, s);
-  });
-}
-
-// Kernel #3's projection products alone, on a dqkv [tokens, 3c] in T
-// given by the caller: dx [tokens, c] in T and dW's partials dw_part
-// [ceil(tokens / kc), 3c, c] in float32 over runs of kc tokens (kc >=
-// tokens: one partial; else a multiple of 64). x [tokens, c], w [3c, c]
-// in T. Returns a cudaError_t (0 on success).
-extern "C" int gdl_wa_bwd_fused_products_launch(const void* dqkv,
-                                                const void* x, const void* w,
-                                                void* dx, void* dw_part,
-                                                int tokens, int c, int kc,
-                                                int dtype, void* stream) {
-  if (tokens < 1 || c < 1 || kc < 1 || (kc < tokens && kc % 64 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dtype(dtype, [&](auto t) {
-    return wa3::products<typename decltype(t)::type>(dqkv, x, w, dx, dw_part,
-                                                     tokens, c, kc, s);
   });
 }

@@ -77,8 +77,6 @@ BWD_KERNEL_NAME = "window_attention_qkv_fused_bwd"
 QKV_SAVEP_KERNEL_NAME = "window_attention_qkv_savep"
 BWD_DELTA_KERNEL_NAME = "window_attention_qkv_fused_bwd_delta"
 BWD_FUSED_KERNEL_NAME = "window_attention_qkv_fused_bwd_fused"
-# #3's projection products alone, on a given dqkv (the tile's test entry)
-BWD_PRODUCTS_KERNEL_NAME = "window_attention_qkv_fused_bwd_products"
 QKV_SAVEP_ROWS_KERNEL_NAME = "window_attention_qkv_savep_rows"    # 6
 BWD_ROWS_KERNEL_NAME = "window_attention_qkv_bwd_rows"            # 6
 QKV_FWD_KERNEL_NAME = "window_attention_qkv_fwd"                  # 7
@@ -94,7 +92,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # about this many blocks fill an H100's 132 SMs a few times over
 _BWD_TARGET_BLOCKS = 1024
 # kernel #3's dW = dqkvᵀ·x splits its K (the tokens) until its grid of
-# 128 x 128 tiles holds two blocks for each of an H100's SMs
+# 128 x 128 tiles holds two blocks for each of an H100's SMs. The count is
+# fixed, not read from the device: the split sets the order of dW's sum,
+# so a split that followed the card would give other bits on another one
 _SMS = 132
 _DW_SPLIT_QUANTUM = 64  # tokens: a split keeps the tile's 16-byte rows
 _DW_SPLIT_MIN = 256     # tokens a split sums at least
@@ -588,34 +588,10 @@ def _fused_bwd_split(tokens: int, c: int) -> int:
     return min(kc, tokens)
 
 
-def _launch_bwd_products(dqkv, x, w, kc: int):
-    """#3's projection products on the GEMM tile, on a dqkv [.., 3C] given
-    in x's dtype → (dx [tokens, C] in x's dtype, dW's float32 partials
-    [ceil(tokens / kc), 3C, C], unrounded). The tile's test entry."""
-    c = x.shape[-1]
-    tokens = x.numel() // c
-    for arg, t, shape in (("dqkv", dqkv, (tokens, 3 * c)),
-                          ("x", x, (tokens, c)), ("w", w, (3 * c, c))):
-        if t.numel() != shape[0] * shape[1] or t.dtype != x.dtype:
-            raise ValueError(f"{arg}: expected {shape} {x.dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"dtype {x.dtype} is not supported")
-    _require_cuda((dqkv, x, w), x)
-    lib = kernels.load("window_attention_train")
-    dx = torch.empty((tokens, c), dtype=x.dtype, device=x.device)
-    parts = torch.empty((-(-tokens // kc), 3 * c, c), dtype=torch.float32,
-                        device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gdl_wa_bwd_fused_products_launch(
-        dqkv.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(),
-        parts.data_ptr(), tokens, c, kc, _DTYPE_CODES[x.dtype], stream)
-    _raise_on(err, BWD_PRODUCTS_KERNEL_NAME)
-    kernels.launch_counts[BWD_PRODUCTS_KERNEL_NAME] += 1
-    return dx, parts
-
-
-def _launch_bwd_fused(qkv, p, dout, x, w, num_heads, scale):
+def _launch_bwd_fused_parts(qkv, p, dout, x, w, num_heads, scale):
+    """Kernel #3's three launches → (dqkv, the workspace in T; dx in T;
+    dW's float32 partials [ceil(Bw·N / kc), 3C, C], unrounded; db's
+    [runs, 3C] and dbias's [runs, H, N, N] float32 partials)."""
     c = qkv.shape[2] // 3
     extra = (("x", x, (*qkv.shape[:2], c), qkv.dtype),
              ("w", w, (3 * c, c), qkv.dtype))
@@ -640,6 +616,12 @@ def _launch_bwd_fused(qkv, p, dout, x, w, num_heads, scale):
         wpb, kc, float(scale), _DTYPE_CODES[qkv.dtype], stream)
     _raise_on(err, BWD_FUSED_KERNEL_NAME)
     kernels.launch_counts[BWD_FUSED_KERNEL_NAME] += 1
+    return dqkv, dx, dw_parts, db_parts, dbias_parts
+
+
+def _launch_bwd_fused(qkv, p, dout, x, w, num_heads, scale):
+    _, dx, dw_parts, db_parts, dbias_parts = _launch_bwd_fused_parts(
+        qkv, p, dout, x, w, num_heads, scale)
     return (dx, dw_parts.sum(0).to(w.dtype), db_parts.sum(0).to(w.dtype),
             dbias_parts.sum(0))
 

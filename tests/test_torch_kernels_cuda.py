@@ -828,15 +828,18 @@ def test_mlp_and_projection_gemms_are_distinct_instantiations(cuda):
     margs = (rand(256, 128), rand(512, 128), rand(512), rand(128, 512),
              rand(128))
     x, w = rand(2, 64, 128), rand(384, 128) * 128 ** -0.5
-    pargs = {dt: (rand(300, 384).to(dt), rand(300, 128).to(dt),
-                  rand(384, 128).to(dt))
-             for dt in (torch.float32, torch.bfloat16)}
+    # #3 on 6 windows of 50 tokens at C = 128 (4 heads): qkv, p, dout, x, w
+    bargs = {dt: [t.to(dt) for t in (
+        rand(6, 50, 384), torch.softmax(rand(6, 4, 50, 50), -1),
+        rand(6, 50, 128), rand(6, 50, 128), rand(384, 128) * 128 ** -0.5)]
+        for dt in (torch.float32, torch.bfloat16)}
     calls = {
         "mlp_fused": lambda: mlp_fused_fwd(*margs),
         "self_attention_fused_eval": lambda: self_attention_fused_eval(x, w,
                                                                        4),
-        wa.BWD_PRODUCTS_KERNEL_NAME: lambda: [
-            wa._launch_bwd_products(*a, 128) for a in pargs.values()],
+        wa.BWD_FUSED_KERNEL_NAME: lambda: [
+            wa.window_attention_qkv_fused_bwd_fused(*a, 4)
+            for a in bargs.values()],
     }
     gemms = {}
     with torch.no_grad():
@@ -844,20 +847,24 @@ def test_mlp_and_projection_gemms_are_distinct_instantiations(cuda):
             call()  # built, loaded and warm before the trace
             torch.cuda.synchronize()
             before = dict(kernels.launch_counts)
+            # twice in the trace: a trace once kept only #13's attention
+            # kernel, without the projection launched just before it as
+            # the trace's first kernel
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
                 call()
                 torch.cuda.synchronize()
             after = dict(kernels.launch_counts)
             seen = sorted({e.key for e in prof.key_averages()})
             print(name, "traced:", seen)
-            calls_made = 2 if name == wa.BWD_PRODUCTS_KERNEL_NAME else 1
+            calls_made = 2 * (2 if name == wa.BWD_FUSED_KERNEL_NAME else 1)
             assert {k for k in calls if after[k] != before[k]} == {name}, \
                 (name, seen)
             assert after[name] - before[name] == calls_made, (name, seen)
             gemms[name] = {k for k in seen if "gemm_tile_kernel" in k}
     mlp_gemms = gemms["mlp_fused"]
     sa_gemms = gemms["self_attention_fused_eval"]
-    wa3_gemms = gemms[wa.BWD_PRODUCTS_KERNEL_NAME]
+    wa3_gemms = gemms[wa.BWD_FUSED_KERNEL_NAME]
     assert len(mlp_gemms) == 2 and len(sa_gemms) == 1, gemms
     assert len(wa3_gemms) == 4, gemms  # dx and dW, in two dtypes
     assert not (mlp_gemms & sa_gemms or mlp_gemms & wa3_gemms
@@ -874,54 +881,69 @@ def test_mlp_and_projection_gemms_are_distinct_instantiations(cuda):
 
 # ---- kernel #3's products on the GEMM tile's second and third layouts -----
 
-# (tokens, C, kc): the four Swin-B stages at batch 32 with the split rule
-# (kc None), then the tile's edges: a ragged M (1000 tokens) and a ragged
-# last K split (1000 = 3 x 256 + 232), C = 100 (bf16 rows of dqkv, x and W
-# off 16 bytes: the element-by-element copies), C = 1 (N = 1, f32 rows
-# off 16 bytes too), one token
-PRODUCT_SHAPES = [(100352, 128, None), (25088, 256, None), (6272, 512, None),
-                  (1568, 1024, None), (1000, 96, 256), (777, 100, 320),
-                  (300, 1, 300), (1, 64, 1)]
+# (bw, N, C, heads) through #3's own entry: the four Swin-B stages at
+# batch 32, then the tile's edges: 1000 tokens (20 windows of 50: a ragged
+# M, and by the split rule runs of 384 tokens with a ragged last one of
+# 232), C = 100 (two heads of 50: bf16 rows of dqkv, x and W off 16 bytes,
+# the element-by-element copies; 777 tokens in runs of 320), C = 1 (one
+# head of 1: N = 1, f32 rows off 16 bytes too), one token
+PRODUCT_SHAPES = [(2048, 49, 128, 4), (512, 49, 256, 8), (128, 49, 512, 16),
+                  (32, 49, 1024, 32), (20, 50, 96, 3), (21, 37, 100, 2),
+                  (6, 50, 1, 1), (1, 1, 64, 2)]
 PRODUCT_IDS = ["stage0", "stage1", "stage2", "stage3", "ragged_split",
                "c100", "n1", "one_token"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("tokens,c,kc", PRODUCT_SHAPES, ids=PRODUCT_IDS)
-def test_gemm_tile_layouts_match_matmul(cuda, tokens, c, kc, dtype):
-    """#3's products on the GEMM tile: dx = dqkv·W (A along K, B = W
+@pytest.mark.parametrize("bw,n,c,heads", PRODUCT_SHAPES, ids=PRODUCT_IDS)
+def test_gemm_tile_layouts_match_matmul(cuda, bw, n, c, heads, dtype):
+    """#3's products on the GEMM tile, through #3's own launches, with #4's
+    dqkv (the same device code, so the same bits as #3's workspace, which
+    is checked) as the matmul operand: dx = dqkv·W (A along K, B = W
     [3C, C] along N) against torch.matmul in the same dtype at the forward
     bar; each f32 partial of dW = dqkvᵀ·x (both operands along M and N),
     unrounded, against the f32 product of its run of tokens, within 2e-4
     of the largest |value| in both dtypes (a rounding to bf16 would be 4e-3
-    off); their sum likewise against the whole product; equal bits on a
-    second run."""
+    off); their sum likewise against the whole product; the op's dx and
+    dW are these; equal bits on a second run."""
     from gdl_tpu_torch.ops import window_attention as wa
 
-    rng = np.random.default_rng(tokens + c)
+    rng = np.random.default_rng(bw * n + c)
     dt = getattr(torch, dtype)
-    dqkv = torch.from_numpy(rng.standard_normal(
-        (tokens, 3 * c)).astype(np.float32)).to(cuda, dt)
-    x = torch.from_numpy(rng.standard_normal(
-        (tokens, c)).astype(np.float32)).to(cuda, dt)
-    w = torch.from_numpy((rng.standard_normal((3 * c, c))
-                          * c ** -0.5).astype(np.float32)).to(cuda, dt)
-    kc = wa._fused_bwd_split(tokens, c) if kc is None else kc
+    tokens = bw * n
+    scores = rng.standard_normal((bw, heads, n, n))
+    p = np.exp(scores - scores.max(-1, keepdims=True))
+    qkv, p, dout, x, w = [torch.from_numpy(a.astype(np.float32)).to(cuda, dt)
+                          for a in (
+        rng.standard_normal((bw, n, 3 * c)), p / p.sum(-1, keepdims=True),
+        rng.standard_normal((bw, n, c)), rng.standard_normal((bw, n, c)),
+        rng.standard_normal((3 * c, c)) * c ** -0.5)]
+    scale = (c // heads) ** -0.5
+    kc = wa._fused_bwd_split(tokens, c)
     with torch.no_grad():
-        dx, parts = wa._launch_bwd_products(dqkv, x, w, kc)
-        dx2, parts2 = wa._launch_bwd_products(dqkv, x, w, kc)
+        ws, dx, parts, _, _ = wa._launch_bwd_fused_parts(qkv, p, dout, x, w,
+                                                         heads, scale)
+        _, dx2, parts2, _, _ = wa._launch_bwd_fused_parts(qkv, p, dout, x, w,
+                                                          heads, scale)
+        op = wa.window_attention_qkv_fused_bwd_fused(qkv, p, dout, x, w,
+                                                     heads)
+        dqkv, _ = window_attention_qkv_fused_bwd(qkv, p, dout, heads)
+        dqkv = dqkv.reshape(tokens, 3 * c)
         want_dx = torch.matmul(dqkv, w)
-        f32 = (dqkv.float(), x.float())
+        f32 = (dqkv.float(), x.reshape(tokens, c).float())
         want_parts = [torch.matmul(f32[0][k:k + kc].t(), f32[1][k:k + kc])
                       for k in range(0, tokens, kc)]
         want_dw = torch.matmul(f32[0].t(), f32[1])
     torch.cuda.synchronize()
-    assert dx.dtype == dt and tuple(dx.shape) == (tokens, c)
+    assert torch.equal(ws.reshape(tokens, 3 * c), dqkv)
+    assert dx.dtype == dt and tuple(dx.shape) == (bw, n, c)
     assert parts.dtype == torch.float32
     assert tuple(parts.shape) == (len(want_parts), 3 * c, c)
     assert torch.equal(dx, dx2) and torch.equal(parts, parts2)
-    _close(dx, want_dx, dtype, "fwd")
+    assert torch.equal(op[0], dx)
+    assert torch.equal(op[1], parts.sum(0).to(dt))
+    _close(dx.reshape(tokens, c), want_dx, dtype, "fwd")
     for got, want in zip(parts, want_parts):
         _close(got, want, "float32", "grad")
     _close(parts.sum(0), want_dw, "float32", "grad")

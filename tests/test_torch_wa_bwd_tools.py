@@ -20,11 +20,11 @@ K13 = "self_attention (#10, #11, #12, #13)"
 @pytest.mark.parametrize("symbol,kind", [
     ("void (anonymous namespace)::wa_bwd_fused_attn_kernel<__nv_bfloat16, "
      "32>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*,"
-     " __nv_bfloat16*, float*, float*, int, int, int, int, int, int, float)",
-     K3),
+     " float const*, __nv_bfloat16*, float*, float*, int, int, int, int, "
+     "int, int, float)", K3),
     ("void (anonymous namespace)::wa_bwd_fused_attn_kernel<float, 64>("
-     "float const*, float const*, float const*, float*, float*, float*, "
-     "int, int, int, int, int, int, float)", K3),
+     "float const*, float const*, float const*, float const*, float*, "
+     "float*, float*, int, int, int, int, int, int, float)", K3),
     ("void gemm::(anonymous namespace)::gemm_tile_kernel<__nv_bfloat16, "
      "128, wa3::Dx, gemm::(anonymous namespace)::KInner, gemm::(anonymous "
      "namespace)::KOuter, gemm::(anonymous namespace)::RoundT>(gemm::"
@@ -45,11 +45,11 @@ K13 = "self_attention (#10, #11, #12, #13)"
     # the identity epilogue and its row
     ("void (anonymous namespace)::wa_bwd_kernel<__nv_bfloat16, 32, false>("
      "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
-     "float const*, __nv_bfloat16*, float*, int, int, int, int, int, int, "
-     "float)", K4),
+     "float const*, __nv_bfloat16*, float*, float*, int, int, int, int, "
+     "int, int, float)", K4),
     ("void (anonymous namespace)::wa_bwd_kernel<float, 64, true>(float "
      "const*, float const*, float const*, float const*, float*, float*, "
-     "int, int, int, int, int, int, float)", K4),
+     "float*, int, int, int, int, int, int, float)", K4),
     ("void gemm::(anonymous namespace)::gemm_tile_kernel<float, 128, "
      "gemm::(anonymous namespace)::Identity, gemm::(anonymous namespace)::"
      "KInner, gemm::(anonymous namespace)::KInner, gemm::(anonymous "
@@ -150,8 +150,8 @@ _TRAIN_SOURCE, _TRAIN_ENTRIES = kernels.LIBRARIES["window_attention_train"]
 @pytest.mark.parametrize("entry", sorted(_TRAIN_ENTRIES))
 def test_train_library_argtypes_match_its_entry_points(entry):
     """Each entry point of the training library (#2 to #7, #3's three
-    launches and its products alone) takes as many parameters as its
-    ctypes argtypes; #3's takes the dqkv workspace."""
+    launches) takes as many parameters as its ctypes argtypes; #3's takes
+    the dqkv workspace."""
     found = _entry_points((kernels.KERNEL_DIR / _TRAIN_SOURCE).read_text())
     assert set(found) == set(_TRAIN_ENTRIES)
     assert found[entry] == len(_TRAIN_ENTRIES[entry][0])
@@ -170,3 +170,41 @@ def test_first_design_of_kernel_3_is_gone():
     assert "wa_bwd_fused_attn_kernel" in source and "wa3::products" in source
     assert not hasattr(wa, "_fused_bwd_tiling")
     assert not hasattr(wa, "_FUSED_BWD_TARGET_BLOCKS")
+
+
+def test_kernel_3_has_one_entry_and_shares_4s_body():
+    """#3 is reached through its one entry point alone (no entry, wrapper
+    or launch counter for its products by themselves), and its attention
+    stage and #4 are two kernels on one device body, #3's with the db sum
+    switched on."""
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    source = (kernels.KERNEL_DIR / _TRAIN_SOURCE).read_text()
+    assert "products_launch" not in source
+    assert not any("products" in e for e in _TRAIN_ENTRIES)
+    assert not any("products" in k for k in kernels.launch_counts)
+    assert not hasattr(wa, "_launch_bwd_products")
+    assert source.count("bwd_windows<T, DMAX, DELTA, false>(") == 1
+    assert source.count("bwd_windows<T, DMAX, false, true>(") == 1
+
+
+def test_kernel_3_launcher_refuses_cpu_tensors():
+    """#3's launcher takes CUDA tensors only: on the CPU it raises, and
+    the op's plain version is what runs there."""
+    import torch
+
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    bw, n, c, heads = 2, 4, 8, 2
+    qkv, dout, x = (torch.zeros(bw, n, 3 * c), torch.zeros(bw, n, c),
+                    torch.zeros(bw, n, c))
+    p = torch.full((bw, heads, n, n), 1.0 / n)
+    w = torch.zeros(3 * c, c)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="CUDA"):
+        wa._launch_bwd_fused_parts(qkv, p, dout, x, w, heads, 0.5)
+    dx, dw, db, dbias = wa.window_attention_qkv_fused_bwd_fused(
+        qkv, p, dout, x, w, heads)
+    assert kernels.launch_counts == before
+    assert tuple(dx.shape) == (bw, n, c) and tuple(dw.shape) == (3 * c, c)
+    assert tuple(db.shape) == (3 * c,) and tuple(dbias.shape) == (heads, n, n)
