@@ -112,6 +112,7 @@
 
 #include "gemm_tile.cuh"
 #include "window_attention_fwd.cuh"
+#include "window_attention_proj.cuh"
 
 namespace {
 

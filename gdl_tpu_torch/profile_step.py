@@ -46,6 +46,10 @@ KINDS = (
     # identity epilogue) is the qkv projection of #10 or #13, so this row
     # comes before theirs
     ("mlp_fused (#15)", ("mlp::",)),
+    # #1's and #2's qkv projection is gemm_tile_kernel with the epilogue
+    # wa2::ProjBias (kernels/window_attention_proj.cuh) in its symbol;
+    # their attention is wa_fwd_kernel, in the window_attention row
+    ("window_attention_proj (#1, #2)", ("wa2::",)),
     ("self_attention (#10, #11, #12, #13)", ("sa_train_kernel",
                                              "sa_tile_kernel",
                                              "sa_bwd_kv_kernel",
