@@ -761,8 +761,12 @@ extern "C" int gdl_wa_savep_launch(const void* x, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dtype(dtype, [&](auto t) {
-    return dispatch_fwd<typename decltype(t)::type, true>(
-        x, w, b, bias, mask, out, qkv, p, bw, n, c, heads, d, nw, scale, s);
+    using T = typename decltype(t)::type;
+    const int err = wa2::project<T>(x, w, b, qkv, bw * n, c, s);
+    if (err != 0) return err;
+    return dispatch_fwd<T, true, false>(qkv, nullptr, nullptr, bias, mask,
+                                        out, nullptr, p, bw, n, c, heads, d,
+                                        nw, scale, s);
   });
 }
 
