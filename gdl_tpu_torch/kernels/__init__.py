@@ -38,7 +38,7 @@ _uint, _i64 = ctypes.c_uint, ctypes.c_longlong
 LIBRARIES = {
     "window_attention_eval": (
         "window_attention_eval.cu",
-        {"gdl_wa_eval_launch": ([_vp] * 6 + [_int] * 6 + [_float, _int, _vp],
+        {"gdl_wa_eval_launch": ([_vp] * 7 + [_int] * 6 + [_float, _int, _vp],
                                 _int)},
     ),
     "window_attention_train": (

@@ -352,12 +352,14 @@ def _launch(x, w, b, bias, mask, num_heads, scale):
         "window_attention_qkv_fused_eval", x, w, b, bias, mask, num_heads)
     lib = kernels.load("window_attention_eval")
     out = torch.empty_like(x)
+    # the projection's output, read once by the attention launch
+    qkv = torch.empty((bw, n, 3 * c), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.gdl_wa_eval_launch(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        bw, n, c, num_heads, d, nw, float(scale), _DTYPE_CODES[x.dtype],
-        stream)
+        mask.data_ptr() if mask is not None else None, qkv.data_ptr(),
+        out.data_ptr(), bw, n, c, num_heads, d, nw, float(scale),
+        _DTYPE_CODES[x.dtype], stream)
     _raise_on(err, KERNEL_NAME)
     kernels.launch_counts[KERNEL_NAME] += 1
     return out
