@@ -46,7 +46,7 @@ __device__ __forceinline__ void bhnd_head(
   float* qs = smem;
   float* ks = qs + kNP * S::kLdQ;
   float* vs = ks + kNP * S::kLdQ;
-  float* ps = smem + S::kUnion;
+  float* ps = smem + S::kQkv;
   const size_t off = (static_cast<size_t>(win) * heads + head) * n * d;
   load_head<T, DMAX>(q + off, k + off, v + off, d, n, d, scale_t, qs, ks, vs);
   __syncthreads();

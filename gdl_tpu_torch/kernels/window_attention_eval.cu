@@ -37,8 +37,7 @@ extern "C" int gdl_wa_eval_launch(const void* x, const void* w, const void* b,
     using T = typename decltype(t)::type;
     const int err = wa2::project<T>(x, w, b, qkv, bw * n, c, s);
     if (err != 0) return err;
-    return dispatch_fwd<T, false, false>(qkv, nullptr, nullptr, bias, mask,
-                                         out, nullptr, nullptr, bw, n, c,
-                                         heads, d, nw, scale, s);
+    return dispatch_fwd<T, false>(qkv, bias, mask, out, nullptr, bw, n, c,
+                                  heads, d, nw, scale, s);
   });
 }

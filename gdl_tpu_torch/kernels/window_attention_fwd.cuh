@@ -1,40 +1,40 @@
-// The fused window-attention forward, shared by window_attention_eval.cu
-// (kernel #1, forward only: SAVE=false), window_attention_train.cu
-// (kernel #2, the training forward: SAVE=true; kernel #5, the same forward
-// on a qkv computed outside: PROJ=false; kernel #7's forward: PROJ=false,
-// SAVE=false; kernel #6's forward, which walks a group of heads per block)
-// and window_attention_bhnd.cu (kernels #8 and #9 on separate q, k, v
+// The window-attention forward on a qkv in device memory, shared by
+// window_attention_train.cu (kernel #5, the save-p forward on a qkv
+// computed outside: SAVE=true; kernel #7's forward: SAVE=false; kernel #2,
+// which makes #5's launch after its projection; kernel #6's forward, which
+// walks a group of heads per block), window_attention_eval.cu (kernel #1,
+// which makes #7's forward launch after its projection) and
+// window_attention_bhnd.cu (kernels #8 and #9 on separate q, k, v
 // [B, H, N, D]). The attention of one (window, head) past the loads is one
 // device function, attn_fwd_tail, so every entry rounds alike. Per window
-// w and head h:
+// w and head h, from qkv [Bw, N, 3C] (columns [q|k|v][head][d], q not yet
+// scaled):
 //
-//   qkv = x[w] . W_h^T (f32 accumulate) -> round to T -> + b_h (in T)
 //   q   = q * T(scale)                                   (in T)
 //   s   = q . k^T (f32) + bias[h] + mask[w % nW]         (f32)
-//   p   = softmax(s) over keys (f32) -> round to T
+//   p   = softmax(s) over keys (f32) -> round to T       (SAVE: written)
 //   out[w, :, h*d:(h+1)*d] = p . v (f32 accumulate) -> T
 //
 // T is float or bfloat16; every rounding point above is the TPU kernels'.
-// The qkv projection stays inside the kernel, as in the TPU kernels.
 //
-// Design (a first, simple one): one 256-thread block per (window, head).
-// x and the head's 3d rows of W stream through shared memory in KC-wide
-// chunks of C; each thread holds a 4 x (3*DMAX/16) register tile of the
-// projection. q, k, v, then the scores, live in shared memory. All
-// products run on the CUDA cores in f32 FMA. What bounds it on the H100:
-// the projection's FMAs (Bw*N*3C*C MACs a call, 98% of the work) at the
-// SIMT f32 rate, and the H-fold re-read of x from L2 (one block per
-// head). With SAVE the residuals are written from the registers and
-// softmax rows the kernel already holds. Tensor-core products
-// (mma/wgmma), TMA and sharing x across the heads of a window are later
-// work.
+// #1 and #2 (the TPU's _wa_xw_t_eval_kernel and _wa_xw_t_savep_kernel)
+// first compute qkv = round_T(round_T(x . W^T) + b), which the TPU keeps
+// in VMEM. Here that is a launch of its own on the GEMM tile
+// (window_attention_proj.cuh) over all Bw * N tokens, into device memory
+// in T at the TPU's rounding point; #2 keeps it as the backward's
+// residual. The projection is 2 Bw N 3C C operations, 92% of #2's work at
+// the Swin-B shapes, so it is bound by operations and runs on the tensor
+// cores in bf16. (The first design projected inside this kernel, a block
+// per (window, head): each window's x was read once per head, and the
+// products ran on SIMT FMA from scalar loads in both dtypes.) qkv's round
+// trip costs #2 one more read of it and #1 a write and a read, small
+// beside the products.
 //
-// PROJ=false (kernel #5, replaces _qkv_attn_savep_t_fwd / body
-// _wa_qkv_t_savep_kernel): the first line above is skipped; `x` is then the
-// qkv tensor [Bw, N, 3C] (columns [q|k|v][head][d], q unscaled) and the
-// kernel starts from "q = q * T(scale)". Without the projection the work
-// left is the two N x N x d products, and the kernel is bound by the
-// bytes of qkv, p and out.
+// Design of the attention (a first, simple one): one 256-thread block per
+// (window, head); q, k, v, then the scores, live in shared memory in f32;
+// the two N x N x d products run on the CUDA cores in f32 FMA. It is
+// bound by the bytes of qkv, p and out. Tensor-core products, TMA and
+// sharing a window across heads are later work.
 
 #pragma once
 
@@ -48,7 +48,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kNP = 64;  // max tokens per window (rows padded to 64)
-constexpr int kKC = 32;  // C-chunk streamed through shared memory
 
 template <typename T>
 struct Num;
@@ -76,15 +75,11 @@ struct Num<__nv_bfloat16> {
 
 template <int DMAX>
 struct FwdSmem {
-  static constexpr int kLdX = kKC + 1;
   static constexpr int kLdQ = DMAX + 1;
   static constexpr int kLdP = kNP + 1;
-  // phase 1 (projection): xs[kNP][kLdX], ws[3*DMAX][kLdX]
-  static constexpr int kProj = (kNP + 3 * DMAX) * kLdX;
-  // phase 2: qs, ks, vs [kNP][kLdQ] (aliases phase 1), ps [kNP][kLdP]
+  // qs, ks, vs [kNP][kLdQ], then ps [kNP][kLdP]
   static constexpr int kQkv = 3 * kNP * kLdQ;
-  static constexpr int kUnion = kProj > kQkv ? kProj : kQkv;
-  static constexpr int kFloats = kUnion + kNP * kLdP;
+  static constexpr int kFloats = kQkv + kNP * kLdP;
   static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
@@ -229,106 +224,28 @@ __device__ __forceinline__ void attn_fwd_tail(
   }
 }
 
-// SAVE also writes qkv [Bw, N, 3C] (after the bias add, q unscaled) and
-// p [Bw, H, N, N] in T, the residuals of the training backward. With
-// PROJ=false x is qkv itself, w, b and qkv_out are not read or written.
-template <typename T, int DMAX, bool SAVE, bool PROJ = true>
+// one block per (window, head) of qkv [Bw, N, 3C] in T; with SAVE also
+// writes p [Bw, H, N, N] in T, the residual of the training backward
+template <typename T, int DMAX, bool SAVE>
 __global__ void __launch_bounds__(kThreads)
-wa_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-              const T* __restrict__ b, const float* __restrict__ bias,
+wa_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
               const float* __restrict__ mask, T* __restrict__ out,
-              T* __restrict__ qkv_out, T* __restrict__ p_out, int n, int c,
-              int heads, int d, int nw, float scale) {
+              T* __restrict__ p_out, int n, int c, int heads, int d, int nw,
+              float scale) {
   using S = FwdSmem<DMAX>;
-  constexpr int JT = 3 * DMAX / 16;  // projection columns per thread
   extern __shared__ float smem[];
-  float* xs = smem;
-  float* ws = smem + kNP * S::kLdX;
   float* qs = smem;
   float* ks = qs + kNP * S::kLdQ;
   float* vs = ks + kNP * S::kLdQ;
-  float* ps = smem + S::kUnion;
+  float* ps = smem + S::kQkv;
 
   const int win = blockIdx.x / heads;
   const int head = blockIdx.x % heads;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int d3 = 3 * d;
   const int c3 = 3 * c;
-
   const float scale_t = Num<T>::round(scale);
-  if constexpr (PROJ) {
-    const T* xw = x + static_cast<size_t>(win) * n * c;
-    // ---- phase 1: qkv = x . W_h^T, f32 accumulate -----------------------
-    float acc[4][JT];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < JT; ++j) acc[a][j] = 0.f;
-
-    for (int k0 = 0; k0 < c; k0 += kKC) {
-      for (int e = tid; e < kNP * kKC; e += kThreads) {
-        const int r = e / kKC, kk = e % kKC;
-        xs[r * S::kLdX + kk] =
-            (r < n && k0 + kk < c)
-                ? Num<T>::load(xw + static_cast<size_t>(r) * c + k0 + kk)
-                : 0.f;
-      }
-      for (int e = tid; e < 3 * DMAX * kKC; e += kThreads) {
-        const int col = e / kKC, kk = e % kKC;
-        float v = 0.f;
-        if (col < d3 && k0 + kk < c) {
-          // W rows are ordered [q|k|v][head][d] (nn.Linear layout)
-          const int row = (col / d) * c + head * d + col % d;
-          v = Num<T>::load(w + static_cast<size_t>(row) * c + k0 + kk);
-        }
-        ws[col * S::kLdX + kk] = v;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kKC; ++kk) {
-        float xv[4], wv[JT];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) xv[a] = xs[(ty + 16 * a) * S::kLdX + kk];
-#pragma unroll
-        for (int j = 0; j < JT; ++j) wv[j] = ws[(tx + 16 * j) * S::kLdX + kk];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int j = 0; j < JT; ++j) acc[a][j] = fmaf(xv[a], wv[j], acc[a][j]);
-      }
-      __syncthreads();  // phase 2 reuses xs/ws
-    }
-
-    // round to T, add the bias in T, (save qkv,) scale q in T
-    T* qkv_w = SAVE ? qkv_out + static_cast<size_t>(win) * n * c3 + head * d
-                    : nullptr;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
-#pragma unroll
-      for (int j = 0; j < JT; ++j) {
-        const int col = tx + 16 * j;
-        if (col >= d3) continue;
-        const int part = col / d, dd = col % d;
-        float v = 0.f;
-        if (r < n) {
-          v = Num<T>::round(acc[a][j]);
-          v = Num<T>::round(v + Num<T>::load(b + part * c + head * d + dd));
-          if constexpr (SAVE)
-            qkv_w[static_cast<size_t>(r) * c3 + part * c + dd] = Num<T>::store(v);
-          if (part == 0) v = Num<T>::round(v * scale_t);
-        }
-        float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
-        dst[r * S::kLdQ + dd] = v;
-      }
-    }
-  } else {
-    // q (scaled in T), k, v of this head straight from the qkv tensor
-    const T* qw = x + static_cast<size_t>(win) * n * c3 + head * d;
-    load_head<T, DMAX>(qw, qw + c, qw + 2 * c, c3, n, d, scale_t, qs, ks, vs);
-  }
+  // q (scaled in T), k, v of this head straight from the qkv tensor
+  const T* qw = qkv + static_cast<size_t>(win) * n * c3 + head * d;
+  load_head<T, DMAX>(qw, qw + c, qw + 2 * c, c3, n, d, scale_t, qs, ks, vs);
   __syncthreads();
   attn_fwd_tail<T, DMAX, SAVE>(
       qs, ks, vs, ps, bias + static_cast<size_t>(head) * n * n,
@@ -370,32 +287,31 @@ int with_dtype(int dtype, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int DMAX, bool SAVE, bool PROJ = true>
-int launch_fwd(const void* x, const void* w, const void* b,
-               const void* bias, const void* mask, void* out, void* qkv,
-               void* p, int bw, int n, int c, int heads, int d, int nw,
-               float scale, cudaStream_t stream) {
+template <typename T, int DMAX, bool SAVE>
+int launch_fwd(const void* qkv, const void* bias, const void* mask,
+               void* out, void* p, int bw, int n, int c, int heads, int d,
+               int nw, float scale, cudaStream_t stream) {
   constexpr size_t smem = FwdSmem<DMAX>::kBytes;
   static const cudaError_t attr =
-      grant_smem(wa_fwd_kernel<T, DMAX, SAVE, PROJ>, smem);
+      grant_smem(wa_fwd_kernel<T, DMAX, SAVE>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const unsigned grid = static_cast<unsigned>(bw) * static_cast<unsigned>(heads);
-  wa_fwd_kernel<T, DMAX, SAVE, PROJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<const float*>(bias),
+  wa_fwd_kernel<T, DMAX, SAVE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<T*>(out),
-      static_cast<T*>(qkv), static_cast<T*>(p), n, c, heads, d, nw, scale);
+      static_cast<T*>(p), n, c, heads, d, nw, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool SAVE, bool PROJ = true>
-int dispatch_fwd(const void* x, const void* w, const void* b,
-                 const void* bias, const void* mask, void* out, void* qkv,
-                 void* p, int bw, int n, int c, int heads, int d, int nw,
-                 float scale, cudaStream_t s) {
+// out [bw, n, c] (and, with SAVE, p [bw, heads, n, n]) from qkv
+// [bw, n, 3c], all in T
+template <typename T, bool SAVE>
+int dispatch_fwd(const void* qkv, const void* bias, const void* mask,
+                 void* out, void* p, int bw, int n, int c, int heads, int d,
+                 int nw, float scale, cudaStream_t s) {
   return with_dmax(d, [&](auto dm) {
-    return launch_fwd<T, decltype(dm)::value, SAVE, PROJ>(
-        x, w, b, bias, mask, out, qkv, p, bw, n, c, heads, d, nw, scale, s);
+    return launch_fwd<T, decltype(dm)::value, SAVE>(
+        qkv, bias, mask, out, p, bw, n, c, heads, d, nw, scale, s);
   });
 }
 

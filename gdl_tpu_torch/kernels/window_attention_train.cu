@@ -1,17 +1,18 @@
 // Fused window attention for Swin training on Hopper: the save-p forwards
 // and the attention backwards from the saved p.
 //
-// Forward, gdl_wa_savep_launch, replaces
+// Forward, gdl_wa_savep_launch (kernel #2), replaces
 // gdl_tpu/ops/window_attention.py::window_attention_pallas_qkv_fused
-// (kernel body _wa_xw_t_savep_kernel): the forward of
-// window_attention_fwd.cuh, which computes what the eval kernel computes
-// and also writes the residuals the backward reads: qkv [Bw, N, 3C] after
-// the bias add (q not yet scaled) and p [Bw, H, N, N], both in T.
+// (kernel body _wa_xw_t_savep_kernel): what the eval kernel computes, and
+// also the residuals the backward reads, qkv [Bw, N, 3C] after the bias
+// add (q not yet scaled) and p [Bw, H, N, N], both in T. Two launches on
+// the caller's stream: the projection on the GEMM tile into qkv
+// (wa2::project, window_attention_proj.cuh), then #5's launch on it.
 //
-// Forward on a qkv computed outside, gdl_wa_qkv_savep_launch, replaces
-// window_attention_pallas_qkv(save_p, transposed) (_qkv_attn_savep_t_fwd,
-// kernel body _wa_qkv_t_savep_kernel): the same header with PROJ=false;
-// writes out and p.
+// Forward on a qkv computed outside, gdl_wa_qkv_savep_launch (kernel #5),
+// replaces window_attention_pallas_qkv(save_p, transposed)
+// (_qkv_attn_savep_t_fwd, kernel body _wa_qkv_t_savep_kernel):
+// wa_fwd_kernel of window_attention_fwd.cuh with SAVE; writes out and p.
 //
 // Backward, gdl_wa_bwd_launch, replaces _attn_bwd_pallas_t (kernel body
 // _wa_qkv_t_bwd_p_kernel, the default BWD_DELTA=False body). Per window
@@ -55,18 +56,16 @@
 //   grid has heads / g times fewer, longer blocks. Equal bits to #5 and #4.
 //
 // Design of the backwards (a first, simple one for #4, #6 and #7). The
-// forward is described in window_attention_fwd.cuh; with the projection
-// it is bound by the projection's FMAs (98% of its work) at the SIMT f32
-// rate. The backward gives each block one head and a fixed run of `wpb`
-// consecutive windows: it loads q, k, v, dout and p of one window into
-// shared memory (rows padded to 64 there only), runs the five small
-// products on the CUDA cores in f32 FMA, writes dqkv, and keeps its share
-// of dbias in registers across the run. Each block writes one dbias
-// partial [H, N, N]; the wrapper sums the partials. No atomics: the sum
-// has a fixed order, so two runs give equal bits. The backward does 5 N x
-// N x d products per (window, head), about 2.5x the forward's attention
-// work and a tenth of its projection, and reads qkv, p and dout once (p
-// dominates: N*N per head against 3d per token). Tensor-core products,
+// forwards are described in window_attention_fwd.cuh. The backward gives
+// each block one head and a fixed run of `wpb` consecutive windows: it
+// loads q, k, v, dout and p of one window into shared memory (rows padded
+// to 64 there only), runs the five small products on the CUDA cores in
+// f32 FMA, writes dqkv, and keeps its share of dbias in registers across
+// the run. Each block writes one dbias partial [H, N, N]; the wrapper sums
+// the partials. No atomics: the sum has a fixed order, so two runs give
+// equal bits. The backward does 5 N x N x d products per (window, head),
+// about 2.5x the forward's attention work, and reads qkv, p and dout once
+// (p dominates: N*N per head against 3d per token). Tensor-core products,
 // TMA and sharing a window across heads are later work.
 //
 // Kernel #3, the fused projection backward, gdl_wa_bwd_fused_launch,
@@ -584,7 +583,7 @@ wa_fwd_rows_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   float* qs = smem;
   float* ks = qs + kNP * S::kLdQ;
   float* vs = ks + kNP * S::kLdQ;
-  float* ps = smem + S::kUnion;
+  float* ps = smem + S::kQkv;
   const int groups = heads / g;
   const int win = blockIdx.x / groups;
   const int h0 = (blockIdx.x % groups) * g;
@@ -764,9 +763,8 @@ extern "C" int gdl_wa_savep_launch(const void* x, const void* w,
     using T = typename decltype(t)::type;
     const int err = wa2::project<T>(x, w, b, qkv, bw * n, c, s);
     if (err != 0) return err;
-    return dispatch_fwd<T, true, false>(qkv, nullptr, nullptr, bias, mask,
-                                        out, nullptr, p, bw, n, c, heads, d,
-                                        nw, scale, s);
+    return dispatch_fwd<T, true>(qkv, bias, mask, out, p, bw, n, c, heads,
+                                 d, nw, scale, s);
   });
 }
 
@@ -782,9 +780,8 @@ extern "C" int gdl_wa_qkv_savep_launch(const void* qkv, const void* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dtype(dtype, [&](auto t) {
-    return dispatch_fwd<typename decltype(t)::type, true, false>(
-        qkv, nullptr, nullptr, bias, mask, out, nullptr, p, bw, n, c, heads,
-        d, nw, scale, s);
+    return dispatch_fwd<typename decltype(t)::type, true>(
+        qkv, bias, mask, out, p, bw, n, c, heads, d, nw, scale, s);
   });
 }
 
@@ -867,9 +864,8 @@ extern "C" int gdl_wa_qkv_fwd_launch(const void* qkv, const void* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
-    return dispatch_fwd<T, false, false>(qkv, nullptr, nullptr, bias, mask,
-                                         out, nullptr, nullptr, bw, n, c,
-                                         heads, d, nw, scale, s);
+    return dispatch_fwd<T, false>(qkv, bias, mask, out, nullptr, bw, n, c,
+                                  heads, d, nw, scale, s);
   });
 }
 
