@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
   c. parity   each kernel against its plain PyTorch version on the card,
               at the shapes the serving path gives it (dual Swin-B,
               batch 16), in float32 and bfloat16, with median times of
-              both (CUDA events, 20 reps);
+              both and of F.linear + SDPA with bias + mask as its float
+              mask, the same work in two library calls (CUDA events, 20
+              reps);
   d. serve    the serving path at full Swin-B width (CREMA-D, fps 1):
               seeded weights are torch.save-d as a reference-schema .pth,
               loaded through gdl_tpu_torch.serve.load_from_checkpoint, and
@@ -25,7 +27,8 @@ Phases, each printing one JSON line:
               training path gives them (dual Swin-B, batch 32), in
               float32 and bfloat16: out, qkv and p; dqkv and dbias; and
               the whole op's dx, dW, db and dbias against the plain op;
-              median times of both (CUDA events, 20 reps);
+              median times of both, and of F.linear + SDPA beside #2
+              (CUDA events, 20 reps);
   f. train    the DGL training path at full Swin-B width (VGGSound, fps
               1, batch 32, concat DGL, alpha 4, droppath 0.1, SGD, clip
               40; benchmarks/run_all.py swin_dgl_bs32): seeded weights go
@@ -186,7 +189,8 @@ Phases, each printing one JSON line:
               work (bytes moved once over 3.35 TB/s against operations
               over the float32 peak of 67 TFLOP/s; the times are the
               float32 ones) and, where one PyTorch call computes the
-              function, that call's time.
+              function, that call's time; beside #1 and #2, F.linear +
+              SDPA and the qkv traffic between their two launches.
 Then the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero without the ok line when CUDA is unavailable or any phase
@@ -369,6 +373,7 @@ def stage_inputs(stage, bw, c, heads, res, dev):
 def phase_parity(failures):
     import torch
 
+    from gdl_tpu_torch.bench_wa_fwd import linear_sdpa
     from gdl_tpu_torch.ops.window_attention import (
         window_attention_qkv_fused_eval,
     )
@@ -397,17 +402,31 @@ def phase_parity(failures):
                         (err <= bound).all())
                     ms = cuda_ms(lambda: run("auto"))
                     plain_ms = cuda_ms(lambda: run("plain"))
+                    am = attn_mask(bias_t, mask, bw, dt)
+                    lib_ms = cuda_ms(lambda: linear_sdpa(xs, ws, bs, am,
+                                                         heads))
+                    del am
                 row = {"phase": "parity", "kernel": KERNEL, "stage": stage,
                        "Bw": bw, "C": c, "H": heads, "N": n,
                        "mask": mask is not None, "dtype": dtype,
                        "max_abs_err": float(err.max()), **tol, "ok": ok,
-                       "ms": ms, "plain_ms": plain_ms}
+                       "ms": ms, "plain_ms": plain_ms,
+                       "linear_sdpa_ms": lib_ms}
                 emit(row)
                 results.append(row)
                 if not ok:
                     failures.append(f"parity stage {stage} {dtype} "
                                     f"mask={mask is not None}")
     return results
+
+
+def attn_mask(bias, mask, bw: int, dt):
+    """bias [H, N, N] + mask[i % nW] of window i, as SDPA's additive mask
+    [Bw, H, N, N] in dt."""
+    am = bias[None]
+    if mask is not None:
+        am = (am + mask[:, None]).repeat(bw // mask.shape[0], 1, 1, 1)
+    return am.expand(bw, *bias.shape).to(dt).contiguous()
 
 
 def per_pass_ms(results, dtype: str, key: str) -> float:
@@ -600,6 +619,7 @@ def phase_train_parity(failures):
     plain versions at the batch-32 training shapes."""
     import torch
 
+    from gdl_tpu_torch.bench_wa_fwd import linear_sdpa
     from gdl_tpu_torch.ops.window_attention import (
         window_attention_qkv_fused,
         window_attention_qkv_fused_bwd,
@@ -663,6 +683,10 @@ def phase_train_parity(failures):
                             lambda: window_attention_qkv_fused_bwd(
                                 qkv, p, dout, heads, impl="plain")),
                     }
+                    am = attn_mask(bias_t, mask, bw, dt)
+                    times["fwd_linear_sdpa_ms"] = cuda_ms(
+                        lambda: linear_sdpa(*args, am, heads))
+                    del am
                 torch.cuda.synchronize()
                 ok = all(oks)
                 row = {"phase": "train_parity", "kernels": [SAVEP, BWD],
@@ -1828,11 +1852,7 @@ def phase_flag_parity(failures):
                     # k, v with the bias and mask as one additive mask
                     q5 = qkv.reshape(bw, n, 3, heads, d).permute(2, 0, 3, 1, 4)
                     q_, k_, v_ = (t.contiguous() for t in q5)
-                    am = bias_t[None]
-                    if mask is not None:
-                        am = (am + mask[:, None]).repeat(
-                            bw // mask.shape[0], 1, 1, 1)
-                    am = am.expand(bw, heads, n, n).to(dt).contiguous()
+                    am = attn_mask(bias_t, mask, bw, dt)
                     sd = F.scaled_dot_product_attention(q_, k_, v_,
                                                         attn_mask=am)
                     errs["sdpa_vs_plain"] = _max_err(
@@ -2113,11 +2133,7 @@ def phase_variant_parity(failures):
                         g8.transpose(1, 2).reshape(bw, n, c), k5[0]))
                     # the library yardstick: SDPA on the same q (unscaled),
                     # k, v with bias + mask as one additive float mask
-                    am = bias_t[None]
-                    if mask is not None:
-                        am = (am + mask[:, None]).repeat(
-                            bw // mask.shape[0], 1, 1, 1)
-                    am = am.expand(bw, heads, n, n).to(dt).contiguous()
+                    am = attn_mask(bias_t, mask, bw, dt)
                     sd = F.scaled_dot_product_attention(q_, k_, v_,
                                                         attn_mask=am)
                     errs["sdpa_vs_plain"] = _max_err(sd, wr)
@@ -2452,6 +2468,7 @@ def main(argv=None) -> int:
         log("CUDA is not available; nothing was run")
         return 2
     from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.bench_wa_fwd import pass_bound
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2720,16 +2737,29 @@ def main(argv=None) -> int:
                 calls[r["stage"]] * r[key] for r in flag_mlp
                 if r["dtype"] == "bfloat16")
     # per request (#1, batch 16) or per training step (#2, #4, batch 32):
-    # the sum over the 48 launches of the float32 per-shape medians
+    # the sum over the 48 launches of the float32 per-shape medians. Beside
+    # #1 and #2, F.linear + SDPA with bias + mask as its float mask: the
+    # same work in two library calls (library_ms stays null: no one call
+    # computes either)
     if len(f32) == 7:
         entries[0]["ms"] = per_pass_ms(parity, "float32", "ms")
         entries[0]["plain_ms"] = per_pass_ms(parity, "float32",
                                                 "plain_ms")
+        for dtype, sfx in (("float32", ""), ("bfloat16", "_bfloat16")):
+            if sfx:
+                entries[0]["ms" + sfx] = per_pass_ms(parity, dtype, "ms")
+            entries[0]["linear_sdpa_ms" + sfx] = per_pass_ms(
+                parity, dtype, "linear_sdpa_ms")
     if len(t32) == 7:
         for entry, key in ((entries[1], "fwd"), (entries[2], "bwd")):
             entry["ms"] = per_pass_ms(train_parity, "float32", key + "_ms")
             entry["plain_ms"] = per_pass_ms(train_parity, "float32",
                                             key + "_plain_ms")
+            entry["ms_bfloat16"] = per_pass_ms(train_parity, "bfloat16",
+                                               key + "_ms")
+        for dtype, sfx in (("float32", ""), ("bfloat16", "_bfloat16")):
+            entries[1]["linear_sdpa_ms" + sfx] = per_pass_ms(
+                train_parity, dtype, "fwd_linear_sdpa_ms")
     # the bound of the same pass: each launch's, summed as the times are
     for entry, kind, batch in ((entries[0], "eval", BATCH),
                                (entries[1], "savep", TRAIN_BATCH),
@@ -2742,6 +2772,13 @@ def main(argv=None) -> int:
                                                bound["operations"])
         entry["bound_ms_bfloat16"] = per_pass_bound(kind, batch,
                                                     "bfloat16")["ms"]
+    # #1's and #2's qkv traffic between their projection and attention
+    # launches (#2 reads its qkv back, #1 writes and reads it), beside the
+    # bound and not counted in it
+    for entry, kind in ((entries[0], "eval"), (entries[1], "savep")):
+        for dtype, sfx in (("float32", ""), ("bfloat16", "_bfloat16")):
+            entry["qkv_split_bytes" + sfx] = pass_bound(kind,
+                                                        dtype)["split_bytes"]
     # #16 per training step: its two launches, visual and audio stem
     if len(p32) == 2:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",

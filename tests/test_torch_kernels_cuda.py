@@ -1312,3 +1312,179 @@ def test_self_attention_qkv_kernel_matches_plain(cuda, b, n, c, heads,
         out.backward(g)
         grads[impl] = leaf.grad
     _grad_close(grads["auto"], grads["plain"], dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernels #2 and #1: the qkv projection on the GEMM tile (epilogue
+# wa2::ProjBias), then #5's and #7's attention body on the written qkv
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted",
+                                                        "shifted"])
+@pytest.mark.parametrize("bw,c,heads,res,window", TRAIN_SHAPES,
+                         ids=TRAIN_IDS)
+def test_forward_kernels_2_and_1_are_projection_then_attention(
+        cuda, bw, c, heads, res, window, shifted, dtype):
+    """At the four batch-32 stage shapes and the odd one, with and without
+    a shift mask (stage 3's window covers its map; its mask is the
+    7-token shift's all the same): #2's qkv against torch.matmul(x, wᵀ) + b
+    at test_savep_kernel_matches_plain's forward bar; #2's out and p
+    BIT-EQUAL to #5's on the qkv #2 wrote; #1's out BIT-EQUAL to #2's on
+    the same inputs and to a rerun of #1. One launch counted a call."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops.window_attention import window_attention_qkv_fwd
+
+    args, bias_t, _ = _train_case(cuda, bw, c, heads, res, window, dtype)
+    mask_t = (torch.from_numpy(shift_attn_mask(res, res, window,
+                                               window // 2)).to(cuda)
+              if shifted else None)
+    x, w, b = args
+    names = ("window_attention_qkv_fused_savep",
+             "window_attention_qkv_fused_eval", "window_attention_qkv_savep")
+    before = dict(kernels.launch_counts)
+    with torch.no_grad():
+        out2, qkv2, p2 = window_attention_qkv_fused_fwd(*args, bias_t, mask_t,
+                                                        heads)
+        out5, p5 = window_attention_qkv_fwd(qkv2, bias_t, mask_t, heads)
+        out1 = window_attention_qkv_fused_eval(*args, bias_t, mask_t, heads)
+        again1 = window_attention_qkv_fused_eval(*args, bias_t, mask_t,
+                                                 heads)
+        want_qkv = torch.matmul(x, w.t()) + b
+    torch.cuda.synchronize()
+    assert [kernels.launch_counts[k] - before[k] for k in names] == [1, 2, 1]
+    assert qkv2.dtype == x.dtype and qkv2.shape == want_qkv.shape
+    _close(qkv2, want_qkv, dtype, "fwd")
+    assert torch.equal(out2, out5) and torch.equal(p2, p5)
+    assert torch.equal(out1, out2) and torch.equal(out1, again1)
+
+
+def _kernel3_digests(cuda) -> dict:
+    """The bits of #3's outputs (dx, dW, db, dbias: its attention stage,
+    its two instantiations of the GEMM tile and the partial sums) on fixed
+    inputs (numpy seeds) at Swin-B stages 1 and 3 at batch 32, shifted,
+    and at 20 windows of 50 tokens (a ragged M and last dW split); both
+    dtypes. Name -> SHA-256."""
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for bw, n, c, heads, res in ((512, 49, 256, 8, 28),
+                                     (32, 49, 1024, 32, 7),
+                                     (20, 50, 96, 3, 0)):
+            rng = np.random.default_rng(bw + n + c)
+            scores = rng.standard_normal((bw, heads, n, n))
+            p = np.exp(scores - scores.max(-1, keepdims=True))
+            qkv, p, dout, x, w = [
+                torch.from_numpy(a.astype(np.float32)).to(cuda, dt)
+                for a in (rng.standard_normal((bw, n, 3 * c)),
+                          p / p.sum(-1, keepdims=True),
+                          rng.standard_normal((bw, n, c)),
+                          rng.standard_normal((bw, n, c)),
+                          rng.standard_normal((3 * c, c)) * c ** -0.5)]
+            with torch.no_grad():
+                got = wa.window_attention_qkv_fused_bwd_fused(qkv, p, dout, x,
+                                                              w, heads)
+            for name, t in zip(("dx", "dW", "db", "dbias"), got):
+                out[f"3_{bw}_{c}_{name}_{dtype}"] = _bits(t)
+    return out
+
+
+# _kernel3_digests as the parent tree's kernels gave them (run on an
+# NVIDIA H100 80GB HBM3 by this file's _kernel3_digests), before #2's and
+# #1's projection joined the GEMM tile's instantiations
+KERNEL3_DIGESTS_BEFORE = {
+    "3_20_96_dW_bfloat16":
+        "ed81f74d11056ffeb05ee3ce2cf8aee79b55c81612a0cd92fe087f7a80188ec4",
+    "3_20_96_dW_float32":
+        "609500b9b6c5a6c9deb6714e8cb6b69ef93af7aa7907d6359497256af5ed29c7",
+    "3_20_96_db_bfloat16":
+        "441a94331f98aec429fe199ebe2489f64c9af486cbe6b49a0f9cccc73e9be0f9",
+    "3_20_96_db_float32":
+        "7115e0a8ef638c7507bc7ca209dbdc6c4caca8ffdcf643b64674b74f0abffc36",
+    "3_20_96_dbias_bfloat16":
+        "ab233c020f03fe2840f156af37606bc0547091d526a09a308ef57e132afdf835",
+    "3_20_96_dbias_float32":
+        "6add8378b791b6a070311257051197f6df3f65e922b61db73befd25b2d624ffb",
+    "3_20_96_dx_bfloat16":
+        "6b1901d0932956ce1047b518f277ca3e6c330b815b46b0600ff3ee0679a73d71",
+    "3_20_96_dx_float32":
+        "e4468ccf27dcc487f402ff6e44a97b473f755c192dfd36b4fca06d6bce28914d",
+    "3_32_1024_dW_bfloat16":
+        "37685c1815c056576183ec8ca390d8b0954ff72bb3c15f664816c5745cf025f4",
+    "3_32_1024_dW_float32":
+        "fd607a760c500bc60e2d675f6cc7c02d283f23fe028591a202225548bc7591b3",
+    "3_32_1024_db_bfloat16":
+        "35f37a57dd59057ee47fd381bcc94e0124b53e671aff348e30502cc182aca1aa",
+    "3_32_1024_db_float32":
+        "6649a5e984dd51d170f0da1962e9b6ab37c5144bec5c3ed50e9285e08d23f249",
+    "3_32_1024_dbias_bfloat16":
+        "2cadf432712bd285d8bf42dce629d27bbb38eb1489a834dd0fa02a5ba2c78fe6",
+    "3_32_1024_dbias_float32":
+        "d244903bf3ada12e7227f800d9f4c6f2d459bc6969b49c66392c81b5ed9ca900",
+    "3_32_1024_dx_bfloat16":
+        "078e4f863e6dae9d49cecb627e4528b686fc2d2cb6f61d18c3644234ad1c91e6",
+    "3_32_1024_dx_float32":
+        "c1c45ba7b2aa6106f262186ee7dd036950b01d372a33c8739aefefb62620f7b1",
+    "3_512_256_dW_bfloat16":
+        "f2b633a77d83a159d7569700eddc52230752045ec2b61b385e731be548f65528",
+    "3_512_256_dW_float32":
+        "8b1cc4268fcbb9c5bbccbde8582b44779f662ef64c7bef40887de1248564d460",
+    "3_512_256_db_bfloat16":
+        "3fb2f12fd8e322a4c0e6989c2df6ab080ae178eb67b535ebbe7e0699e95d3690",
+    "3_512_256_db_float32":
+        "ac3a3fea5a80952ec56abe3850f2b9692738a8022e9886fb77569c58db70164c",
+    "3_512_256_dbias_bfloat16":
+        "b7fb163a34c33c3e6c12e4a61471c4b408145ce760144f5846a9cfa1062f0a2f",
+    "3_512_256_dbias_float32":
+        "cf4373ef900bd8014f2a0e9b0c65ce3fea81ba2785040573368b9fde803616de",
+    "3_512_256_dx_bfloat16":
+        "aa76634bb87323317e9a365f2810820793fec50081799900455c27c131514ffa",
+    "3_512_256_dx_float32":
+        "3e8af6c12572a04aa0304f048a2650f21f8d650e9db7aa24ad58be14f3700429",
+}
+
+
+@pytest.mark.cuda
+def test_tile_instantiations_of_3_keep_their_bits(cuda):
+    """#3's products on the GEMM tile (and the rest of #3) give the same
+    bits as before #2's and #1's projection took the tile."""
+    got = _kernel3_digests(cuda)
+    assert set(got) == set(KERNEL3_DIGESTS_BEFORE)
+    changed = sorted(k for k in got if got[k] != KERNEL3_DIGESTS_BEFORE[k])
+    assert not changed, changed
+
+
+@pytest.mark.cuda
+def test_projection_of_2_and_1_is_filed_under_its_own_row(cuda):
+    """A profiler trace of #2 and of #1 shows the projection as the GEMM
+    tile with the wa2::ProjBias epilogue, which profile_step files under
+    "window_attention_proj (#1, #2)" and not under the self-attention
+    row, and the attention as wa_fwd_kernel under the window-attention
+    row; in both dtypes. Every kernel symbol a trace saw is printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gdl_tpu_torch.profile_step import kind_of
+
+    for dtype in ("float32", "bfloat16"):
+        args, bias_t, mask_t = _train_case(cuda, 128, 512, 16, 14, 7, dtype)
+        for op in (window_attention_qkv_fused_fwd,
+                   window_attention_qkv_fused_eval):
+            with torch.no_grad():
+                op(*args, bias_t, mask_t, 16)  # built, loaded and warm
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    op(*args, bias_t, mask_t, 16)
+                    op(*args, bias_t, mask_t, 16)
+                    torch.cuda.synchronize()
+            seen = sorted({e.key for e in prof.key_averages()})
+            print(op.__name__, dtype, "traced:", seen)
+            gemms = [k for k in seen if "gemm_tile_kernel" in k]
+            attn = [k for k in seen if "wa_fwd_kernel" in k]
+            assert len(gemms) == 1 and "wa2::" in gemms[0], seen
+            assert "ProjBias" in gemms[0], seen
+            assert kind_of(gemms[0]) == "window_attention_proj (#1, #2)"
+            assert len(attn) == 1, seen
+            assert "#1, #2" in kind_of(attn[0]), seen
