@@ -93,15 +93,16 @@ def calls_per_pass(depth: int, res: int) -> dict:
 
 def wa_fwd_part(name: str) -> str:
     """The part of #1 or #2 a kernel symbol belongs to: the projection
-    (the GEMM tile with the wa2 epilogue), the attention (wa_fwd_kernel
-    with its three template arguments), or "fused" for the first design's
-    kernel, which did both (a fourth template argument, PROJ); "other"
-    for anything else."""
+    (the GEMM tile with the wa2 epilogue), the attention (wa_fwd_kernel),
+    or "fused" for the first design's kernel with its projection inside
+    (a fourth template argument, PROJ, true); "other" for anything
+    else."""
     if "wa2::" in name:
         return "projection"
     if "wa_fwd_kernel<" in name:
         targs = name.split("wa_fwd_kernel<", 1)[1].split(">", 1)[0]
-        return "fused" if targs.count(",") == 3 else "attention"
+        proj = targs.count(",") == 3 and targs.endswith("true")
+        return "fused" if proj else "attention"
     return "other"
 
 

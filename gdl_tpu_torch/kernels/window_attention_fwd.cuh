@@ -24,11 +24,10 @@
 // in T at the TPU's rounding point; #2 keeps it as the backward's
 // residual. The projection is 2 Bw N 3C C operations, 92% of #2's work at
 // the Swin-B shapes, so it is bound by operations and runs on the tensor
-// cores in bf16. (The first design projected inside this kernel, a block
-// per (window, head): each window's x was read once per head, and the
-// products ran on SIMT FMA from scalar loads in both dtypes.) qkv's round
-// trip costs #2 one more read of it and #1 a write and a read, small
-// beside the products.
+// cores in bf16; inside this kernel's (window, head) blocks it would read
+// each window's x once per head and run on SIMT FMA. qkv's round trip
+// costs #2 one more read of it and #1 a write and a read, small beside
+// the products.
 //
 // Design of the attention (a first, simple one): one 256-thread block per
 // (window, head); q, k, v, then the scores, live in shared memory in f32;

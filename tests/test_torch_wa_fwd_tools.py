@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 
 from gdl_tpu_torch import kernels
+from test_torch_mlp_tools import _entry_points
 
 REPO = Path(__file__).resolve().parents[1]
 PROJ = "window_attention_proj (#1, #2)"
@@ -172,22 +173,15 @@ def test_bench_wa_fwd_split_bytes_are_the_qkv_round_trip():
      "float const*)", "fused"),
     ("void (anonymous namespace)::wa_fwd_kernel<__nv_bfloat16, 16, false, "
      "true>(__nv_bfloat16 const*)", "fused"),
+    # ... and with PROJ false, the attention on a given qkv
+    ("void (anonymous namespace)::wa_fwd_kernel<float, 32, true, false>("
+     "float const*)", "attention"),
     ("void at::native::elementwise_kernel<128, 2>()", "other"),
 ])
 def test_bench_wa_fwd_splits_the_kernels_by_part(symbol, part):
     from gdl_tpu_torch.bench_wa_fwd import wa_fwd_part
 
     assert wa_fwd_part(symbol) == part
-
-
-def _entry_points(source: str) -> dict:
-    """name -> number of parameters of each `extern "C"` function."""
-    found = {}
-    for m in re.finditer(r'extern\s+"C"\s+[\w\s\*]+?\b(\w+)\s*\(([^)]*)\)',
-                         source):
-        params = [p for p in m.group(2).split(",") if p.strip()]
-        found[m.group(1)] = len(params)
-    return found
 
 
 def test_eval_entry_takes_the_qkv_workspace():
