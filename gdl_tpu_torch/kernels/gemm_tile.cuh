@@ -18,7 +18,9 @@
 // gdl_tpu/ops/mlp.py:69), with the bias and GELU epilogues of
 // mlp_fused.cu; and #3's projection backward (`_wa_xw_t_bwd_fused_kernel`,
 // gdl_tpu/ops/window_attention.py:1167-1199), dx and the split dW, with
-// the epilogues of namespace wa3 in window_attention_train.cu. The
+// the epilogues of namespace wa3 in window_attention_train.cu; and the qkv
+// projection of #1 and #2 (`_wa_xw_t_eval_kernel`, `_wa_xw_t_savep_kernel`,
+// :1034-1039), with wa2::ProjBias of window_attention_proj.cuh. The
 // epilogue, the layouts and the store are type parameters of the kernel,
 // so each caller's instantiation has its own symbol.
 //
