@@ -64,7 +64,7 @@ int launch(const void* x, const void* w, void* qkv, void* out, int batch,
   a.d = d;
   a.heads = heads;
   a.scale = scale;
-  return sa_rows::launch_attention<T, false>(a, batch, s);
+  return sa_rows::launch_attention<T, sa_rows::kEval>(a, batch, s);
 }
 
 }  // namespace sa_eval

@@ -92,8 +92,15 @@ struct Args {
   int dropout_mode;  // 0 none, 1 mask, 2 Philox
   uint32_t keep_thresh;
   float inv_keep;
-  int rowvec;  // 1: N % 4 == 0 and p, mask, keep_out 16-byte aligned
+  int rowvec;  // 1: N % 4 == 0 and p, mask, keep_out (ds) 16-byte aligned
+  // the backward's alone
+  const void* dout;  // [B, N, C]
+  void* ds;          // scratch [B, H, N, N] in T, read by the keys kernel
 };
+
+// what rows_body does between its phases, a template parameter: the eval
+// and training forwards (the softmax), or the backward (dp in place of s)
+enum : int { kEval = 0, kTrain = 1, kBwd = 2 };
 
 __device__ inline float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -257,12 +264,16 @@ struct PathBf16 {
     }
   }
 
+  // rows i0 .. of out (row stride ldo) = round_bf16(sums), or
+  // round_bf16(sums * scale) with SCALE (the backward's dq)
+  template <bool SCALE>
   __device__ static void finish(const State& st, float*, Stats, T* out,
-                                int i0, int n, int c, int d, int tid) {
+                                int i0, int n, int ldo, int d, int tid,
+                                float scale) {
     const int lane = tid % 32, warp = tid / 32;
     const int rg = warp % RG, sp = warp / RG;
     const int g = lane / 4, q = lane % 4;
-    const bool pairs = d % 2 == 0 && c % 2 == 0;
+    const bool pairs = d % 2 == 0 && ldo % 2 == 0;
 #pragma unroll
     for (int u = 0; u < NTD; ++u) {
       const int col = (sp * NTD + u) * 8 + 2 * q;
@@ -271,13 +282,18 @@ struct PathBf16 {
       for (int h = 0; h < 2; ++h) {
         const int i = i0 + rg * 16 + g + 8 * h;
         if (i >= n) continue;
-        T* dst = out + static_cast<size_t>(i) * c + col;
+        T* dst = out + static_cast<size_t>(i) * ldo + col;
+        float v0 = st.o[u][2 * h], v1 = st.o[u][2 * h + 1];
+        if constexpr (SCALE) {
+          v0 *= scale;
+          v1 *= scale;
+        }
         if (pairs) {
           *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(st.o[u][2 * h], st.o[u][2 * h + 1]);
+              __floats2bfloat162_rn(v0, v1);
         } else {
-          dst[0] = __float2bfloat16_rn(st.o[u][2 * h]);
-          if (col + 1 < d) dst[1] = __float2bfloat16_rn(st.o[u][2 * h + 1]);
+          dst[0] = __float2bfloat16_rn(v0);
+          if (col + 1 < d) dst[1] = __float2bfloat16_rn(v1);
         }
       }
     }
@@ -409,10 +425,12 @@ struct PathF32 {
   }
 
   // the key groups' partial sums meet in the score tile's region, added
-  // in the order of the groups, then multiplied by inv
+  // in the order of the groups, then multiplied by inv (or, with SCALE, by
+  // scale: the backward's dq); out's row stride is ldo
+  template <bool SCALE>
   __device__ static void finish(const State& st, float* part, Stats ss,
-                                T* out, int i0, int n, int c, int d,
-                                int tid) {
+                                T* out, int i0, int n, int ldo, int d,
+                                int tid, float scale) {
     const int cx = tid % CG, ry = (tid / CG) % RY, sp = tid / (CG * RY);
     __syncthreads();  // every thread is done reading the score tile
 #pragma unroll
@@ -430,7 +448,11 @@ struct PathF32 {
       float s = part[r * DMAX + col];
 #pragma unroll
       for (int t = 1; t < SPLITS; ++t) s += part[(t * R + r) * DMAX + col];
-      out[static_cast<size_t>(i0 + r) * c + col] = s * ss.inv[r];
+      if constexpr (SCALE) {
+        out[static_cast<size_t>(i0 + r) * ldo + col] = s * scale;
+      } else {
+        out[static_cast<size_t>(i0 + r) * ldo + col] = s * ss.inv[r];
+      }
     }
   }
 };
@@ -574,12 +596,112 @@ __device__ void softmax_rows(float* S, Stats ss, const Args& a, int lds,
   }
 }
 
+// ---- the backward's pass: dp in place of s ---------------------------------
+
+// The dropout multiplier m of the four elements e0 .. e0 + 3 of a row-major
+// [B, H, N, N] (`valid` of them in the row; `vec`: valid == 4 and aligned):
+// drawn again by Philox (mode 2, as the forward drew it), read in T (mode
+// 1), or 1 (mode 0).
+template <typename T>
+__device__ inline void multiplier4(const Args& a, uint64_t e0, int valid,
+                                   bool vec, uint32_t k0, uint32_t k1,
+                                   float m[4]) {
+  if (a.dropout_mode == 2) {
+    bool keep[4];
+    philox::keep4(e0, k0, k1, a.keep_thresh, keep);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) m[t] = keep[t] ? a.inv_keep : 0.f;
+  } else if (a.dropout_mode == 1) {
+    load4<T>(static_cast<const T*>(a.mask) + e0, m, valid, vec);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) m[t] = 1.f;
+  }
+}
+
+// One warp a row; row r of the tile holds dp = dout . v^T for the n keys
+// (past them, whatever the tile held). Lane l takes the key quads l,
+// l + 32, ...: first dp * m back to the tile and delta = sum_j dp * m * p
+// (f32), then ds = round_T(p * (dp * m - delta)) to the scratch ds
+// [B, H, N, N] and to the tile, 0 for the padding keys n .. npad that
+// phase 3 reads; p is read along the row twice (the second time from the
+// cache). Rows past n (their dout rows are zeros) hold zeros. inv = 1:
+// phase 3 takes the tile as it is.
+template <typename T, int R>
+__device__ void bwd_rows(float* S, Stats ss, const Args& a, int lds,
+                         int npad, int i0, uint64_t bh, int tid) {
+  const int n = a.n, lane = tid % 32;
+  const int nquads = (n + 3) / 4, pquads = npad / 4;
+  const bool vec = a.rowvec != 0;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  uint32_t k0 = 0, k1 = 0;
+  if (a.dropout_mode == 2) {
+    k0 = static_cast<uint32_t>(a.seed[0]);
+    k1 = static_cast<uint32_t>(a.seed[1]);
+  }
+  for (int r = tid / 32; r < R; r += R / 8) {
+    float* row = S + r * lds;
+    if (lane == 0) ss.inv[r] = 1.f;
+    if (i0 + r >= n) {
+      for (int q = lane; q < pquads; q += 32)
+        *reinterpret_cast<float4*>(row + 4 * q) = zero;
+      continue;
+    }
+    const uint64_t rb = (bh + i0 + r) * static_cast<uint64_t>(n);
+    const T* prow = static_cast<const T*>(a.p) + rb;
+    float delta = 0.f;
+    for (int q = lane; q < nquads; q += 32) {
+      const int j = 4 * q;
+      const int valid = n - j < 4 ? n - j : 4;
+      const float4 s4 = *reinterpret_cast<const float4*>(row + j);
+      float pv[4], m[4];
+      load4<T>(prow + j, pv, valid, vec);
+      multiplier4<T>(a, rb + j, valid, vec, k0, k1, m);
+      float dp[4] = {s4.x * m[0], s4.y * m[1], s4.z * m[2], s4.w * m[3]};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (t >= valid) dp[t] = 0.f;
+        delta = fmaf(dp[t], pv[t], delta);
+      }
+      *reinterpret_cast<float4*>(row + j) = make_float4(dp[0], dp[1], dp[2],
+                                                        dp[3]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      delta += __shfl_xor_sync(0xffffffffu, delta, o);
+    T* dsrow = static_cast<T*>(a.ds) + rb;
+    for (int q = lane; q < pquads; q += 32) {
+      const int j = 4 * q;
+      const int valid = n - j < 0 ? 0 : (n - j < 4 ? n - j : 4);
+      float ds[4] = {0.f, 0.f, 0.f, 0.f};
+      if (valid > 0) {
+        const float4 d4 = *reinterpret_cast<const float4*>(row + j);
+        const float dp[4] = {d4.x, d4.y, d4.z, d4.w};
+        float pv[4];
+        load4<T>(prow + j, pv, valid, vec);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (t < valid) ds[t] = to_f(to_t<T>(pv[t] * (dp[t] - delta)));
+        store4<T>(dsrow + j, ds, valid, vec);
+      }
+      *reinterpret_cast<float4*>(row + j) = make_float4(ds[0], ds[1], ds[2],
+                                                        ds[3]);
+    }
+  }
+}
+
 // ---- the kernels -----------------------------------------------------------
 
-// one block per (batch, head, R query rows); 4R threads
-template <typename T, int DMAX, int R, bool TRAIN>
+// one block per (batch, head, R query rows); 4R threads. The forwards
+// (MODE kEval, kTrain): the A rows are q (qkv at stride 3C), phase 1
+// streams k, phase 3 v, out [B, N, C]. The backward (kBwd): the A rows
+// are dout [B, N, C], unscaled; phase 1 streams v (dp = dout . v^T in the
+// score tile), the row pass is bwd_rows, phase 3 streams k (ds . k), and
+// dq = sums * scale goes to the q third of dqkv [B, N, 3C].
+template <typename T, int DMAX, int R, int MODE>
 __device__ __forceinline__ void rows_body(const Args& a) {
   using P = Path<T, DMAX, R>;
+  constexpr bool BWD = MODE == kBwd;
   constexpr int THREADS = 4 * R, KC = P::KC, LDK = P::LDK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* S = reinterpret_cast<float*>(smem_raw);  // [R][lds] score tile
@@ -595,31 +717,40 @@ __device__ __forceinline__ void rows_body(const Args& a) {
   const bool vec = a.vec != 0;
   const T* base =
       static_cast<const T*>(a.qkv) + static_cast<size_t>(b) * n * c3 + head * d;
-  const int nc = (n + KC - 1) / KC;  // chunks of k, then as many of v
+  const int nc = (n + KC - 1) / KC;  // chunks of phase 1, then as many of 3
   const int total = 2 * nc;
+  // the A rows, and the column offsets of phase 1's and phase 3's chunks
+  const int lda = BWD ? c : c3;
+  const T* arows =
+      BWD ? static_cast<const T*>(a.dout) + static_cast<size_t>(b) * n * c +
+                head * d
+          : base;
+  const int off1 = BWD ? 2 * c : c, off3 = BWD ? c : 2 * c;
 
-  // chunk t (keys (t % nc) * KC .. of k, or of v from t = nc) into ring
-  // slot t % nb; a group is committed even past the end, so that the
-  // count of groups in flight stays nb - 1
+  // chunk t (keys (t % nc) * KC .. of phase 1's operand, or of phase 3's
+  // from t = nc) into ring slot t % nb; a group is committed even past the
+  // end, so that the count of groups in flight stays nb - 1
   auto issue = [&](int t) {
     if (t < total) {
       const int j0 = (t % nc) * KC;
       load_tile<T, THREADS>(ring + (t % nb) * KC * LDK, LDK,
-                            base + (t < nc ? c : 2 * c) +
+                            base + (t < nc ? off1 : off3) +
                                 static_cast<size_t>(j0) * c3,
                             c3, KC, DMAX, n - j0, d, vec, tid);
     }
     cp_async_commit();
   };
 
-  load_tile<T, THREADS>(qs, LDK, base + static_cast<size_t>(i0) * c3, c3, R,
-                        DMAX, n - i0, d, vec, tid);
-  issue(0);  // one group: q and chunk 0
+  load_tile<T, THREADS>(qs, LDK, arows + static_cast<size_t>(i0) * lda, lda,
+                        R, DMAX, n - i0, d, vec, tid);
+  issue(0);  // one group: the A rows and chunk 0
   for (int t = 1; t < nb - 1; ++t) issue(t);
 
   typename P::State st;
-  const float scale_t =
-      std::is_same<T, float>::value ? a.scale : bf16_round(a.scale);
+  const float scale_t = BWD ? 1.f
+                            : (std::is_same<T, float>::value
+                                   ? a.scale
+                                   : bf16_round(a.scale));
   for (int t = 0; t < total; ++t) {
     cp_async_wait_n(nb > 1 ? nb - 2 : 0);
     __syncthreads();  // chunk t is in; every thread is done with chunk t - 1
@@ -633,11 +764,16 @@ __device__ __forceinline__ void rows_body(const Args& a) {
     if (t < nc) {
       P::scores(st, S, lds, qs, cur, j0, n, tid);
       if (t == nc - 1) {
-        P::row_max(st, ss, tid);
-        __syncthreads();  // the score tile and the row maxima are complete
-        softmax_rows<T, R, TRAIN>(
-            S, ss, a, lds, npad, i0,
-            (static_cast<uint64_t>(b) * gridDim.y + head) * n, tid);
+        const uint64_t bh = (static_cast<uint64_t>(b) * gridDim.y + head) * n;
+        if constexpr (BWD) {
+          __syncthreads();  // the dp tile is complete
+          bwd_rows<T, R>(S, ss, a, lds, npad, i0, bh, tid);
+        } else {
+          P::row_max(st, ss, tid);
+          __syncthreads();  // the score tile and the row maxima are complete
+          softmax_rows<T, R, MODE == kTrain>(S, ss, a, lds, npad, i0, bh,
+                                             tid);
+        }
       }
     } else {
       P::pv(st, S, ss, lds, cur, j0, npad, d, tid);
@@ -647,9 +783,11 @@ __device__ __forceinline__ void rows_body(const Args& a) {
       issue(t + 1);
     }
   }
-  P::finish(st, S, ss,
-            static_cast<T*>(a.out) + static_cast<size_t>(b) * n * c + head * d,
-            i0, n, c, d, tid);
+  const int ldo = BWD ? c3 : c;
+  P::template finish<BWD>(
+      st, S, ss,
+      static_cast<T*>(a.out) + static_cast<size_t>(b) * n * ldo + head * d,
+      i0, n, ldo, d, tid, a.scale);
 }
 
 // (f32: min. 1 block an SM, or ptxas holds it to 128 registers and spills
@@ -657,13 +795,20 @@ __device__ __forceinline__ void rows_body(const Args& a) {
 template <typename T, int DMAX, int R>
 __global__ void __launch_bounds__(4 * R, std::is_same<T, float>::value ? 1 : 2)
     sa_eval_kernel(Args a) {
-  rows_body<T, DMAX, R, false>(a);
+  rows_body<T, DMAX, R, kEval>(a);
 }
 
 template <typename T, int DMAX, int R>
 __global__ void __launch_bounds__(4 * R, std::is_same<T, float>::value ? 1 : 2)
     sa_train_kernel(Args a) {
-  rows_body<T, DMAX, R, true>(a);
+  rows_body<T, DMAX, R, kTrain>(a);
+}
+
+// part A of the backward (#11): dp, ds and dq
+template <typename T, int DMAX, int R>
+__global__ void __launch_bounds__(4 * R, std::is_same<T, float>::value ? 1 : 2)
+    sa_bwd_rows_kernel(Args a) {
+  rows_body<T, DMAX, R, kBwd>(a);
 }
 
 // ---- the host side ---------------------------------------------------------
@@ -700,18 +845,20 @@ int ring_depth(int n) {
 }
 
 // the kernel of the mode; only it is instantiated
-template <typename T, int DMAX, int R, bool TRAIN>
+template <typename T, int DMAX, int R, int MODE>
 constexpr auto rows_kernel() {
-  if constexpr (TRAIN) {
+  if constexpr (MODE == kBwd) {
+    return sa_bwd_rows_kernel<T, DMAX, R>;
+  } else if constexpr (MODE == kTrain) {
     return sa_train_kernel<T, DMAX, R>;
   } else {
     return sa_eval_kernel<T, DMAX, R>;
   }
 }
 
-template <typename T, int DMAX, int R, bool TRAIN>
+template <typename T, int DMAX, int R, int MODE>
 int launch_rows(Args a, int nbuf, int batch, cudaStream_t s) {
-  const auto kernel = rows_kernel<T, DMAX, R, TRAIN>();
+  const auto kernel = rows_kernel<T, DMAX, R, MODE>();
   const size_t smem = smem_bytes<T, DMAX, R>(a.n, nbuf, &a.lds, &a.s_floats);
   a.nbuf = nbuf;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -723,25 +870,27 @@ int launch_rows(Args a, int nbuf, int batch, cudaStream_t s) {
 }
 
 // R = 64 where its tile and two chunk buffers fit, else 32
-template <typename T, int DMAX, bool TRAIN>
+template <typename T, int DMAX, int MODE>
 int launch_dmax(const Args& a, int batch, cudaStream_t s) {
   const int nb64 = ring_depth<T, DMAX, 64>(a.n);
-  if (nb64 >= 2) return launch_rows<T, DMAX, 64, TRAIN>(a, nb64, batch, s);
+  if (nb64 >= 2) return launch_rows<T, DMAX, 64, MODE>(a, nb64, batch, s);
   const int nb32 = ring_depth<T, DMAX, 32>(a.n);
-  if (nb32 >= 1) return launch_rows<T, DMAX, 32, TRAIN>(a, nb32, batch, s);
+  if (nb32 >= 1) return launch_rows<T, DMAX, 32, MODE>(a, nb32, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The row tiles over a qkv [batch, n, 3c] that is already in memory; `a`
-// holds everything but the tile's layout (lds, s_floats, nbuf) and vec.
-template <typename T, bool TRAIN>
+// The row tiles over a qkv [batch, n, 3c] that is already in memory (and,
+// for kBwd, dout); `a` holds everything but the tile's layout (lds,
+// s_floats, nbuf) and vec.
+template <typename T, int MODE>
 int launch_attention(Args a, int batch, cudaStream_t s) {
   a.vec = (a.d * sizeof(T)) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(a.qkv) % 16 == 0;
-  if (a.d <= 16) return launch_dmax<T, 16, TRAIN>(a, batch, s);
-  if (a.d <= 32) return launch_dmax<T, 32, TRAIN>(a, batch, s);
-  if (a.d <= 64) return launch_dmax<T, 64, TRAIN>(a, batch, s);
-  if (a.d <= 128) return launch_dmax<T, 128, TRAIN>(a, batch, s);
+          reinterpret_cast<uintptr_t>(a.qkv) % 16 == 0 &&
+          (MODE != kBwd || reinterpret_cast<uintptr_t>(a.dout) % 16 == 0);
+  if (a.d <= 16) return launch_dmax<T, 16, MODE>(a, batch, s);
+  if (a.d <= 32) return launch_dmax<T, 32, MODE>(a, batch, s);
+  if (a.d <= 64) return launch_dmax<T, 64, MODE>(a, batch, s);
+  if (a.d <= 128) return launch_dmax<T, 128, MODE>(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

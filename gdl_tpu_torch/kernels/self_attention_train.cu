@@ -191,9 +191,31 @@ int launch_kv(const SaArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <typename T>
 int launch_backward(const SaArgs& a, int batch, cudaStream_t s) {
-  int err = dispatch_tile<T>(a, batch, s);
+  sa_rows::Args r{};
+  r.qkv = a.qkv;
+  r.out = a.out;
+  r.n = a.n;
+  r.c = a.c;
+  r.d = a.d;
+  r.heads = a.heads;
+  r.scale = a.scale;
+  r.p = const_cast<void*>(a.p);
+  r.mask = a.mask;
+  r.seed = a.seed;
+  r.dropout_mode = a.dropout_mode;
+  r.keep_thresh = a.keep_thresh;
+  r.inv_keep = a.inv_keep;
+  r.dout = a.dout;
+  r.ds = a.ds;
+  r.rowvec = a.n % 4 == 0 && aligned16(a.p) && aligned16(a.ds) &&
+             (a.dropout_mode != 1 || aligned16(a.mask));
+  int err = sa_rows::launch_attention<T, sa_rows::kBwd>(r, batch, s);
   if (err != 0) return err;
   if (a.d <= 16) return launch_kv<T, 16>(a, batch, s);
   if (a.d <= 32) return launch_kv<T, 32>(a, batch, s);
@@ -220,10 +242,6 @@ SaArgs make_args(const void* qkv, void* out, const void* p,
   a.keep_thresh = keep_thresh;
   a.inv_keep = inv_keep;
   return a;
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // the forwards: the projection into qkv when x is given, then the row
@@ -256,7 +274,7 @@ int launch_forward(const void* x, const void* w, void* qkv, void* p,
   a.rowvec = n % 4 == 0 && aligned16(p) &&
              (dropout_mode != 1 || aligned16(mask)) &&
              (keep_out == nullptr || aligned16(keep_out));
-  return sa_rows::launch_attention<T, true>(a, batch, s);
+  return sa_rows::launch_attention<T, sa_rows::kTrain>(a, batch, s);
 }
 
 template <typename... A>

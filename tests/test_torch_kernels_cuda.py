@@ -472,14 +472,14 @@ def test_self_attention_eval_kernel_is_bit_equal_across_launches(
                          ids=SA_IDS[:2] + SA_IDS[7:9])
 def test_self_attention_train_kernels_are_bit_equal_across_launches(
         cuda, b, n, c, heads, dropout, dtype):
-    """#10 (out, qkv, p, keep) and #12 (out, p, keep) sum every output in
-    one fixed order and draw the mask from the flat index alone: two
-    launches on the same inputs give the same bits, finite and with p's
-    rows summing to 1."""
+    """#10 (out, qkv, p, keep), #12 (out, p, keep) and #11 (dqkv) sum
+    every output in one fixed order and draw the mask from the flat index
+    alone: two launches on the same inputs give the same bits, finite and
+    with p's rows summing to 1."""
     from gdl_tpu_torch.ops.dropout import fold_seed_words
     from gdl_tpu_torch.ops import self_attention as sa
 
-    x, w, _ = _sa_inputs(cuda, b, n, c, dtype, seed=n + c + 3)
+    x, w, g = _sa_inputs(cuda, b, n, c, dtype, seed=n + c + 3)
     words = fold_seed_words(torch.Generator(device=cuda).manual_seed(n + 2),
                             cuda)
     drop = sa.make_dropout(x, heads, 0.1, dropout != "none",
@@ -495,15 +495,70 @@ def test_self_attention_train_kernels_are_bit_equal_across_launches(
                                        return_keep=True)
         q2 = sa.self_attention_qkv_fwd(qkv, heads, drop=drop,
                                        return_keep=True)
+        b1 = sa.self_attention_fused_bwd(qkv, first[2], g, heads, drop=drop)
+        b2 = sa.self_attention_fused_bwd(qkv, first[2], g, heads, drop=drop)
     torch.cuda.synchronize()
-    for a, r in list(zip(first, second)) + list(zip(q1, q2)):
+    for a, r in list(zip(first, second)) + list(zip(q1, q2)) + [(b1, b2)]:
         assert (a is None and r is None) or torch.equal(a, r)
-    for t in first[:3] + q1[:2]:
+    for t in first[:3] + q1[:2] + (b1,):
         assert bool(torch.isfinite(t.float()).all())
     rows = first[2].float().sum(-1)
     torch.testing.assert_close(rows, torch.ones_like(rows),
                                atol=2e-5 if dtype == "float32" else 3e-2,
                                rtol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", ["none", "hbm", "kernel"])
+@pytest.mark.parametrize("b,n,c,heads", [SA_SHAPES[2], SA_SHAPES[9]],
+                         ids=[SA_IDS[2], SA_IDS[9]])
+def test_self_attention_bwd_ds_scratch_matches_plain(cuda, b, n, c, heads,
+                                                     dropout, dtype):
+    """#11's part A writes ds = round_T(p * (dp - sum_j dp * p)) to the
+    scratch the caller gives it, every element of it: within 2e-4 (f32) /
+    2e-2 (bf16) of the plain ds's largest |value|, at a ragged N and at
+    one token; the launch's dqkv is the op's to the bit."""
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import self_attention as sa
+    from gdl_tpu_torch.ops.dropout import fold_seed_words
+
+    x, w, g = _sa_inputs(cuda, b, n, c, dtype, seed=n + c + 5)
+    words = fold_seed_words(torch.Generator(device=cuda).manual_seed(n + 5),
+                            cuda)
+    drop = sa.make_dropout(x, heads, 0.3, dropout != "none",
+                           "kernel" if dropout == "none" else dropout,
+                           seed_words=words)
+    d = c // heads
+    scale = d ** -0.5
+    with torch.no_grad():
+        _, qkv, p = sa.self_attention_fused_fwd(x, w, heads, drop=drop,
+                                                impl="plain")
+        ds = torch.full_like(p, float("nan"))
+        dqkv = torch.empty_like(qkv)
+        lib = kernels.load("self_attention_train")
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        err = lib.gdl_sa_bwd_launch(
+            qkv.data_ptr(), p.data_ptr(), ptr(drop.mask),
+            ptr(drop.seed_words), g.data_ptr(), ds.data_ptr(),
+            dqkv.data_ptr(), b, n, c, heads, d, scale, drop.mode,
+            drop.keep_thresh, drop.inv_keep,
+            0 if dtype == "float32" else 1,
+            torch.cuda.current_stream(cuda).cuda_stream)
+        assert err == 0
+        op = sa.self_attention_fused_bwd(qkv, p, g, heads, drop=drop)
+        pf = p.float()
+        v = qkv.reshape(b, n, 3, heads, d)[:, :, 2].float()
+        dp = torch.einsum("bihd,bjhd->bhij",
+                          g.reshape(b, n, heads, d).float(), v)
+        m = drop.multiplier(pf.shape, torch.float32)
+        if m is not None:
+            dp = dp * m
+        want = (pf * (dp - (dp * pf).sum(-1, keepdim=True))).to(p.dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(dqkv, op)
+    assert bool(torch.isfinite(ds.float()).all())
+    _grad_close(ds, want, dtype)
 
 
 @pytest.mark.cuda
@@ -1036,6 +1091,279 @@ def test_tile_instantiations_of_13_10_15_keep_their_bits(cuda):
     got = _tile_digests(cuda)
     assert set(got) == set(TILE_DIGESTS_BEFORE)
     changed = sorted(k for k in got if got[k] != TILE_DIGESTS_BEFORE[k])
+    assert not changed, changed
+
+
+def _rows_digests(cuda) -> dict:
+    """The bits of the row tile's forward kernels on fixed inputs (numpy
+    and torch seeds): #10's out, qkv, p and keep bytes, #12's out, p and
+    keep bytes on #10's qkv, each with no dropout, a mask read from
+    memory and a mask drawn in the kernel, and #13's out; at N = 196, a
+    ragged N = 197 and N = 1000 at d = 128; both dtypes. Name -> SHA-256."""
+    from gdl_tpu_torch.ops import self_attention as sa
+    from gdl_tpu_torch.ops.dropout import fold_seed_words
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for b, n, c, heads in ((8, 196, 512, 8), (3, 197, 512, 8),
+                               (1, 1000, 256, 2)):
+            x, w, _ = _sa_inputs(cuda, b, n, c, dtype, seed=1400 + n)
+            tag = f"{n}_{dtype}"
+            with torch.no_grad():
+                out["13_out_" + tag] = _bits(
+                    sa.self_attention_fused_eval(x, w, heads))
+                for mode in ("none", "hbm", "kernel"):
+                    words = fold_seed_words(
+                        torch.Generator(device=cuda).manual_seed(n), cuda)
+                    drop = sa.make_dropout(
+                        x, heads, 0.1, mode != "none",
+                        "kernel" if mode == "none" else mode,
+                        seed_words=words)
+                    got = sa.self_attention_fused_fwd(x, w, heads, drop=drop,
+                                                      return_keep=True)
+                    for name, t in zip(("out", "qkv", "p", "keep"), got):
+                        if t is not None:  # keep: bytes, hashed as int32
+                            out[f"10_{name}_{mode}_{tag}"] = _bits(
+                                t.int() if name == "keep" else t)
+                    got = sa.self_attention_qkv_fwd(got[1], heads, drop=drop,
+                                                    return_keep=True)
+                    for name, t in zip(("out", "p", "keep"), got):
+                        if t is not None:
+                            out[f"12_{name}_{mode}_{tag}"] = _bits(
+                                t.int() if name == "keep" else t)
+    return out
+
+
+# _rows_digests as the parent tree's kernels gave them (run on an NVIDIA
+# H100 80GB HBM3 by this file's _rows_digests), before the row tile took
+# #11's backward mode
+ROWS_DIGESTS_BEFORE = {
+    "10_keep_kernel_1000_bfloat16":
+        "73aba23235a8b72fa3486cdf18cd7b9989ca9a6f673bfc0454d6a75c19cd4427",
+    "10_keep_kernel_1000_float32":
+        "73aba23235a8b72fa3486cdf18cd7b9989ca9a6f673bfc0454d6a75c19cd4427",
+    "10_keep_kernel_196_bfloat16":
+        "43776ae4bd780ab53249dd01ab694e9d28251c431528012d87932d4d72008240",
+    "10_keep_kernel_196_float32":
+        "43776ae4bd780ab53249dd01ab694e9d28251c431528012d87932d4d72008240",
+    "10_keep_kernel_197_bfloat16":
+        "0559302311258cf8da2389b80df8918d7a8b564b6650b88b447db2ee8c65ab57",
+    "10_keep_kernel_197_float32":
+        "0559302311258cf8da2389b80df8918d7a8b564b6650b88b447db2ee8c65ab57",
+    "10_out_hbm_1000_bfloat16":
+        "e9a6e807a34f092f3dee8469d627716b3c4cbdfbac16c9a60fcdfd2c46a0fa2c",
+    "10_out_hbm_1000_float32":
+        "eff8d4b18c4566851a04a0f5b74aaff5d8df20fcefa9bfe3729f938bbee7077e",
+    "10_out_hbm_196_bfloat16":
+        "d1056b69839eaab2e6fd3e77cef0168c35f267b42898bd76ced6bbd5f409018a",
+    "10_out_hbm_196_float32":
+        "254e258be87c3ae4da22a1c6646858c60e9025041bd78aadba3855044e8c61c0",
+    "10_out_hbm_197_bfloat16":
+        "fb339b1042ea31c04dfb443823ec84af5daa81f25191f4f05260242bbcdaa7a9",
+    "10_out_hbm_197_float32":
+        "0d21c87403a337dd00855ae4212d14fb744074945545bcee6426019e1f5282f7",
+    "10_out_kernel_1000_bfloat16":
+        "85b58f3ab86c1a391b286fda5fff649c2e3fdce3e3dbdf8b18f4c6089813a893",
+    "10_out_kernel_1000_float32":
+        "eff8d4b18c4566851a04a0f5b74aaff5d8df20fcefa9bfe3729f938bbee7077e",
+    "10_out_kernel_196_bfloat16":
+        "5290525f8a7c16a76a805e04e54cb7cfecaf551dd34f28dde28b8d64dad02c37",
+    "10_out_kernel_196_float32":
+        "254e258be87c3ae4da22a1c6646858c60e9025041bd78aadba3855044e8c61c0",
+    "10_out_kernel_197_bfloat16":
+        "54630538f5a4ecd8af3df5d846e9ff99e9848d6c9eee441f6b5488da17051ec2",
+    "10_out_kernel_197_float32":
+        "0d21c87403a337dd00855ae4212d14fb744074945545bcee6426019e1f5282f7",
+    "10_out_none_1000_bfloat16":
+        "067fa46d0e290360a04f107f8fcc3628ff76d6cb0a3eccee3fbae635a817bdf9",
+    "10_out_none_1000_float32":
+        "7815a757793b085e349e1d5dc59a14bbf39ea7371b5e6e4cc9012853f437bb7b",
+    "10_out_none_196_bfloat16":
+        "bf9215f2f983d92504cbfdd57057f1577e0d995aef2b312e11fbb9a4bc78b648",
+    "10_out_none_196_float32":
+        "791507848b2edc03ea3e74ef47bbc553d0e25cb45fb6a887e97d83b08b8d23a3",
+    "10_out_none_197_bfloat16":
+        "384bfee9ed1bc1ea69bb4f33408268bd5f69f822dc1a00d333669f5e40a5f20d",
+    "10_out_none_197_float32":
+        "f51c9c30e4a77ddff801e755b1eab1cc489c90d59825c8df713971b291fe7d96",
+    "10_p_hbm_1000_bfloat16":
+        "37170cf03ca2816a2a8e30226fe2f9b9845af3311b3a3c47d1c74ed14c070fdb",
+    "10_p_hbm_1000_float32":
+        "a7faaf2d2f7f3b3a9862539ed0e21e1ea27243aaf4af80250d1d591c66c2ee53",
+    "10_p_hbm_196_bfloat16":
+        "44768d97f0ae79ef902a3f3b06c8e09d4b387512cc88c4f0086b2cbfa6b25f4d",
+    "10_p_hbm_196_float32":
+        "00e0955799a6b21ab35c0679e83aeb4a2ecf8dd606c3719596d817b6c5ce4150",
+    "10_p_hbm_197_bfloat16":
+        "ae75fca76eefe6f8aa866df395a5dcea01aa00e1faf49ef81e9d986f1b28fb2b",
+    "10_p_hbm_197_float32":
+        "865f73fbffc11059d26d12ba6aca1940af10c08114a10bddf79f00ecb52bbd2f",
+    "10_p_kernel_1000_bfloat16":
+        "37170cf03ca2816a2a8e30226fe2f9b9845af3311b3a3c47d1c74ed14c070fdb",
+    "10_p_kernel_1000_float32":
+        "a7faaf2d2f7f3b3a9862539ed0e21e1ea27243aaf4af80250d1d591c66c2ee53",
+    "10_p_kernel_196_bfloat16":
+        "44768d97f0ae79ef902a3f3b06c8e09d4b387512cc88c4f0086b2cbfa6b25f4d",
+    "10_p_kernel_196_float32":
+        "00e0955799a6b21ab35c0679e83aeb4a2ecf8dd606c3719596d817b6c5ce4150",
+    "10_p_kernel_197_bfloat16":
+        "ae75fca76eefe6f8aa866df395a5dcea01aa00e1faf49ef81e9d986f1b28fb2b",
+    "10_p_kernel_197_float32":
+        "865f73fbffc11059d26d12ba6aca1940af10c08114a10bddf79f00ecb52bbd2f",
+    "10_p_none_1000_bfloat16":
+        "37170cf03ca2816a2a8e30226fe2f9b9845af3311b3a3c47d1c74ed14c070fdb",
+    "10_p_none_1000_float32":
+        "a7faaf2d2f7f3b3a9862539ed0e21e1ea27243aaf4af80250d1d591c66c2ee53",
+    "10_p_none_196_bfloat16":
+        "44768d97f0ae79ef902a3f3b06c8e09d4b387512cc88c4f0086b2cbfa6b25f4d",
+    "10_p_none_196_float32":
+        "00e0955799a6b21ab35c0679e83aeb4a2ecf8dd606c3719596d817b6c5ce4150",
+    "10_p_none_197_bfloat16":
+        "ae75fca76eefe6f8aa866df395a5dcea01aa00e1faf49ef81e9d986f1b28fb2b",
+    "10_p_none_197_float32":
+        "865f73fbffc11059d26d12ba6aca1940af10c08114a10bddf79f00ecb52bbd2f",
+    "10_qkv_hbm_1000_bfloat16":
+        "1228e7828fd44bb5452880454c22e74fd52c202903c652ad7adb1ba82d4e199d",
+    "10_qkv_hbm_1000_float32":
+        "457bae420d40b8ad3eb25a055e8ffdf1918761c10ef9ccb9be1234de6ca4677b",
+    "10_qkv_hbm_196_bfloat16":
+        "3f9c54c3c7c5441e7b7fbfafd650d454e4b39a809aa2d7e37e3b7380f47cd9ea",
+    "10_qkv_hbm_196_float32":
+        "0eea220e669d4cd4e9efee29252498a4976b70c8863751bb862ff489968d2ba0",
+    "10_qkv_hbm_197_bfloat16":
+        "1f3157cbc21aaf14d852a26eace77f85384720b8cea511bba86062fb7a12a26d",
+    "10_qkv_hbm_197_float32":
+        "216a38ad9a387c063a65e168b354e13a8abbae28d1bbd260ba54e66e5b9406c4",
+    "10_qkv_kernel_1000_bfloat16":
+        "1228e7828fd44bb5452880454c22e74fd52c202903c652ad7adb1ba82d4e199d",
+    "10_qkv_kernel_1000_float32":
+        "457bae420d40b8ad3eb25a055e8ffdf1918761c10ef9ccb9be1234de6ca4677b",
+    "10_qkv_kernel_196_bfloat16":
+        "3f9c54c3c7c5441e7b7fbfafd650d454e4b39a809aa2d7e37e3b7380f47cd9ea",
+    "10_qkv_kernel_196_float32":
+        "0eea220e669d4cd4e9efee29252498a4976b70c8863751bb862ff489968d2ba0",
+    "10_qkv_kernel_197_bfloat16":
+        "1f3157cbc21aaf14d852a26eace77f85384720b8cea511bba86062fb7a12a26d",
+    "10_qkv_kernel_197_float32":
+        "216a38ad9a387c063a65e168b354e13a8abbae28d1bbd260ba54e66e5b9406c4",
+    "10_qkv_none_1000_bfloat16":
+        "1228e7828fd44bb5452880454c22e74fd52c202903c652ad7adb1ba82d4e199d",
+    "10_qkv_none_1000_float32":
+        "457bae420d40b8ad3eb25a055e8ffdf1918761c10ef9ccb9be1234de6ca4677b",
+    "10_qkv_none_196_bfloat16":
+        "3f9c54c3c7c5441e7b7fbfafd650d454e4b39a809aa2d7e37e3b7380f47cd9ea",
+    "10_qkv_none_196_float32":
+        "0eea220e669d4cd4e9efee29252498a4976b70c8863751bb862ff489968d2ba0",
+    "10_qkv_none_197_bfloat16":
+        "1f3157cbc21aaf14d852a26eace77f85384720b8cea511bba86062fb7a12a26d",
+    "10_qkv_none_197_float32":
+        "216a38ad9a387c063a65e168b354e13a8abbae28d1bbd260ba54e66e5b9406c4",
+    "12_keep_kernel_1000_bfloat16":
+        "73aba23235a8b72fa3486cdf18cd7b9989ca9a6f673bfc0454d6a75c19cd4427",
+    "12_keep_kernel_1000_float32":
+        "73aba23235a8b72fa3486cdf18cd7b9989ca9a6f673bfc0454d6a75c19cd4427",
+    "12_keep_kernel_196_bfloat16":
+        "43776ae4bd780ab53249dd01ab694e9d28251c431528012d87932d4d72008240",
+    "12_keep_kernel_196_float32":
+        "43776ae4bd780ab53249dd01ab694e9d28251c431528012d87932d4d72008240",
+    "12_keep_kernel_197_bfloat16":
+        "0559302311258cf8da2389b80df8918d7a8b564b6650b88b447db2ee8c65ab57",
+    "12_keep_kernel_197_float32":
+        "0559302311258cf8da2389b80df8918d7a8b564b6650b88b447db2ee8c65ab57",
+    "12_out_hbm_1000_bfloat16":
+        "e9a6e807a34f092f3dee8469d627716b3c4cbdfbac16c9a60fcdfd2c46a0fa2c",
+    "12_out_hbm_1000_float32":
+        "eff8d4b18c4566851a04a0f5b74aaff5d8df20fcefa9bfe3729f938bbee7077e",
+    "12_out_hbm_196_bfloat16":
+        "d1056b69839eaab2e6fd3e77cef0168c35f267b42898bd76ced6bbd5f409018a",
+    "12_out_hbm_196_float32":
+        "254e258be87c3ae4da22a1c6646858c60e9025041bd78aadba3855044e8c61c0",
+    "12_out_hbm_197_bfloat16":
+        "fb339b1042ea31c04dfb443823ec84af5daa81f25191f4f05260242bbcdaa7a9",
+    "12_out_hbm_197_float32":
+        "0d21c87403a337dd00855ae4212d14fb744074945545bcee6426019e1f5282f7",
+    "12_out_kernel_1000_bfloat16":
+        "85b58f3ab86c1a391b286fda5fff649c2e3fdce3e3dbdf8b18f4c6089813a893",
+    "12_out_kernel_1000_float32":
+        "eff8d4b18c4566851a04a0f5b74aaff5d8df20fcefa9bfe3729f938bbee7077e",
+    "12_out_kernel_196_bfloat16":
+        "5290525f8a7c16a76a805e04e54cb7cfecaf551dd34f28dde28b8d64dad02c37",
+    "12_out_kernel_196_float32":
+        "254e258be87c3ae4da22a1c6646858c60e9025041bd78aadba3855044e8c61c0",
+    "12_out_kernel_197_bfloat16":
+        "54630538f5a4ecd8af3df5d846e9ff99e9848d6c9eee441f6b5488da17051ec2",
+    "12_out_kernel_197_float32":
+        "0d21c87403a337dd00855ae4212d14fb744074945545bcee6426019e1f5282f7",
+    "12_out_none_1000_bfloat16":
+        "067fa46d0e290360a04f107f8fcc3628ff76d6cb0a3eccee3fbae635a817bdf9",
+    "12_out_none_1000_float32":
+        "7815a757793b085e349e1d5dc59a14bbf39ea7371b5e6e4cc9012853f437bb7b",
+    "12_out_none_196_bfloat16":
+        "bf9215f2f983d92504cbfdd57057f1577e0d995aef2b312e11fbb9a4bc78b648",
+    "12_out_none_196_float32":
+        "791507848b2edc03ea3e74ef47bbc553d0e25cb45fb6a887e97d83b08b8d23a3",
+    "12_out_none_197_bfloat16":
+        "384bfee9ed1bc1ea69bb4f33408268bd5f69f822dc1a00d333669f5e40a5f20d",
+    "12_out_none_197_float32":
+        "f51c9c30e4a77ddff801e755b1eab1cc489c90d59825c8df713971b291fe7d96",
+    "12_p_hbm_1000_bfloat16":
+        "37170cf03ca2816a2a8e30226fe2f9b9845af3311b3a3c47d1c74ed14c070fdb",
+    "12_p_hbm_1000_float32":
+        "a7faaf2d2f7f3b3a9862539ed0e21e1ea27243aaf4af80250d1d591c66c2ee53",
+    "12_p_hbm_196_bfloat16":
+        "44768d97f0ae79ef902a3f3b06c8e09d4b387512cc88c4f0086b2cbfa6b25f4d",
+    "12_p_hbm_196_float32":
+        "00e0955799a6b21ab35c0679e83aeb4a2ecf8dd606c3719596d817b6c5ce4150",
+    "12_p_hbm_197_bfloat16":
+        "ae75fca76eefe6f8aa866df395a5dcea01aa00e1faf49ef81e9d986f1b28fb2b",
+    "12_p_hbm_197_float32":
+        "865f73fbffc11059d26d12ba6aca1940af10c08114a10bddf79f00ecb52bbd2f",
+    "12_p_kernel_1000_bfloat16":
+        "37170cf03ca2816a2a8e30226fe2f9b9845af3311b3a3c47d1c74ed14c070fdb",
+    "12_p_kernel_1000_float32":
+        "a7faaf2d2f7f3b3a9862539ed0e21e1ea27243aaf4af80250d1d591c66c2ee53",
+    "12_p_kernel_196_bfloat16":
+        "44768d97f0ae79ef902a3f3b06c8e09d4b387512cc88c4f0086b2cbfa6b25f4d",
+    "12_p_kernel_196_float32":
+        "00e0955799a6b21ab35c0679e83aeb4a2ecf8dd606c3719596d817b6c5ce4150",
+    "12_p_kernel_197_bfloat16":
+        "ae75fca76eefe6f8aa866df395a5dcea01aa00e1faf49ef81e9d986f1b28fb2b",
+    "12_p_kernel_197_float32":
+        "865f73fbffc11059d26d12ba6aca1940af10c08114a10bddf79f00ecb52bbd2f",
+    "12_p_none_1000_bfloat16":
+        "37170cf03ca2816a2a8e30226fe2f9b9845af3311b3a3c47d1c74ed14c070fdb",
+    "12_p_none_1000_float32":
+        "a7faaf2d2f7f3b3a9862539ed0e21e1ea27243aaf4af80250d1d591c66c2ee53",
+    "12_p_none_196_bfloat16":
+        "44768d97f0ae79ef902a3f3b06c8e09d4b387512cc88c4f0086b2cbfa6b25f4d",
+    "12_p_none_196_float32":
+        "00e0955799a6b21ab35c0679e83aeb4a2ecf8dd606c3719596d817b6c5ce4150",
+    "12_p_none_197_bfloat16":
+        "ae75fca76eefe6f8aa866df395a5dcea01aa00e1faf49ef81e9d986f1b28fb2b",
+    "12_p_none_197_float32":
+        "865f73fbffc11059d26d12ba6aca1940af10c08114a10bddf79f00ecb52bbd2f",
+    "13_out_1000_bfloat16":
+        "d919795b18885927d21b481e6458ece430de531632e9b40cef94162084174401",
+    "13_out_1000_float32":
+        "bdf2b6d3676d0d41df96f87816e0f580de6aa3ee674ac4b5fd4739e401a539eb",
+    "13_out_196_bfloat16":
+        "094f629ad3b70f04c9902b0bac44c700a94af243773bae611f9c55e7891fb510",
+    "13_out_196_float32":
+        "2cf6666ebd05300ae13556fe49f9e77b3c9aab592a8aa94e63cb9dec1c191087",
+    "13_out_197_bfloat16":
+        "2c6469c45e2dcfef82ae8560b1ded95c07f7dab4e0851c5b27e2b7e7360758a4",
+    "13_out_197_float32":
+        "f0cce5bd9d35578845b7ebafe79ebe17fd7dcb625704b00d61dd8dc4dcbe22b1",
+}
+
+
+@pytest.mark.cuda
+def test_row_tile_forwards_keep_their_bits(cuda):
+    """#10, #12 and #13 give the same bits as before the row tile's body
+    took the backward mode of #11's part A."""
+    got = _rows_digests(cuda)
+    assert set(got) == set(ROWS_DIGESTS_BEFORE)
+    changed = sorted(k for k in got if got[k] != ROWS_DIGESTS_BEFORE[k])
     assert not changed, changed
 
 
