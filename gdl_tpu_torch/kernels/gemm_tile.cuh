@@ -116,6 +116,16 @@ __device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
                : "memory");
 }
 
+// W (4 or 8) bytes global -> shared, through L1; `src_bytes` (0..W) of
+// them are read, the rest zero-filled
+template <int W>
+__device__ inline void cp_async_ca(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(W), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ inline void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -65,6 +65,363 @@
 #include "self_attention_fwd.cuh"
 #include "self_attention_rows.cuh"
 
+// ---- #11 part B: dv and dk, one block per (batch, head, 64 keys) ---------
+
+namespace sa_keys {
+namespace {
+
+using gemm::cp_async_commit;
+using gemm::cp_async_wait;
+using gemm::ldsm_x4_trans;
+using gemm::load_tile;
+using gemm::mma_bf16;
+using sa_rows::Args;
+
+constexpr int kKeys = 64;  // keys a block
+constexpr int kThreads = 256;
+constexpr int kHalfSmem = 115712;  // two blocks an SM
+
+// Keys<T, DMAX>: the query rows of a chunk (QC, the K of both products),
+// the shared tiles' row strides, the sums a thread holds and the products
+// of one chunk. A stage holds p_d and ds [QC][LDS] (keys contiguous: the
+// products' A operand, K outer) and dout and q_s [QC][LDD] (d contiguous:
+// their B operand, K outer), gemm_tile.cuh's KOuter layouts.
+template <typename T, int DMAX>
+struct Keys;
+
+// bf16 on the tensor cores: warp w holds dv (w < 4) or dk for the keys
+// (w % 4) * 16 .. + 15 and all DMAX columns, mma.sync m16n8k16 on
+// fragments from ldmatrix.trans
+template <int DMAX>
+struct Keys<__nv_bfloat16, DMAX> {
+  using T = __nv_bfloat16;
+  static constexpr int QC = 64;
+  static constexpr int DB = DMAX;        // columns of the dout and q tiles
+  static constexpr int LDS = kKeys + 8;  // 16-byte rows off the bank period
+  static constexpr int LDD = DB + 8;
+  static constexpr int NT = DMAX / 8;  // 8-column tiles of a warp's sums
+  struct Acc {
+    float c[NT][4];
+  };
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc.c[j][t] = 0.f;
+  }
+
+  // acc += A^T . B over the chunk's QC query rows: A = p_d or ds, B = dout
+  // or q_s
+  __device__ static void step(Acc& acc, const T* pd, const T* ds,
+                              const T* dout, const T* qs, int tid) {
+    const int lane = tid % 32, warp = tid / 32;
+    const int m0 = (warp % 4) * 16;
+    const T* as = warp < 4 ? pd : ds;
+    const T* bs = warp < 4 ? dout : qs;
+#pragma unroll
+    for (int kk = 0; kk < QC; kk += 16) {
+      // A fragment of keys m0 .. m0 + 15 from the [q][keys] tile, read
+      // transposed (gemm_tile.cuh's KOuter A)
+      uint32_t a[4];
+      ldsm_x4_trans(a, as + (kk + (lane / 16) * 8 + lane % 8) * LDS + m0 +
+                           ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {  // B fragments j, j + 1 ([q][d])
+        uint32_t r[4];
+        ldsm_x4_trans(r, bs + (kk + ((lane / 8) % 2) * 8 + lane % 8) * LDD +
+                             j * 8 + (lane / 16) * 8);
+        mma_bf16(acc.c[j], a, r);
+        mma_bf16(acc.c[j + 1], a, r + 2);
+      }
+    }
+  }
+
+  // fn(dk, key, col, v) for every sum this thread holds
+  template <typename F>
+  __device__ static void each(const Acc& acc, int tid, F fn) {
+    const int lane = tid % 32, warp = tid / 32;
+    const int m0 = (warp % 4) * 16, g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        fn(warp >= 4, m0 + g + 8 * (t / 2), j * 8 + 2 * q + t % 2,
+           acc.c[j][t]);
+  }
+};
+
+// f32 on SIMT FMA: threads 0 .. 127 hold dv, 128 .. 255 dk; thread t
+// takes the keys 4 (t % 16) + 0..3 and the columns 4 ((t % 128) / 16) +
+// 32 u + 0..3 (runs of four: one float4 of each operand at each q row)
+template <int DMAX>
+struct Keys<float, DMAX> {
+  using T = float;
+  static constexpr int QC = 32;
+  static constexpr int DB = DMAX < 32 ? 32 : DMAX;
+  static constexpr int LDS = kKeys + 4;  // float4 rows off the bank period
+  static constexpr int LDD = DB + 4;
+  static constexpr int CU = DB / 32;  // runs of four columns a thread
+  struct Acc {
+    float c[4][4 * CU];
+  };
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * CU; ++j) acc.c[i][j] = 0.f;
+  }
+
+  // each sum takes its q rows in ascending order, one fmaf each
+  __device__ static void step(Acc& acc, const T* pd, const T* ds,
+                              const T* dout, const T* qs, int tid) {
+    const int tk = tid % 16, td = (tid % 128) / 16;
+    const T* as = tid < 128 ? pd : ds;
+    const T* bs = tid < 128 ? dout : qs;
+#pragma unroll 4
+    for (int k = 0; k < QC; ++k) {
+      const float4 a4 = *reinterpret_cast<const float4*>(as + k * LDS + 4 * tk);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        const float4 b4 = *reinterpret_cast<const float4*>(bs + k * LDD +
+                                                           4 * td + 32 * u);
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc.c[i][4 * u + e] = fmaf(av[i], bv[e], acc.c[i][4 * u + e]);
+      }
+    }
+  }
+
+  template <typename F>
+  __device__ static void each(const Acc& acc, int tid, F fn) {
+    const int tk = tid % 16, td = (tid % 128) / 16;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < CU; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          fn(tid >= 128, 4 * tk + i, 4 * td + 32 * u + e, acc.c[i][4 * u + e]);
+  }
+};
+
+// elements of one stage: p_d, ds, dout, q_s
+template <typename K>
+__host__ __device__ constexpr int stage_elems() {
+  return 2 * K::QC * K::LDS + 2 * K::QC * K::LDD;
+}
+
+// three stages where two blocks an SM still fit, else two
+template <typename T, typename K>
+__host__ __device__ constexpr int stages() {
+  return 3 * sizeof(T) * stage_elems<K>() <= kHalfSmem ? 3 : 2;
+}
+
+// rows [rows][64 keys] of p or ds (row stride ld) into shared memory (row
+// stride lds), zero past (vrows, vcols): copies of W bytes (16, 8 or 4)
+// by cp.async, or (W = 0) element by element through registers
+template <typename T, int W>
+__device__ inline void load_keys(T* dst, int lds, const T* src, size_t ld,
+                                 int rows, int vrows, int vcols, int tid) {
+  if constexpr (W == 0) {
+    for (int e = tid; e < rows * kKeys; e += kThreads) {
+      const int r = e / kKeys, c = e % kKeys;
+      dst[r * lds + c] = (r < vrows && c < vcols) ? src[r * ld + c] : T(0.f);
+    }
+  } else {
+    constexpr int V = W / static_cast<int>(sizeof(T));
+    constexpr int VPR = kKeys / V;
+    for (int e = tid; e < rows * VPR; e += kThreads) {
+      const int r = e / VPR, c = (e % VPR) * V;
+      int nb = 0;
+      if (r < vrows && c < vcols)
+        nb = (vcols - c < V ? vcols - c : V) * static_cast<int>(sizeof(T));
+      const T* s = nb ? src + r * ld + c : src;
+      if constexpr (W == 16)
+        gemm::cp_async16(dst + r * lds + c, s, nb);
+      else
+        gemm::cp_async_ca<W>(dst + r * lds + c, s, nb);
+    }
+  }
+}
+
+template <typename T>
+__device__ inline void load_scores(int width, T* dst, int lds, const T* src,
+                                   size_t ld, int rows, int vrows, int vcols,
+                                   int tid) {
+  switch (width) {
+    case 16: load_keys<T, 16>(dst, lds, src, ld, rows, vrows, vcols, tid); break;
+    case 8: load_keys<T, 8>(dst, lds, src, ld, rows, vrows, vcols, tid); break;
+    case 4: load_keys<T, 4>(dst, lds, src, ld, rows, vrows, vcols, tid); break;
+    default: load_keys<T, 0>(dst, lds, src, ld, rows, vrows, vcols, tid);
+  }
+}
+
+// A stage in place, once it is in: p_d = round_T(p * m), m drawn again by
+// Philox on the flat [B, H, N, N] index (mode 2) or read (mode 1), four
+// consecutive keys at a time; and q_s = round_T(q * round_T(scale)).
+// Elements past N are zeros and stay zeros.
+template <typename K, typename T>
+__device__ inline void prologue(T* pd, T* qs, const Args& a, int i0, int j0,
+                                uint64_t bh, uint32_t k0, uint32_t k1,
+                                float scale_t, int tid) {
+  const int n = a.n;
+  if (a.dropout_mode != 0) {
+    const bool vec = a.rowvec != 0;
+    for (int e = tid; e < K::QC * (kKeys / 4); e += kThreads) {
+      const int r = e / (kKeys / 4), j = j0 + 4 * (e % (kKeys / 4));
+      const int i = i0 + r;
+      if (i >= n || j >= n) continue;
+      const int valid = n - j < 4 ? n - j : 4;
+      float m[4], v[4];
+      sa_rows::multiplier4<T>(a, (bh + i) * static_cast<uint64_t>(n) + j,
+                              valid, vec, k0, k1, m);
+      T* s = pd + r * K::LDS + (j - j0);
+      sa_rows::load4<T>(s, v, 4, true);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        v[t] = sa_rows::to_f(sa_rows::to_t<T>(v[t] * m[t]));
+      sa_rows::store4<T>(s, v, 4, true);
+    }
+  }
+  for (int e = tid; e < K::QC * (K::DB / 4); e += kThreads) {
+    const int r = e / (K::DB / 4), col = 4 * (e % (K::DB / 4));
+    T* s = qs + r * K::LDD + col;
+    float v[4];
+    sa_rows::load4<T>(s, v, 4, true);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      v[t] = sa_rows::to_f(sa_rows::to_t<T>(v[t] * scale_t));
+    sa_rows::store4<T>(s, v, 4, true);
+  }
+}
+
+// dv = p_d^T . dout and dk = ds^T . q_s for the keys j0 .. j0 + 63 of one
+// (batch, head), over the query rows in chunks of QC through a ring of
+// cp.async stages; dk and dv are stored once, at columns C and 2C of
+// dqkv. width: the copy size of p's and ds's rows (see load_keys).
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads, 2)
+    sa_bwd_keys_kernel(Args a, int width) {
+  using K = Keys<T, DMAX>;
+  constexpr int QC = K::QC, LDS = K::LDS, LDD = K::LDD, DB = K::DB;
+  constexpr int STAGE = stage_elems<K>();
+  constexpr int NS = stages<T, K>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+
+  const int n = a.n, c = a.c, d = a.d, c3 = 3 * c;
+  const int j0 = blockIdx.x * kKeys, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const bool vec = a.vec != 0;
+  const uint64_t bh = (static_cast<uint64_t>(b) * gridDim.y + head) * n;
+  const T* qkv_b =
+      static_cast<const T*>(a.qkv) + static_cast<size_t>(b) * n * c3 + head * d;
+  const T* dout_b =
+      static_cast<const T*>(a.dout) + static_cast<size_t>(b) * n * c + head * d;
+  const T* p_b = static_cast<const T*>(a.p) + bh * n + j0;
+  const T* ds_b = static_cast<const T*>(a.ds) + bh * n + j0;
+  const int nq = (n + QC - 1) / QC;
+  uint32_t k0 = 0, k1 = 0;
+  if (a.dropout_mode == 2) {
+    k0 = static_cast<uint32_t>(a.seed[0]);
+    k1 = static_cast<uint32_t>(a.seed[1]);
+  }
+  const float scale_t =
+      std::is_same<T, float>::value ? a.scale : sa_rows::bf16_round(a.scale);
+
+  // chunk t's four operands into stage t % NS; a group is committed even
+  // past the end, so that the count of groups in flight stays NS - 1
+  auto issue = [&](int t) {
+    if (t < nq) {
+      T* pd = smem + (t % NS) * STAGE;
+      T* ds = pd + QC * LDS;
+      T* dout = ds + QC * LDS;
+      T* qs = dout + QC * LDD;
+      const int i0 = t * QC;
+      const size_t row = static_cast<size_t>(i0) * n;
+      load_scores<T>(width, pd, LDS, p_b + row, n, QC, n - i0, n - j0, tid);
+      load_scores<T>(width, ds, LDS, ds_b + row, n, QC, n - i0, n - j0, tid);
+      load_tile<T, kThreads>(dout, LDD, dout_b + static_cast<size_t>(i0) * c,
+                             c, QC, DB, n - i0, d, vec, tid);
+      load_tile<T, kThreads>(qs, LDD, qkv_b + static_cast<size_t>(i0) * c3,
+                             c3, QC, DB, n - i0, d, vec, tid);
+    }
+    cp_async_commit();
+  };
+
+  typename K::Acc acc;
+  K::zero(acc);
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) issue(s);
+  for (int t = 0; t < nq; ++t) {
+    cp_async_wait<NS - 2>();  // chunk t has landed (for this thread)
+    __syncthreads();  // ... for every thread; and chunk t - 1 is consumed
+    issue(t + NS - 1);  // into the stage chunk t - 1 used
+    T* pd = smem + (t % NS) * STAGE;
+    T* ds = pd + QC * LDS;
+    T* dout = ds + QC * LDS;
+    T* qs = dout + QC * LDD;
+    prologue<K>(pd, qs, a, t * QC, j0, bh, k0, k1, scale_t, tid);
+    __syncthreads();  // p_d and q_s are in place
+    K::step(acc, pd, ds, dout, qs, tid);
+  }
+  cp_async_wait<0>();
+
+  // dqkv [B, N, 3C]: dk at column offset C, dv at 2C
+  T* out = static_cast<T*>(a.out) + static_cast<size_t>(b) * n * c3 + head * d;
+  K::each(acc, tid, [&](bool dk, int key, int col, float v) {
+    const int j = j0 + key;
+    if (j < n && col < d)
+      out[static_cast<size_t>(j) * c3 + (dk ? c : 2 * c) + col] =
+          sa_rows::to_t<T>(v);
+  });
+}
+
+// the widest copy of p's and ds's rows that their alignment allows
+int score_width(size_t row_bytes, const void* p, const void* ds) {
+  for (int w = 16; w >= 4; w /= 2)
+    if (row_bytes % w == 0 && reinterpret_cast<uintptr_t>(p) % w == 0 &&
+        reinterpret_cast<uintptr_t>(ds) % w == 0)
+      return w;
+  return 0;
+}
+
+template <typename T, int DMAX>
+int launch_dmax(Args a, int batch, cudaStream_t s) {
+  using K = Keys<T, DMAX>;
+  constexpr size_t smem = sizeof(T) * stages<T, K>() * stage_elems<K>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      sa_bwd_keys_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  a.vec = (a.d * sizeof(T)) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(a.qkv) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(a.dout) % 16 == 0;
+  const int width = score_width(a.n * sizeof(T), a.p, a.ds);
+  const dim3 grid((a.n + kKeys - 1) / kKeys, a.heads, batch);
+  sa_bwd_keys_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(a, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// part B over the ds that part A wrote
+template <typename T>
+int launch(const Args& a, int batch, cudaStream_t s) {
+  if (a.d <= 16) return launch_dmax<T, 16>(a, batch, s);
+  if (a.d <= 32) return launch_dmax<T, 32>(a, batch, s);
+  if (a.d <= 64) return launch_dmax<T, 64>(a, batch, s);
+  if (a.d <= 128) return launch_dmax<T, 128>(a, batch, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+}  // namespace sa_keys
+
 namespace {
 
 constexpr int kKvTI = 32;  // query rows per chunk
@@ -217,10 +574,7 @@ int launch_backward(const SaArgs& a, int batch, cudaStream_t s) {
              (a.dropout_mode != 1 || aligned16(a.mask));
   int err = sa_rows::launch_attention<T, sa_rows::kBwd>(r, batch, s);
   if (err != 0) return err;
-  if (a.d <= 16) return launch_kv<T, 16>(a, batch, s);
-  if (a.d <= 32) return launch_kv<T, 32>(a, batch, s);
-  if (a.d <= 64) return launch_kv<T, 64>(a, batch, s);
-  return launch_kv<T, 128>(a, batch, s);
+  return sa_keys::launch<T>(r, batch, s);
 }
 
 SaArgs make_args(const void* qkv, void* out, const void* p,
