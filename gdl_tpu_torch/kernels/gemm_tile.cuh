@@ -22,7 +22,11 @@
 // projection of #1 and #2 (`_wa_xw_t_eval_kernel`, `_wa_xw_t_savep_kernel`,
 // :1034-1039), with wa2::ProjBias of window_attention_proj.cuh. The
 // epilogue, the layouts and the store are type parameters of the kernel,
-// so each caller's instantiation has its own symbol.
+// so each caller's instantiation has its own symbol. The PTX helpers and
+// load_tile below also serve the attention kernels without the tile: the
+// self-attention row tile (#10, #12, #13, #11's part A) and #11's part B
+// (sa_bwd_keys_kernel in self_attention_train.cu, whose products take
+// the KOuter fragments' ldmatrix.trans addressing of this tile).
 //
 // What bounds it on this card. At the mmformer shapes (M = 64 * 392 rows,
 // K = 512, N = 1536) the product is 2MNK = 39.5 GFLOP against 0.1 GB of

@@ -1,13 +1,13 @@
-// The row tile of the mmformer self-attention forwards: one block per
-// (batch, head, R query rows) computes, over all N keys of the head,
+// The row tile of the mmformer self-attention: one block per (batch,
+// head, R query rows) computes, over all N keys of the head,
 //
 //   q   = round_T(q * round_T(scale))
 //   s   = q . k^T                       (f32, the whole [R, N] row tile)
 //   p   = softmax(s) over the whole row (f32)
 //   out[b, :, h*d:(h+1)*d] = round_T(P . v)   (f32 sums)
 //
-// from a qkv [B, N, 3C] in T (float or bfloat16). Two kernels share the
-// body, `rows_body`:
+// from a qkv [B, N, 3C] in T (float or bfloat16). Three kernels share the
+// body, `rows_body`, whose mode is a template parameter:
 //   - sa_eval_kernel (#13, self_attention_eval.cu): P = round_T(p), no
 //     residuals;
 //   - sa_train_kernel (#10 after its projection, #12; self_attention_
@@ -17,10 +17,20 @@
 //     Philox on the flat [B, H, N, N] index, mode 2, as the backward draws
 //     it again), writes the keep bytes when asked, and leaves
 //     P = round_T(p * m) in the score tile for phase 3.
+//   - sa_bwd_rows_kernel (part A of the backward #11, self_attention_
+//     train.cu): the same phases with dp in place of s. The A rows are
+//     dout [B, N, C], unscaled; phase 1 streams v, so the tile holds
+//     dp = dout . v^T; the row pass (bwd_rows, one warp a row) reads p
+//     along the row, forms m as the training pass does, reduces
+//     delta = sum_j dp * m * p and leaves ds = round_T(p * (dp * m -
+//     delta)) in the tile and in the scratch ds [B, H, N, N]; phase 3
+//     streams k, and dq = (ds . k) * scale (f32 scale) goes to the q third
+//     of dqkv [B, N, 3C]. What bounds it is #12's: the score-sized p read
+//     and ds write in bf16, the products in f32.
 // p = e / sum is a division in the training kernel, as jax.nn.softmax and
 // the plain version compute it; the eval kernel multiplies by 1 / sum.
 //
-// The design (the eval kernel's, PR 9). 4R threads; R = 64 where the f32
+// The design (the eval kernel's). 4R threads; R = 64 where the f32
 // score tile [R, N] and two chunk buffers fit in a block's 227 KB, else
 // 32. K, then V, stream through the block in chunks of KC keys by
 // cp.async, through a ring of up to 8 buffers sized on the host, so that

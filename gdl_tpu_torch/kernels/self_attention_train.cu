@@ -55,17 +55,49 @@
 //      by the row's sum, stores the p residual along the row, draws one
 //      Philox word group per four keys (or reads the mask), writes the
 //      keep bytes, and leaves round_T(p * m) in the tile for P . V.
-// The backward (#11) is the first design's two SIMT kernels: the
-// self_attention_fwd.cuh part A and sa_bwd_kv_kernel below.
+//
+// The backward (#11) computes, from qkv, the ROUNDED pre-dropout p
+// residual, the same mask m and dout:
+//
+//   p_d = round_T(p * m);  dv = p_d^T . dout;  dp = (dout . v^T) * m
+//   ds  = round_T(p * (dp - sum_j dp * p))    (the inner sum in f32)
+//   dq  = (ds . k) * scale (f32 scale);  dk = ds^T . round_T(q * T(scale))
+//
+// What bounds it. Per mmformer_n step it is 163 GFLOP against 3.1 GB in
+// f32 (bound by operations at the SIMT rate, 2.43 ms) and 1.5 GB in bf16
+// (bound by bytes, 0.46 ms); the ds scratch between its two launches
+// moves one more score-sized write and read. The first design ran both
+// launches on SIMT f32 FMA with scalar loads and no overlap of load and
+// compute: bf16 no faster than f32, at 3.3% of its bound.
+//
+// What the design does about it: two launches on one stream, so that no
+// sum crosses blocks (bit-reproducible, no atomics):
+//   A. sa_rows::sa_bwd_rows_kernel, the row tile in its backward mode
+//      (self_attention_rows.cuh): dout's rows in place of q, v's chunks in
+//      place of k, so dp = dout . v^T lands in the f32 score tile; one
+//      warp a row draws m again, reduces delta with shuffles and writes
+//      ds to the scratch [B, H, N, N] in T and to the tile; k's chunks
+//      then give dq = (ds . k) * scale into the q third of dqkv. bf16 on
+//      mma.sync, f32 register-blocked, as the forwards.
+//   B. sa_keys::sa_bwd_keys_kernel, one 256-thread block per (batch,
+//      head, 64 keys): the query rows in chunks (64 bf16, 32 f32) of p,
+//      ds, dout and q come in through a ring of cp.async stages; p_d and
+//      q_s are formed in shared memory (m drawn again by Philox: ≈ 7.7 G
+//      integer operations a step, against ≈ 1.3 GB of traffic had part A
+//      written p_d); both products have the query index as K
+//      (gemm_tile.cuh's KOuter layouts): bf16 mma.sync on ldmatrix.trans
+//      fragments, warps 0-3 dv and 4-7 dk, 16 keys x d each; f32
+//      register-blocked FMA in runs of four. dk and dv are stored once.
+// Not here yet: wgmma, TMA, warp specialisation, persistent blocks.
 //
 // Plain C interface: pointers are device pointers, `stream` a
 // cudaStream_t; dtype 0 = float32, 1 = bfloat16. Each returns the error
 // code of cudaGetLastError() after its launches (0 = success).
 
-#include "self_attention_fwd.cuh"
 #include "self_attention_rows.cuh"
 
 // ---- #11 part B: dv and dk, one block per (batch, head, 64 keys) ---------
+// (see the header: the design's B)
 
 namespace sa_keys {
 namespace {
@@ -305,8 +337,10 @@ __device__ inline void prologue(T* pd, T* qs, const Args& a, int i0, int j0,
 // (batch, head), over the query rows in chunks of QC through a ring of
 // cp.async stages; dk and dv are stored once, at columns C and 2C of
 // dqkv. width: the copy size of p's and ds's rows (see load_keys).
+// (2 blocks an SM: at most 128 registers; d > 64 takes 1, whose sums
+// would not fit 128 registers a thread)
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, DMAX > 64 ? 1 : 2)
     sa_bwd_keys_kernel(Args a, int width) {
   using K = Keys<T, DMAX>;
   constexpr int QC = K::QC, LDS = K::LDS, LDD = K::LDD, DB = K::DB;
@@ -424,178 +458,8 @@ int launch(const Args& a, int batch, cudaStream_t s) {
 
 namespace {
 
-constexpr int kKvTI = 32;  // query rows per chunk
-constexpr int kKvTJ = 32;  // keys per block
-
-// backward part B: dv = p_d^T . dout and dk = ds^T . q_s for 32 keys
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kTileThreads) sa_bwd_kv_kernel(SaArgs a) {
-  constexpr int LDQ = DMAX + 1;
-  constexpr int LDP = kKvTJ + 1;
-  constexpr int DT = DMAX / 16;
-  __shared__ float pds[kKvTI * LDP];  // p_d chunk [i][j]
-  __shared__ float dss[kKvTI * LDP];  // ds chunk [i][j]
-  __shared__ float dos[kKvTI * LDQ];  // dout chunk [i][d]
-  __shared__ float qss[kKvTI * LDQ];  // q * T(scale) chunk [i][d]
-
-  const int n = a.n, c = a.c, d = a.d, heads = a.heads;
-  const int c3 = 3 * c;
-  const int j0 = blockIdx.x * kKvTJ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const T* qkv_b =
-      static_cast<const T*>(a.qkv) + static_cast<size_t>(b) * n * c3 + head * d;
-  const T* dout_b =
-      static_cast<const T*>(a.dout) + static_cast<size_t>(b) * n * c + head * d;
-  const T* p_bh = static_cast<const T*>(a.p);
-  const T* ds_bh = static_cast<const T*>(a.ds);
-  const uint64_t bh = (static_cast<uint64_t>(b) * heads + head) * n;
-  const float scale_t = Num<T>::round(a.scale);
-  uint32_t k0 = 0, k1 = 0;
-  if (a.dropout_mode == 2) {
-    k0 = static_cast<uint32_t>(a.seed[0]);
-    k1 = static_cast<uint32_t>(a.seed[1]);
-  }
-
-  float adv[4][DT], adk[4][DT];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < DT; ++j) adv[r][j] = adk[r][j] = 0.f;
-
-  for (int i0 = 0; i0 < n; i0 += kKvTI) {
-    __syncthreads();
-    for (int w = tid; w < kKvTI * (kKvTJ / 4); w += kTileThreads) {
-      const int r = w / (kKvTJ / 4), q = w % (kKvTJ / 4);
-      const int i = i0 + r, j = j0 + 4 * q;
-      int valid = 0;
-      if (i < n && j < n) valid = n - j < 4 ? n - j : 4;
-      float m[4] = {0.f, 0.f, 0.f, 0.f};
-      bool keep[4];
-      const uint64_t e0 = (bh + i) * n + j;
-      if (valid > 0) mask4<T>(a, e0, valid, k0, k1, m, keep);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        float pd = 0.f, dsv = 0.f;
-        if (t < valid) {
-          pd = Num<T>::round(Num<T>::load(p_bh + e0 + t) * m[t]);
-          dsv = Num<T>::load(ds_bh + e0 + t);
-        }
-        pds[r * LDP + 4 * q + t] = pd;
-        dss[r * LDP + 4 * q + t] = dsv;
-      }
-    }
-    for (int e = tid; e < kKvTI * DMAX; e += kTileThreads) {
-      const int r = e / DMAX, dd = e % DMAX;
-      const int i = i0 + r;
-      float dv = 0.f, qv = 0.f;
-      if (i < n && dd < d) {
-        dv = Num<T>::load(dout_b + static_cast<size_t>(i) * c + dd);
-        qv = Num<T>::round(
-            Num<T>::load(qkv_b + static_cast<size_t>(i) * c3 + dd) * scale_t);
-      }
-      dos[r * LDQ + dd] = dv;
-      qss[r * LDQ + dd] = qv;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int ii = 0; ii < kKvTI; ++ii) {
-      float pa[4], da[4], dv[DT], qv[DT];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pa[r] = pds[ii * LDP + ty + 8 * r];
-        da[r] = dss[ii * LDP + ty + 8 * r];
-      }
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        dv[j] = dos[ii * LDQ + tx + 16 * j];
-        qv[j] = qss[ii * LDQ + tx + 16 * j];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < DT; ++j) {
-          adv[r][j] = fmaf(pa[r], dv[j], adv[r][j]);
-          adk[r][j] = fmaf(da[r], qv[j], adk[r][j]);
-        }
-    }
-  }
-  // dqkv [B, N, 3C]: dk at column offset C, dv at 2C
-  T* ob = static_cast<T*>(a.out) + static_cast<size_t>(b) * n * c3 + head * d;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = j0 + ty + 8 * r;
-    if (j >= n) continue;
-#pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      const int col = tx + 16 * t;
-      if (col < d) {
-        ob[static_cast<size_t>(j) * c3 + c + col] = Num<T>::store(adk[r][t]);
-        ob[static_cast<size_t>(j) * c3 + 2 * c + col] =
-            Num<T>::store(adv[r][t]);
-      }
-    }
-  }
-}
-
-template <typename T, int DMAX>
-int launch_kv(const SaArgs& a, int batch, cudaStream_t stream) {
-  const dim3 grid((a.n + kKvTJ - 1) / kKvTJ, a.heads, batch);
-  sa_bwd_kv_kernel<T, DMAX><<<grid, kTileThreads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-template <typename T>
-int launch_backward(const SaArgs& a, int batch, cudaStream_t s) {
-  sa_rows::Args r{};
-  r.qkv = a.qkv;
-  r.out = a.out;
-  r.n = a.n;
-  r.c = a.c;
-  r.d = a.d;
-  r.heads = a.heads;
-  r.scale = a.scale;
-  r.p = const_cast<void*>(a.p);
-  r.mask = a.mask;
-  r.seed = a.seed;
-  r.dropout_mode = a.dropout_mode;
-  r.keep_thresh = a.keep_thresh;
-  r.inv_keep = a.inv_keep;
-  r.dout = a.dout;
-  r.ds = a.ds;
-  r.rowvec = a.n % 4 == 0 && aligned16(a.p) && aligned16(a.ds) &&
-             (a.dropout_mode != 1 || aligned16(a.mask));
-  int err = sa_rows::launch_attention<T, sa_rows::kBwd>(r, batch, s);
-  if (err != 0) return err;
-  return sa_keys::launch<T>(r, batch, s);
-}
-
-SaArgs make_args(const void* qkv, void* out, const void* p,
-                 const void* mask, const void* seed, int n, int c, int heads,
-                 int d, float scale, int dropout_mode, unsigned keep_thresh,
-                 float inv_keep) {
-  SaArgs a{};
-  a.qkv = qkv;
-  a.out = out;
-  a.p = p;
-  a.mask = mask;
-  a.seed = static_cast<const int*>(seed);
-  a.n = n;
-  a.c = c;
-  a.heads = heads;
-  a.d = d;
-  a.scale = scale;
-  a.dropout_mode = dropout_mode;
-  a.keep_thresh = keep_thresh;
-  a.inv_keep = inv_keep;
-  return a;
 }
 
 // the forwards: the projection into qkv when x is given, then the row
@@ -629,6 +493,14 @@ int launch_forward(const void* x, const void* w, void* qkv, void* p,
              (dropout_mode != 1 || aligned16(mask)) &&
              (keep_out == nullptr || aligned16(keep_out));
   return sa_rows::launch_attention<T, sa_rows::kTrain>(a, batch, s);
+}
+
+// #11: part A (dp, ds into the scratch, dq), then part B (dk, dv) on it
+template <typename T>
+int backward(const sa_rows::Args& a, int batch, cudaStream_t s) {
+  const int err = sa_rows::launch_attention<T, sa_rows::kBwd>(a, batch, s);
+  if (err != 0) return err;
+  return sa_keys::launch<T>(a, batch, s);
 }
 
 template <typename... A>
@@ -673,12 +545,26 @@ extern "C" int gdl_sa_bwd_launch(const void* qkv, const void* p,
                                  float scale, int dropout_mode,
                                  unsigned keep_thresh, float inv_keep,
                                  int dtype, void* stream) {
-  SaArgs a = make_args(qkv, dqkv, p, mask, seed, n, c, heads, d, scale,
-                       dropout_mode, keep_thresh, inv_keep);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  sa_rows::Args a{};
+  a.qkv = qkv;
+  a.out = dqkv;
+  a.n = n;
+  a.c = c;
+  a.d = d;
+  a.heads = heads;
+  a.scale = scale;
+  a.p = const_cast<void*>(p);
+  a.mask = mask;
+  a.seed = static_cast<const int*>(seed);
+  a.dropout_mode = dropout_mode;
+  a.keep_thresh = keep_thresh;
+  a.inv_keep = inv_keep;
   a.dout = dout;
   a.ds = ds;
+  a.rowvec = n % 4 == 0 && aligned16(p) && aligned16(ds) &&
+             (dropout_mode != 1 || aligned16(mask));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_backward<float>(a, batch, s);
-  if (dtype == 1) return launch_backward<__nv_bfloat16>(a, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 0 ? backward<float>(a, batch, s)
+                    : backward<__nv_bfloat16>(a, batch, s);
 }

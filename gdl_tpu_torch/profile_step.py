@@ -50,11 +50,12 @@ KINDS = (
     # wa2::ProjBias (kernels/window_attention_proj.cuh) in its symbol;
     # their attention is wa_fwd_kernel, in the window_attention row
     ("window_attention_proj (#1, #2)", ("wa2::",)),
-    ("self_attention (#10, #11, #12, #13)", ("sa_train_kernel",
-                                             "sa_tile_kernel",
-                                             "sa_bwd_kv_kernel",
-                                             "sa_eval_kernel",
-                                             "gemm_tile_kernel")),
+    # #11's two launches: part A on the row tile (sa_bwd_rows_kernel) and
+    # part B (sa_bwd_keys_kernel); this row comes before the forwards'
+    ("self_attention_bwd (#11)", ("sa_bwd_rows_kernel",
+                                  "sa_bwd_keys_kernel")),
+    ("self_attention (#10, #12, #13)", ("sa_train_kernel", "sa_eval_kernel",
+                                        "gemm_tile_kernel")),
     ("dropout_mask (#14)", ("dropout_mask_kernel",)),
     ("maxpool_bwd (#16)", ("maxpool_bwd_kernel",)),
     ("window_attention_rows (#6)", ("wa_fwd_rows_kernel",

@@ -26,9 +26,9 @@ MLP_KIND = "mlp_fused (#15)"
     ("void gemm::gemm_tile_kernel<float, 64, mlp::Fc2Bias<float> >"
      "(gemm::Args, mlp::Fc2Bias<float>)", MLP_KIND),
     ("void gemm::gemm_tile_kernel<__nv_bfloat16, 128, gemm::Identity>"
-     "(gemm::Args, gemm::Identity)", "self_attention (#10, #11, #12, #13)"),
+     "(gemm::Args, gemm::Identity)", "self_attention (#10, #12, #13)"),
     ("void gemm::gemm_tile_kernel<float, 128, gemm::Identity>"
-     "(gemm::Args, gemm::Identity)", "self_attention (#10, #11, #12, #13)"),
+     "(gemm::Args, gemm::Identity)", "self_attention (#10, #12, #13)"),
 ])
 def test_profile_kinds_tell_mlp_gemms_from_the_projection(symbol, kind):
     """#15's instantiations of the shared tile (epilogues of namespace

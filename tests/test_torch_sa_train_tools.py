@@ -11,7 +11,8 @@ import pytest
 
 from gdl_tpu_torch import kernels
 
-SA_KIND = "self_attention (#10, #11, #12, #13)"
+SA_KIND = "self_attention (#10, #12, #13)"
+BWD_KIND = "self_attention_bwd (#11)"
 MLP_KIND = "mlp_fused (#15)"
 ANON = "(anonymous namespace)"
 
@@ -29,9 +30,10 @@ ANON = "(anonymous namespace)"
     (f"void gemm::{ANON}::gemm_tile_kernel<float, 128, "
      f"gemm::{ANON}::Identity>(gemm::{ANON}::Args, gemm::{ANON}::Identity)",
      SA_KIND),
-    (f"void {ANON}::sa_tile_kernel<float, 64>({ANON}::SaArgs)", SA_KIND),
-    (f"void {ANON}::sa_bwd_kv_kernel<__nv_bfloat16, 64>({ANON}::SaArgs)",
-     SA_KIND),
+    (f"void sa_rows::{ANON}::sa_bwd_rows_kernel<float, 64, 64>"
+     f"(sa_rows::{ANON}::Args)", BWD_KIND),
+    (f"void sa_keys::{ANON}::sa_bwd_keys_kernel<__nv_bfloat16, 64>"
+     f"(sa_rows::{ANON}::Args, int)", BWD_KIND),
     (f"void gemm::{ANON}::gemm_tile_kernel<float, 128, mlp::Fc1Gelu<float> >"
      f"(gemm::{ANON}::Args, mlp::Fc1Gelu<float>)", MLP_KIND),
     (f"void gemm::{ANON}::gemm_tile_kernel<__nv_bfloat16, 64, "
@@ -71,13 +73,20 @@ def test_both_forwards_share_the_row_tile(library):
 
 
 def test_the_first_forward_design_is_gone():
-    """The training forward has no SIMT projection and no forward mode of
-    the backward's row tile: part A serves only the backward."""
+    """Neither first-design kernel of the training path is left: no SIMT
+    projection, no SIMT row tile of the backward (sa_tile_kernel, its
+    header self_attention_fwd.cuh) and no SIMT key kernel
+    (sa_bwd_kv_kernel). #11 launches the row tile's backward mode and the
+    tensor-core key kernel."""
     text = {p.name: p.read_text() for p in kernels.KERNEL_DIR.glob("*.cu*")}
+    assert "self_attention_fwd.cuh" not in text
     for name, src in text.items():
-        assert "sa_proj_kernel<" not in src, name
-        assert "MODE_TRAIN" not in src, name
-    assert "sa_tile_kernel<T, DMAX><<<" in text["self_attention_fwd.cuh"]
+        for gone in ("sa_proj_kernel<", "MODE_TRAIN", "sa_tile_kernel",
+                     "sa_bwd_kv_kernel", "self_attention_fwd.cuh"):
+            assert gone not in src, (name, gone)
+    train = text["self_attention_train.cu"]
+    assert "sa_rows::launch_attention<T, sa_rows::kBwd>" in train
+    assert "sa_bwd_keys_kernel<T, DMAX><<<" in train
 
 
 @pytest.mark.parametrize("n,itemsize,per_sm", [

@@ -14,7 +14,7 @@ from gdl_tpu_torch import kernels
 
 K3 = "window_attention_bwd_fused (#3)"
 K4 = "window_attention (#1, #2, #4, #5, #7 forward)"
-K13 = "self_attention (#10, #11, #12, #13)"
+K13 = "self_attention (#10, #12, #13)"
 
 
 @pytest.mark.parametrize("symbol,kind", [

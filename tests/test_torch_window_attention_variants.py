@@ -348,7 +348,7 @@ def test_profile_kinds_name_every_new_kernel_symbol():
         "wa_fwd_kernel<float, 32, false, false>": "#7 forward",
         "wa_bhnd_kernel<float, 32>": "#8",
         "wa_packed_kernel<float, 16>": "#9",
-        "sa_tile_kernel<float, 64, 1>": "#12",
+        "sa_train_kernel<float, 64, 64>": "#12",
         "wa_bwd_kernel<float, 32, true>": "#4",
         "wa_bwd_fused_kernel<float, 32, 256>": "#3",
     }
