@@ -1,6 +1,7 @@
-"""Time kernels #10 (`self_attention_fused_fwd`) and #12
-(`self_attention_qkv_fwd`) per mmformer_n training step on the GPU, and
-compare checkouts of this repository in turns.
+"""Time kernels #10 (`self_attention_fused_fwd`), #12
+(`self_attention_qkv_fwd`) and #11 (`self_attention_fused_bwd`) per
+mmformer_n training step on the GPU, and compare checkouts of this
+repository in turns.
 
     python -m gdl_tpu_torch.bench_sa_train [--roots DIR [DIR ...]] [--out F]
 
@@ -20,6 +21,17 @@ TF32 off; bfloat16) the script times, with CUDA events, at each shape:
 - `F.scaled_dot_product_attention` on the same q, k, v, without dropout
   and with dropout_p = 0.1 (the nearest single library call; it writes no
   p residual);
+- #11 on #10's qkv and p residuals with the mask drawn in the kernel, as
+  the step runs it: the single-call median, a run of 20 calls, a
+  torch.profiler split into part A (dp, ds, dq) and part B (dk, dv) (also
+  without dropout: the cost of drawing the mask again), the
+  plain version, the bound (`bwd_cost`: qkv, p, dout read once, dqkv
+  written once, four products) and the ds scratch's round trip between
+  the two launches in bytes (not counted in the bound);
+- the nearest library backward, NOT on the same inputs: one SDPA forward
+  without dropout, then a run of 20 `torch.autograd.grad(out, (q, k, v),
+  dout, retain_graph=True)` calls (it recomputes p and reads no p
+  residual and no mask);
 and sums them over the 7 launches. Then, for #12 without dropout, a sweep
 over N at batch 64 (`sweep`): the kernel's device time by the profiler,
 the blocks of the row tile, the blocks the card holds at once and the
@@ -64,12 +76,40 @@ PLAIN_REPS = 3
 SWEEP_N = (16, 32, 64, 128, 196, 256, 392)
 # kernel names of the projection, in this version and in earlier ones
 PROJECTION_NAMES = ("gemm", "proj")
+# #11's part B, in this version and in the first design; the rest is A
+BWD_PART_B_NAMES = ("sa_bwd_keys_kernel", "sa_bwd_kv_kernel")
 MARK = "bench_sa_train "  # the result line, among whatever else is printed
+# the card's peaks (H100 SXM data sheet): memory, SIMT f32, bf16 tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {2: 989e12, 4: 67e12}
 
 
 def _part(name: str) -> str:
     return ("projection" if any(k in name for k in PROJECTION_NAMES)
             else "attention")
+
+
+def _bwd_part(name: str) -> str:
+    return ("part_b" if any(k in name for k in BWD_PART_B_NAMES)
+            else "part_a")
+
+
+def bwd_cost(b: int, n: int, c: int, heads: int, itemsize: int) -> dict:
+    """One launch of #11: the bytes it must move (qkv, p and dout read
+    once, dqkv written once; a mask drawn in the kernel moves no more),
+    its operations (4 products of 2 b n^2 c, 6 per score element), the
+    bound (the larger of bytes / 3.35 TB/s and operations / the dtype's
+    peak) and the ds scratch's round trip between its two launches
+    (written by part A, read by part B; not in the bound)."""
+    tokens, scores = b * n * c, b * heads * n * n
+    nbytes = (3 * tokens + scores + tokens + 3 * tokens) * itemsize
+    ops = 8 * b * n * n * c + 6 * scores
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * ops / PEAK_OPS_PER_S[itemsize]
+    return {"bytes": nbytes, "operations": ops,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "ds_round_trip_bytes": 2 * scores * itemsize}
 
 
 def _resident_blocks(n: int, itemsize: int) -> dict:
@@ -159,9 +199,10 @@ def worker() -> dict:
             row["k10_attention_ms"] = split.get("attention", 0.0)
             row["k13_attention_ms"] = split13.get("attention", 0.0)
             row["traced_kernels_ms"] = names
+            row.update(_time_backward(x, w, q, kk, v, drops, gen))
             sites[site] = row
             for key, val in row.items():
-                if key != "traced_kernels_ms":
+                if not isinstance(val, dict) and not isinstance(val, str):
                     tot[key] = tot.get(key, 0.0) + calls * val
             del x, w, qkv, q, kk, v, drops, drop
             torch.cuda.empty_cache()
@@ -184,6 +225,64 @@ def worker() -> dict:
         out["dtypes"][dtype] = {"per_step": tot, "sites": sites,
                                 "sweep": sweep}
     return out
+
+
+def _time_backward(x, w, q, k, v, drops, gen) -> dict:
+    """#11 at one site (see the module's docstring), and the library
+    backward beside it. Also #11 without dropout (`k11_none_*`), whose
+    part B forms p_d without drawing the mask: the split's difference is
+    what drawing it again costs."""
+    import torch
+    import torch.nn.functional as F
+
+    from gdl_tpu_torch.ops.self_attention import (
+        self_attention_fused_bwd,
+        self_attention_fused_fwd,
+    )
+
+    b, n, c = x.shape
+    drop = drops["kernel"]
+    dout = torch.randn((b, n, c), generator=gen, device=x.device).to(x.dtype)
+    with torch.no_grad():
+        _, qkv, p = self_attention_fused_fwd(x, w, HEADS, drop=drop)
+
+        def k11():
+            return self_attention_fused_bwd(qkv, p, dout, HEADS, drop=drop)
+
+        row = {"k11_ms": cuda_ms(k11), "k11_run_ms": run_ms(k11),
+               "k11_plain_ms": cuda_ms(
+                   lambda: self_attention_fused_bwd(qkv, p, dout, HEADS,
+                                                    drop=drop, impl="plain"),
+                   reps=PLAIN_REPS, warmup=1)}
+        split, names = split_ms(k11, _bwd_part, TRACED)
+
+        def k11_none():
+            return self_attention_fused_bwd(qkv, p, dout, HEADS,
+                                            drop=drops["none"])
+
+        row["k11_none_run_ms"] = run_ms(k11_none)
+        split_none, _ = split_ms(k11_none, _bwd_part, TRACED)
+    row["k11_part_a_ms"] = split.get("part_a", 0.0)
+    row["k11_part_b_ms"] = split.get("part_b", 0.0)
+    row["k11_none_part_a_ms"] = split_none.get("part_a", 0.0)
+    row["k11_none_part_b_ms"] = split_none.get("part_b", 0.0)
+    row["k11_traced_kernels_ms"] = names
+    cost = bwd_cost(b, n, c, HEADS, x.element_size())
+    row.update({"k11_" + key: val for key, val in cost.items()})
+    # the library's backward, on q, k, v without dropout: not the same
+    # inputs (it recomputes p, reads no p residual and no mask)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+    g4 = dout.reshape(b, n, HEADS, c // HEADS).transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(out, (qg, kg, vg), g4, retain_graph=True)
+
+    row["sdpa_bwd_ms"] = cuda_ms(library)
+    row["sdpa_bwd_run_ms"] = run_ms(library)
+    del qkv, p, dout, out, qg, kg, vg, g4
+    return row
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,14 @@
-"""The tools around kernels #10 and #12 that run on the CPU: the
-profiler's kinds of the training forward's symbols (its row tile and the
-GEMM tile's identity instantiation under the self-attention row, #15's
-epilogues under #15), bench_sa_train's refusal without a card, and the
-kernel sources of the training forward."""
+"""The tools around kernels #10, #12 and #11 that run on the CPU: the
+profiler's kinds of their symbols (the forwards' row tile and the GEMM
+tile's identity instantiation under the self-attention row, #11's two
+launches under a row of their own, #15's epilogues under #15),
+bench_sa_train's refusal without a card, its split and cost of #11, and
+the kernel sources of the training kernels."""
 
+import importlib.util
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -15,6 +18,7 @@ SA_KIND = "self_attention (#10, #12, #13)"
 BWD_KIND = "self_attention_bwd (#11)"
 MLP_KIND = "mlp_fused (#15)"
 ANON = "(anonymous namespace)"
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("symbol,kind", [
@@ -42,7 +46,8 @@ ANON = "(anonymous namespace)"
 ])
 def test_profile_kinds_file_the_training_forward(symbol, kind):
     """#10's projection (the tile's identity instantiation) and the row
-    tile of #10 / #12 are filed under the self-attention row; #15's
+    tile of #10 / #12 are filed under the self-attention row, #11's part
+    A (the row tile's backward mode) and part B under #11's own; #15's
     instantiations of the same tile stay under #15."""
     from gdl_tpu_torch.profile_step import kind_of
 
@@ -87,6 +92,57 @@ def test_the_first_forward_design_is_gone():
     train = text["self_attention_train.cu"]
     assert "sa_rows::launch_attention<T, sa_rows::kBwd>" in train
     assert "sa_bwd_keys_kernel<T, DMAX><<<" in train
+
+
+@pytest.mark.parametrize("name,part", [
+    (f"void sa_rows::{ANON}::sa_bwd_rows_kernel<__nv_bfloat16, 64, 64>"
+     f"(sa_rows::{ANON}::Args)", "part_a"),
+    (f"void sa_keys::{ANON}::sa_bwd_keys_kernel<float, 64>"
+     f"(sa_rows::{ANON}::Args, int)", "part_b"),
+    (f"void {ANON}::sa_tile_kernel<float, 64>({ANON}::SaArgs)", "part_a"),
+    (f"void {ANON}::sa_bwd_kv_kernel<__nv_bfloat16, 64>({ANON}::SaArgs)",
+     "part_b"),
+])
+def test_bench_files_the_backward_split(name, part):
+    """bench_sa_train's profiler split of #11 files the key kernel as
+    part B and the row kernel as part A, in this design and in the first
+    (a parent checkout timed in turns)."""
+    from gdl_tpu_torch.bench_sa_train import _bwd_part
+
+    assert _bwd_part(name) == part
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("itemsize,bound_by", [(4, "operations"),
+                                               (2, "bytes")])
+def test_bench_backward_cost(itemsize, bound_by):
+    """bench_sa_train's cost of #11 is chip_smoke.py's, site by site; over
+    a step (4 launches at N = 196, 3 at 392) it is bound by operations in
+    f32 (2.433 ms at 67 TFLOP/s) and by bytes in bf16 (0.456 ms); the ds
+    round trip is two score-sized passes in T."""
+    from gdl_tpu_torch.bench_sa_train import SITES, bwd_cost
+
+    cs = _chip_smoke()
+    dtype = "float32" if itemsize == 4 else "bfloat16"
+    step = 0.0
+    for (b, n, c), calls in SITES.values():
+        got = bwd_cost(b, n, c, 8, itemsize)
+        nbytes, ops = cs.sa_cost("bwd", b, n, c, 8, itemsize)
+        assert (got["bytes"], got["operations"]) == (nbytes, ops)
+        assert got["bound_ms"] == pytest.approx(
+            cs.bound_ms(nbytes, ops, dtype)[0], rel=1e-12)
+        assert got["bound_by"] == bound_by
+        assert got["ds_round_trip_bytes"] == 2 * b * 8 * n * n * itemsize
+        step += calls * got["bound_ms"]
+    assert step == pytest.approx(2.433 if itemsize == 4 else 0.456,
+                                 abs=5e-4)
 
 
 @pytest.mark.parametrize("n,itemsize,per_sm", [
