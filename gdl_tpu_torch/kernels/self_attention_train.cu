@@ -83,8 +83,9 @@
 //      head, 64 keys): the query rows in chunks (64 bf16, 32 f32) of p,
 //      ds, dout and q come in through a ring of cp.async stages; p_d and
 //      q_s are formed in shared memory (m drawn again by Philox: ≈ 7.7 G
-//      integer operations a step, against ≈ 1.3 GB of traffic had part A
-//      written p_d); both products have the query index as K
+//      integer operations a step, where part A writing p_d for part B to
+//      read in p's place would add a score-sized write, 0.63 GB in bf16,
+//      and a second scratch); both products have the query index as K
 //      (gemm_tile.cuh's KOuter layouts): bf16 mma.sync on ldmatrix.trans
 //      fragments, warps 0-3 dv and 4-7 dk, 16 keys x d each; f32
 //      register-blocked FMA in runs of four. dk and dv are stored once.
@@ -97,7 +98,6 @@
 #include "self_attention_rows.cuh"
 
 // ---- #11 part B: dv and dk, one block per (batch, head, 64 keys) ---------
-// (see the header: the design's B)
 
 namespace sa_keys {
 namespace {
@@ -255,42 +255,30 @@ __host__ __device__ constexpr int stages() {
 }
 
 // rows [rows][64 keys] of p or ds (row stride ld) into shared memory (row
-// stride lds), zero past (vrows, vcols): copies of W bytes (16, 8 or 4)
-// by cp.async, or (W = 0) element by element through registers
-template <typename T, int W>
-__device__ inline void load_keys(T* dst, int lds, const T* src, size_t ld,
-                                 int rows, int vrows, int vcols, int tid) {
-  if constexpr (W == 0) {
-    for (int e = tid; e < rows * kKeys; e += kThreads) {
-      const int r = e / kKeys, c = e % kKeys;
-      dst[r * lds + c] = (r < vrows && c < vcols) ? src[r * ld + c] : T(0.f);
-    }
-  } else {
-    constexpr int V = W / static_cast<int>(sizeof(T));
-    constexpr int VPR = kKeys / V;
-    for (int e = tid; e < rows * VPR; e += kThreads) {
-      const int r = e / VPR, c = (e % VPR) * V;
-      int nb = 0;
-      if (r < vrows && c < vcols)
-        nb = (vcols - c < V ? vcols - c : V) * static_cast<int>(sizeof(T));
-      const T* s = nb ? src + r * ld + c : src;
-      if constexpr (W == 16)
-        gemm::cp_async16(dst + r * lds + c, s, nb);
-      else
-        gemm::cp_async_ca<W>(dst + r * lds + c, s, nb);
-    }
-  }
-}
-
+// stride lds), zero past (vrows, vcols), by copies of `width` bytes: 16
+// or none (element by element) as load_tile makes them, or 8 or 4 by
+// cp.async through L1 (rows of N = 196 in bf16 are 392 bytes)
 template <typename T>
 __device__ inline void load_scores(int width, T* dst, int lds, const T* src,
                                    size_t ld, int rows, int vrows, int vcols,
                                    int tid) {
-  switch (width) {
-    case 16: load_keys<T, 16>(dst, lds, src, ld, rows, vrows, vcols, tid); break;
-    case 8: load_keys<T, 8>(dst, lds, src, ld, rows, vrows, vcols, tid); break;
-    case 4: load_keys<T, 4>(dst, lds, src, ld, rows, vrows, vcols, tid); break;
-    default: load_keys<T, 0>(dst, lds, src, ld, rows, vrows, vcols, tid);
+  if (width != 8 && width != 4) {
+    load_tile<T, kThreads>(dst, lds, src, ld, rows, kKeys, vrows, vcols,
+                           width == 16, tid);
+    return;
+  }
+  const int v = width / static_cast<int>(sizeof(T));  // elements a copy
+  const int vpr = kKeys / v;
+  for (int e = tid; e < rows * vpr; e += kThreads) {
+    const int r = e / vpr, c = (e % vpr) * v;
+    int nb = 0;
+    if (r < vrows && c < vcols)
+      nb = (vcols - c < v ? vcols - c : v) * static_cast<int>(sizeof(T));
+    const T* s = nb ? src + r * ld + c : src;
+    if (width == 8)
+      gemm::cp_async_ca<8>(dst + r * lds + c, s, nb);
+    else
+      gemm::cp_async_ca<4>(dst + r * lds + c, s, nb);
   }
 }
 
@@ -336,7 +324,7 @@ __device__ inline void prologue(T* pd, T* qs, const Args& a, int i0, int j0,
 // dv = p_d^T . dout and dk = ds^T . q_s for the keys j0 .. j0 + 63 of one
 // (batch, head), over the query rows in chunks of QC through a ring of
 // cp.async stages; dk and dv are stored once, at columns C and 2C of
-// dqkv. width: the copy size of p's and ds's rows (see load_keys).
+// dqkv. width: the copy size of p's and ds's rows (see load_scores).
 // (2 blocks an SM: at most 128 registers; d > 64 takes 1, whose sums
 // would not fit 128 registers a thread)
 template <typename T, int DMAX>
