@@ -55,18 +55,30 @@
 //   128 where the heads allow) in turn instead of owning one head, so the
 //   grid has heads / g times fewer, longer blocks. Equal bits to #5 and #4.
 //
-// Design of the backwards (a first, simple one for #4, #6 and #7). The
-// forwards are described in window_attention_fwd.cuh. The backward gives
-// each block one head and a fixed run of `wpb` consecutive windows: it
-// loads q, k, v, dout and p of one window into shared memory (rows padded
-// to 64 there only), runs the five small products on the CUDA cores in
-// f32 FMA, writes dqkv, and keeps its share of dbias in registers across
-// the run. Each block writes one dbias partial [H, N, N]; the wrapper sums
-// the partials. No atomics: the sum has a fixed order, so two runs give
-// equal bits. The backward does 5 N x N x d products per (window, head),
-// about 2.5x the forward's attention work, and reads qkv, p and dout once
-// (p dominates: N*N per head against 3d per token). Tensor-core products,
-// TMA and sharing a window across heads are later work.
+// Design of the backwards (#4, #4-delta, #6's, and #3's attention stage:
+// one device body, bwd_windows of window_attention_bwd.cuh, in four
+// kernels; #7's backward still runs the first design, kept below). A block of four warps owns
+// one head (#6: walks its group of heads in turn) and a fixed run of `wpb`
+// consecutive windows, and keeps its share of dbias in registers across
+// the run; each block writes one dbias partial [N, N] per head, which the
+// wrapper sums. No atomics: the sums have a fixed order, so two runs give
+// equal bits. Per (window, head) the backward does 4 N x N x d products
+// (5 with the scores again in #7) and reads qkv, p and dout once: at the
+// Swin-B shapes it is bound by those bytes (p dominates in bf16: N*N per
+// head against 3d per token), so the body streams them:
+//   - q, k, v and dout rows and p's slab come in by cp.async, in bf16
+//     into two stages so that the next window's copies run under this
+//     window's products, in T (not f32) in shared memory;
+//   - the products run on the tensor cores in bf16 (mma.sync m16n8k16 on
+//     ldmatrix fragments; dq's A operand is ds's accumulator registers)
+//     and on a register-blocked FMA tile in f32 (no TF32: f32 stays f32,
+//     as the plain versions run), on the same fragment layout: warp w
+//     holds query rows 16w .. 16w + 15 for dp, the softmax backward and
+//     dq, then after one barrier keys 16w .. 16w + 15 for dk and dv.
+// The first design, one 256-thread block per (run, head) with every
+// operand loaded element by element into f32 shared memory and all five
+// products on SIMT FMA with a barrier between phases, ran at 18% of the
+// f32 bound and 1-2% of the tensor cores in bf16.
 //
 // Kernel #3, the fused projection backward, gdl_wa_bwd_fused_launch,
 // replaces _xw_attn_savep_t_bwd's fused branch (kernel body
@@ -88,11 +100,13 @@
 // a bf16 arm-B step, 7.1 GB f32, 1.1 / 2.1 ms at 3.35 TB/s) is small
 // beside the products; the bound does not count it. Three launches on the
 // caller's stream:
-//   A. wa_bwd_fused_attn_kernel: #4's grid and device body (bwd_windows:
-//      attn_bwd_tile, store_dqkv) into the caller's dqkv workspace, with
-//      #4's dbias partials and, switched on for #3 alone, a db partial
-//      [runs, 3C] per run of windows. Bound like #4: by the bytes of p
-//      and qkv, at the SIMT rate of its five small products in practice;
+//   A. wa_bwd_fused_attn_kernel: #4's grid and device body (bwd_windows
+//      of window_attention_bwd.cuh, tensor cores in bf16) into the
+//      caller's dqkv workspace, with #4's dbias partials and, switched on
+//      for #3 alone, a db partial [runs, 3C] per run of windows: the
+//      column sums of the rounded dqkv, per lane over its rows in window
+//      order, then over a warp's row groups and the four warps in order.
+//      Bound like #4: by the bytes of p and qkv;
 //   B. dx [Bw N, C] = dqkv . W on gemm_tile.cuh (A along K, B = W [3C, C]
 //      along N: ldmatrix.trans fragments in bf16), with the epilogue type
 //      wa3::Dx; the 64-row tile where gemm::row_tile asks for it;
@@ -110,13 +124,114 @@
 // gdl_tpu_torch/kernels/__init__.py.
 
 #include "gemm_tile.cuh"
+#include "window_attention_bwd.cuh"
 #include "window_attention_fwd.cuh"
 #include "window_attention_proj.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// attention backward of one (window, head) from the saved p
+// the backwards: one device body (bwd_windows), five kernels, so that the
+// profiler and the launch counts tell #4, #4-delta, #3's stage A, #6 and
+// #7 apart
+// ---------------------------------------------------------------------------
+
+// #4 (DELTA false) and #4-delta (the softmax row sums read from delta)
+template <typename T, int DMAX, bool DELTA>
+__global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
+    wa_bwd_kernel(BwdArgs a) {
+  bwd_windows<T, DMAX, DELTA, false, false>(a);
+}
+
+// #3's stage A: #4 into the dqkv workspace, with the db partials
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
+    wa_bwd_fused_attn_kernel(BwdArgs a) {
+  bwd_windows<T, DMAX, false, false, true>(a);
+}
+
+// #6's backward: #4's body per head (so #4's dqkv bits), a block walking
+// a group of g heads in turn over its run, one dbias partial per head
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
+    wa_bwd_rows_kernel(BwdArgs a) {
+  bwd_windows<T, DMAX, false, false, false>(a);
+}
+
+enum class Bwd { kDefault, kDelta, kFused, kRows };
+
+template <typename T, int DMAX, Bwd K>
+auto bwd_kernel() {
+  if constexpr (K == Bwd::kDefault) return wa_bwd_kernel<T, DMAX, false>;
+  else if constexpr (K == Bwd::kDelta) return wa_bwd_kernel<T, DMAX, true>;
+  else if constexpr (K == Bwd::kFused) return wa_bwd_fused_attn_kernel<T, DMAX>;
+  else return wa_bwd_rows_kernel<T, DMAX>;
+}
+
+// the widest piece (16, 8 or 4 bytes) in which every q, k, v and dout row
+// of a head can be copied, or 0: element by element
+template <typename T>
+int row_width(const BwdArgs& a) {
+  for (int w = 16; w >= 4; w /= 2)
+    if ((a.d * sizeof(T)) % w == 0 && (a.c * sizeof(T)) % w == 0 &&
+        reinterpret_cast<uintptr_t>(a.qkv) % w == 0 &&
+        reinterpret_cast<uintptr_t>(a.dout) % w == 0)
+      return w;
+  return 0;
+}
+
+// ceil(bw / wpb) runs x heads / g blocks of the kernel K
+template <typename T, Bwd K>
+int launch_bwd(BwdArgs a, cudaStream_t s) {
+  a.width = row_width<T>(a);
+  a.pairs = a.d % 2 == 0 &&
+            reinterpret_cast<uintptr_t>(a.dqkv) % (2 * sizeof(T)) == 0;
+  return with_dmax(a.d, [&](auto dm) {
+    constexpr int DMAX = decltype(dm)::value;
+    using L = BwdLayout<T, DMAX>;
+    const size_t smem = L::bytes(a.n);
+    const auto kernel = bwd_kernel<T, DMAX, K>();
+    static const cudaError_t attr = grant_smem(kernel, L::kMaxBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const unsigned grid = static_cast<unsigned>((a.bw + a.wpb - 1) / a.wpb) *
+                          static_cast<unsigned>(a.heads / a.g);
+    kernel<<<grid, kBwdThreads, smem, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// the arguments every backward takes; one head a block, no mask
+BwdArgs bwd_args(const void* qkv, const void* p, const void* dout,
+                 void* dqkv, void* dbias_part, int bw, int n, int c,
+                 int heads, int d, int wpb, float scale) {
+  BwdArgs a{};
+  a.qkv = qkv;
+  a.p = p;
+  a.dout = dout;
+  a.dqkv = dqkv;
+  a.dbias_part = static_cast<float*>(dbias_part);
+  a.bw = bw;
+  a.n = n;
+  a.c = c;
+  a.heads = heads;
+  a.d = d;
+  a.nw = 1;
+  a.g = 1;
+  a.wpb = wpb;
+  a.scale = scale;
+  return a;
+}
+
+template <Bwd K>
+int dispatch_bwd(int dtype, const BwdArgs& a, cudaStream_t s) {
+  return with_dtype(dtype, [&](auto t) {
+    return launch_bwd<typename decltype(t)::type, K>(a, s);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// attention backward of one (window, head), the first design: kernel #7's
+// backward until it moves to bwd_windows
 // ---------------------------------------------------------------------------
 
 template <int DMAX>
@@ -386,147 +501,6 @@ __device__ __forceinline__ void store_dbias(float* part, int n,
 }
 
 // ---------------------------------------------------------------------------
-// kernels #4 and #4-delta (dqkv written, the projection backward outside)
-// and kernel #3's stage A (the same into a dqkv workspace, with db)
-// ---------------------------------------------------------------------------
-
-// The blocks of #4 and of #3's stage A: one head and a run of wpb
-// windows. Each (window, head) goes through attn_bwd_tile into dqkv in T;
-// the block keeps its share of dbias in registers and writes one dbias
-// partial. With DB (#3) it also writes one db partial: db_part[run,
-// [q|k|v][head][d]] = the f32 sum over the run's windows and tokens of
-// the dqkv values the block stored, rounded to T (dq scaled before
-// rounding, as store_dqkv scales it). Each thread sums its rows in order
-// over the windows; the 16 row groups are added in order at the end,
-// through shared memory.
-template <typename T, int DMAX, bool DELTA, bool DB>
-__device__ __forceinline__ void bwd_windows(
-    const T* __restrict__ qkv, const T* __restrict__ p,
-    const T* __restrict__ dout, const float* __restrict__ delta,
-    T* __restrict__ dqkv, float* __restrict__ dbias_part,
-    float* __restrict__ db_part, int bw, int n, int c, int heads, int d,
-    int wpb, float scale) {
-  constexpr int DT = DMAX / 16;
-  extern __shared__ float smem[];
-  const int chunk = blockIdx.x / heads;
-  const int head = blockIdx.x % heads;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float scale_t = Num<T>::round(scale);
-
-  float dbacc[4][4];  // this block's share of dbias[head]
-  zero16(dbacc);
-  float dbq[DT], dbk[DT], dbv[DT];  // DB: columns tx + 16 j, rows ty + 16 a
-#pragma unroll
-  for (int j = 0; j < DT; ++j) dbq[j] = dbk[j] = dbv[j] = 0.f;
-
-  const int w_end = min(bw, (chunk + 1) * wpb);
-  for (int win = chunk * wpb; win < w_end; ++win) {
-    float gq[4][DT], gk[4][DT], gv[4][DT];
-    attn_bwd_tile<T, DMAX, DELTA>(qkv, p, dout, delta, win, head, n, c, heads,
-                                  d, scale_t, smem, dbacc, gq, gk, gv);
-    store_dqkv<T, DMAX>(dqkv, win, head, n, c, d, scale, gq, gk, gv);
-    if constexpr (DB) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        if (ty + 16 * a >= n) continue;
-#pragma unroll
-        for (int j = 0; j < DT; ++j) {
-          dbq[j] += Num<T>::round(gq[a][j] * scale);
-          dbk[j] += Num<T>::round(gk[a][j]);
-          dbv[j] += Num<T>::round(gv[a][j]);
-        }
-      }
-    }
-    __syncthreads();  // the next window overwrites shared memory
-  }
-  store_dbias(
-      dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n, n,
-      dbacc);
-  if constexpr (DB) {
-    static_assert(16 * 3 * DMAX <= BwdSmem<DMAX>::kFloats, "db reduction");
-    // red[ty][[q|k|v] DMAX + col]: the 16 row groups' column sums
-    float* red = smem;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      red[ty * 3 * DMAX + tx + 16 * j] = dbq[j];
-      red[ty * 3 * DMAX + DMAX + tx + 16 * j] = dbk[j];
-      red[ty * 3 * DMAX + 2 * DMAX + tx + 16 * j] = dbv[j];
-    }
-    __syncthreads();
-    for (int col = threadIdx.x; col < 3 * DMAX; col += kThreads) {
-      const int part = col / DMAX, dd = col % DMAX;
-      if (dd >= d) continue;
-      float sum = 0.f;
-      for (int r = 0; r < 16; ++r) sum += red[r * 3 * DMAX + col];
-      db_part[static_cast<size_t>(chunk) * 3 * c + part * c + head * d + dd] =
-          sum;
-    }
-  }
-}
-
-// Two kernels on one body, so that the profiler and the launch counts tell
-// #4 from #3's stage A, and #4 keeps its bits
-template <typename T, int DMAX, bool DELTA>
-__global__ void __launch_bounds__(kThreads)
-wa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-              const T* __restrict__ dout, const float* __restrict__ delta,
-              T* __restrict__ dqkv, float* __restrict__ dbias_part,
-              float* __restrict__ db_part, int bw, int n, int c, int heads,
-              int d, int wpb, float scale) {
-  bwd_windows<T, DMAX, DELTA, false>(qkv, p, dout, delta, dqkv, dbias_part,
-                                     db_part, bw, n, c, heads, d, wpb, scale);
-}
-
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-wa_bwd_fused_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-                         const T* __restrict__ dout,
-                         const float* __restrict__ delta, T* __restrict__ dqkv,
-                         float* __restrict__ dbias_part,
-                         float* __restrict__ db_part, int bw, int n, int c,
-                         int heads, int d, int wpb, float scale) {
-  bwd_windows<T, DMAX, false, true>(qkv, p, dout, delta, dqkv, dbias_part,
-                                    db_part, bw, n, c, heads, d, wpb, scale);
-}
-
-// #4 (DB false) or #3's stage A (DB true, no delta): ceil(bw / wpb) runs
-// x heads blocks
-template <typename T, int DMAX, bool DELTA, bool DB>
-int launch_bwd(const void* qkv, const void* p, const void* dout,
-               const void* delta, void* dqkv, void* dbias_part, void* db_part,
-               int bw, int n, int c, int heads, int d, int wpb, float scale,
-               cudaStream_t stream) {
-  static_assert(!(DB && DELTA), "#3's stage A takes no delta");
-  constexpr size_t smem = BwdSmem<DMAX>::kBytes;
-  const auto kernel = [] {
-    if constexpr (DB) return wa_bwd_fused_attn_kernel<T, DMAX>;
-    else return wa_bwd_kernel<T, DMAX, DELTA>;
-  }();
-  static const cudaError_t attr = grant_smem(kernel, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const unsigned chunks = static_cast<unsigned>((bw + wpb - 1) / wpb);
-  const unsigned grid = chunks * static_cast<unsigned>(heads);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(p),
-      static_cast<const T*>(dout), static_cast<const float*>(delta),
-      static_cast<T*>(dqkv), static_cast<float*>(dbias_part),
-      static_cast<float*>(db_part), bw, n, c, heads, d, wpb, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, bool DELTA, bool DB = false>
-int dispatch_bwd(const void* qkv, const void* p, const void* dout,
-                 const void* delta, void* dqkv, void* dbias_part,
-                 void* db_part, int bw, int n, int c, int heads, int d,
-                 int wpb, float scale, cudaStream_t s) {
-  return with_dmax(d, [&](auto dm) {
-    return launch_bwd<T, decltype(dm)::value, DELTA, DB>(
-        qkv, p, dout, delta, dqkv, dbias_part, db_part, bw, n, c, heads, d,
-        wpb, scale, s);
-  });
-}
-
-// ---------------------------------------------------------------------------
 // kernel #7's backward: p computed again from qkv, bias and mask
 // ---------------------------------------------------------------------------
 
@@ -562,16 +536,37 @@ wa_bwd_recompute_kernel(const T* __restrict__ qkv,
       dbacc);
 }
 
+template <typename T>
+int launch_bwd_recompute(const void* qkv, const void* bias, const void* mask,
+                         const void* dout, void* dqkv, void* dbias_part,
+                         int bw, int n, int c, int heads, int d, int nw,
+                         int wpb, float scale, cudaStream_t s) {
+  return with_dmax(d, [&](auto dm) {
+    constexpr int DMAX = decltype(dm)::value;
+    constexpr size_t smem = BwdSmem<DMAX>::kBytes;
+    static const cudaError_t attr =
+        grant_smem(wa_bwd_recompute_kernel<T, DMAX>, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const unsigned grid =
+        static_cast<unsigned>((bw + wpb - 1) / wpb) * static_cast<unsigned>(heads);
+    wa_bwd_recompute_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(qkv), static_cast<const float*>(bias),
+        static_cast<const float*>(mask), static_cast<const T*>(dout),
+        static_cast<T*>(dqkv), static_cast<float*>(dbias_part), bw, n, c,
+        heads, d, nw, wpb, scale);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 // ---------------------------------------------------------------------------
-// kernel #6: the save-p forward and the backward from p, a group of heads
-// per block
+// kernel #6's forward: a group of heads per block
 // ---------------------------------------------------------------------------
 
 // The TPU's row-layout kernels hold the scores of a group of g heads
 // (gd = g * d = 128 lanes) in rows of one block. Here a block owns one
-// window (forward) or one run of windows (backward) and a group of g
-// heads, and walks the heads in turn through the device code of #5 and
-// #4; each head's arithmetic, and so every bit, is theirs.
+// window and a group of g heads, and walks the heads in turn through the
+// device code of #5; each head's arithmetic, and so every bit, is #5's.
+// (#6's backward, wa_bwd_rows_kernel, does the same with #4's body.)
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 wa_fwd_rows_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
@@ -603,60 +598,6 @@ wa_fwd_rows_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
-// one block per (run of wpb windows, group of g heads): for each head of
-// the group, #4's walk over the run and one dbias partial
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-wa_bwd_rows_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-                   const T* __restrict__ dout, T* __restrict__ dqkv,
-                   float* __restrict__ dbias_part, int bw, int n, int c,
-                   int heads, int d, int g, int wpb, float scale) {
-  constexpr int DT = DMAX / 16;
-  extern __shared__ float smem[];
-  const int groups = heads / g;
-  const int chunk = blockIdx.x / groups;
-  const int h0 = (blockIdx.x % groups) * g;
-  const float scale_t = Num<T>::round(scale);
-  const int w_end = min(bw, (chunk + 1) * wpb);
-  for (int head = h0; head < h0 + g; ++head) {
-    float dbacc[4][4];
-    zero16(dbacc);
-    for (int win = chunk * wpb; win < w_end; ++win) {
-      float gq[4][DT], gk[4][DT], gv[4][DT];
-      attn_bwd_tile<T, DMAX, false>(qkv, p, dout, nullptr, win, head, n, c,
-                                    heads, d, scale_t, smem, dbacc, gq, gk,
-                                    gv);
-      store_dqkv<T, DMAX>(dqkv, win, head, n, c, d, scale, gq, gk, gv);
-      __syncthreads();  // the next tile overwrites shared memory
-    }
-    store_dbias(
-        dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n, n,
-        dbacc);
-  }
-}
-
-template <typename T>
-int launch_bwd_recompute(const void* qkv, const void* bias, const void* mask,
-                         const void* dout, void* dqkv, void* dbias_part,
-                         int bw, int n, int c, int heads, int d, int nw,
-                         int wpb, float scale, cudaStream_t s) {
-  return with_dmax(d, [&](auto dm) {
-    constexpr int DMAX = decltype(dm)::value;
-    constexpr size_t smem = BwdSmem<DMAX>::kBytes;
-    static const cudaError_t attr =
-        grant_smem(wa_bwd_recompute_kernel<T, DMAX>, smem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    const unsigned grid =
-        static_cast<unsigned>((bw + wpb - 1) / wpb) * static_cast<unsigned>(heads);
-    wa_bwd_recompute_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(qkv), static_cast<const float*>(bias),
-        static_cast<const float*>(mask), static_cast<const T*>(dout),
-        static_cast<T*>(dqkv), static_cast<float*>(dbias_part), bw, n, c,
-        heads, d, nw, wpb, scale);
-    return static_cast<int>(cudaGetLastError());
-  });
-}
-
 template <typename T>
 int launch_fwd_rows(const void* qkv, const void* bias, const void* mask,
                     void* out, void* p, int bw, int n, int c, int heads, int d,
@@ -673,27 +614,6 @@ int launch_fwd_rows(const void* qkv, const void* bias, const void* mask,
         static_cast<const T*>(qkv), static_cast<const float*>(bias),
         static_cast<const float*>(mask), static_cast<T*>(out),
         static_cast<T*>(p), n, c, heads, d, nw, g, scale);
-    return static_cast<int>(cudaGetLastError());
-  });
-}
-
-template <typename T>
-int launch_bwd_rows(const void* qkv, const void* p, const void* dout,
-                    void* dqkv, void* dbias_part, int bw, int n, int c,
-                    int heads, int d, int g, int wpb, float scale,
-                    cudaStream_t s) {
-  return with_dmax(d, [&](auto dm) {
-    constexpr int DMAX = decltype(dm)::value;
-    constexpr size_t smem = BwdSmem<DMAX>::kBytes;
-    static const cudaError_t attr =
-        grant_smem(wa_bwd_rows_kernel<T, DMAX>, smem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    const unsigned grid = static_cast<unsigned>((bw + wpb - 1) / wpb) *
-                          static_cast<unsigned>(heads / g);
-    wa_bwd_rows_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(qkv), static_cast<const T*>(p),
-        static_cast<const T*>(dout), static_cast<T*>(dqkv),
-        static_cast<float*>(dbias_part), bw, n, c, heads, d, g, wpb, scale);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -797,11 +717,10 @@ extern "C" int gdl_wa_bwd_launch(const void* qkv, const void* p,
   if (bad_shape(bw, n, c, heads, d) || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dtype(dtype, [&](auto t) {
-    return dispatch_bwd<typename decltype(t)::type, false>(
-        qkv, p, dout, nullptr, dqkv, dbias_part, nullptr, bw, n, c, heads, d,
-        wpb, scale, s);
-  });
+  return dispatch_bwd<Bwd::kDefault>(
+      dtype, bwd_args(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads, d, wpb,
+                      scale),
+      s);
 }
 
 // The same with the softmax row sums given: delta [bw, heads, n] float32,
@@ -815,11 +734,10 @@ extern "C" int gdl_wa_bwd_delta_launch(const void* qkv, const void* p,
   if (bad_shape(bw, n, c, heads, d) || wpb < 1 || delta == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dtype(dtype, [&](auto t) {
-    return dispatch_bwd<typename decltype(t)::type, true>(
-        qkv, p, dout, delta, dqkv, dbias_part, nullptr, bw, n, c, heads, d,
-        wpb, scale, s);
-  });
+  BwdArgs a = bwd_args(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads, d,
+                       wpb, scale);
+  a.delta = static_cast<const float*>(delta);
+  return dispatch_bwd<Bwd::kDelta>(dtype, a, s);
 }
 
 // Kernel #3. qkv, p, dout as above, x [bw, n, c] and w [3c, c] in T;
@@ -842,11 +760,12 @@ extern "C" int gdl_wa_bwd_fused_launch(const void* qkv, const void* p,
       (kc < tokens && kc % 64 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs a = bwd_args(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads, d,
+                       wpb, scale);
+  a.db_part = static_cast<float*>(db_part);
   return with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
-    const int err = dispatch_bwd<T, false, true>(qkv, p, dout, nullptr, dqkv,
-                                                 dbias_part, db_part, bw, n,
-                                                 c, heads, d, wpb, scale, s);
+    const int err = launch_bwd<T, Bwd::kFused>(a, s);
     if (err != 0) return err;
     return wa3::products<T>(dqkv, x, w, dx, dw_part, tokens, c, kc, s);
   });
@@ -918,9 +837,8 @@ extern "C" int gdl_wa_bwd_rows_launch(const void* qkv, const void* p,
   if (bad_shape(bw, n, c, heads, d) || wpb < 1 || g < 1 || heads % g != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dtype(dtype, [&](auto t) {
-    using T = typename decltype(t)::type;
-    return launch_bwd_rows<T>(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads,
-                              d, g, wpb, scale, s);
-  });
+  BwdArgs a = bwd_args(qkv, p, dout, dqkv, dbias_part, bw, n, c, heads, d,
+                       wpb, scale);
+  a.g = g;
+  return dispatch_bwd<Bwd::kRows>(dtype, a, s);
 }

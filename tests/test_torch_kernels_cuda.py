@@ -228,6 +228,135 @@ def test_train_kernels_refuse_what_they_cannot_take(cuda):
             torch.zeros(2, 49, 128, device=cuda), 1)
 
 
+# --- the backward body of #4, #4-delta, #6, #7 and #3's stage A ------------
+
+# window sizes and head dims beyond the Swin-B stages: 64-token windows
+# (window 8), one token, bf16 head dim 12 (24-byte rows: 8-byte copies),
+# 49 tokens at head dim 32 (bf16 p slabs at odd w*H+h start 2 bytes off
+# 16), 25 tokens at head dim 24, head dim 64, and head dim 7 (bf16 rows
+# of 14 bytes: element copies)
+BWD_BODY_SHAPES = [(16, 64, 64, 2), (6, 1, 32, 1), (10, 49, 24, 2),
+                   (7, 49, 64, 2), (6, 25, 72, 3), (4, 49, 128, 2),
+                   (6, 9, 14, 2)]
+BWD_BODY_IDS = ["n64", "n1", "d12", "odd_slabs", "odd", "d64", "d7"]
+
+
+def _guarded(shape, dt, cuda, guard=4096):
+    """A NaN-filled tensor of `shape` at the front of a NaN buffer, and
+    the guard behind it."""
+    size = int(np.prod(shape))
+    buf = torch.full((size + guard,), float("nan"), dtype=dt, device=cuda)
+    return buf[:size].view(shape), buf[size:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bw,n,c,heads", BWD_BODY_SHAPES, ids=BWD_BODY_IDS)
+def test_bwd_body_launchers_write_exactly_their_outputs(cuda, bw, n, c,
+                                                        heads, dtype):
+    """The five launchers on the one backward body (#4, #4-delta, #6's and
+    #7's backward, #3's stage A), called at their C entries with runs of 3
+    windows (a ragged last run) and p at an element offset of 1 (its slabs'
+    alignment moves): dqkv, the dbias partials and #3's db partials
+    prefilled with NaN at the front of larger NaN buffers come out finite
+    and leave the buffers' tails NaN (every element written, nothing past
+    them); each against its plain version at the gradient bar; equal bits
+    on a rerun; #6's and #3's dqkv bit-equal to #4's."""
+    import ctypes
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    rng = np.random.default_rng(bw * n + c)
+    dt = getattr(torch, dtype)
+    code = {"float32": 0, "bfloat16": 1}[dtype]
+    d = c // heads
+    scale = d ** -0.5
+    nw = 2 if bw % 2 == 0 else 1
+    wpb, runs = 3, -(-bw // 3)
+    scores = rng.standard_normal((bw, heads, n, n))
+    pn = np.exp(scores - scores.max(-1, keepdims=True))
+    pn /= pn.sum(-1, keepdims=True)
+
+    def dev(a, to=dt):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(cuda, to)
+
+    qkv = dev(rng.standard_normal((bw, n, 3 * c)))
+    dout = dev(rng.standard_normal((bw, n, c)))
+    pbuf = torch.zeros(1 + bw * heads * n * n, dtype=dt, device=cuda)
+    pbuf[1:] = dev(pn.reshape(-1))
+    p = pbuf[1:].view(bw, heads, n, n)
+    bias = dev(rng.standard_normal((heads, n, n)) * 0.5, torch.float32)
+    mask = (dev(np.where(rng.random((nw, n, n)) < 0.2, -100.0, 0.0),
+                torch.float32) if nw > 1 else None)
+    delta = dev(rng.standard_normal((bw, heads, n)), torch.float32)
+    x = dev(rng.standard_normal((bw, n, c)))
+    w = dev(rng.standard_normal((3 * c, c)) * c ** -0.5)
+    lib = kernels.load("window_attention_train")
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    g = wa.head_group(heads, d)
+
+    def launch(kind):
+        dqkv, dq_tail = _guarded((bw, n, 3 * c), dt, cuda)
+        parts, parts_tail = _guarded((runs, heads, n, n), torch.float32, cuda)
+        db, db_tail = _guarded((runs, 3 * c), torch.float32, cuda)
+        ptr = (lambda t: None if t is None else ctypes.c_void_p(t.data_ptr()))
+        shape = (bw, n, c, heads, d)
+        if kind == "4":
+            err = lib.gdl_wa_bwd_launch(ptr(qkv), ptr(p), ptr(dout),
+                                        ptr(dqkv), ptr(parts), *shape, wpb,
+                                        scale, code, stream)
+        elif kind == "4_delta":
+            err = lib.gdl_wa_bwd_delta_launch(
+                ptr(qkv), ptr(p), ptr(dout), ptr(delta), ptr(dqkv),
+                ptr(parts), *shape, wpb, scale, code, stream)
+        elif kind == "6":
+            err = lib.gdl_wa_bwd_rows_launch(ptr(qkv), ptr(p), ptr(dout),
+                                             ptr(dqkv), ptr(parts), *shape,
+                                             g, wpb, scale, code, stream)
+        elif kind == "7":
+            err = lib.gdl_wa_bwd_recompute_launch(
+                ptr(qkv), ptr(bias), ptr(mask), ptr(dout), ptr(dqkv),
+                ptr(parts), *shape, nw, wpb, scale, code, stream)
+        else:
+            dx = torch.empty_like(x)
+            dw = torch.empty((1, 3 * c, c), dtype=torch.float32, device=cuda)
+            err = lib.gdl_wa_bwd_fused_launch(
+                ptr(qkv), ptr(p), ptr(dout), ptr(x), ptr(w), ptr(dqkv),
+                ptr(dx), ptr(dw), ptr(db), ptr(parts), *shape, wpb, bw * n,
+                scale, code, stream)
+        assert err == 0, (kind, err)
+        torch.cuda.synchronize()
+        for out, tail in ((dqkv, dq_tail), (parts, parts_tail)) + (
+                ((db, db_tail),) if kind == "3" else ()):
+            assert bool(torch.isfinite(out.float()).all()), kind
+            assert bool(torch.isnan(tail.float()).all()), kind
+        return dqkv, parts, db
+
+    with torch.no_grad():
+        got = {k: launch(k) for k in ("4", "4_delta", "6", "7", "3")}
+        again = {k: launch(k) for k in got}
+        want = {
+            "4": wa.window_attention_qkv_fused_bwd_ref(qkv, p, dout, heads,
+                                                       scale),
+            "4_delta": wa.window_attention_qkv_fused_bwd_ref(
+                qkv, p, dout, heads, scale, delta=delta),
+            "7": wa.window_attention_qkv_recompute_bwd_ref(
+                qkv, bias, mask, dout, heads, scale)}
+    want["6"] = want["3"] = want["4"]
+    for k, (dqkv, parts, db) in got.items():
+        assert torch.equal(dqkv, again[k][0]), k
+        assert torch.equal(parts, again[k][1]), k
+        _close(dqkv, want[k][0], dtype, "grad")
+        _close(parts.sum(0), want[k][1], dtype, "grad")
+    assert torch.equal(got["6"][0], got["4"][0])
+    assert torch.equal(got["3"][0], got["4"][0])
+    assert torch.equal(got["3"][1], got["4"][1])
+    assert torch.equal(got["3"][2], again["3"][2])
+    _close(got["3"][2].sum(0), got["4"][0].float().sum((0, 1)), dtype,
+           "grad")
+
+
 # --- kernel #16: the stem max-pool's backward -------------------------------
 
 POOL_SHAPES = [(64, 112, 112, 64), (64, 129, 94, 64), (2, 7, 9, 8),
@@ -1720,65 +1849,69 @@ def _kernel3_digests(cuda) -> dict:
     return out
 
 
-# _kernel3_digests as the parent tree's kernels gave them (run on an
-# NVIDIA H100 80GB HBM3 by this file's _kernel3_digests), before #2's and
-# #1's projection joined the GEMM tile's instantiations
+# _kernel3_digests as the kernels gave them (run on an NVIDIA H100 80GB
+# HBM3 by this file's _kernel3_digests) once #3's attention stage moved
+# onto the tensor-core backward body (window_attention_bwd.cuh), whose
+# sums take another order than the first design's; recorded before
+# that from the tree before #2's and #1's projection joined the tile
 KERNEL3_DIGESTS_BEFORE = {
     "3_20_96_dW_bfloat16":
-        "ed81f74d11056ffeb05ee3ce2cf8aee79b55c81612a0cd92fe087f7a80188ec4",
+        "1191f25c9d19ca9ad2af5cb8460e8ac41ad29f32e073766d176865ab09ec2e44",
     "3_20_96_dW_float32":
-        "609500b9b6c5a6c9deb6714e8cb6b69ef93af7aa7907d6359497256af5ed29c7",
+        "0655d45af3e886703bf2c1cfef7063750b7268d964a3a947dfef1a45194e0244",
     "3_20_96_db_bfloat16":
-        "441a94331f98aec429fe199ebe2489f64c9af486cbe6b49a0f9cccc73e9be0f9",
+        "2354ddc4120847f30d04133d3207a470242f48a4e4c3c111f929f95f9ebc1c96",
     "3_20_96_db_float32":
-        "7115e0a8ef638c7507bc7ca209dbdc6c4caca8ffdcf643b64674b74f0abffc36",
+        "d09d7dcd567bacc0530801efd2406c95b6b2476714154d16ddf96b56d183c75b",
     "3_20_96_dbias_bfloat16":
-        "ab233c020f03fe2840f156af37606bc0547091d526a09a308ef57e132afdf835",
+        "92d88cde7da99897798e1ce26fcbfb59c638a95850064f6a55f4fe0d00af4a89",
     "3_20_96_dbias_float32":
-        "6add8378b791b6a070311257051197f6df3f65e922b61db73befd25b2d624ffb",
+        "99b80f9aa736237026126406b01e35ad4a063c4d688e8e540f7e58a6cacb832a",
     "3_20_96_dx_bfloat16":
-        "6b1901d0932956ce1047b518f277ca3e6c330b815b46b0600ff3ee0679a73d71",
+        "596ddde2723dcef11e28576bee1c4e0ec97e9c956112d1a1b26c124978a2c5f7",
     "3_20_96_dx_float32":
-        "e4468ccf27dcc487f402ff6e44a97b473f755c192dfd36b4fca06d6bce28914d",
+        "ff5c792b6331427d3ca51fa678e520b6c8105f21334b0762ef9f982e7672b917",
     "3_32_1024_dW_bfloat16":
-        "37685c1815c056576183ec8ca390d8b0954ff72bb3c15f664816c5745cf025f4",
+        "5d16f279a4dee6c1d205c674c7ff89c236d75fee1af6a69938be555442292b37",
     "3_32_1024_dW_float32":
-        "fd607a760c500bc60e2d675f6cc7c02d283f23fe028591a202225548bc7591b3",
+        "09c742ce71b4127d91e59a267791d8d482e054ac61ac609badc215efd9e36546",
     "3_32_1024_db_bfloat16":
-        "35f37a57dd59057ee47fd381bcc94e0124b53e671aff348e30502cc182aca1aa",
+        "3b2c1b4a23842d2335855a89c56c5d2c8e034b8dfd04ea375acf8c569ad45322",
     "3_32_1024_db_float32":
-        "6649a5e984dd51d170f0da1962e9b6ab37c5144bec5c3ed50e9285e08d23f249",
+        "2e31bb9d423aa8f50b8d0d643559dcd43c05c3fd3ecce6bbc1b3efd49429af95",
     "3_32_1024_dbias_bfloat16":
-        "2cadf432712bd285d8bf42dce629d27bbb38eb1489a834dd0fa02a5ba2c78fe6",
+        "7c486c6b8c9d3abb84e503d9761826261157492f8654cb79bd68b0356191e78f",
     "3_32_1024_dbias_float32":
-        "d244903bf3ada12e7227f800d9f4c6f2d459bc6969b49c66392c81b5ed9ca900",
+        "2a3f4219c84be339473e9069f70121a5dc5697e4090464cd4e058740dc518349",
     "3_32_1024_dx_bfloat16":
-        "078e4f863e6dae9d49cecb627e4528b686fc2d2cb6f61d18c3644234ad1c91e6",
+        "2d7a8abc709006bd3e51804c2acb33b3dd22311110be00f01aa70e18cb500916",
     "3_32_1024_dx_float32":
-        "c1c45ba7b2aa6106f262186ee7dd036950b01d372a33c8739aefefb62620f7b1",
+        "d0bae81ab5dbc85a21ed8728f499f1ce49cc7ecbf0f43613075a9ae20b666040",
     "3_512_256_dW_bfloat16":
-        "f2b633a77d83a159d7569700eddc52230752045ec2b61b385e731be548f65528",
+        "75afbe66bac0d5697a1e78b35051d6987e134ff04ef5ea407836f315ded4cac6",
     "3_512_256_dW_float32":
-        "8b1cc4268fcbb9c5bbccbde8582b44779f662ef64c7bef40887de1248564d460",
+        "b5269ee8bd10da739b761501be0c80ec5c26b94cdfcd61122f7cc301a7b74f76",
     "3_512_256_db_bfloat16":
-        "3fb2f12fd8e322a4c0e6989c2df6ab080ae178eb67b535ebbe7e0699e95d3690",
+        "da1fc7c0c89aa56882ce7f6e5b435721bcc050f98b92c3178e95c8d430165429",
     "3_512_256_db_float32":
-        "ac3a3fea5a80952ec56abe3850f2b9692738a8022e9886fb77569c58db70164c",
+        "fcbdf26189db98950d204080a9aa6e714b8676995b261cabe20b483440c46aa6",
     "3_512_256_dbias_bfloat16":
-        "b7fb163a34c33c3e6c12e4a61471c4b408145ce760144f5846a9cfa1062f0a2f",
+        "f5cbe5cdc302e933dfe60d1e6b57c1c7070b7d3c624f61c61ad2a04395d4dfe8",
     "3_512_256_dbias_float32":
-        "cf4373ef900bd8014f2a0e9b0c65ce3fea81ba2785040573368b9fde803616de",
+        "2f18e7f7feec916fa3350c3a664ab8e92e35cd21ae4fa9643d018536313c9a2c",
     "3_512_256_dx_bfloat16":
-        "aa76634bb87323317e9a365f2810820793fec50081799900455c27c131514ffa",
+        "13b88849736566610635bade1c5564c5f5bd803f2afb659b3886e0f787947ff0",
     "3_512_256_dx_float32":
-        "3e8af6c12572a04aa0304f048a2650f21f8d650e9db7aa24ad58be14f3700429",
+        "a85f2ca3933f6ed83edeb3234a576c3e3e965d82927189e4869e72a938920754",
 }
 
 
 @pytest.mark.cuda
 def test_tile_instantiations_of_3_keep_their_bits(cuda):
-    """#3's products on the GEMM tile (and the rest of #3) give the same
-    bits as before #2's and #1's projection took the tile."""
+    """#3's products on the GEMM tile (and the rest of #3) keep the bits
+    recorded once its attention stage took the tensor-core backward body
+    (they kept them, before that, when #2's and #1's projection took the
+    tile)."""
     got = _kernel3_digests(cuda)
     assert set(got) == set(KERNEL3_DIGESTS_BEFORE)
     changed = sorted(k for k in got if got[k] != KERNEL3_DIGESTS_BEFORE[k])

@@ -19,12 +19,9 @@ K13 = "self_attention (#10, #12, #13)"
 
 @pytest.mark.parametrize("symbol,kind", [
     ("void (anonymous namespace)::wa_bwd_fused_attn_kernel<__nv_bfloat16, "
-     "32>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*,"
-     " float const*, __nv_bfloat16*, float*, float*, int, int, int, int, "
-     "int, int, float)", K3),
+     "32>((anonymous namespace)::BwdArgs)", K3),
     ("void (anonymous namespace)::wa_bwd_fused_attn_kernel<float, 64>("
-     "float const*, float const*, float const*, float const*, float*, "
-     "float*, float*, int, int, int, int, int, int, float)", K3),
+     "(anonymous namespace)::BwdArgs)", K3),
     ("void gemm::(anonymous namespace)::gemm_tile_kernel<__nv_bfloat16, "
      "128, wa3::Dx, gemm::(anonymous namespace)::KInner, gemm::(anonymous "
      "namespace)::KOuter, gemm::(anonymous namespace)::RoundT>(gemm::"
@@ -44,12 +41,9 @@ K13 = "self_attention (#10, #12, #13)"
     # #4 and #4-delta keep their own kernel and row; #13's projection keeps
     # the identity epilogue and its row
     ("void (anonymous namespace)::wa_bwd_kernel<__nv_bfloat16, 32, false>("
-     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
-     "float const*, __nv_bfloat16*, float*, float*, int, int, int, int, "
-     "int, int, float)", K4),
-    ("void (anonymous namespace)::wa_bwd_kernel<float, 64, true>(float "
-     "const*, float const*, float const*, float const*, float*, float*, "
-     "float*, int, int, int, int, int, int, float)", K4),
+     "(anonymous namespace)::BwdArgs)", K4),
+    ("void (anonymous namespace)::wa_bwd_kernel<float, 64, true>("
+     "(anonymous namespace)::BwdArgs)", K4),
     ("void gemm::(anonymous namespace)::gemm_tile_kernel<float, 128, "
      "gemm::(anonymous namespace)::Identity, gemm::(anonymous namespace)::"
      "KInner, gemm::(anonymous namespace)::KInner, gemm::(anonymous "
@@ -184,8 +178,8 @@ def test_kernel_3_has_one_entry_and_shares_4s_body():
     assert not any("products" in e for e in _TRAIN_ENTRIES)
     assert not any("products" in k for k in kernels.launch_counts)
     assert not hasattr(wa, "_launch_bwd_products")
-    assert source.count("bwd_windows<T, DMAX, DELTA, false>(") == 1
-    assert source.count("bwd_windows<T, DMAX, false, true>(") == 1
+    assert source.count("bwd_windows<T, DMAX, DELTA, false, false>(") == 1
+    assert source.count("bwd_windows<T, DMAX, false, false, true>(") == 1
 
 
 def test_kernel_3_launcher_refuses_cpu_tensors():
@@ -208,3 +202,4 @@ def test_kernel_3_launcher_refuses_cpu_tensors():
     assert kernels.launch_counts == before
     assert tuple(dx.shape) == (bw, n, c) and tuple(dw.shape) == (3 * c, c)
     assert tuple(db.shape) == (3 * c,) and tuple(dbias.shape) == (heads, n, n)
+
