@@ -55,9 +55,9 @@
 //   128 where the heads allow) in turn instead of owning one head, so the
 //   grid has heads / g times fewer, longer blocks. Equal bits to #5 and #4.
 //
-// Design of the backwards (#4, #4-delta, #6's, and #3's attention stage:
-// one device body, bwd_windows of window_attention_bwd.cuh, in four
-// kernels; #7's backward still runs the first design, kept below). A block of four warps owns
+// Design of the backwards (#4, #4-delta, #6's and #7's, and #3's
+// attention stage: one device body, bwd_windows of
+// window_attention_bwd.cuh, in five kernels). A block of four warps owns
 // one head (#6: walks its group of heads in turn) and a fixed run of `wpb`
 // consecutive windows, and keeps its share of dbias in registers across
 // the run; each block writes one dbias partial [N, N] per head, which the
@@ -150,6 +150,15 @@ __global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
   bwd_windows<T, DMAX, false, false, true>(a);
 }
 
+// #7's backward: p computed again from q, k, bias and mask, unrounded in
+// ds and rounded to T as dv's operand; no p read
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kBwdThreads,
+                                  BwdLayout<T, DMAX, true>::MIN_BLOCKS)
+    wa_bwd_recompute_kernel(BwdArgs a) {
+  bwd_windows<T, DMAX, false, true, false>(a);
+}
+
 // #6's backward: #4's body per head (so #4's dqkv bits), a block walking
 // a group of g heads in turn over its run, one dbias partial per head
 template <typename T, int DMAX>
@@ -158,13 +167,15 @@ __global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
   bwd_windows<T, DMAX, false, false, false>(a);
 }
 
-enum class Bwd { kDefault, kDelta, kFused, kRows };
+enum class Bwd { kDefault, kDelta, kFused, kRecompute, kRows };
 
 template <typename T, int DMAX, Bwd K>
 auto bwd_kernel() {
   if constexpr (K == Bwd::kDefault) return wa_bwd_kernel<T, DMAX, false>;
   else if constexpr (K == Bwd::kDelta) return wa_bwd_kernel<T, DMAX, true>;
   else if constexpr (K == Bwd::kFused) return wa_bwd_fused_attn_kernel<T, DMAX>;
+  else if constexpr (K == Bwd::kRecompute)
+    return wa_bwd_recompute_kernel<T, DMAX>;
   else return wa_bwd_rows_kernel<T, DMAX>;
 }
 
@@ -188,7 +199,7 @@ int launch_bwd(BwdArgs a, cudaStream_t s) {
             reinterpret_cast<uintptr_t>(a.dqkv) % (2 * sizeof(T)) == 0;
   return with_dmax(a.d, [&](auto dm) {
     constexpr int DMAX = decltype(dm)::value;
-    using L = BwdLayout<T, DMAX>;
+    using L = BwdLayout<T, DMAX, K == Bwd::kRecompute>;
     const size_t smem = L::bytes(a.n);
     const auto kernel = bwd_kernel<T, DMAX, K>();
     static const cudaError_t attr = grant_smem(kernel, L::kMaxBytes);
@@ -230,8 +241,8 @@ int dispatch_bwd(int dtype, const BwdArgs& a, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// attention backward of one (window, head), the first design: kernel #7's
-// backward until it moves to bwd_windows
+// attention backward of one (window, head), the first design, no longer
+// launched
 // ---------------------------------------------------------------------------
 
 template <int DMAX>
@@ -501,64 +512,6 @@ __device__ __forceinline__ void store_dbias(float* part, int n,
 }
 
 // ---------------------------------------------------------------------------
-// kernel #7's backward: p computed again from qkv, bias and mask
-// ---------------------------------------------------------------------------
-
-// #4's blocks (one head, a run of wpb windows, one dbias partial each),
-// with attn_bwd_tile<RECOMPUTE>: one more N x N x d product per (window,
-// head), the scores, and no p read.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-wa_bwd_recompute_kernel(const T* __restrict__ qkv,
-                        const float* __restrict__ bias,
-                        const float* __restrict__ mask,
-                        const T* __restrict__ dout, T* __restrict__ dqkv,
-                        float* __restrict__ dbias_part, int bw, int n, int c,
-                        int heads, int d, int nw, int wpb, float scale) {
-  constexpr int DT = DMAX / 16;
-  extern __shared__ float smem[];
-  const int chunk = blockIdx.x / heads;
-  const int head = blockIdx.x % heads;
-  const float scale_t = Num<T>::round(scale);
-  float dbacc[4][4];
-  zero16(dbacc);
-  const int w_end = min(bw, (chunk + 1) * wpb);
-  for (int win = chunk * wpb; win < w_end; ++win) {
-    float gq[4][DT], gk[4][DT], gv[4][DT];
-    attn_bwd_tile<T, DMAX, false, true>(qkv, nullptr, dout, nullptr, win,
-                                        head, n, c, heads, d, scale_t, smem,
-                                        dbacc, gq, gk, gv, bias, mask, nw);
-    store_dqkv<T, DMAX>(dqkv, win, head, n, c, d, scale, gq, gk, gv);
-    __syncthreads();  // the next window overwrites shared memory
-  }
-  store_dbias(
-      dbias_part + (static_cast<size_t>(chunk) * heads + head) * n * n, n,
-      dbacc);
-}
-
-template <typename T>
-int launch_bwd_recompute(const void* qkv, const void* bias, const void* mask,
-                         const void* dout, void* dqkv, void* dbias_part,
-                         int bw, int n, int c, int heads, int d, int nw,
-                         int wpb, float scale, cudaStream_t s) {
-  return with_dmax(d, [&](auto dm) {
-    constexpr int DMAX = decltype(dm)::value;
-    constexpr size_t smem = BwdSmem<DMAX>::kBytes;
-    static const cudaError_t attr =
-        grant_smem(wa_bwd_recompute_kernel<T, DMAX>, smem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    const unsigned grid =
-        static_cast<unsigned>((bw + wpb - 1) / wpb) * static_cast<unsigned>(heads);
-    wa_bwd_recompute_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(qkv), static_cast<const float*>(bias),
-        static_cast<const float*>(mask), static_cast<const T*>(dout),
-        static_cast<T*>(dqkv), static_cast<float*>(dbias_part), bw, n, c,
-        heads, d, nw, wpb, scale);
-    return static_cast<int>(cudaGetLastError());
-  });
-}
-
-// ---------------------------------------------------------------------------
 // kernel #6's forward: a group of heads per block
 // ---------------------------------------------------------------------------
 
@@ -801,11 +754,12 @@ extern "C" int gdl_wa_bwd_recompute_launch(const void* qkv, const void* bias,
   if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0 || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dtype(dtype, [&](auto t) {
-    using T = typename decltype(t)::type;
-    return launch_bwd_recompute<T>(qkv, bias, mask, dout, dqkv, dbias_part,
-                                   bw, n, c, heads, d, nw, wpb, scale, s);
-  });
+  BwdArgs a = bwd_args(qkv, nullptr, dout, dqkv, dbias_part, bw, n, c, heads,
+                       d, wpb, scale);
+  a.bias = static_cast<const float*>(bias);
+  a.mask = static_cast<const float*>(mask);
+  a.nw = nw;
+  return dispatch_bwd<Bwd::kRecompute>(dtype, a, s);
 }
 
 // Kernel #6's forward: as gdl_wa_qkv_savep_launch (writes out and p), a
