@@ -241,277 +241,6 @@ int dispatch_bwd(int dtype, const BwdArgs& a, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// attention backward of one (window, head), the first design, no longer
-// launched
-// ---------------------------------------------------------------------------
-
-template <int DMAX>
-struct BwdSmem {
-  static constexpr int kLdQ = DMAX + 1;
-  static constexpr int kLdP = kNP + 1;
-  // qs (scaled q), ks, vs, gs (dout) [kNP][kLdQ]; ps, dss [kNP][kLdP]
-  static constexpr int kQkvg = 4 * kNP * kLdQ;
-  static constexpr int kFloats = kQkvg + 2 * kNP * kLdP;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
-};
-
-// Loads q (scaled in T), k, v, dout and p of (win, head) into shared
-// memory, forms ds (adding it to dbacc: rows ty+16a, columns tx+16j) and
-// leaves dq (not yet scaled), dk, dv of rows ty+16a and head-dim columns
-// tx+16j in gq, gk, gv; padded rows and columns come out 0. Every thread
-// of the block calls it; the caller synchronises before shared memory is
-// written again. With DELTA the softmax row sums are read from
-// delta [Bw, H, N]. With RECOMPUTE p is not read: it is computed again
-// from q, k, bias [H, N, N] and mask [nw, N, N] (or null) as the forward
-// computes it, and kept in f32; it is rounded to T only as the operand of
-// dv = p^T . dout (kernel #7's rounding points).
-template <typename T, int DMAX, bool DELTA, bool RECOMPUTE = false>
-__device__ __forceinline__ void attn_bwd_tile(
-    const T* __restrict__ qkv, const T* __restrict__ p,
-    const T* __restrict__ dout, const float* __restrict__ delta, int win,
-    int head, int n, int c, int heads, int d, float scale_t, float* smem,
-    float (&dbacc)[4][4], float (&gq)[4][DMAX / 16], float (&gk)[4][DMAX / 16],
-    float (&gv)[4][DMAX / 16], const float* __restrict__ bias = nullptr,
-    const float* __restrict__ mask = nullptr, int nw = 1) {
-  using S = BwdSmem<DMAX>;
-  constexpr int DT = DMAX / 16;  // head-dim columns per thread
-  float* qs = smem;
-  float* ks = qs + kNP * S::kLdQ;
-  float* vs = ks + kNP * S::kLdQ;
-  float* gs = vs + kNP * S::kLdQ;
-  float* ps = gs + kNP * S::kLdQ;
-  float* dss = ps + kNP * S::kLdP;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int c3 = 3 * c;
-
-  // ---- load q (scaled in T), k, v, dout of this head; p ---------------
-  const T* qkv_w = qkv + static_cast<size_t>(win) * n * c3 + head * d;
-  const T* g_w = dout + static_cast<size_t>(win) * n * c + head * d;
-  for (int e = tid; e < kNP * DMAX; e += kThreads) {
-    const int r = e / DMAX, dd = e % DMAX;
-    float q = 0.f, k = 0.f, v = 0.f, g = 0.f;
-    if (r < n && dd < d) {
-      const T* row = qkv_w + static_cast<size_t>(r) * c3 + dd;
-      q = Num<T>::round(Num<T>::load(row) * scale_t);
-      k = Num<T>::load(row + c);
-      v = Num<T>::load(row + 2 * c);
-      g = Num<T>::load(g_w + static_cast<size_t>(r) * c + dd);
-    }
-    qs[r * S::kLdQ + dd] = q;
-    ks[r * S::kLdQ + dd] = k;
-    vs[r * S::kLdQ + dd] = v;
-    gs[r * S::kLdQ + dd] = g;
-  }
-  if constexpr (RECOMPUTE) {
-    __syncthreads();  // q and k are in shared memory
-    // s = q . k^T + bias[h] + mask (f32), 0 outside [n, n]
-    const float* bh = bias + static_cast<size_t>(head) * n * n;
-    const float* mw =
-        mask != nullptr ? mask + static_cast<size_t>(win % nw) * n * n
-                        : nullptr;
-    float sacc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sacc[a][j] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qv[a] = qs[(ty + 16 * a) * S::kLdQ + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * S::kLdQ + k];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sacc[a][j] = fmaf(qv[a], kv[j], sacc[a][j]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int jj = tx + 16 * j;
-        float sv = 0.f;
-        if (i < n && jj < n) {
-          sv = sacc[a][j] + bh[i * n + jj];
-          if (mw != nullptr) sv += mw[i * n + jj];
-        }
-        ps[i * S::kLdP + jj] = sv;
-      }
-    }
-    __syncthreads();
-    // p = softmax(s) over keys in f32, one warp per row, NOT rounded;
-    // padded rows and columns stay 0
-    const int lane = tid % 32;
-    for (int i = tid / 32; i < n; i += kThreads / 32) {
-      float* row = ps + i * S::kLdP;
-      const float s0 = lane < n ? row[lane] : -CUDART_INF_F;
-      const float s1 = lane + 32 < n ? row[lane + 32] : -CUDART_INF_F;
-      float m = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const float e0 = lane < n ? expf(s0 - m) : 0.f;
-      const float e1 = lane + 32 < n ? expf(s1 - m) : 0.f;
-      float sum = e0 + e1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane < n) row[lane] = e0 / sum;
-      if (lane + 32 < n) row[lane + 32] = e1 / sum;
-    }
-  } else {
-    const T* p_w = p + (static_cast<size_t>(win) * heads + head) * n * n;
-    for (int e = tid; e < kNP * kNP; e += kThreads) {
-      const int i = e / kNP, j = e % kNP;
-      ps[i * S::kLdP + j] = (i < n && j < n) ? Num<T>::load(p_w + i * n + j)
-                                             : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // ---- dp = dout . v^T; ds = p * (dp - rowsum(dp * p)), f32 -----------
-  {
-    float dp[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dp[a][j] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      float gvv[4], vv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) gvv[a] = gs[(ty + 16 * a) * S::kLdQ + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = vs[(tx + 16 * j) * S::kLdQ + k];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dp[a][j] = fmaf(gvv[a], vv[j], dp[a][j]);
-    }
-    float pr[4][4], rs[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pr[a][j] = ps[(ty + 16 * a) * S::kLdP + tx + 16 * j];
-    if constexpr (DELTA) {
-      const float* dl = delta + (static_cast<size_t>(win) * heads + head) * n;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        rs[a] = ty + 16 * a < n ? dl[ty + 16 * a] : 0.f;
-    } else {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        rs[a] = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) rs[a] = fmaf(dp[a][j], pr[a][j], rs[a]);
-      }
-      // the 16 threads of a half-warp share ty, so they hold one row's
-      // 64 columns between them
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          rs[a] += __shfl_xor_sync(0xffffffffu, rs[a], o);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // padded rows and columns have p = 0, so ds = 0 there
-        const float ds = pr[a][j] * (dp[a][j] - rs[a]);
-        dbacc[a][j] += ds;
-        dss[(ty + 16 * a) * S::kLdP + tx + 16 * j] = Num<T>::round(ds);
-      }
-  }
-  __syncthreads();
-
-  // ---- dq = ds . k, dk = ds^T . q_scaled, dv = p^T . dout -------------
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < DT; ++j) gq[a][j] = gk[a][j] = gv[a][j] = 0.f;
-  for (int t = 0; t < n; ++t) {
-    float ds_row[4], ds_col[4], p_col[4], kv[DT], qv[DT], dv[DT];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      ds_row[a] = dss[(ty + 16 * a) * S::kLdP + t];  // ds[i, t]
-      ds_col[a] = dss[t * S::kLdP + ty + 16 * a];    // ds[t, j]
-      p_col[a] = ps[t * S::kLdP + ty + 16 * a];      // p[t, j]
-      if constexpr (RECOMPUTE) p_col[a] = Num<T>::round(p_col[a]);
-    }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      kv[j] = ks[t * S::kLdQ + tx + 16 * j];
-      qv[j] = qs[t * S::kLdQ + tx + 16 * j];
-      dv[j] = gs[t * S::kLdQ + tx + 16 * j];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        gq[a][j] = fmaf(ds_row[a], kv[j], gq[a][j]);
-        gk[a][j] = fmaf(ds_col[a], qv[j], gk[a][j]);
-        gv[a][j] = fmaf(p_col[a], dv[j], gv[a][j]);
-      }
-  }
-}
-
-__device__ __forceinline__ void zero16(float (&acc)[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
-}
-
-// this thread's dq (scaled here, in f32), dk and dv of (win, head) into
-// dqkv [Bw, N, 3C] in T: rows ty+16a, head-dim columns tx+16j
-template <typename T, int DMAX>
-__device__ __forceinline__ void store_dqkv(T* __restrict__ dqkv, int win,
-                                           int head, int n, int c, int d,
-                                           float scale,
-                                           const float (&gq)[4][DMAX / 16],
-                                           const float (&gk)[4][DMAX / 16],
-                                           const float (&gv)[4][DMAX / 16]) {
-  constexpr int DT = DMAX / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int c3 = 3 * c;
-  T* dw = dqkv + static_cast<size_t>(win) * n * c3 + head * d;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = ty + 16 * a;
-    if (i >= n) continue;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = tx + 16 * j;
-      if (col >= d) continue;
-      T* row = dw + static_cast<size_t>(i) * c3 + col;
-      row[0] = Num<T>::store(gq[a][j] * scale);
-      row[c] = Num<T>::store(gk[a][j]);
-      row[2 * c] = Num<T>::store(gv[a][j]);
-    }
-  }
-}
-
-// this thread's share of a dbias partial: rows ty+16a, columns tx+16j
-__device__ __forceinline__ void store_dbias(float* part, int n,
-                                            const float (&dbacc)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = ty + 16 * a;
-    if (i >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int jj = tx + 16 * j;
-      if (jj < n) part[i * n + jj] = dbacc[a][j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // kernel #6's forward: a group of heads per block
 // ---------------------------------------------------------------------------
 

@@ -203,3 +203,20 @@ def test_kernel_3_launcher_refuses_cpu_tensors():
     assert tuple(dx.shape) == (bw, n, c) and tuple(dw.shape) == (3 * c, c)
     assert tuple(db.shape) == (3 * c,) and tuple(dbias.shape) == (heads, n, n)
 
+
+def test_simt_attention_backward_body_is_gone():
+    """The first design's backward body (attn_bwd_tile on f32 shared
+    memory, BwdSmem) is deleted; the five backward kernels (#4, #4-delta,
+    #3's stage A, #6's and #7's backward) are bwd_windows of the new
+    header, with a mode each."""
+    source = (kernels.KERNEL_DIR / _TRAIN_SOURCE).read_text()
+    body = (kernels.KERNEL_DIR / "window_attention_bwd.cuh").read_text()
+    for gone in ("attn_bwd_tile", "BwdSmem", "store_dqkv", "zero16"):
+        assert gone not in source and gone not in body, gone
+    assert '#include "window_attention_bwd.cuh"' in source
+    for call in ("bwd_windows<T, DMAX, DELTA, false, false>(a)",
+                 "bwd_windows<T, DMAX, false, false, true>(a)",
+                 "bwd_windows<T, DMAX, false, true, false>(a)",
+                 "bwd_windows<T, DMAX, false, false, false>(a)"):
+        assert source.count(call) == 1, call
+    assert "mma_bf16" in body and "ldsm_x4_trans" in body
