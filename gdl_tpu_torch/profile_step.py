@@ -63,8 +63,10 @@ KINDS = (
     ("window_attention_bwd_recompute (#7)", ("wa_bwd_recompute_kernel",)),
     ("window_attention_bhnd (#8, #9)", ("wa_bhnd_kernel",
                                         "wa_packed_kernel")),
-    ("window_attention (#1, #2, #4, #5, #7 forward)", ("wa_fwd_kernel",
-                                                      "wa_bwd_kernel")),
+    # #4 and #4-delta (the backward from the saved p) apart from the
+    # forwards' attention
+    ("window_attention_bwd (#4)", ("wa_bwd_kernel",)),
+    ("window_attention (#1, #2, #5, #7 forward)", ("wa_fwd_kernel",)),
     ("batch_norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm")),
     # cuDNN's FFT convolution algorithms also call cuBLAS complex GEMMs,
     # which land under "gemm"

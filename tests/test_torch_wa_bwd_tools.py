@@ -13,7 +13,7 @@ import pytest
 from gdl_tpu_torch import kernels
 
 K3 = "window_attention_bwd_fused (#3)"
-K4 = "window_attention (#1, #2, #4, #5, #7 forward)"
+K4 = "window_attention_bwd (#4)"
 K13 = "self_attention (#10, #12, #13)"
 
 

@@ -18,7 +18,7 @@ from test_torch_mlp_tools import _entry_points
 
 REPO = Path(__file__).resolve().parents[1]
 PROJ = "window_attention_proj (#1, #2)"
-ATTN = "window_attention (#1, #2, #4, #5, #7 forward)"
+ATTN = "window_attention (#1, #2, #5, #7 forward)"
 SA = "self_attention (#10, #12, #13)"
 
 

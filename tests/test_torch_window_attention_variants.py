@@ -365,3 +365,27 @@ def test_profile_kinds_name_every_new_kernel_symbol():
              "sort")):
         assert kind_of(symbol) == kind, symbol
     assert kind_of("void some_other_kernel<float>(float*)") == "other"
+
+
+@pytest.mark.parametrize("symbol,kind", [
+    ("wa_bwd_kernel<__nv_bfloat16, 32, false>", "window_attention_bwd (#4)"),
+    ("wa_bwd_kernel<float, 64, true>", "window_attention_bwd (#4)"),
+    ("wa_bwd_fused_attn_kernel<float, 32>",
+     "window_attention_bwd_fused (#3)"),
+    ("wa_bwd_rows_kernel<__nv_bfloat16, 16>", "window_attention_rows (#6)"),
+    ("wa_bwd_recompute_kernel<float, 32>",
+     "window_attention_bwd_recompute (#7)"),
+    ("wa_fwd_kernel<__nv_bfloat16, 32, true>",
+     "window_attention (#1, #2, #5, #7 forward)"),
+])
+def test_profile_kinds_file_the_backward_symbols_under_their_rows(symbol,
+                                                                   kind):
+    """The backward kernels on the one body, each taking the BwdArgs of
+    window_attention_bwd.cuh, are filed by profile_step: #4 and #4-delta
+    under a row of their own, apart from the forwards' attention
+    (wa_fwd_kernel), and #3's stage A, #6's and #7's backward under
+    theirs."""
+    from gdl_tpu_torch.profile_step import kind_of
+
+    assert kind_of(f"void (anonymous namespace)::{symbol}((anonymous "
+                   f"namespace)::BwdArgs)") == kind
