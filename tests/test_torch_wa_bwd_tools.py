@@ -204,6 +204,70 @@ def test_kernel_3_launcher_refuses_cpu_tensors():
     assert tuple(db.shape) == (3 * c,) and tuple(dbias.shape) == (heads, n, n)
 
 
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("kernel", ["4", "4_delta", "6", "7", "3"])
+def test_bench_wa_attn_bwd_cost_equals_chip_smokes(kernel, itemsize):
+    """The backward timing tool bounds each kernel at every site of a
+    batch-32 Swin-B pass with chip_smoke.py's count of bytes and
+    operations, and its pass bound is chip_smoke's per_pass_bound."""
+    from gdl_tpu_torch import bench_wa_attn_bwd as bench
+
+    cs = _chip_smoke()
+    kind = bench.KINDS[kernel]
+    seen = 0
+    for _, bw, c, heads, res, masked, calls in bench.sites():
+        assert bench.cost(kind, bw, c, heads, masked, res, itemsize) == \
+            cs.attention_cost(kind, bw, c, heads, masked, res, itemsize)
+        seen += calls
+    assert seen == 48
+    dtype = "float32" if itemsize == 4 else "bfloat16"
+    want = cs.per_pass_bound(kind, bench.BATCH, dtype)["ms"]
+    assert bench.pass_bound(kernel, dtype) == pytest.approx(want, rel=1e-12)
+
+
+def test_bench_wa_attn_bwd_refuses_without_cuda():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the refusal on a machine without a card")
+    proc = subprocess.run([sys.executable, "-m",
+                           "gdl_tpu_torch.bench_wa_attn_bwd"],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2
+    assert proc.stdout == ""
+    assert "no CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize("symbol,part", [
+    ("void (anonymous namespace)::wa_bwd_kernel<float, 32, false>("
+     "(anonymous namespace)::BwdArgs)", "body"),
+    ("void (anonymous namespace)::wa_bwd_rows_kernel<__nv_bfloat16, 32>("
+     "(anonymous namespace)::BwdArgs)", "body"),
+    ("void (anonymous namespace)::wa_bwd_recompute_kernel<float, 64>("
+     "(anonymous namespace)::BwdArgs)", "body"),
+    ("void (anonymous namespace)::wa_bwd_fused_attn_kernel<float, 32>("
+     "(anonymous namespace)::BwdArgs)", "body"),
+    ("void gemm::(anonymous namespace)::gemm_tile_kernel<float, 128, "
+     "wa3::DwPart>()", "products"),
+    ("void at::native::reduce_kernel<512, 1>()", "sums"),
+])
+def test_bench_wa_attn_bwd_splits_by_part(symbol, part):
+    from gdl_tpu_torch.bench_wa_attn_bwd import body_part
+
+    assert body_part(symbol) == part
+
+
 def test_simt_attention_backward_body_is_gone():
     """The first design's backward body (attn_bwd_tile on f32 shared
     memory, BwdSmem) is deleted; the five backward kernels (#4, #4-delta,
