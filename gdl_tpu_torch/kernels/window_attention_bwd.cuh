@@ -23,14 +23,19 @@
 //     outside it) into a flat buffer shifted so that the copies stay
 //     aligned. Shared memory is zeroed once at block start and the copies
 //     write only rows < n, columns < d: the pads stay zero. In bf16 the
-//     next tile's copies run under this tile's products (two stages); in
-//     f32 the smaller count of stages keeps three blocks an SM;
-//   - phase 1, warp w on the query rows 16w .. 16w + 15 (all 64 keys):
-//     it scales its rows of q in place, forms dp (and with RECOMPUTE the
-//     scores, then p by a softmax in registers) as 16 x 8 fragments, the
-//     row sums by two quad shuffles, ds in the same fragments (its share of
-//     dbias stays in that layout across the run), writes round_T(ds) to
-//     shared memory and forms dq = ds_T . k;
+//     next tile's copies run under this tile's products (two stages); f32
+//     and RECOMPUTE take one stage, so that three blocks fit an SM (two
+//     in f32 with RECOMPUTE). RECOMPUTE copies bias[h] once and each
+//     window's mask, the next one's as soon as this one's scores are
+//     formed: read from device memory by each lane, they cost more than
+//     the scores' product;
+//   - phase 1, warp w on the query rows 16w .. 16w + 15 (the keys < n in
+//     8-key tiles): it scales its rows of q in place, forms dp (and with
+//     RECOMPUTE the scores, then p by a softmax in registers: exp by
+//     ex2.approx, one reciprocal a row) as 16 x 8 fragments, the row sums
+//     by two quad shuffles, ds in the same fragments (its share of dbias
+//     stays in that layout across the run), writes round_T(ds) to shared
+//     memory and forms dq = ds_T . k;
 //   - one barrier, then phase 2, warp w on the keys 16w .. 16w + 15:
 //     dk = ds_T^T . q_s and dv = p_T^T . dout, K = the queries.
 // bf16: every product on the tensor cores (mma.sync m16n8k16, f32 sums):
@@ -77,31 +82,43 @@ __host__ __device__ constexpr int flat_floats(int n) {
   return (n * n + 4 + 3) / 4 * 4;
 }
 
-// Shared memory of a block: NS stages of [q | k | v | dout] row tiles
-// [kNP][LDQ] and the flat p buffer, then the ds tile [kNP][LDS]; with
-// RECOMPUTE then bias[h] and mask[w % nw] as flat f32 buffers, of a size
-// set by n at launch. Rows are padded by 16 bytes in bf16 (the eight rows
-// an ldmatrix phase reads fall on distinct banks) and by 4 floats in f32
-// (float4 rows off the bank period).
+// Shared memory of a block, sized by n at launch: NS stages of
+// [q | k | v | dout] row tiles [kNP][LDQ] and the flat p buffer, then the
+// ds tile [kNP][LDS]; with RECOMPUTE then bias[h] as a flat f32 buffer and,
+// in bf16, mask[w % nw] as another (f32 copies each window's mask into its
+// stage's p buffer and writes p_T over it, element for element). Rows are
+// padded by 16 bytes in bf16 (the eight rows an ldmatrix phase reads fall
+// on distinct banks) and by 4 floats in f32 (float4 rows off the bank
+// period).
 template <typename T, int DMAX, bool RECOMPUTE = false>
 struct BwdLayout {
   static constexpr bool kBf16 = sizeof(T) == 2;
   static constexpr int LDQ = DMAX + (kBf16 ? 8 : 4);
   static constexpr int LDS = kNP + 8;
-  static constexpr int PFLAT = kNP * kNP + 8;  // a shift of < 8, then n*n
   static constexpr int NS = kBf16 && !RECOMPUTE ? 2 : 1;
   static constexpr int TILE = kNP * LDQ;
-  static constexpr int STAGE = 4 * TILE + PFLAT;
-  static constexpr size_t kBytes = sizeof(T) * (NS * STAGE + kNP * LDS);
-  static constexpr size_t kMaxBytes =
-      kBytes + (RECOMPUTE ? 2 * sizeof(float) * flat_floats(kNP) : 0);
+  static constexpr int kFlatBuffers = RECOMPUTE ? (kBf16 ? 2 : 1) : 0;
   // blocks an SM that the registers must allow: what shared memory allows
-  // (f32 with RECOMPUTE: two), at most three
-  static constexpr int MIN_BLOCKS = DMAX > 32 || (!kBf16 && RECOMPUTE) ? 2 : 3;
-  static_assert((sizeof(T) * STAGE) % 16 == 0, "16-byte stages");
+  // at the Swin shapes (d = 64: two), at most three
+  static constexpr int MIN_BLOCKS = DMAX > 32 ? 2 : 3;
+  static_assert((sizeof(T) * TILE) % 16 == 0, "16-byte tiles");
 
-  __host__ __device__ static size_t bytes(int n) {
-    return kBytes + (RECOMPUTE ? 2 * sizeof(float) * flat_floats(n) : 0);
+  // the flat p buffer: a shift of < 8, then n * n, in 16-byte pieces
+  __host__ __device__ static constexpr int pflat(int n) {
+    return (n * n + 8 + 7) / 8 * 8;
+  }
+  __host__ __device__ static constexpr int stage(int n) {
+    return 4 * TILE + pflat(n);
+  }
+  // the stages and the ds tile, zeroed at block start
+  __host__ __device__ static constexpr size_t zeroed_bytes(int n) {
+    return sizeof(T) * (NS * stage(n) + kNP * LDS);
+  }
+  __host__ __device__ static constexpr size_t bytes(int n) {
+    return zeroed_bytes(n) + sizeof(float) * kFlatBuffers * flat_floats(n);
+  }
+  __host__ __device__ static constexpr size_t max_bytes() {
+    return bytes(kNP);
   }
 };
 
@@ -348,11 +365,13 @@ __device__ __forceinline__ void store_part(const BwdArgs& a,
 
 // Phase 1 of one tile for the warp on query rows r0 .. r0 + 15 (r0 < n):
 // q_s in place, dp (and with RECOMPUTE s and p, from the flat bias and
-// mask buffers bias_s, mask_s), ds, dbias, the ds tile, dq stored.
+// mask buffers bias_s, mask_s), ds, dbias, the ds tile, dq stored. The
+// stage's p buffer holds p (or receives p_T) at shift pshift.
 template <typename T, int DMAX, bool DELTA, bool RECOMPUTE, bool DB>
 __device__ __forceinline__ void query_rows(const BwdArgs& a, T* st, T* dss,
                                            const float* bias_s,
-                                           const float* mask_s, int win,
+                                           const float* mask_s, int pshift,
+                                           int win,
                                            int head, int r0, int lane,
                                            float scale_t,
                                            float (&dbacc)[8][4],
@@ -392,6 +411,8 @@ __device__ __forceinline__ void query_rows(const BwdArgs& a, T* st, T* dss,
             ? mask_s + flat_shift(a.mask +
                                   static_cast<size_t>(win % a.nw) * n * n)
             : nullptr;
+    T* pt = ps + pshift;  // in f32 over the mask: each lane has read
+                          // the elements it writes
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -429,19 +450,17 @@ __device__ __forceinline__ void query_rows(const BwdArgs& a, T* st, T* dss,
       sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
     }
     const float inv[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
-    // p_T = round_T(p) into the flat buffer (no shift) for dv
+    // p_T = round_T(p) into the flat buffer for dv
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = r0 + g + 8 * (e / 2), jj = 8 * j + 2 * q + e % 2;
         if (i < n) pv[j][e] *= inv[e / 2];  // past n the sum is 0
-        if (i < n && jj < n) ps[i * n + jj] = Num<T>::store(pv[j][e]);
+        if (i < n && jj < n) pt[i * n + jj] = Num<T>::store(pv[j][e]);
       }
   } else {
-    const T* pw = ps + flat_shift(static_cast<const T*>(a.p) +
-                               (static_cast<size_t>(win) * a.heads + head) *
-                                   n * n);
+    const T* pw = ps + pshift;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -554,11 +573,12 @@ __device__ __forceinline__ void query_rows(const BwdArgs& a, T* st, T* dss,
 }
 
 // Phase 2 of one tile for the warp on keys m0 .. m0 + 15 (m0 < n):
-// dk = ds_T^T . q_s and dv = p_T^T . dout (K = the queries), stored.
-template <typename T, int DMAX, bool RECOMPUTE, bool DB>
+// dk = ds_T^T . q_s and dv = p_T^T . dout (K = the queries, p_T in the
+// stage's p buffer at shift pshift), stored.
+template <typename T, int DMAX, bool DB>
 __device__ __forceinline__ void key_rows(const BwdArgs& a, const T* st,
-                                         const T* dss, int win, int head,
-                                         int m0, int lane,
+                                         const T* dss, int pshift, int win,
+                                         int head, int m0, int lane,
                                          float (&dbk)[DMAX / 8][2],
                                          float (&dbv)[DMAX / 8][2]) {
   using L = BwdLayout<T, DMAX>;
@@ -567,10 +587,7 @@ __device__ __forceinline__ void key_rows(const BwdArgs& a, const T* st,
   const int n = a.n;
   const T* qs = st;
   const T* gs = qs + 3 * L::TILE;
-  const T* pw = qs + 4 * L::TILE;
-  if constexpr (!RECOMPUTE)
-    pw += flat_shift(static_cast<const T*>(a.p) +
-                  (static_cast<size_t>(win) * a.heads + head) * n * n);
+  const T* pw = qs + 4 * L::TILE + pshift;
   // p_T[i][m] (0 past n)
   auto p_at = [&](int i, int m) {
     return i < n && m < n ? pw[i * n + m] : Num<T>::store(0.f);
@@ -643,7 +660,8 @@ __device__ __forceinline__ void bwd_windows(const BwdArgs& a) {
   constexpr int DT = DMAX / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  T* dss = smem + L::NS * L::STAGE;
+  const int stage = L::stage(a.n);
+  T* dss = smem + L::NS * stage;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n = a.n;
   const int groups = a.heads / a.g;
@@ -653,31 +671,33 @@ __device__ __forceinline__ void bwd_windows(const BwdArgs& a) {
   const float scale_t = Num<T>::round(a.scale);
   const int r0 = 16 * warp;
 
-  for (int e = tid; e < static_cast<int>(L::kBytes / 16); e += kBwdThreads)
+  for (int e = tid; e < static_cast<int>(L::zeroed_bytes(n) / 16);
+       e += kBwdThreads)
     reinterpret_cast<int4*>(smem_raw)[e] = make_int4(0, 0, 0, 0);
   __syncthreads();
 
-  auto issue = [&](int t) {
-    if (t < tiles)
-      issue_tile<T, DMAX>(a, smem + (t % L::NS) * L::STAGE, w0 + t % nwin,
-                          h0 + t / nwin, !RECOMPUTE, tid);
-    gemm::cp_async_commit();
-  };
-  // RECOMPUTE (one head a block): bias[h0] once, mask[w % nw] per tile,
-  // the next tile's once this tile's phase 1 is done
+  // RECOMPUTE (one head a block): bias[h0] once, the window's mask with
+  // each tile, into its own buffer in bf16 and into the stage's p buffer
+  // in f32
   float* bias_s = reinterpret_cast<float*>(dss + kNP * L::LDS);
   float* mask_s = bias_s + flat_floats(n);
-  auto issue_mask = [&](int t) {
-    if (a.mask != nullptr && t < tiles)
-      copy_flat(mask_s,
-                a.mask + static_cast<size_t>((w0 + t % nwin) % a.nw) * n * n,
-                n * n, tid);
+  auto mask_of = [&](int win) {
+    return a.mask + static_cast<size_t>(win % a.nw) * n * n;
+  };
+  auto issue = [&](int t) {
+    if (t < tiles) {
+      T* st = smem + (t % L::NS) * stage;
+      const int win = w0 + t % nwin;
+      issue_tile<T, DMAX>(a, st, win, h0 + t / nwin, !RECOMPUTE, tid);
+      if (RECOMPUTE && a.mask != nullptr)
+        copy_flat(L::kBf16 ? mask_s
+                           : reinterpret_cast<float*>(st + 4 * L::TILE),
+                  mask_of(win), n * n, tid);
+    }
     gemm::cp_async_commit();
   };
-  if constexpr (RECOMPUTE) {
+  if constexpr (RECOMPUTE)
     copy_flat(bias_s, a.bias + static_cast<size_t>(h0) * n * n, n * n, tid);
-    issue_mask(0);
-  }
 
   float dbacc[8][4];  // this warp's share of dbias[head], fragment layout
 #pragma unroll
@@ -700,16 +720,23 @@ __device__ __forceinline__ void bwd_windows(const BwdArgs& a) {
     gemm::cp_async_wait<0>();  // tile t has landed (for this thread)
     __syncthreads();  // ... for every thread; tile t - 1 is done
     if constexpr (L::NS == 2) issue(t + 1);  // under this tile's products
-    T* st = smem + (t % L::NS) * L::STAGE;
+    T* st = smem + (t % L::NS) * stage;
+    // where p (or p_T) lies in the stage's p buffer
+    int pshift = 0;
+    if constexpr (!RECOMPUTE)
+      pshift = flat_shift(static_cast<const T*>(a.p) +
+                          (static_cast<size_t>(win) * a.heads + head) * n * n);
+    else if (!L::kBf16 && a.mask != nullptr)
+      pshift = flat_shift(mask_of(win));
     if (r0 < n)
-      query_rows<T, DMAX, DELTA, RECOMPUTE, DB>(a, st, dss, bias_s, mask_s,
-                                                win, head, r0, lane, scale_t,
-                                                dbacc, dbq);
+      query_rows<T, DMAX, DELTA, RECOMPUTE, DB>(
+          a, st, dss, bias_s,
+          L::kBf16 ? mask_s : reinterpret_cast<float*>(st + 4 * L::TILE),
+          pshift, win, head, r0, lane, scale_t, dbacc, dbq);
     __syncthreads();  // ds_T, q_s (and p_T) are complete
-    if constexpr (RECOMPUTE) issue_mask(t + 1);  // the mask is read
     if (r0 < n)
-      key_rows<T, DMAX, RECOMPUTE, DB>(a, st, dss, win, head, r0, lane, dbk,
-                                       dbv);
+      key_rows<T, DMAX, DB>(a, st, dss, pshift, win, head, r0, lane, dbk,
+                            dbv);
     if (t % nwin == nwin - 1) {  // the head's run is done: its partial
       if (r0 < n) {
         const int g = lane / 4, q = lane % 4;

@@ -153,8 +153,7 @@ __global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
 // #7's backward: p computed again from q, k, bias and mask, unrounded in
 // ds and rounded to T as dv's operand; no p read
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kBwdThreads,
-                                  BwdLayout<T, DMAX, true>::MIN_BLOCKS)
+__global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
     wa_bwd_recompute_kernel(BwdArgs a) {
   bwd_windows<T, DMAX, false, true, false>(a);
 }
@@ -202,7 +201,7 @@ int launch_bwd(BwdArgs a, cudaStream_t s) {
     using L = BwdLayout<T, DMAX, K == Bwd::kRecompute>;
     const size_t smem = L::bytes(a.n);
     const auto kernel = bwd_kernel<T, DMAX, K>();
-    static const cudaError_t attr = grant_smem(kernel, L::kMaxBytes);
+    static const cudaError_t attr = grant_smem(kernel, L::max_bytes());
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const unsigned grid = static_cast<unsigned>((a.bw + a.wpb - 1) / a.wpb) *
                           static_cast<unsigned>(a.heads / a.g);
