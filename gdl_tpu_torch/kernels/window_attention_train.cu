@@ -66,19 +66,15 @@
 // (5 with the scores again in #7) and reads qkv, p and dout once: at the
 // Swin-B shapes it is bound by those bytes (p dominates in bf16: N*N per
 // head against 3d per token), so the body streams them:
-//   - q, k, v and dout rows and p's slab come in by cp.async, in bf16
-//     into two stages so that the next window's copies run under this
-//     window's products, in T (not f32) in shared memory;
+//   - q, k, v and dout rows and p's slab (#7: bias and mask) come in by
+//     cp.async, in T (not f32); in bf16 from a saved p into two stages,
+//     so that the next window's copies run under this window's products;
 //   - the products run on the tensor cores in bf16 (mma.sync m16n8k16 on
 //     ldmatrix fragments; dq's A operand is ds's accumulator registers)
 //     and on a register-blocked FMA tile in f32 (no TF32: f32 stays f32,
 //     as the plain versions run), on the same fragment layout: warp w
 //     holds query rows 16w .. 16w + 15 for dp, the softmax backward and
 //     dq, then after one barrier keys 16w .. 16w + 15 for dk and dv.
-// The first design, one 256-thread block per (run, head) with every
-// operand loaded element by element into f32 shared memory and all five
-// products on SIMT FMA with a barrier between phases, ran at 18% of the
-// f32 bound and 1-2% of the tensor cores in bf16.
 //
 // Kernel #3, the fused projection backward, gdl_wa_bwd_fused_launch,
 // replaces _xw_attn_savep_t_bwd's fused branch (kernel body
