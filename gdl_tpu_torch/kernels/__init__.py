@@ -38,14 +38,14 @@ _uint, _i64 = ctypes.c_uint, ctypes.c_longlong
 LIBRARIES = {
     "window_attention_eval": (
         "window_attention_eval.cu",
-        {"gdl_wa_eval_launch": ([_vp] * 7 + [_int] * 6 + [_float, _int, _vp],
+        {"gdl_wa_eval_launch": ([_vp] * 7 + [_int] * 7 + [_float, _int, _vp],
                                 _int)},
     ),
     "window_attention_train": (
         "window_attention_train.cu",
-        {"gdl_wa_savep_launch": ([_vp] * 8 + [_int] * 6
+        {"gdl_wa_savep_launch": ([_vp] * 8 + [_int] * 7
                                  + [_float, _int, _vp], _int),
-         "gdl_wa_qkv_savep_launch": ([_vp] * 5 + [_int] * 6
+         "gdl_wa_qkv_savep_launch": ([_vp] * 5 + [_int] * 7
                                      + [_float, _int, _vp], _int),
          "gdl_wa_bwd_launch": ([_vp] * 5 + [_int] * 6 + [_float, _int, _vp],
                                _int),
@@ -53,7 +53,7 @@ LIBRARIES = {
                                      + [_float, _int, _vp], _int),
          "gdl_wa_bwd_fused_launch": ([_vp] * 10 + [_int] * 7
                                      + [_float, _int, _vp], _int),
-         "gdl_wa_qkv_fwd_launch": ([_vp] * 4 + [_int] * 6
+         "gdl_wa_qkv_fwd_launch": ([_vp] * 4 + [_int] * 7
                                    + [_float, _int, _vp], _int),
          "gdl_wa_bwd_recompute_launch": ([_vp] * 6 + [_int] * 7
                                          + [_float, _int, _vp], _int),
@@ -64,7 +64,7 @@ LIBRARIES = {
     ),
     "window_attention_bhnd": (
         "window_attention_bhnd.cu",
-        {"gdl_wa_bhnd_launch": ([_vp] * 6 + [_int] * 5 + [_float, _int, _vp],
+        {"gdl_wa_bhnd_launch": ([_vp] * 6 + [_int] * 6 + [_float, _int, _vp],
                                 _int),
          "gdl_wa_packed_launch": ([_vp] * 6 + [_int] * 6
                                   + [_float, _int, _vp], _int)},

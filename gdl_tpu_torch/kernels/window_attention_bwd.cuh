@@ -44,7 +44,10 @@
 // through ldmatrix.trans, p's A fragments from the flat buffer. f32: the
 // same fragment layout on FMA (no TF32), float4 and float2 reads of the
 // row tiles. Each sum has a fixed order and no atomics: two runs give
-// equal bits.
+// equal bits. The row copies, the flat copies, the scores' product
+// (rows_by_keys) and the softmax (softmax_rows) are the forward body's,
+// in window_attention_fwd.cuh: #7's backward computes p as the forwards
+// compute it.
 
 #pragma once
 
@@ -54,9 +57,6 @@
 #include "window_attention_fwd.cuh"
 
 namespace {
-
-constexpr int kBwdWarps = 4;
-constexpr int kBwdThreads = 32 * kBwdWarps;
 
 // What a launch of the backward body reads and writes, in element counts.
 struct BwdArgs {
@@ -77,31 +77,23 @@ struct BwdArgs {
   int pairs;   // 1: dqkv's column pairs are stored together (d even)
 };
 
-// floats of a flat f32 [n, n] buffer: a shift of < 4, then n * n
-__host__ __device__ constexpr int flat_floats(int n) {
-  return (n * n + 4 + 3) / 4 * 4;
-}
-
 // Shared memory of a block, sized by n at launch: NS stages of
-// [q | k | v | dout] row tiles [kNP][LDQ] and the flat p buffer, then the
-// ds tile [kNP][LDS]; with RECOMPUTE then bias[h] as a flat f32 buffer and,
-// in bf16, mask[w % nw] as another (f32 copies each window's mask into its
-// stage's p buffer and writes p_T over it, element for element). Rows are
-// padded by 16 bytes in bf16 (the eight rows an ldmatrix phase reads fall
-// on distinct banks) and by 4 floats in f32 (float4 rows off the bank
-// period).
+// [q | k | v | dout] row tiles [kNP][LDQ] (RowTile) and the flat p buffer,
+// then the ds tile [kNP][LDS]; with RECOMPUTE then bias[h] as a flat f32
+// buffer and, in bf16, mask[w % nw] as another (f32 copies each window's
+// mask into its stage's p buffer and writes p_T over it, element for
+// element).
 template <typename T, int DMAX, bool RECOMPUTE = false>
 struct BwdLayout {
-  static constexpr bool kBf16 = sizeof(T) == 2;
-  static constexpr int LDQ = DMAX + (kBf16 ? 8 : 4);
+  static constexpr bool kBf16 = RowTile<T, DMAX>::kBf16;
+  static constexpr int LDQ = RowTile<T, DMAX>::LDQ;
   static constexpr int LDS = kNP + 8;
   static constexpr int NS = kBf16 && !RECOMPUTE ? 2 : 1;
-  static constexpr int TILE = kNP * LDQ;
+  static constexpr int TILE = RowTile<T, DMAX>::TILE;
   static constexpr int kFlatBuffers = RECOMPUTE ? (kBf16 ? 2 : 1) : 0;
   // blocks an SM that the registers must allow: what shared memory allows
   // at the Swin shapes (d = 64: two), at most three
   static constexpr int MIN_BLOCKS = DMAX > 32 ? 2 : 3;
-  static_assert((sizeof(T) * TILE) % 16 == 0, "16-byte tiles");
 
   // the flat p buffer: a shift of < 8, then n * n, in 16-byte pieces
   __host__ __device__ static constexpr int pflat(int n) {
@@ -134,76 +126,6 @@ __device__ __forceinline__ uint32_t bwd_bits(__nv_bfloat16 v) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(v));
 }
 
-// elements from a slab's start back to the last 16-byte boundary
-template <typename E>
-__device__ __forceinline__ int flat_shift(const E* slab) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(slab) / sizeof(E)) %
-                          (16 / sizeof(E)));
-}
-
-// The contiguous span src[0 .. nn) into buf + flat_shift(src), so that
-// 16-byte copies stay aligned: cp.async of the aligned interior, element
-// copies of the edges; not a byte outside the span is read. The caller
-// commits the group.
-template <typename E>
-__device__ __forceinline__ void copy_flat(E* buf, const E* src, int nn,
-                                          int tid) {
-  constexpr int V = 16 / static_cast<int>(sizeof(E));
-  const int sh = flat_shift(src);
-  E* dst = buf + sh;
-  const int e0 = min(nn, (V - sh) % V);  // up to the first 16-byte boundary
-  const int body = (nn - e0) / V;
-  for (int k = tid; k < body; k += kBwdThreads)
-    gemm::cp_async16(dst + e0 + k * V, src + e0 + k * V, 16);
-  const int e1 = e0 + body * V;
-  for (int e = tid; e < e0 + (nn - e1); e += kBwdThreads) {
-    const int at = e < e0 ? e : e1 + (e - e0);
-    dst[at] = src[at];
-  }
-}
-
-// one row piece of W bytes, global -> shared
-template <int W, typename T>
-__device__ __forceinline__ void copy_piece(T* dst, const T* src) {
-  if constexpr (W == 16)
-    gemm::cp_async16(dst, src, 16);
-  else
-    gemm::cp_async_ca<W>(dst, src, W);
-}
-
-template <typename T, int DMAX, int W>
-__device__ __forceinline__ void copy_rows(T* qs, const T* qkv_w,
-                                          const T* g_w, int n, int c, int d,
-                                          int tid) {
-  using L = BwdLayout<T, DMAX>;
-  T* ks = qs + L::TILE;
-  T* vs = ks + L::TILE;
-  T* gs = vs + L::TILE;
-  const int c3 = 3 * c;
-  if constexpr (W == 0) {
-    for (int e = tid; e < n * d; e += kBwdThreads) {
-      const int r = e / d, col = e % d;
-      const T* src = qkv_w + static_cast<size_t>(r) * c3 + col;
-      qs[r * L::LDQ + col] = src[0];
-      ks[r * L::LDQ + col] = src[c];
-      vs[r * L::LDQ + col] = src[2 * c];
-      gs[r * L::LDQ + col] = g_w[static_cast<size_t>(r) * c + col];
-    }
-  } else {
-    constexpr int V = W / static_cast<int>(sizeof(T));
-    const int per_row = d / V;
-    for (int e = tid; e < n * per_row; e += kBwdThreads) {
-      const int r = e / per_row, col = (e % per_row) * V;
-      const T* src = qkv_w + static_cast<size_t>(r) * c3 + col;
-      const int at = r * L::LDQ + col;
-      copy_piece<W>(qs + at, src);
-      copy_piece<W>(ks + at, src + c);
-      copy_piece<W>(vs + at, src + 2 * c);
-      copy_piece<W>(gs + at, g_w + static_cast<size_t>(r) * c + col);
-    }
-  }
-}
-
 // Tile (win, head)'s rows of q, k, v, dout, and (with_p) its p slab, into
 // the stage at st; cp.async where the alignment allows, element copies
 // where it does not. The caller commits the group.
@@ -217,97 +139,15 @@ __device__ __forceinline__ void issue_tile(const BwdArgs& a, T* st, int win,
   const T* g_w =
       static_cast<const T*>(a.dout) + static_cast<size_t>(win) * n * c +
       head * d;
-  switch (a.width) {
-    case 16:
-      copy_rows<T, DMAX, 16>(st, qkv_w, g_w, n, c, d, tid);
-      break;
-    case 8:
-      copy_rows<T, DMAX, 8>(st, qkv_w, g_w, n, c, d, tid);
-      break;
-    case 4:
-      copy_rows<T, DMAX, 4>(st, qkv_w, g_w, n, c, d, tid);
-      break;
-    default:
-      copy_rows<T, DMAX, 0>(st, qkv_w, g_w, n, c, d, tid);
-  }
+  const T* src[4] = {qkv_w, qkv_w + c, qkv_w + 2 * c, g_w};
+  const size_t ld[4] = {3 * static_cast<size_t>(c), 3 * static_cast<size_t>(c),
+                        3 * static_cast<size_t>(c), static_cast<size_t>(c)};
+  copy_rows_by<T, DMAX, 4>(a.width, st, src, ld, n, d, tid);
   if (with_p)
     copy_flat(st + 4 * L::TILE,
               static_cast<const T*>(a.p) +
                   (static_cast<size_t>(win) * a.heads + head) * n * n,
               n * n, tid);
-}
-
-// ---------------------------------------------------------------------------
-// the products on the fragment layout of mma.sync m16n8k16: lane (g, q) =
-// (lane / 4, lane % 4) holds c[j][0..1] = C[g][8j + 2q + 0..1] and
-// c[j][2..3] = C[g + 8][8j + 2q + 0..1] of the warp's 16 rows
-// ---------------------------------------------------------------------------
-
-// c + a . b, the four products in order
-__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
-}
-
-// acc[j][..] += A[r0 .. r0 + 15][:DMAX] . B[8j .. 8j + 7][:DMAX]^T for the
-// key tiles j < NKT, A and B row tiles [rows][LDQ] (the scores' and dp's
-// layout: K = the head dim)
-template <int NKT, typename T, int DMAX>
-__device__ __forceinline__ void rows_by_key_tiles(float (&acc)[8][4],
-                                                  const T* as, const T* bs,
-                                                  int r0, int d, int lane) {
-  using L = BwdLayout<T, DMAX>;
-  if constexpr (L::kBf16) {
-#pragma unroll
-    for (int kk = 0; kk < DMAX; kk += 16) {
-      uint32_t a[4];
-      gemm::ldsm_x4(a, as + (r0 + lane % 16) * L::LDQ + kk + (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j + 1 < NKT; j += 2) {
-        uint32_t b[4];  // B fragments of key tiles j and j + 1
-        gemm::ldsm_x4(b, bs + (8 * j + (lane / 16) * 8 + lane % 8) * L::LDQ +
-                             kk + ((lane / 8) % 2) * 8);
-        gemm::mma_bf16(acc[j], a, b);
-        gemm::mma_bf16(acc[j + 1], a, b + 2);
-      }
-      if constexpr (NKT % 2 == 1) {
-        uint32_t b[2];  // the last key tile alone
-        gemm::ldsm_x2(b, bs + (8 * (NKT - 1) + lane % 8) * L::LDQ + kk +
-                             ((lane / 8) % 2) * 8);
-        gemm::mma_bf16(acc[NKT - 1], a, b);
-      }
-    }
-  } else {
-    const int g = lane / 4, q = lane % 4;
-    const float* a0p = as + (r0 + g) * L::LDQ;
-    const float* a1p = a0p + 8 * L::LDQ;
-    for (int k4 = 0; k4 < d; k4 += 4) {
-      const float4 a0 = *reinterpret_cast<const float4*>(a0p + k4);
-      const float4 a1 = *reinterpret_cast<const float4*>(a1p + k4);
-#pragma unroll
-      for (int j = 0; j < NKT; ++j) {
-        const float4 b0 = *reinterpret_cast<const float4*>(
-            bs + (8 * j + 2 * q) * L::LDQ + k4);
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            bs + (8 * j + 2 * q + 1) * L::LDQ + k4);
-        acc[j][0] = dot4(a0, b0, acc[j][0]);
-        acc[j][1] = dot4(a0, b1, acc[j][1]);
-        acc[j][2] = dot4(a1, b0, acc[j][2]);
-        acc[j][3] = dot4(a1, b1, acc[j][3]);
-      }
-    }
-  }
-}
-
-// the product over the key tiles that hold keys < n: all 8, or 7 where
-// n <= 56 (a Swin window's 49)
-template <typename T, int DMAX>
-__device__ __forceinline__ void rows_by_keys(float (&acc)[8][4], const T* as,
-                                             const T* bs, int r0, int n,
-                                             int d, int lane) {
-  if (n > 56)
-    rows_by_key_tiles<8, T, DMAX>(acc, as, bs, r0, d, lane);
-  else
-    rows_by_key_tiles<7, T, DMAX>(acc, as, bs, r0, d, lane);
 }
 
 template <typename T, int DMAX>
@@ -386,24 +226,20 @@ __device__ __forceinline__ void query_rows(const BwdArgs& a, T* st, T* dss,
   T* gs = vs + L::TILE;
   T* ps = gs + L::TILE;
 
-  // q_s = round_T(q * T(scale)) on this warp's rows (read by the other
-  // warps only after the phase barrier)
-  for (int e = lane; e < 16 * DMAX; e += 32) {
-    T* x = qs + (r0 + e / DMAX) * L::LDQ + e % DMAX;
-    *x = Num<T>::store(bwd_f(*x) * scale_t);
-  }
-  __syncwarp();
+  // q_s on this warp's rows (read by the other warps only after the
+  // phase barrier)
+  scale_rows<T, DMAX>(qs, r0, lane, scale_t);
 
   // p of the warp's fragments, f32: read (rows and keys past n give 0),
-  // or with RECOMPUTE softmax(q_s . k^T + bias + mask), unrounded
+  // or with RECOMPUTE softmax(q_s . k^T + bias + mask), unrounded, as the
+  // forward computes it
   float pv[8][4];
   if constexpr (RECOMPUTE) {
-    float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    rows_by_keys<T, DMAX>(s, qs, ks, r0, n, a.d, lane);
+      for (int e = 0; e < 4; ++e) pv[j][e] = 0.f;
+    rows_by_keys<T, DMAX>(pv, qs, ks, r0, n, a.d, lane);
     const float* bh =
         bias_s + flat_shift(a.bias + static_cast<size_t>(head) * n * n);
     const float* mw =
@@ -411,52 +247,15 @@ __device__ __forceinline__ void query_rows(const BwdArgs& a, T* st, T* dss,
             ? mask_s + flat_shift(a.mask +
                                   static_cast<size_t>(win % a.nw) * n * n)
             : nullptr;
+    softmax_rows(pv, bh, mw, n, r0, lane);
     T* pt = ps + pshift;  // in f32 over the mask: each lane has read
                           // the elements it writes
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = r0 + g + 8 * (e / 2), jj = 8 * j + 2 * q + e % 2;
-        float v = -CUDART_INF_F;
-        if (i < n && jj < n) {
-          v = s[j][e] + bh[i * n + jj];
-          if (mw != nullptr) v += mw[i * n + jj];
-        }
-        s[j][e] = v;
-        mx[e / 2] = fmaxf(mx[e / 2], v);
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = r0 + g + 8 * (e / 2);
-        // rows past n are all -inf: their p is 0; so are key tiles past n
-        const float x =
-            i < n && 8 * j < n ? __expf(s[j][e] - mx[e / 2]) : 0.f;
-        pv[j][e] = x;
-        sum[e / 2] += x;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-    }
-    const float inv[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
     // p_T = round_T(p) into the flat buffer for dv
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = r0 + g + 8 * (e / 2), jj = 8 * j + 2 * q + e % 2;
-        if (i < n) pv[j][e] *= inv[e / 2];  // past n the sum is 0
         if (i < n && jj < n) pt[i * n + jj] = Num<T>::store(pv[j][e]);
       }
   } else {
@@ -672,7 +471,7 @@ __device__ __forceinline__ void bwd_windows(const BwdArgs& a) {
   const int r0 = 16 * warp;
 
   for (int e = tid; e < static_cast<int>(L::zeroed_bytes(n) / 16);
-       e += kBwdThreads)
+       e += kBodyThreads)
     reinterpret_cast<int4*>(smem_raw)[e] = make_int4(0, 0, 0, 0);
   __syncthreads();
 
@@ -781,11 +580,11 @@ __device__ __forceinline__ void bwd_windows(const BwdArgs& a) {
         }
     }
     __syncthreads();
-    for (int col = tid; col < 3 * DMAX; col += kBwdThreads) {
+    for (int col = tid; col < 3 * DMAX; col += kBodyThreads) {
       const int part = col / DMAX, dd = col % DMAX;
       if (dd >= a.d) continue;
       float sum = 0.f;
-      for (int w = 0; w < kBwdWarps; ++w) sum += red[w * 3 * DMAX + col];
+      for (int w = 0; w < kBodyWarps; ++w) sum += red[w * 3 * DMAX + col];
       a.db_part[static_cast<size_t>(run) * 3 * a.c + part * a.c + h0 * a.d +
                 dd] = sum;
     }

@@ -1,39 +1,62 @@
-// The window-attention forward on a qkv in device memory, shared by
-// window_attention_train.cu (kernel #5, the save-p forward on a qkv
-// computed outside: SAVE=true; kernel #7's forward: SAVE=false; kernel #2,
-// which makes #5's launch after its projection; kernel #6's forward, which
-// walks a group of heads per block), window_attention_eval.cu (kernel #1,
-// which makes #7's forward launch after its projection) and
-// window_attention_bhnd.cu (kernels #8 and #9 on separate q, k, v
-// [B, H, N, D]). The attention of one (window, head) past the loads is one
-// device function, attn_fwd_tail, so every entry rounds alike. Per window
-// w and head h, from qkv [Bw, N, 3C] (columns [q|k|v][head][d], q not yet
-// scaled):
+// The window-attention forward body, shared by window_attention_train.cu
+// (kernel #5, the save-p forward on a qkv computed outside: SAVE=true;
+// kernel #6's forward, the same launch; kernel #7's forward: SAVE=false;
+// kernel #2, which makes #5's launch after its projection),
+// window_attention_eval.cu (kernel #1, which makes #7's forward launch
+// after its projection) and window_attention_bhnd.cu (kernels #8 and #9,
+// one launch, on separate q, k, v [B, H, N, D]). Per window w and head h,
+// from q, k, v rows of d elements (qkv [Bw, N, 3C]: columns
+// [q|k|v][head][d], q not yet scaled; or q, k, v [B, H, N, D]):
 //
-//   q   = q * T(scale)                                   (in T)
-//   s   = q . k^T (f32) + bias[h] + mask[w % nW]         (f32)
-//   p   = softmax(s) over keys (f32) -> round to T       (SAVE: written)
-//   out[w, :, h*d:(h+1)*d] = p . v (f32 accumulate) -> T
+//   q_s = round_T(q * round_T(scale))
+//   s   = q_s . k^T (f32) + bias[h] + mask[w % nW]      (f32)
+//   p   = softmax(s) over keys (f32) -> round_T         (SAVE: written)
+//   out = p . v (f32 accumulate) -> T
 //
-// T is float or bfloat16; every rounding point above is the TPU kernels'.
+// T is float or bfloat16; every rounding point above is the TPU kernels'
+// (_wa_kernel, _wa_qkv_t_savep_kernel and the others of
+// gdl_tpu/ops/window_attention.py). #1 and #2 (the TPU's
+// _wa_xw_t_eval_kernel and _wa_xw_t_savep_kernel) first compute
+// qkv = round_T(round_T(x . W^T) + b), which the TPU keeps in VMEM; here
+// that is a launch of its own on the GEMM tile (window_attention_proj.cuh)
+// into device memory in T at the TPU's rounding point, read back here.
 //
-// #1 and #2 (the TPU's _wa_xw_t_eval_kernel and _wa_xw_t_savep_kernel)
-// first compute qkv = round_T(round_T(x . W^T) + b), which the TPU keeps
-// in VMEM. Here that is a launch of its own on the GEMM tile
-// (window_attention_proj.cuh) over all Bw * N tokens, into device memory
-// in T at the TPU's rounding point; #2 keeps it as the backward's
-// residual. The projection is 2 Bw N 3C C operations, 92% of #2's work at
-// the Swin-B shapes, so it is bound by operations and runs on the tensor
-// cores in bf16; inside this kernel's (window, head) blocks it would read
-// each window's x once per head and run on SIMT FMA. qkv's round trip
-// costs #2 one more read of it and #1 a write and a read, small beside
-// the products.
+// What bounds it: per (window, head) the forward reads 3 n d elements of
+// q, k, v and writes n d of out (and n^2 of p with SAVE) for two
+// n x n x d products: at the Swin-B shapes (n = 49, d = 32) about 10
+// operations a byte, far below the card's ratio, so the bytes bound it.
 //
-// Design of the attention (a first, simple one): one 256-thread block per
-// (window, head); q, k, v, then the scores, live in shared memory in f32;
-// the two N x N x d products run on the CUDA cores in f32 FMA. It is
-// bound by the bytes of qkv, p and out. Tensor-core products, TMA and
-// sharing a window across heads are later work.
+// Design (the backward body's layout, window_attention_bwd.cuh). A block
+// of four warps owns one head and a run of windows of one mask class
+// (w = r mod nW): bias[h] and mask[r] are copied into shared memory once
+// a block (copy_flat), not read by each lane from device memory. Each
+// window of the run is a tile:
+//   - q, k, v rows come in by cp.async in T, in the widest piece (16, 8 or
+//     4 bytes) their alignment allows, element by element where none
+//     fits, into row tiles [kNP][LDQ] zeroed once at block start (rows
+//     past n and columns past d stay zero). In bf16 two stages: the next
+//     window's rows arrive under this window's products;
+//   - warp w on the query rows 16w .. 16w + 15 (the keys < n in 8-key
+//     tiles) scales its rows of q in place, forms the scores as 16 x 8
+//     fragments (rows_by_keys), and p by softmax_rows, the function #7's
+//     backward computes p with: bias and mask from shared memory, the row
+//     max and sum by quad shuffles, exp by ex2.approx, one reciprocal a
+//     row; rows and keys past n give p = 0, never NaN;
+//   - out = round_T(p) . v: in bf16 on the tensor cores (mma.sync
+//     m16n8k16, f32 sums), the A operand packed straight from p's
+//     accumulator registers, v through ldmatrix.trans; in f32 (no TF32:
+//     f32 stays f32, as the plain versions run) on an FMA tile of four
+//     rows by d / 8 columns a lane, p through a padded f32 tile in shared
+//     memory;
+//   - out rows are staged in the warp's rows of q's tile, free after the
+//     scores, and stored in 16/8/4-byte pieces; with SAVE, p goes into a
+//     flat buffer shifted as its [n, n] slab is shifted off 16 bytes, and
+//     the block writes the slab as one span, 16-byte stores of its
+//     aligned interior and element stores at its two edges (store_flat,
+//     the mirror of copy_flat).
+// A window's sums have a fixed order and no atomics: two runs give equal
+// bits, and every entry, whatever its layout or grid, gives the bits of
+// every other on the same values.
 
 #pragma once
 
@@ -41,12 +64,16 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cstdint>
 #include <type_traits>
+
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kNP = 64;  // max tokens per window (rows padded to 64)
+constexpr int kBodyWarps = 4;
+constexpr int kBodyThreads = 32 * kBodyWarps;
 
 template <typename T>
 struct Num;
@@ -72,187 +99,595 @@ struct Num<__nv_bfloat16> {
   }
 };
 
-template <int DMAX>
-struct FwdSmem {
-  static constexpr int kLdQ = DMAX + 1;
-  static constexpr int kLdP = kNP + 1;
-  // qs, ks, vs [kNP][kLdQ], then ps [kNP][kLdP]
-  static constexpr int kQkv = 3 * kNP * kLdQ;
-  static constexpr int kFloats = kQkv + kNP * kLdP;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
+// A row tile [kNP][LDQ] of d <= DMAX elements a row in T. Rows are padded
+// by 16 bytes in bf16 (the eight rows an ldmatrix phase reads fall on
+// distinct banks) and by 4 floats in f32 (float4 rows off the bank period).
+template <typename T, int DMAX>
+struct RowTile {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int LDQ = DMAX + (kBf16 ? 8 : 4);
+  static constexpr int TILE = kNP * LDQ;
+  static_assert((sizeof(T) * TILE) % 16 == 0, "16-byte tiles");
 };
 
-// q (scaled in T), k and v of one head into shared memory, rows padded to
-// kNP and columns to DMAX with zeros. q, k, v point at the head's first
-// element of each; row r lies ld elements after row r - 1. The caller
-// synchronises before reading them.
+// floats of a flat f32 [n, n] buffer: a shift of < 4, then n * n
+__host__ __device__ constexpr int flat_floats(int n) {
+  return (n * n + 4 + 3) / 4 * 4;
+}
+
+// elements from a slab's start back to the last 16-byte boundary
+template <typename E>
+__device__ __forceinline__ int flat_shift(const E* slab) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(slab) / sizeof(E)) %
+                          (16 / sizeof(E)));
+}
+
+// The contiguous span src[0 .. nn) into buf + flat_shift(src), so that
+// 16-byte copies stay aligned: cp.async of the aligned interior, element
+// copies of the edges; not a byte outside the span is read. The caller
+// commits the group.
+template <typename E>
+__device__ __forceinline__ void copy_flat(E* buf, const E* src, int nn,
+                                          int tid) {
+  constexpr int V = 16 / static_cast<int>(sizeof(E));
+  const int sh = flat_shift(src);
+  E* dst = buf + sh;
+  const int e0 = min(nn, (V - sh) % V);  // up to the first 16-byte boundary
+  const int body = (nn - e0) / V;
+  for (int k = tid; k < body; k += kBodyThreads)
+    gemm::cp_async16(dst + e0 + k * V, src + e0 + k * V, 16);
+  const int e1 = e0 + body * V;
+  for (int e = tid; e < e0 + (nn - e1); e += kBodyThreads) {
+    const int at = e < e0 ? e : e1 + (e - e0);
+    dst[at] = src[at];
+  }
+}
+
+// The mirror of copy_flat: the span held at buf + flat_shift(dst) out to
+// dst[0 .. nn), 16-byte stores of the aligned interior, element stores of
+// the edges; not a byte outside the span is written.
+template <typename E>
+__device__ __forceinline__ void store_flat(E* dst, const E* buf, int nn,
+                                           int tid) {
+  constexpr int V = 16 / static_cast<int>(sizeof(E));
+  const int sh = flat_shift(dst);
+  const E* src = buf + sh;
+  const int e0 = min(nn, (V - sh) % V);
+  const int body = (nn - e0) / V;
+  for (int k = tid; k < body; k += kBodyThreads)
+    *reinterpret_cast<int4*>(dst + e0 + k * V) =
+        *reinterpret_cast<const int4*>(src + e0 + k * V);
+  const int e1 = e0 + body * V;
+  for (int e = tid; e < e0 + (nn - e1); e += kBodyThreads) {
+    const int at = e < e0 ? e : e1 + (e - e0);
+    dst[at] = src[at];
+  }
+}
+
+// one row piece of W bytes, global -> shared
+template <int W, typename T>
+__device__ __forceinline__ void copy_piece(T* dst, const T* src) {
+  if constexpr (W == 16)
+    gemm::cp_async16(dst, src, 16);
+  else
+    gemm::cp_async_ca<W>(dst, src, W);
+}
+
+// Rows 0 .. n - 1 (d elements each) of K row sources, src[i] with its rows
+// ld[i] elements apart, into K consecutive row tiles at dst, in pieces of
+// W bytes (0: element by element). The caller commits the group.
+template <typename T, int DMAX, int W, int K>
+__device__ __forceinline__ void copy_rows(T* dst, const T* const (&src)[K],
+                                          const size_t (&ld)[K], int n, int d,
+                                          int tid) {
+  using R = RowTile<T, DMAX>;
+  if constexpr (W == 0) {
+    for (int e = tid; e < n * d; e += kBodyThreads) {
+      const int r = e / d, col = e % d;
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        dst[i * R::TILE + r * R::LDQ + col] = src[i][r * ld[i] + col];
+    }
+  } else {
+    constexpr int V = W / static_cast<int>(sizeof(T));
+    const int per_row = d / V;
+    for (int e = tid; e < n * per_row; e += kBodyThreads) {
+      const int r = e / per_row, col = (e % per_row) * V;
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        copy_piece<W>(dst + i * R::TILE + r * R::LDQ + col,
+                      src[i] + r * ld[i] + col);
+    }
+  }
+}
+
+// copy_rows in the piece width `width` (16, 8, 4 bytes, or 0)
+template <typename T, int DMAX, int K>
+__device__ __forceinline__ void copy_rows_by(int width, T* dst,
+                                             const T* const (&src)[K],
+                                             const size_t (&ld)[K], int n,
+                                             int d, int tid) {
+  switch (width) {
+    case 16:
+      copy_rows<T, DMAX, 16>(dst, src, ld, n, d, tid);
+      break;
+    case 8:
+      copy_rows<T, DMAX, 8>(dst, src, ld, n, d, tid);
+      break;
+    case 4:
+      copy_rows<T, DMAX, 4>(dst, src, ld, n, d, tid);
+      break;
+    default:
+      copy_rows<T, DMAX, 0>(dst, src, ld, n, d, tid);
+  }
+}
+
+// q_s = round_T(q * T(scale)) in place on the warp's rows r0 .. r0 + 15 of
+// the q tile (read by other warps, if at all, only after a barrier)
 template <typename T, int DMAX>
-__device__ __forceinline__ void load_head(const T* __restrict__ q,
-                                          const T* __restrict__ k,
-                                          const T* __restrict__ v, size_t ld,
-                                          int n, int d, float scale_t,
-                                          float* qs, float* ks, float* vs) {
-  constexpr int kLdQ = DMAX + 1;
-  for (int e = threadIdx.x; e < kNP * DMAX; e += kThreads) {
-    const int r = e / DMAX, dd = e % DMAX;
-    float qv = 0.f, kv = 0.f, vv = 0.f;
-    if (r < n && dd < d) {
-      const size_t at = r * ld + dd;
-      qv = Num<T>::round(Num<T>::load(q + at) * scale_t);
-      kv = Num<T>::load(k + at);
-      vv = Num<T>::load(v + at);
-    }
-    qs[r * kLdQ + dd] = qv;
-    ks[r * kLdQ + dd] = kv;
-    vs[r * kLdQ + dd] = vv;
+__device__ __forceinline__ void scale_rows(T* qs, int r0, int lane,
+                                           float scale_t) {
+  using R = RowTile<T, DMAX>;
+  for (int e = lane; e < 16 * DMAX; e += 32) {
+    T* x = qs + (r0 + e / DMAX) * R::LDQ + e % DMAX;
+    *x = Num<T>::store(Num<T>::load(x) * scale_t);
   }
+  __syncwarp();
 }
 
-// The attention of one (window, head) once q (scaled in T), k and v lie in
-// shared memory: scores + bias[h] + mask (bh, mw: [n, n] f32, mw may be
-// null) in f32, softmax over keys, p rounded to T (and, with SAVE, written
-// to p_w [n, n]), out = p . v (f32 accumulate) written as rows of out_w
-// with row stride ldo. Shared by every forward entry. Every thread of the
-// block calls it; the caller synchronises before shared memory is
-// written again.
-template <typename T, int DMAX, bool SAVE>
-__device__ __forceinline__ void attn_fwd_tail(
-    const float* qs, const float* ks, const float* vs, float* ps,
-    const float* __restrict__ bh, const float* __restrict__ mw,
-    T* __restrict__ p_w, T* __restrict__ out_w, size_t ldo, int n, int d) {
-  constexpr int kLdQ = DMAX + 1;
-  constexpr int kLdP = kNP + 1;
-  constexpr int DT = DMAX / 16;  // output columns per thread
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+// ---------------------------------------------------------------------------
+// the products on the fragment layout of mma.sync m16n8k16: lane (g, q) =
+// (lane / 4, lane % 4) holds c[j][0..1] = C[g][8j + 2q + 0..1] and
+// c[j][2..3] = C[g + 8][8j + 2q + 0..1] of the warp's 16 rows
+// ---------------------------------------------------------------------------
 
-  // ---- phase 2: scores + bias + mask, f32 -------------------------------
-  {
-    float sacc[4][4];
+// c + a . b, the four products in order
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
+}
+
+// acc[j][..] += A[r0 .. r0 + 15][:DMAX] . B[8j .. 8j + 7][:DMAX]^T for the
+// key tiles j < NKT, A and B row tiles (the scores' and dp's layout: K =
+// the head dim)
+template <int NKT, typename T, int DMAX>
+__device__ __forceinline__ void rows_by_key_tiles(float (&acc)[8][4],
+                                                  const T* as, const T* bs,
+                                                  int r0, int d, int lane) {
+  using R = RowTile<T, DMAX>;
+  if constexpr (R::kBf16) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int kk = 0; kk < DMAX; kk += 16) {
+      uint32_t a[4];
+      gemm::ldsm_x4(a, as + (r0 + lane % 16) * R::LDQ + kk + (lane / 16) * 8);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sacc[a][j] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qv[a] = qs[(ty + 16 * a) * kLdQ + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * kLdQ + k];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sacc[a][j] = fmaf(qv[a], kv[j], sacc[a][j]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-      if (i >= n) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int jj = tx + 16 * j;
-        if (jj >= n) continue;
-        float s = sacc[a][j] + bh[i * n + jj];
-        if (mw != nullptr) s += mw[i * n + jj];
-        ps[i * kLdP + jj] = s;
+      for (int j = 0; j + 1 < NKT; j += 2) {
+        uint32_t b[4];  // B fragments of key tiles j and j + 1
+        gemm::ldsm_x4(b, bs + (8 * j + (lane / 16) * 8 + lane % 8) * R::LDQ +
+                             kk + ((lane / 8) % 2) * 8);
+        gemm::mma_bf16(acc[j], a, b);
+        gemm::mma_bf16(acc[j + 1], a, b + 2);
+      }
+      if constexpr (NKT % 2 == 1) {
+        uint32_t b[2];  // the last key tile alone
+        gemm::ldsm_x2(b, bs + (8 * (NKT - 1) + lane % 8) * R::LDQ + kk +
+                             ((lane / 8) % 2) * 8);
+        gemm::mma_bf16(acc[NKT - 1], a, b);
       }
     }
-  }
-  __syncthreads();
-
-  // ---- phase 3: softmax over keys, one warp per row; (save p) -----------
-  {
-    const int lane = tid % 32;
-    for (int i = tid / 32; i < n; i += kThreads / 32) {
-      float* row = ps + i * kLdP;
-      const float s0 = lane < n ? row[lane] : -CUDART_INF_F;
-      const float s1 = lane + 32 < n ? row[lane + 32] : -CUDART_INF_F;
-      float m = fmaxf(s0, s1);
+  } else {
+    const int g = lane / 4, q = lane % 4;
+    const float* a0p = as + (r0 + g) * R::LDQ;
+    const float* a1p = a0p + 8 * R::LDQ;
+    for (int k4 = 0; k4 < d; k4 += 4) {
+      const float4 a0 = *reinterpret_cast<const float4*>(a0p + k4);
+      const float4 a1 = *reinterpret_cast<const float4*>(a1p + k4);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const float e0 = lane < n ? expf(s0 - m) : 0.f;
-      const float e1 = lane + 32 < n ? expf(s1 - m) : 0.f;
-      float sum = e0 + e1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane < n) {
-        const float p0 = Num<T>::round(e0 / sum);
-        row[lane] = p0;
-        if constexpr (SAVE) p_w[i * n + lane] = Num<T>::store(p0);
-      }
-      if (lane + 32 < n) {
-        const float p1 = Num<T>::round(e1 / sum);
-        row[lane + 32] = p1;
-        if constexpr (SAVE) p_w[i * n + lane + 32] = Num<T>::store(p1);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 4: out = p . v, f32 accumulate -----------------------------
-  {
-    float oacc[4][DT];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < DT; ++j) oacc[a][j] = 0.f;
-    for (int jj = 0; jj < n; ++jj) {
-      float pv[4], vv[DT];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pv[a] = ps[(ty + 16 * a) * kLdP + jj];
-#pragma unroll
-      for (int j = 0; j < DT; ++j) vv[j] = vs[jj * kLdQ + tx + 16 * j];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < DT; ++j) oacc[a][j] = fmaf(pv[a], vv[j], oacc[a][j]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-      if (i >= n) continue;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const int col = tx + 16 * j;
-        if (col < d) out_w[i * ldo + col] = Num<T>::store(oacc[a][j]);
+      for (int j = 0; j < NKT; ++j) {
+        const float4 b0 = *reinterpret_cast<const float4*>(
+            bs + (8 * j + 2 * q) * R::LDQ + k4);
+        const float4 b1 = *reinterpret_cast<const float4*>(
+            bs + (8 * j + 2 * q + 1) * R::LDQ + k4);
+        acc[j][0] = dot4(a0, b0, acc[j][0]);
+        acc[j][1] = dot4(a0, b1, acc[j][1]);
+        acc[j][2] = dot4(a1, b0, acc[j][2]);
+        acc[j][3] = dot4(a1, b1, acc[j][3]);
       }
     }
   }
 }
 
-// one block per (window, head) of qkv [Bw, N, 3C] in T; with SAVE also
-// writes p [Bw, H, N, N] in T, the residual of the training backward
-template <typename T, int DMAX, bool SAVE>
-__global__ void __launch_bounds__(kThreads)
-wa_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-              const float* __restrict__ mask, T* __restrict__ out,
-              T* __restrict__ p_out, int n, int c, int heads, int d, int nw,
-              float scale) {
-  using S = FwdSmem<DMAX>;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kNP * S::kLdQ;
-  float* vs = ks + kNP * S::kLdQ;
-  float* ps = smem + S::kQkv;
+// the product over the key tiles that hold keys < n: all 8, or 7 where
+// n <= 56 (a Swin window's 49)
+template <typename T, int DMAX>
+__device__ __forceinline__ void rows_by_keys(float (&acc)[8][4], const T* as,
+                                             const T* bs, int r0, int n,
+                                             int d, int lane) {
+  if (n > 56)
+    rows_by_key_tiles<8, T, DMAX>(acc, as, bs, r0, d, lane);
+  else
+    rows_by_key_tiles<7, T, DMAX>(acc, as, bs, r0, d, lane);
+}
 
-  const int win = blockIdx.x / heads;
-  const int head = blockIdx.x % heads;
-  const int c3 = 3 * c;
-  const float scale_t = Num<T>::round(scale);
-  // q (scaled in T), k, v of this head straight from the qkv tensor
-  const T* qw = qkv + static_cast<size_t>(win) * n * c3 + head * d;
-  load_head<T, DMAX>(qw, qw + c, qw + 2 * c, c3, n, d, scale_t, qs, ks, vs);
+// p = softmax(s + bias + mask) over the keys < n, in place and unrounded
+// in f32, on the warp's fragments of the query rows r0 + g (+ 8): bh and
+// mw (null: no mask) are the flat [n, n] bias and mask in shared memory.
+// Rows and keys past n give p = 0: a row past n is all -inf, and its sum
+// of 0 is never divided by. The forward and #7's backward both call it.
+__device__ __forceinline__ void softmax_rows(float (&s)[8][4],
+                                             const float* bh,
+                                             const float* mw, int n, int r0,
+                                             int lane) {
+  const int g = lane / 4, q = lane % 4;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + g + 8 * (e / 2), jj = 8 * j + 2 * q + e % 2;
+      float v = -CUDART_INF_F;
+      if (i < n && jj < n) {
+        v = s[j][e] + bh[i * n + jj];
+        if (mw != nullptr) v += mw[i * n + jj];
+      }
+      s[j][e] = v;
+      mx[e / 2] = fmaxf(mx[e / 2], v);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + g + 8 * (e / 2);
+      // rows past n are all -inf: their p is 0; so are key tiles past n
+      const float x = i < n && 8 * j < n ? __expf(s[j][e] - mx[e / 2]) : 0.f;
+      s[j][e] = x;
+      sum[e / 2] += x;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+  }
+  const float inv[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (r0 + g + 8 * (e / 2) < n) s[j][e] *= inv[e / 2];  // past n: 0
+}
+
+// ---------------------------------------------------------------------------
+// the forward body
+// ---------------------------------------------------------------------------
+
+// What a launch of the forward body reads and writes. q, k, v and out
+// point at window 0, head 0, row 0; the strides are in elements.
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;  // [heads, n, n]
+  const float* mask;  // [nw, n, n] or null; window w takes mask[w % nw]
+  void* out;
+  void* p;            // SAVE: [bw, heads, n, n]
+  size_t ld, win, head;     // q, k, v: between rows, windows, heads
+  size_t ldo, owin, ohead;  // out: the same
+  int bw, n, heads, d, nw;
+  int wpb;      // windows a block walks, all of one mask class
+  float scale;
+  int width;    // bytes a piece of a q, k, v or out row takes: 16, 8, 4, 0
+};
+
+// Shared memory of a block, sized by n at launch: NS stages of [q | k | v]
+// row tiles, zeroed at block start; in f32 the p tile [kNP][LDP] (the A
+// operand of out = p . v); the flat p buffer of SAVE (a shift of < 8, then
+// n * n in T); bias[h] and mask[r] as flat f32 buffers.
+template <typename T, int DMAX>
+struct FwdLayout {
+  using R = RowTile<T, DMAX>;
+  static constexpr int NS = R::kBf16 ? 2 : 1;
+  static constexpr int LDP = kNP + 4;
+  static constexpr size_t kStage = sizeof(T) * 3 * R::TILE;
+  static constexpr size_t kPTile = R::kBf16 ? 0 : sizeof(float) * kNP * LDP;
+  // blocks an SM that the registers must allow: what shared memory allows
+  // at the Swin shapes (d = 32: four in bf16, three in f32)
+  static constexpr int MIN_BLOCKS = DMAX > 32 ? 2 : (R::kBf16 ? 4 : 3);
+
+  __host__ __device__ static constexpr int pflat(int n) {
+    return (n * n + 8 + 7) / 8 * 8;
+  }
+  __host__ __device__ static constexpr size_t zeroed_bytes() {
+    return NS * kStage;
+  }
+  __host__ __device__ static constexpr size_t bytes(int n) {
+    return zeroed_bytes() + kPTile + sizeof(T) * pflat(n) +
+           sizeof(float) * 2 * flat_floats(n);
+  }
+  __host__ __device__ static constexpr size_t max_bytes() {
+    return bytes(kNP);
+  }
+};
+
+// The warp's 16 rows of out, staged in rows r0 .. r0 + 15 of os, to
+// out_w (rows ldo elements apart): rows < n, d elements each, in pieces
+// of W bytes (0: element by element)
+template <typename T, int DMAX, int W>
+__device__ __forceinline__ void store_rows(T* out_w, size_t ldo, const T* os,
+                                           int r0, int n, int d, int lane) {
+  using R = RowTile<T, DMAX>;
+  const int rows = min(16, n - r0);
+  if constexpr (W == 0) {
+    for (int e = lane; e < rows * d; e += 32) {
+      const int r = r0 + e / d, col = e % d;
+      out_w[r * ldo + col] = os[r * R::LDQ + col];
+    }
+  } else {
+    using V = std::conditional_t<W == 16, int4,
+                                 std::conditional_t<W == 8, int2, int>>;
+    constexpr int E = W / static_cast<int>(sizeof(T));
+    const int per_row = d / E;
+    for (int e = lane; e < rows * per_row; e += 32) {
+      const int r = r0 + e / per_row, col = (e % per_row) * E;
+      *reinterpret_cast<V*>(out_w + r * ldo + col) =
+          *reinterpret_cast<const V*>(os + r * R::LDQ + col);
+    }
+  }
+}
+
+// One tile for the warp on query rows r0 .. r0 + 15 (r0 < n): q_s in
+// place, the scores, p (rounded to T; with SAVE into the flat buffer at
+// pw), out = p . v staged in the warp's rows of q's tile and stored.
+// bh, mw: the flat bias and mask (or null) at their shifts; pt: the f32 p
+// tile.
+template <typename T, int DMAX, bool SAVE>
+__device__ __forceinline__ void fwd_rows(const FwdArgs& a, T* st, float* pt,
+                                         T* pw, const float* bh,
+                                         const float* mw, T* out_w, int r0,
+                                         int lane, float scale_t) {
+  using R = RowTile<T, DMAX>;
+  const int g = lane / 4, q = lane % 4;
+  const int n = a.n, d = a.d;
+  T* qs = st;
+  const T* ks = qs + R::TILE;
+  const T* vs = ks + R::TILE;
+
+  scale_rows<T, DMAX>(qs, r0, lane, scale_t);
+  float s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  rows_by_keys<T, DMAX>(s, qs, ks, r0, n, d, lane);
+  softmax_rows(s, bh, mw, n, r0, lane);
+  // p_T = round_T(p): the saved p and the operand of out = p . v
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = Num<T>::round(s[j][e]);
+      if constexpr (SAVE) {
+        const int i = r0 + g + 8 * (e / 2), jj = 8 * j + 2 * q + e % 2;
+        if (i < n && jj < n) pw[i * n + jj] = Num<T>::store(s[j][e]);
+      }
+    }
+
+  if constexpr (R::kBf16) {
+    constexpr int DT = DMAX / 8;
+    float o[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (16 * kk >= n) break;
+      // the A fragment of keys 16 kk .. + 15 is the accumulators of key
+      // tiles 2 kk and 2 kk + 1
+      const uint32_t af[4] = {gemm::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              gemm::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              gemm::pack_bf16(s[2 * kk + 1][0],
+                                              s[2 * kk + 1][1]),
+                              gemm::pack_bf16(s[2 * kk + 1][2],
+                                              s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < DT; j += 2) {
+        uint32_t b[4];  // v [keys][d], K outer: transposed
+        gemm::ldsm_x4_trans(b, vs + (16 * kk + ((lane / 8) % 2) * 8 +
+                                     lane % 8) * R::LDQ +
+                                   8 * j + (lane / 16) * 8);
+        gemm::mma_bf16(o[j], af, b);
+        gemm::mma_bf16(o[j + 1], af, b + 2);
+      }
+    }
+    __syncwarp();  // every lane is past its reads of q's rows
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + g + 8 * h, col = 8 * j + 2 * q;
+        if (row >= n || col >= d) continue;
+        T* dst = qs + row * R::LDQ + col;
+        if (col + 1 < d)
+          *reinterpret_cast<uint32_t*>(dst) =
+              gemm::pack_bf16(o[j][2 * h], o[j][2 * h + 1]);
+        else
+          dst[0] = Num<T>::store(o[j][2 * h]);
+      }
+  } else {
+    // p into the f32 tile, then each lane four rows r0 + rg + 4i by CW
+    // columns: float4 reads of p rows and v rows
+    constexpr int LDP = FwdLayout<T, DMAX>::LDP;
+    constexpr int CW = DMAX / 8;           // columns a lane
+    constexpr int VW = CW < 4 ? CW : 4;    // in vectors of VW
+    constexpr int NV = CW / VW;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(pt + (r0 + g + 8 * h) * LDP + 8 * j +
+                                   2 * q) =
+            make_float2(s[j][2 * h], s[j][2 * h + 1]);
+    __syncwarp();  // the warp's p rows are written; q's rows are read
+    const int rg = lane / 8, cg = lane % 8;
+    float o[4][CW];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) o[i][c] = 0.f;
+    for (int t4 = 0; t4 < n; t4 += 4) {
+      float pa[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            pt + (r0 + rg + 4 * i) * LDP + t4);
+        pa[i][0] = x.x;
+        pa[i][1] = x.y;
+        pa[i][2] = x.z;
+        pa[i][3] = x.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float b[CW];
+#pragma unroll
+        for (int h = 0; h < NV; ++h) {
+          const float* src = vs + (t4 + u) * R::LDQ + VW * cg + 8 * VW * h;
+          if constexpr (VW == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(src);
+            b[4 * h] = x.x;
+            b[4 * h + 1] = x.y;
+            b[4 * h + 2] = x.z;
+            b[4 * h + 3] = x.w;
+          } else {
+            const float2 x = *reinterpret_cast<const float2*>(src);
+            b[2 * h] = x.x;
+            b[2 * h + 1] = x.y;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < CW; ++c) o[i][c] = fmaf(pa[i][u], b[c], o[i][c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + rg + 4 * i;
+      if (row >= n) continue;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int col = VW * cg + 8 * VW * (c / VW) + c % VW;
+        if (col < d) qs[row * R::LDQ + col] = o[i][c];
+      }
+    }
+  }
+  __syncwarp();  // out's rows are staged
+  switch (a.width) {
+    case 16:
+      store_rows<T, DMAX, 16>(out_w, a.ldo, qs, r0, n, d, lane);
+      break;
+    case 8:
+      store_rows<T, DMAX, 8>(out_w, a.ldo, qs, r0, n, d, lane);
+      break;
+    case 4:
+      store_rows<T, DMAX, 4>(out_w, a.ldo, qs, r0, n, d, lane);
+      break;
+    default:
+      store_rows<T, DMAX, 0>(out_w, a.ldo, qs, r0, n, d, lane);
+  }
+}
+
+// The block: head blockIdx.x % heads, mask class r and the run of windows
+// r + nw * j, j in [run * wpb, run * wpb + wpb), of those < bw; a tile a
+// window.
+template <typename T, int DMAX, bool SAVE>
+__device__ __forceinline__ void fwd_windows(const FwdArgs& a) {
+  using R = RowTile<T, DMAX>;
+  using L = FwdLayout<T, DMAX>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n;
+  const int head = blockIdx.x % a.heads;
+  const int rest = blockIdx.x / a.heads;
+  const int cls = rest % a.nw, j0 = (rest / a.nw) * a.wpb;
+  const int tiles = min(a.wpb, (a.bw - cls + a.nw - 1) / a.nw - j0);
+  if (tiles <= 0) return;  // a class with fewer windows (any bw, #8)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * warp;
+  const float scale_t = Num<T>::round(a.scale);
+
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  unsigned char* rest_raw = smem_raw + L::zeroed_bytes();
+  float* pt = reinterpret_cast<float*>(rest_raw);
+  T* pbuf = reinterpret_cast<T*>(rest_raw + L::kPTile);
+  float* bias_s = reinterpret_cast<float*>(rest_raw + L::kPTile +
+                                           sizeof(T) * L::pflat(n));
+  float* mask_s = bias_s + flat_floats(n);
+
+  for (int e = tid; e < static_cast<int>(L::zeroed_bytes() / 16);
+       e += kBodyThreads)
+    reinterpret_cast<int4*>(smem_raw)[e] = make_int4(0, 0, 0, 0);
   __syncthreads();
-  attn_fwd_tail<T, DMAX, SAVE>(
-      qs, ks, vs, ps, bias + static_cast<size_t>(head) * n * n,
-      mask != nullptr ? mask + static_cast<size_t>(win % nw) * n * n
-                      : nullptr,
-      SAVE ? p_out + (static_cast<size_t>(win) * heads + head) * n * n
-           : nullptr,
-      out + static_cast<size_t>(win) * n * c + head * d, c, n, d);
+
+  const float* bias_h = a.bias + static_cast<size_t>(head) * n * n;
+  const float* mask_r =
+      a.mask != nullptr ? a.mask + static_cast<size_t>(cls) * n * n : nullptr;
+  copy_flat(bias_s, bias_h, n * n, tid);  // committed with tile 0
+  if (mask_r != nullptr) copy_flat(mask_s, mask_r, n * n, tid);
+  const float* bh = bias_s + flat_shift(bias_h);
+  const float* mw = mask_r != nullptr ? mask_s + flat_shift(mask_r) : nullptr;
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const size_t ld[3] = {a.ld, a.ld, a.ld};
+  auto win_of = [&](int t) { return cls + a.nw * (j0 + t); };
+  auto issue = [&](int t) {
+    if (t < tiles) {
+      const size_t at = static_cast<size_t>(win_of(t)) * a.win +
+                        static_cast<size_t>(head) * a.head;
+      const T* src[3] = {q + at, k + at, v + at};
+      copy_rows_by<T, DMAX, 3>(a.width, smem + (t % L::NS) * 3 * R::TILE,
+                               src, ld, n, a.d, tid);
+    }
+    gemm::cp_async_commit();
+  };
+
+  if constexpr (L::NS == 2) issue(0);
+  for (int t = 0; t < tiles; ++t) {
+    if constexpr (L::NS == 1) {
+      if (t > 0) __syncthreads();  // the stage is free again
+      issue(t);
+    }
+    gemm::cp_async_wait<0>();  // tile t has landed (for this thread)
+    __syncthreads();  // ... for every thread; tile t - 1 is done
+    if constexpr (L::NS == 2) issue(t + 1);  // under this tile's products
+    const size_t win = win_of(t);
+    T* p_w = SAVE ? static_cast<T*>(a.p) + (win * a.heads + head) * n * n
+                  : nullptr;
+    T* out_w = static_cast<T*>(a.out) + win * a.owin +
+               static_cast<size_t>(head) * a.ohead;
+    if (r0 < n)
+      fwd_rows<T, DMAX, SAVE>(a, smem + (t % L::NS) * 3 * R::TILE, pt,
+                              SAVE ? pbuf + flat_shift(p_w) : nullptr, bh, mw,
+                              out_w, r0, lane, scale_t);
+    if constexpr (SAVE) {
+      __syncthreads();  // every warp's rows of p are in the flat buffer
+      store_flat(p_w, pbuf, n * n, tid);
+    }
+  }
+  gemm::cp_async_wait<0>();
+}
+
+// #1, #2, #5, #6's and #7's forward: the body on a qkv [bw, n, 3c]
+template <typename T, int DMAX, bool SAVE>
+__global__ void __launch_bounds__(kBodyThreads,
+                                  FwdLayout<T, DMAX>::MIN_BLOCKS)
+    wa_fwd_kernel(FwdArgs a) {
+  fwd_windows<T, DMAX, SAVE>(a);
 }
 
 // above 48 KB a block's shared memory has to be granted explicitly; the
@@ -286,31 +721,73 @@ int with_dtype(int dtype, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int DMAX, bool SAVE>
-int launch_fwd(const void* qkv, const void* bias, const void* mask,
-               void* out, void* p, int bw, int n, int c, int heads, int d,
-               int nw, float scale, cudaStream_t stream) {
-  constexpr size_t smem = FwdSmem<DMAX>::kBytes;
-  static const cudaError_t attr =
-      grant_smem(wa_fwd_kernel<T, DMAX, SAVE>, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const unsigned grid = static_cast<unsigned>(bw) * static_cast<unsigned>(heads);
-  wa_fwd_kernel<T, DMAX, SAVE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<T*>(out),
-      static_cast<T*>(p), n, c, heads, d, nw, scale);
+// the widest piece (16, 8 or 4 bytes) in which every q, k, v and out row
+// of a head can be moved, or 0: element by element
+template <typename T>
+int fwd_width(const FwdArgs& a) {
+  for (int w = 16; w >= 4; w /= 2) {
+    const bool fits =
+        (a.d * sizeof(T)) % w == 0 && (a.ld * sizeof(T)) % w == 0 &&
+        (a.ldo * sizeof(T)) % w == 0 &&
+        reinterpret_cast<uintptr_t>(a.q) % w == 0 &&
+        reinterpret_cast<uintptr_t>(a.k) % w == 0 &&
+        reinterpret_cast<uintptr_t>(a.v) % w == 0 &&
+        reinterpret_cast<uintptr_t>(a.out) % w == 0;
+    if (fits) return w;
+  }
+  return 0;
+}
+
+// heads x nw x ceil(ceil(bw / nw) / wpb) blocks of `kernel`, an
+// instantiation of the body at <T, DMAX> whose shared memory the caller
+// has granted (FwdLayout<T, DMAX>::max_bytes(), once per kernel)
+template <typename T, int DMAX, typename K>
+int launch_body(K kernel, FwdArgs a, cudaStream_t s) {
+  using L = FwdLayout<T, DMAX>;
+  if (a.mask == nullptr) a.nw = 1;
+  a.width = fwd_width<T>(a);
+  const unsigned runs = static_cast<unsigned>(
+      ((a.bw + a.nw - 1) / a.nw + a.wpb - 1) / a.wpb);
+  const unsigned grid =
+      static_cast<unsigned>(a.heads) * static_cast<unsigned>(a.nw) * runs;
+  kernel<<<grid, kBodyThreads, L::bytes(a.n), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out [bw, n, c] (and, with SAVE, p [bw, heads, n, n]) from qkv
-// [bw, n, 3c], all in T
+// [bw, n, 3c], all in T; a block walks wpb windows of one mask class
 template <typename T, bool SAVE>
 int dispatch_fwd(const void* qkv, const void* bias, const void* mask,
                  void* out, void* p, int bw, int n, int c, int heads, int d,
-                 int nw, float scale, cudaStream_t s) {
+                 int nw, int wpb, float scale, cudaStream_t s) {
+  const T* q = static_cast<const T*>(qkv);
+  FwdArgs a{};
+  a.q = q;
+  a.k = q + c;
+  a.v = q + 2 * c;
+  a.bias = static_cast<const float*>(bias);
+  a.mask = static_cast<const float*>(mask);
+  a.out = out;
+  a.p = p;
+  a.ld = 3 * static_cast<size_t>(c);
+  a.win = static_cast<size_t>(n) * a.ld;
+  a.head = d;
+  a.ldo = c;
+  a.owin = static_cast<size_t>(n) * c;
+  a.ohead = d;
+  a.bw = bw;
+  a.n = n;
+  a.heads = heads;
+  a.d = d;
+  a.nw = nw;
+  a.wpb = wpb;
+  a.scale = scale;
   return with_dmax(d, [&](auto dm) {
-    return launch_fwd<T, decltype(dm)::value, SAVE>(
-        qkv, bias, mask, out, p, bw, n, c, heads, d, nw, scale, s);
+    constexpr int DMAX = decltype(dm)::value;
+    static const cudaError_t attr = grant_smem(
+        wa_fwd_kernel<T, DMAX, SAVE>, FwdLayout<T, DMAX>::max_bytes());
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    return launch_body<T, DMAX>(wa_fwd_kernel<T, DMAX, SAVE>, a, s);
   });
 }
 

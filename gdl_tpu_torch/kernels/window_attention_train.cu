@@ -13,6 +13,9 @@
 // replaces window_attention_pallas_qkv(save_p, transposed)
 // (_qkv_attn_savep_t_fwd, kernel body _wa_qkv_t_savep_kernel):
 // wa_fwd_kernel of window_attention_fwd.cuh with SAVE; writes out and p.
+// The forwards' body (#1, #2, #5, #6's, #7's, and #8 and #9 in
+// window_attention_bhnd.cu), its design and what bounds it are in
+// window_attention_fwd.cuh.
 //
 // Backward, gdl_wa_bwd_launch, replaces _attn_bwd_pallas_t (kernel body
 // _wa_qkv_t_bwd_p_kernel, the default BWD_DELTA=False body). Per window
@@ -49,11 +52,12 @@
 // - kernel #6 (transposed=False: _qkv_attn_savep_fwd / _qkv_attn_savep_bwd,
 //   bodies _wa_qkv_savep_kernel and _wa_qkv_bwd_p_kernel): the same
 //   functions as #5 and #4 in the TPU's row score layout, a tiling choice
-//   of the TPU that has no counterpart here. gdl_wa_qkv_savep_rows_launch
-//   and gdl_wa_bwd_rows_launch run #5's and #4's device code per head,
-//   but a block walks a group of g heads (gdl_tpu's head group, g * d =
-//   128 where the heads allow) in turn instead of owning one head, so the
-//   grid has heads / g times fewer, longer blocks. Equal bits to #5 and #4.
+//   of the TPU that has no counterpart here. Its forward,
+//   gdl_wa_qkv_savep_rows_launch, is #5's launch; its backward,
+//   gdl_wa_bwd_rows_launch, runs #4's device code per head, but
+//   a block walks a group of g heads (gdl_tpu's head group, g * d = 128
+//   where the heads allow) in turn instead of owning one head, so the grid
+//   has heads / g times fewer, longer blocks. Equal bits to #5 and #4.
 //
 // Design of the backwards (#4, #4-delta, #6's and #7's, and #3's
 // attention stage: one device body, bwd_windows of
@@ -134,14 +138,14 @@ namespace {
 
 // #4 (DELTA false) and #4-delta (the softmax row sums read from delta)
 template <typename T, int DMAX, bool DELTA>
-__global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
+__global__ void __launch_bounds__(kBodyThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
     wa_bwd_kernel(BwdArgs a) {
   bwd_windows<T, DMAX, DELTA, false, false>(a);
 }
 
 // #3's stage A: #4 into the dqkv workspace, with the db partials
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
+__global__ void __launch_bounds__(kBodyThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
     wa_bwd_fused_attn_kernel(BwdArgs a) {
   bwd_windows<T, DMAX, false, false, true>(a);
 }
@@ -149,7 +153,7 @@ __global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
 // #7's backward: p computed again from q, k, bias and mask, unrounded in
 // ds and rounded to T as dv's operand; no p read
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
+__global__ void __launch_bounds__(kBodyThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
     wa_bwd_recompute_kernel(BwdArgs a) {
   bwd_windows<T, DMAX, false, true, false>(a);
 }
@@ -157,7 +161,7 @@ __global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
 // #6's backward: #4's body per head (so #4's dqkv bits), a block walking
 // a group of g heads in turn over its run, one dbias partial per head
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kBwdThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
+__global__ void __launch_bounds__(kBodyThreads, BwdLayout<T, DMAX>::MIN_BLOCKS)
     wa_bwd_rows_kernel(BwdArgs a) {
   bwd_windows<T, DMAX, false, false, false>(a);
 }
@@ -201,7 +205,7 @@ int launch_bwd(BwdArgs a, cudaStream_t s) {
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const unsigned grid = static_cast<unsigned>((a.bw + a.wpb - 1) / a.wpb) *
                           static_cast<unsigned>(a.heads / a.g);
-    kernel<<<grid, kBwdThreads, smem, s>>>(a);
+    kernel<<<grid, kBodyThreads, smem, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -232,66 +236,6 @@ template <Bwd K>
 int dispatch_bwd(int dtype, const BwdArgs& a, cudaStream_t s) {
   return with_dtype(dtype, [&](auto t) {
     return launch_bwd<typename decltype(t)::type, K>(a, s);
-  });
-}
-
-// ---------------------------------------------------------------------------
-// kernel #6's forward: a group of heads per block
-// ---------------------------------------------------------------------------
-
-// The TPU's row-layout kernels hold the scores of a group of g heads
-// (gd = g * d = 128 lanes) in rows of one block. Here a block owns one
-// window and a group of g heads, and walks the heads in turn through the
-// device code of #5; each head's arithmetic, and so every bit, is #5's.
-// (#6's backward, wa_bwd_rows_kernel, does the same with #4's body.)
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-wa_fwd_rows_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                   const float* __restrict__ mask, T* __restrict__ out,
-                   T* __restrict__ p_out, int n, int c, int heads, int d,
-                   int nw, int g, float scale) {
-  using S = FwdSmem<DMAX>;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kNP * S::kLdQ;
-  float* vs = ks + kNP * S::kLdQ;
-  float* ps = smem + S::kQkv;
-  const int groups = heads / g;
-  const int win = blockIdx.x / groups;
-  const int h0 = (blockIdx.x % groups) * g;
-  const int c3 = 3 * c;
-  const float scale_t = Num<T>::round(scale);
-  const float* mw =
-      mask != nullptr ? mask + static_cast<size_t>(win % nw) * n * n : nullptr;
-  for (int head = h0; head < h0 + g; ++head) {
-    const T* qw = qkv + static_cast<size_t>(win) * n * c3 + head * d;
-    load_head<T, DMAX>(qw, qw + c, qw + 2 * c, c3, n, d, scale_t, qs, ks, vs);
-    __syncthreads();
-    attn_fwd_tail<T, DMAX, true>(
-        qs, ks, vs, ps, bias + static_cast<size_t>(head) * n * n, mw,
-        p_out + (static_cast<size_t>(win) * heads + head) * n * n,
-        out + static_cast<size_t>(win) * n * c + head * d, c, n, d);
-    __syncthreads();  // the next head overwrites shared memory
-  }
-}
-
-template <typename T>
-int launch_fwd_rows(const void* qkv, const void* bias, const void* mask,
-                    void* out, void* p, int bw, int n, int c, int heads, int d,
-                    int nw, int g, float scale, cudaStream_t s) {
-  return with_dmax(d, [&](auto dm) {
-    constexpr int DMAX = decltype(dm)::value;
-    constexpr size_t smem = FwdSmem<DMAX>::kBytes;
-    static const cudaError_t attr =
-        grant_smem(wa_fwd_rows_kernel<T, DMAX>, smem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    const unsigned grid =
-        static_cast<unsigned>(bw) * static_cast<unsigned>(heads / g);
-    wa_fwd_rows_kernel<T, DMAX><<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(qkv), static_cast<const float*>(bias),
-        static_cast<const float*>(mask), static_cast<T*>(out),
-        static_cast<T*>(p), n, c, heads, d, nw, g, scale);
-    return static_cast<int>(cudaGetLastError());
   });
 }
 
@@ -345,15 +289,16 @@ int products(const void* dqkv, const void* x, const void* w, void* dx,
 
 // x [bw, n, c], w [3c, c], b [3c] in T (dtype 0: float32, 1: bfloat16);
 // bias [heads, n, n] and mask [nw, n, n] (or null) in float32. Writes
-// out [bw, n, c], qkv [bw, n, 3c] and p [bw, heads, n, n], all in T.
-// Returns a cudaError_t (0 on success).
+// out [bw, n, c], qkv [bw, n, 3c] and p [bw, heads, n, n], all in T; the
+// attention's blocks walk wpb windows of one mask class each. Returns a
+// cudaError_t (0 on success).
 extern "C" int gdl_wa_savep_launch(const void* x, const void* w,
                                    const void* b, const void* bias,
                                    const void* mask, void* out, void* qkv,
                                    void* p, int bw, int n, int c, int heads,
-                                   int d, int nw, float scale, int dtype,
-                                   void* stream) {
-  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0)
+                                   int d, int nw, int wpb, float scale,
+                                   int dtype, void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0 || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dtype(dtype, [&](auto t) {
@@ -361,24 +306,25 @@ extern "C" int gdl_wa_savep_launch(const void* x, const void* w,
     const int err = wa2::project<T>(x, w, b, qkv, bw * n, c, s);
     if (err != 0) return err;
     return dispatch_fwd<T, true>(qkv, bias, mask, out, p, bw, n, c, heads,
-                                 d, nw, scale, s);
+                                 d, nw, wpb, scale, s);
   });
 }
 
-// qkv [bw, n, 3c] in T, computed by the caller (columns [q|k|v][head][d],
-// q unscaled); bias and mask as above. Writes out [bw, n, c] and
-// p [bw, heads, n, n] in T. Returns a cudaError_t (0 on success).
+// Kernels #5 and #6's forward: qkv [bw, n, 3c] in T, computed by the
+// caller (columns [q|k|v][head][d], q unscaled); bias and mask as above;
+// blocks of wpb windows. Writes out [bw, n, c] and p [bw, heads, n, n] in
+// T. Returns a cudaError_t (0 on success).
 extern "C" int gdl_wa_qkv_savep_launch(const void* qkv, const void* bias,
                                        const void* mask, void* out, void* p,
                                        int bw, int n, int c, int heads, int d,
-                                       int nw, float scale, int dtype,
-                                       void* stream) {
-  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0)
+                                       int nw, int wpb, float scale,
+                                       int dtype, void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0 || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dtype(dtype, [&](auto t) {
     return dispatch_fwd<typename decltype(t)::type, true>(
-        qkv, bias, mask, out, p, bw, n, c, heads, d, nw, scale, s);
+        qkv, bias, mask, out, p, bw, n, c, heads, d, nw, wpb, scale, s);
   });
 }
 
@@ -449,19 +395,20 @@ extern "C" int gdl_wa_bwd_fused_launch(const void* qkv, const void* p,
 }
 
 // Kernel #7's forward: qkv [bw, n, 3c] in T computed by the caller, bias
-// and mask as above; writes out [bw, n, c] in T and no p. Returns a
-// cudaError_t (0 on success).
+// and mask as above, blocks of wpb windows; writes out [bw, n, c] in T and
+// no p. Returns a cudaError_t (0 on success).
 extern "C" int gdl_wa_qkv_fwd_launch(const void* qkv, const void* bias,
                                      const void* mask, void* out, int bw,
                                      int n, int c, int heads, int d, int nw,
-                                     float scale, int dtype, void* stream) {
-  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0)
+                                     int wpb, float scale, int dtype,
+                                     void* stream) {
+  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0 || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dtype(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
     return dispatch_fwd<T, false>(qkv, bias, mask, out, nullptr, bw, n, c,
-                                  heads, d, nw, scale, s);
+                                  heads, d, nw, wpb, scale, s);
   });
 }
 
@@ -486,23 +433,16 @@ extern "C" int gdl_wa_bwd_recompute_launch(const void* qkv, const void* bias,
   return dispatch_bwd<Bwd::kRecompute>(dtype, a, s);
 }
 
-// Kernel #6's forward: as gdl_wa_qkv_savep_launch (writes out and p), a
-// block per window and group of g heads (g divides heads).
+// Kernel #6's forward: gdl_wa_qkv_savep_launch's launch (#5's grid and
+// body, so #5's bits); the blocks no longer walk gdl_tpu's head group.
 extern "C" int gdl_wa_qkv_savep_rows_launch(const void* qkv, const void* bias,
                                             const void* mask, void* out,
                                             void* p, int bw, int n, int c,
-                                            int heads, int d, int nw, int g,
+                                            int heads, int d, int nw, int wpb,
                                             float scale, int dtype,
                                             void* stream) {
-  if (bad_shape(bw, n, c, heads, d) || nw < 1 || bw % nw != 0 || g < 1 ||
-      heads % g != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dtype(dtype, [&](auto t) {
-    using T = typename decltype(t)::type;
-    return launch_fwd_rows<T>(qkv, bias, mask, out, p, bw, n, c, heads, d, nw,
-                              g, scale, s);
-  });
+  return gdl_wa_qkv_savep_launch(qkv, bias, mask, out, p, bw, n, c, heads, d,
+                                 nw, wpb, scale, dtype, stream);
 }
 
 // Kernel #6's backward: as gdl_wa_bwd_launch, a block per run of wpb

@@ -19,7 +19,8 @@ Ports of the window-attention entries of `gdl_tpu/ops/window_attention.py`:
     (`_wa_qkv_t_savep_kernel`), backward the attention backward #4;
   - save_p=True, transposed=False: kernel #6 (`_wa_qkv_savep_kernel`,
     `_wa_qkv_bwd_p_kernel`), the same functions in the TPU's row score
-    layout; here the row layout means blocks that walk a group of heads;
+    layout: its forward is #5's launch under a count of its own, its
+    backward #4's body in blocks that walk a group of heads;
   - save_p=False, either layout, as gdl_tpu routes it: kernel #7
     (`_wa_qkv_kernel`, `_wa_qkv_bwd_kernel`), a forward that saves no p
     and a backward that computes the scores and the softmax again from
@@ -91,6 +92,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward kernel gives each block one head and a run of windows;
 # about this many blocks fill an H100's 132 SMs a few times over
 _BWD_TARGET_BLOCKS = 1024
+# the forward body likewise (a run of windows of one mask class a block)
+_FWD_TARGET_BLOCKS = 1024
 # kernel #3's dW = dqkvᵀ·x splits its K (the tokens) until its grid of
 # 128 x 128 tiles holds two blocks for each of an H100's SMs. The count is
 # fixed, not read from the device: the split sets the order of dW's sum,
@@ -347,6 +350,15 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _fwd_windows_per_block(bw: int, num_heads: int) -> int:
+    """Windows each block of the forward body walks, all of one mask class
+    (window i takes mask[i % nW]), so that the block copies bias[h] and
+    its mask once. A function of the shape alone; the forward sums
+    nothing across windows, so it sets no bits, only the grid:
+    heads x nW x ceil(ceil(Bw / nW) / wpb) blocks."""
+    return max(1, bw * num_heads // _FWD_TARGET_BLOCKS)
+
+
 def _launch(x, w, b, bias, mask, num_heads, scale):
     bw, n, c, d, nw = _check_forward_operands(
         "window_attention_qkv_fused_eval", x, w, b, bias, mask, num_heads)
@@ -358,7 +370,8 @@ def _launch(x, w, b, bias, mask, num_heads, scale):
     err = lib.gdl_wa_eval_launch(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, qkv.data_ptr(),
-        out.data_ptr(), bw, n, c, num_heads, d, nw, float(scale),
+        out.data_ptr(), bw, n, c, num_heads, d, nw,
+        _fwd_windows_per_block(bw, num_heads), float(scale),
         _DTYPE_CODES[x.dtype], stream)
     _raise_on(err, KERNEL_NAME)
     kernels.launch_counts[KERNEL_NAME] += 1
@@ -377,7 +390,8 @@ def _launch_savep(x, w, b, bias, mask, num_heads, scale):
         x.data_ptr(), w.data_ptr(), b.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
         qkv.data_ptr(), p.data_ptr(), bw, n, c, num_heads, d, nw,
-        float(scale), _DTYPE_CODES[x.dtype], stream)
+        _fwd_windows_per_block(bw, num_heads), float(scale),
+        _DTYPE_CODES[x.dtype], stream)
     _raise_on(err, SAVEP_KERNEL_NAME)
     kernels.launch_counts[SAVEP_KERNEL_NAME] += 1
     return out, qkv, p
@@ -409,8 +423,8 @@ def _check_bwd_operands(name, qkv, p, dout, num_heads, extra=()):
 
 def head_group(num_heads: int, d: int) -> int:
     """gdl_tpu's head group g (`window_attention_pallas_qkv`): the most
-    heads, up to 128 / d, that divide num_heads. The blocks of kernels #6
-    and #9 walk a group of g heads."""
+    heads, up to 128 / d, that divide num_heads. The blocks of kernel #6's
+    backward walk a group of g heads."""
     g = max(1, min(num_heads, 128 // d))
     while num_heads % g:
         g -= 1
@@ -464,21 +478,22 @@ def _check_qkv_operands(name, qkv, bias, mask, num_heads):
 
 
 def _launch_qkv_savep(qkv, bias, mask, num_heads, scale, rows=False):
+    """Kernel #5, or with rows=True #6's forward: the same launch (#6's
+    entry makes #5's), counted under its own name."""
     name = QKV_SAVEP_ROWS_KERNEL_NAME if rows else QKV_SAVEP_KERNEL_NAME
     bw, n, c, d, nw = _check_qkv_operands(name, qkv, bias, mask, num_heads)
     lib = kernels.load("window_attention_train")
     out = torch.empty((bw, n, c), dtype=qkv.dtype, device=qkv.device)
     p = torch.empty((bw, num_heads, n, n), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    head = (qkv.data_ptr(), bias.data_ptr(),
-            mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            p.data_ptr(), bw, n, c, num_heads, d, nw)
-    tail = (float(scale), _DTYPE_CODES[qkv.dtype], stream)
-    if rows:
-        err = lib.gdl_wa_qkv_savep_rows_launch(*head, head_group(num_heads, d),
-                                               *tail)
-    else:
-        err = lib.gdl_wa_qkv_savep_launch(*head, *tail)
+    launch = (lib.gdl_wa_qkv_savep_rows_launch if rows
+              else lib.gdl_wa_qkv_savep_launch)
+    err = launch(
+        qkv.data_ptr(), bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        p.data_ptr(), bw, n, c, num_heads, d, nw,
+        _fwd_windows_per_block(bw, num_heads), float(scale),
+        _DTYPE_CODES[qkv.dtype], stream)
     _raise_on(err, name)
     kernels.launch_counts[name] += 1
     return out, p
@@ -493,7 +508,8 @@ def _launch_qkv_fwd(qkv, bias, mask, num_heads, scale):
     err = lib.gdl_wa_qkv_fwd_launch(
         qkv.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(), bw, n,
-        c, num_heads, d, nw, float(scale), _DTYPE_CODES[qkv.dtype], stream)
+        c, num_heads, d, nw, _fwd_windows_per_block(bw, num_heads),
+        float(scale), _DTYPE_CODES[qkv.dtype], stream)
     _raise_on(err, QKV_FWD_KERNEL_NAME)
     kernels.launch_counts[QKV_FWD_KERNEL_NAME] += 1
     return out
@@ -523,6 +539,8 @@ def _launch_bwd_recompute(qkv, bias, mask, dout, num_heads, scale):
 
 
 def _launch_bhnd(q, k, v, bias, mask, scale, packed):
+    """Kernel #8, or with packed=True #9: the same launch (#9's entry makes
+    #8's), counted under its own name."""
     name = PACKED_KERNEL_NAME if packed else BHND_KERNEL_NAME
     b, h, n, d = q.shape
     _check_head_shape(name, n, h * d, h, q.dtype)
@@ -542,14 +560,12 @@ def _launch_bhnd(q, k, v, bias, mask, scale, packed):
     lib = kernels.load("window_attention_bhnd")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            b, n, h, d, nw)
-    tail = (float(scale), _DTYPE_CODES[q.dtype], stream)
-    if packed:
-        err = lib.gdl_wa_packed_launch(*head, head_group(h, d), *tail)
-    else:
-        err = lib.gdl_wa_bhnd_launch(*head, *tail)
+    launch = lib.gdl_wa_packed_launch if packed else lib.gdl_wa_bhnd_launch
+    err = launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(), b, n,
+        h, d, nw, _fwd_windows_per_block(b, h), float(scale),
+        _DTYPE_CODES[q.dtype], stream)
     _raise_on(err, name)
     kernels.launch_counts[name] += 1
     return out
@@ -906,9 +922,11 @@ def window_attention_bhnd(q, k, v, bias, mask=None,
 def window_attention_packed(q, k, v, bias, mask=None,
                             scale: Optional[float] = None,
                             impl: str = "auto"):
-    """`window_attention_bhnd`'s function with the heads packed in groups
-    (gdl_tpu's `window_attention_pallas_packed`, kernel #9). Like it, it
-    raises ValueError when a mask is given and B is no multiple of nW."""
+    """`window_attention_bhnd`'s function (gdl_tpu's
+    `window_attention_pallas_packed`, kernel #9, which packs the heads in
+    groups on the TPU): #8's launch, under a count of its own. Like
+    gdl_tpu's, it raises ValueError when a mask is given and B is no
+    multiple of nW."""
     _forward_only("window_attention_packed", (q, k, v, bias, mask))
     if mask is not None and q.shape[0] % mask.shape[0]:
         raise ValueError(f"windows {q.shape[0]} not a multiple of nW "

@@ -48,7 +48,7 @@ KINDS = (
     ("mlp_fused (#15)", ("mlp::",)),
     # #1's and #2's qkv projection is gemm_tile_kernel with the epilogue
     # wa2::ProjBias (kernels/window_attention_proj.cuh) in its symbol;
-    # their attention is wa_fwd_kernel, in the window_attention row
+    # their attention is wa_fwd_kernel, in the window_attention row below
     ("window_attention_proj (#1, #2)", ("wa2::",)),
     # #11's two launches: part A on the row tile (sa_bwd_rows_kernel) and
     # part B (sa_bwd_keys_kernel); this row comes before the forwards'
@@ -58,14 +58,17 @@ KINDS = (
                                         "gemm_tile_kernel")),
     ("dropout_mask (#14)", ("dropout_mask_kernel",)),
     ("maxpool_bwd (#16)", ("maxpool_bwd_kernel",)),
-    ("window_attention_rows (#6)", ("wa_fwd_rows_kernel",
-                                    "wa_bwd_rows_kernel")),
+    # #6's backward; its forward is #5's launch (wa_fwd_kernel), filed
+    # under the forwards' row below
+    ("window_attention_rows (#6)", ("wa_bwd_rows_kernel",)),
     ("window_attention_bwd_recompute (#7)", ("wa_bwd_recompute_kernel",)),
-    ("window_attention_bhnd (#8, #9)", ("wa_bhnd_kernel",
-                                        "wa_packed_kernel")),
+    # #8 and #9: one launch, the forward body on the [B, H, N, D] strides
+    ("window_attention_bhnd (#8, #9)", ("wa_bhnd_kernel",)),
     # #4 and #4-delta (the backward from the saved p) apart from the
     # forwards' attention
     ("window_attention_bwd (#4)", ("wa_bwd_kernel",)),
+    # the forward body on a qkv: #1's and #2's attention, #5, #6's and #7's
+    # forward
     ("window_attention (#1, #2, #5, #7 forward)", ("wa_fwd_kernel",)),
     ("batch_norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm")),
     # cuDNN's FFT convolution algorithms also call cuBLAS complex GEMMs,

@@ -1949,3 +1949,193 @@ def test_projection_of_2_and_1_is_filed_under_its_own_row(cuda):
             assert kind_of(gemms[0]) == "window_attention_proj (#1, #2)"
             assert len(attn) == 1, seen
             assert "#1, #2" in kind_of(attn[0]), seen
+
+
+# --- the forward body (window_attention_fwd.cuh): #1, #2, #5, #6's and #7's
+# forward, #8 and #9 ---------------------------------------------------------
+
+# (bw, n, c, heads, nw): the four batch-32 Swin-B stage shapes (nW of their
+# shift masks; stage 3's window covers its map), 50 tokens (a ragged last
+# key tile), head dim 12 (bf16 rows of 24 bytes: 8-byte pieces), head dim 7
+# (14 bytes: element by element), 64 tokens at head dim 64, and one token
+FWD_BODY_SHAPES = [(2048, 49, 128, 4, 64), (512, 49, 256, 8, 16),
+                   (128, 49, 512, 16, 4), (32, 49, 1024, 32, 1),
+                   (10, 50, 64, 2, 2), (10, 49, 24, 2, 2), (6, 9, 14, 2, 2),
+                   (8, 64, 128, 2, 4), (4, 1, 32, 1, 1)]
+FWD_BODY_IDS = ["stage0", "stage1", "stage2", "stage3", "n50", "d12", "d7",
+                "n64", "n1"]
+
+
+def _fwd_body_inputs(cuda, bw, n, c, heads, nw, dt):
+    """Seeded x, w, b, qkv in dt; bias and a 0 / -100 mask (or None) in
+    float32."""
+    rng = np.random.default_rng(bw * n + c + heads)
+
+    def dev(a, to=dt):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(cuda, to)
+
+    x = dev(rng.standard_normal((bw, n, c)))
+    w = dev(rng.standard_normal((3 * c, c)) * c ** -0.5)
+    b = dev(rng.standard_normal(3 * c) * 0.1)
+    qkv = dev(rng.standard_normal((bw, n, 3 * c)))
+    bias = dev(rng.standard_normal((heads, n, n)) * 0.5, torch.float32)
+    mask = (dev(np.where(rng.random((nw, n, n)) < 0.3, -100.0, 0.0),
+                torch.float32) if nw > 1 else None)
+    return x, w, b, qkv, bias, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bw,n,c,heads,nw", FWD_BODY_SHAPES,
+                         ids=FWD_BODY_IDS)
+def test_fwd_body_launchers_write_exactly_their_outputs(cuda, bw, n, c,
+                                                        heads, nw, dtype):
+    """The forward entries on the one body, called at their C entries:
+    #5 (and #6's forward, the same entry), #7's forward, #2 and #1 (the
+    projection into a qkv workspace, then the body) and #8 (and #9, the
+    same entry) on q, k, v [B, H, N, D], with blocks of 3 windows of a
+    mask class (ragged runs) and p at an element offset of 1 (its slabs'
+    alignment moves). out, p and qkv, prefilled with NaN at the front of
+    larger NaN buffers, come out finite and leave the buffers' tails NaN;
+    out and p hold to the plain forward at TRAIN_FWD_TOL; #7's, #8's and
+    #1's out and #2's out and p are BIT-EQUAL to #5's on the same qkv
+    (#2's and #1's: on the qkv #2 wrote), and so is #5 with one window a
+    block: the run of windows sets no bits; equal bits on a rerun."""
+    import ctypes
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    dt = getattr(torch, dtype)
+    code = {"float32": 0, "bfloat16": 1}[dtype]
+    d = c // heads
+    scale = d ** -0.5
+    nwk = nw if nw > 1 else 1
+    x, w, b, qkv, bias, mask = _fwd_body_inputs(cuda, bw, n, c, heads, nw, dt)
+    q, k, v = (t.contiguous() for t in qkv.reshape(bw, n, 3, heads, d)
+               .permute(2, 0, 3, 1, 4))
+    train = kernels.load("window_attention_train")
+    evl = kernels.load("window_attention_eval")
+    bhnd = kernels.load("window_attention_bhnd")
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def ptr(t):
+        return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+    def guarded(shape, offset=0):
+        size = int(np.prod(shape))
+        buf = torch.full((offset + size + 4096,), float("nan"), dtype=dt,
+                         device=cuda)
+        return buf[offset:offset + size].view(shape), buf[offset + size:]
+
+    def launch(kind, wpb=3, src=qkv):
+        out, out_tail = guarded((bw, n, c))
+        p, p_tail = guarded((bw, heads, n, n), offset=1)
+        ws, ws_tail = guarded((bw, n, 3 * c))
+        shape = (bw, n, c, heads, d, nwk, wpb)
+        if kind == "5":
+            err = train.gdl_wa_qkv_savep_launch(
+                ptr(src), ptr(bias), ptr(mask), ptr(out), ptr(p), *shape,
+                scale, code, stream)
+        elif kind == "7":
+            err = train.gdl_wa_qkv_fwd_launch(
+                ptr(src), ptr(bias), ptr(mask), ptr(out), *shape, scale,
+                code, stream)
+        elif kind == "2":
+            err = train.gdl_wa_savep_launch(
+                ptr(x), ptr(w), ptr(b), ptr(bias), ptr(mask), ptr(out),
+                ptr(ws), ptr(p), *shape, scale, code, stream)
+        elif kind == "1":
+            err = evl.gdl_wa_eval_launch(
+                ptr(x), ptr(w), ptr(b), ptr(bias), ptr(mask), ptr(ws),
+                ptr(out), *shape, scale, code, stream)
+        else:
+            out, out_tail = guarded((bw, heads, n, d))
+            err = bhnd.gdl_wa_bhnd_launch(
+                ptr(q), ptr(k), ptr(v), ptr(bias), ptr(mask), ptr(out), bw,
+                n, heads, d, nwk, wpb, scale, code, stream)
+            out = out.transpose(1, 2).reshape(bw, n, c)
+        assert err == 0, (kind, err)
+        torch.cuda.synchronize()
+        wrote = [(out, out_tail)]
+        if kind in ("5", "2"):
+            wrote.append((p, p_tail))
+        if kind in ("2", "1"):
+            wrote.append((ws, ws_tail))
+        for t, tail in wrote:
+            assert bool(torch.isfinite(t.float()).all()), kind
+            assert bool(torch.isnan(tail.float()).all()), kind
+        return out, p, ws
+
+    with torch.no_grad():
+        got = {kind: launch(kind) for kind in ("5", "7", "2", "1", "8")}
+        again = {kind: launch(kind) for kind in got}
+        one = launch("5", wpb=1)
+        on_2 = launch("5", src=got["2"][2])
+        out_w, p_w = wa.window_attention_qkv_train_ref(qkv, bias, mask,
+                                                       heads, scale)
+    for kind in got:
+        assert torch.equal(got[kind][0], again[kind][0]), kind
+    _close(got["5"][0], out_w, dtype, "fwd")
+    _close(got["5"][1], p_w, dtype, "fwd")
+    assert torch.equal(got["5"][1], again["5"][1])
+    assert torch.equal(one[0], got["5"][0]) and torch.equal(one[1],
+                                                            got["5"][1])
+    for kind in ("7", "8"):
+        assert torch.equal(got[kind][0], got["5"][0]), kind
+    assert torch.equal(got["2"][0], on_2[0])
+    assert torch.equal(got["2"][1], on_2[1])
+    assert torch.equal(got["1"][0], got["2"][0])
+    assert torch.equal(got["1"][2], got["2"][2])
+
+
+def _fwd_digests(cuda) -> dict:
+    """The bits of the forward body's outputs (#5's out and p, #7's out,
+    #2's out, qkv and p, #1's out, #8's out) on fixed inputs (numpy seeds)
+    at Swin-B stage 1 at batch 32 with its shift mask's 16 classes, stage 3
+    without a mask, and 20 windows of 50 tokens at head dim 12 with 4
+    classes, both dtypes, through the ops. Name -> SHA-256."""
+    from gdl_tpu_torch.ops import window_attention as wa
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for bw, n, c, heads, nw in ((512, 49, 256, 8, 16),
+                                    (32, 49, 1024, 32, 1),
+                                    (20, 50, 24, 2, 4)):
+            x, w, b, qkv, bias, mask = _fwd_body_inputs(cuda, bw, n, c, heads,
+                                                        nw, dt)
+            d = c // heads
+            q, k, v = (t.contiguous() for t in qkv.reshape(bw, n, 3, heads, d)
+                       .permute(2, 0, 3, 1, 4))
+            with torch.no_grad():
+                got = {
+                    "5": wa.window_attention_qkv_fwd(qkv, bias, mask, heads),
+                    "7": (wa.window_attention_qkv_recompute_fwd(
+                        qkv, bias, mask, heads),),
+                    "2": wa.window_attention_qkv_fused_fwd(x, w, b, bias,
+                                                           mask, heads),
+                    "1": (wa.window_attention_qkv_fused_eval(
+                        x, w, b, bias, mask, heads),),
+                    "8": (wa.window_attention_bhnd(q, k, v, bias, mask),)}
+            for kind, ts in got.items():
+                for i, t in enumerate(ts):
+                    out[f"{kind}_{bw}_{c}_{i}_{dtype}"] = _bits(t)
+    return out
+
+
+# _fwd_digests as the forward body gave them (run on an NVIDIA H100 80GB
+# HBM3 by this file's _fwd_digests) once every forward ran on the
+# tensor-core body of window_attention_fwd.cuh
+FWD_DIGESTS = {
+}
+
+
+@pytest.mark.cuda
+def test_forward_body_keeps_its_bits(cuda):
+    """The forwards keep the bits recorded from the tensor-core forward
+    body, so that a later change to the body or its grid shows."""
+    got = _fwd_digests(cuda)
+    assert set(got) == set(FWD_DIGESTS)
+    changed = sorted(k for k in got if got[k] != FWD_DIGESTS[k])
+    assert not changed, changed

@@ -185,11 +185,13 @@ def test_bench_wa_fwd_splits_the_kernels_by_part(symbol, part):
 
 
 def test_eval_entry_takes_the_qkv_workspace():
-    """#1's entry point takes the qkv workspace after the mask, as its
-    ctypes argtypes and the op wrapper pass it."""
+    """#1's entry point takes the qkv workspace after the mask (and the
+    attention's windows per block after nW), as its ctypes argtypes and
+    the op wrapper pass it."""
     source_file, entries = kernels.LIBRARIES["window_attention_eval"]
     source = (kernels.KERNEL_DIR / source_file).read_text()
-    assert _entry_points(source) == {"gdl_wa_eval_launch": 16}
+    assert _entry_points(source) == {"gdl_wa_eval_launch": 17}
+    assert re.search(r"int nw, int wpb,\s+float scale", source)
     assert entries["gdl_wa_eval_launch"][0][:7] == [kernels._vp] * 7
     assert re.search(r"const void\* mask,\s+void\* qkv, void\* out", source)
 
@@ -217,13 +219,15 @@ def test_projection_epilogue_rounds_then_adds_the_bias():
 
 def test_first_design_of_kernels_1_and_2_is_gone():
     """The in-kernel projection of the forward header is deleted: no PROJ
-    branch or template parameter, no projection layout in FwdSmem, no
-    C-chunk width; every forward kernel reads a qkv in device memory."""
+    branch or template parameter, no projection layout, no C-chunk width;
+    every forward kernel reads a qkv in device memory (dispatch_fwd points
+    the body's q, k and v at it)."""
     text = (kernels.KERNEL_DIR / "window_attention_fwd.cuh").read_text()
     code = "\n".join(ln.split("//")[0] for ln in text.splitlines())
     for gone in ("PROJ", "kProj", "kLdX", "kKC", "kUnion", "xs[", "ws["):
         assert gone not in code, gone
-    assert "wa_fwd_kernel(const T* __restrict__ qkv" in code
+    assert "wa_fwd_kernel(FwdArgs a)" in code
+    assert "const T* q = static_cast<const T*>(qkv);" in code
     for name in ("window_attention_bhnd.cu", "window_attention_train.cu"):
         body = (kernels.KERNEL_DIR / name).read_text()
         assert "kUnion" not in body and "PROJ=" not in body, name

@@ -342,12 +342,14 @@ def test_profile_kinds_name_every_new_kernel_symbol():
     from gdl_tpu_torch.profile_step import kind_of
 
     want = {
-        "wa_fwd_rows_kernel<float, 32>": "#6",
+        # #6's forward is #5's launch, filed with the forwards
+        "wa_fwd_kernel<float, 32, true>": "#5",
         "wa_bwd_rows_kernel<__nv_bfloat16, 64>": "#6",
         "wa_bwd_recompute_kernel<float, 32>": "#7",
         "wa_fwd_kernel<float, 32, false, false>": "#7 forward",
         "wa_bhnd_kernel<float, 32>": "#8",
-        "wa_packed_kernel<float, 16>": "#9",
+        # #9 is #8's launch
+        "wa_bhnd_kernel<float, 16>": "#9",
         "sa_train_kernel<float, 64, 64>": "#12",
         "wa_bwd_kernel<float, 32, true>": "#4",
         "wa_bwd_fused_kernel<float, 32, 256>": "#3",
