@@ -2128,6 +2128,102 @@ def _fwd_digests(cuda) -> dict:
 # HBM3 by this file's _fwd_digests) once every forward ran on the
 # tensor-core body of window_attention_fwd.cuh
 FWD_DIGESTS = {
+    "1_20_24_0_bfloat16":
+        "8d162b699ff7bbe7402d7ad557007a953724ecca982aa6b2c3131dd3a32da776",
+    "1_20_24_0_float32":
+        "fb2515a728861a2a25b0e7dfb036980c8d6ff0cf2ee3b531bb1c54301156cc36",
+    "1_32_1024_0_bfloat16":
+        "040be336088a2b8834cdc73e7aa5560cc361e5d5f1a82f409236ffcd854a336e",
+    "1_32_1024_0_float32":
+        "485f31d952667f2a271c584485070a9a9ffe2e7876b0a7517eeaceaef5d8e1b6",
+    "1_512_256_0_bfloat16":
+        "c62afd4098922a9cc47bbd8d893b07d8b59ea299c26ef3f18e239909b7e43628",
+    "1_512_256_0_float32":
+        "0d0c470ea9721800fe9ef6c6fd46c78f48f980138818a13fdf6b876763b73a98",
+    "2_20_24_0_bfloat16":
+        "8d162b699ff7bbe7402d7ad557007a953724ecca982aa6b2c3131dd3a32da776",
+    "2_20_24_0_float32":
+        "fb2515a728861a2a25b0e7dfb036980c8d6ff0cf2ee3b531bb1c54301156cc36",
+    "2_20_24_1_bfloat16":
+        "2742ca04e813f92a82507e4ea1ffe9ae90d776b1afeff1ac0fb9902f3a0a7371",
+    "2_20_24_1_float32":
+        "f3128d7635337d5066d1e498173ef4f1f81e14ee4fa63483f8b46297b68e8c4e",
+    "2_20_24_2_bfloat16":
+        "24b94c63c681d42c1bdd981d47d1117ad14e2fc58e9fe07e50ddf6a7087b10fb",
+    "2_20_24_2_float32":
+        "151ca519b9354ee35ac8effd0273282fc5547e9781ce89ab90cc3a111f50a4e8",
+    "2_32_1024_0_bfloat16":
+        "040be336088a2b8834cdc73e7aa5560cc361e5d5f1a82f409236ffcd854a336e",
+    "2_32_1024_0_float32":
+        "485f31d952667f2a271c584485070a9a9ffe2e7876b0a7517eeaceaef5d8e1b6",
+    "2_32_1024_1_bfloat16":
+        "2b70cf2544d8b55290c0607fed0fbdd9e6036c7ebccb783302350de0d63bd295",
+    "2_32_1024_1_float32":
+        "ae87795a52c1a4cb8696a161ead4a5e0925249a0972a992ae4d087dac110560a",
+    "2_32_1024_2_bfloat16":
+        "ee67ede9bc6cd587c53f317b465a994427a8e0f362060f0f488c57140208fd64",
+    "2_32_1024_2_float32":
+        "e64032c3dd989ac314517ab72594182d15764a012b8080b1e3274b78d72c2d72",
+    "2_512_256_0_bfloat16":
+        "c62afd4098922a9cc47bbd8d893b07d8b59ea299c26ef3f18e239909b7e43628",
+    "2_512_256_0_float32":
+        "0d0c470ea9721800fe9ef6c6fd46c78f48f980138818a13fdf6b876763b73a98",
+    "2_512_256_1_bfloat16":
+        "9c9d5e6c861922b1eb18baf62852efd91a4eaa756dac71c09bea7bb989885390",
+    "2_512_256_1_float32":
+        "3a39fec5c06cfdb36661e361b25b6d2bbfbed4ec3278ef53611626dc5d8afa48",
+    "2_512_256_2_bfloat16":
+        "0fbf77bec72da37c27205f5b97b2633f51d37de00256e014b428634a850b7501",
+    "2_512_256_2_float32":
+        "18c8409d8b262013d76087bfd0974d962b817252782f7a16f670118313f43329",
+    "5_20_24_0_bfloat16":
+        "820da1ad16bd67c05917ae5418bedb1dd43a5d484aa54dfecb1ec4c15d633694",
+    "5_20_24_0_float32":
+        "54394fb187c002e30064a64f3d87e2c4bea738906be7474e42d6936e4f90b0e7",
+    "5_20_24_1_bfloat16":
+        "5a24297d66174b9f5a807929925daa466d516e2fd86b7059b8f4914cb7461082",
+    "5_20_24_1_float32":
+        "9c9261571ce276272fa2c7c44b57c5e8ee54225ac801f0de30599641b19d22ba",
+    "5_32_1024_0_bfloat16":
+        "3b6f2916f7bb0e5e6d8f5ae1762e2c7722974ba7386816932d471153a5c9d786",
+    "5_32_1024_0_float32":
+        "66fd455277f39207b8dc5b0d2f150cfea2f92d09a5fe0c81559e4146bf0e4937",
+    "5_32_1024_1_bfloat16":
+        "779f31197f2eb50dcf926869edbc278ce2d87807b2a31e13c03fe54634672efd",
+    "5_32_1024_1_float32":
+        "47bfd8d28985b587100f3937db040722e6c2160e4816b0f265aaa39c4896c44e",
+    "5_512_256_0_bfloat16":
+        "5d736c52b1ffbe0416afc5e780e509749f4086e11ea5c33d3ba5ca2b24183102",
+    "5_512_256_0_float32":
+        "3a6a538e21f6c48c7463b31630da62c45e00a7247a3e9de22cb262d0f7311ffb",
+    "5_512_256_1_bfloat16":
+        "450791c34125026ca4e43c4c528e8b2fd8c2694dca7c129741ddcfa6df9bd6ef",
+    "5_512_256_1_float32":
+        "7ea8465c01436230d8ef8f5027b2beefb3b5241d4ed062ca8e9ac25bf9599907",
+    "7_20_24_0_bfloat16":
+        "820da1ad16bd67c05917ae5418bedb1dd43a5d484aa54dfecb1ec4c15d633694",
+    "7_20_24_0_float32":
+        "54394fb187c002e30064a64f3d87e2c4bea738906be7474e42d6936e4f90b0e7",
+    "7_32_1024_0_bfloat16":
+        "3b6f2916f7bb0e5e6d8f5ae1762e2c7722974ba7386816932d471153a5c9d786",
+    "7_32_1024_0_float32":
+        "66fd455277f39207b8dc5b0d2f150cfea2f92d09a5fe0c81559e4146bf0e4937",
+    "7_512_256_0_bfloat16":
+        "5d736c52b1ffbe0416afc5e780e509749f4086e11ea5c33d3ba5ca2b24183102",
+    "7_512_256_0_float32":
+        "3a6a538e21f6c48c7463b31630da62c45e00a7247a3e9de22cb262d0f7311ffb",
+    "8_20_24_0_bfloat16":
+        "5812beb606a3dc160f70a842dead2ceae93a9fbb8152a80db270a435f131bd4e",
+    "8_20_24_0_float32":
+        "ea43634d5a193223d7c133d0bf1bf71193c76d7701cd49f3057839c54467e91e",
+    "8_32_1024_0_bfloat16":
+        "1fe05b5c32adfafecede41021591a3d499e3146b8de0fffa0859bddad4856d8e",
+    "8_32_1024_0_float32":
+        "2bb051db25772723dfcec35ed13f14fba687c34e12b9d34cd0ea3b82307b66a2",
+    "8_512_256_0_bfloat16":
+        "ce43a0009bc35d3c0f203b3f10e4d2500339e3540b32dd382b905c46311b2434",
+    "8_512_256_0_float32":
+        "a5dc17c0c3a466d8fede11e1b847f13c584e099f6b34e943ba12c875d27f22cd",
 }
 
 
