@@ -142,7 +142,9 @@ __device__ __forceinline__ void issue_tile(const BwdArgs& a, T* st, int win,
   const T* src[4] = {qkv_w, qkv_w + c, qkv_w + 2 * c, g_w};
   const size_t ld[4] = {3 * static_cast<size_t>(c), 3 * static_cast<size_t>(c),
                         3 * static_cast<size_t>(c), static_cast<size_t>(c)};
-  copy_rows_by<T, DMAX, 4>(a.width, st, src, ld, n, d, tid);
+  T* const dst[4] = {st, st + L::TILE, st + 2 * L::TILE, st + 3 * L::TILE};
+  const int lds[4] = {L::LDQ, L::LDQ, L::LDQ, L::LDQ};
+  copy_rows_by(a.width, dst, lds, src, ld, n, d, tid);
   if (with_p)
     copy_flat(st + 4 * L::TILE,
               static_cast<const T*>(a.p) +
@@ -247,7 +249,7 @@ __device__ __forceinline__ void query_rows(const BwdArgs& a, T* st, T* dss,
             ? mask_s + flat_shift(a.mask +
                                   static_cast<size_t>(win % a.nw) * n * n)
             : nullptr;
-    softmax_rows(pv, bh, mw, n, r0, lane);
+    softmax_rows<false>(pv, bh, mw, n, n, r0, lane);
     T* pt = ps + pshift;  // in f32 over the mask: each lane has read
                           // the elements it writes
     // p_T = round_T(p) into the flat buffer for dv

@@ -29,8 +29,9 @@
 // Design (the backward body's layout, window_attention_bwd.cuh). A block
 // of four warps owns one head and a run of windows of one mask class
 // (w = r mod nW): bias[h] and mask[r] are copied into shared memory once
-// a block (copy_flat), not read by each lane from device memory. Each
-// window of the run is a tile:
+// a block, into rows padded so that a lane reads its two keys of a tile
+// as one float2 off distinct banks, not read by each lane from device
+// memory. Each window of the run is a tile:
 //   - q, k, v rows come in by cp.async in T, in the widest piece (16, 8 or
 //     4 bytes) their alignment allows, element by element where none
 //     fits, into row tiles [kNP][LDQ] zeroed once at block start (rows
@@ -46,14 +47,19 @@
 //     m16n8k16, f32 sums), the A operand packed straight from p's
 //     accumulator registers, v through ldmatrix.trans; in f32 (no TF32:
 //     f32 stays f32, as the plain versions run) on an FMA tile of four
-//     rows by d / 8 columns a lane, p through a padded f32 tile in shared
-//     memory;
-//   - out rows are staged in the warp's rows of q's tile, free after the
-//     scores, and stored in 16/8/4-byte pieces; with SAVE, p goes into a
-//     flat buffer shifted as its [n, n] slab is shifted off 16 bytes, and
-//     the block writes the slab as one span, 16-byte stores of its
-//     aligned interior and element stores at its two edges (store_flat,
-//     the mirror of copy_flat).
+//     rows by d / 8 columns a lane, p through the warp's rows of q's tile
+//     (free after the scores; q's rows are 68 floats), float4 reads;
+//   - bf16: out rows are staged in the warp's rows of q's tile and stored
+//     in 16/8/4-byte pieces; with SAVE, p goes into a flat buffer shifted
+//     as its [n, n] slab is shifted off 16 bytes, and the block writes
+//     the slab as one span, 16-byte stores of its aligned interior and
+//     element stores at its two edges (store_flat, the mirror of
+//     copy_flat). f32: each warp writes its rows of p's slab from q's
+//     tile (contiguous, no block barrier) and its rows of out straight
+//     from the registers, a float4 a lane and row.
+// Sized so that four blocks (16 warps) fit an SM at the Swin shapes in
+// both dtypes: the stages, the padded bias and mask and (bf16) the flat p
+// buffer take 56.2 KB in bf16 and 56.6 KB in f32.
 // A window's sums have a fixed order and no atomics: two runs give equal
 // bits, and every entry, whatever its layout or grid, gives the bits of
 // every other on the same values.
@@ -174,19 +180,21 @@ __device__ __forceinline__ void copy_piece(T* dst, const T* src) {
 }
 
 // Rows 0 .. n - 1 (d elements each) of K row sources, src[i] with its rows
-// ld[i] elements apart, into K consecutive row tiles at dst, in pieces of
-// W bytes (0: element by element). The caller commits the group.
-template <typename T, int DMAX, int W, int K>
-__device__ __forceinline__ void copy_rows(T* dst, const T* const (&src)[K],
+// ld[i] elements apart, into the row tiles dst[i] (rows lds[i] elements
+// apart), in pieces of W bytes (0: element by element). The caller
+// commits the group.
+template <int W, int K, typename T>
+__device__ __forceinline__ void copy_rows(T* const (&dst)[K],
+                                          const int (&lds)[K],
+                                          const T* const (&src)[K],
                                           const size_t (&ld)[K], int n, int d,
                                           int tid) {
-  using R = RowTile<T, DMAX>;
   if constexpr (W == 0) {
     for (int e = tid; e < n * d; e += kBodyThreads) {
       const int r = e / d, col = e % d;
 #pragma unroll
       for (int i = 0; i < K; ++i)
-        dst[i * R::TILE + r * R::LDQ + col] = src[i][r * ld[i] + col];
+        dst[i][r * lds[i] + col] = src[i][r * ld[i] + col];
     }
   } else {
     constexpr int V = W / static_cast<int>(sizeof(T));
@@ -195,41 +203,42 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* const (&src)[K],
       const int r = e / per_row, col = (e % per_row) * V;
 #pragma unroll
       for (int i = 0; i < K; ++i)
-        copy_piece<W>(dst + i * R::TILE + r * R::LDQ + col,
-                      src[i] + r * ld[i] + col);
+        copy_piece<W>(dst[i] + r * lds[i] + col, src[i] + r * ld[i] + col);
     }
   }
 }
 
 // copy_rows in the piece width `width` (16, 8, 4 bytes, or 0)
-template <typename T, int DMAX, int K>
-__device__ __forceinline__ void copy_rows_by(int width, T* dst,
+template <int K, typename T>
+__device__ __forceinline__ void copy_rows_by(int width, T* const (&dst)[K],
+                                             const int (&lds)[K],
                                              const T* const (&src)[K],
                                              const size_t (&ld)[K], int n,
                                              int d, int tid) {
   switch (width) {
     case 16:
-      copy_rows<T, DMAX, 16>(dst, src, ld, n, d, tid);
+      copy_rows<16>(dst, lds, src, ld, n, d, tid);
       break;
     case 8:
-      copy_rows<T, DMAX, 8>(dst, src, ld, n, d, tid);
+      copy_rows<8>(dst, lds, src, ld, n, d, tid);
       break;
     case 4:
-      copy_rows<T, DMAX, 4>(dst, src, ld, n, d, tid);
+      copy_rows<4>(dst, lds, src, ld, n, d, tid);
       break;
     default:
-      copy_rows<T, DMAX, 0>(dst, src, ld, n, d, tid);
+      copy_rows<0>(dst, lds, src, ld, n, d, tid);
   }
 }
 
 // q_s = round_T(q * T(scale)) in place on the warp's rows r0 .. r0 + 15 of
-// the q tile (read by other warps, if at all, only after a barrier)
+// the q tile, rows ldq elements apart (read by other warps, if at all,
+// only after a barrier)
 template <typename T, int DMAX>
 __device__ __forceinline__ void scale_rows(T* qs, int r0, int lane,
-                                           float scale_t) {
-  using R = RowTile<T, DMAX>;
+                                           float scale_t,
+                                           int ldq = RowTile<T, DMAX>::LDQ) {
   for (int e = lane; e < 16 * DMAX; e += 32) {
-    T* x = qs + (r0 + e / DMAX) * R::LDQ + e % DMAX;
+    T* x = qs + (r0 + e / DMAX) * ldq + e % DMAX;
     *x = Num<T>::store(Num<T>::load(x) * scale_t);
   }
   __syncwarp();
@@ -247,18 +256,19 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
 }
 
 // acc[j][..] += A[r0 .. r0 + 15][:DMAX] . B[8j .. 8j + 7][:DMAX]^T for the
-// key tiles j < NKT, A and B row tiles (the scores' and dp's layout: K =
-// the head dim)
+// key tiles j < NKT, A and B row tiles, A's rows lda elements apart, B's
+// LDQ (the scores' and dp's layout: K = the head dim)
 template <int NKT, typename T, int DMAX>
 __device__ __forceinline__ void rows_by_key_tiles(float (&acc)[8][4],
                                                   const T* as, const T* bs,
-                                                  int r0, int d, int lane) {
+                                                  int r0, int d, int lane,
+                                                  int lda) {
   using R = RowTile<T, DMAX>;
   if constexpr (R::kBf16) {
 #pragma unroll
     for (int kk = 0; kk < DMAX; kk += 16) {
       uint32_t a[4];
-      gemm::ldsm_x4(a, as + (r0 + lane % 16) * R::LDQ + kk + (lane / 16) * 8);
+      gemm::ldsm_x4(a, as + (r0 + lane % 16) * lda + kk + (lane / 16) * 8);
 #pragma unroll
       for (int j = 0; j + 1 < NKT; j += 2) {
         uint32_t b[4];  // B fragments of key tiles j and j + 1
@@ -276,8 +286,8 @@ __device__ __forceinline__ void rows_by_key_tiles(float (&acc)[8][4],
     }
   } else {
     const int g = lane / 4, q = lane % 4;
-    const float* a0p = as + (r0 + g) * R::LDQ;
-    const float* a1p = a0p + 8 * R::LDQ;
+    const float* a0p = as + (r0 + g) * lda;
+    const float* a1p = a0p + 8 * lda;
     for (int k4 = 0; k4 < d; k4 += 4) {
       const float4 a0 = *reinterpret_cast<const float4*>(a0p + k4);
       const float4 a1 = *reinterpret_cast<const float4*>(a1p + k4);
@@ -299,38 +309,57 @@ __device__ __forceinline__ void rows_by_key_tiles(float (&acc)[8][4],
 // the product over the key tiles that hold keys < n: all 8, or 7 where
 // n <= 56 (a Swin window's 49)
 template <typename T, int DMAX>
-__device__ __forceinline__ void rows_by_keys(float (&acc)[8][4], const T* as,
-                                             const T* bs, int r0, int n,
-                                             int d, int lane) {
+__device__ __forceinline__ void rows_by_keys(
+    float (&acc)[8][4], const T* as, const T* bs, int r0, int n, int d,
+    int lane, int lda = RowTile<T, DMAX>::LDQ) {
   if (n > 56)
-    rows_by_key_tiles<8, T, DMAX>(acc, as, bs, r0, d, lane);
+    rows_by_key_tiles<8, T, DMAX>(acc, as, bs, r0, d, lane, lda);
   else
-    rows_by_key_tiles<7, T, DMAX>(acc, as, bs, r0, d, lane);
+    rows_by_key_tiles<7, T, DMAX>(acc, as, bs, r0, d, lane, lda);
 }
 
 // p = softmax(s + bias + mask) over the keys < n, in place and unrounded
 // in f32, on the warp's fragments of the query rows r0 + g (+ 8): bh and
-// mw (null: no mask) are the flat [n, n] bias and mask in shared memory.
-// Rows and keys past n give p = 0: a row past n is all -inf, and its sum
-// of 0 is never divided by. The forward and #7's backward both call it.
+// mw (null: no mask) are the [n, n] bias and mask in shared memory, rows
+// ld elements apart (the flat buffers: ld = n); with PAIRS (ld even, the
+// rows 8-byte aligned) a lane reads its two keys 2q, 2q + 1 of a tile as
+// one float2. Rows and keys past n give p = 0: a row past n is all -inf,
+// and its sum of 0 is never divided by. The forward and #7's backward
+// both call it.
+template <bool PAIRS>
 __device__ __forceinline__ void softmax_rows(float (&s)[8][4],
                                              const float* bh,
-                                             const float* mw, int n, int r0,
-                                             int lane) {
+                                             const float* mw, int ld, int n,
+                                             int r0, int lane) {
   const int g = lane / 4, q = lane % 4;
+  // the pair at row i, keys jj and jj + 1 (jj < n; jj + 1 read if < n)
+  auto pair = [&](const float* m, int i, int jj) {
+    if constexpr (PAIRS)
+      return *reinterpret_cast<const float2*>(m + i * ld + jj);
+    else
+      return make_float2(m[i * ld + jj], jj + 1 < n ? m[i * ld + jj + 1]
+                                                    : 0.f);
+  };
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = r0 + g + 8 * (e / 2), jj = 8 * j + 2 * q + e % 2;
-      float v = -CUDART_INF_F;
+    for (int h = 0; h < 2; ++h) {
+      const int i = r0 + g + 8 * h, jj = 8 * j + 2 * q;
+      float v0 = -CUDART_INF_F, v1 = -CUDART_INF_F;
       if (i < n && jj < n) {
-        v = s[j][e] + bh[i * n + jj];
-        if (mw != nullptr) v += mw[i * n + jj];
+        const float2 b = pair(bh, i, jj);
+        v0 = s[j][2 * h] + b.x;
+        if (jj + 1 < n) v1 = s[j][2 * h + 1] + b.y;
+        if (mw != nullptr) {
+          const float2 m = pair(mw, i, jj);
+          v0 += m.x;
+          if (jj + 1 < n) v1 += m.y;
+        }
       }
-      s[j][e] = v;
-      mx[e / 2] = fmaxf(mx[e / 2], v);
+      s[j][2 * h] = v0;
+      s[j][2 * h + 1] = v1;
+      mx[h] = fmaxf(mx[h], fmaxf(v0, v1));
     }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -383,48 +412,65 @@ struct FwdArgs {
   int width;    // bytes a piece of a q, k, v or out row takes: 16, 8, 4, 0
 };
 
-// Shared memory of a block, sized by n at launch: NS stages of [q | k | v]
-// row tiles, zeroed at block start; in f32 the p tile [kNP][LDP] (the A
-// operand of out = p . v); the flat p buffer of SAVE (a shift of < 8, then
-// n * n in T); bias[h] and mask[r] as flat f32 buffers.
+// Shared memory of a block, sized by n at launch: NS stages of row tiles
+// q [kNP][LDA], k [krows][LDQ], v [kNP][LDQ], zeroed at block start (k's
+// rows stop at the last key tile's); in bf16 the flat p buffer of SAVE (a
+// shift of < 8, then n * n); bias[h] and mask[r] as f32 tiles [n][ldb].
+// In f32 a warp's rows of q also take its p, the A operand of out = p . v
+// (keys < kNP, so a q row holds at least kNP + 4 floats), and SAVE writes
+// p from there. At the Swin shapes (n = 49, d = 32) a block takes 56,224
+// bytes in bf16 and 56,640 in f32: four blocks an SM.
 template <typename T, int DMAX>
 struct FwdLayout {
   using R = RowTile<T, DMAX>;
   static constexpr int NS = R::kBf16 ? 2 : 1;
-  static constexpr int LDP = kNP + 4;
-  static constexpr size_t kStage = sizeof(T) * 3 * R::TILE;
-  static constexpr size_t kPTile = R::kBf16 ? 0 : sizeof(float) * kNP * LDP;
-  // blocks an SM that the registers must allow: what shared memory allows
-  // at the Swin shapes (d = 32: four in bf16, three in f32)
-  static constexpr int MIN_BLOCKS = DMAX > 32 ? 2 : (R::kBf16 ? 4 : 3);
+  static constexpr int LDA =
+      R::kBf16 || R::LDQ >= kNP + 4 ? R::LDQ : kNP + 4;
+  static constexpr int MIN_BLOCKS = DMAX > 32 ? 2 : 4;
 
-  __host__ __device__ static constexpr int pflat(int n) {
-    return (n * n + 8 + 7) / 8 * 8;
+  // key rows the scores read: 7 key tiles where n <= 56, else 8
+  __host__ __device__ static constexpr int krows(int n) {
+    return n <= 56 ? 56 : kNP;
   }
-  __host__ __device__ static constexpr size_t zeroed_bytes() {
-    return NS * kStage;
+  // bias and mask rows: even, 24 or 8 mod 32 floats, so that a warp's
+  // float2 reads of 8 rows by 4 key pairs fall on distinct banks
+  __host__ __device__ static constexpr int ldb(int n) {
+    return n <= 56 ? 56 : 72;
+  }
+  // elements of T in a stage: q, then k, then v
+  __host__ __device__ static constexpr int stage(int n) {
+    return kNP * LDA + (krows(n) + kNP) * R::LDQ;
+  }
+  __host__ __device__ static constexpr int pflat(int n) {
+    return R::kBf16 ? (n * n + 8 + 7) / 8 * 8 : 0;
+  }
+  __host__ __device__ static constexpr size_t zeroed_bytes(int n) {
+    return sizeof(T) * NS * stage(n);
   }
   __host__ __device__ static constexpr size_t bytes(int n) {
-    return zeroed_bytes() + kPTile + sizeof(T) * pflat(n) +
-           sizeof(float) * 2 * flat_floats(n);
+    return zeroed_bytes(n) + sizeof(T) * pflat(n) +
+           sizeof(float) * 2 * n * ldb(n);
   }
   __host__ __device__ static constexpr size_t max_bytes() {
     return bytes(kNP);
   }
+  static_assert((sizeof(T) * kNP * LDA) % 16 == 0 &&
+                    (sizeof(T) * 56 * R::LDQ) % 16 == 0,
+                "16-byte tiles");
 };
 
-// The warp's 16 rows of out, staged in rows r0 .. r0 + 15 of os, to
-// out_w (rows ldo elements apart): rows < n, d elements each, in pieces
-// of W bytes (0: element by element)
-template <typename T, int DMAX, int W>
+// The warp's 16 rows of out, staged in rows r0 .. r0 + 15 of os (rows lds
+// elements apart), to out_w (rows ldo elements apart): rows < n, d
+// elements each, in pieces of W bytes (0: element by element)
+template <typename T, int W>
 __device__ __forceinline__ void store_rows(T* out_w, size_t ldo, const T* os,
-                                           int r0, int n, int d, int lane) {
-  using R = RowTile<T, DMAX>;
+                                           int lds, int r0, int n, int d,
+                                           int lane) {
   const int rows = min(16, n - r0);
   if constexpr (W == 0) {
     for (int e = lane; e < rows * d; e += 32) {
       const int r = r0 + e / d, col = e % d;
-      out_w[r * ldo + col] = os[r * R::LDQ + col];
+      out_w[r * ldo + col] = os[r * lds + col];
     }
   } else {
     using V = std::conditional_t<W == 16, int4,
@@ -434,170 +480,230 @@ __device__ __forceinline__ void store_rows(T* out_w, size_t ldo, const T* os,
     for (int e = lane; e < rows * per_row; e += 32) {
       const int r = r0 + e / per_row, col = (e % per_row) * E;
       *reinterpret_cast<V*>(out_w + r * ldo + col) =
-          *reinterpret_cast<const V*>(os + r * R::LDQ + col);
+          *reinterpret_cast<const V*>(os + r * lds + col);
     }
   }
 }
 
-// One tile for the warp on query rows r0 .. r0 + 15 (r0 < n): q_s in
-// place, the scores, p (rounded to T; with SAVE into the flat buffer at
-// pw), out = p . v staged in the warp's rows of q's tile and stored.
-// bh, mw: the flat bias and mask (or null) at their shifts; pt: the f32 p
-// tile.
-template <typename T, int DMAX, bool SAVE>
-__device__ __forceinline__ void fwd_rows(const FwdArgs& a, T* st, float* pt,
-                                         T* pw, const float* bh,
-                                         const float* mw, T* out_w, int r0,
-                                         int lane, float scale_t) {
-  using R = RowTile<T, DMAX>;
+template <typename T>
+__device__ __forceinline__ void store_rows_by(int width, T* out_w, size_t ldo,
+                                              const T* os, int lds, int r0,
+                                              int n, int d, int lane) {
+  switch (width) {
+    case 16:
+      store_rows<T, 16>(out_w, ldo, os, lds, r0, n, d, lane);
+      break;
+    case 8:
+      store_rows<T, 8>(out_w, ldo, os, lds, r0, n, d, lane);
+      break;
+    case 4:
+      store_rows<T, 4>(out_w, ldo, os, lds, r0, n, d, lane);
+      break;
+    default:
+      store_rows<T, 0>(out_w, ldo, os, lds, r0, n, d, lane);
+  }
+}
+
+// out = round_T(p) . v on the tensor cores for the warp's fragments of p
+// (registers, rounded to bf16), staged in the warp's rows of q's tile
+template <int DMAX>
+__device__ __forceinline__ void out_bf16(const float (&s)[8][4],
+                                         __nv_bfloat16* qs,
+                                         const __nv_bfloat16* vs, int r0,
+                                         int n, int d, int lane) {
+  using R = RowTile<__nv_bfloat16, DMAX>;
+  constexpr int DT = DMAX / 8;
   const int g = lane / 4, q = lane % 4;
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= n) break;
+    // the A fragment of keys 16 kk .. + 15 is the accumulators of key
+    // tiles 2 kk and 2 kk + 1
+    const uint32_t af[4] = {gemm::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                            gemm::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                            gemm::pack_bf16(s[2 * kk + 1][0],
+                                            s[2 * kk + 1][1]),
+                            gemm::pack_bf16(s[2 * kk + 1][2],
+                                            s[2 * kk + 1][3])};
+#pragma unroll
+    for (int j = 0; j < DT; j += 2) {
+      uint32_t b[4];  // v [keys][d], K outer: transposed
+      gemm::ldsm_x4_trans(b, vs + (16 * kk + ((lane / 8) % 2) * 8 +
+                                   lane % 8) * R::LDQ +
+                                 8 * j + (lane / 16) * 8);
+      gemm::mma_bf16(o[j], af, b);
+      gemm::mma_bf16(o[j + 1], af, b + 2);
+    }
+  }
+  __syncwarp();  // every lane is past its reads of q's rows
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + g + 8 * h, col = 8 * j + 2 * q;
+      if (row >= n || col >= d) continue;
+      __nv_bfloat16* dst = qs + row * R::LDQ + col;
+      if (col + 1 < d)
+        *reinterpret_cast<uint32_t*>(dst) =
+            gemm::pack_bf16(o[j][2 * h], o[j][2 * h + 1]);
+      else
+        dst[0] = Num<__nv_bfloat16>::store(o[j][2 * h]);
+    }
+}
+
+// out = p . v on the FMA pipes in f32, p in the warp's rows of q's tile
+// (rows LDA floats apart): each lane four rows r0 + rg + 4i by d / 8
+// columns, float4 reads of p rows and v rows. Stored straight from the
+// registers where the rows take vectors of the lane's width, else staged
+// in the warp's rows of q's tile.
+template <int DMAX>
+__device__ __forceinline__ void out_f32(const FwdArgs& a, float* qs,
+                                        const float* vs, float* out_w, int r0,
+                                        int lane) {
+  using R = RowTile<float, DMAX>;
+  constexpr int LDA = FwdLayout<float, DMAX>::LDA;
+  constexpr int CW = DMAX / 8;         // columns a lane
+  constexpr int VW = CW < 4 ? CW : 4;  // in vectors of VW
+  constexpr int NV = CW / VW;
   const int n = a.n, d = a.d;
-  T* qs = st;
-  const T* ks = qs + R::TILE;
-  const T* vs = ks + R::TILE;
-
-  scale_rows<T, DMAX>(qs, r0, lane, scale_t);
-  float s[8][4];
+  const int rg = lane / 8, cg = lane % 8;
+  float o[4][CW];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  rows_by_keys<T, DMAX>(s, qs, ks, r0, n, d, lane);
-  softmax_rows(s, bh, mw, n, r0, lane);
-  // p_T = round_T(p): the saved p and the operand of out = p . v
+    for (int c = 0; c < CW; ++c) o[i][c] = 0.f;
+  for (int t4 = 0; t4 < n; t4 += 4) {
+    float pa[4][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] = Num<T>::round(s[j][e]);
-      if constexpr (SAVE) {
-        const int i = r0 + g + 8 * (e / 2), jj = 8 * j + 2 * q + e % 2;
-        if (i < n && jj < n) pw[i * n + jj] = Num<T>::store(s[j][e]);
-      }
+    for (int i = 0; i < 4; ++i) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(qs + (r0 + rg + 4 * i) * LDA + t4);
+      pa[i][0] = x.x;
+      pa[i][1] = x.y;
+      pa[i][2] = x.z;
+      pa[i][3] = x.w;
     }
-
-  if constexpr (R::kBf16) {
-    constexpr int DT = DMAX / 8;
-    float o[DT][4];
 #pragma unroll
-    for (int j = 0; j < DT; ++j)
+    for (int u = 0; u < 4; ++u) {
+      float b[CW];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (16 * kk >= n) break;
-      // the A fragment of keys 16 kk .. + 15 is the accumulators of key
-      // tiles 2 kk and 2 kk + 1
-      const uint32_t af[4] = {gemm::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              gemm::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              gemm::pack_bf16(s[2 * kk + 1][0],
-                                              s[2 * kk + 1][1]),
-                              gemm::pack_bf16(s[2 * kk + 1][2],
-                                              s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t b[4];  // v [keys][d], K outer: transposed
-        gemm::ldsm_x4_trans(b, vs + (16 * kk + ((lane / 8) % 2) * 8 +
-                                     lane % 8) * R::LDQ +
-                                   8 * j + (lane / 16) * 8);
-        gemm::mma_bf16(o[j], af, b);
-        gemm::mma_bf16(o[j + 1], af, b + 2);
-      }
-    }
-    __syncwarp();  // every lane is past its reads of q's rows
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + g + 8 * h, col = 8 * j + 2 * q;
-        if (row >= n || col >= d) continue;
-        T* dst = qs + row * R::LDQ + col;
-        if (col + 1 < d)
-          *reinterpret_cast<uint32_t*>(dst) =
-              gemm::pack_bf16(o[j][2 * h], o[j][2 * h + 1]);
-        else
-          dst[0] = Num<T>::store(o[j][2 * h]);
-      }
-  } else {
-    // p into the f32 tile, then each lane four rows r0 + rg + 4i by CW
-    // columns: float4 reads of p rows and v rows
-    constexpr int LDP = FwdLayout<T, DMAX>::LDP;
-    constexpr int CW = DMAX / 8;           // columns a lane
-    constexpr int VW = CW < 4 ? CW : 4;    // in vectors of VW
-    constexpr int NV = CW / VW;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(pt + (r0 + g + 8 * h) * LDP + 8 * j +
-                                   2 * q) =
-            make_float2(s[j][2 * h], s[j][2 * h + 1]);
-    __syncwarp();  // the warp's p rows are written; q's rows are read
-    const int rg = lane / 8, cg = lane % 8;
-    float o[4][CW];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CW; ++c) o[i][c] = 0.f;
-    for (int t4 = 0; t4 < n; t4 += 4) {
-      float pa[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            pt + (r0 + rg + 4 * i) * LDP + t4);
-        pa[i][0] = x.x;
-        pa[i][1] = x.y;
-        pa[i][2] = x.z;
-        pa[i][3] = x.w;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float b[CW];
-#pragma unroll
-        for (int h = 0; h < NV; ++h) {
-          const float* src = vs + (t4 + u) * R::LDQ + VW * cg + 8 * VW * h;
-          if constexpr (VW == 4) {
-            const float4 x = *reinterpret_cast<const float4*>(src);
-            b[4 * h] = x.x;
-            b[4 * h + 1] = x.y;
-            b[4 * h + 2] = x.z;
-            b[4 * h + 3] = x.w;
-          } else {
-            const float2 x = *reinterpret_cast<const float2*>(src);
-            b[2 * h] = x.x;
-            b[2 * h + 1] = x.y;
-          }
+      for (int h = 0; h < NV; ++h) {
+        const float* src = vs + (t4 + u) * R::LDQ + VW * cg + 8 * VW * h;
+        if constexpr (VW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(src);
+          b[4 * h] = x.x;
+          b[4 * h + 1] = x.y;
+          b[4 * h + 2] = x.z;
+          b[4 * h + 3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(src);
+          b[2 * h] = x.x;
+          b[2 * h + 1] = x.y;
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < CW; ++c) o[i][c] = fmaf(pa[i][u], b[c], o[i][c]);
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) o[i][c] = fmaf(pa[i][u], b[c], o[i][c]);
     }
+  }
+  if (a.width >= 4 * VW) {  // the lane's vectors straight to out
+    using V = std::conditional_t<VW == 4, float4, float2>;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = r0 + rg + 4 * i;
       if (row >= n) continue;
 #pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        const int col = VW * cg + 8 * VW * (c / VW) + c % VW;
-        if (col < d) qs[row * R::LDQ + col] = o[i][c];
+      for (int h = 0; h < NV; ++h) {
+        const int col = VW * cg + 8 * VW * h;
+        if (col >= d) continue;
+        V x;
+        float* lanes = reinterpret_cast<float*>(&x);
+#pragma unroll
+        for (int c = 0; c < VW; ++c) lanes[c] = o[i][VW * h + c];
+        *reinterpret_cast<V*>(out_w + row * a.ldo + col) = x;
       }
     }
+    return;
   }
-  __syncwarp();  // out's rows are staged
-  switch (a.width) {
-    case 16:
-      store_rows<T, DMAX, 16>(out_w, a.ldo, qs, r0, n, d, lane);
-      break;
-    case 8:
-      store_rows<T, DMAX, 8>(out_w, a.ldo, qs, r0, n, d, lane);
-      break;
-    case 4:
-      store_rows<T, DMAX, 4>(out_w, a.ldo, qs, r0, n, d, lane);
-      break;
-    default:
-      store_rows<T, DMAX, 0>(out_w, a.ldo, qs, r0, n, d, lane);
+  __syncwarp();  // every lane is past its reads of the warp's p rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + rg + 4 * i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int col = VW * cg + 8 * VW * (c / VW) + c % VW;
+      if (col < d) qs[row * LDA + col] = o[i][c];
+    }
+  }
+  __syncwarp();
+  store_rows_by(a.width, out_w, a.ldo, qs, LDA, r0, n, d, lane);
+}
+
+// One tile for the warp on query rows r0 .. r0 + 15 (r0 < n): q_s in
+// place, the scores, p (rounded to T; with SAVE to p_w, through the flat
+// buffer pw in bf16, straight from q's rows in f32), out = p . v stored.
+// bh, mw: bias and mask (or null) in shared memory, rows ldb apart.
+template <typename T, int DMAX, bool SAVE>
+__device__ __forceinline__ void fwd_rows(const FwdArgs& a, T* qs,
+                                         const T* ks, const T* vs, T* pw,
+                                         T* p_w, const float* bh,
+                                         const float* mw, int ldb, T* out_w,
+                                         int r0, int lane, float scale_t) {
+  using R = RowTile<T, DMAX>;
+  constexpr int LDA = FwdLayout<T, DMAX>::LDA;
+  const int g = lane / 4, q = lane % 4;
+  const int n = a.n, d = a.d;
+
+  scale_rows<T, DMAX>(qs, r0, lane, scale_t, LDA);
+  float s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  rows_by_keys<T, DMAX>(s, qs, ks, r0, n, d, lane, LDA);
+  softmax_rows<true>(s, bh, mw, ldb, n, r0, lane);
+  // p_T = round_T(p): the saved p and the operand of out = p . v
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = Num<T>::round(s[j][e]);
+
+  if constexpr (R::kBf16) {
+    if constexpr (SAVE) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = r0 + g + 8 * (e / 2), jj = 8 * j + 2 * q + e % 2;
+          if (i < n && jj < n) pw[i * n + jj] = Num<T>::store(s[j][e]);
+        }
+    }
+    out_bf16<DMAX>(s, qs, vs, r0, n, d, lane);
+    __syncwarp();  // out's rows are staged
+    store_rows_by(a.width, out_w, a.ldo, qs, LDA, r0, n, d, lane);
+  } else {
+    __syncwarp();  // every lane is past its reads of q's rows
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(qs + (r0 + g + 8 * h) * LDA + 8 * j +
+                                   2 * q) =
+            make_float2(s[j][2 * h], s[j][2 * h + 1]);
+    __syncwarp();  // the warp's p rows are written
+    if constexpr (SAVE) {  // rows r0 .. of p_w: contiguous, n floats each
+      const int rows = min(16, n - r0);
+      for (int e = lane; e < rows * n; e += 32)
+        p_w[r0 * n + e] = qs[(r0 + e / n) * LDA + e % n];
+    }
+    out_f32<DMAX>(a, qs, vs, out_w, r0, lane);
   }
 }
 
@@ -618,40 +724,47 @@ __device__ __forceinline__ void fwd_windows(const FwdArgs& a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = 16 * warp;
   const float scale_t = Num<T>::round(a.scale);
+  const int stage = L::stage(n), ldb = L::ldb(n);
 
   T* smem = reinterpret_cast<T*>(smem_raw);
-  unsigned char* rest_raw = smem_raw + L::zeroed_bytes();
-  float* pt = reinterpret_cast<float*>(rest_raw);
-  T* pbuf = reinterpret_cast<T*>(rest_raw + L::kPTile);
-  float* bias_s = reinterpret_cast<float*>(rest_raw + L::kPTile +
-                                           sizeof(T) * L::pflat(n));
-  float* mask_s = bias_s + flat_floats(n);
+  T* pbuf = smem + L::NS * stage;
+  float* bias_s = reinterpret_cast<float*>(pbuf + L::pflat(n));
+  float* mask_s = bias_s + n * ldb;
 
-  for (int e = tid; e < static_cast<int>(L::zeroed_bytes() / 16);
+  for (int e = tid; e < static_cast<int>(L::zeroed_bytes(n) / 16);
        e += kBodyThreads)
     reinterpret_cast<int4*>(smem_raw)[e] = make_int4(0, 0, 0, 0);
   __syncthreads();
 
+  // bias[h] and mask[r] once a block, committed with tile 0's rows
   const float* bias_h = a.bias + static_cast<size_t>(head) * n * n;
   const float* mask_r =
       a.mask != nullptr ? a.mask + static_cast<size_t>(cls) * n * n : nullptr;
-  copy_flat(bias_s, bias_h, n * n, tid);  // committed with tile 0
-  if (mask_r != nullptr) copy_flat(mask_s, mask_r, n * n, tid);
-  const float* bh = bias_s + flat_shift(bias_h);
-  const float* mw = mask_r != nullptr ? mask_s + flat_shift(mask_r) : nullptr;
+  for (int e = tid; e < n * n; e += kBodyThreads) {
+    const int i = e / n, jj = e % n;
+    gemm::cp_async_ca<4>(bias_s + i * ldb + jj, bias_h + e, 4);
+    if (mask_r != nullptr)
+      gemm::cp_async_ca<4>(mask_s + i * ldb + jj, mask_r + e, 4);
+  }
+  const float* mw = mask_r != nullptr ? mask_s : nullptr;
 
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const size_t ld[3] = {a.ld, a.ld, a.ld};
+  const int lds[3] = {L::LDA, R::LDQ, R::LDQ};
+  auto tile = [&](int t, int i) {  // tile i (q, k, v) of tile t's stage
+    T* st = smem + (t % L::NS) * stage;
+    return i == 0 ? st : st + kNP * L::LDA + (i - 1) * L::krows(n) * R::LDQ;
+  };
   auto win_of = [&](int t) { return cls + a.nw * (j0 + t); };
   auto issue = [&](int t) {
     if (t < tiles) {
       const size_t at = static_cast<size_t>(win_of(t)) * a.win +
                         static_cast<size_t>(head) * a.head;
       const T* src[3] = {q + at, k + at, v + at};
-      copy_rows_by<T, DMAX, 3>(a.width, smem + (t % L::NS) * 3 * R::TILE,
-                               src, ld, n, a.d, tid);
+      T* const dst[3] = {tile(t, 0), tile(t, 1), tile(t, 2)};
+      copy_rows_by(a.width, dst, lds, src, ld, n, a.d, tid);
     }
     gemm::cp_async_commit();
   };
@@ -671,10 +784,11 @@ __device__ __forceinline__ void fwd_windows(const FwdArgs& a) {
     T* out_w = static_cast<T*>(a.out) + win * a.owin +
                static_cast<size_t>(head) * a.ohead;
     if (r0 < n)
-      fwd_rows<T, DMAX, SAVE>(a, smem + (t % L::NS) * 3 * R::TILE, pt,
-                              SAVE ? pbuf + flat_shift(p_w) : nullptr, bh, mw,
-                              out_w, r0, lane, scale_t);
-    if constexpr (SAVE) {
+      fwd_rows<T, DMAX, SAVE>(
+          a, tile(t, 0), tile(t, 1), tile(t, 2),
+          SAVE && R::kBf16 ? pbuf + flat_shift(p_w) : nullptr, p_w, bias_s,
+          mw, ldb, out_w, r0, lane, scale_t);
+    if constexpr (SAVE && R::kBf16) {
       __syncthreads();  // every warp's rows of p are in the flat buffer
       store_flat(p_w, pbuf, n * n, tid);
     }

@@ -187,8 +187,9 @@ def test_every_forward_entry_runs_the_one_body():
     body = _code(kdir / "window_attention_fwd.cuh")
     assert body.count("__device__ __forceinline__ void fwd_windows(") == 1
     assert "fwd_windows<T, DMAX, SAVE>(a);" in body
-    for needle in ("mma_bf16", "ldsm_x4_trans", "softmax_rows(s, bh, mw",
-                   "store_flat(p_w, pbuf", "copy_flat(bias_s, bias_h"):
+    for needle in ("mma_bf16", "ldsm_x4_trans",
+                   "softmax_rows<true>(s, bh, mw, ldb", "store_flat(p_w, pbuf",
+                   "gemm::cp_async_ca<4>(bias_s + i * ldb + jj"):
         assert needle in body, needle
     bhnd = _code(kdir / "window_attention_bhnd.cu")
     assert "fwd_windows<T, DMAX, false>(a);" in bhnd
@@ -199,7 +200,7 @@ def test_every_forward_entry_runs_the_one_body():
     evl = _code(kdir / "window_attention_eval.cu")
     assert "dispatch_fwd<T, false>(qkv, bias, mask, out, nullptr" in evl
     bwd = _code(kdir / "window_attention_bwd.cuh")
-    assert "softmax_rows(pv, bh, mw, n, r0, lane);" in bwd
+    assert "softmax_rows<false>(pv, bh, mw, n, n, r0, lane);" in bwd
     for name in ("window_attention_train", "window_attention_bhnd"):
         for entry, (argtypes, _) in kernels.LIBRARIES[name][1].items():
             if entry in ("gdl_wa_qkv_savep_rows_launch",
