@@ -231,14 +231,13 @@ __device__ __forceinline__ void copy_rows_by(int width, T* const (&dst)[K],
 }
 
 // q_s = round_T(q * T(scale)) in place on the warp's rows r0 .. r0 + 15 of
-// the q tile, rows ldq elements apart (read by other warps, if at all,
+// the q tile, rows LDA elements apart (read by other warps, if at all,
 // only after a barrier)
-template <typename T, int DMAX>
+template <typename T, int DMAX, int LDA = RowTile<T, DMAX>::LDQ>
 __device__ __forceinline__ void scale_rows(T* qs, int r0, int lane,
-                                           float scale_t,
-                                           int ldq = RowTile<T, DMAX>::LDQ) {
+                                           float scale_t) {
   for (int e = lane; e < 16 * DMAX; e += 32) {
-    T* x = qs + (r0 + e / DMAX) * ldq + e % DMAX;
+    T* x = qs + (r0 + e / DMAX) * LDA + e % DMAX;
     *x = Num<T>::store(Num<T>::load(x) * scale_t);
   }
   __syncwarp();
@@ -256,19 +255,18 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
 }
 
 // acc[j][..] += A[r0 .. r0 + 15][:DMAX] . B[8j .. 8j + 7][:DMAX]^T for the
-// key tiles j < NKT, A and B row tiles, A's rows lda elements apart, B's
+// key tiles j < NKT, A and B row tiles, A's rows LDA elements apart, B's
 // LDQ (the scores' and dp's layout: K = the head dim)
-template <int NKT, typename T, int DMAX>
+template <int NKT, typename T, int DMAX, int LDA>
 __device__ __forceinline__ void rows_by_key_tiles(float (&acc)[8][4],
                                                   const T* as, const T* bs,
-                                                  int r0, int d, int lane,
-                                                  int lda) {
+                                                  int r0, int d, int lane) {
   using R = RowTile<T, DMAX>;
   if constexpr (R::kBf16) {
 #pragma unroll
     for (int kk = 0; kk < DMAX; kk += 16) {
       uint32_t a[4];
-      gemm::ldsm_x4(a, as + (r0 + lane % 16) * lda + kk + (lane / 16) * 8);
+      gemm::ldsm_x4(a, as + (r0 + lane % 16) * LDA + kk + (lane / 16) * 8);
 #pragma unroll
       for (int j = 0; j + 1 < NKT; j += 2) {
         uint32_t b[4];  // B fragments of key tiles j and j + 1
@@ -286,8 +284,8 @@ __device__ __forceinline__ void rows_by_key_tiles(float (&acc)[8][4],
     }
   } else {
     const int g = lane / 4, q = lane % 4;
-    const float* a0p = as + (r0 + g) * lda;
-    const float* a1p = a0p + 8 * lda;
+    const float* a0p = as + (r0 + g) * LDA;
+    const float* a1p = a0p + 8 * LDA;
     for (int k4 = 0; k4 < d; k4 += 4) {
       const float4 a0 = *reinterpret_cast<const float4*>(a0p + k4);
       const float4 a1 = *reinterpret_cast<const float4*>(a1p + k4);
@@ -308,14 +306,14 @@ __device__ __forceinline__ void rows_by_key_tiles(float (&acc)[8][4],
 
 // the product over the key tiles that hold keys < n: all 8, or 7 where
 // n <= 56 (a Swin window's 49)
-template <typename T, int DMAX>
-__device__ __forceinline__ void rows_by_keys(
-    float (&acc)[8][4], const T* as, const T* bs, int r0, int n, int d,
-    int lane, int lda = RowTile<T, DMAX>::LDQ) {
+template <typename T, int DMAX, int LDA = RowTile<T, DMAX>::LDQ>
+__device__ __forceinline__ void rows_by_keys(float (&acc)[8][4], const T* as,
+                                             const T* bs, int r0, int n,
+                                             int d, int lane) {
   if (n > 56)
-    rows_by_key_tiles<8, T, DMAX>(acc, as, bs, r0, d, lane, lda);
+    rows_by_key_tiles<8, T, DMAX, LDA>(acc, as, bs, r0, d, lane);
   else
-    rows_by_key_tiles<7, T, DMAX>(acc, as, bs, r0, d, lane, lda);
+    rows_by_key_tiles<7, T, DMAX, LDA>(acc, as, bs, r0, d, lane);
 }
 
 // p = softmax(s + bias + mask) over the keys < n, in place and unrounded
@@ -661,13 +659,13 @@ __device__ __forceinline__ void fwd_rows(const FwdArgs& a, T* qs,
   const int g = lane / 4, q = lane % 4;
   const int n = a.n, d = a.d;
 
-  scale_rows<T, DMAX>(qs, r0, lane, scale_t, LDA);
+  scale_rows<T, DMAX, LDA>(qs, r0, lane, scale_t);
   float s[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  rows_by_keys<T, DMAX>(s, qs, ks, r0, n, d, lane, LDA);
+  rows_by_keys<T, DMAX, LDA>(s, qs, ks, r0, n, d, lane);
   softmax_rows<true>(s, bh, mw, ldb, n, r0, lane);
   // p_T = round_T(p): the saved p and the operand of out = p . v
 #pragma unroll
