@@ -35,10 +35,13 @@ savep, eval) and the library call that computes the same function in
 runs of 20 (`library_run_ms`): `F.scaled_dot_product_attention` on the
 same q, k, v with the bias + mask as its float mask (made beforehand,
 not timed; it writes no p), and for #1 and #2 `F.linear` first. A
-torch.profiler trace of ten calls splits #1's and #2's device time into
-their projection (the GEMM tile with the wa2::ProjBias epilogue) and
-their attention (wa_fwd_kernel). A SHA-256 digest of each kernel's
-outputs at every site shows whether two checkouts give the same bits.
+torch.profiler trace of ten calls gives each kernel's device time a call
+(`device_ms`: where a call's kernels take less time than the op
+wrapper's host code, as the bf16 forwards do at Swin-B stages 2 and 3,
+a run of calls measures the host), and splits #1's and #2's into their
+projection (the GEMM tile with the wa2::ProjBias epilogue) and their
+attention (wa_fwd_kernel). A SHA-256 digest of each kernel's outputs at
+every site shows whether two checkouts give the same bits.
 
 With --roots, each DIR (a checkout of this repository, e.g. the parent
 commit unpacked by `git archive`) is timed in a process of its own, in
@@ -250,8 +253,8 @@ def worker() -> dict:
                    "window_attention_bhnd"])
     dev = torch.device("cuda")
     out = {"device": torch.cuda.get_device_name(0), "dtypes": {}}
-    keys = ("ms", "run_ms", "plain_ms", "library_run_ms", "projection_ms",
-            "attention_ms")
+    keys = ("ms", "run_ms", "device_ms", "plain_ms", "library_run_ms",
+            "projection_ms", "attention_ms")
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         tot = {kern: dict.fromkeys(keys, 0.0) for kern in KERNELS}
@@ -271,8 +274,9 @@ def worker() -> dict:
                                "run_ms": run_ms(kernel),
                                "plain_ms": cuda_ms(plain, reps=3, warmup=1),
                                "library_run_ms": run_ms(library)}
+                        parts, _ = split_ms(kernel, part_of, TRACED)
+                        row["device_ms"] = sum(parts.values())
                         if kern in ("1", "2"):
-                            parts, _ = split_ms(kernel, part_of, TRACED)
                             row["projection_ms"] = parts.get("projection",
                                                              0.0)
                             row["attention_ms"] = parts.get("attention", 0.0)

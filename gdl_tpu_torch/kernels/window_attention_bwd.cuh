@@ -44,9 +44,9 @@
 // through ldmatrix.trans, p's A fragments from the flat buffer. f32: the
 // same fragment layout on FMA (no TF32), float4 and float2 reads of the
 // row tiles. Each sum has a fixed order and no atomics: two runs give
-// equal bits. The row copies, the flat copies, the scores' product
-// (rows_by_keys) and the softmax (softmax_rows) are the forward body's,
-// in window_attention_fwd.cuh: #7's backward computes p as the forwards
+// equal bits. The flat copies, the scores' product (rows_by_keys) and
+// the softmax (softmax_rows) are the forward body's, in
+// window_attention_fwd.cuh: #7's backward computes p as the forwards
 // compute it.
 
 #pragma once
@@ -126,6 +126,45 @@ __device__ __forceinline__ uint32_t bwd_bits(__nv_bfloat16 v) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(v));
 }
 
+// q, k, v and dout rows of one tile into the stage's four row tiles, in
+// pieces of W bytes (0: element by element): q, k, v at qkv_w + 0, c, 2c
+// (rows 3c apart), dout at g_w (rows c apart). One base for q, k and v
+// keeps the main loop within its registers: the forward's copy_rows, a
+// pointer and a stride a source, raised #4's spills and cost #4 and #6
+// 5% in bf16.
+template <typename T, int DMAX, int W>
+__device__ __forceinline__ void copy_qkv_dout_rows(T* qs, const T* qkv_w,
+                                                   const T* g_w, int n, int c,
+                                                   int d, int tid) {
+  using L = BwdLayout<T, DMAX>;
+  T* ks = qs + L::TILE;
+  T* vs = ks + L::TILE;
+  T* gs = vs + L::TILE;
+  const int c3 = 3 * c;
+  if constexpr (W == 0) {
+    for (int e = tid; e < n * d; e += kBodyThreads) {
+      const int r = e / d, col = e % d;
+      const T* src = qkv_w + static_cast<size_t>(r) * c3 + col;
+      qs[r * L::LDQ + col] = src[0];
+      ks[r * L::LDQ + col] = src[c];
+      vs[r * L::LDQ + col] = src[2 * c];
+      gs[r * L::LDQ + col] = g_w[static_cast<size_t>(r) * c + col];
+    }
+  } else {
+    constexpr int V = W / static_cast<int>(sizeof(T));
+    const int per_row = d / V;
+    for (int e = tid; e < n * per_row; e += kBodyThreads) {
+      const int r = e / per_row, col = (e % per_row) * V;
+      const T* src = qkv_w + static_cast<size_t>(r) * c3 + col;
+      const int at = r * L::LDQ + col;
+      copy_piece<W>(qs + at, src);
+      copy_piece<W>(ks + at, src + c);
+      copy_piece<W>(vs + at, src + 2 * c);
+      copy_piece<W>(gs + at, g_w + static_cast<size_t>(r) * c + col);
+    }
+  }
+}
+
 // Tile (win, head)'s rows of q, k, v, dout, and (with_p) its p slab, into
 // the stage at st; cp.async where the alignment allows, element copies
 // where it does not. The caller commits the group.
@@ -139,12 +178,19 @@ __device__ __forceinline__ void issue_tile(const BwdArgs& a, T* st, int win,
   const T* g_w =
       static_cast<const T*>(a.dout) + static_cast<size_t>(win) * n * c +
       head * d;
-  const T* src[4] = {qkv_w, qkv_w + c, qkv_w + 2 * c, g_w};
-  const size_t ld[4] = {3 * static_cast<size_t>(c), 3 * static_cast<size_t>(c),
-                        3 * static_cast<size_t>(c), static_cast<size_t>(c)};
-  T* const dst[4] = {st, st + L::TILE, st + 2 * L::TILE, st + 3 * L::TILE};
-  const int lds[4] = {L::LDQ, L::LDQ, L::LDQ, L::LDQ};
-  copy_rows_by(a.width, dst, lds, src, ld, n, d, tid);
+  switch (a.width) {
+    case 16:
+      copy_qkv_dout_rows<T, DMAX, 16>(st, qkv_w, g_w, n, c, d, tid);
+      break;
+    case 8:
+      copy_qkv_dout_rows<T, DMAX, 8>(st, qkv_w, g_w, n, c, d, tid);
+      break;
+    case 4:
+      copy_qkv_dout_rows<T, DMAX, 4>(st, qkv_w, g_w, n, c, d, tid);
+      break;
+    default:
+      copy_qkv_dout_rows<T, DMAX, 0>(st, qkv_w, g_w, n, c, d, tid);
+  }
   if (with_p)
     copy_flat(st + 4 * L::TILE,
               static_cast<const T*>(a.p) +
