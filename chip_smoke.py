@@ -319,6 +319,23 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0].strip()
 
 
+def run_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of fn within a run of `reps` calls between
+    two CUDA events (the host enqueues ahead, so its own time hides)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     """Median device time of one call of fn, by CUDA events."""
     import torch
@@ -907,14 +924,15 @@ def phase_maxpool_parity(failures):
                     if kind == "relu":
                         row["ms"] = cuda_ms(
                             lambda: max_pool_3x3_s2_bwd(x, g))
+                        row["run_ms"] = run_ms(
+                            lambda: max_pool_3x3_s2_bwd(x, g))
                         row["plain_ms"] = cuda_ms(
                             lambda: max_pool_3x3_s2_bwd(x, g, impl="plain"),
                             reps=5, warmup=1)
                         row["library_ms"] = cuda_ms(
                             lambda: aten.max_pool2d_with_indices_backward(
                                 gn, xn, *pool_args, idx))
-                        nbytes = (2 * x.numel() + g.numel()) * x.element_size()
-                        ops = 10 * g.numel()  # 9 compares and an add
+                        nbytes, ops = pool_cost(shape, x.element_size())
                         row["bytes"], row["operations"] = nbytes, ops
                         row["bound_ms"], row["bound_by"] = bound_ms(
                             nbytes, ops, dtype)
@@ -1163,6 +1181,15 @@ def sa_cost(kind: str, b: int, n: int, c: int, heads: int, itemsize: int):
     return nbytes, 2 * b * n * c * 3 * c + 4 * b * n * n * c + 5 * scores
 
 
+def pool_cost(shape, itemsize: int):
+    """(bytes, operations) of one backward of the 3x3 / 2 max pool on x
+    [B, H, W, C]: x read once, the cotangent g [B, ho, wo, C] read once,
+    dx written once; 9 compares and an add a cotangent."""
+    b, h, w, c = shape
+    g = b * ((h - 1) // 2 + 1) * ((w - 1) // 2 + 1) * c
+    return (2 * b * h * w * c + g) * itemsize, 10 * g
+
+
 def mask_cost(numel: int, itemsize: int):
     """(bytes, operations) of one dropout mask: nothing read but two
     seed words, every element written once; per group of four elements
@@ -1389,6 +1416,8 @@ def phase_sa_parity(failures):
                    "ok": all(checks.values()),
                    "ms": cuda_ms(lambda: prng_dropout_mask(
                        words, shape, MM_RATE, dt), reps=SA_REPS),
+                   "run_ms": run_ms(lambda: prng_dropout_mask(
+                       words, shape, MM_RATE, dt)),
                    "plain_ms": cuda_ms(lambda: prng_dropout_mask(
                        words, shape, MM_RATE, dt, impl="plain"),
                        reps=SA_PLAIN_REPS, warmup=1),
@@ -2781,13 +2810,14 @@ def main(argv=None) -> int:
                                                         dtype)["split_bytes"]
     # #16 per training step: its two launches, visual and audio stem
     if len(p32) == 2:
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
-                    "operations"):
+        for key in ("ms", "run_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bytes", "operations"):
             entries[3][key] = sum(r[key] for r in p32)
         entries[3]["bound_by"] = p32[0]["bound_by"]
-        entries[3]["ms_bfloat16"] = sum(
-            r["ms"] for r in pool_parity
-            if r["dtype"] == "bfloat16" and r["input"] == "relu")
+        for key in ("ms", "run_ms", "bound_ms"):
+            entries[3][key + "_bfloat16"] = sum(
+                r[key] for r in pool_parity
+                if r["dtype"] == "bfloat16" and r["input"] == "relu")
     # #10, #11 per training step and #13 per eval forward: the 7 launches
     # (4 at 196 tokens, 3 at 392), from the float32 per-shape medians; the
     # training kernels with the mask drawn in the kernel, as the model runs
@@ -2842,17 +2872,18 @@ def main(argv=None) -> int:
     m32 = {tuple(r["shape"]): r for r in mask_parity
            if r["dtype"] == "float32"}
     if set(m32) == set(MASK_CALLS):
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
-                    "operations"):
+        for key in ("ms", "run_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bytes", "operations"):
             entries[7][key] = sum(n * m32[shape][key]
                                   for shape, n in MASK_CALLS.items())
         entries[7]["bound_by"] = m32[(25088, 4096)]["bound_by"]
         entries[7]["bound_ms_bfloat16"] = sum(
             n * bound_ms(*mask_cost(shape[0] * shape[1], 2))[0]
             for shape, n in MASK_CALLS.items())
-        entries[7]["ms_bfloat16"] = sum(
-            MASK_CALLS[tuple(r["shape"])] * r["ms"] for r in mask_parity
-            if r["dtype"] == "bfloat16")
+        for key in ("ms", "run_ms"):
+            entries[7][key + "_bfloat16"] = sum(
+                MASK_CALLS[tuple(r["shape"])] * r[key] for r in mask_parity
+                if r["dtype"] == "bfloat16")
     # #6, #7, #8, #9 per pass of the 48 Swin-B sites of batch 32 (the op
     # phase's path), from the float32 per-shape medians. Library
     # yardsticks: scaled_dot_product_attention on the same q, k, v with

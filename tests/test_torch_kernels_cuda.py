@@ -359,12 +359,29 @@ def test_bwd_body_launchers_write_exactly_their_outputs(cuda, bw, n, c,
 
 # --- kernel #16: the stem max-pool's backward -------------------------------
 
+# the two flagship stem shapes; small odd ones; then the edges of the tile
+# of 4 x 8 windows and 128 bytes of channels: odd H and W that end a tile
+# with one window row or column (17 x 33) or one cell short (15 x 31), H
+# and W below one tile, C of 8, 72 and 200 (several channel chunks, a
+# partial one) and C % 4 != 0 (the scalar variant in both dtypes)
 POOL_SHAPES = [(64, 112, 112, 64), (64, 129, 94, 64), (2, 7, 9, 8),
                (3, 8, 5, 3), (1, 1, 1, 4), (2, 13, 10, 20), (1, 33, 21, 72),
-               (1, 9, 40, 130)]
+               (1, 9, 40, 130), (2, 17, 33, 64), (1, 15, 31, 32),
+               (2, 5, 7, 64), (1, 2, 3, 16), (2, 9, 17, 8), (1, 11, 19, 200),
+               (1, 12, 18, 6), (2, 9, 9, 5)]
+# x and g at an element offset of 1 (the unaligned, scalar path), with an
+# aligned C that would otherwise take the vector one
+POOL_OFFSET_SHAPES = [(2, 17, 33, 64), (1, 11, 19, 200), (2, 13, 10, 8)]
+POOL_CASES = ([(s, 0) for s in POOL_SHAPES]
+              + [(s, 1) for s in POOL_OFFSET_SHAPES])
 
 
-def _pool_inputs(shape, dtype, cuda, kind="relu", seed=0):
+def _pool_case_id(case):
+    shape, offset = case
+    return "x".join(map(str, shape)) + (f"+{offset}" if offset else "")
+
+
+def _pool_inputs(shape, dtype, cuda, kind="relu", seed=0, offset=0):
     b, h, w, c = shape
     gen = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(shape, generator=gen, device=cuda)
@@ -372,19 +389,24 @@ def _pool_inputs(shape, dtype, cuda, kind="relu", seed=0):
     g = torch.randn((b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c),
                     generator=gen, device=cuda)
     dt = getattr(torch, dtype)
-    return x.to(dt), g.to(dt)
+    x, g = x.to(dt), g.to(dt)
+    if offset:  # the same values, `offset` elements into a larger buffer
+        x, g = (torch.cat([torch.zeros(offset, dtype=dt, device=cuda),
+                           z.reshape(-1)])[offset:].view(z.shape)
+                for z in (x, g))
+    return x, g
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["relu", "equal"])
-@pytest.mark.parametrize("shape", POOL_SHAPES,
-                         ids=lambda s: "x".join(map(str, s)))
-def test_maxpool_bwd_kernel_matches_plain_and_library(cuda, shape, kind,
+@pytest.mark.parametrize("case", POOL_CASES, ids=_pool_case_id)
+def test_maxpool_bwd_kernel_matches_plain_and_library(cuda, case, kind,
                                                       dtype):
-    """The two flagship stem shapes and small odd ones (a channel count
-    that is no multiple of the 16-byte vector takes the scalar variant,
-    more than 64 channels take several blocks per tile):
+    """The two flagship stem shapes, small odd ones and the edges of the
+    kernel's tile (a channel count that is no multiple of the 16-byte
+    vector, or x and g off 16 bytes, take the scalar variant; more than
+    one chunk of 128 bytes of channels takes several tiles):
     dx is bit-equal to the plain version's and across two runs; against
     aten.max_pool2d_with_indices_backward, which sums in another order,
     within 4 eps of Σ|g| per element. One launch is counted per kernel
@@ -392,7 +414,11 @@ def test_maxpool_bwd_kernel_matches_plain_and_library(cuda, shape, kind,
     from gdl_tpu_torch import kernels
     from gdl_tpu_torch.ops.maxpool import max_pool_3x3_s2_bwd
 
-    x, g = _pool_inputs(shape, dtype, cuda, kind, seed=shape[1])
+    shape, offset = case
+    x, g = _pool_inputs(shape, dtype, cuda, kind, seed=shape[1],
+                        offset=offset)
+    if offset:
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
     before = kernels.launch_counts["max_pool_3x3_s2_bwd"]
     got = max_pool_3x3_s2_bwd(x, g)
     again = max_pool_3x3_s2_bwd(x, g)
@@ -716,20 +742,17 @@ def test_self_attention_kernels_refuse_what_they_cannot_take(cuda):
         self_attention_fused_eval(x, torch.zeros(192, 64, device=cuda), 1)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(12544, 512), (12544, 4096), (25088, 512),
-                                   (25088, 4096), (7, 13), (3, 5, 2)],
-                         ids=["intra512", "intra4096", "inter512",
-                              "inter4096", "ragged", "tail"])
-def test_dropout_mask_kernel_is_bit_equal_to_plain(cuda, shape, dtype):
-    """Kernel #14 against the generator in torch integer arithmetic: the
-    same bits, values exactly {0, 1/(1-rate)} in the mask's dtype."""
+# elements a block writes in one round of its walk (256 threads, four
+# Philox groups a thread) and the most blocks an SM holds (2048 threads)
+MASK_BLOCK_ROUND = 256 * 4 * 4
+MASK_MAX_BLOCKS_PER_SM = 8
+
+
+def _mask_check(cuda, shape, dt, gen):
+    """One kernel mask against the plain version; returns the mask."""
     from gdl_tpu_torch import kernels
     from gdl_tpu_torch.ops.dropout import fold_seed_words, prng_dropout_mask
 
-    dt = getattr(torch, dtype)
-    gen = torch.Generator(device=cuda).manual_seed(len(shape) + shape[0])
     words = fold_seed_words(gen, cuda)
     before = kernels.launch_counts["prng_dropout_mask"]
     got = prng_dropout_mask(words, shape, 0.1, dt)
@@ -737,7 +760,41 @@ def test_dropout_mask_kernel_is_bit_equal_to_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert kernels.launch_counts["prng_dropout_mask"] == before + 1
     assert got.dtype == dt and tuple(got.shape) == tuple(shape)
-    assert torch.equal(got, want)
+    assert torch.equal(got, want), shape
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(12544, 512), (12544, 4096), (25088, 512),
+                                   (25088, 4096), (7, 13), (3, 5, 2),
+                                   (3, 44), (1, 1029), (1, 100), (1, 5),
+                                   (1,), None],
+                         ids=["intra512", "intra4096", "inter512",
+                              "inter4096", "ragged", "tail", "mod8is4",
+                              "mod8is5", "below_a_warp", "one_group",
+                              "one", "past_one_pass"])
+def test_dropout_mask_kernel_is_bit_equal_to_plain(cuda, shape, dtype):
+    """Kernel #14 against the generator in torch integer arithmetic: the
+    same bits, values exactly {0, 1/(1-rate)} in the mask's dtype. Besides
+    the mmformer shapes: n not a multiple of 4 or of 8 (the elements past
+    the last 16-byte store), n below one warp's groups, and
+    ("past_one_pass") n just past one round of the resident grid, for
+    every number of blocks an SM could hold: a few elements, a group and
+    a block's round more (the stores left over after the walk)."""
+    from gdl_tpu_torch.ops.dropout import fold_seed_words, prng_dropout_mask
+
+    dt = getattr(torch, dtype)
+    if shape is None:
+        gen = torch.Generator(device=cuda).manual_seed(77)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        for per_sm in range(1, MASK_MAX_BLOCKS_PER_SM + 1):
+            one_pass = sms * per_sm * MASK_BLOCK_ROUND
+            for extra in (3, 8, MASK_BLOCK_ROUND + 12):
+                _mask_check(cuda, (one_pass + extra,), dt, gen)
+        return
+    gen = torch.Generator(device=cuda).manual_seed(len(shape) + shape[0])
+    got = _mask_check(cuda, shape, dt, gen)
     kept = torch.tensor(1.0 / 0.9, dtype=torch.float32).to(dt)
     assert set(got.unique().tolist()) <= {0.0, float(kept)}
     if got.numel() > 10 ** 6:
@@ -1924,10 +1981,22 @@ def test_projection_of_2_and_1_is_filed_under_its_own_row(cuda):
     tile with the wa2::ProjBias epilogue, which profile_step files under
     "window_attention_proj (#1, #2)" and not under the self-attention
     row, and the attention as wa_fwd_kernel under the window-attention
-    row; in both dtypes. Every kernel symbol a trace saw is printed."""
+    row; in both dtypes. Every kernel symbol a trace saw is printed.
+
+    The tracer's first session in a process has been seen to drop a
+    call's records (an "Activity Buffer Request" in their place): a
+    session of its own starts the tracer first, and a trace that holds
+    no record of either kernel is taken again, at most twice."""
     from torch.profiler import ProfilerActivity, profile
 
     from gdl_tpu_torch.profile_step import kind_of
+
+    def traced(op, *a):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            op(*a)
+            op(*a)
+            torch.cuda.synchronize()
+        return sorted({e.key for e in prof.key_averages()})
 
     for dtype in ("float32", "bfloat16"):
         args, bias_t, mask_t = _train_case(cuda, 128, 512, 16, 14, 7, dtype)
@@ -1936,11 +2005,12 @@ def test_projection_of_2_and_1_is_filed_under_its_own_row(cuda):
             with torch.no_grad():
                 op(*args, bias_t, mask_t, 16)  # built, loaded and warm
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    op(*args, bias_t, mask_t, 16)
-                    op(*args, bias_t, mask_t, 16)
-                    torch.cuda.synchronize()
-            seen = sorted({e.key for e in prof.key_averages()})
+                traced(op, *args, bias_t, mask_t, 16)  # the tracer started
+                for _ in range(3):
+                    seen = traced(op, *args, bias_t, mask_t, 16)
+                    if any("gemm_tile_kernel" in k or "wa_fwd_kernel" in k
+                           for k in seen):
+                        break
             print(op.__name__, dtype, "traced:", seen)
             gemms = [k for k in seen if "gemm_tile_kernel" in k]
             attn = [k for k in seen if "wa_fwd_kernel" in k]
