@@ -319,23 +319,6 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0].strip()
 
 
-def run_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of fn within a run of `reps` calls between
-    two CUDA events (the host enqueues ahead, so its own time hides)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     """Median device time of one call of fn, by CUDA events."""
     import torch
@@ -871,6 +854,7 @@ def phase_maxpool_parity(failures):
     library's max-pool backward, at the two stem shapes."""
     import torch
 
+    from gdl_tpu_torch.bench_common import run_ms
     from gdl_tpu_torch.ops.maxpool import max_pool_3x3_s2_bwd
 
     dev = torch.device("cuda")
@@ -1207,6 +1191,7 @@ def phase_sa_parity(failures):
     import torch
     import torch.nn.functional as F
 
+    from gdl_tpu_torch.bench_common import run_ms
     from gdl_tpu_torch.ops.dropout import (
         fold_seed_words,
         keep_threshold,

@@ -9,25 +9,26 @@
 // as there.
 //
 // What bounds it. The bytes: n elements written once, nothing read but
-// two words. The integer-multiply pipe comes close behind: a group of
-// four elements costs 19 32x32->64 products (the first round multiplies
-// one word, the counter's upper words being 0), each a wide IMAD that
-// takes the pipe twice, against 16 bytes written in f32 and 8 in bf16.
-// In bf16 the products take about as long as the bytes, so any
-// instruction beside them shows; the first design (one thread a group, a
-// grid of groups / 256 blocks: 95 waves of blocks starting and retiring
-// on each SM at [25088, 4096], 64-bit counter and index arithmetic, an
-// 8-byte store in bf16) wrote bf16 no faster than f32.
+// two words. In bf16 the instructions come close behind: a Philox group
+// is 19 32x32->64 products (the first round multiplies one word, the
+// counter's upper words being 0) and about 20 three-way xors for 8 bytes
+// written. The first design (one thread a group, a grid of groups / 256
+// blocks: 95 waves of blocks starting and retiring on each SM at
+// [25088, 4096]) issued about 94 instructions a group, 20 of them key
+// additions and many of the rest 64-bit counter and index arithmetic, and
+// wrote bf16 no faster than f32: its instructions set its pace.
 //
 // Design. A resident grid (the SMs times the blocks an SM holds) walks
-// the mask in 16-byte stores: four f32 groups or eight bf16 ones (two
-// groups a store) a thread a round, consecutive threads on consecutive
-// stores. Each thread carries four Philox chains at once, interleaved
-// round by round so that their products overlap; the ten round keys are
-// computed once, before the walk. Where n < 2^32 the counter is one
-// 32-bit word (its upper word is 0) and so is every index. The stores
-// that do not fill a round, and the last n % (16 / sizeof(T)) elements,
-// are written apart after the walk.
+// the mask in 16-byte stores, consecutive threads on consecutive stores:
+// a thread takes four Philox groups a round, as four f32 stores or two
+// bf16 ones (two groups a store), and carries their four chains at once,
+// interleaved round by round so that their products overlap. The ten
+// round keys are computed once, before the walk (they live in uniform
+// registers). Where n < 2^32 the counter is one 32-bit word (its upper
+// word is 0) and so is every index. A group then costs about 52
+// instructions: 18 IMAD.WIDE, 21 LOP3, 4 compares and 4 selects, the
+// rest shared by the round. The stores that do not fill a round, and the
+// last n % (16 / sizeof(T)) elements, are written apart after the walk.
 //
 // Plain C interface: `out` and `seed` are device pointers, `stream` a
 // cudaStream_t; dtype 0 = float32, 1 = bfloat16. `out` must be 16-byte
@@ -45,7 +46,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChains = 4;  // Philox groups a thread carries at once
-constexpr int kMaxDevices = 64;
 
 // element type -> its bits and how many make a 16-byte store
 template <typename T>
@@ -189,26 +189,21 @@ dropout_mask_kernel(T* __restrict__ out, Index n,
   }
 }
 
-// the resident grid of one launch configuration on the current device
+// the resident grid on the current device: its SMs times the blocks of
+// this kernel an SM holds (the same on every device of a process)
 template <typename T, typename Index>
 cudaError_t resident_blocks(int* blocks) {
-  static int cached[kMaxDevices] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && cached[dev] > 0) {
-    *blocks = cached[dev];
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dropout_mask_kernel<T, Index>, kThreads, 0);
-  if (err != cudaSuccess) return err;
+  static int per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dropout_mask_kernel<T, Index>, kThreads, 0);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   *blocks = sms * (per_sm > 0 ? per_sm : 1);
-  if (dev < kMaxDevices) cached[dev] = *blocks;
-  return cudaSuccess;
+  return err;
 }
 
 template <typename T, typename Index>

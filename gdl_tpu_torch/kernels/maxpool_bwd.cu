@@ -17,24 +17,35 @@
 //
 // Design. The TPU kernel is shaped by its compiler (even/odd phase split,
 // lane-packed interleave, one image per grid step); none of that is
-// carried over. A tile is kTH x kTW windows of one image and 128 bytes of
-// channels (32 in f32, 64 in bf16), so that every dtype moves the same
-// bytes a thread: a thread takes 16 bytes of a cell's channels, eight
-// threads a cell. A resident grid (the SMs times the blocks an SM holds)
-// walks the tiles with two stages of shared memory:
+// carried over. A tile is kTH x kTW = 8 x 8 windows of one image and 128
+// bytes of channels (32 in f32, 64 in bf16), so that every dtype moves
+// the same bytes a thread: a thread takes 16 bytes of a cell's channels,
+// eight threads a cell. A resident grid (one block of 512 threads an SM:
+// two stages take 113 KB of shared memory) walks the tiles:
 //   Copy: the tile's x with its halo (input rows 2*oi0 - 1 .. 2*oi0 +
-//     2*kTH + 1, the columns alike) and g of its windows and the one
-//     further row and column of windows that reach into its cells go to
-//     a stage by cp.async, issued for tile t+1 before tile t is computed,
-//     so one tile's copies are in flight under the other's work.
+//     2*kTH + 1, the columns alike; -inf where they leave the grid) and g
+//     of its windows and of the one further row and column of windows
+//     that reach into its cells go to a stage by cp.async, issued for
+//     tile t+1 before tile t is worked on, so one tile's copies are in
+//     flight under the other's work. The halo is 41% of the cells staged
+//     (63% with 4 x 8 windows); it comes from L2, where the neighbouring
+//     tile, walked at the same time, brought it.
 //   First maxima: for every window of the stage, the offset k = 3*di + dj
-//     of its first maximum, from shared memory, once; one byte a channel.
+//     of its first maximum, from shared memory, once: the maximum with
+//     NaN passed through, then the first cell equal to it, kNone where it
+//     is NaN. bf16 runs on pairs of channels (max.NaN.bf16x2 and a
+//     bf16x2 compare into masks), f32 on single ones. The offsets are
+//     kept an int a channel in f32, a byte in bf16.
 //   Gather: a thread takes the 2 x 2 input cells (2a .. 2a+1, 2b .. 2b+1)
 //     of window (a, b) of the tile: they lie in windows (a, b), (a, b+1),
 //     (a+1, b) and (a+1, b+1) and no others. It reads those four windows'
 //     offsets and g once, sums each cell's share in f32 in window offset
 //     order (di, dj) ascending, the plain version's order, rounds once
 //     and writes each cell's 16 bytes of dx.
+// A tile's instructions set the pace of the first resident design (4 x 8
+// windows, three blocks of 256 threads an SM, a bounds test a cell, the
+// first maximum tracked a byte at a time): it ran bf16 at a third of the
+// memory rate. Hence the -inf halo, the pairs and the 512 threads.
 // dx is written once, the sums run in one fixed order and there are no
 // atomics, so two runs give equal bits. Where C is no multiple of the
 // 16-byte vector or a pointer is not 16-byte aligned, a thread takes one
@@ -48,12 +59,14 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kTH = 4;             // windows per tile, rows
+constexpr int kTH = 8;             // windows per tile, rows
 constexpr int kTW = 8;             // windows per tile, columns
 constexpr int kChunkBytes = 128;   // bytes of channels of a tile cell
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kNone = 9;           // no cell of the window takes its g
 constexpr int kXR = 2 * kTH + 3;   // staged x rows, with the halo
 constexpr int kXC = 2 * kTW + 3;   // staged x columns
@@ -61,16 +74,20 @@ constexpr int kWR = kTH + 1;       // windows whose offsets a tile needs
 constexpr int kWC = kTW + 1;
 constexpr int kXCells = kXR * kXC;
 constexpr int kWins = kWR * kWC;
-constexpr int kMaxDevices = 64;
 
 // T's layout in a tile: channels a cell (kCC), threads a cell (kLanes),
-// bytes of a stage (x cells, then g cells) and of the whole block
+// bytes of a stage (x cells, then g cells) and of the whole block; the
+// offsets of the windows' first maxima are kept one int a channel in f32
+// (read without unpacking) and one byte in bf16 (shared memory for three
+// blocks an SM)
 template <typename T, int V>
 struct Cfg {
+  using K = std::conditional_t<sizeof(T) == 4, int32_t, uint8_t>;
   static constexpr int kCC = kChunkBytes / static_cast<int>(sizeof(T));
   static constexpr int kLanes = kCC / V;
   static constexpr int kStage = (kXCells + kWins) * kChunkBytes;
-  static constexpr int kSmem = 2 * kStage + kWins * kCC;
+  static constexpr int kSmem =
+      2 * kStage + kWins * kCC * static_cast<int>(sizeof(K));
 };
 
 // bf16 pairs, elementwise on a 32-bit word of two bf16 values
@@ -115,9 +132,9 @@ struct alignas(sizeof(T) * V) Vec {
   T v[V];
 };
 
-template <int V>
-struct alignas(V) Idx {
-  uint8_t k[V];
+template <typename K, int V>
+struct alignas(sizeof(K) * V) Idx {
+  K k[V];
 };
 
 template <typename T, int V>
@@ -195,26 +212,33 @@ __device__ __forceinline__ void issue_tile(const T* __restrict__ x,
   using C = Cfg<T, V>;
   const int ch = (tid % C::kLanes) * V;
   if (ch >= t.cw) return;
-  const T* xn = x + static_cast<long long>(t.n) * d.h * d.w * d.c + t.c0 + ch;
-  const T* gn = g + static_cast<long long>(t.n) * d.ho * d.wo * d.c + t.c0 + ch;
+  // element offsets of the staged cell (0, 0) and of window (0, 0), which
+  // may lie before the image; cells are added as rows and columns
+  const long long xrow = static_cast<long long>(d.w) * d.c;
+  const long long grow = static_cast<long long>(d.wo) * d.c;
+  const int i0 = 2 * t.oi0 - 1, j0 = 2 * t.oj0 - 1;
+  const long long x0 = (static_cast<long long>(t.n) * d.h + i0) * xrow +
+                       static_cast<long long>(j0) * d.c + t.c0 + ch;
+  const long long g0 = (static_cast<long long>(t.n) * d.ho + t.oi0) * grow +
+                       static_cast<long long>(t.oj0) * d.c + t.c0 + ch;
   T* dst = stage + ch;
   for (int cell = tid / C::kLanes; cell < kXCells + kWins;
        cell += kThreads / C::kLanes) {
     if (cell < kXCells) {
-      const int i = 2 * t.oi0 - 1 + cell / kXC;
-      const int j = 2 * t.oj0 - 1 + cell % kXC;
-      if (i < 0 || i >= d.h || j < 0 || j >= d.w) {
-        fill_neg_inf<T, V>(dst + cell * C::kCC);
-      } else {
+      const int r = cell / kXC, q = cell % kXC;
+      if (static_cast<unsigned>(i0 + r) < static_cast<unsigned>(d.h) &&
+          static_cast<unsigned>(j0 + q) < static_cast<unsigned>(d.w)) {
         copy_piece<T, V>(dst + cell * C::kCC,
-                         xn + (static_cast<long long>(i) * d.w + j) * d.c);
+                         x + (x0 + r * xrow + static_cast<long long>(q) * d.c));
+      } else {
+        fill_neg_inf<T, V>(dst + cell * C::kCC);
       }
     } else {
       const int win = cell - kXCells;
-      const int oi = t.oi0 + win / kWC, oj = t.oj0 + win % kWC;
-      if (oi < d.ho && oj < d.wo)
+      const int r = win / kWC, q = win % kWC;
+      if (t.oi0 + r < d.ho && t.oj0 + q < d.wo)
         copy_piece<T, V>(dst + cell * C::kCC,
-                         gn + (static_cast<long long>(oi) * d.wo + oj) * d.c);
+                         g + (g0 + r * grow + static_cast<long long>(q) * d.c));
     }
   }
 }
@@ -224,9 +248,9 @@ __device__ __forceinline__ void issue_tile(const T* __restrict__ x,
 // nothing); cells off the grid hold -inf. v[k] holds the window's cell k.
 // The maximum passes NaN through and is one of the values, so "first
 // equal" is the plain version's rule, ties and signed zeros included.
-template <int V>
+template <typename K, int V>
 __device__ __forceinline__ void first_max_f32(const float (&v)[9][V],
-                                              Idx<V>& out) {
+                                              Idx<K, V>& out) {
 #pragma unroll
   for (int u = 0; u < V; ++u) {
     float m = v[0][u];
@@ -235,14 +259,14 @@ __device__ __forceinline__ void first_max_f32(const float (&v)[9][V],
     int best = kNone;
 #pragma unroll
     for (int k = 8; k >= 0; --k) best = v[k][u] == m ? k : best;
-    out.k[u] = static_cast<uint8_t>(best);
+    out.k[u] = static_cast<K>(best);
   }
 }
 
 // the same on bf16 pairs: v[k][p] holds channels 2p, 2p+1 of cell k
 template <int V>
 __device__ __forceinline__ void first_max_bf16x2(const uint32_t (&v)[9][V / 2],
-                                                 Idx<V>& out) {
+                                                 Idx<uint8_t, V>& out) {
   static_assert(V % 4 == 0, "whole words of offsets");
   uint32_t best[V / 2];
 #pragma unroll
@@ -262,23 +286,25 @@ __device__ __forceinline__ void first_max_bf16x2(const uint32_t (&v)[9][V / 2],
 #pragma unroll
   for (int q = 0; q < V / 4; ++q)
     packed[q] = __byte_perm(best[2 * q], best[2 * q + 1], 0x6420);
-  out = *reinterpret_cast<const Idx<V>*>(packed);
+  out = *reinterpret_cast<const Idx<uint8_t, V>*>(packed);
 }
 
 // First maxima: sidx[win * kCC + ch] = the offset of the first maximum of
 // window win (row-major over kWR x kWC) in channel c0 + ch, or kNone for a
 // window off the output grid or with a NaN in it.
 template <typename T, int V>
-__device__ __forceinline__ void first_max(const T* stage, uint8_t* sidx,
+__device__ __forceinline__ void first_max(const T* stage,
+                                          typename Cfg<T, V>::K* sidx,
                                           const Tile& t, const Dims& d,
                                           int tid) {
   using C = Cfg<T, V>;
+  using K = typename C::K;
   const int ch = (tid % C::kLanes) * V;
   if (ch >= t.cw) return;
   for (int win = tid / C::kLanes; win < kWins; win += kThreads / C::kLanes) {
     const int wi = win / kWC, wj = win % kWC;
     const T* cell0 = stage + ((2 * wi) * kXC + 2 * wj) * C::kCC + ch;
-    Idx<V> best;
+    Idx<K, V> best;
     if constexpr (kPairs<T, V>) {
       uint32_t v[9][V / 2];
 #pragma unroll
@@ -294,13 +320,13 @@ __device__ __forceinline__ void first_max(const T* stage, uint8_t* sidx,
 #pragma unroll
       for (int k = 0; k < 9; ++k)
         load_vec<T, V>(cell0 + ((k / 3) * kXC + k % 3) * C::kCC, v[k]);
-      first_max_f32<V>(v, best);
+      first_max_f32<K, V>(v, best);
     }
     if (t.oi0 + wi >= d.ho || t.oj0 + wj >= d.wo) {
 #pragma unroll
       for (int u = 0; u < V; ++u) best.k[u] = kNone;
     }
-    *reinterpret_cast<Idx<V>*>(sidx + win * C::kCC + ch) = best;
+    *reinterpret_cast<Idx<K, V>*>(sidx + win * C::kCC + ch) = best;
   }
 }
 
@@ -313,25 +339,26 @@ __device__ __forceinline__ void take(float (&acc)[V], const int (&kw)[V],
     if (kw[u] == k) acc[u] += gv[u];
 }
 
+// dx of the quad's cell (r, s), at element offset `off` from dxq
 template <typename T, int V>
-__device__ __forceinline__ void store_cell(T* __restrict__ dxn,
-                                           const float (&acc)[V], int i,
-                                           int j, const Dims& d) {
-  if (i >= d.h || j >= d.w) return;
+__device__ __forceinline__ void store_cell(T* __restrict__ dxq,
+                                           const float (&acc)[V], bool in,
+                                           long long off) {
+  if (!in) return;
   Vec<T, V> out;
 #pragma unroll
   for (int u = 0; u < V; ++u) out.v[u] = from_float<T>(acc[u]);
-  *reinterpret_cast<Vec<T, V>*>(
-      dxn + (static_cast<long long>(i) * d.w + j) * d.c) = out;
+  *reinterpret_cast<Vec<T, V>*>(dxq + off) = out;
 }
 
 // a window's offsets (one int a channel) and g (in f32) from the stage
 template <typename T, int V>
-__device__ __forceinline__ void window_of(const uint8_t* sidx, const T* gs,
-                                          int win, int (&kw)[V],
+__device__ __forceinline__ void window_of(const typename Cfg<T, V>::K* sidx,
+                                          const T* gs, int win, int (&kw)[V],
                                           float (&gv)[V]) {
   using C = Cfg<T, V>;
-  const Idx<V> idx = *reinterpret_cast<const Idx<V>*>(sidx + win * C::kCC);
+  const Idx<typename C::K, V> idx =
+      *reinterpret_cast<const Idx<typename C::K, V>*>(sidx + win * C::kCC);
 #pragma unroll
   for (int u = 0; u < V; ++u) kw[u] = idx.k[u];
   load_vec<T, V>(gs + win * C::kCC, gv);
@@ -340,13 +367,15 @@ __device__ __forceinline__ void window_of(const uint8_t* sidx, const T* gs,
 // Gather: dx of the tile's input cells, rows [2*oi0, 2*oi0 + 2*kTH) and
 // columns [2*oj0, 2*oj0 + 2*kTW), a 2 x 2 quad a thread and 16 bytes.
 template <typename T, int V>
-__device__ __forceinline__ void gather(const T* stage, const uint8_t* sidx,
+__device__ __forceinline__ void gather(const T* stage,
+                                       const typename Cfg<T, V>::K* sidx,
                                        T* __restrict__ dx, const Tile& t,
                                        const Dims& d, int tid) {
   using C = Cfg<T, V>;
   const int ch = (tid % C::kLanes) * V;
   if (ch >= t.cw) return;
-  T* dxn = dx + static_cast<long long>(t.n) * d.h * d.w * d.c + t.c0 + ch;
+  const long long xrow = static_cast<long long>(d.w) * d.c;
+  T* dxn = dx + (static_cast<long long>(t.n) * d.h * xrow + t.c0 + ch);
   const T* gs = stage + kXCells * C::kCC + ch;
   sidx += ch;
   for (int quad = tid / C::kLanes; quad < kTH * kTW;
@@ -362,24 +391,27 @@ __device__ __forceinline__ void gather(const T* stage, const uint8_t* sidx,
     window_of<T, V>(sidx, gs, w00 + kWC, k10, g10);
     window_of<T, V>(sidx, gs, w00 + kWC + 1, k11, g11);
     const int i = 2 * (t.oi0 + a), j = 2 * (t.oj0 + b);
+    T* dxq = dxn + (i * xrow + static_cast<long long>(j) * d.c);
+    const bool row0 = i < d.h, row1 = i + 1 < d.h;
+    const bool col0 = j < d.w, col1 = j + 1 < d.w;
     float acc[V];
     // (i, j): the middle of (a, b)
 #pragma unroll
     for (int u = 0; u < V; ++u) acc[u] = 0.f;
     take<V>(acc, k00, 4, g00);
-    store_cell<T, V>(dxn, acc, i, j, d);
+    store_cell<T, V>(dxq, acc, row0 && col0, 0);
     // (i, j+1): (di, dj) = (1, 0) of (a, b+1), then (1, 2) of (a, b)
 #pragma unroll
     for (int u = 0; u < V; ++u) acc[u] = 0.f;
     take<V>(acc, k01, 3, g01);
     take<V>(acc, k00, 5, g00);
-    store_cell<T, V>(dxn, acc, i, j + 1, d);
+    store_cell<T, V>(dxq, acc, row0 && col1, d.c);
     // (i+1, j): (0, 1) of (a+1, b), then (2, 1) of (a, b)
 #pragma unroll
     for (int u = 0; u < V; ++u) acc[u] = 0.f;
     take<V>(acc, k10, 1, g10);
     take<V>(acc, k00, 7, g00);
-    store_cell<T, V>(dxn, acc, i + 1, j, d);
+    store_cell<T, V>(dxq, acc, row1 && col0, xrow);
     // (i+1, j+1): (0, 0) of (a+1, b+1), (0, 2) of (a+1, b), (2, 0) of
     // (a, b+1), (2, 2) of (a, b)
 #pragma unroll
@@ -388,7 +420,7 @@ __device__ __forceinline__ void gather(const T* stage, const uint8_t* sidx,
     take<V>(acc, k10, 2, g10);
     take<V>(acc, k01, 6, g01);
     take<V>(acc, k00, 8, g00);
-    store_cell<T, V>(dxn, acc, i + 1, j + 1, d);
+    store_cell<T, V>(dxq, acc, row1 && col1, xrow + d.c);
   }
 }
 
@@ -402,7 +434,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) unsigned char smem[];
   T* stage = reinterpret_cast<T*>(smem);                 // tile t's
   T* other = reinterpret_cast<T*>(smem + C::kStage);     // tile t+1's
-  uint8_t* sidx = smem + 2 * C::kStage;
+  auto* sidx = reinterpret_cast<typename C::K*>(smem + 2 * C::kStage);
   const int tid = threadIdx.x;
   int t = blockIdx.x;
   Tile cur = tile_of<C::kCC>(t, d);
@@ -427,32 +459,27 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 
-// the resident grid on the current device (and the kernel's shared
-// memory allowed there)
+// the resident grid on the current device: its SMs times the blocks of
+// this kernel an SM holds (the same on every device of a process), once
+// the kernel may take its shared memory
 template <typename T, int V>
 cudaError_t resident_blocks(int* blocks) {
-  static int cached[kMaxDevices] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && cached[dev] > 0) {
-    *blocks = cached[dev];
-    return cudaSuccess;
-  }
   using C = Cfg<T, V>;
-  err = cudaFuncSetAttribute(maxpool_bwd_kernel<T, V>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::kSmem);
-  if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, maxpool_bwd_kernel<T, V>, kThreads, C::kSmem);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      maxpool_bwd_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (attr != cudaSuccess) return attr;
+  static int per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, maxpool_bwd_kernel<T, V>, kThreads, C::kSmem);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   *blocks = sms * (per_sm > 0 ? per_sm : 1);
-  if (dev < kMaxDevices) cached[dev] = *blocks;
-  return cudaSuccess;
+  return err;
 }
 
 template <typename T, int V>
