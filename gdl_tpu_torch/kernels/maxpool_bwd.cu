@@ -78,8 +78,8 @@ constexpr int kWins = kWR * kWC;
 // T's layout in a tile: channels a cell (kCC), threads a cell (kLanes),
 // bytes of a stage (x cells, then g cells) and of the whole block; the
 // offsets of the windows' first maxima are kept one int a channel in f32
-// (read without unpacking) and one byte in bf16 (shared memory for three
-// blocks an SM)
+// (the gather reads them without unpacking) and one byte in bf16 (a
+// thread's eight in one 8-byte read)
 template <typename T, int V>
 struct Cfg {
   using K = std::conditional_t<sizeof(T) == 4, int32_t, uint8_t>;
