@@ -21,8 +21,10 @@ op at every shape and sums over the step:
 each as the median of 20 single calls after a warm-up (`ms`), in a run of
 20 calls between two events (`run_ms`), and by a torch.profiler trace of
 ten calls (`device_ms`: the kernel's own device time, without the op
-wrapper's host code); its plain version (`plain_ms`); the library call
-that computes the same function, in runs of 20 (`library_run_ms`:
+wrapper's host code; a trace that holds fewer of the kernel's records
+than calls, as when the tracer drops a buffer of them, is taken again);
+its plain version (`plain_ms`); the library call that computes the same
+function, in runs of 20 (`library_run_ms`:
 `torch.rand` + compare + `torch.where`; `aten.max_pool2d_with_indices_
 backward` on the NCHW views with the forward's indices made beforehand);
 and its bound (`bound_ms`: the larger of the bytes moved once over 3.35
@@ -60,7 +62,6 @@ from gdl_tpu_torch.bench_common import (  # noqa: E402
     nvidia_smi,
     run_ms,
     run_roots,
-    split_ms,
 )
 
 RATE = 0.1
@@ -71,6 +72,7 @@ MASK_CALLS = {(12544, 512): 12, (12544, 4096): 4, (25088, 512): 9,
 POOL_SHAPES = {"visual": (64, 112, 112, 64), "audio": (64, 129, 94, 64)}
 KERNEL_SYMBOLS = {"14": "dropout_mask_kernel", "16": "maxpool_bwd_kernel"}
 TRACED = 10
+TRACE_TRIES = 3
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12  # float32; the integer work of #14 is counted at it
 MARK = "bench_mask_pool "  # the result line, among whatever else
@@ -110,6 +112,31 @@ def calls_of(kernel: str):
     if kernel == "14":
         return list(MASK_CALLS.items())
     return [(s, 1) for s in POOL_SHAPES.values()]
+
+
+def kernel_ms(fn, symbol: str, traced: int = TRACED) -> float:
+    """Device ms of one call of `fn`, which launches the kernel `symbol`
+    once: a torch.profiler trace of `traced` calls, taken again (at most
+    TRACE_TRIES times in all) while it holds fewer records of `symbol`
+    than calls. It lives here, not in bench_common: a checkout timed by
+    --roots brings its own bench_common, which may predate it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(traced):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if symbol in ev.key]
+        if sum(ev.count for ev in evs) >= traced:
+            us = sum(getattr(ev, "device_time_total", None)
+                     or ev.cuda_time_total for ev in evs)
+            return us / 1e3 / traced
+    raise RuntimeError(f"the tracer kept no record of {traced} launches "
+                       f"of {symbol} in {TRACE_TRIES} traces")
 
 
 def _digest(h, out) -> None:
@@ -187,10 +214,7 @@ def worker() -> dict:
                            "run_ms": run_ms(kernel),
                            "plain_ms": cuda_ms(plain, reps=3, warmup=1),
                            "library_run_ms": run_ms(library)}
-                    parts, _ = split_ms(
-                        kernel, lambda name: symbol if symbol in name
-                        else "other", TRACED)
-                    row["device_ms"] = parts.get(symbol, 0.0)
+                    row["device_ms"] = kernel_ms(kernel, symbol)
                     _digest(digests[kern], kernel())
                 rows[f"{kern}_{'x'.join(map(str, shape))}"] = row
                 for key in keys:
