@@ -1984,7 +1984,7 @@ def test_projection_of_2_and_1_is_filed_under_its_own_row(cuda):
     row; in both dtypes. Every kernel symbol a trace saw is printed.
 
     The tracer has been seen to drop a call's records (an "Activity
-    Buffer Request" in their place): a session of its own starts the
+    Buffer Request" in their place): a first trace of its own starts the
     tracer first, and a trace that lacks the record of either kernel is
     taken again, at most twice; the last one is held to the asserts."""
     from torch.profiler import ProfilerActivity, profile
