@@ -178,6 +178,27 @@ Phases, each printing one JSON line:
               at phase k's bars; the same attention seed words as the
               default arm and losses within its bars of the default
               arm's; timed steps of the switch and default arms in turns;
+  p. joint    the joint / OGM-GE lineage of main.py at full width,
+              kernel arm against plain arm from one seed, float32 and
+              bf16 autocast. ResNet: bench.py's _measure_ogm
+              configuration (CREMA-D, fps 1, batch 64, dual ResNet-18
+              width 64, concat, lr 2e-3, alpha 0.3, live OGM-GE over
+              epochs 0-50, its noise drawn from the arms' identically
+              seeded generators) through serve.build_model(dgl=False),
+              build_harness(dgl=False), a Loader over a SyntheticDataset
+              and train_one_epoch: 3 checked steps (cuDNN deterministic)
+              with exactly 2 launches of #16 per kernel-arm step and none
+              on the plain arm; losses, gradient norms, diversities,
+              float32 parameters and BN statistics at phase i's bars, the
+              generators' states equal; timed calls per arm in turns over
+              batches collected beforehand; one pass of evaluate with no
+              launch. Swin: bench.py's _measure_swin configuration
+              (CREMA-D, fps 1, batch 32, dual Swin-B, concat, Normal,
+              alpha 1, droppath 0.1): an eval batch before any step with
+              exactly 48 launches of #1 (none on the plain arm), logits at
+              phase d's bars; 1 + 2 checked steps with exactly 48 of #2
+              and 48 of #4 per kernel-arm step, losses and float32
+              parameters at phase f's bars; timed steps per arm in turns;
   g. kernels  one line per kernel: route, source, the TPU kernel it
               replaces, launches on its path (d for #1, the kernel arm
               of f for #2 and #4, of i for #16, of k for #10, #11, #13
@@ -185,7 +206,9 @@ Phases, each printing one JSON line:
               for #3 (with its stages and dqkv's round trip in bytes
               beside the bound), n's path for #6, #7, #8 and #9 (#6 and #7 a
               forward and a backward entry each), the switch's kernel
-              arm of o for #12), error, times, the roofline bound of the same
+              arm of o for #12; and, for #1, #2, #4 and #16, their
+              launches on p's kernel arms as joint_launches), error,
+              times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
               over the float32 peak of 67 TFLOP/s; the times are the
               float32 ones) and, where one PyTorch call computes the
@@ -298,6 +321,14 @@ VARIANT_KERNELS = (QKV_SAVEP_ROWS, BWD_ROWS, QKV_FWD, BWD_RECOMPUTE, BHND,
                    PACKED)
 FLAG_STEPS = 3        # checked steps per arm after one warm-up step
 FLAG_TIME_ROUNDS = 6  # timed steps per arm, in turns
+
+# phase p, the joint (OGM-GE) lineage: bench.py's _measure_ogm (dual
+# ResNet-18, live OGM-GE) and _measure_swin (dual Swin-B, Normal)
+JOINT_RESNET_STEPS = 3    # checked steps; the first includes cuDNN's tuning
+JOINT_SWIN_STEPS = 3      # 1 warm-up + 2 checked
+JOINT_TIMED_STEPS = 4     # per timed call (ResNet) or per arm (Swin)
+JOINT_TIME_ROUNDS = 4     # ResNet timed calls per arm, in turns
+JOINT_STEPS_PER_EPOCH = 6698 // RESNET_BATCH  # bench.py's; epoch 0 modulates
 
 # NVIDIA H100 SXM data-sheet peaks (dense), for the roofline bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -2470,6 +2501,299 @@ def phase_flag_train(failures, smi: str):
     return totals
 
 
+def phase_joint(failures, smi: str) -> dict:
+    """The joint / OGM-GE lineage (main.py) at full width, kernel arm
+    against plain arm from one seed, float32 and bf16 autocast: bench.py's
+    _measure_ogm configuration through build_harness(dgl=False) and the
+    loop (#16), and its _measure_swin configuration (#2 and #4 in
+    training, #1 at eval). Returns the kernel arms' launch counts."""
+    import torch
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.config import Config
+    from gdl_tpu_torch.data.loader import Loader
+    from gdl_tpu_torch.data.synthetic import SyntheticDataset, synthetic_batch
+    from gdl_tpu_torch.models.swin import WindowAttention
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.train.loop import (
+        build_harness,
+        evaluate,
+        train_one_epoch,
+    )
+
+    totals = {"resnet": 0, SAVEP: 0, BWD: 0, KERNEL: 0}
+
+    def step_counts(h):
+        """Wrap h.train_step to record each step's metrics and launches
+        → (the records, the unwrapped step)."""
+        steps, inner = [], h.train_step
+
+        def recording(batch):
+            before = dict(kernels.launch_counts)
+            m = inner(batch)
+            steps.append(({k: float(v) for k, v in m.items()},
+                          {k: v - before[k] for k, v in
+                           kernels.launch_counts.items()}))
+            return m
+
+        h.train_step = recording
+        return steps, inner
+
+    def ran(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    def compare(ka, pa, dtype, rtol, keys, problems):
+        worst = 0.0
+        for i, ((mk, _), (mp, _)) in enumerate(zip(ka, pa)):
+            for key in keys:
+                a, b = mk[key], mp[key]
+                if not (math.isfinite(a) and math.isfinite(b)):
+                    problems.append(f"step {i}: {key} not finite")
+                    continue
+                worst = max(worst, abs(a - b) / max(abs(b), 1e-12))
+        if worst > rtol:
+            problems.append(f"metrics differ by {worst} relative")
+        return worst
+
+    def max_diff(a, b, buffers=False):
+        with torch.no_grad():
+            pairs = (zip((t for n, t in a.named_buffers() if "running" in n),
+                         (t for n, t in b.named_buffers() if "running" in n))
+                     if buffers else zip(a.parameters(), b.parameters()))
+            return max(float((x - y).abs().max()) for x, y in pairs)
+
+    # ---- dual ResNet-18, live OGM-GE --------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        def config(dtype):
+            return Config(dataset="CREMAD", fusion_method="concat",
+                          modality="full", fps=1, batch_size=RESNET_BATCH,
+                          learning_rate=2e-3, alpha=0.3, modulation="OGM_GE",
+                          modulation_starts=0, modulation_ends=50,
+                          log_grad_csv=False, compute_dtype=dtype,
+                          num_workers=8, ckpt_path=tmp,
+                          encoder_width=RESNET_WIDTH)
+
+        cfg0 = config("float32")
+        train_set = SyntheticDataset(
+            cfg0, size=RESNET_BATCH * JOINT_RESNET_STEPS, seed=600)
+        test_set = SyntheticDataset(cfg0, size=2 * RESNET_BATCH, seed=9100)
+        timed_set = SyntheticDataset(
+            cfg0, size=RESNET_BATCH * JOINT_TIMED_STEPS, seed=2100)
+
+        def loader(ds, shuffle):
+            return Loader(ds, RESNET_BATCH, shuffle=shuffle, drop_last=True,
+                          num_workers=8, seed=cfg0.random_seed)
+
+        timed_batches = list(loader(timed_set, False))
+
+        def resnet_arm(impl, dtype):
+            cfg = config(dtype)
+            h = build_harness(cfg, build_model(cfg, attn_impl=impl, seed=777,
+                                               dgl=False),
+                              steps_per_epoch=JOINT_STEPS_PER_EPOCH,
+                              dgl=False)
+            steps, inner = step_counts(h)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            torch.backends.cudnn.deterministic = True  # as in phase i
+            try:
+                with quiet():
+                    train_one_epoch(h, loader(train_set, True), 0)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            h.train_step = inner
+            return dict(h=h, steps=steps,
+                        peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+        def timed_call(arm):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with quiet():
+                train_one_epoch(arm["h"], timed_batches, 0)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / len(timed_batches)
+
+        for dtype in ("float32", "bfloat16"):
+            order = ("plain", "auto") if dtype == "float32" else ("auto",
+                                                                  "plain")
+            arms = {impl: resnet_arm(impl, dtype) for impl in order}
+            ka, pa = arms["auto"], arms["plain"]
+            problems = []
+            for i, ((_, lk), (_, lp)) in enumerate(zip(ka["steps"],
+                                                       pa["steps"])):
+                if ran(lk) != {POOL: 2}:
+                    problems.append(f"step {i}: kernel arm launches {ran(lk)}")
+                if ran(lp):
+                    problems.append(f"step {i}: plain arm launches {ran(lp)}")
+                totals["resnet"] += lk[POOL]
+            if len(ka["steps"]) != JOINT_RESNET_STEPS:
+                problems.append(f"{len(ka['steps'])} steps ran")
+            worst = compare(ka["steps"], pa["steps"], dtype,
+                            RESNET_LOSS_RTOL[dtype],
+                            ("loss", "loss_f", "grad_norm", "a_diversity",
+                             "v_diversity"), problems)
+            km, pm = ka["h"].model, pa["h"].model
+            param_err = max_diff(km, pm)
+            stat_err = max_diff(km, pm, buffers=True)
+            if dtype == "float32" and param_err > RESNET_PARAM_ATOL:
+                problems.append(f"parameters differ by {param_err}")
+            if stat_err > RESNET_STAT_ATOL[dtype]:
+                problems.append(f"BN running stats differ by {stat_err}")
+            # the OGM-GE noise came from the arms' generators alike
+            if not torch.equal(ka["h"].generator.get_state(),
+                               pa["h"].generator.get_state()):
+                problems.append("the arms' generators drew differently")
+            timed = {impl: [] for impl in arms}
+            for impl in order:  # untimed: cuDNN's default algorithms
+                timed_call(arms[impl])
+            for r in range(JOINT_TIME_ROUNDS):
+                for impl in (order if r % 2 == 0 else order[::-1]):
+                    timed[impl].append(timed_call(arms[impl]))
+            kernels.reset_launch_counts()
+            with quiet():
+                accs = evaluate(ka["h"], loader(test_set, False))
+            if ran(kernels.launch_counts):
+                problems.append(f"eval launched {ran(kernels.launch_counts)}")
+            if not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+                problems.append(f"accuracies {accs}")
+            for impl in order:
+                ms = sorted(timed[impl])
+                med = ms[len(ms) // 2]
+                emit({"phase": "joint_resnet", "dtype": dtype,
+                      "arm": "kernel" if impl == "auto" else "plain",
+                      "batch": RESNET_BATCH, "ms_per_step": med,
+                      "clips_per_s": RESNET_BATCH / med * 1e3,
+                      "timed_call_ms_per_step": timed[impl],
+                      "peak_mem_gib": arms[impl]["peak"],
+                      "loss": [m["loss"] for m, _ in arms[impl]["steps"]],
+                      "grad_norm": [m["grad_norm"]
+                                    for m, _ in arms[impl]["steps"]],
+                      "params": sum(p.numel() for p in km.parameters()),
+                      "nvidia_smi": smi})
+            emit({"phase": "joint_resnet_check", "dtype": dtype,
+                  "modulation": "OGM_GE", "max_rel_metric_diff": worst,
+                  "metric_rtol": RESNET_LOSS_RTOL[dtype],
+                  "max_abs_param_diff": param_err,
+                  "param_atol": (RESNET_PARAM_ATOL if dtype == "float32"
+                                 else None),
+                  "max_abs_bn_stat_diff": stat_err,
+                  "bn_stat_atol": RESNET_STAT_ATOL[dtype],
+                  "launches_per_step": {POOL: 2}, "eval_acc": list(accs),
+                  "problems": problems, "ok": not problems,
+                  "nvidia_smi": smi})
+            failures.extend(f"joint resnet {dtype}: {p}" for p in problems)
+            del arms, ka, pa, km, pm
+            torch.cuda.empty_cache()
+
+    # ---- dual Swin-B, --modulation Normal ---------------------------------
+    def swin_config(dtype):
+        return Config(dataset="CREMAD", backbone="swin",
+                      fusion_method="concat", modality="full", fps=1,
+                      batch_size=TRAIN_BATCH, alpha=1.0, modulation="Normal",
+                      log_grad_csv=False, compute_dtype=dtype)
+
+    base = build_model(swin_config("float32"), seed=4321, dgl=False)
+    batches = [synthetic_batch(swin_config("float32"), TRAIN_BATCH,
+                               seed=700 + k) for k in range(JOINT_SWIN_STEPS)]
+    per_step = {SAVEP: 2 * sum(DEPTHS), BWD: 2 * sum(DEPTHS)}
+
+    def swin_arm(impl, dtype):
+        model = copy.deepcopy(base)
+        if impl == "plain":
+            for m in model.modules():
+                if isinstance(m, WindowAttention):
+                    m.attn_impl = m.attn_eval_impl = "plain"
+        h = build_harness(swin_config(dtype), model, steps_per_epoch=100,
+                          dgl=False)
+        kernels.reset_launch_counts()
+        ev = h.eval_step(batches[0])  # equal weights in both arms
+        torch.cuda.synchronize()
+        arm = dict(h=h, eval_logits=ev["logits"][0].float(),
+                   eval_launches=dict(kernels.launch_counts))
+        arm["steps"], inner = step_counts(h)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        others = other_arms_bytes(model)
+        for batch in batches:
+            h.train_step(batch)
+        torch.cuda.synchronize()
+        h.train_step = inner
+        arm["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        arm["peak_over_start"] = arm["peak"] - others / 2 ** 30
+        return arm
+
+    def timed_step(arm, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        arm["h"].train_step(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    for dtype in ("float32", "bfloat16"):
+        order = ("plain", "auto") if dtype == "float32" else ("auto", "plain")
+        arms = {impl: swin_arm(impl, dtype) for impl in order}
+        ka, pa = arms["auto"], arms["plain"]
+        problems = []
+        if ran(ka["eval_launches"]) != {KERNEL: 2 * sum(DEPTHS)}:
+            problems.append(f"kernel arm eval launches "
+                            f"{ran(ka['eval_launches'])}")
+        if ran(pa["eval_launches"]):
+            problems.append(f"plain arm eval launches "
+                            f"{ran(pa['eval_launches'])}")
+        totals[KERNEL] += ka["eval_launches"][KERNEL]
+        eval_err = float((ka["eval_logits"] - pa["eval_logits"]).abs().max())
+        if not eval_err <= SERVE_ATOL[dtype]:
+            problems.append(f"eval logits differ by {eval_err}")
+        for i, ((_, lk), (_, lp)) in enumerate(zip(ka["steps"],
+                                                   pa["steps"])):
+            if ran(lk) != per_step:
+                problems.append(f"step {i}: kernel arm launches {ran(lk)}")
+            if ran(lp):
+                problems.append(f"step {i}: plain arm launches {ran(lp)}")
+            for k in per_step:
+                totals[k] += lk[k]
+        worst = compare(ka["steps"], pa["steps"], dtype, LOSS_RTOL[dtype],
+                        ("loss", "loss_f", "a_diversity", "v_diversity"),
+                        problems)
+        param_err = max_diff(ka["h"].model, pa["h"].model)
+        if dtype == "float32" and param_err > PARAM_ATOL:
+            problems.append(f"parameters differ by {param_err}")
+        timed = {impl: [] for impl in arms}
+        for r in range(JOINT_TIMED_STEPS):
+            for impl in (order if r % 2 == 0 else order[::-1]):
+                timed[impl].append(timed_step(arms[impl],
+                                              batches[r % len(batches)]))
+        for impl in order:
+            ms = sorted(timed[impl])
+            med = ms[len(ms) // 2]
+            emit({"phase": "joint_swin", "dtype": dtype,
+                  "arm": "kernel" if impl == "auto" else "plain",
+                  "batch": TRAIN_BATCH, "ms_per_step": med,
+                  "clips_per_s": TRAIN_BATCH / med * 1e3,
+                  "timed_step_ms": timed[impl],
+                  "peak_mem_gib": arms[impl]["peak"],
+                  "peak_mem_over_arm_start_gib":
+                      arms[impl]["peak_over_start"],
+                  "loss": [m["loss"] for m, _ in arms[impl]["steps"]],
+                  "params": sum(p.numel() for p in base.parameters()),
+                  "nvidia_smi": smi})
+        emit({"phase": "joint_swin_check", "dtype": dtype,
+              "modulation": "Normal", "max_rel_metric_diff": worst,
+              "metric_rtol": LOSS_RTOL[dtype],
+              "max_abs_param_diff": param_err,
+              "param_atol": PARAM_ATOL if dtype == "float32" else None,
+              "eval_max_abs_logit_diff": eval_err,
+              "eval_atol": SERVE_ATOL[dtype],
+              "launches_per_step": per_step,
+              "eval_launches": {KERNEL: 2 * sum(DEPTHS)},
+              "problems": problems, "ok": not problems, "nvidia_smi": smi})
+        failures.extend(f"joint swin {dtype}: {p}" for p in problems)
+        del arms, ka, pa
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2601,6 +2925,13 @@ def main(argv=None) -> int:
     except Exception:
         traceback.print_exc()
         failures.append("mmformer switch raised")
+
+    joint_launch = {"resnet": 0, SAVEP: 0, BWD: 0, KERNEL: 0}
+    try:
+        joint_launch = phase_joint(failures, smi)
+    except Exception:
+        traceback.print_exc()
+        failures.append("joint raised")
 
     f32 = [r for r in parity if r["dtype"] == "float32"]
     t32 = [r for r in train_parity if r["dtype"] == "float32"]
@@ -2974,6 +3305,11 @@ def main(argv=None) -> int:
         entry["bytes"], entry["operations"] = total["bytes"], total[
             "operations"]
     entries.append(entry)
+    # the joint (OGM-GE) lineage's kernel arms (phase p): #1 at eval, #2
+    # and #4 in the Swin steps, #16 in the ResNet steps
+    for entry, key in ((entries[0], KERNEL), (entries[1], SAVEP),
+                       (entries[2], BWD), (entries[3], "resnet")):
+        entry["joint_launches"] = joint_launch[key]
     record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
@@ -3008,6 +3344,10 @@ def main(argv=None) -> int:
     if switch_launch[SA_QKV_FWD] == 0:
         failures.append(f"{SA_QKV_FWD} was never launched on the mmformer "
                         f"training path under SA_FUSED_QKV = False")
+    for entry in entries[:4]:
+        if not entry["joint_launches"]:
+            failures.append(f"{entry['name']} was never launched on the "
+                            f"joint (OGM-GE) path")
     for entry in entries:
         missing = [k for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                    if entry[k] is None]

@@ -1,0 +1,66 @@
+"""Joint-training entry point of the port (the OGM-GE lineage): CLI parity
+with `main.py`.
+
+    python -m gdl_tpu_torch.main --train --ckpt_path ckpt --dataset CREMAD \
+        --modulation OGM_GE --fusion_method concat --alpha 0.3
+
+Same flags as main.py (main_dgl.py's plus --pe, --beta, --max,
+--pretrain, --warmup, --gamma; --alpha required), same stdout, CSV and
+checkpoint artifacts. Per step: the joint loss (CE of the fused logits,
+plus β·KL of the PE heads under --pe), the clip at 40, OGM / OGM-GE
+modulation of the encoders' conv kernels (live unless --strict_compat;
+off for --modulation Normal), then SGD, AdaGrad or AdamW
+(--optimizer sgd | AdaGrad | Adam). --backbone swin selects dual Swin
+encoders, otherwise dual ResNet-18. Without --train, --ckpt_path names a
+reference-schema `.pth` to evaluate. Runs on one CUDA device;
+`--device cpu` is the one way to ask for the CPU, and without it a
+machine without CUDA raises before anything runs. `--export_path` /
+`--export_poly_batch` (gdl_tpu's jax.export serving artifact) are parsed
+and raise NotImplementedError until the serving-export slice; a `.pth`
+is served through `serve.load_from_checkpoint(..., dgl=False)`.
+"""
+
+import argparse
+
+from gdl_tpu_torch.config import add_arguments, from_args
+from gdl_tpu_torch.data.datasets import make_dataset
+from gdl_tpu_torch.serve import build_model, resolve_device
+from gdl_tpu_torch.train.loop import check_supported, run_eval, run_training
+
+
+def get_arguments(argv=None):
+    parser = argparse.ArgumentParser(prog="python -m gdl_tpu_torch.main")
+    add_arguments(parser, dgl=False)
+    parser.add_argument("--export_path", default=None, type=str,
+                        help="gdl_tpu's AOT serving artifact; not ported "
+                        "(raises NotImplementedError)")
+    parser.add_argument("--export_poly_batch", default=0, type=int,
+                        help="with --export_path; not ported")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = get_arguments(argv)
+    cfg = from_args(args)
+    print(cfg)
+    if args.export_path or args.export_poly_batch:
+        raise NotImplementedError(
+            "--export_path / --export_poly_batch (an AOT serving artifact) "
+            "wait for the serving-export slice of gdl_tpu_torch; serve the "
+            ".pth with gdl_tpu_torch.serve.load_from_checkpoint(..., "
+            "dgl=False)")
+    check_supported(cfg)
+    resolve_device(cfg.device)  # raises before any work when CUDA is absent
+    model = build_model(cfg, seed=cfg.random_seed, dgl=False)
+
+    if cfg.train:
+        train_set = make_dataset(cfg, "train")
+        test_set = make_dataset(cfg, "test")
+        run_training(cfg, model, train_set, test_set, dgl=False)
+    else:
+        test_set = make_dataset(cfg, "test")
+        run_eval(cfg, model, test_set, cfg.ckpt_path, dgl=False)
+
+
+if __name__ == "__main__":
+    main()

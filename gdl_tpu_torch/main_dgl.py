@@ -29,7 +29,7 @@ def get_arguments(argv=None):
 def main(argv=None):
     cfg = from_args(get_arguments(argv))
     print(cfg)
-    check_supported(cfg, dgl=True)
+    check_supported(cfg)
     resolve_device(cfg.device)  # raises before any work when CUDA is absent
 
     if cfg.backbone == "swin":

@@ -93,7 +93,7 @@ def build_harness(cfg, model, kind: str, steps_per_epoch: int,
     step (plain CE for kind 'single'), clip 40 + SGD, the eval step over
     (out, out_a, out_v); both under bf16 autocast when
     cfg.compute_dtype is "bfloat16" (f32 parameters)."""
-    check_supported(cfg, dgl=True)
+    check_supported(cfg)
     if cfg.resume:  # gdl_tpu's main_intermediate.py has no resume either
         raise NotImplementedError(
             "--resume is not supported by gdl_tpu_torch.main_intermediate")
@@ -160,7 +160,7 @@ def main(argv=None):
             "--export_path / --export_poly_batch (an AOT serving artifact) "
             "are not ported to gdl_tpu_torch yet; serve the .pth with "
             "gdl_tpu_torch.serve.load_intermediate_from_checkpoint")
-    check_supported(cfg, dgl=True)
+    check_supported(cfg)
     resolve_device(cfg.device)  # raises before any work when CUDA is absent
     model, kind = build_model(args.model, cfg.n_classes, cfg.encoder_width,
                               share_streams=share_streams,

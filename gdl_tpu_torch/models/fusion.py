@@ -1,8 +1,10 @@
-"""DGL fusion heads, port of `gdl_tpu/models/fusion.py`.
+"""Fusion heads, port of `gdl_tpu/models/fusion.py`.
 
 Each head's `forward(x, y)` returns the reference 3-tuple
-`(x_out, y_out, fused_out)`, and exposes the two streams the DGL train
-step uses:
+`(x_out, y_out, fused_out)`. The baseline heads (SumFusion, ConcatFusion,
+FiLM, GatedFusion, ConcatFusionSwin) serve the joint / OGM-GE lineage
+and are plain modules. The DGL heads also expose the two streams the
+DGL train step uses:
 
   - `unimodal(x, y, detach_params)`: the unimodal logits from LIVE
     features. With detach_params the head's parameters get no gradient
@@ -34,6 +36,82 @@ def _apply(layer: nn.Linear, x: torch.Tensor, detach: bool = False):
     if detach:
         return F.linear(x, layer.weight.detach(), layer.bias.detach())
     return layer(x)
+
+
+class SumFusion(nn.Module):
+    """fc_x(x) + fc_y(y) (fusion_modules.py:5-13)."""
+
+    def __init__(self, input_dim: int = 512, output_dim: int = 100,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc_x = xavier_linear(input_dim, output_dim, generator)
+        self.fc_y = xavier_linear(input_dim, output_dim, generator)
+
+    def forward(self, x, y):
+        return x, y, self.fc_x(x) + self.fc_y(y)
+
+
+class ConcatFusion(nn.Module):
+    """fc_out(cat(x, y)) (fusion_modules.py:33-42); with input_dim
+    2 × 1024 it is ConcatFusionSwin."""
+
+    def __init__(self, input_dim: int = 1024, output_dim: int = 100,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc_out = xavier_linear(input_dim, output_dim, generator)
+
+    def forward(self, x, y):
+        return x, y, self.fc_out(torch.cat([x, y], dim=-1))
+
+
+class ConcatFusionSwin(ConcatFusion):
+    """The concat head of the Swin joint classifier
+    (fusion_modules.py:79-88), sized by its caller to the real feature
+    dimension (2 × 1024 for Swin-B; the reference's 768 × 2 does not fit
+    Swin-B's features)."""
+
+    def __init__(self, input_dim: int = 768 * 2, output_dim: int = 100,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(input_dim, output_dim, generator)
+
+
+class FiLM(nn.Module):
+    """Named FiLM, in fact a bilinear outer-product fusion
+    (fusion_modules.py:91-124): fc_out(fc(x ⊗ y)). Returns the features
+    unsqueezed, as the reference does (:116-117)."""
+
+    def __init__(self, input_dim: int = 512, dim: int = 768,
+                 output_dim: int = 100,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc = xavier_linear(input_dim * input_dim, dim, generator)
+        self.fc_out = xavier_linear(dim, output_dim, generator)
+
+    def forward(self, x, y):
+        xe, ye = x[:, :, None], y[:, None, :]
+        return xe, ye, self.fc_out(self.fc((xe * ye).flatten(1)))
+
+
+class GatedFusion(nn.Module):
+    """A sigmoid gate from one modality scales the other
+    (fusion_modules.py:181-210)."""
+
+    def __init__(self, input_dim: int = 512, dim: int = 512,
+                 output_dim: int = 100, x_gate: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.x_gate = x_gate
+        self.fc_x = xavier_linear(input_dim, dim, generator)
+        self.fc_y = xavier_linear(input_dim, dim, generator)
+        self.fc_out = xavier_linear(dim, output_dim, generator)
+
+    def forward(self, x, y):
+        out_x, out_y = self.fc_x(x), self.fc_y(y)
+        if self.x_gate:
+            out = self.fc_out(torch.sigmoid(out_x) * out_y)
+        else:
+            out = self.fc_out(out_x * torch.sigmoid(out_y))
+        return out_x, out_y, out
 
 
 class _FusionDGL(nn.Module):
@@ -77,6 +155,30 @@ class ConcatFusionDGL(_FusionDGL):
         x_out = _apply(self.fc_out, torch.cat([x, torch.zeros_like(y)], -1),
                        detach_params)
         y_out = _apply(self.fc_out, torch.cat([torch.zeros_like(x), y], -1),
+                       detach_params)
+        return x_out, y_out
+
+    def fuse(self, x, y):
+        return self.fc_out(torch.cat([x, y], dim=-1).detach())
+
+
+class ConcatFusionDGLUnimodal(_FusionDGL):
+    """The separate-AUXI ablation (fusion_modules.py:62-76): unimodal
+    logits through a head of their own, `fc_auxi`. Under the DGL step
+    fc_auxi gets no gradient (the unimodal stream detaches the head's
+    parameters, the fused path never reaches it): the encoders learn
+    through a frozen random head, as in the reference."""
+
+    def __init__(self, input_dim: int = 1024, output_dim: int = 100,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc_out = xavier_linear(input_dim, output_dim, generator)
+        self.fc_auxi = xavier_linear(input_dim, output_dim, generator)
+
+    def unimodal(self, x, y, detach_params: bool = False):
+        x_out = _apply(self.fc_auxi, torch.cat([x, torch.zeros_like(y)], -1),
+                       detach_params)
+        y_out = _apply(self.fc_auxi, torch.cat([torch.zeros_like(x), y], -1),
                        detach_params)
         return x_out, y_out
 
@@ -143,20 +245,25 @@ class GatedFusionDGL(_FusionDGL):
 
 def make_fusion(method: str, n_classes: int, dgl: bool,
                 input_dim: int = 512,
-                generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Fusion selection mirroring gdl_tpu's make_fusion. The non-DGL
-    heads belong to the joint-training lineage, which is not ported."""
-    if not dgl:
-        raise NotImplementedError(
-            f"the non-DGL fusion heads (joint training, fusion {method!r}) "
-            f"are not ported to gdl_tpu_torch yet")
+                generator: Optional[torch.Generator] = None,
+                shared_auxi: bool = True) -> nn.Module:
+    """Fusion selection mirroring gdl_tpu's make_fusion
+    (models/basic_model.py:28-40): the DGL heads with dgl, the baseline
+    heads of the joint lineage without. shared_auxi=False selects the
+    concat-DGL head with a separate unimodal head."""
     if method == "sum":
-        return SumFusionDGL(input_dim, n_classes, generator)
+        cls = SumFusionDGL if dgl else SumFusion
+        return cls(input_dim, n_classes, generator)
     if method == "concat":
-        return ConcatFusionDGL(2 * input_dim, n_classes, generator)
+        if dgl:
+            cls = ConcatFusionDGL if shared_auxi else ConcatFusionDGLUnimodal
+        else:
+            cls = ConcatFusion
+        return cls(2 * input_dim, n_classes, generator)
     if method == "film":
-        return FiLMDGL(input_dim, output_dim=n_classes, generator=generator)
+        cls = FiLMDGL if dgl else FiLM
+        return cls(input_dim, output_dim=n_classes, generator=generator)
     if method == "gated":
-        return GatedFusionDGL(input_dim, output_dim=n_classes,
-                              generator=generator)
+        cls = GatedFusionDGL if dgl else GatedFusion
+        return cls(input_dim, output_dim=n_classes, generator=generator)
     raise NotImplementedError("Incorrect fusion method: {}!".format(method))

@@ -4,16 +4,18 @@ Submodules carry the reference's Microsoft names (`patch_embed.{proj,
 norm}`, `layers.S.blocks.B.{norm1, attn.{qkv, proj,
 relative_position_bias_table}, norm2, mlp.{fc1, fc2}}`,
 `layers.S.downsample.{norm, reduction}`, `norm`), so a reference `.pth`
-loads as it is. LayerNorm eps is 1e-5 and GELU is exact; the PE heads
-are not ported. In training mode (`model.train()`) each block's two
-residual branches go through DropPath, at rates rising linearly from 0
-to `drop_path_rate` (0.1) over the blocks, with draws from the
-`generator` passed to `forward`. DropPath has no parameters, so the
-state dict is the same in both modes.
+loads as it is. LayerNorm eps is 1e-5 and GELU is exact. With `pe`
+the encoder ends in a PE head, `pe_head` (the joint lineage's `--pe 1`,
+gdl_tpu/models/swin.py:551-558). In training mode (`model.train()`)
+each block's two residual branches go through DropPath, at rates rising
+linearly from 0 to `drop_path_rate` (0.1) over the blocks, with draws
+from the `generator` passed to `forward`. DropPath has no parameters, so
+the state dict is the same in both modes.
 
 Inputs are channel-last as in the reference package: audio
 [B, H, W, 1], visual [B, T, H, W, 3] (time folded into the batch). The
-output is the [N, h, w, C] feature map of the last stage.
+output is the [N, h, w, C] feature map of the last stage; with `pe`,
+(its PE sample averaged over h and w, mu, std).
 
 Window attention goes through `window_attention_qkv_fused` in training
 mode (kernels #2 and #4 on the card) and `window_attention_qkv_fused_eval`
@@ -292,7 +294,8 @@ class BasicLayer(nn.Module):
 
 
 class SwinTransformer(nn.Module):
-    """Swin feature encoder; `forward` returns the [N, h, w, C] map."""
+    """Swin feature encoder; `forward` returns the [N, h, w, C] map, or
+    with pe=True the PE head's (mean over h, w of its sample, mu, std)."""
 
     def __init__(self, modality: str, img_size: int = 224,
                  patch_size: int = 4, embed_dim: int = 128,
@@ -302,7 +305,7 @@ class SwinTransformer(nn.Module):
                  drop_path_rate: float = 0.1,
                  generator: Optional[torch.Generator] = None,
                  fuse_qkv: bool = True, fuse_mlp: bool = False,
-                 attn_eval_impl: str = "auto"):
+                 attn_eval_impl: str = "auto", pe: bool = False):
         super().__init__()
         self.modality = modality
         in_chans = 1 if modality == "audio" else 3
@@ -322,12 +325,22 @@ class SwinTransformer(nn.Module):
         self.num_features = embed_dim * 2 ** (len(depths) - 1)
         self.norm = nn.LayerNorm(self.num_features, eps=1e-5)
         self.reset_parameters(generator)
+        if pe:  # made after the reset: it keeps flax's conv init
+            from gdl_tpu_torch.models.classifier import PEHead
+
+            self.pe_head = PEHead(self.num_features, generator=generator)
+        else:
+            self.pe_head = None
 
     @torch.no_grad()
     def reset_parameters(self, gen: Optional[torch.Generator] = None):
         """trunc-normal(0.02) dense and conv kernels and bias tables, zero
-        biases, LayerNorm (1, 0)."""
+        biases, LayerNorm (1, 0); the PE head is not touched."""
+        pe_head = getattr(self, "pe_head", None)
+        skip = set(pe_head.modules()) if pe_head is not None else set()
         for m in self.modules():
+            if m in skip:
+                continue
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 _trunc_normal(m.weight, gen)
                 if m.bias is not None:
@@ -353,4 +366,8 @@ class SwinTransformer(nn.Module):
                 x = layer.downsample(x, h, w)
                 h, w = h // 2, w // 2
         x = self.norm(x)
-        return x.reshape(x.shape[0], h, w, -1)
+        feat_map = x.reshape(x.shape[0], h, w, -1)
+        if self.pe_head is None:
+            return feat_map
+        out_map, mu, std = self.pe_head(feat_map, generator)
+        return out_map.mean(dim=(1, 2)), mu, std

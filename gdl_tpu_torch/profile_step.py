@@ -3,7 +3,7 @@
     python -m gdl_tpu_torch.profile_step [--backbone resnet|swin|mmformer]
         [--dtype float32|bfloat16] [--impl auto|plain] [--steps 6]
         [--fuse_qkv_gemm 0] [--fuse_mlp 1] [--bwd_delta 1]
-        [--fused_projection_backward 1] [--sa_fused_qkv 0]
+        [--fused_projection_backward 1] [--sa_fused_qkv 0] [--joint 1]
         [--out profile.json]
 
 Builds the flagship configuration of the backbone at full width with
@@ -23,6 +23,10 @@ as in `chip_smoke.py`. `--fuse_qkv_gemm` to `--fused_projection_backward`
 are for the Swin backbone: the CLI's two kernel flags, and the two module
 switches of `ops/window_attention.py`; `--sa_fused_qkv 0` sets
 `models/transformer.py`'s SA_FUSED_QKV for the mmformer backbone.
+`--joint 1` takes the joint / OGM-GE lineage's step instead of the DGL
+one, in bench.py's configurations: ResNet `_measure_ogm` (CREMA-D, batch
+64, concat, alpha 0.3, live OGM-GE), Swin `_measure_swin` (CREMA-D,
+batch 32, concat, alpha 1, Normal).
 """
 
 from __future__ import annotations
@@ -116,8 +120,11 @@ def main(argv=None) -> int:
     ap.add_argument("--bwd_delta", type=int, default=0)
     ap.add_argument("--fused_projection_backward", type=int, default=0)
     ap.add_argument("--sa_fused_qkv", type=int, default=1)
+    ap.add_argument("--joint", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.joint and args.backbone == "mmformer":
+        ap.error("--joint 1 takes --backbone resnet or swin")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -132,7 +139,18 @@ def main(argv=None) -> int:
     resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.backbone == "resnet":
+    joint = bool(args.joint)
+    if joint and args.backbone == "resnet":
+        cfg = Config(dataset="CREMAD", fusion_method="concat", fps=1,
+                     batch_size=64, learning_rate=2e-3, alpha=0.3,
+                     modulation="OGM_GE", log_grad_csv=False,
+                     compute_dtype=args.dtype)
+    elif joint:
+        cfg = Config(dataset="CREMAD", backbone="swin",
+                     fusion_method="concat", fps=1, batch_size=32, alpha=1.0,
+                     modulation="Normal", log_grad_csv=False,
+                     compute_dtype=args.dtype)
+    elif args.backbone == "resnet":
         cfg = Config(dataset="CREMAD", fusion_method="concat", fps=1,
                      batch_size=64, learning_rate=2e-3, alpha=5.0,
                      modulation="Normal", log_grad_csv=False,
@@ -165,7 +183,9 @@ def main(argv=None) -> int:
                                             steps_per_epoch=100)
     else:
         h = build_harness(cfg, build_model(cfg, attn_impl=args.impl,
-                                           seed=777), steps_per_epoch=100)
+                                           seed=777, dgl=not joint),
+                          steps_per_epoch=6698 // 64 if joint else 100,
+                          dgl=not joint)
 
     def epoch():
         with contextlib.redirect_stdout(sys.stderr):
@@ -204,7 +224,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     result = {
-        "backbone": args.backbone, "dtype": args.dtype, "impl": args.impl,
+        "backbone": args.backbone, "joint": joint, "dtype": args.dtype,
+        "impl": args.impl,
         "sa_fused_qkv": (bool(args.sa_fused_qkv)
                          if args.backbone == "mmformer" else None),
         "batch": cfg.batch_size, "steps": args.steps,

@@ -8,9 +8,12 @@
 
 The model is rebuilt from `cfg` and loaded from a reference-schema
 `.pth` ({"model": state_dict}, `module.` prefixes allowed, strict=False
-semantics), for either backbone (cfg.backbone "swin" or "resnet"). Where gdl_tpu replays a serialized jax.export artifact, the
-port runs the eager module: on the card its window attention launches
-the hand-written CUDA kernel.
+semantics), for either backbone (cfg.backbone "swin" or "resnet") and
+either lineage: the DGL classifiers, or with dgl=False the joint ones
+of main.py, whose 11-tuple is served as its fused logits (`out` thrice,
+the joint eval step's predictions). Where gdl_tpu replays a serialized
+jax.export artifact, the port runs the eager module: on the card its
+window attention launches the hand-written CUDA kernel.
 
 `load_intermediate_from_checkpoint` is the counterpart of
 `gdl_tpu/serve.py::export_intermediate_from_checkpoint` for the
@@ -28,8 +31,11 @@ import torch
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.data.preprocess import make_eval_preprocess
 from gdl_tpu_torch.models.classifier import (
+    AVClassifier,
     AVClassifierDGL,
+    AVClassifierSwin,
     AVClassifierSwinDGL,
+    JointLogits,
 )
 from gdl_tpu_torch.train.dgl import make_eval_step
 from gdl_tpu_torch.utils.interop import load_reference_pth
@@ -79,8 +85,10 @@ class ServedModel:
 
 
 def build_model(cfg: Config, attn_impl: str = "auto",
-                seed: Optional[int] = None) -> torch.nn.Module:
-    """The DGL classifier for `cfg` (cfg.backbone "resnet" or "swin"),
+                seed: Optional[int] = None,
+                dgl: bool = True) -> torch.nn.Module:
+    """The DGL classifier for `cfg` (cfg.backbone "resnet" or "swin"), or
+    with dgl=False the joint one (AVClassifier / AVClassifierSwin),
     initialised on the CPU from `seed`. attn_impl is the impl of the
     backbone's hand-written kernels: the Swin window attention and MLP, or
     the ResNet stem max-pool's backward ("auto": the CUDA kernels on the
@@ -90,17 +98,21 @@ def build_model(cfg: Config, attn_impl: str = "auto",
     `AVClassifierSwinDGL` describes; an explicit "plain" wins."""
     gen = torch.Generator().manual_seed(seed) if seed is not None else None
     if cfg.backbone == "swin":
-        return AVClassifierSwinDGL(cfg, attn_impl=attn_impl, generator=gen)
+        cls = AVClassifierSwinDGL if dgl else AVClassifierSwin
+        return cls(cfg, attn_impl=attn_impl, generator=gen)
     if cfg.backbone == "resnet":
-        return AVClassifierDGL(cfg, pool_impl=attn_impl, generator=gen)
+        cls = AVClassifierDGL if dgl else AVClassifier
+        return cls(cfg, pool_impl=attn_impl, generator=gen)
     raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
 def load_from_checkpoint(cfg: Config, ckpt_path: str, device,
                          compute_dtype: Optional[str] = None,
-                         attn_impl: str = "auto") -> ServedModel:
-    """Build the DGL classifier for `cfg`, load a reference-schema `.pth`
-    into it, and return it ready to serve on `device`.
+                         attn_impl: str = "auto",
+                         dgl: bool = True) -> ServedModel:
+    """Build the DGL classifier for `cfg` (with dgl=False the joint one,
+    served as `JointLogits`), load a reference-schema `.pth` into it, and
+    return it ready to serve on `device`.
 
     compute_dtype defaults to cfg.compute_dtype ("float32" or
     "bfloat16"). cfg.backbone selects dual Swin or dual ResNet-18
@@ -109,14 +121,14 @@ def load_from_checkpoint(cfg: Config, ckpt_path: str, device,
     launches the CUDA kernels on the card."""
     dev = resolve_device(device)
     dtype = _DTYPES[compute_dtype or cfg.compute_dtype]
-    model = build_model(cfg, attn_impl=attn_impl, seed=0)
+    model = build_model(cfg, attn_impl=attn_impl, seed=0, dgl=dgl)
     result = model.load_state_dict(load_reference_pth(ckpt_path, cfg),
                                    strict=False)
     if result.missing_keys or result.unexpected_keys:
         warnings.warn(f"checkpoint {ckpt_path}: {len(result.missing_keys)} "
                       f"keys missing (kept current values), "
                       f"{len(result.unexpected_keys)} unused")
-    return ServedModel(model, cfg, dev, dtype)
+    return ServedModel(model if dgl else JointLogits(model), cfg, dev, dtype)
 
 
 def load_intermediate_from_checkpoint(cfg: Config, model_name: str,

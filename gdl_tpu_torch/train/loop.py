@@ -1,18 +1,20 @@
-"""Epoch-loop orchestration of the DGL trainer, port of
+"""Epoch-loop orchestration of the DGL and joint trainers, port of
 `gdl_tpu/train/loop.py`.
 
-Mirrors the flow of the reference main_dgl.py (:225-418): seed → model →
-optimizer/schedule → loaders → epoch loop {train_epoch, valid, CSV row,
-best-acc checkpoint}. Where gdl_tpu runs a jitted step over a device
-mesh, the port runs the eager step on ONE device: the mesh, the
-shardings and the process striding are gone, and the device prefetch is
-a pinned, non-blocking host→device copy kept a batch ahead. Step metrics
+Mirrors the flow of the reference main_dgl.py (:225-418) and main.py:
+seed → model → optimizer/schedule → loaders → epoch loop {train_epoch,
+valid, CSV row, best-acc checkpoint}. Where gdl_tpu runs a jitted step
+over a device mesh, the port runs the eager step on ONE device: the
+mesh, the shardings and the process striding are gone, and the device
+prefetch is a pinned, non-blocking host→device copy kept a batch ahead. Step metrics
 stay on the device and are fetched in chunks, never per step (the
 reference's per-step .item() probes stall every step, SURVEY §3.1).
 
-The joint/OGM-GE lineage (`dgl=False`), TensorBoard, `--pretrained_path`
-and `--profile_dir` are not ported: `check_supported` raises
-NotImplementedError naming the option.
+`dgl=False` selects the joint / OGM-GE lineage (main.py): the joint step
+(`train/joint.py`, its own clip before the modulation, so the optimizer
+does not clip) and the joint eval step. `--pretrained_path`,
+`--profile_dir` and the multi-GPU options are not ported:
+`check_supported` raises NotImplementedError naming the option.
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ from gdl_tpu_torch.data.preprocess import (
     make_eval_preprocess,
     make_train_preprocess,
 )
+from gdl_tpu_torch.models.classifier import JointLogits
 from gdl_tpu_torch.serve import resolve_device
 from gdl_tpu_torch.train.dgl import make_dgl_train_step, make_eval_step
+from gdl_tpu_torch.train.joint import make_joint_train_step
 from gdl_tpu_torch.train.optim import lr_for_epoch, make_optimizer
 from gdl_tpu_torch.utils.checkpoint import (
     load_best_checkpoint,
@@ -41,7 +45,7 @@ from gdl_tpu_torch.utils.checkpoint import (
     save_best_checkpoint,
     save_train_state,
 )
-from gdl_tpu_torch.utils.logging import CSVLogger
+from gdl_tpu_torch.utils.logging import CSVLogger, TBLogger
 from gdl_tpu_torch.utils.metrics import PerClassAccuracy
 from gdl_tpu_torch.utils.seed import setup_seed
 
@@ -49,26 +53,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 RESUME_FILE = "resume_state.pth"
 
 
-def check_supported(cfg: Config, dgl: bool = True) -> None:
+def check_supported(cfg: Config) -> None:
     """Raise for every option the CLI accepts and the port does not
-    implement yet; nothing is accepted and ignored."""
-    if not dgl:
-        raise NotImplementedError(
-            "joint/OGM-GE training (dgl=False) is not ported to "
-            "gdl_tpu_torch yet")
-    if cfg.use_tensorboard:
-        raise NotImplementedError(
-            "--use_tensorboard is not ported to gdl_tpu_torch yet")
+    implement yet; nothing is accepted and ignored. The DGL and joint
+    lineages take the same options."""
     if cfg.pretrained_path:
         raise NotImplementedError(
             "--pretrained_path is not ported to gdl_tpu_torch yet")
     if cfg.profile_dir:
         raise NotImplementedError(
             "--profile_dir is not ported to gdl_tpu_torch yet")
-    if cfg.optimizer != "sgd":
-        raise NotImplementedError(
-            f"--optimizer {cfg.optimizer} is not ported to gdl_tpu_torch "
-            f"yet (it comes with the joint/OGM-GE slice)")
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute_dtype must be one of {list(_DTYPES)}, "
                          f"got {cfg.compute_dtype!r}")
@@ -102,11 +96,13 @@ class Harness:
 def assemble_harness(cfg: Config, model: torch.nn.Module,
                      steps_per_epoch: int, make_train_step: Callable,
                      eval_model: Optional[torch.nn.Module] = None,
-                     raw_batches: bool = True, device=None) -> Harness:
-    """Move `model` to the device, and build its optimizer (clip 40 +
-    SGD), the device generator (seeded from cfg.random_seed) and the train
-    and eval steps. `make_train_step(model, optimizer, preprocess,
-    generator)` returns the family's train step; `eval_model` (default:
+                     raw_batches: bool = True, device=None,
+                     clip_norm: Optional[float] = 40.0) -> Harness:
+    """Move `model` to the device, and build its optimizer (cfg.optimizer
+    behind a clip at `clip_norm`, None for none), the device generator
+    (seeded from cfg.random_seed) and the train and eval steps.
+    `make_train_step(model, optimizer, preprocess, generator)` returns
+    the family's train step; `eval_model` (default:
     `model`) is what the eval step calls, `(audio, visual) -> (out, out_a,
     out_v)`. `device` overrides cfg.device. With cfg.compute_dtype
     "bfloat16" both steps run under bf16 autocast (f32 parameters)."""
@@ -117,7 +113,7 @@ def assemble_harness(cfg: Config, model: torch.nn.Module,
         # channels_last activations (models/resnet.py)
         model = model.to(memory_format=torch.channels_last)
     optimizer = make_optimizer(cfg, model.parameters(), steps_per_epoch,
-                               clip_norm=40.0)
+                               clip_norm=clip_norm)
     train_pre = make_train_preprocess(cfg, dev) if raw_batches else None
     eval_pre = make_eval_preprocess(cfg, dev) if raw_batches else None
     step = make_train_step(model, optimizer, train_pre, generator)
@@ -153,15 +149,25 @@ def build_harness(cfg: Config, model: torch.nn.Module, steps_per_epoch: int,
                   dgl: bool = True, raw_batches: bool = True,
                   device=None) -> Harness:
     """The `Harness` of a DGL classifier (`assemble_harness` with the
-    one-backward DGL step)."""
-    check_supported(cfg, dgl)
+    one-backward DGL step, the optimizer's clip at 40) or, with
+    dgl=False, of a joint classifier (the joint step, which clips before
+    it modulates, an optimizer without a clip, and the joint eval step:
+    the fused logits' argmax thrice)."""
+    check_supported(cfg)
 
     def make_step(model, optimizer, preprocess, generator):
+        if not dgl:
+            return make_joint_train_step(model, cfg, optimizer,
+                                         steps_per_epoch,
+                                         preprocess=preprocess,
+                                         generator=generator)
         return make_dgl_train_step(model, cfg, optimizer, clip_norm=40.0,
                                    preprocess=preprocess, generator=generator)
 
     return assemble_harness(cfg, model, steps_per_epoch, make_step,
-                            raw_batches=raw_batches, device=device)
+                            eval_model=None if dgl else JointLogits(model),
+                            raw_batches=raw_batches, device=device,
+                            clip_norm=40.0 if dgl else None)
 
 
 def _put_batch(batch: dict, device: torch.device) -> dict:
@@ -339,9 +345,13 @@ def run_training(cfg: Config, model: torch.nn.Module, train_set, test_set,
                      "{}_{}.csv".format(cfg.dataset, cfg.modality)),
         sentinel=[1000, 1000, 1000])
     grad_csv = None
-    if cfg.log_grad_csv and cfg.modality == "full":
+    if dgl and cfg.log_grad_csv and cfg.modality == "full":
         grad_csv = CSVLogger("audio_visual_grad_vanilla.csv",
                              flush_every=256)
+    tb = None
+    if cfg.use_tensorboard and cfg.tensorboard_path:
+        tb = TBLogger(cfg.tensorboard_path, cfg.dataset, cfg.fusion_method,
+                      cfg.modulation)
 
     guard = preempt_guard
     owned_guard = False
@@ -359,7 +369,7 @@ def run_training(cfg: Config, model: torch.nn.Module, train_set, test_set,
 
     try:
         return _epoch_loop(h, cfg, train_loader, test_loader,
-                           steps_per_epoch, guard, grad_csv, acc_csv,
+                           steps_per_epoch, guard, grad_csv, acc_csv, tb,
                            epoch_callback, pending_skip, pending_sums,
                            resume_path)
     finally:
@@ -370,6 +380,8 @@ def run_training(cfg: Config, model: torch.nn.Module, train_set, test_set,
         if grad_csv is not None:
             grad_csv.close()
         acc_csv.close()
+        if tb is not None:
+            tb.close()
 
 
 def _save_resume(h: Harness, path: str, epoch: int, extra: dict) -> None:
@@ -377,7 +389,7 @@ def _save_resume(h: Harness, path: str, epoch: int, extra: dict) -> None:
 
 
 def _epoch_loop(h: Harness, cfg: Config, train_loader, test_loader,
-                steps_per_epoch: int, guard, grad_csv, acc_csv,
+                steps_per_epoch: int, guard, grad_csv, acc_csv, tb,
                 epoch_callback, pending_skip: int, pending_sums,
                 resume_path: str) -> float:
     best_acc = 0.0
@@ -427,6 +439,14 @@ def _epoch_loop(h: Harness, cfg: Config, train_loader, test_loader,
                            lr=lr_for_epoch(cfg, epoch), state=h)
         acc_csv.write_row([acc, acc_a, acc_v])
         acc_csv.flush()
+        if tb is not None:
+            tb.log_epoch(epoch,
+                         {"Total Loss": means.get("loss",
+                                                  means.get("loss_f", 0.0)),
+                          "Audio Loss": means.get("loss_a", 0.0),
+                          "Visual Loss": means.get("loss_v", 0.0)},
+                         {"Total Accuracy": acc, "Audio Accuracy": acc_a,
+                          "Visual Accuracy": acc_v})
 
         if acc > best_acc and epoch:  # epoch>0 guard (main_dgl.py:349)
             best_acc = float(acc)

@@ -1,5 +1,5 @@
-"""CSV logging with reference formats (SURVEY §5.5), a copy of the CSV
-half of `gdl_tpu/utils/logging.py`; the TensorBoard writer is not ported.
+"""CSV / TensorBoard logging with reference formats (SURVEY §5.5), a copy
+of `gdl_tpu/utils/logging.py`.
 
 - Per-epoch accuracy CSV `{ckpt_path}/{dataset}_{modality}.csv` with the
   sentinel row [1000, 1000, 1000] at run start (main_dgl.py:292-295,
@@ -7,6 +7,9 @@ half of `gdl_tpu/utils/logging.py`; the TensorBoard writer is not ported.
 - Per-step encoder grad-magnitude CSV `audio_visual_grad_vanilla.csv`
   (main_dgl.py:148-152) — buffered here and flushed at an interval instead
   of an fopen per step, same file contents.
+- Optional TensorBoard 'Loss' / 'Evaluation' scalar groups
+  (main_dgl.py:306-331) under --use_tensorboard; `torch.utils.tensorboard`
+  (and so the `tensorboard` package) is imported only then.
 """
 
 from __future__ import annotations
@@ -44,3 +47,25 @@ class CSVLogger:
 
     def close(self):
         self.flush()
+
+
+class TBLogger:
+    """A SummaryWriter at {tensorboard_path}/{dataset}/{fusion}_{modulation},
+    made once a run (the reference makes it anew every epoch,
+    main_dgl.py:312; not kept)."""
+
+    def __init__(self, tensorboard_path: str, dataset: str,
+                 fusion_method: str, modulation: str):
+        from torch.utils.tensorboard import SummaryWriter
+
+        writer_path = os.path.join(tensorboard_path, dataset)
+        os.makedirs(writer_path, exist_ok=True)
+        log_name = "{}_{}".format(fusion_method, modulation)
+        self.writer = SummaryWriter(os.path.join(writer_path, log_name))
+
+    def log_epoch(self, epoch: int, losses: dict, accs: dict):
+        self.writer.add_scalars("Loss", losses, epoch)
+        self.writer.add_scalars("Evaluation", accs, epoch)
+
+    def close(self):
+        self.writer.close()

@@ -199,7 +199,12 @@ def test_lr_schedule_matches_jax(kw):
 
 
 def test_optimizers_not_ported_yet_raise():
+    """AdaGrad and Adam are ported (held to gdl_tpu's optax chains in
+    tests/test_torch_joint_step.py); an optimizer gdl_tpu lacks still
+    raises."""
     model = torch.nn.Linear(2, 2)
     for name in ("AdaGrad", "Adam"):
-        with pytest.raises(NotImplementedError):
-            make_optimizer(_cfg(optimizer=name), model.parameters(), 1)
+        opt = make_optimizer(_cfg(optimizer=name), model.parameters(), 1)
+        assert opt.clip_norm == 40.0
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer(_cfg(optimizer="RMSprop"), model.parameters(), 1)

@@ -301,17 +301,18 @@ def test_preempt_then_resume_reaches_the_same_parameters(trained):
 
 def test_unported_options_raise_by_name():
     """Every option the CLI accepts and the port does not implement
-    raises NotImplementedError naming it; CUDA without a card raises."""
+    raises NotImplementedError naming it (the DGL and joint lineages take
+    the same options); CUDA without a card raises. --use_tensorboard and
+    the AdaGrad / Adam optimizers are ported and pass."""
     base = dict(KW, device="cpu")
-    for kw, word in ((dict(use_tensorboard=True), "use_tensorboard"),
-                     (dict(pretrained_path="x.pth"), "pretrained_path"),
+    for kw, word in ((dict(pretrained_path="x.pth"), "pretrained_path"),
                      (dict(profile_dir="/tmp/p"), "profile_dir"),
-                     (dict(optimizer="Adam"), "optimizer"),
                      (dict(sync_bn=False, dp=2), "sync_bn")):
         with pytest.raises(NotImplementedError, match=word):
             check_supported(Config(**dict(base, **kw)))
-    with pytest.raises(NotImplementedError, match="joint"):
-        check_supported(Config(**base), dgl=False)
+    for kw in (dict(use_tensorboard=True), dict(optimizer="Adam"),
+               dict(optimizer="AdaGrad")):
+        check_supported(Config(**dict(base, **kw)))
     with pytest.raises(ValueError, match="compute_dtype"):
         check_supported(Config(**dict(base, compute_dtype="float16")))
     if not torch.cuda.is_available():
