@@ -145,7 +145,7 @@ Phases, each printing one JSON line:
               each other.
               Then 1 warm-up + 3 checked steps per arm: losses and
               float32 parameters of A and B held to the plain arm; then
-              6 timed steps per arm, in turns (median ms/step, clips/s,
+              4 timed steps per arm, in turns (median ms/step, clips/s,
               peak memory);
   n. variant parity
               the kernels that only an argument reaches, at the seven
@@ -199,6 +199,30 @@ Phases, each printing one JSON line:
               phase d's bars; 1 + 2 checked steps with exactly 48 of #2
               and 48 of #4 per kernel-arm step, losses and float32
               parameters at phase f's bars; timed steps per arm in turns;
+  q. export   the serving artifacts (torch.export) at full width, seeded
+              weights: phase d's Swin-B config with --fuse_mlp 1 from a
+              reference-schema .pth through serve.export_from_checkpoint,
+              in float32 and bf16, each export in a process of its own,
+              all four at once: the fixed devices=("cuda",) artifact,
+              loaded afresh, replays 4 requests with exactly 48 launches
+              of #1 and 48 of #15 a request (counts reset just before and
+              read just after), logits against the eager ServedModel with
+              the same flags (f32 max |d| <= 1e-5, bf16 <= 5e-2, argmax
+              on >= 15 of 16), while the poly-batch exports run; the
+              poly-batch
+              artifact of the default devices ("cpu", "cuda") replays
+              batches 16 and 5 with no launch, against the plain eager
+              model at phase d's bars, and (f32) on the CPU. mmformer_n
+              (phase k's config) from a .pth written as main_intermediate
+              writes it, serve.export_intermediate_from_checkpoint for
+              CUDA: 7 launches of #13 a forward, logits against the eager
+              load_intermediate_from_checkpoint at the same bars. The
+              ResNet-18 flagship config through
+              gdl_tpu_torch.valid.run_valid with an export path on a
+              SyntheticDataset test split of 3 batches: the artifact's
+              accuracies and predictions on the same clips equal
+              run_valid's and the eager model's. Median ms per request
+              of artifact and eager, export and load seconds;
   g. kernels  one line per kernel: route, source, the TPU kernel it
               replaces, launches on its path (d for #1, the kernel arm
               of f for #2 and #4, of i for #16, of k for #10, #11, #13
@@ -207,14 +231,17 @@ Phases, each printing one JSON line:
               beside the bound), n's path for #6, #7, #8 and #9 (#6 and #7 a
               forward and a backward entry each), the switch's kernel
               arm of o for #12; and, for #1, #2, #4 and #16, their
-              launches on p's kernel arms as joint_launches), error,
+              launches on p's kernel arms as joint_launches; for #1,
+              #13 and #15, their launches in q's replayed artifacts as
+              export_launches), error,
               times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
               over the float32 peak of 67 TFLOP/s; the times are the
               float32 ones) and, where one PyTorch call computes the
               function, that call's time; beside #1 and #2, F.linear +
               SDPA and the qkv traffic between their two launches.
-Then the nvidia-smi line, and last {"ok": true, "device": {...}}.
+A "wall" line gives each phase's seconds. Then the nvidia-smi line, and
+last {"ok": true, "device": {...}}.
 
 Exits non-zero without the ok line when CUDA is unavailable or any phase
 fails. Uses one card; imports nothing of JAX.
@@ -296,7 +323,8 @@ SA_REPS = 10        # timed launches per kernel and shape
 SA_PLAIN_REPS = 3   # the plain versions are slow and only a cross-check
 MM_CHECKED_STEPS = 4  # 1 + 3; the first includes cuDNN's autotuning
 MM_TIMED_STEPS = 3    # per timed call
-MM_TIME_ROUNDS = 4    # timed calls per arm, in turns
+MM_TIME_ROUNDS = 2    # timed calls per arm, in turns (the plain arm
+# takes about a second a step, and phase q needs the script's time)
 MM_EVAL_BATCHES = 2
 MM_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MM_PARAM_ATOL = 1e-4
@@ -320,7 +348,7 @@ PACKED = "window_attention_packed"                     # 9
 VARIANT_KERNELS = (QKV_SAVEP_ROWS, BWD_ROWS, QKV_FWD, BWD_RECOMPUTE, BHND,
                    PACKED)
 FLAG_STEPS = 3        # checked steps per arm after one warm-up step
-FLAG_TIME_ROUNDS = 6  # timed steps per arm, in turns
+FLAG_TIME_ROUNDS = 4  # timed steps per arm, in turns
 
 # phase p, the joint (OGM-GE) lineage: bench.py's _measure_ogm (dual
 # ResNet-18, live OGM-GE) and _measure_swin (dual Swin-B, Normal)
@@ -2794,11 +2822,373 @@ def phase_joint(failures, smi: str) -> dict:
     return totals
 
 
+# phase q, the serving artifacts (torch.export): artifact against eager
+EXPORT_ATOL = {"float32": 1e-5, "bfloat16": 5e-2}  # same kernels, same bars
+# launches of one replayed request of the fixed Swin-B artifact (--fuse_mlp
+# 1) and of one replayed mmformer_n forward
+SWIN_EXPORT_LAUNCHES = {KERNEL: 48, MLP: 48}
+MM_EXPORT_LAUNCHES = {SA_EVAL: 7}
+POLY_BATCHES = (BATCH, 5)
+MM_EXPORT_BATCHES = 2
+VALID_BATCHES = 3
+SWIN_EXPORT = dict(dataset="CREMAD", backbone="swin", fusion_method="concat",
+                   fps=1, batch_size=BATCH, fuse_mlp=True)
+
+
+def export_job(spec: str) -> int:
+    """One Swin-B export of phase q in a process of its own (the traces
+    are host work, and phase q runs four of them at once):
+    spec = JSON {"pth", "out", "dtype", "poly"}."""
+    import torch
+
+    from gdl_tpu_torch.config import Config
+    from gdl_tpu_torch.serve import export_from_checkpoint
+
+    job = json.loads(spec)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(**SWIN_EXPORT, compute_dtype=job["dtype"])
+    t = time.perf_counter()
+    if job["poly"]:  # the default devices, ("cpu", "cuda")
+        export_from_checkpoint(cfg, job["pth"], job["out"], poly_batch=True)
+    else:
+        export_from_checkpoint(cfg, job["pth"], job["out"],
+                               devices=("cuda",))
+    emit({"export_s": time.perf_counter() - t})
+    return 0
+
+
+def _compare_logits(got, want, rows, n_classes, problems, what):
+    """(max |d|, least argmax agreement) of two logit tuples of `rows`."""
+    worst, agree = 0.0, rows
+    for g, w in zip(got, want):
+        if tuple(g.shape) != (rows, n_classes) or not _finite(g):
+            problems.append(f"{what}: bad logits {tuple(g.shape)}")
+            continue
+        worst = max(worst, _max_err(g, w))
+        agree = min(agree, int((g.argmax(-1) == w.argmax(-1)).sum()))
+    return worst, agree
+
+
+def phase_export(failures, smi: str):
+    """The serving artifacts through gdl_tpu_torch.serve's export functions
+    and gdl_tpu_torch.valid, at full width. Returns the launches of #1,
+    #15 and #13 over the artifacts' replays."""
+    import torch
+
+    from gdl_tpu_torch import kernels, main_intermediate
+    from gdl_tpu_torch.config import Config
+    from gdl_tpu_torch.data.loader import Loader
+    from gdl_tpu_torch.data.preprocess import make_eval_preprocess
+    from gdl_tpu_torch.data.synthetic import SyntheticDataset, synthetic_batch
+    from gdl_tpu_torch.serve import (
+        ServedModel,
+        build_model,
+        export_intermediate_from_checkpoint,
+        load_exported,
+        load_from_checkpoint,
+        load_intermediate_from_checkpoint,
+    )
+    from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
+    from gdl_tpu_torch.utils.metrics import PerClassAccuracy
+    from gdl_tpu_torch.valid import run_valid
+
+    dev = torch.device("cuda")
+    zero = {k: 0 for k in kernels.launch_counts}
+    launched = dict(zero)
+
+    def drive(fn, inputs):
+        outs, ms = [], []
+        for audio, visual in inputs:
+            t = time.perf_counter()
+            outs.append(fn(audio, visual))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return outs, sorted(ms)[len(ms) // 2]
+
+    def counted(fn, inputs):
+        """Replays after a warm-up call, launch counts reset just before
+        and read just after → (outputs, median ms, counts)."""
+        fn(*inputs[0])  # the allocator, cuDNN and the kernels' load
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs, ms = drive(fn, inputs)
+        counts = dict(kernels.launch_counts)
+        for k, v in counts.items():
+            launched[k] += v
+        return outs, ms, counts
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # Swin-B serving (phase d's weights and config, --fuse_mlp 1): the
+        # four exports run in processes of their own while this one works
+        cfg = Config(**SWIN_EXPORT)
+        pth = os.path.join(tmp, "best_model.pth")
+        model = build_model(cfg, seed=1234)
+        torch.save({"model": {"module." + k: v for k, v in
+                              model.state_dict().items()},
+                    "fusion": cfg.fusion_method}, pth)
+        del model
+        jobs = {}
+        for poly in (True, False):  # the longest traces first
+            for dtype in ("float32", "bfloat16"):
+                out = os.path.join(tmp, f"swin_{dtype}_{int(poly)}.pt2")
+                spec = json.dumps({"pth": pth, "out": out, "dtype": dtype,
+                                   "poly": poly})
+                jobs[(dtype, poly)] = (out, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--export_job", spec], stdout=subprocess.PIPE,
+                    text=True))
+
+        # mmformer_n eval (phase k's config), its .pth as main_intermediate
+        # writes it
+        mbase = dict(dataset="CREMAD", fps=1, batch_size=MM_BATCH,
+                     modulation="Normal", encoder_width=RESNET_WIDTH,
+                     ckpt_path=tmp)
+        mcfg = Config(**mbase)
+        model, _ = main_intermediate.build_model(
+            "mmformer_n", mcfg.n_classes, RESNET_WIDTH, share_streams=True,
+            seed=4321)
+        mpth = save_best_checkpoint(mcfg, model, 1, 0.5)
+        del model
+        mpre = make_eval_preprocess(mcfg, dev)
+        batches = []
+        for k in range(MM_EXPORT_BATCHES):
+            b = mpre(synthetic_batch(mcfg, MM_BATCH, seed=700 + k))
+            batches.append((b["audio"], b["visual"]))
+        want_mm = dict(zero, **{k: v * MM_EXPORT_BATCHES
+                                for k, v in MM_EXPORT_LAUNCHES.items()})
+        for dtype in ("float32", "bfloat16"):
+            problems = []
+            cfg_dt = Config(**dict(mbase, compute_dtype=dtype))
+            art = os.path.join(tmp, f"mmformer_{dtype}.pt2")
+            t = time.perf_counter()
+            export_intermediate_from_checkpoint(
+                cfg_dt, "mmformer_n", mpth, art, devices=("cuda",),
+                share_streams=True)
+            export_s = time.perf_counter() - t
+            exported = load_exported(art, "cuda")
+            outs, art_ms, counts = counted(exported.call, batches)
+            if counts != want_mm:
+                problems.append(f"artifact launched {nonzero(counts)}")
+            served = load_intermediate_from_checkpoint(
+                cfg_dt, "mmformer_n", mpth, "cuda", share_streams=True)
+            want, eager_ms = drive(served, batches)
+            worst, agree = 0.0, MM_BATCH
+            for g, w in zip(outs, want):
+                if len(g) != 7 or not all(_finite(o) for o in g):
+                    problems.append("the artifact's 7-tuple is not finite")
+                e, a = _compare_logits((g[0], g[5], g[6]), w, MM_BATCH,
+                                       mcfg.n_classes, problems, "mmformer")
+                worst, agree = max(worst, e), min(agree, a)
+            need = MM_BATCH * MIN_ARGMAX_AGREE // BATCH
+            if worst > EXPORT_ATOL[dtype] or agree < need:
+                problems.append(f"artifact vs eager: max |dlogit| {worst}, "
+                                f"argmax {agree}/{MM_BATCH}")
+            emit({"phase": "export", "model": "mmformer_n", "dtype": dtype,
+                  "batch": MM_BATCH, "forwards": MM_EXPORT_BATCHES,
+                  "artifact_ms_per_forward": art_ms,
+                  "eager_ms_per_forward": eager_ms,
+                  "max_abs_logit_err": worst, "atol": EXPORT_ATOL[dtype],
+                  "min_argmax_agree": agree,
+                  "launches_per_forward": {
+                      k: v // MM_EXPORT_BATCHES
+                      for k, v in nonzero(counts).items()},
+                  "export_s": export_s, "nvidia_smi": smi,
+                  "problems": problems, "ok": not problems})
+            failures.extend(f"export mmformer {dtype}: {p}" for p in problems)
+            del exported, served
+        torch.cuda.empty_cache()
+
+        # valid: the flagship ResNet-18 config, a .pth, run_valid with an
+        # export path, then the artifact on the same preprocessed clips
+        problems = []
+        rpth = os.path.join(tmp, "resnet.pth")
+        rcfg = Config(dataset="CREMAD", fusion_method="concat",
+                      modality="full", fps=1, batch_size=RESNET_BATCH,
+                      modulation="Normal", encoder_width=RESNET_WIDTH,
+                      num_workers=8, ckpt_path=rpth, log_grad_csv=False)
+        model = build_model(rcfg, seed=99)
+        torch.save({"model": model.state_dict(),
+                    "fusion": rcfg.fusion_method}, rpth)
+        del model
+        test_set = SyntheticDataset(rcfg, size=RESNET_BATCH * VALID_BATCHES,
+                                    seed=9500)
+        art = os.path.join(tmp, "resnet.pt2")
+        t = time.perf_counter()
+        with quiet():
+            accs = run_valid(rcfg, test_set, export_path=art)
+        valid_s = time.perf_counter() - t
+        exported = load_exported(art, "cuda")
+        served = load_from_checkpoint(rcfg, rpth, "cuda")
+        rpre = make_eval_preprocess(rcfg, dev)
+        counters = PerClassAccuracy(rcfg.n_classes)
+        kernels.reset_launch_counts()
+        differ = 0
+        for batch in Loader(test_set, RESNET_BATCH, shuffle=False,
+                            drop_last=False, num_workers=8,
+                            seed=rcfg.random_seed):
+            b = rpre(batch)
+            preds = [o.argmax(-1) for o in exported.call(b["audio"],
+                                                         b["visual"])]
+            counters.update(*(p.cpu().numpy() for p in preds),
+                            b["label"].cpu().numpy())
+            theirs = served.eval_batch(batch)
+            differ += sum(int((p != theirs[k]).sum()) for p, k in
+                          zip(preds, ("pred", "pred_a", "pred_v")))
+        replayed = counters.results()
+        if any(kernels.launch_counts.values()):
+            problems.append(f"the ResNet artifact launched "
+                            f"{nonzero(kernels.launch_counts)}")
+        if tuple(replayed) != tuple(accs):
+            problems.append(f"artifact accuracies {replayed} != "
+                            f"run_valid's {accs}")
+        if differ:
+            problems.append(f"{differ} artifact predictions differ from "
+                            f"the eager model's")
+        emit({"phase": "export", "model": "resnet18_valid",
+              "dtype": "float32", "batch": RESNET_BATCH,
+              "clips": len(test_set), "valid_accs": list(accs),
+              "artifact_accs": list(replayed), "valid_s": valid_s,
+              "problems": problems, "ok": not problems})
+        failures.extend(f"export valid: {p}" for p in problems)
+        del exported, served
+
+        # the Swin-B artifacts, each loaded afresh, against the eager
+        # models with the same flags: the kernels, and the plain versions
+        pre = make_eval_preprocess(cfg, dev)
+        requests = []
+        for k in range(N_REQUESTS):
+            b = pre(synthetic_batch(cfg, BATCH, seed=300 + k))
+            requests.append((b["audio"], b["visual"]))
+        want_fixed = dict(zero, **{k: v * N_REQUESTS
+                                   for k, v in SWIN_EXPORT_LAUNCHES.items()})
+        eager32 = load_from_checkpoint(cfg, pth, "cuda")
+        plain32 = load_from_checkpoint(cfg, pth, "cuda", attn_impl="plain")
+
+        def finished(dtype, poly, problems):
+            """Wait for an export job → its seconds (None if it failed)."""
+            proc = jobs[(dtype, poly)][1]
+            stdout, _ = proc.communicate()
+            if proc.returncode != 0:
+                problems.append(f"export job exited {proc.returncode}")
+                return None
+            return json.loads(stdout.strip().splitlines()[-1])["export_s"]
+
+        # the fixed artifacts first: their jobs end long before the
+        # poly-batch ones
+        for dtype in ("float32", "bfloat16"):
+            problems = []
+            eager = ServedModel(eager32.model, cfg, "cuda",
+                                getattr(torch, dtype))
+            export_s = finished(dtype, False, problems)
+            if export_s is not None:
+                t = time.perf_counter()
+                exported = load_exported(jobs[(dtype, False)][0], "cuda")
+                load_s = time.perf_counter() - t
+                outs, art_ms, counts = counted(exported.call, requests)
+                if counts != want_fixed:
+                    problems.append(f"artifact launched {nonzero(counts)}")
+                kernels.reset_launch_counts()
+                want, eager_ms = drive(eager, requests)
+                if kernels.launch_counts != want_fixed:
+                    problems.append(f"the eager model launched "
+                                    f"{nonzero(kernels.launch_counts)}")
+                worst, agree = 0.0, BATCH
+                for g, w in zip(outs, want):
+                    e, a = _compare_logits(g, w, BATCH, cfg.n_classes,
+                                           problems, "fixed")
+                    worst, agree = max(worst, e), min(agree, a)
+                if worst > EXPORT_ATOL[dtype] or agree < MIN_ARGMAX_AGREE:
+                    problems.append(f"artifact vs eager: max |dlogit| "
+                                    f"{worst}, argmax {agree}/{BATCH}")
+                del exported
+                emit({"phase": "export", "model": "swin_b",
+                      "artifact": "fixed, cuda", "dtype": dtype,
+                      "batch": BATCH, "requests": N_REQUESTS,
+                      "artifact_ms_per_request": art_ms,
+                      "eager_ms_per_request": eager_ms,
+                      "max_abs_logit_err": worst,
+                      "atol": EXPORT_ATOL[dtype], "min_argmax_agree": agree,
+                      "launches_per_request": {
+                          k: v // N_REQUESTS
+                          for k, v in nonzero(counts).items()},
+                      "export_s": export_s, "load_s": load_s,
+                      "nvidia_smi": smi, "problems": problems,
+                      "ok": not problems})
+            failures.extend(f"export swin {dtype}: {p}" for p in problems)
+
+        # the poly-batch artifacts, devices ("cpu", "cuda"), against the
+        # plain eager model at phase d's bars, at two batch sizes
+        for dtype in ("float32", "bfloat16"):
+            problems = []
+            plain = ServedModel(plain32.model, cfg, "cuda",
+                                getattr(torch, dtype))
+            export_s = finished(dtype, True, problems)
+            if export_s is not None:
+                path = jobs[(dtype, True)][0]
+                pexp = load_exported(path, "cuda")
+                rows_out = {}
+                for rows in POLY_BATCHES:
+                    inputs = [(a[:rows], v[:rows]) for a, v in requests]
+                    outs, ms, counts = counted(pexp.call, inputs)
+                    if any(counts.values()):
+                        problems.append(f"batch {rows}: launched "
+                                        f"{nonzero(counts)}")
+                    want, plain_ms = drive(plain, inputs)
+                    worst, agree = 0.0, rows
+                    for g, w in zip(outs, want):
+                        e, a = _compare_logits(g, w, rows, cfg.n_classes,
+                                               problems, f"batch {rows}")
+                        worst, agree = max(worst, e), min(agree, a)
+                    if (worst > SERVE_ATOL[dtype]
+                            or agree < rows - (BATCH - MIN_ARGMAX_AGREE)):
+                        problems.append(f"batch {rows} vs plain eager: max "
+                                        f"|dlogit| {worst}, argmax "
+                                        f"{agree}/{rows}")
+                    rows_out[rows] = {"artifact_ms_per_request": ms,
+                                      "plain_ms_per_request": plain_ms,
+                                      "max_abs_logit_err": worst,
+                                      "min_argmax_agree": agree}
+                del pexp
+                cpu_err = None
+                if dtype == "float32":  # the same file, on the CPU
+                    a, v = requests[0]
+                    got = load_exported(path, "cpu").call(a[:2].cpu(),
+                                                          v[:2].cpu())
+                    cpu_err = max(_max_err(g.to(dev), w[:2])
+                                  for g, w in zip(got, plain(a, v)))
+                    if cpu_err > SERVE_ATOL[dtype]:
+                        problems.append(f"on the CPU: max |dlogit| "
+                                        f"{cpu_err}")
+                emit({"phase": "export", "model": "swin_b",
+                      "artifact": "poly-batch, cpu and cuda",
+                      "dtype": dtype, "requests": N_REQUESTS,
+                      "batches": rows_out, "atol": SERVE_ATOL[dtype],
+                      "cpu_batch2_max_abs_logit_err": cpu_err,
+                      "export_s": export_s, "nvidia_smi": smi,
+                      "problems": problems, "ok": not problems})
+            failures.extend(f"export swin poly {dtype}: {p}"
+                            for p in problems)
+        for _, proc in jobs.values():  # none outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        del eager32, plain32
+        torch.cuda.empty_cache()
+    return launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every result line to this JSON file")
+    ap.add_argument("--export_job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.export_job:  # one of phase q's exports, in its own process
+        return export_job(args.export_job)
 
     import torch
 
@@ -2833,105 +3223,58 @@ def main(argv=None) -> int:
                                    for k, v in built.items()}}
     emit(record["build"])
 
-    try:
-        parity = phase_parity(failures)
-    except Exception:  # report and go on to the next phase
-        traceback.print_exc()
-        failures.append("parity raised")
-        parity = []
-    record["parity"] = parity
+    seconds = {}
 
-    launches, expected = {KERNEL: 0}, 0
-    try:
-        launches, expected = phase_serve(failures)
-    except Exception:
-        traceback.print_exc()
-        failures.append("serve raised")
+    def run_phase(name, fn, default):
+        """fn() → its result; a phase that raises is reported, counts as a
+        failure and gives `default`, and the next phase runs. Each
+        phase's wall time goes to the record."""
+        t = time.perf_counter()
+        try:
+            return fn()
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{name} raised")
+            return default
+        finally:
+            seconds[name] = time.perf_counter() - t
 
-    try:
-        train_parity = phase_train_parity(failures)
-    except Exception:
-        traceback.print_exc()
-        failures.append("train parity raised")
-        train_parity = []
-    record["train_parity"] = train_parity
-
-    train_launches = {SAVEP: 0, BWD: 0}
-    try:
-        train_launches = phase_train(failures, smi)
-    except Exception:
-        traceback.print_exc()
-        failures.append("train raised")
-
-    try:
-        pool_parity = phase_maxpool_parity(failures)
-    except Exception:
-        traceback.print_exc()
-        failures.append("maxpool parity raised")
-        pool_parity = []
-    record["maxpool_parity"] = pool_parity
-
-    pool_launches = 0
-    try:
-        pool_launches = phase_resnet(failures, smi)
-    except Exception:
-        traceback.print_exc()
-        failures.append("resnet raised")
-
-    try:
-        sa_parity, mask_parity = phase_sa_parity(failures)
-    except Exception:
-        traceback.print_exc()
-        failures.append("sa parity raised")
-        sa_parity, mask_parity = [], []
-    record["sa_parity"], record["mask_parity"] = sa_parity, mask_parity
-
-    mm_launches = {"train": {k: 0 for k in kernels.launch_counts},
-                   "eval": {k: 0 for k in kernels.launch_counts}}
-    try:
-        mm_launches = phase_mmformer(failures, smi)
-    except Exception:
-        traceback.print_exc()
-        failures.append("mmformer raised")
-
-    try:
-        flag_attn, flag_mlp = phase_flag_parity(failures)
-    except Exception:
-        traceback.print_exc()
-        failures.append("flag parity raised")
-        flag_attn, flag_mlp = [], []
-    record["flag_parity"] = flag_attn + flag_mlp
-
-    flag_launch = {arm: {k: 0 for k in kernels.launch_counts}
-                   for arm in ("A", "B")}
-    try:
-        flag_launch = phase_flag_train(failures, smi)
-    except Exception:
-        traceback.print_exc()
-        failures.append("flag train raised")
-
-    variant_launch = {k: 0 for k in kernels.launch_counts}
-    try:
-        variant_rows, variant_launch = phase_variant_parity(failures)
-    except Exception:
-        traceback.print_exc()
-        failures.append("variant parity raised")
-        variant_rows = []
-    record["variant_parity"] = variant_rows
-
-    switch_launch = {k: 0 for k in kernels.launch_counts}
-    try:
-        switch_launch = phase_mmformer_switch(failures, smi)
-    except Exception:
-        traceback.print_exc()
-        failures.append("mmformer switch raised")
-
-    joint_launch = {"resnet": 0, SAVEP: 0, BWD: 0, KERNEL: 0}
-    try:
-        joint_launch = phase_joint(failures, smi)
-    except Exception:
-        traceback.print_exc()
-        failures.append("joint raised")
+    zero = {k: 0 for k in kernels.launch_counts}
+    parity = run_phase("parity", lambda: phase_parity(failures), [])
+    launches, expected = run_phase(
+        "serve", lambda: phase_serve(failures), ({KERNEL: 0}, 0))
+    train_parity = run_phase(
+        "train parity", lambda: phase_train_parity(failures), [])
+    train_launches = run_phase("train", lambda: phase_train(failures, smi),
+                               {SAVEP: 0, BWD: 0})
+    pool_parity = run_phase(
+        "maxpool parity", lambda: phase_maxpool_parity(failures), [])
+    pool_launches = run_phase("resnet", lambda: phase_resnet(failures, smi),
+                              0)
+    sa_parity, mask_parity = run_phase(
+        "sa parity", lambda: phase_sa_parity(failures), ([], []))
+    mm_launches = run_phase("mmformer", lambda: phase_mmformer(failures, smi),
+                            {"train": dict(zero), "eval": dict(zero)})
+    flag_attn, flag_mlp = run_phase(
+        "flag parity", lambda: phase_flag_parity(failures), ([], []))
+    flag_launch = run_phase("flag train",
+                            lambda: phase_flag_train(failures, smi),
+                            {"A": dict(zero), "B": dict(zero)})
+    variant_rows, variant_launch = run_phase(
+        "variant parity", lambda: phase_variant_parity(failures),
+        ([], dict(zero)))
+    switch_launch = run_phase("mmformer switch",
+                              lambda: phase_mmformer_switch(failures, smi),
+                              dict(zero))
+    joint_launch = run_phase("joint", lambda: phase_joint(failures, smi),
+                             {"resnet": 0, SAVEP: 0, BWD: 0, KERNEL: 0})
+    export_launch = run_phase("export", lambda: phase_export(failures, smi),
+                              dict(zero))
+    record.update(parity=parity, train_parity=train_parity,
+                  maxpool_parity=pool_parity, sa_parity=sa_parity,
+                  mask_parity=mask_parity, flag_parity=flag_attn + flag_mlp,
+                  variant_parity=variant_rows, phase_seconds=seconds)
+    emit({"phase": "wall", "seconds": seconds})
 
     f32 = [r for r in parity if r["dtype"] == "float32"]
     t32 = [r for r in train_parity if r["dtype"] == "float32"]
@@ -3310,6 +3653,13 @@ def main(argv=None) -> int:
     for entry, key in ((entries[0], KERNEL), (entries[1], SAVEP),
                        (entries[2], BWD), (entries[3], "resnet")):
         entry["joint_launches"] = joint_launch[key]
+    # the serving artifacts' replays (phase q): #1 and #15 in the fixed
+    # Swin-B artifacts, #13 in the mmformer_n ones
+    for entry, per in ((entries[0], SWIN_EXPORT_LAUNCHES[KERNEL]),
+                       (entries[11], SWIN_EXPORT_LAUNCHES[MLP]),
+                       (entries[6], MM_EXPORT_LAUNCHES[SA_EVAL])):
+        entry["export_launches"] = export_launch[entry["name"]]
+        entry["export_launches_per_forward"] = per
     record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
@@ -3348,6 +3698,10 @@ def main(argv=None) -> int:
         if not entry["joint_launches"]:
             failures.append(f"{entry['name']} was never launched on the "
                             f"joint (OGM-GE) path")
+    for k in (KERNEL, MLP, SA_EVAL):
+        if export_launch[k] == 0:
+            failures.append(f"{k} was never launched by a replayed serving "
+                            f"artifact")
     for entry in entries:
         missing = [k for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                    if entry[k] is None]

@@ -14,17 +14,24 @@ off for --modulation Normal), then SGD, AdaGrad or AdamW
 encoders, otherwise dual ResNet-18. Without --train, --ckpt_path names a
 reference-schema `.pth` to evaluate. Runs on one CUDA device;
 `--device cpu` is the one way to ask for the CPU, and without it a
-machine without CUDA raises before anything runs. `--export_path` /
-`--export_poly_batch` (gdl_tpu's jax.export serving artifact) are parsed
-and raise NotImplementedError until the serving-export slice; a `.pth`
-is served through `serve.load_from_checkpoint(..., dgl=False)`.
+machine without CUDA raises before anything runs. In eval mode,
+`--export_path` also writes the serving artifact of the joint model's
+eval forward (`serve.export_from_checkpoint(..., dgl=False)`: the
+11-tuple; `--export_poly_batch 1` for any batch size), as main.py does;
+with --train it is ignored, with a warning. A `.pth` is also served
+eagerly through `serve.load_from_checkpoint(..., dgl=False)`.
 """
 
 import argparse
+import warnings
 
 from gdl_tpu_torch.config import add_arguments, from_args
 from gdl_tpu_torch.data.datasets import make_dataset
-from gdl_tpu_torch.serve import build_model, resolve_device
+from gdl_tpu_torch.serve import (
+    build_model,
+    export_from_checkpoint,
+    resolve_device,
+)
 from gdl_tpu_torch.train.loop import check_supported, run_eval, run_training
 
 
@@ -32,10 +39,12 @@ def get_arguments(argv=None):
     parser = argparse.ArgumentParser(prog="python -m gdl_tpu_torch.main")
     add_arguments(parser, dgl=False)
     parser.add_argument("--export_path", default=None, type=str,
-                        help="gdl_tpu's AOT serving artifact; not ported "
-                        "(raises NotImplementedError)")
+                        help="eval mode only: also write a serving "
+                        "artifact (torch.export) of the joint model's eval "
+                        "forward")
     parser.add_argument("--export_poly_batch", default=0, type=int,
-                        help="with --export_path; not ported")
+                        help="1 = a symbolic batch dimension (one artifact "
+                        "serves any batch size)")
     return parser.parse_args(argv)
 
 
@@ -43,12 +52,9 @@ def main(argv=None):
     args = get_arguments(argv)
     cfg = from_args(args)
     print(cfg)
-    if args.export_path or args.export_poly_batch:
-        raise NotImplementedError(
-            "--export_path / --export_poly_batch (an AOT serving artifact) "
-            "wait for the serving-export slice of gdl_tpu_torch; serve the "
-            ".pth with gdl_tpu_torch.serve.load_from_checkpoint(..., "
-            "dgl=False)")
+    if args.export_path and cfg.train:
+        warnings.warn("--export_path is read in eval mode only (without "
+                      "--train); no artifact is written")
     check_supported(cfg)
     resolve_device(cfg.device)  # raises before any work when CUDA is absent
     model = build_model(cfg, seed=cfg.random_seed, dgl=False)
@@ -60,6 +66,12 @@ def main(argv=None):
     else:
         test_set = make_dataset(cfg, "test")
         run_eval(cfg, model, test_set, cfg.ckpt_path, dgl=False)
+        if args.export_path:
+            export_from_checkpoint(cfg, cfg.ckpt_path, args.export_path,
+                                   dgl=False,
+                                   poly_batch=bool(args.export_poly_batch),
+                                   device=cfg.device)
+            print("Serving artifact written to", args.export_path)
 
 
 if __name__ == "__main__":

@@ -12,9 +12,11 @@ frame). Per epoch: train, evaluate, one CSV row in
 on a new best accuracy after epoch 0 a reference-schema `.pth`. Runs on
 one CUDA device; `--device cpu` is the one way to ask for the CPU, and
 without it a machine without CUDA raises before anything runs.
-`--export_path` / `--export_poly_batch` (gdl_tpu's jax.export serving
-artifact) are parsed and raise NotImplementedError: the port serves the
-written `.pth` through `serve.load_intermediate_from_checkpoint`.
+`--export_path` writes the serving artifact of the model's eval forward
+from the `.pth` at `--ckpt_path` and exits, as main_intermediate.py does
+(`serve.export_intermediate_from_checkpoint`; `--export_poly_batch 1`
+for any batch size); the `.pth` is also served eagerly through
+`serve.load_intermediate_from_checkpoint`.
 """
 
 import argparse
@@ -26,7 +28,10 @@ from gdl_tpu_torch.config import add_arguments, from_args
 from gdl_tpu_torch.data.datasets import make_dataset
 from gdl_tpu_torch.data.loader import Loader
 from gdl_tpu_torch.models.intermediate import TripleLogits, build_intermediate
-from gdl_tpu_torch.serve import resolve_device
+from gdl_tpu_torch.serve import (
+    export_intermediate_from_checkpoint,
+    resolve_device,
+)
 from gdl_tpu_torch.train.auxi import make_auxi_train_step, make_sefusion_step
 from gdl_tpu_torch.train.loop import (
     Harness,
@@ -59,10 +64,14 @@ def get_arguments(argv=None):
                         "call (eval outputs identical; train keeps the "
                         "dropout distribution)")
     parser.add_argument("--export_path", default=None, type=str,
-                        help="gdl_tpu's AOT serving artifact; not ported "
-                        "(raises NotImplementedError)")
+                        help="write a serving artifact (torch.export, "
+                        "weights included) of this model's eval forward "
+                        "from the checkpoint FILE at --ckpt_path, then "
+                        "exit")
     parser.add_argument("--export_poly_batch", default=0, type=int,
-                        help="with --export_path; not ported")
+                        help="1 = a symbolic batch dimension (one artifact "
+                        "serves any batch size; the plain self-attention). "
+                        "0 = pin the config batch")
     return parser.parse_args(argv)
 
 
@@ -155,13 +164,16 @@ def main(argv=None):
     share_streams = resolve_share_streams(args.share_unimodal_streams,
                                           cfg.strict_compat)
     print(cfg, "model:", args.model)
-    if args.export_path or args.export_poly_batch:
-        raise NotImplementedError(
-            "--export_path / --export_poly_batch (an AOT serving artifact) "
-            "are not ported to gdl_tpu_torch yet; serve the .pth with "
-            "gdl_tpu_torch.serve.load_intermediate_from_checkpoint")
     check_supported(cfg)
     resolve_device(cfg.device)  # raises before any work when CUDA is absent
+    if args.export_path:
+        export_intermediate_from_checkpoint(
+            cfg, args.model, cfg.ckpt_path, args.export_path,
+            share_streams=share_streams,
+            poly_batch=bool(args.export_poly_batch), device=cfg.device,
+            batched_inter=bool(args.batched_inter))
+        print("Serving artifact written to", args.export_path)
+        return
     model, kind = build_model(args.model, cfg.n_classes, cfg.encoder_width,
                               share_streams=share_streams,
                               batched_inter=bool(args.batched_inter),

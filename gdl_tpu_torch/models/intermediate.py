@@ -56,7 +56,11 @@ def av_adapt(spec: torch.Tensor, frames: torch.Tensor):
         zero = torch.zeros(1, device=dev)
         wy = _resample_weights(f, 224, one * (224.0 / f), zero)[0]
         wx = _resample_weights(t, 224, one * (224.0 / t), zero)[0]
-        img = torch.einsum("oh,bhw,pw->bop", wy, spec[..., 0].float(), wx)
+        # two pairwise products, in the order the three-operand einsum
+        # takes them (the same bits), which leaves the batch symbolic
+        # under torch.export: the three-operand path is chosen from sizes
+        img = torch.einsum("bow,pw->bop", torch.einsum(
+            "oh,bhw->bow", wy, spec[..., 0].float()), wx)
     rgb = img[..., None].expand(b, 224, 224, 3)
     return rgb, frames.squeeze(1)
 

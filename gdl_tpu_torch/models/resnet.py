@@ -117,3 +117,10 @@ def resnet18(modality: str, width: int = 64,
     """backbone.py:255-257."""
     return ResNet(modality, tuple(stage_sizes or (2, 2, 2, 2)), width,
                   bn_groups, pool_impl, generator)
+
+
+def resnet50(modality: str, width: int = 64, pool_impl: str = "auto",
+             generator: Optional[torch.Generator] = None) -> ResNet:
+    """backbone.py:260-262: BasicBlock [3, 4, 6, 3], mislabeled in the
+    reference and kept so (`gdl_tpu/models/resnet.py:174`)."""
+    return ResNet(modality, (3, 4, 6, 3), width, 1, pool_impl, generator)

@@ -25,7 +25,10 @@ kernel's own plain version, the same staging with the kernel's erf
 kernel and plain can be held to each other tightly. On a CPU tensor
 `mlp_fused` runs `mlp_fused_ref`; on a CUDA tensor it launches the kernel
 or raises. Shapes outside `mlp_kernel_supported` run `mlp_ref` on any
-device: that rule is a function of the shapes alone.
+device: that rule is a function of the shapes alone. While `torch.export`
+traces, the forward calls its launch as the operator
+`gdl_tpu_torch::mlp_fused_fwd` (CUDA only, with a shape-only fake
+implementation), which a replayed artifact launches.
 """
 
 from __future__ import annotations
@@ -125,10 +128,26 @@ def _launch(x, w1, b1, w2, b2):
     return out
 
 
+@torch.library.custom_op("gdl_tpu_torch::mlp_fused_fwd", mutates_args=(),
+                         device_types="cuda")
+def _mlp_fused_fwd_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                      w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Kernel #15 as an operator that `torch.export` records: the launch
+    itself on CUDA tensors, no CPU implementation."""
+    return _launch(x, w1, b1, w2, b2)
+
+
+@_mlp_fused_fwd_op.register_fake
+def _(x, w1, b1, w2, b2):
+    return x.new_empty(x.shape)
+
+
 def mlp_fused_fwd(x, w1, b1, w2, b2, impl: str = "auto"):
     """The forward alone at a supported shape: kernel #15 on a CUDA tensor
     under impl="auto", else its plain version."""
     if _use_kernel(impl, x):
+        if torch.compiler.is_exporting():
+            return torch.ops.gdl_tpu_torch.mlp_fused_fwd(x, w1, b1, w2, b2)
         return _launch(x, w1, b1, w2, b2)
     return mlp_fused_ref(x, w1, b1, w2, b2)
 

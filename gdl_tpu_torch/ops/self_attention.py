@@ -31,7 +31,10 @@ are not reproduced.
 On a CPU tensor every op runs its plain PyTorch version (`*_ref`), which
 rounds where the kernels round; impl="plain" runs the plain version on
 any device, impl="kernel" insists on the kernel. On a CUDA tensor an op
-launches its kernel or raises; nothing falls back.
+launches its kernel or raises; nothing falls back. While `torch.export`
+traces, the eval op calls its launch as the operator
+`gdl_tpu_torch::sa_fused_eval` (CUDA only, with a shape-only fake
+implementation), which a replayed artifact launches.
 
 Layouts: x [B, N, C]; w [3C, C] in nn.Linear layout, rows ordered
 [q|k|v][head][d] (gdl_tpu's Dense kernel [C, 3C], transposed); out
@@ -355,6 +358,21 @@ def _launch_eval(x, w, num_heads, scale):
     return out
 
 
+@torch.library.custom_op("gdl_tpu_torch::sa_fused_eval", mutates_args=(),
+                         device_types="cuda")
+def _sa_fused_eval_op(x: torch.Tensor, w: torch.Tensor, num_heads: int,
+                      scale: float) -> torch.Tensor:
+    """Kernel #13 as an operator that `torch.export` records: the launch
+    itself on CUDA tensors, no CPU implementation."""
+    with torch.cuda.device(x.device):
+        return _launch_eval(x, w, num_heads, scale)
+
+
+@_sa_fused_eval_op.register_fake
+def _(x, w, num_heads, scale):
+    return x.new_empty(x.shape)
+
+
 def _use_kernel(impl: str, x: torch.Tensor) -> bool:
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got "
@@ -569,6 +587,9 @@ def self_attention_fused_eval(x, w, num_heads: int,
                            "torch.inference_mode()")
     scale = _default_scale(x.shape[-1], num_heads, scale)
     if _use_kernel(impl, x):
+        if torch.compiler.is_exporting():
+            return torch.ops.gdl_tpu_torch.sa_fused_eval(x, w, num_heads,
+                                                         scale)
         with torch.cuda.device(x.device):
             return _launch_eval(x, w, num_heads, scale)
     return self_attention_fused_eval_ref(x, w, num_heads, scale)

@@ -54,7 +54,10 @@ when an op is called (they are no CLI flags):
 On a CPU tensor every op runs its plain PyTorch version
 (`*_ref` below), which rounds where the kernels round; impl="plain" runs
 the plain version on any device. On a CUDA tensor an op launches its
-kernel or raises; nothing falls back.
+kernel or raises; nothing falls back. While `torch.export` traces
+(`torch.compiler.is_exporting()`), the eval op calls its launch as the
+operator `gdl_tpu_torch::wa_qkv_fused_eval` (CUDA only, with a
+shape-only fake implementation), which a replayed artifact launches.
 
 Layouts are the reference package's, except that `w` is in nn.Linear
 layout: x [Bw, N, C]; w [3C, C] with rows ordered [q|k|v][head][d];
@@ -378,6 +381,21 @@ def _launch(x, w, b, bias, mask, num_heads, scale):
     return out
 
 
+@torch.library.custom_op("gdl_tpu_torch::wa_qkv_fused_eval", mutates_args=(),
+                         device_types="cuda")
+def _wa_qkv_fused_eval_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                          bias: torch.Tensor, mask: Optional[torch.Tensor],
+                          num_heads: int, scale: float) -> torch.Tensor:
+    """Kernel #1 as an operator that `torch.export` records: the launch
+    itself on CUDA tensors, no CPU implementation."""
+    return _launch(x, w, b, bias, mask, num_heads, scale)
+
+
+@_wa_qkv_fused_eval_op.register_fake
+def _(x, w, b, bias, mask, num_heads, scale):
+    return x.new_empty(x.shape)
+
+
 def _launch_savep(x, w, b, bias, mask, num_heads, scale):
     bw, n, c, d, nw = _check_forward_operands(
         SAVEP_KERNEL_NAME, x, w, b, bias, mask, num_heads)
@@ -672,6 +690,9 @@ def window_attention_qkv_fused_eval(x, w, b, bias, mask, num_heads: int,
     d = x.shape[-1] // num_heads
     scale = scale if scale is not None else d ** -0.5
     if _use_kernel(impl, x):
+        if torch.compiler.is_exporting():
+            return torch.ops.gdl_tpu_torch.wa_qkv_fused_eval(
+                x, w, b, bias, mask, num_heads, scale)
         return _launch(x, w, b, bias, mask, num_heads, scale)
     return window_attention_qkv_fused_eval_ref(x, w, b, bias, mask,
                                                num_heads, scale)

@@ -12,8 +12,9 @@ reference's per-step .item() probes stall every step, SURVEY §3.1).
 
 `dgl=False` selects the joint / OGM-GE lineage (main.py): the joint step
 (`train/joint.py`, its own clip before the modulation, so the optimizer
-does not clip) and the joint eval step. `--pretrained_path`,
-`--profile_dir` and the multi-GPU options are not ported:
+does not clip) and the joint eval step. `--pretrained_path` partial-loads
+a torchvision-format backbone into the encoders when the harness is
+built. `--profile_dir` and the multi-GPU options are not ported:
 `check_supported` raises NotImplementedError naming the option.
 """
 
@@ -45,6 +46,7 @@ from gdl_tpu_torch.utils.checkpoint import (
     save_best_checkpoint,
     save_train_state,
 )
+from gdl_tpu_torch.utils.interop import load_pretrained_encoders
 from gdl_tpu_torch.utils.logging import CSVLogger, TBLogger
 from gdl_tpu_torch.utils.metrics import PerClassAccuracy
 from gdl_tpu_torch.utils.seed import setup_seed
@@ -57,9 +59,6 @@ def check_supported(cfg: Config) -> None:
     """Raise for every option the CLI accepts and the port does not
     implement yet; nothing is accepted and ignored. The DGL and joint
     lineages take the same options."""
-    if cfg.pretrained_path:
-        raise NotImplementedError(
-            "--pretrained_path is not ported to gdl_tpu_torch yet")
     if cfg.profile_dir:
         raise NotImplementedError(
             "--profile_dir is not ported to gdl_tpu_torch yet")
@@ -105,8 +104,12 @@ def assemble_harness(cfg: Config, model: torch.nn.Module,
     the family's train step; `eval_model` (default:
     `model`) is what the eval step calls, `(audio, visual) -> (out, out_a,
     out_v)`. `device` overrides cfg.device. With cfg.compute_dtype
-    "bfloat16" both steps run under bf16 autocast (f32 parameters)."""
+    "bfloat16" both steps run under bf16 autocast (f32 parameters).
+    cfg.pretrained_path is partial-loaded into the encoders first, before
+    a resume (gdl_tpu/train/loop.py:86-89)."""
     dev = resolve_device(device if device is not None else cfg.device)
+    if cfg.pretrained_path:
+        load_pretrained_encoders(model, cfg.pretrained_path)
     generator = setup_seed(cfg.random_seed, dev)
     model = model.to(dev)
     if dev.type == "cuda":  # conv weights as cuDNN reads them beside

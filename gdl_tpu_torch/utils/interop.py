@@ -11,6 +11,9 @@ kernels [I, O] become weights [O, I], conv kernels [kH, kW, I, O] become
 
 `load_reference_pth` reads the reference's checkpoint file
 ({"model": state_dict, ...}, keys prefixed `module.` by DataParallel).
+
+`load_pretrained_encoders` is `--pretrained_path`: the partial load of a
+torchvision-format backbone (`gdl_tpu/utils/torch_interop.py:287`).
 """
 
 from __future__ import annotations
@@ -118,3 +121,53 @@ def load_reference_pth(path: str, cfg=None) -> Dict[str, torch.Tensor]:
     sd = loaded.get("model", loaded)
     return strip_module_prefix({k: v for k, v in sd.items()
                                 if isinstance(v, torch.Tensor)})
+
+
+def load_pretrained_encoders(model: torch.nn.Module, path: str,
+                             targets=None) -> Dict[str, dict]:
+    """Partial-load a torchvision-format backbone state dict (a LOCAL
+    file, e.g. torchvision's ImageNet resnet18 saved with
+    torch.save(model.state_dict(), ...); {"model": ...} and `module.`
+    prefixes allowed) into each target encoder of `model`, in place.
+
+    The reference's filter (models/resnet18_se.py:228-248), per encoder as
+    gdl_tpu does it: every key of the encoder that the file holds with
+    the same shape is copied in, running statistics included; a key of
+    another shape is skipped (the 1-channel audio stem against
+    torchvision's 3-channel conv1), and keys of no encoder (`fc.*`) are
+    ignored. `num_batches_tracked` is neither loaded nor counted, as
+    gdl_tpu's trees have no such leaf. targets default to every top-level
+    child with a `conv1` (ResNet) or a `patch_embed` (Swin). Prints one
+    line per target, as gdl_tpu does, and returns per target the keys
+    {"missing", "unexpected", "mismatched"}."""
+    loaded = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(loaded, dict) and isinstance(loaded.get("model"), dict):
+        loaded = loaded["model"]
+    sd = strip_module_prefix({k: v for k, v in loaded.items()
+                              if isinstance(v, torch.Tensor)})
+    children = dict(model.named_children())
+    if targets is None:
+        targets = [name for name, child in children.items()
+                   if hasattr(child, "conv1") or hasattr(child, "patch_embed")]
+    reports = {}
+    for name in targets:
+        if name not in children:
+            continue
+        own = {k: v for k, v in children[name].state_dict().items()
+               if not k.endswith("num_batches_tracked")}
+        adopted, missing, mismatched = {}, [], []
+        for k, v in own.items():
+            if k not in sd:
+                missing.append(k)
+            elif tuple(sd[k].shape) != tuple(v.shape):
+                mismatched.append(k)
+            else:
+                adopted[k] = sd[k].to(v.dtype)
+        children[name].load_state_dict(adopted, strict=False)
+        print(f"pretrained[{name}]: loaded={len(adopted)} "
+              f"missing={len(missing)} shape-skipped={len(mismatched)}")
+        reports[name] = {
+            "missing": missing, "mismatched": mismatched,
+            "unexpected": [k for k in sd if k not in own
+                           and not k.endswith("num_batches_tracked")]}
+    return reports

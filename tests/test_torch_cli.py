@@ -6,9 +6,9 @@ tests/test_cli_end_to_end.py for gdl_tpu's main_dgl.py.
 
 `python -m gdl_tpu_torch.main_intermediate --device cpu ...` the same way
 for the intermediate-fusion family: two epochs of mmformer_n at width 8,
-the CSV, the `.pth`, and the `.pth` served back through
-`serve.load_intermediate_from_checkpoint`; one epoch of mmtm and
-sefusion; the refusals."""
+the CSV, the `.pth`, the `.pth` served back through
+`serve.load_intermediate_from_checkpoint` and exported with
+`--export_path`; one epoch of mmtm and sefusion; the refusals."""
 
 import glob
 import os
@@ -118,8 +118,9 @@ def _intermediate_common(audio, visual):
 
 def test_port_intermediate_cli_mmformer_n(tmp_path):
     """Two epochs of mmformer_n (embed 512, 196 tokens: the model's own;
-    stems at width 8): CSV rows, the best `.pth` after epoch 0, and the
-    `.pth` served to the same predictions as the model it was saved from."""
+    stems at width 8): CSV rows, the best `.pth` after epoch 0, the
+    `.pth` served to the same predictions as the model it was saved from,
+    and its serving artifact (`--export_path`) to the same logits."""
     import torch
 
     from gdl_tpu_torch.config import Config
@@ -129,7 +130,10 @@ def test_port_intermediate_cli_mmformer_n(tmp_path):
         TripleLogits,
         build_intermediate,
     )
-    from gdl_tpu_torch.serve import load_intermediate_from_checkpoint
+    from gdl_tpu_torch.serve import (
+        load_exported,
+        load_intermediate_from_checkpoint,
+    )
     from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
 
     audio, visual = _fixture_tree(tmp_path)
@@ -143,15 +147,6 @@ def test_port_intermediate_cli_mmformer_n(tmp_path):
     assert "CUDA is not available" in out.stderr
     assert "Epoch: 0" not in out.stdout
     assert not (tmp_path / "none").exists()
-
-    # --export_path is gdl_tpu's jax.export artifact: refused by name
-    out = _run(["--model", "mmformer_n", "--device", "cpu", "--ckpt_path",
-                str(tmp_path / "none"), "--export_path",
-                str(tmp_path / "artifact")] + common, tmp_path, INTERMEDIATE)
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr
-    assert "--export_path" in out.stderr
-    assert not (tmp_path / "artifact").exists()
 
     out = _run(["--train", "--model", "mmformer_n", "--device", "cpu",
                 "--ckpt_path", str(tmp_path / "ckpt"), "--epochs", "2"]
@@ -201,6 +196,19 @@ def test_port_intermediate_cli_mmformer_n(tmp_path):
         assert tuple(g.shape) == (4, 6)
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     assert torch.equal(got["pred"], want[0].argmax(-1))
+
+    # --export_path writes the .pth's serving artifact and exits; it
+    # replays the 7-tuple whose logits are the module's
+    out = _run(["--model", "mmformer_n", "--device", "cpu", "--ckpt_path",
+                pths[0], "--export_path", str(tmp_path / "artifact")]
+               + common, tmp_path, INTERMEDIATE)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "Serving artifact written to" in out.stdout
+    art = load_exported(str(tmp_path / "artifact"), "cpu").call(
+        b["audio"], b["visual"])
+    assert len(art) == 7
+    for g, w in zip((art[0], art[5], art[6]), want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
 def test_port_intermediate_cli_mmtm_and_sefusion(tmp_path):

@@ -5,8 +5,9 @@ as a user would run it: live OGM-GE, a tiny dual ResNet-18, two epochs
 accuracy CSV, the best `.pth` and a TensorBoard event file; then eval
 mode from that `.pth` to the accuracy the run logged, the same `.pth`
 served through `serve.load_from_checkpoint(dgl=False)` to the same
-predictions, and the refusals (no CUDA without --device cpu;
---export_path until the serving-export slice)."""
+predictions, the serving artifact that eval mode writes with
+`--export_path --export_poly_batch 1` to the model's 11-tuple, and the
+refusal of CUDA without --device cpu."""
 
 import glob
 import os
@@ -34,7 +35,11 @@ def test_port_joint_cli_train_eval_serve(tmp_path):
     from gdl_tpu_torch.data.datasets import make_dataset
     from gdl_tpu_torch.data.loader import Loader
     from gdl_tpu_torch.data.preprocess import make_eval_preprocess
-    from gdl_tpu_torch.serve import build_model, load_from_checkpoint
+    from gdl_tpu_torch.serve import (
+        build_model,
+        load_exported,
+        load_from_checkpoint,
+    )
     from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
     from gdl_tpu_torch.utils.metrics import PerClassAccuracy
 
@@ -49,15 +54,6 @@ def test_port_joint_cli_train_eval_serve(tmp_path):
         assert "CUDA is not available" in out.stderr
         assert "Start training" not in out.stdout
         assert not (tmp_path / "none").exists()
-
-    # --export_path is gdl_tpu's jax.export artifact: refused by name
-    out = _run(["--device", "cpu", "--ckpt_path", str(tmp_path / "none"),
-                "--export_path", str(tmp_path / "artifact")] + common,
-               tmp_path, MAIN)
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr
-    assert "serving-export slice" in out.stderr
-    assert not (tmp_path / "artifact").exists()
 
     ckpt, tb = tmp_path / "ckpt", tmp_path / "tb"
     out = _run(["--train", "--device", "cpu", "--ckpt_path", str(ckpt),
@@ -88,11 +84,15 @@ def test_port_joint_cli_train_eval_serve(tmp_path):
             cfg, build_model(cfg, seed=0, dgl=False), 1, 0.0)]
         want_acc = None
 
-    # eval mode from the .pth: the accuracy the training run logged
-    out = _run(["--ckpt_path", pths[0], "--device", "cpu"] + common,
+    # eval mode from the .pth: the accuracy the training run logged; with
+    # --export_path the .pth's serving artifact (any batch size) as well
+    artifact = str(tmp_path / "artifact")
+    out = _run(["--ckpt_path", pths[0], "--device", "cpu", "--export_path",
+                artifact, "--export_poly_batch", "1"] + common,
                tmp_path, MAIN)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "Trained model loaded!" in out.stdout
+    assert "Serving artifact written to" in out.stdout
     line = [ln for ln in out.stdout.splitlines()
             if ln.startswith("Accuracy: ")][-1]
     acc = float(line.split(",")[0].split()[-1])
@@ -107,6 +107,7 @@ def test_port_joint_cli_train_eval_serve(tmp_path):
     finally:
         os.chdir(cwd)
     served = load_from_checkpoint(cfg, pths[0], "cpu", dgl=False)
+    exported = load_exported(artifact, "cpu")
     model = build_model(cfg, seed=3, dgl=False)
     model.load_state_dict(torch.load(pths[0], weights_only=False)["model"])
     model.eval()
@@ -121,6 +122,13 @@ def test_port_joint_cli_train_eval_serve(tmp_path):
             out_model = model(pre["audio"], pre["visual"])
         np.testing.assert_array_equal(res["pred"].numpy(),
                                       out_model[2].argmax(-1).numpy())
+        replayed = exported.call(pre["audio"], pre["visual"])
+        assert len(replayed) == 11
+        for g, w in zip(replayed, out_model):
+            if isinstance(w, torch.Tensor):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+            else:  # the PE entries without --pe
+                assert g == w == 0
         counters.update(res["pred"].numpy(), res["pred_a"].numpy(),
                         res["pred_v"].numpy(), np.asarray(batch["label"]))
     assert counters.results()[0] == acc

@@ -2305,3 +2305,39 @@ def test_forward_body_keeps_its_bits(cuda):
     assert set(got) == set(FWD_DIGESTS)
     changed = sorted(k for k in got if got[k] != FWD_DIGESTS[k])
     assert not changed, changed
+
+
+def _opcheck_cases(dev):
+    """Operands of the three serving kernels' operators at the shapes a
+    batch-16 Swin-B request (stage 0 of #1 with its shift mask, stage 3
+    of #15) and a batch-64 mmformer_n forward give them."""
+    g = torch.Generator().manual_seed(19)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    x, w, b, bias = _inputs(16 * 64, 128, 4, seed=19)
+    mask = shift_attn_mask(56, 56, 7, 3)
+    wa = (torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev),
+          torch.from_numpy(b).to(dev), torch.from_numpy(bias).to(dev),
+          torch.from_numpy(mask).float().to(dev), 4, 32 ** -0.5)
+    sa = (r(64, 196, 512), r(3 * 512, 512, scale=512 ** -0.5), 8, 0.125)
+    mlp = (r(16 * 49, 1024), r(4096, 1024, scale=1024 ** -0.5),
+           r(4096, scale=0.1), r(1024, 4096, scale=4096 ** -0.5),
+           r(1024, scale=0.1))
+    return {"wa_qkv_fused_eval": wa, "sa_fused_eval": sa,
+            "mlp_fused_fwd": mlp}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wa_qkv_fused_eval", "sa_fused_eval",
+                                  "mlp_fused_fwd"])
+def test_serving_operators_pass_opcheck(cuda, name):
+    """#1, #13 and #15 as the operators that torch.export records:
+    torch.library.opcheck (schema, fake implementation against the
+    launch, dispatch under AOT autograd with dynamic shapes)."""
+    import gdl_tpu_torch.ops.mlp  # noqa: F401  (registers the operators)
+    import gdl_tpu_torch.ops.self_attention  # noqa: F401
+
+    op = getattr(torch.ops.gdl_tpu_torch, name).default
+    torch.library.opcheck(op, _opcheck_cases(cuda)[name])

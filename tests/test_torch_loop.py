@@ -302,16 +302,17 @@ def test_preempt_then_resume_reaches_the_same_parameters(trained):
 def test_unported_options_raise_by_name():
     """Every option the CLI accepts and the port does not implement
     raises NotImplementedError naming it (the DGL and joint lineages take
-    the same options); CUDA without a card raises. --use_tensorboard and
-    the AdaGrad / Adam optimizers are ported and pass."""
+    the same options); CUDA without a card raises. --use_tensorboard,
+    the AdaGrad / Adam optimizers and --pretrained_path (loaded when the
+    harness is built, tests/test_torch_pretrained.py) are ported and
+    pass."""
     base = dict(KW, device="cpu")
-    for kw, word in ((dict(pretrained_path="x.pth"), "pretrained_path"),
-                     (dict(profile_dir="/tmp/p"), "profile_dir"),
+    for kw, word in ((dict(profile_dir="/tmp/p"), "profile_dir"),
                      (dict(sync_bn=False, dp=2), "sync_bn")):
         with pytest.raises(NotImplementedError, match=word):
             check_supported(Config(**dict(base, **kw)))
     for kw in (dict(use_tensorboard=True), dict(optimizer="Adam"),
-               dict(optimizer="AdaGrad")):
+               dict(optimizer="AdaGrad"), dict(pretrained_path="x.pth")):
         check_supported(Config(**dict(base, **kw)))
     with pytest.raises(ValueError, match="compute_dtype"):
         check_supported(Config(**dict(base, compute_dtype="float16")))
