@@ -232,8 +232,10 @@ Phases, each printing one JSON line:
               forward and a backward entry each), the switch's kernel
               arm of o for #12; and, for #1, #2, #4 and #16, their
               launches on p's kernel arms as joint_launches; for #1,
-              #13 and #15, their launches in q's replayed artifacts as
-              export_launches), error,
+              #13 and #15, their launches in q's counted replays of the
+              fixed artifacts as export_launches, the replays as
+              export_replays and their quotient as
+              export_launches_per_forward), error,
               times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
               over the float32 peak of 67 TFLOP/s; the times are the
@@ -2872,8 +2874,9 @@ def _compare_logits(got, want, rows, n_classes, problems, what):
 
 def phase_export(failures, smi: str):
     """The serving artifacts through gdl_tpu_torch.serve's export functions
-    and gdl_tpu_torch.valid, at full width. Returns the launches of #1,
-    #15 and #13 over the artifacts' replays."""
+    and gdl_tpu_torch.valid, at full width. Returns (launches over the
+    counted replays of the fixed artifacts, the number of those replays
+    for #1, #15 and #13)."""
     import torch
 
     from gdl_tpu_torch import kernels, main_intermediate
@@ -2896,6 +2899,7 @@ def phase_export(failures, smi: str):
     dev = torch.device("cuda")
     zero = {k: 0 for k in kernels.launch_counts}
     launched = dict(zero)
+    replays = {KERNEL: 0, MLP: 0, SA_EVAL: 0}
 
     def drive(fn, inputs):
         outs, ms = [], []
@@ -2971,6 +2975,7 @@ def phase_export(failures, smi: str):
             export_s = time.perf_counter() - t
             exported = load_exported(art, "cuda")
             outs, art_ms, counts = counted(exported.call, batches)
+            replays[SA_EVAL] += len(batches)
             if counts != want_mm:
                 problems.append(f"artifact launched {nonzero(counts)}")
             served = load_intermediate_from_checkpoint(
@@ -3089,6 +3094,8 @@ def phase_export(failures, smi: str):
                 exported = load_exported(jobs[(dtype, False)][0], "cuda")
                 load_s = time.perf_counter() - t
                 outs, art_ms, counts = counted(exported.call, requests)
+                replays[KERNEL] += len(requests)
+                replays[MLP] += len(requests)
                 if counts != want_fixed:
                     problems.append(f"artifact launched {nonzero(counts)}")
                 kernels.reset_launch_counts()
@@ -3178,7 +3185,7 @@ def phase_export(failures, smi: str):
                 proc.wait()
         del eager32, plain32
         torch.cuda.empty_cache()
-    return launched
+    return launched, replays
 
 
 def main(argv=None) -> int:
@@ -3268,8 +3275,9 @@ def main(argv=None) -> int:
                               dict(zero))
     joint_launch = run_phase("joint", lambda: phase_joint(failures, smi),
                              {"resnet": 0, SAVEP: 0, BWD: 0, KERNEL: 0})
-    export_launch = run_phase("export", lambda: phase_export(failures, smi),
-                              dict(zero))
+    export_launch, export_replays = run_phase(
+        "export", lambda: phase_export(failures, smi),
+        (dict(zero), {KERNEL: 0, MLP: 0, SA_EVAL: 0}))
     record.update(parity=parity, train_parity=train_parity,
                   maxpool_parity=pool_parity, sa_parity=sa_parity,
                   mask_parity=mask_parity, flag_parity=flag_attn + flag_mlp,
@@ -3654,12 +3662,15 @@ def main(argv=None) -> int:
                        (entries[2], BWD), (entries[3], "resnet")):
         entry["joint_launches"] = joint_launch[key]
     # the serving artifacts' replays (phase q): #1 and #15 in the fixed
-    # Swin-B artifacts, #13 in the mmformer_n ones
-    for entry, per in ((entries[0], SWIN_EXPORT_LAUNCHES[KERNEL]),
-                       (entries[11], SWIN_EXPORT_LAUNCHES[MLP]),
-                       (entries[6], MM_EXPORT_LAUNCHES[SA_EVAL])):
-        entry["export_launches"] = export_launch[entry["name"]]
-        entry["export_launches_per_forward"] = per
+    # Swin-B artifacts, #13 in the mmformer_n ones; launches a replay are
+    # the counted launches over the counted replays
+    for entry in (entries[0], entries[11], entries[6]):
+        name = entry["name"]
+        entry["export_launches"] = export_launch[name]
+        entry["export_replays"] = export_replays[name]
+        entry["export_launches_per_forward"] = (
+            export_launch[name] / export_replays[name]
+            if export_replays[name] else None)
     record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
@@ -3698,10 +3709,14 @@ def main(argv=None) -> int:
         if not entry["joint_launches"]:
             failures.append(f"{entry['name']} was never launched on the "
                             f"joint (OGM-GE) path")
-    for k in (KERNEL, MLP, SA_EVAL):
-        if export_launch[k] == 0:
-            failures.append(f"{k} was never launched by a replayed serving "
-                            f"artifact")
+    # every fixed artifact, in both dtypes, replayed and counted in full
+    want_export = dict(zero, **{
+        k: v * N_REQUESTS * 2 for k, v in SWIN_EXPORT_LAUNCHES.items()}, **{
+        k: v * MM_EXPORT_BATCHES * 2 for k, v in MM_EXPORT_LAUNCHES.items()})
+    if export_launch != want_export:
+        failures.append(f"the replayed serving artifacts launched "
+                        f"{ {k: v for k, v in export_launch.items() if v} }, "
+                        f"not { {k: v for k, v in want_export.items() if v} }")
     for entry in entries:
         missing = [k for k in ("ms", "plain_ms", "bound_ms", "bound_by")
                    if entry[k] is None]

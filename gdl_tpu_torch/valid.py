@@ -38,14 +38,13 @@ def get_arguments(argv=None):
 
 
 def run_valid(cfg: Config, test_set, export_path=None,
-              poly_batch: bool = False, raw_batches: bool = True) -> tuple:
+              poly_batch: bool = False) -> tuple:
     """Evaluate cfg.ckpt_path on `test_set` → (acc, acc_a, acc_v); then,
     given `export_path`, write the checkpoint's serving artifact there."""
     check_supported(cfg)
     resolve_device(cfg.device)  # raises before any work when CUDA is absent
     model = build_model(cfg, seed=cfg.random_seed)
-    result = run_eval(cfg, model, test_set, cfg.ckpt_path, dgl=True,
-                      raw_batches=raw_batches)
+    result = run_eval(cfg, model, test_set, cfg.ckpt_path, dgl=True)
     if export_path:
         export_from_checkpoint(cfg, cfg.ckpt_path, export_path,
                                poly_batch=poly_batch, device=cfg.device)

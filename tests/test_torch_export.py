@@ -182,20 +182,27 @@ def test_poly_batch_artifact_matches_gdl_tpu(tmp_path, jax_templates):
         _close(got, jax_art.call(audio, visual), 3)
 
 
-def test_poly_batch_swin_keeps_the_batch_symbolic(tmp_path):
+def test_poly_batch_swin_keeps_the_batch_symbolic(tmp_path, jax_templates):
     """The Swin window partitions and the [B·nW] fold of shifted blocks
-    do not pin the batch: one artifact serves batches 3 and 5 as the
-    eager model does."""
+    do not pin the batch: one artifact serves batches 3 and 5 as
+    gdl_tpu's poly-batch artifact of the same .pth does, and as the
+    port's eager model does."""
     jcfg, params, stats = _jax_variables("swin_dgl")
     pth = _write_pth(tmp_path, params, stats, jcfg)
     cfg = Config(**TINY_SWIN, device="cpu")
+    jax_export_ckpt(jcfg, pth, str(tmp_path / "j.hlo"), platforms=("cpu",),
+                    poly_batch=True)
     export_from_checkpoint(cfg, pth, str(tmp_path / "p.pt2"),
                            poly_batch=True, device="cpu")
+    jax_art = jax_load_exported(str(tmp_path / "j.hlo"))
     served = load_exported(str(tmp_path / "p.pt2"), "cpu")
     eager = load_from_checkpoint(cfg, pth, "cpu")
     for batch in (3, 5):
         audio, visual = _inputs(cfg, batch, seed=30 + batch)
-        _close(served.call(audio, visual), eager(audio, visual), 3)
+        got = served.call(audio, visual)
+        assert tuple(got[0].shape) == (batch, cfg.n_classes)
+        _close(got, jax_art.call(audio, visual), 3)
+        _close(got, eager(audio, visual), 3)
 
 
 def test_mmformer_n_export_eval_with_apply_kwargs(tmp_path):
