@@ -210,9 +210,11 @@ Phases, each printing one JSON line:
               the same flags (f32 max |d| <= 1e-5, bf16 <= 5e-2, argmax
               on >= 15 of 16), while the poly-batch exports run; the
               poly-batch
-              artifact of the default devices ("cpu", "cuda") replays
-              batches 16 and 5 with no launch, against the plain eager
-              model at phase d's bars, and (f32) on the CPU. mmformer_n
+              artifact of the default devices ("cpu", "cuda"), at depth
+              2-2-2-2 from a .pth of its own (a symbolic batch makes the
+              full-depth trace take 90-124 s), replays batches 16 and 5
+              with no launch, against the plain eager model of the same
+              depth at phase d's bars, and (f32) on the CPU. mmformer_n
               (phase k's config) from a .pth written as main_intermediate
               writes it, serve.export_intermediate_from_checkpoint for
               CUDA: 7 launches of #13 a forward, logits against the eager
@@ -223,6 +225,40 @@ Phases, each printing one JSON line:
               accuracies and predictions on the same clips equal
               run_valid's and the eager model's. Median ms per request
               of artifact and eager, export and load seconds;
+  r. distributed
+              phase i's flagship (batch 64 global) data-parallel through
+              gdl_tpu_torch.parallel: (1) world size 1 under NCCL from
+              torchrun's variables, maybe_initialize(): 3 checked steps
+              bit-equal to phase i's kernel arm (losses, parameters, BN
+              statistics), exactly 2 launches of #16 a step, no
+              all-reduce, broadcast or barrier in the steps; then timed
+              steps in turns with a harness built before the group
+              existed, and with a third whose BatchNorms take the
+              multi-rank path (GlobalBatchNorm2d.global_forward, its
+              all-reduces no-ops at world size 1), and a profiler count
+              of the kernels and device ms of a step of it and of the
+              world-1 arm; (2) two ranks on the one card over gloo (two
+              processes, device cuda:0, 32 rows each): 3 checked steps of
+              the same global batches, each from phase i's kernel arm's
+              state before it (model, momentum, step count, generator),
+              against that arm's step at its bars (losses and gradient
+              norm 1e-4 / 2e-2 relative, then the parameters and BN
+              statistics 1e-4 / 2e-2 against its state after the step);
+              then 3 free steps from phase i's first state: the two
+              ranks' states (model, BN statistics, momentum, step count,
+              generator) equal by digest before and after every step,
+              the generator and step count at the end equal to phase
+              i's, and each free step replayed by one process from the
+              ranks' state before it and held to their state after it at
+              the same bars (the trajectory itself is held to no bar: a
+              last-bit change moves three free steps of the flagship
+              ~1e-3); exactly 2 launches of #16 a rank-step, one
+              evaluate with equal accuracies on both ranks, rank 1
+              writing no file; ms/step (gloo stages through the host:
+              no yardstick); (3) #14 at its four mask shapes and #10 /
+              #11's in-kernel masks at [64, 392, 512], 8 heads, at
+              offsets 0 and sample 32's: bit-equal to the plain version
+              at that offset and to the global batch's second half;
   g. kernels  one line per kernel: route, source, the TPU kernel it
               replaces, launches on its path (d for #1, the kernel arm
               of f for #2 and #4, of i for #16, of k for #10, #11, #13
@@ -235,7 +271,10 @@ Phases, each printing one JSON line:
               #13 and #15, their launches in q's counted replays of the
               fixed artifacts as export_launches, the replays as
               export_replays and their quotient as
-              export_launches_per_forward), error,
+              export_launches_per_forward; for #16 its launches a step
+              of r's world-1 run and a rank-step of r's gloo run, for
+              #14, #10 and #11 whether r's offset checks were bit-equal
+              and their launches), error,
               times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
               over the float32 peak of 67 TFLOP/s; the times are the
@@ -996,7 +1035,9 @@ def phase_maxpool_parity(failures):
 def phase_resnet(failures, smi: str):
     """The flagship ResNet-18 DGL training path through the port's loop,
     kernel arm and plain arm. Returns the kernel arms' launch count of
-    #16 over the checked steps."""
+    #16 over the checked steps, and per dtype the kernel arm's step
+    metrics, its state dict after the checked steps and its training
+    state before each of them (`train_snapshot`), on the CPU."""
     import contextlib
 
     import torch
@@ -1017,7 +1058,7 @@ def phase_resnet(failures, smi: str):
     def quiet():  # the loop prints the reference's progress lines
         return contextlib.redirect_stdout(sys.stderr)
 
-    total_launches = 0
+    total_launches, refs = 0, {}
     with tempfile.TemporaryDirectory() as tmp:
         def config(dtype):
             return Config(dataset="CREMAD", fusion_method="concat",
@@ -1050,8 +1091,13 @@ def phase_resnet(failures, smi: str):
             h = build_harness(cfg, model, steps_per_epoch=100)
             steps = []
             inner = h.train_step
+            # the kernel arm's training state before each checked step:
+            # phase r's two ranks start each of their steps from it
+            snaps = [] if impl == "auto" else None
 
             def recording(batch):
+                if snaps is not None:
+                    snaps.append(train_snapshot(h))
                 before = dict(kernels.launch_counts)
                 m = inner(batch)
                 steps.append((m, {k: v - before[k] for k, v in
@@ -1076,6 +1122,14 @@ def phase_resnet(failures, smi: str):
             finally:
                 torch.backends.cudnn.deterministic = False
             launched = dict(kernels.launch_counts)
+            if impl == "auto":  # what phase r's world-1 arm is held to
+                refs[dtype] = dict(
+                    metrics=[{k: float(v) for k, v in m.items()}
+                             for m, _ in steps],
+                    state={k: v.detach().cpu().clone()
+                           for k, v in h.model.state_dict().items()},
+                    generator=h.generator.get_state(),
+                    steps=h.optimizer.steps, snapshots=snaps)
             return dict(cfg=cfg, h=h, launched=launched,
                         peak=torch.cuda.max_memory_allocated() / 2 ** 30,
                         metrics=[{k: float(v) for k, v in m.items()}
@@ -1202,7 +1256,7 @@ def phase_resnet(failures, smi: str):
             failures.extend(f"resnet {dtype}: {p}" for p in problems)
             del arms, ka, pa, km, pm, served
             torch.cuda.empty_cache()
-    return total_launches
+    return total_launches, refs
 
 
 def sa_cost(kind: str, b: int, n: int, c: int, heads: int, itemsize: int):
@@ -2831,6 +2885,7 @@ EXPORT_ATOL = {"float32": 1e-5, "bfloat16": 5e-2}  # same kernels, same bars
 SWIN_EXPORT_LAUNCHES = {KERNEL: 48, MLP: 48}
 MM_EXPORT_LAUNCHES = {SA_EVAL: 7}
 POLY_BATCHES = (BATCH, 5)
+POLY_DEPTHS = (2, 2, 2, 2)  # the poly-batch Swin-B artifacts' depth
 MM_EXPORT_BATCHES = 2
 VALID_BATCHES = 3
 SWIN_EXPORT = dict(dataset="CREMAD", backbone="swin", fusion_method="concat",
@@ -2849,7 +2904,8 @@ def export_job(spec: str) -> int:
     job = json.loads(spec)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Config(**SWIN_EXPORT, compute_dtype=job["dtype"])
+    cfg = Config(**SWIN_EXPORT, compute_dtype=job["dtype"],
+                 swin_depths=job["depths"])
     t = time.perf_counter()
     if job["poly"]:  # the default devices, ("cpu", "cuda")
         export_from_checkpoint(cfg, job["pth"], job["out"], poly_batch=True)
@@ -2928,19 +2984,27 @@ def phase_export(failures, smi: str):
     with tempfile.TemporaryDirectory() as tmp:
         # Swin-B serving (phase d's weights and config, --fuse_mlp 1): the
         # four exports run in processes of their own while this one works
+        # (the poly-batch artifacts at depth 2-2-2-2, POLY_DEPTHS, from a
+        # .pth of their own: a symbolic batch makes the trace slow)
         cfg = Config(**SWIN_EXPORT)
-        pth = os.path.join(tmp, "best_model.pth")
-        model = build_model(cfg, seed=1234)
-        torch.save({"model": {"module." + k: v for k, v in
-                              model.state_dict().items()},
-                    "fusion": cfg.fusion_method}, pth)
-        del model
+        cfg_poly = Config(**SWIN_EXPORT, swin_depths=list(POLY_DEPTHS))
+        pths = {}
+        for poly, c in ((False, cfg), (True, cfg_poly)):
+            pths[poly] = os.path.join(tmp, f"best_model_{int(poly)}.pth")
+            model = build_model(c, seed=1234)
+            torch.save({"model": {"module." + k: v for k, v in
+                                  model.state_dict().items()},
+                        "fusion": c.fusion_method}, pths[poly])
+            del model
+        pth = pths[False]
         jobs = {}
         for poly in (True, False):  # the longest traces first
             for dtype in ("float32", "bfloat16"):
                 out = os.path.join(tmp, f"swin_{dtype}_{int(poly)}.pt2")
-                spec = json.dumps({"pth": pth, "out": out, "dtype": dtype,
-                                   "poly": poly})
+                spec = json.dumps({
+                    "pth": pths[poly], "out": out, "dtype": dtype,
+                    "poly": poly, "depths": (cfg_poly if poly
+                                             else cfg).swin_depths})
                 jobs[(dtype, poly)] = (out, subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
                      "--export_job", spec], stdout=subprocess.PIPE,
@@ -3071,7 +3135,8 @@ def phase_export(failures, smi: str):
         want_fixed = dict(zero, **{k: v * N_REQUESTS
                                    for k, v in SWIN_EXPORT_LAUNCHES.items()})
         eager32 = load_from_checkpoint(cfg, pth, "cuda")
-        plain32 = load_from_checkpoint(cfg, pth, "cuda", attn_impl="plain")
+        plain32 = load_from_checkpoint(cfg_poly, pths[True], "cuda",
+                                       attn_impl="plain")
 
         def finished(dtype, poly, problems):
             """Wait for an export job → its seconds (None if it failed)."""
@@ -3131,7 +3196,7 @@ def phase_export(failures, smi: str):
         # plain eager model at phase d's bars, at two batch sizes
         for dtype in ("float32", "bfloat16"):
             problems = []
-            plain = ServedModel(plain32.model, cfg, "cuda",
+            plain = ServedModel(plain32.model, cfg_poly, "cuda",
                                 getattr(torch, dtype))
             export_s = finished(dtype, True, problems)
             if export_s is not None:
@@ -3188,14 +3253,740 @@ def phase_export(failures, smi: str):
     return launched, replays
 
 
+# ---- phase r: multi-process data parallelism ------------------------------
+
+DP_CHECKED_STEPS = RESNET_CHECKED_STEPS  # phase i's checked batches
+DP_TIMED_STEPS = 4     # per timed call
+DP_TIME_ROUNDS = 4     # world-1 timed calls per arm, in turns
+DP_GLOO_ROUNDS = 1     # gloo timed calls per dtype
+DP_RANKS = 2
+COLLECTIVES = ("all_reduce", "broadcast", "barrier")
+# the four mask shapes of #14 and the attention shape of #10 / #11 at
+# batch 64, each split at sample 32 (the second of two ranks' rows)
+OFFSET_SA = (MM_BATCH, 392, 512)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def resnet_dp_config(dtype: str, ckpt: str, **kw):
+    """Phase i's flagship configuration (batch 64 global)."""
+    from gdl_tpu_torch.config import Config
+
+    return Config(dataset="CREMAD", fusion_method="concat",
+                  modality="full", fps=1, batch_size=RESNET_BATCH,
+                  learning_rate=2e-3, alpha=5.0, modulation="Normal",
+                  log_grad_csv=False, compute_dtype=dtype, ckpt_path=ckpt,
+                  encoder_width=RESNET_WIDTH, **kw)
+
+
+def resnet_dp_sets(cfg):
+    """Phase i's train, test and timed sets."""
+    from gdl_tpu_torch.data.synthetic import SyntheticDataset
+
+    return (SyntheticDataset(cfg, size=RESNET_BATCH * DP_CHECKED_STEPS,
+                             seed=500),
+            SyntheticDataset(cfg, size=2 * RESNET_BATCH, seed=9000),
+            SyntheticDataset(cfg, size=RESNET_BATCH * DP_TIMED_STEPS,
+                             seed=2000))
+
+
+def recorded_steps(h):
+    """Wrap h.train_step: each step's metrics (floats) and its launches."""
+    from gdl_tpu_torch import kernels
+
+    steps, inner = [], h.train_step
+
+    def recording(batch):
+        before = dict(kernels.launch_counts)
+        m = inner(batch)
+        steps.append(({k: float(v) for k, v in m.items()},
+                      {k: v - before[k] for k, v in
+                       kernels.launch_counts.items()}))
+        return m
+
+    h.train_step = recording
+    return steps
+
+
+def checked_epoch(h, loader):
+    """One epoch of the checked batches with cuDNN's deterministic
+    algorithms (phase i's rule)."""
+    import torch
+
+    from gdl_tpu_torch.train.loop import train_one_epoch
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with quiet():
+            train_one_epoch(h, loader, 0)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def timed_epoch_ms(h, batches) -> float:
+    """ms per step of one epoch over `batches` (host clock, synchronised)."""
+    import torch
+
+    from gdl_tpu_torch.train.loop import train_one_epoch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with quiet():
+        train_one_epoch(h, batches, 1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / len(batches)
+
+
+def profiled_epoch(h, batches) -> dict:
+    """Device operations (kernels, copies, sets) and device ms a step of
+    one epoch over `batches`, by a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gdl_tpu_torch.train.loop import train_one_epoch
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with quiet():
+            train_one_epoch(h, batches, 1)
+        torch.cuda.synchronize()
+    ops = ms = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = ev.cuda_time_total
+        if t <= 0 or ev.key.startswith("cudaLaunch"):
+            continue
+        ops += ev.count
+        ms += t / 1e3
+    return {"device_ops_per_step": ops / len(batches),
+            "device_ms_per_step": ms / len(batches)}
+
+
+def train_snapshot(h) -> dict:
+    """A harness's training state, copied to the CPU: model, optimizer,
+    its step count and the generator's state."""
+    import torch
+
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cpu(v) for v in x)
+        return x
+
+    return {"model": cpu(h.model.state_dict()),
+            "optimizer": cpu(h.optimizer.state_dict()),
+            "steps": h.optimizer.steps,
+            "generator": h.generator.get_state()}
+
+
+def restore_snapshot(h, snap: dict) -> None:
+    h.model.load_state_dict(snap["model"])
+    h.optimizer.load_state_dict(snap["optimizer"])
+    h.optimizer.steps = snap["steps"]
+    h.generator.set_state(snap["generator"])
+
+
+def state_digest(snap: dict) -> str:
+    """sha256 of a `train_snapshot`: every tensor's bytes in a canonical
+    layout, and every other value's repr, in key order."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, torch.Tensor):
+            digest.update(str(x.dtype).encode())
+            digest.update(x.contiguous().reshape(-1).view(torch.uint8)
+                          .numpy().tobytes())
+        elif isinstance(x, dict):
+            for k in sorted(x, key=str):
+                digest.update(repr(k).encode())
+                feed(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                feed(v)
+        else:
+            digest.update(repr(x).encode())
+
+    feed(snap)
+    return digest.hexdigest()
+
+
+def state_errors(model, ref: dict):
+    """(max |Δ| of the parameters, of the BN running statistics) against
+    a state dict on the CPU."""
+    param_err = stat_err = 0.0
+    for k, v in model.state_dict().items():
+        if "num_batches" in k:
+            continue
+        d = float((v.detach().cpu().double() - ref[k].double()).abs().max())
+        if "running" in k:
+            stat_err = max(stat_err, d)
+        else:
+            param_err = max(param_err, d)
+    return param_err, stat_err
+
+
+def dp_worker(spec: str) -> int:
+    """One rank of phase r's two-rank run on the one card over gloo
+    (torchrun's variables set by the parent): phase i's flagship at batch
+    64 global, 32 a rank, per dtype: 3 checked steps, each from phase i's
+    kernel arm's state before that step (snap_<dtype>_<k>.pt under spec's
+    "dir") on its global batch, the state after it held to phase i's next
+    one; 3 free steps from phase i's first state, the state before each
+    and after the last digested (and saved by rank 0 under free_<dtype>/
+    for the parent's replay); one evaluate, the rank-0 files, timed
+    steps. Writes its results as JSON under spec's "dir"."""
+    import torch
+
+    from gdl_tpu_torch.data.loader import Loader
+    from gdl_tpu_torch.parallel import distributed as dist
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.train.loop import build_harness, evaluate, make_loaders
+    from gdl_tpu_torch.utils.checkpoint import (
+        save_best_checkpoint,
+        save_train_state,
+    )
+    from gdl_tpu_torch.utils.logging import CSVLogger
+
+    job = json.loads(spec)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.maybe_initialize(backend="gloo")
+    rank = dist.process_index()
+    out = {"rank": rank, "world": dist.process_count(), "arms": {}}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            ckpt = os.path.join(job["dir"], f"rank{rank}_{dtype}")
+            cfg = resnet_dp_config(dtype, ckpt, num_workers=4,
+                                   device="cuda:0")
+            train_set, test_set, timed_set = resnet_dp_sets(cfg)
+            train_loader, test_loader = make_loaders(cfg, train_set,
+                                                     test_set)
+            h = build_harness(cfg, build_model(cfg, seed=777),
+                              steps_per_epoch=100)
+            snaps = [torch.load(os.path.join(job["dir"],
+                                             f"snap_{dtype}_{k}.pt"),
+                                weights_only=False)
+                     for k in range(DP_CHECKED_STEPS + 1)]
+            log = recorded_steps(h)
+            errors = []
+            batches = list(train_loader)  # a second pass would reshuffle
+            for k, batch in enumerate(batches):
+                restore_snapshot(h, snaps[k])
+                checked_epoch(h, [batch])
+                errors.append(state_errors(h.model, snaps[k + 1]["model"]))
+            steps = list(log)  # the checked ones
+            # the free steps, from phase i's first state
+            restore_snapshot(h, snaps[0])
+            free_dir = os.path.join(job["dir"], f"free_{dtype}")
+            os.makedirs(free_dir, exist_ok=True)
+            digests, inner = [], h.train_step
+
+            def keep():
+                snap = train_snapshot(h)
+                if rank == 0:
+                    torch.save(snap, os.path.join(free_dir,
+                                                  f"{len(digests)}.pt"))
+                digests.append(state_digest(snap))
+
+            def keeping(batch):
+                keep()
+                return inner(batch)
+
+            h.train_step = keeping
+            checked_epoch(h, batches)
+            h.train_step = inner
+            keep()
+            free = log[len(steps):]
+            end = snaps[-1]
+            free_end_as_phase_i = (
+                torch.equal(h.generator.get_state(), end["generator"])
+                and h.optimizer.steps == end["steps"])
+            free_drift = state_errors(h.model, end["model"])
+            del snaps, end
+            with quiet():
+                accs = evaluate(h, test_loader)
+            # the rank-0 artifacts: best .pth, resume state, a CSV row
+            save_best_checkpoint(cfg, h.model, 1, accs[0])
+            save_train_state(os.path.join(ckpt, "resume_state.pth"),
+                             h.model, h.optimizer, 1, h.generator)
+            csv = CSVLogger(os.path.join(ckpt, "acc.csv"),
+                            sentinel=[1000, 1000, 1000])
+            csv.write_row(list(accs))
+            csv.close()
+            files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+            timed = list(Loader(timed_set, RESNET_BATCH, shuffle=False,
+                                drop_last=True, num_workers=4,
+                                seed=cfg.random_seed, process_index=rank,
+                                process_count=dist.process_count()))
+            timed_epoch_ms(h, timed)  # untimed: cuDNN's default algorithms
+            ms = [timed_epoch_ms(h, timed) for _ in range(DP_GLOO_ROUNDS)]
+            out["arms"][dtype] = dict(
+                metrics=[m for m, _ in steps], launches=[c for _, c in steps],
+                state_errors=errors, free_metrics=[m for m, _ in free],
+                free_launches=[c for _, c in free], digests=digests,
+                free_end_as_phase_i=free_end_as_phase_i,
+                free_drift=free_drift, accs=list(accs), files=files,
+                ms_per_step=ms,
+                local_batch=train_loader.local_batch)
+            del h
+            torch.cuda.empty_cache()
+    finally:
+        with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy()
+    return 0
+
+
+def phase_offsets(failures):
+    """#14 at its four mask shapes and #10 / #11's in-kernel masks at
+    [64, 392, 512] with 8 heads, at offsets 0 and that of sample 32: the
+    bits of the second half computed alone at its offset equal the plain
+    version's at that offset and the global batch's second half. Returns
+    {kernel: launches made} and the rows."""
+    import torch
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import self_attention as sa
+    from gdl_tpu_torch.ops.dropout import (
+        philox_keep_mask,
+        prng_dropout_mask,
+        prng_dropout_mask_ref,
+    )
+
+    dev = torch.device("cuda")
+    kernels.reset_launch_counts()
+    rows, problems = [], []
+    words = torch.tensor([20261018, -77], dtype=torch.int32, device=dev)
+    for (r, c) in MASK_CALLS:
+        for dt in (torch.float32, torch.bfloat16):
+            half = r // 2  # sample 32 of 64 starts at row r / 2
+            offset = half * c
+            whole = prng_dropout_mask(words, (r, c), MM_RATE, dt)
+            ok = True
+            for off, part_rows in ((0, slice(0, half)),
+                                   (offset, slice(half, r))):
+                part = prng_dropout_mask(words, (half, c), MM_RATE, dt,
+                                         offset=off)
+                plain = prng_dropout_mask_ref(words, (half, c), MM_RATE, dt,
+                                              off)
+                ok &= _bit_equal(part, whole[part_rows])
+                ok &= _bit_equal(part, plain)
+            rows.append({"kernel": MASK, "shape": [r, c], "dtype": str(dt),
+                         "offset": offset, "bit_equal": bool(ok)})
+            if not ok:
+                problems.append(f"{MASK} {(r, c)} {dt}: offset bits differ")
+    b, n, ch = OFFSET_SA
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn((b, n, ch), generator=gen, device=dev) * 0.5).to(dt)
+        w = (torch.randn((3 * ch, ch), generator=gen, device=dev)
+             * ch ** -0.5).to(dt)
+        g = torch.randn((b, n, ch), generator=gen, device=dev).to(dt)
+        drop = sa.make_dropout(x, MM_HEADS, MM_RATE, True, "kernel", words)
+        out, qkv, p, keep = sa.self_attention_fused_fwd(
+            x, w, MM_HEADS, drop=drop, return_keep=True)
+        dqkv = sa.self_attention_fused_bwd(qkv, p, g, MM_HEADS, drop=drop)
+        half = b // 2
+        ok_fwd = ok_bwd = True
+        for lo in (0, half):
+            sl = slice(lo, lo + half)
+            off = lo * MM_HEADS * n * n
+            d = sa.make_dropout(x[sl], MM_HEADS, MM_RATE, True, "kernel",
+                                words, offset=off)
+            o2, q2, p2, k2 = sa.self_attention_fused_fwd(
+                x[sl].contiguous(), w, MM_HEADS, drop=d, return_keep=True)
+            plain_keep = philox_keep_mask(words, k2.shape, MM_RATE,
+                                          off).to(torch.uint8)
+            ok_fwd &= (torch.equal(k2, keep[sl]) and torch.equal(k2,
+                                                                plain_keep)
+                       and _bit_equal(o2, out[sl]) and _bit_equal(p2, p[sl]))
+            d2 = sa.self_attention_fused_bwd(q2, p2, g[sl].contiguous(),
+                                             MM_HEADS, drop=d)
+            ok_bwd &= _bit_equal(d2, dqkv[sl])
+        torch.cuda.synchronize()
+        for name, ok in ((SA_FWD, ok_fwd), (SA_BWD, ok_bwd)):
+            rows.append({"kernel": name, "shape": list(OFFSET_SA),
+                         "heads": MM_HEADS, "dtype": str(dt),
+                         "offset": half * MM_HEADS * n * n,
+                         "bit_equal": bool(ok)})
+            if not ok:
+                problems.append(f"{name} {dt}: offset bits differ")
+    launched = {k: v for k, v in kernels.launch_counts.items() if v}
+    emit({"phase": "dp_offsets", "rows": rows, "launches": launched,
+          "problems": problems, "ok": not problems})
+    failures.extend(f"dp offsets: {p}" for p in problems)
+    return launched, rows
+
+
+def phase_distributed(failures, smi: str, refs: dict):
+    """The flagship ResNet-18 DGL trainer data-parallel (phase i's config):
+    1. world size 1 under NCCL from torchrun's variables: 3 checked steps
+       bit-equal to phase i's kernel arm (`refs`), 2 launches of #16 a
+       step, no collective in the steps; then timed steps in turns with a
+       harness built before the process group existed, and with one whose
+       BatchNorms take the multi-rank path (`global_forward`); a profile
+       of a step of it and of the world-1 arm;
+    2. two ranks on the one card over gloo (two processes, batch 32
+       each): the 3 checked steps, each from phase i's kernel arm's state
+       before it, against that arm's step at phase i's bars (losses and
+       gradient norm, then the parameters and BN statistics after it);
+       3 free steps, the ranks' states equal by digest, the generator and
+       step count at the end phase i's, each step replayed by one process
+       from the ranks' state before it at the same bars
+       (`replay_free_steps`); 2 launches of #16 a rank-step, one evaluate
+       with equal accuracies, no file written by rank 1, ms/step;
+    3. the element offsets of #14, #10 and #11 (`phase_offsets`).
+    Returns {"world1": launches a step, "gloo": launches a rank-step,
+    "offsets": (launches, rows)}."""
+    import torch
+    import torch.distributed as tdist
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.data.loader import Loader
+    from gdl_tpu_torch.models.layers import GlobalBatchNorm2d
+    from gdl_tpu_torch.parallel import distributed as dist
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.train.loop import build_harness
+
+    want_step = dict({k: 0 for k in kernels.launch_counts}, **{POOL: 2})
+    result = {"world1": [], "gloo": []}
+    calls = {k: 0 for k in COLLECTIVES}
+    originals = {k: getattr(tdist, k) for k in COLLECTIVES}
+
+    def counting(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return originals[name](*args, **kw)
+        return call
+
+    # 1. world size 1 under NCCL
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": ""}
+    saved_env = {k: os.environ.get(k) for k in env}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for dtype in ("float32", "bfloat16"):
+                problems = []
+                cfg = resnet_dp_config(dtype, tmp, num_workers=8)
+                train_set, _, timed_set = resnet_dp_sets(cfg)
+
+                def loader(ds, shuffle):
+                    return Loader(ds, RESNET_BATCH, shuffle=shuffle,
+                                  drop_last=True, num_workers=8,
+                                  seed=cfg.random_seed)
+
+                # the one-process arm, built before the group exists
+                one = build_harness(cfg, build_model(cfg, seed=777),
+                                    steps_per_epoch=100)
+                os.environ.update(env, MASTER_PORT=str(_free_port()))
+                if not dist.maybe_initialize():
+                    raise RuntimeError("no process group from torchrun's "
+                                       "variables")
+                backend = tdist.get_backend()
+                h = build_harness(cfg, build_model(cfg, seed=777),
+                                  steps_per_epoch=100)
+                steps = recorded_steps(h)
+                for k in COLLECTIVES:
+                    calls[k] = 0
+                    setattr(tdist, k, counting(k))
+                try:
+                    checked_epoch(h, loader(train_set, True))
+                finally:
+                    for k in COLLECTIVES:
+                        setattr(tdist, k, originals[k])
+                step_calls = dict(calls)
+                ref = refs.get(dtype)
+                if ref is None:
+                    problems.append("no phase i reference")
+                else:
+                    for i, ((m, _), r) in enumerate(zip(steps,
+                                                        ref["metrics"])):
+                        for key in ("loss", "loss_f", "loss_a", "loss_v",
+                                    "grad_norm"):
+                            if m[key] != r[key]:
+                                problems.append(f"step {i} {key}: {m[key]}"
+                                                f" != phase i's {r[key]}")
+                    for k, v in h.model.state_dict().items():
+                        if not torch.equal(v.detach().cpu(), ref["state"][k]):
+                            problems.append(f"{k} differs from phase i's")
+                            break
+                launches = [c for _, c in steps]
+                n_checked = len(steps)
+                result["world1"] += launches
+                if len(steps) != DP_CHECKED_STEPS:
+                    problems.append(f"{len(steps)} steps ran")
+                if any(c != want_step for c in launches):
+                    problems.append(f"launches a step {launches}")
+                if any(step_calls.values()):
+                    problems.append(f"collectives in the steps {step_calls}")
+                # timing, the arms in turns; the third normalises through
+                # the multi-rank BatchNorm, whose all-reduces are no-ops
+                g = build_harness(cfg, build_model(cfg, seed=777),
+                                  steps_per_epoch=100)
+                for m in g.model.modules():
+                    if isinstance(m, GlobalBatchNorm2d):
+                        m.forward = m.global_forward
+                timed = list(loader(timed_set, False))
+                arms = {"one_process": one, "world1": h,
+                        "world1_global_bn": g}
+                for arm in arms.values():  # untimed: cuDNN's defaults
+                    timed_epoch_ms(arm, timed)
+                ms = {k: [] for k in arms}
+                order = list(arms)
+                for r in range(DP_TIME_ROUNDS):
+                    for k in (order if r % 2 == 0 else order[::-1]):
+                        ms[k].append(timed_epoch_ms(arms[k], timed))
+                med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+                prof = {k: profiled_epoch(arms[k], timed[:2])
+                        for k in ("world1", "world1_global_bn")}
+                emit({"phase": "dp_world1", "dtype": dtype,
+                      "backend": backend, "batch": RESNET_BATCH,
+                      "checked_steps": n_checked,
+                      "bit_equal_to_phase_i": not problems,
+                      "launches_per_step": [c[POOL] for c in launches],
+                      "collectives_in_steps": step_calls,
+                      "ms_per_step": med, "timed_ms_per_step": ms,
+                      "profile": prof, "nvidia_smi": smi,
+                      "problems": problems,
+                      "ok": not problems})
+                failures.extend(f"dp world1 {dtype}: {p}" for p in problems)
+                dist.destroy()
+                del one, h, g, arms
+                torch.cuda.empty_cache()
+        finally:
+            for k in COLLECTIVES:
+                setattr(tdist, k, originals[k])
+            dist.destroy()
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    # 2. two ranks on the one card over gloo. The flagship's trajectory is
+    # too sensitive to hold two different summation orders together for
+    # three free steps (weights one ulp up move the one-process run's
+    # parameters ~8e-4 in three), so every step is checked from the state
+    # it started from: phase i's for the checked steps, the ranks' own
+    # for the free steps, whose rank agreement is exact (digests)
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, ref in refs.items():
+            snaps = ref["snapshots"] + [{
+                "model": ref["state"], "generator": ref["generator"],
+                "steps": ref["steps"]}]
+            for k, snap in enumerate(snaps):
+                torch.save(snap, os.path.join(tmp, f"snap_{dtype}_{k}.pt"))
+        wenv = dict(os.environ, WORLD_SIZE=str(DP_RANKS),
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        spec = json.dumps({"dir": tmp})
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp_worker", spec],
+            env=dict(wenv, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=400)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        worker_s = time.perf_counter() - t
+        problems = []
+        if any(p.returncode for p in procs):
+            problems.append(f"workers exited {[p.returncode for p in procs]}"
+                            f": {outs[0][-1500:]} {outs[1][-1500:]}")
+        ranks = []
+        for r in range(DP_RANKS):
+            path = os.path.join(tmp, f"rank{r}.json")
+            ranks.append(json.load(open(path)) if os.path.exists(path)
+                         else {"arms": {}})
+        for dtype in ("float32", "bfloat16"):
+            arms = [rk["arms"].get(dtype) for rk in ranks]
+            ref = refs.get(dtype)
+            if None in arms or ref is None:
+                problems.append(f"{dtype}: no result")
+                continue
+            a0, a1 = arms
+            launches = a0["launches"] + a1["launches"]
+            result["gloo"] += launches
+            if (len(a0["launches"]) != DP_CHECKED_STEPS
+                    or any(c != want_step for c in launches)):
+                problems.append(f"{dtype}: launches a rank-step {launches}")
+            worst = 0.0
+            # each rank's loss is its rows' mean: the global one is their
+            # mean; grad_norm is the global gradient's already
+            losses = [(m0["loss"] + m1["loss"]) / 2
+                      for m0, m1 in zip(a0["metrics"], a1["metrics"])]
+            for i, (m0, m1, r) in enumerate(zip(a0["metrics"],
+                                                a1["metrics"],
+                                                ref["metrics"])):
+                for key, got in (("loss", losses[i]),
+                                 ("grad_norm", m0["grad_norm"])):
+                    worst = max(worst, abs(got - r[key]) / abs(r[key]))
+                if m0["grad_norm"] != m1["grad_norm"]:
+                    problems.append(f"{dtype} step {i}: the ranks' gradient "
+                                    f"norms differ")
+            if worst > RESNET_LOSS_RTOL[dtype]:
+                problems.append(f"{dtype}: losses differ by {worst} relative")
+            errs = a0["state_errors"] + a1["state_errors"]
+            param_err = max((e[0] for e in errs), default=float("inf"))
+            stat_err = max((e[1] for e in errs), default=float("inf"))
+            if a0["state_errors"] != a1["state_errors"]:
+                problems.append(f"{dtype}: the ranks' states differ")
+            if dtype == "float32" and param_err > RESNET_PARAM_ATOL:
+                problems.append(f"{dtype}: parameters differ by {param_err}")
+            if stat_err > RESNET_STAT_ATOL[dtype]:
+                problems.append(f"{dtype}: BN running stats differ by "
+                                f"{stat_err}")
+            # the free steps: exact agreement of the ranks, and each step
+            # against one process's step from the same state
+            free_launches = a0["free_launches"] + a1["free_launches"]
+            if (len(a0["free_launches"]) != DP_CHECKED_STEPS
+                    or any(c != want_step for c in free_launches)):
+                problems.append(f"{dtype}: free launches a rank-step "
+                                f"{free_launches}")
+            if (a0["digests"] != a1["digests"]
+                    or len(a0["digests"]) != DP_CHECKED_STEPS + 1):
+                problems.append(f"{dtype}: the ranks' states differ in the "
+                                f"free steps")
+            if not (a0["free_end_as_phase_i"] and a1["free_end_as_phase_i"]):
+                problems.append(f"{dtype}: generator or step count after the "
+                                f"free steps differ from phase i's")
+            free_losses = [(m0["loss"] + m1["loss"]) / 2 for m0, m1 in
+                           zip(a0["free_metrics"], a1["free_metrics"])]
+            replay = replay_free_steps(dtype, os.path.join(tmp,
+                                                           f"free_{dtype}"))
+            replay_worst = 0.0
+            for got, m0, r in zip(free_losses, a0["free_metrics"],
+                                  replay["metrics"]):
+                for key, v in (("loss", got), ("grad_norm", m0["grad_norm"])):
+                    replay_worst = max(replay_worst,
+                                       abs(v - r[key]) / abs(r[key]))
+            replay_param = max((e[0] for e in replay["errors"]),
+                               default=float("inf"))
+            replay_stat = max((e[1] for e in replay["errors"]),
+                              default=float("inf"))
+            if len(replay["errors"]) != DP_CHECKED_STEPS:
+                problems.append(f"{dtype}: {len(replay['errors'])} free "
+                                f"steps replayed")
+            if replay_worst > RESNET_LOSS_RTOL[dtype]:
+                problems.append(f"{dtype}: free steps' losses differ from "
+                                f"the replay by {replay_worst} relative")
+            if dtype == "float32" and replay_param > RESNET_PARAM_ATOL:
+                problems.append(f"{dtype}: free steps' parameters differ "
+                                f"from the replay by {replay_param}")
+            if replay_stat > RESNET_STAT_ATOL[dtype]:
+                problems.append(f"{dtype}: free steps' BN running stats "
+                                f"differ from the replay by {replay_stat}")
+            if a0["accs"] != a1["accs"]:
+                problems.append(f"{dtype}: accuracies {a0['accs']} != "
+                                f"{a1['accs']}")
+            if a1["files"] or not a0["files"]:
+                problems.append(f"{dtype}: rank 0 wrote {a0['files']}, rank "
+                                f"1 {a1['files']}")
+            emit({"phase": "dp_gloo", "dtype": dtype, "ranks": DP_RANKS,
+                  "device": "cuda:0", "backend": "gloo",
+                  "batch": RESNET_BATCH, "rank_batch": a0["local_batch"],
+                  "max_rel_loss_diff": worst,
+                  "loss_rtol": RESNET_LOSS_RTOL[dtype],
+                  "loss": losses,
+                  "phase_i_loss": [m["loss"] for m in ref["metrics"]],
+                  "grad_norm": [m["grad_norm"] for m in a0["metrics"]],
+                  "phase_i_grad_norm": [m["grad_norm"]
+                                        for m in ref["metrics"]],
+                  "max_abs_param_diff": param_err,
+                  "max_abs_bn_stat_diff": stat_err,
+                  "launches_per_rank_step": [c[POOL] for c in launches],
+                  "free_loss": free_losses,
+                  "free_grad_norm": [m["grad_norm"]
+                                     for m in a0["free_metrics"]],
+                  "free_launches_per_rank_step": [c[POOL]
+                                                  for c in free_launches],
+                  "free_digests_equal": a0["digests"] == a1["digests"],
+                  "free_end_as_phase_i": [a0["free_end_as_phase_i"],
+                                          a1["free_end_as_phase_i"]],
+                  "free_replay_max_rel_loss_diff": replay_worst,
+                  "free_replay_max_abs_param_diff": replay_param,
+                  "free_replay_max_abs_bn_stat_diff": replay_stat,
+                  "free_drift_from_phase_i": a0["free_drift"],
+                  "accs": [a0["accs"], a1["accs"]],
+                  "files": [a0["files"], a1["files"]],
+                  "ms_per_step": [a0["ms_per_step"], a1["ms_per_step"]],
+                  "ms_note": "gloo stages every collective through the "
+                             "host: no yardstick for NCCL",
+                  "workers_s": worker_s, "nvidia_smi": smi})
+        emit({"phase": "dp_gloo_check", "problems": problems,
+              "ok": not problems})
+        failures.extend(f"dp gloo: {p}" for p in problems)
+
+    # 3. the offsets
+    result["offsets"] = phase_offsets(failures)
+    return result
+
+
+def replay_free_steps(dtype: str, free_dir: str) -> dict:
+    """One process replays each of the two ranks' free steps on its global
+    batch, from their state before it (free_dir/<k>.pt, saved by rank 0):
+    {"metrics": each step's, "errors": (parameters, BN statistics) max
+    |Δ| against the ranks' state after it}."""
+    import torch
+
+    from gdl_tpu_torch.data.loader import Loader
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.train.loop import build_harness
+
+    def load(k):
+        return torch.load(os.path.join(free_dir, f"{k}.pt"),
+                          weights_only=False)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = resnet_dp_config(dtype, tmp, num_workers=8)
+        h = build_harness(cfg, build_model(cfg, seed=777),
+                          steps_per_epoch=100)
+        steps = recorded_steps(h)
+        errors, state = [], load(0)
+        for k, batch in enumerate(Loader(
+                resnet_dp_sets(cfg)[0], RESNET_BATCH, shuffle=True,
+                drop_last=True, num_workers=8, seed=cfg.random_seed)):
+            restore_snapshot(h, state)
+            checked_epoch(h, [batch])
+            state = load(k + 1)
+            errors.append(state_errors(h.model, state["model"]))
+        del h
+        torch.cuda.empty_cache()
+    return {"metrics": [m for m, _ in steps], "errors": errors}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every result line to this JSON file")
     ap.add_argument("--export_job", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.export_job:  # one of phase q's exports, in its own process
         return export_job(args.export_job)
+    if args.dp_worker:  # one rank of phase r's gloo run
+        return dp_worker(args.dp_worker)
 
     import torch
 
@@ -3256,8 +4047,8 @@ def main(argv=None) -> int:
                                {SAVEP: 0, BWD: 0})
     pool_parity = run_phase(
         "maxpool parity", lambda: phase_maxpool_parity(failures), [])
-    pool_launches = run_phase("resnet", lambda: phase_resnet(failures, smi),
-                              0)
+    pool_launches, resnet_refs = run_phase(
+        "resnet", lambda: phase_resnet(failures, smi), (0, {}))
     sa_parity, mask_parity = run_phase(
         "sa parity", lambda: phase_sa_parity(failures), ([], []))
     mm_launches = run_phase("mmformer", lambda: phase_mmformer(failures, smi),
@@ -3278,6 +4069,9 @@ def main(argv=None) -> int:
     export_launch, export_replays = run_phase(
         "export", lambda: phase_export(failures, smi),
         (dict(zero), {KERNEL: 0, MLP: 0, SA_EVAL: 0}))
+    dp = run_phase("distributed",
+                   lambda: phase_distributed(failures, smi, resnet_refs),
+                   {"world1": [], "gloo": [], "offsets": ({}, [])})
     record.update(parity=parity, train_parity=train_parity,
                   maxpool_parity=pool_parity, sa_parity=sa_parity,
                   mask_parity=mask_parity, flag_parity=flag_attn + flag_mlp,
@@ -3671,6 +4465,20 @@ def main(argv=None) -> int:
         entry["export_launches_per_forward"] = (
             export_launch[name] / export_replays[name]
             if export_replays[name] else None)
+    # phase r: #16 on the data-parallel paths (a step of the world-1 run,
+    # a rank-step of the two gloo ranks); #14, #10 and #11 at an element
+    # offset, bit for bit (the launches of those checks)
+    entries[3]["dp_world1_launches_per_step"] = [c[POOL]
+                                                 for c in dp["world1"]]
+    entries[3]["dp_gloo_launches_per_rank_step"] = [c[POOL]
+                                                    for c in dp["gloo"]]
+    offset_launched, offset_rows = dp["offsets"]
+    for entry in (entries[7], entries[4], entries[5]):
+        mine = [r["bit_equal"] for r in offset_rows
+                if r["kernel"] == entry["name"]]
+        entry["offset_bit_equal"] = all(mine) if mine else None
+        entry["offset_checks"] = len(mine)
+        entry["offset_launches"] = offset_launched.get(entry["name"], 0)
     record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
@@ -3709,6 +4517,15 @@ def main(argv=None) -> int:
         if not entry["joint_launches"]:
             failures.append(f"{entry['name']} was never launched on the "
                             f"joint (OGM-GE) path")
+    for key in ("dp_world1_launches_per_step",
+                "dp_gloo_launches_per_rank_step"):
+        if not entries[3][key] or set(entries[3][key]) != {2}:
+            failures.append(f"{POOL} on the data-parallel path: {key} "
+                            f"{entries[3][key]}")
+    for entry in (entries[7], entries[4], entries[5]):
+        if not entry["offset_bit_equal"] or not entry["offset_launches"]:
+            failures.append(f"{entry['name']}: offsets not checked or "
+                            f"not bit-equal")
     # every fixed artifact, in both dtypes, replayed and counted in full
     want_export = dict(zero, **{
         k: v * N_REQUESTS * 2 for k, v in SWIN_EXPORT_LAUNCHES.items()}, **{

@@ -22,9 +22,10 @@ kernels and their plain versions in training and at eval,
 `fuse_qkv_gemm 0` takes the qkv projection out of the attention kernel,
 `fuse_mlp 1` runs each block's MLP as one kernel. Options that are
 accepted and not ported yet raise NotImplementedError where they would
-take effect (`train/loop.py::check_supported`): among them `dp` and `mp`
-above one device, until the multi-GPU slice (`--dp -1`, all devices, is
-the port's one device).
+take effect (`train/loop.py::check_supported`): among them `--mp`
+above 1 (the model-parallel mesh). Data parallelism runs one process a
+device under `torchrun` (`parallel/distributed.py`): `--dp -1` is the
+world size, and any other `--dp` must equal it.
 """
 
 from __future__ import annotations
@@ -128,14 +129,15 @@ class Config:
     warmup: bool = False
     gamma: float = 1.0
     # --- gdl_tpu's additions ---
-    dp: int = -1  # data-parallel mesh size; -1 = all devices
+    dp: int = -1  # data-parallel size; -1 = the world size of torchrun's
+    # process group (1 without one); another value must equal it
     mp: int = 1  # model-parallel mesh size (fusion/classifier dense kernels)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     fast_dropout_rng: bool = True  # gdl_tpu's choice of PRNG lowering;
     # ignored by the port (torch.Generator draws)
-    sync_bn: bool = True  # global-batch BN stats. --sync_bn 0 selects
-    # per-replica (DataParallel-semantics) BN, one group per replica; with
-    # the port's one device that is one group as well
+    sync_bn: bool = True  # global-batch BN stats (all-reduced over the
+    # ranks). --sync_bn 0 selects per-replica (DataParallel-semantics) BN
+    # in the ResNet encoders: each rank normalises with its own rows
     strict_compat: bool = False  # replicate reference quirks that affect
     # reported accuracy (first-N frame selection, drop_last test truncation)
     log_grad_csv: bool = True  # per-step encoder grad-magnitude CSV
@@ -212,13 +214,11 @@ class Config:
     @property
     def bn_groups(self) -> int:
         """BN statistic groups: 1 = sync-BN (global batch); with
-        --sync_bn 0, one group per data-parallel replica (DataParallel
-        semantics). With one device and no --dp it is 1."""
-        if self.sync_bn:
-            return 1
-        if self.dp > 0:
-            return self.dp
-        return 1  # the port runs on one device
+        --sync_bn 0, one group per data-parallel rank (DataParallel
+        semantics, each rank's own rows): --dp, which the CLIs set to the
+        world size where it is -1 (`parallel.distributed
+        .data_parallel_size`)."""
+        return 1 if self.sync_bn else max(self.dp, 1)
 
 
 def add_arguments(parser: argparse.ArgumentParser, dgl: bool = True) -> None:

@@ -24,12 +24,12 @@ import numpy as np
 
 
 class Loader:
-    """batch_size is always the GLOBAL batch. Under multi-host
-    (process_count > 1) each host decodes ONLY its contiguous
+    """batch_size is always the GLOBAL batch. Over several processes
+    (process_count > 1: the ranks of torchrun's group,
+    `train/loop.py::make_loaders`) each rank decodes ONLY its contiguous
     batch_size/process_count slice of every batch — the shuffle order is
-    seed-deterministic and identical on all hosts, so the slices partition
-    each global batch exactly. The port's train loop runs one process
-    (process_count 1); the striding is kept for the multi-GPU slice."""
+    seed-deterministic and identical on all ranks, so the slices partition
+    each global batch exactly."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool,
                  drop_last: bool, num_workers: int = 8, seed: int = 0,

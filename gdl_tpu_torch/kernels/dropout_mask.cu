@@ -30,6 +30,11 @@
 // rest shared by the round. The stores that do not fill a round, and the
 // last n % (16 / sizeof(T)) elements, are written apart after the walk.
 //
+// Element offset: the mask is elements offset .. offset + n - 1 of the
+// stream (offset a multiple of 4, so the counter of a group is that of
+// group g + offset / 4): a rank of a data-parallel run writes its rows of
+// the global batch's mask. Offset 0 is the mask of before, bit for bit.
+//
 // Plain C interface: `out` and `seed` are device pointers, `stream` a
 // cudaStream_t; dtype 0 = float32, 1 = bfloat16. `out` must be 16-byte
 // aligned (as the allocator's are). Returns the error code of
@@ -75,16 +80,18 @@ struct Keys {
 };
 
 // Philox4x32-10 (philox.cuh's philox4x32_10) of K groups at once, the
-// counters (lo32(group), hi32(group), 0, 0), their rounds interleaved
+// counters (lo32(goff + group), hi32(goff + group), 0, 0), their rounds
+// interleaved
 template <int K, typename Index>
 __device__ __forceinline__ void philox_groups(const Index (&group)[K],
-                                              const Keys& key,
+                                              Index goff, const Keys& key,
                                               uint32_t (&w)[K][4]) {
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    w[j][0] = static_cast<uint32_t>(group[j]);
+    const Index g = group[j] + goff;
+    w[j][0] = static_cast<uint32_t>(g);
     w[j][1] = sizeof(Index) > 4
-                  ? static_cast<uint32_t>(static_cast<uint64_t>(group[j]) >> 32)
+                  ? static_cast<uint32_t>(static_cast<uint64_t>(g) >> 32)
                   : 0u;
     w[j][2] = 0u;
     w[j][3] = 0u;
@@ -126,7 +133,7 @@ __device__ __forceinline__ uint4 pack(const uint32_t (*w)[4], uint32_t thresh,
 
 template <typename T, typename Index>
 __global__ void __launch_bounds__(kThreads)
-dropout_mask_kernel(T* __restrict__ out, Index n,
+dropout_mask_kernel(T* __restrict__ out, Index n, Index goff,
                     const int* __restrict__ seed, uint32_t keep_thresh,
                     uint32_t kept_bits) {
   constexpr int E = Elem<T>::kPerStore;  // elements a store
@@ -154,7 +161,7 @@ dropout_mask_kernel(T* __restrict__ out, Index n,
       for (int q = 0; q < G; ++q)
         group[s * G + q] = (base + s * stride) * G + q;
     uint32_t w[kChains][4];
-    philox_groups<kChains, Index>(group, key, w);
+    philox_groups<kChains, Index>(group, goff, key, w);
 #pragma unroll
     for (int s = 0; s < S; ++s)
       dst[base + s * stride] = pack<T, G>(w + s * G, keep_thresh, kept_bits);
@@ -165,7 +172,7 @@ dropout_mask_kernel(T* __restrict__ out, Index n,
 #pragma unroll
     for (int q = 0; q < G; ++q) group[q] = st * G + q;
     uint32_t w[G][4];
-    philox_groups<G, Index>(group, key, w);
+    philox_groups<G, Index>(group, goff, key, w);
     dst[st] = pack<T, G>(w, keep_thresh, kept_bits);
   }
   // the last n % E elements (at most G groups), by the grid's thread 0
@@ -174,7 +181,7 @@ dropout_mask_kernel(T* __restrict__ out, Index n,
       const Index e0 = stores * E + k;
       Index group[1] = {e0 / 4};
       uint32_t w[1][4];
-      philox_groups<1, Index>(group, key, w);
+      philox_groups<1, Index>(group, goff, key, w);
       uint16_t* o16 = reinterpret_cast<uint16_t*>(out);
       uint32_t* o32 = reinterpret_cast<uint32_t*>(out);
       for (int t = 0; t < 4 && e0 + t < n; ++t) {
@@ -207,8 +214,8 @@ cudaError_t resident_blocks(int* blocks) {
 }
 
 template <typename T, typename Index>
-int launch_as(void* out, uint64_t n, const void* seed, unsigned keep_thresh,
-              uint32_t kept_bits, cudaStream_t stream) {
+int launch_as(void* out, uint64_t n, uint64_t offset, const void* seed,
+              unsigned keep_thresh, uint32_t kept_bits, cudaStream_t stream) {
   constexpr uint64_t per_block =
       static_cast<uint64_t>(kThreads) * kChains * 4;  // elements a round
   int resident = 0;
@@ -219,33 +226,40 @@ int launch_as(void* out, uint64_t n, const void* seed, unsigned keep_thresh,
   dropout_mask_kernel<T, Index>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<T*>(out), static_cast<Index>(n),
-          static_cast<const int*>(seed), keep_thresh, kept_bits);
+          static_cast<Index>(offset / 4), static_cast<const int*>(seed),
+          keep_thresh, kept_bits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(void* out, uint64_t n, const void* seed, unsigned keep_thresh,
-           float inv_keep, cudaStream_t stream) {
+int launch(void* out, uint64_t n, uint64_t offset, const void* seed,
+           unsigned keep_thresh, float inv_keep, cudaStream_t stream) {
   if (n == 0) return 0;
   if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (offset % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const uint32_t kept = Elem<T>::bits(inv_keep);
   // a 32-bit counter and indices while every element index fits in 32 bits
-  if (n < (uint64_t{1} << 32))
-    return launch_as<T, uint32_t>(out, n, seed, keep_thresh, kept, stream);
-  return launch_as<T, uint64_t>(out, n, seed, keep_thresh, kept, stream);
+  if (offset + n < (uint64_t{1} << 32))
+    return launch_as<T, uint32_t>(out, n, offset, seed, keep_thresh, kept,
+                                  stream);
+  return launch_as<T, uint64_t>(out, n, offset, seed, keep_thresh, kept,
+                                stream);
 }
 
 }  // namespace
 
 extern "C" int gdl_dropout_mask_launch(void* out, long long n,
-                                       const void* seed,
+                                       long long offset, const void* seed,
                                        unsigned keep_thresh, float inv_keep,
                                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint64_t count = static_cast<uint64_t>(n);
-  if (dtype == 0) return launch<float>(out, count, seed, keep_thresh, inv_keep, s);
+  const uint64_t off = static_cast<uint64_t>(offset);
+  if (dtype == 0)
+    return launch<float>(out, count, off, seed, keep_thresh, inv_keep, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(out, count, seed, keep_thresh, inv_keep, s);
+    return launch<__nv_bfloat16>(out, count, off, seed, keep_thresh, inv_keep,
+                                 s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -100,6 +100,8 @@ struct Args {
   unsigned char* keep_out;  // mode 2: the keep mask as bytes, or null
   int heads;
   int dropout_mode;  // 0 none, 1 mask, 2 Philox
+  uint64_t drop_offset;  // mode 2: Philox index of element 0, a multiple
+                         // of 4 (a rank's first row of the global batch)
   uint32_t keep_thresh;
   float inv_keep;
   int rowvec;  // 1: N % 4 == 0 and p, mask, keep_out (ds) 16-byte aligned
@@ -544,7 +546,7 @@ __device__ void train_row(float* row, float sum, const Args& a, uint64_t rb,
     float m[4] = {1.f, 1.f, 1.f, 1.f};
     if (a.dropout_mode == 2) {
       bool keep[4];
-      philox::keep4(rb + j, k0, k1, a.keep_thresh, keep);
+      philox::keep4(a.drop_offset + rb + j, k0, k1, a.keep_thresh, keep);
 #pragma unroll
       for (int t = 0; t < 4; ++t) m[t] = keep[t] ? a.inv_keep : 0.f;
       if (a.keep_out != nullptr) {
@@ -610,15 +612,15 @@ __device__ void softmax_rows(float* S, Stats ss, const Args& a, int lds,
 
 // The dropout multiplier m of the four elements e0 .. e0 + 3 of a row-major
 // [B, H, N, N] (`valid` of them in the row; `vec`: valid == 4 and aligned):
-// drawn again by Philox (mode 2, as the forward drew it), read in T (mode
-// 1), or 1 (mode 0).
+// drawn again by Philox at drop_offset + e0 (mode 2, as the forward drew
+// it), read in T (mode 1), or 1 (mode 0).
 template <typename T>
 __device__ inline void multiplier4(const Args& a, uint64_t e0, int valid,
                                    bool vec, uint32_t k0, uint32_t k1,
                                    float m[4]) {
   if (a.dropout_mode == 2) {
     bool keep[4];
-    philox::keep4(e0, k0, k1, a.keep_thresh, keep);
+    philox::keep4(a.drop_offset + e0, k0, k1, a.keep_thresh, keep);
 #pragma unroll
     for (int t = 0; t < 4; ++t) m[t] = keep[t] ? a.inv_keep : 0.f;
   } else if (a.dropout_mode == 1) {

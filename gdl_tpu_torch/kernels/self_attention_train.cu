@@ -29,7 +29,9 @@
 // dropout_mode: 0 none; 1 the mask [B, H, N, N] in T with values
 // {0, 1/(1-rate)} is read from `mask`; 2 the mask is drawn in the kernel
 // by Philox from the two seed words at `seed` (device memory), keyed on
-// the flat [B, H, N, N] index, keeping an element iff its word <
+// drop_offset + the flat [B, H, N, N] index (drop_offset a multiple of 4:
+// a rank's first element of the global batch's mask, 0 in one process),
+// keeping an element iff its word <
 // keep_thresh, and drawn again, bit for bit, in the backward. `keep_out`,
 // if not null, receives the mode-2 keep mask as bytes (gdl_tpu's
 // emit_mask output; a debug output for holding the kernel's bits to the
@@ -457,7 +459,7 @@ int launch_forward(const void* x, const void* w, void* qkv, void* p,
                    void* out, const void* mask, const void* seed,
                    void* keep_out, int batch, int n, int c, int heads, int d,
                    float scale, int dropout_mode, unsigned keep_thresh,
-                   float inv_keep, cudaStream_t s) {
+                   float inv_keep, long long drop_offset, cudaStream_t s) {
   if (x != nullptr) {
     const int err = gemm::launch<T>(x, w, qkv, batch * n, 3 * c, c, s);
     if (err != 0) return err;
@@ -475,6 +477,7 @@ int launch_forward(const void* x, const void* w, void* qkv, void* p,
   a.seed = static_cast<const int*>(seed);
   a.keep_out = static_cast<unsigned char*>(keep_out);
   a.dropout_mode = dropout_mode;
+  a.drop_offset = static_cast<uint64_t>(drop_offset);
   a.keep_thresh = keep_thresh;
   a.inv_keep = inv_keep;
   a.rowvec = n % 4 == 0 && aligned16(p) &&
@@ -505,10 +508,11 @@ extern "C" int gdl_sa_fwd_launch(const void* x, const void* w, void* qkv,
                                  const void* seed, void* keep_out, int batch,
                                  int n, int c, int heads, int d, float scale,
                                  int dropout_mode, unsigned keep_thresh,
-                                 float inv_keep, int dtype, void* stream) {
+                                 float inv_keep, long long drop_offset,
+                                 int dtype, void* stream) {
   return forward(dtype, x, w, qkv, p, out, mask, seed, keep_out, batch, n, c,
                  heads, d, scale, dropout_mode, keep_thresh, inv_keep,
-                 static_cast<cudaStream_t>(stream));
+                 drop_offset, static_cast<cudaStream_t>(stream));
 }
 
 // kernel #12: the row tiles of gdl_sa_fwd_launch alone, on a qkv in T
@@ -517,12 +521,12 @@ extern "C" int gdl_sa_qkv_fwd_launch(const void* qkv, void* p, void* out,
                                      void* keep_out, int batch, int n, int c,
                                      int heads, int d, float scale,
                                      int dropout_mode, unsigned keep_thresh,
-                                     float inv_keep, int dtype,
-                                     void* stream) {
+                                     float inv_keep, long long drop_offset,
+                                     int dtype, void* stream) {
   return forward(dtype, static_cast<const void*>(nullptr),
                  static_cast<const void*>(nullptr), const_cast<void*>(qkv), p,
                  out, mask, seed, keep_out, batch, n, c, heads, d, scale,
-                 dropout_mode, keep_thresh, inv_keep,
+                 dropout_mode, keep_thresh, inv_keep, drop_offset,
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -532,7 +536,8 @@ extern "C" int gdl_sa_bwd_launch(const void* qkv, const void* p,
                                  int batch, int n, int c, int heads, int d,
                                  float scale, int dropout_mode,
                                  unsigned keep_thresh, float inv_keep,
-                                 int dtype, void* stream) {
+                                 long long drop_offset, int dtype,
+                                 void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   sa_rows::Args a{};
   a.qkv = qkv;
@@ -546,6 +551,7 @@ extern "C" int gdl_sa_bwd_launch(const void* qkv, const void* p,
   a.mask = mask;
   a.seed = static_cast<const int*>(seed);
   a.dropout_mode = dropout_mode;
+  a.drop_offset = static_cast<uint64_t>(drop_offset);
   a.keep_thresh = keep_thresh;
   a.inv_keep = inv_keep;
   a.dout = dout;

@@ -12,13 +12,15 @@ modulation of the encoders' conv kernels (live unless --strict_compat;
 off for --modulation Normal), then SGD, AdaGrad or AdamW
 (--optimizer sgd | AdaGrad | Adam). --backbone swin selects dual Swin
 encoders, otherwise dual ResNet-18. Without --train, --ckpt_path names a
-reference-schema `.pth` to evaluate. Runs on one CUDA device;
-`--device cpu` is the one way to ask for the CPU, and without it a
-machine without CUDA raises before anything runs. In eval mode,
+reference-schema `.pth` to evaluate. Runs on one CUDA device, or under
+`torchrun` data-parallel on one a process (`train/loop.py`);
+`--device cpu` is the one way to ask for the CPU (gloo between
+processes), and without it a machine without CUDA raises before
+anything runs. In eval mode,
 `--export_path` also writes the serving artifact of the joint model's
 eval forward (`serve.export_from_checkpoint(..., dgl=False)`: the
 11-tuple; `--export_poly_batch 1` for any batch size), as main.py does;
-with --train it is ignored, with a warning. A `.pth` is also served
+with --train it is ignored, with a warning. Rank 0 writes it. A `.pth` is also served
 eagerly through `serve.load_from_checkpoint(..., dgl=False)`.
 """
 
@@ -27,6 +29,13 @@ import warnings
 
 from gdl_tpu_torch.config import add_arguments, from_args
 from gdl_tpu_torch.data.datasets import make_dataset
+from gdl_tpu_torch.parallel.distributed import (
+    barrier,
+    data_parallel_size,
+    destroy,
+    is_primary,
+    maybe_initialize,
+)
 from gdl_tpu_torch.serve import (
     build_model,
     export_from_checkpoint,
@@ -51,6 +60,15 @@ def get_arguments(argv=None):
 def main(argv=None):
     args = get_arguments(argv)
     cfg = from_args(args)
+    maybe_initialize(device=cfg.device)  # torchrun's process group
+    cfg.dp = data_parallel_size(cfg.dp)
+    try:
+        _main(args, cfg)
+    finally:
+        destroy()
+
+
+def _main(args, cfg):
     print(cfg)
     if args.export_path and cfg.train:
         warnings.warn("--export_path is read in eval mode only (without "
@@ -66,12 +84,13 @@ def main(argv=None):
     else:
         test_set = make_dataset(cfg, "test")
         run_eval(cfg, model, test_set, cfg.ckpt_path, dgl=False)
-        if args.export_path:
+        if args.export_path and is_primary():
             export_from_checkpoint(cfg, cfg.ckpt_path, args.export_path,
                                    dgl=False,
                                    poly_batch=bool(args.export_poly_batch),
                                    device=cfg.device)
             print("Serving artifact written to", args.export_path)
+        barrier()
 
 
 if __name__ == "__main__":

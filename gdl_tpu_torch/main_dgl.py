@@ -8,7 +8,11 @@ Same flags (main_dgl.py:24-65), same stdout/CSV/checkpoint artifacts
 (SURVEY §5.5, §3.6), on one CUDA device: on-device preprocessing, the
 single-backward DGL loss, clip 40 + SGD. `--device cpu` is the one way
 to ask for the CPU; without it a machine without CUDA raises before
-anything runs. Without `--train`, `--ckpt_path` names a reference-schema
+anything runs. Data-parallel over N processes, one a device (NCCL; gloo
+with `--device cpu`), with `--batch_size` the global batch:
+
+    torchrun --nproc_per_node N -m gdl_tpu_torch.main_dgl --train \
+        --eval_drop_last 1 ...  # --dp -1 (the default) or N Without `--train`, `--ckpt_path` names a reference-schema
 `.pth` to evaluate.
 """
 
@@ -16,6 +20,11 @@ import argparse
 
 from gdl_tpu_torch.config import add_arguments, from_args
 from gdl_tpu_torch.data.datasets import make_dataset
+from gdl_tpu_torch.parallel.distributed import (
+    data_parallel_size,
+    destroy,
+    maybe_initialize,
+)
 from gdl_tpu_torch.serve import build_model, resolve_device
 from gdl_tpu_torch.train.loop import check_supported, run_eval, run_training
 
@@ -28,6 +37,15 @@ def get_arguments(argv=None):
 
 def main(argv=None):
     cfg = from_args(get_arguments(argv))
+    maybe_initialize(device=cfg.device)  # torchrun's process group
+    cfg.dp = data_parallel_size(cfg.dp)
+    try:
+        _main(cfg)
+    finally:
+        destroy()
+
+
+def _main(cfg):
     print(cfg)
     check_supported(cfg)
     resolve_device(cfg.device)  # raises before any work when CUDA is absent

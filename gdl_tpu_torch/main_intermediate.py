@@ -10,8 +10,11 @@ Same flags as `main_dgl` plus `--model`, `--share_unimodal_streams`
 frame). Per epoch: train, evaluate, one CSV row in
 `{dataset}_{model}.csv` (after the [1000, 1000, 1000] sentinel row), and
 on a new best accuracy after epoch 0 a reference-schema `.pth`. Runs on
-one CUDA device; `--device cpu` is the one way to ask for the CPU, and
-without it a machine without CUDA raises before anything runs.
+one CUDA device, or under `torchrun` on one a process, data-parallel
+over the global batch (`train/loop.py`; `--batched_inter 1` is refused
+there); `--device cpu` is the one way to ask for the CPU (gloo between
+processes), and without it a machine without CUDA raises before
+anything runs.
 `--export_path` writes the serving artifact of the model's eval forward
 from the `.pth` at `--ckpt_path` and exits, as main_intermediate.py does
 (`serve.export_intermediate_from_checkpoint`; `--export_poly_batch 1`
@@ -26,8 +29,15 @@ import torch
 
 from gdl_tpu_torch.config import add_arguments, from_args
 from gdl_tpu_torch.data.datasets import make_dataset
-from gdl_tpu_torch.data.loader import Loader
 from gdl_tpu_torch.models.intermediate import TripleLogits, build_intermediate
+from gdl_tpu_torch.parallel.distributed import (
+    barrier,
+    data_parallel_size,
+    destroy,
+    is_primary,
+    maybe_initialize,
+    process_count,
+)
 from gdl_tpu_torch.serve import (
     export_intermediate_from_checkpoint,
     resolve_device,
@@ -38,6 +48,8 @@ from gdl_tpu_torch.train.loop import (
     assemble_harness,
     check_supported,
     evaluate,
+    make_loaders,
+    sync_replica_stats,
     train_one_epoch,
 )
 from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
@@ -106,6 +118,11 @@ def build_harness(cfg, model, kind: str, steps_per_epoch: int,
     if cfg.resume:  # gdl_tpu's main_intermediate.py has no resume either
         raise NotImplementedError(
             "--resume is not supported by gdl_tpu_torch.main_intermediate")
+    if getattr(model, "batched_inter", False) and process_count() > 1:
+        # the [3B] stack of three passes is not a rank's rows of one
+        # global batch, so its dropout masks cannot take the rank's offset
+        raise NotImplementedError(
+            "--batched_inter 1 over several ranks is not ported")
 
     def make_step(model, optimizer, preprocess, generator):
         if kind == "single":
@@ -124,16 +141,14 @@ def build_harness(cfg, model, kind: str, steps_per_epoch: int,
 
 def run_training(cfg, model, kind: str, model_name: str, train_set, test_set,
                  raw_batches: bool = True, device=None) -> float:
-    """The epoch loop of main_intermediate.py:217-248 → best accuracy."""
-    train_loader = Loader(train_set, cfg.batch_size, shuffle=True,
-                          drop_last=True, num_workers=cfg.num_workers,
-                          seed=cfg.random_seed)
-    test_loader = Loader(test_set, cfg.batch_size, shuffle=False,
-                         drop_last=cfg.eval_drop_last,
-                         num_workers=cfg.num_workers, seed=cfg.random_seed)
+    """The epoch loop of main_intermediate.py:217-248 → best accuracy.
+    Under a process group each rank trains and evaluates its rows of
+    every global batch, and rank 0 writes the files."""
+    train_loader, test_loader = make_loaders(cfg, train_set, test_set)
     h = build_harness(cfg, model, kind, max(len(train_loader), 1),
                       raw_batches=raw_batches, device=device)
-    os.makedirs(cfg.ckpt_path, exist_ok=True)
+    if is_primary():
+        os.makedirs(cfg.ckpt_path, exist_ok=True)
     acc_csv = CSVLogger(os.path.join(
         cfg.ckpt_path, f"{cfg.dataset}_{model_name}.csv"),
         sentinel=[1000, 1000, 1000])
@@ -143,6 +158,7 @@ def run_training(cfg, model, kind: str, model_name: str, train_set, test_set,
             print("Epoch: {}: ".format(epoch))
             train_loader.set_epoch(epoch)
             means = train_one_epoch(h, train_loader, epoch)
+            sync_replica_stats(h)
             acc, acc_a, acc_v = evaluate(h, test_loader)
             acc_csv.write_row([acc, acc_a, acc_v])
             acc_csv.flush()
@@ -160,6 +176,15 @@ def run_training(cfg, model, kind: str, model_name: str, train_set, test_set,
 def main(argv=None):
     args = get_arguments(argv)
     cfg = from_args(args)
+    maybe_initialize(device=cfg.device)
+    cfg.dp = data_parallel_size(cfg.dp)
+    try:
+        _main(args, cfg)
+    finally:
+        destroy()
+
+
+def _main(args, cfg):
     cfg.fps = 1  # the AV adapter squeezes a single frame
     share_streams = resolve_share_streams(args.share_unimodal_streams,
                                           cfg.strict_compat)
@@ -167,12 +192,14 @@ def main(argv=None):
     check_supported(cfg)
     resolve_device(cfg.device)  # raises before any work when CUDA is absent
     if args.export_path:
-        export_intermediate_from_checkpoint(
-            cfg, args.model, cfg.ckpt_path, args.export_path,
-            share_streams=share_streams,
-            poly_batch=bool(args.export_poly_batch), device=cfg.device,
-            batched_inter=bool(args.batched_inter))
-        print("Serving artifact written to", args.export_path)
+        if is_primary():
+            export_intermediate_from_checkpoint(
+                cfg, args.model, cfg.ckpt_path, args.export_path,
+                share_streams=share_streams,
+                poly_batch=bool(args.export_poly_batch), device=cfg.device,
+                batched_inter=bool(args.batched_inter))
+            print("Serving artifact written to", args.export_path)
+        barrier()
         return
     model, kind = build_model(args.model, cfg.n_classes, cfg.encoder_width,
                               share_streams=share_streams,

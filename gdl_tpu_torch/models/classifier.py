@@ -22,6 +22,7 @@ from gdl_tpu_torch.models.layers import (
 )
 from gdl_tpu_torch.models.resnet import resnet18
 from gdl_tpu_torch.models.swin import SwinTransformer
+from gdl_tpu_torch.parallel.distributed import local_rows
 
 
 def lecun_conv(in_channels: int, features: int, kernel: int,
@@ -39,10 +40,13 @@ def lecun_conv(in_channels: int, features: int, kernel: int,
 def pe_noise(shape, generator: Optional[torch.Generator],
              device: torch.device) -> torch.Tensor:
     """The standard-normal draw of the PE head's reparameterisation, f32
-    [B, H, W, C] on `device` from the explicit generator."""
+    [B, H, W, C] on `device` from the explicit generator, drawn at the
+    global batch (this rank's rows)."""
     src = generator.device if generator is not None else device
-    return torch.randn(tuple(shape), generator=generator, device=src,
-                       dtype=torch.float32).to(device)
+    shape = tuple(shape)
+    return local_rows(lambda k: torch.randn(
+        (k,) + shape[1:], generator=generator, device=src,
+        dtype=torch.float32), shape[0]).to(device)
 
 
 class PEHead(nn.Module):
@@ -232,10 +236,11 @@ class AVClassifierSwinDGL(nn.Module):
 def modality_combo(batch: int, generator: Optional[torch.Generator],
                    device: torch.device) -> torch.Tensor:
     """The per-sample draw of the modality drop: a combination in {0, 1,
-    2} for each of `batch` samples, from the explicit generator."""
+    2} for each of `batch` samples, from the explicit generator, drawn at
+    the global batch (this rank's rows)."""
     src = generator.device if generator is not None else device
-    return torch.randint(0, 3, (batch,), generator=generator,
-                         device=src).to(device)
+    return local_rows(lambda k: torch.randint(
+        0, 3, (k,), generator=generator, device=src), batch).to(device)
 
 
 def _modality_drop(a, v, generator: Optional[torch.Generator] = None):

@@ -23,6 +23,11 @@ import torch
 from torch import nn
 
 from gdl_tpu_torch.ops import maxpool as _maxpool
+from gdl_tpu_torch.parallel.distributed import (
+    all_reduce_,
+    process_count,
+    process_index,
+)
 
 
 def conv(in_channels: int, features: int, kernel: int, stride: int = 1,
@@ -58,18 +63,140 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
                               generator=generator)
 
 
+class _GlobalBatchNormFn(torch.autograd.Function):
+    """Training-mode BatchNorm over the batch of every rank. The forward
+    all-reduces one [world, 2C + 1] f32 table in which each rank fills its
+    row with its per-channel statistics and count; the backward
+    all-reduces the per-channel sums of dy and dy·(x − mean). The
+    parameters' gradients stay this rank's sums: the gradient all-reduce
+    averages them with the rest.
+
+    On CUDA the passes over x are torch's fused SyncBatchNorm primitives:
+    a row is (mean, invstd, count), and `batch_norm_gather_stats_with_counts`
+    combines the rows and updates the running statistics in one launch. On
+    the CPU, which has none of them, a row is (mean, Σ(x − mean)², count),
+    combined by Chan's parallel variance: the raw sum of squares
+    E[x²] − E[x]² loses digits where |mean| ≫ std, as the log-spectrogram
+    stem's activations have it. Both store torch's unbiased running
+    variance over the global count."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps,
+                momentum):
+        c = x.shape[1]
+        ctx.fused = x.is_cuda
+        if ctx.fused:
+            x = x.contiguous(memory_format=_memory_format(x))
+            mean_r, invstd_r = torch.batch_norm_stats(x, eps)
+            table = mean_r.new_zeros((process_count(), 2 * c + 1))
+            table[process_index()] = torch.cat(
+                [mean_r, invstd_r, mean_r.new_full((1,), x.numel() // c)])
+            all_reduce_(table)
+            counts = table[:, 2 * c]
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                x, table[:, :c], table[:, c:2 * c], running_mean,
+                running_var, momentum, eps, counts)
+            ctx.save_for_backward(x, weight, mean, invstd, counts)
+            return torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        var_r, mean_r = torch.var_mean(xf, dims, correction=0)
+        n_r = x.numel() // c
+        table = xf.new_zeros((process_count(), 2 * c + 1))
+        table[process_index()] = torch.cat([mean_r, var_r * n_r,
+                                            xf.new_full((1,), n_r)])
+        all_reduce_(table)
+        counts = table[:, 2 * c:]
+        n = counts.sum()
+        mean = (table[:, :c] * counts).sum(0) / n
+        m2 = (table[:, c:2 * c]
+              + counts * (table[:, :c] - mean) ** 2).sum(0)
+        var = m2 / n
+        invstd = torch.rsqrt(var + eps)
+        with torch.no_grad():  # torch's rule: the unbiased variance
+            running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
+            running_var.mul_(1.0 - momentum).add_(m2 / (n - 1.0),
+                                                  alpha=momentum)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        return (xhat * weight.view(shape) + bias.view(shape)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        if ctx.fused:
+            x, weight, mean, invstd, counts = ctx.saved_tensors
+            gy = gy.contiguous(memory_format=_memory_format(x))
+            sum_dy, sum_dy_xmu, grad_w, grad_b = (
+                torch.batch_norm_backward_reduce(gy, x, mean, invstd, weight,
+                                                 True, True, True))
+            c = sum_dy.shape[0]
+            sums = all_reduce_(torch.cat([sum_dy, sum_dy_xmu]))
+            dx = torch.batch_norm_backward_elemt(
+                gy, x, mean, invstd, weight, sums[:c], sums[c:],
+                counts.to(torch.int32))
+            return dx, grad_w, grad_b, None, None, None, None
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        gyf = gy.float()
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        sum_dy = gyf.sum(dims)
+        sum_dy_xhat = (gyf * xhat).sum(dims)
+        sums = all_reduce_(torch.cat([sum_dy, sum_dy_xhat]))
+        dx = (weight * invstd).view(shape) * (
+            gyf - (sums[:c] / n).view(shape)
+            - xhat * (sums[c:] / n).view(shape))
+        return (dx.to(x.dtype), sum_dy_xhat.to(weight.dtype),
+                sum_dy.to(weight.dtype), None, None, None, None)
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    return (torch.channels_last if x.dim() == 4
+            and x.is_contiguous(memory_format=torch.channels_last)
+            else torch.contiguous_format)
+
+
+class GlobalBatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training statistics are those of the global
+    batch, gdl_tpu's BatchNorm under its one program: with a process group
+    of more than one rank, `global_forward`; otherwise (and in eval mode)
+    nn.BatchNorm2d itself, bit for bit. The state-dict keys are
+    nn.BatchNorm2d's."""
+
+    def forward(self, x):
+        if not self.training or process_count() == 1:
+            return super().forward(x)
+        return self.global_forward(x)
+
+    def global_forward(self, x):
+        """The training forward through `_GlobalBatchNormFn`, whatever the
+        world size (at world size 1 its all-reduces are no-ops)."""
+        self.num_batches_tracked.add_(1)
+        momentum = (1.0 / float(self.num_batches_tracked)
+                    if self.momentum is None else self.momentum)
+        return _GlobalBatchNormFn.apply(x, self.weight, self.bias,
+                                        self.running_mean, self.running_var,
+                                        self.eps, momentum)
+
+
 def batch_norm(features: int, groups: int = 1) -> nn.BatchNorm2d:
     """BatchNorm with torch defaults (eps 1e-5, running-stat momentum 0.1,
     weight 1, bias 0). torch stores the UNBIASED batch variance in
     running_var, which is what gdl_tpu's GroupedBatchNorm copies.
 
-    groups > 1 is gdl_tpu's per-replica (DataParallel-semantics) BN, one
-    statistic group per data-parallel replica; it comes with the
-    multi-GPU slice."""
-    if groups > 1:
-        raise NotImplementedError(
-            f"per-replica BatchNorm (--sync_bn 0 with --dp {groups}) is not "
-            f"ported to gdl_tpu_torch yet: it needs the multi-GPU slice")
+    groups == 1: global batch statistics over every rank
+    (`GlobalBatchNorm2d`). groups > 1 is gdl_tpu's per-replica
+    (DataParallel-semantics) BN, one statistic group per data-parallel
+    rank: a plain nn.BatchNorm2d on each rank's own rows, whose running
+    statistics the loop takes from rank 0 (`train/loop.py`)."""
+    if groups == 1:
+        return GlobalBatchNorm2d(features, eps=1e-5, momentum=0.1)
+    if groups != process_count():
+        raise ValueError(f"per-replica BatchNorm with {groups} groups needs "
+                         f"a process group of {groups} ranks, not "
+                         f"{process_count()}")
     return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
 

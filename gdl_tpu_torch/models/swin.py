@@ -55,6 +55,7 @@ from gdl_tpu_torch.ops.window_attention import (
     window_attention_qkv_fused,
     window_attention_qkv_fused_eval,
 )
+from gdl_tpu_torch.parallel.distributed import local_rows
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,8 +171,12 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        tail = (1,) * (x.ndim - 1)
+        # drawn at the global batch, this rank's rows
+        mask = local_rows(lambda k: torch.rand((k,) + tail,
+                                               generator=generator,
+                                               device=x.device),
+                          x.shape[0]) < keep
         return torch.where(mask, x / keep, 0.0)
 
 

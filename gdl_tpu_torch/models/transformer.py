@@ -16,7 +16,10 @@ mask from the Philox generator of `ops/dropout.py` (kernel #14 on the
 card); the attention-probability dropout runs inside the fused
 self-attention op (`ops/self_attention.py`, kernels #10 and #11), which
 draws its mask in the kernel (`SA_DROPOUT_IMPL = "kernel"`, gdl_tpu's
-default) or reads one from memory ("hbm"). In eval mode SelfAttention
+default) or reads one from memory ("hbm"). Every draw with a batch
+dimension is this rank's rows of the global batch's under a process
+group (the modality drops through `parallel.distributed.local_rows`, the
+masks through their element offset). In eval mode SelfAttention
 takes the forward-only op (kernel #13). Under CUDA autocast the fused
 op's operands are cast to the autocast dtype, as nn.Linear's would be.
 
@@ -47,6 +50,7 @@ from gdl_tpu_torch.ops.self_attention import (
     self_attention_fused_eval,
     self_attention_qkv,
 )
+from gdl_tpu_torch.parallel.distributed import element_offset, local_rows
 
 # attention-probability dropout inside the fused op: "kernel" (drawn in
 # the forward and again in the backward) or "hbm" (a mask in memory)
@@ -135,9 +139,12 @@ class SelfAttention(nn.Module):
                 dropping = self.training and self.dropout_rate > 0.0
                 words = (fold_seed_words(generator, x.device)
                          if dropping else None)
+                # under a process group: this rank's rows of the global
+                # batch's [B, H, N, N] mask
                 kw = dict(dropout_rate=self.dropout_rate, seed_words=words,
                           train=self.training, dropout_impl=SA_DROPOUT_IMPL,
-                          impl=self.impl)
+                          impl=self.impl, dropout_offset=element_offset(
+                              b * self.heads * n * n))
                 if SA_FUSED_QKV:
                     x, w = self._autocast(x, w)
                     out = self_attention_fused(x.contiguous(), w.contiguous(),
@@ -291,7 +298,8 @@ def modality_drop(xs: Sequence[torch.Tensor],
                             device=dev)[None].repeat(b, 1)
     else:
         src = generator.device if generator is not None else dev
-        idx = torch.randint(0, 7, (b,), generator=generator, device=src)
+        idx = local_rows(lambda k: torch.randint(
+            0, 7, (k,), generator=generator, device=src), b)
         mask = combos[idx.to(dev)]
     return _apply_modality_mask(xs, mask)
 
@@ -307,6 +315,14 @@ def unbalance_modality_drop(xs: Sequence[torch.Tensor],
     b, dev = xs[0].shape[0], xs[0].device
     if p is not None and any(p):
         return modality_drop(xs, generator, p)
+    # the global batch's shuffled combinations, this rank's rows
+    mask = local_rows(lambda k: _unbalanced_mask(k, epoch, generator, dev),
+                      b)
+    return _apply_modality_mask(xs, mask)
+
+
+def _unbalanced_mask(b: int, epoch: int, generator, dev) -> torch.Tensor:
+    """unbalance_modality_drop's shuffled [b, 3] mask."""
     counts = np.full(7, b // 7, np.int32)
     counts[:b % 7] += 1
     if epoch >= 15:
@@ -321,4 +337,4 @@ def unbalance_modality_drop(xs: Sequence[torch.Tensor],
     mask = torch.from_numpy(MODALITY_COMBINATIONS[rows]).to(dev)
     src = generator.device if generator is not None else dev
     perm = torch.randperm(b, generator=generator, device=src).to(dev)
-    return _apply_modality_mask(xs, mask[perm])
+    return mask[perm]

@@ -22,6 +22,14 @@ the CPU; impl="plain" runs the plain version anywhere. Nothing falls
 back. The multiply `x * mask` stays outside the kernel, as in gdl_tpu;
 autograd keeps the mask for the backward.
 
+Element offset. Every generator here takes `offset`, a multiple of 4:
+element e of the mask is then element offset + e of the stream, word
+(offset + e) % 4 of group (offset + e) / 4. A rank of a data-parallel run
+passes the flat index of its first row in the global tensor
+(`parallel.distributed.element_offset`), so its mask is its rows of the
+mask one process draws for the global batch, without drawing the rest.
+Offset 0 is the mask of before.
+
 Seed words. `fold_seed_words(generator, device)` draws two int32 words
 from the explicit generator as a [2] tensor on the generator's own
 device and hands them to the kernels as a device pointer: a call site
@@ -37,6 +45,7 @@ from typing import Optional, Sequence
 import torch
 
 from gdl_tpu_torch import kernels
+from gdl_tpu_torch.parallel.distributed import element_offset
 
 KERNEL_NAME = "prng_dropout_mask"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,14 +82,27 @@ def _mulhilo(a: int, b: torch.Tensor):
     return (t1 >> 16) + (t0 >> 32) + (s >> 32), s & _U32
 
 
-def philox_u32(seed_words: torch.Tensor, n: int) -> torch.Tensor:
-    """The first n words of the stream of `seed_words` ([2] integer
-    tensor; the low 32 bits of each count), as int64 values in [0, 2³²)
-    on the seed words' device."""
+def check_offset(offset: int) -> int:
+    """`offset` as an int, raising unless it is a multiple of 4 (a whole
+    Philox group) and not negative."""
+    offset = int(offset)
+    if offset < 0 or offset % 4:
+        raise ValueError(f"element offset must be a non-negative multiple "
+                         f"of 4, got {offset}")
+    return offset
+
+
+def philox_u32(seed_words: torch.Tensor, n: int,
+               offset: int = 0) -> torch.Tensor:
+    """Words offset .. offset + n - 1 of the stream of `seed_words` ([2]
+    integer tensor; the low 32 bits of each count), as int64 values in
+    [0, 2³²) on the seed words' device. `offset`: a multiple of 4."""
     dev = seed_words.device
     key = seed_words.to(torch.int64) & _U32
     k0, k1 = key[0], key[1]
-    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=dev)
+    first = check_offset(offset) // 4
+    groups = torch.arange(first, first + (n + 3) // 4, dtype=torch.int64,
+                          device=dev)
     c0, c1 = groups & _U32, groups >> 32
     c2 = torch.zeros_like(groups)
     c3 = torch.zeros_like(groups)
@@ -93,25 +115,26 @@ def philox_u32(seed_words: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def philox_keep_mask(seed_words: torch.Tensor, shape: Sequence[int],
-                     rate: float) -> torch.Tensor:
-    """The bool keep mask of `shape` (row-major element order)."""
+                     rate: float, offset: int = 0) -> torch.Tensor:
+    """The bool keep mask of `shape` (row-major element order), its first
+    element at `offset` of the stream."""
     n = math.prod(shape)
-    return (philox_u32(seed_words, n) < keep_threshold(rate)).reshape(
-        tuple(shape))
+    return (philox_u32(seed_words, n, offset)
+            < keep_threshold(rate)).reshape(tuple(shape))
 
 
 def prng_dropout_mask_ref(seed_words: torch.Tensor, shape: Sequence[int],
-                          rate: float,
-                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          rate: float, dtype: torch.dtype = torch.float32,
+                          offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the mask generator."""
-    keep = philox_keep_mask(seed_words, shape, rate)
+    keep = philox_keep_mask(seed_words, shape, rate, offset)
     kept = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32,
                         device=keep.device).to(dtype)
     return torch.where(keep, kept, torch.zeros((), dtype=dtype,
                                                device=keep.device))
 
 
-def _launch_mask(seed_words, shape, rate, dtype):
+def _launch_mask(seed_words, shape, rate, dtype, offset):
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
     if (seed_words.dtype != torch.int32 or tuple(seed_words.shape) != (2,)
@@ -121,8 +144,9 @@ def _launch_mask(seed_words, shape, rate, dtype):
     out = torch.empty(tuple(shape), dtype=dtype, device=seed_words.device)
     stream = torch.cuda.current_stream(seed_words.device).cuda_stream
     err = lib.gdl_dropout_mask_launch(
-        out.data_ptr(), out.numel(), seed_words.data_ptr(),
-        keep_threshold(rate), 1.0 / (1.0 - rate), _DTYPE_CODES[dtype], stream)
+        out.data_ptr(), out.numel(), check_offset(offset),
+        seed_words.data_ptr(), keep_threshold(rate), 1.0 / (1.0 - rate),
+        _DTYPE_CODES[dtype], stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {err}")
     kernels.launch_counts[KERNEL_NAME] += 1
@@ -131,27 +155,31 @@ def _launch_mask(seed_words, shape, rate, dtype):
 
 def prng_dropout_mask(seed_words: torch.Tensor, shape: Sequence[int],
                       rate: float, dtype: torch.dtype = torch.float32,
-                      impl: str = "auto") -> torch.Tensor:
+                      impl: str = "auto", offset: int = 0) -> torch.Tensor:
     """The {0, 1/(1−rate)} dropout mask of `shape` in `dtype`, on the
-    seed words' device. impl="auto": the CUDA kernel for CUDA seed words
-    (raising if it cannot), the plain version for CPU ones; "plain": the
-    plain version on any device."""
+    seed words' device, its first element at `offset` of the stream.
+    impl="auto": the CUDA kernel for CUDA seed words (raising if it
+    cannot), the plain version for CPU ones; "plain": the plain version on
+    any device."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"rate must be in [0, 1), got {rate}")
     if impl == "auto" and seed_words.is_cuda:
         with torch.cuda.device(seed_words.device):
-            return _launch_mask(seed_words, shape, rate, dtype)
-    return prng_dropout_mask_ref(seed_words, shape, rate, dtype)
+            return _launch_mask(seed_words, shape, rate, dtype, offset)
+    return prng_dropout_mask_ref(seed_words, shape, rate, dtype, offset)
 
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None,
             impl: str = "auto") -> torch.Tensor:
     """Train-time dropout: x · mask, the mask in x's dtype from fresh seed
-    words of `generator`. rate 0 returns x itself."""
+    words of `generator`. rate 0 returns x itself. x's leading dimension
+    is the batch: under a process group the mask is this rank's rows of
+    the global batch's (`element_offset`)."""
     if rate == 0.0:
         return x
     words = fold_seed_words(generator, x.device)
-    return x * prng_dropout_mask(words, x.shape, rate, x.dtype, impl)
+    return x * prng_dropout_mask(words, x.shape, rate, x.dtype, impl,
+                                 element_offset(x.numel()))

@@ -11,6 +11,10 @@ differs by up to 55 on the 0-255 scale), and the train crop, whose box
 may be larger than 224, is resampled with the weight matrices
 `jax.image.scale_and_translate` builds: a triangle kernel, widened by
 1/scale when downsampling, applied as one product per axis.
+
+The crop and flip draws are made at the global batch and each rank keeps
+its rows (`parallel.distributed.local_rows`): a data-parallel run draws
+what one process draws for the whole batch.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from gdl_tpu_torch.parallel.distributed import local_rows
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -65,10 +71,13 @@ def sample_rrc_box(generator: Optional[torch.Generator], h: torch.Tensor,
     h = h.float()
     w = w.float()
     m, dev = h.shape[0], h.device
-    area = torch.empty((m, RRC_ATTEMPTS), device=dev).uniform_(
-        *RRC_SCALE, generator=generator) * (h * w)[:, None]
-    log_r = torch.empty((m, RRC_ATTEMPTS), device=dev).uniform_(
-        math.log(_MIN_RATIO), math.log(_MAX_RATIO), generator=generator)
+
+    def uniform(cols, lo, hi):  # at the global batch, this rank's rows
+        return local_rows(lambda k: torch.empty((k, cols), device=dev)
+                          .uniform_(lo, hi, generator=generator), m)
+
+    area = uniform(RRC_ATTEMPTS, *RRC_SCALE) * (h * w)[:, None]
+    log_r = uniform(RRC_ATTEMPTS, math.log(_MIN_RATIO), math.log(_MAX_RATIO))
     ratio = torch.exp(log_r)
     cws = torch.round(torch.sqrt(area * ratio))
     chs = torch.round(torch.sqrt(area / ratio))
@@ -82,7 +91,8 @@ def sample_rrc_box(generator: Optional[torch.Generator], h: torch.Tensor,
     cw = torch.where(any_valid, cws.gather(1, first)[:, 0], fb_w)
     ch = torch.where(any_valid, chs.gather(1, first)[:, 0], fb_h)
     # torch.randint(0, H - h + 1): uniform over the inclusive range
-    u = torch.rand((m, 2), generator=generator, device=dev)
+    u = local_rows(lambda k: torch.rand((k, 2), generator=generator,
+                                        device=dev), m)
     y0 = torch.where(any_valid, torch.floor(u[:, 0] * (h - ch + 1.0)),
                      torch.floor((h - ch) / 2.0))
     x0 = torch.where(any_valid, torch.floor(u[:, 1] * (w - cw + 1.0)),
@@ -158,6 +168,7 @@ def random_resized_crop_flip(frames: torch.Tensor,
         osz = orig_sizes.reshape(b * t, 2).to(dev).float().clamp(min=1.0)
         hs, ws = osz[:, 0], osz[:, 1]
     boxes = torch.stack(sample_rrc_box(generator, hs, ws), dim=1)
-    flips = torch.rand((b * t,), generator=generator, device=dev) < 0.5
+    flips = local_rows(lambda k: torch.rand((k,), generator=generator,
+                                            device=dev), b * t) < 0.5
     return crop_resize_flip(frames, boxes.reshape(b, t, 4),
                             flips.reshape(b, t), size, orig_sizes)

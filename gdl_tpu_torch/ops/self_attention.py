@@ -23,9 +23,12 @@ Ports of four entries of `gdl_tpu/ops/self_attention.py`:
 Dropout. Mode 'hbm': a mask [B, H, N, N] in x's dtype with values
 {0, 1/(1−rate)} is read by the forward and by the backward. Mode
 'kernel': both draw the mask themselves from two seed words with the
-generator of `ops/dropout.py`, keyed on the flat [B, H, N, N] element
-index, so forward, backward and the plain version see the same bits; no
-score-sized mask reaches memory. gdl_tpu's own bits (the TPU's generator)
+generator of `ops/dropout.py`, keyed on `dropout_offset` + the flat
+[B, H, N, N] element index, so forward, backward and the plain version
+see the same bits; no score-sized mask reaches memory. A rank of a
+data-parallel run passes the offset of its first row in the global
+batch's mask (a multiple of 4), so its mask is its rows of the one a
+single process draws; 0 by default. gdl_tpu's own bits (the TPU's generator)
 are not reproduced.
 
 On a CPU tensor every op runs its plain PyTorch version (`*_ref`), which
@@ -50,6 +53,7 @@ import torch
 
 from gdl_tpu_torch import kernels
 from gdl_tpu_torch.ops.dropout import (
+    check_offset,
     keep_threshold,
     philox_keep_mask,
     prng_dropout_mask,
@@ -103,13 +107,15 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
 class _Dropout:
     """What the attention-probability dropout of one call needs: the mode
     (0 none, 1 'hbm', 2 'kernel'), the rate, and the mask [B, H, N, N]
-    (mode 1) or the two seed words (mode 2)."""
+    (mode 1) or the two seed words and the element offset (mode 2)."""
 
     def __init__(self, mode: int = 0, rate: float = 0.0,
                  mask: Optional[torch.Tensor] = None,
-                 seed_words: Optional[torch.Tensor] = None):
+                 seed_words: Optional[torch.Tensor] = None,
+                 offset: int = 0):
         self.mode, self.rate, self.mask, self.seed_words = (
             mode, rate, mask, seed_words)
+        self.offset = check_offset(offset)
 
     @property
     def keep_thresh(self) -> int:
@@ -124,7 +130,8 @@ class _Dropout:
         if self.mode == 1:
             return self.mask.to(acc)
         if self.mode == 2:
-            keep = philox_keep_mask(self.seed_words, shape, self.rate)
+            keep = philox_keep_mask(self.seed_words, shape, self.rate,
+                                    self.offset)
             # the kernel multiplies by float32(1/(1-rate)), not rounded to T
             return keep.to(acc) * torch.tensor(self.inv_keep,
                                                dtype=torch.float32).item()
@@ -277,7 +284,7 @@ def _launch_fwd(x, w, num_heads, scale, drop: _Dropout,
         x.data_ptr(), w.data_ptr(), qkv.data_ptr(), p.data_ptr(),
         out.data_ptr(), _ptr(drop.mask), _ptr(drop.seed_words), _ptr(keep),
         b, n, c, num_heads, d, float(scale), drop.mode, drop.keep_thresh,
-        drop.inv_keep, _DTYPE_CODES[x.dtype], stream)
+        drop.inv_keep, drop.offset, _DTYPE_CODES[x.dtype], stream)
     _raise_on(err, FWD_KERNEL_NAME)
     kernels.launch_counts[FWD_KERNEL_NAME] += 1
     return (out, qkv, p, keep) if return_keep else (out, qkv, p)
@@ -314,7 +321,7 @@ def _launch_qkv_fwd(qkv, num_heads, scale, drop: _Dropout,
     err = lib.gdl_sa_qkv_fwd_launch(
         qkv.data_ptr(), p.data_ptr(), out.data_ptr(), _ptr(drop.mask),
         _ptr(drop.seed_words), _ptr(keep), b, n, c, num_heads, d,
-        float(scale), drop.mode, drop.keep_thresh, drop.inv_keep,
+        float(scale), drop.mode, drop.keep_thresh, drop.inv_keep, drop.offset,
         _DTYPE_CODES[qkv.dtype], stream)
     _raise_on(err, QKV_FWD_KERNEL_NAME)
     kernels.launch_counts[QKV_FWD_KERNEL_NAME] += 1
@@ -338,7 +345,7 @@ def _launch_bwd(qkv, p, dout, num_heads, scale, drop: _Dropout):
         qkv.data_ptr(), p.data_ptr(), _ptr(drop.mask), _ptr(drop.seed_words),
         dout.data_ptr(), ds.data_ptr(), dqkv.data_ptr(), b, n, c, num_heads,
         d, float(scale), drop.mode, drop.keep_thresh, drop.inv_keep,
-        _DTYPE_CODES[qkv.dtype], stream)
+        drop.offset, _DTYPE_CODES[qkv.dtype], stream)
     _raise_on(err, BWD_KERNEL_NAME)
     kernels.launch_counts[BWD_KERNEL_NAME] += 1
     return dqkv
@@ -390,11 +397,12 @@ def make_dropout(x: torch.Tensor, num_heads: int, rate: float, train: bool,
                  dropout_impl: str = "kernel",
                  seed_words: Optional[torch.Tensor] = None,
                  mask: Optional[torch.Tensor] = None,
-                 impl: str = "auto") -> _Dropout:
+                 impl: str = "auto", offset: int = 0) -> _Dropout:
     """The dropout of one call, as gdl_tpu's `_dropout_setup` resolves it.
     'kernel' needs `seed_words`; 'hbm' takes `mask` [B, H, N, N] in x's
     dtype or, given `seed_words` instead, generates that mask with the
-    mask generator of `ops/dropout.py`."""
+    mask generator of `ops/dropout.py`. `offset`: the mask's first
+    element in the stream (a multiple of 4)."""
     if not (train and rate > 0.0):
         return _NO_DROPOUT
     if dropout_impl not in ("kernel", "hbm"):
@@ -403,14 +411,15 @@ def make_dropout(x: torch.Tensor, num_heads: int, rate: float, train: bool,
     if dropout_impl == "kernel":
         if seed_words is None:
             raise ValueError("dropout_rate > 0 at train needs seed_words")
-        return _Dropout(2, rate, seed_words=seed_words)
+        return _Dropout(2, rate, seed_words=seed_words, offset=offset)
     if mask is None:
         if seed_words is None:
             raise ValueError("dropout_impl='hbm' needs mask or seed_words")
         b, n, _ = x.shape
         mask = prng_dropout_mask(seed_words, (b, num_heads, n, n), rate,
                                  x.dtype,
-                                 "plain" if impl == "plain" else "auto")
+                                 "plain" if impl == "plain" else "auto",
+                                 offset)
     return _Dropout(1, rate, mask=mask)
 
 
@@ -432,8 +441,8 @@ def self_attention_fused_fwd(x, w, num_heads: int,
         return res
     keep = None
     if drop.mode == 2:
-        keep = philox_keep_mask(drop.seed_words, res[2].shape,
-                                drop.rate).to(torch.uint8)
+        keep = philox_keep_mask(drop.seed_words, res[2].shape, drop.rate,
+                                drop.offset).to(torch.uint8)
     return res + (keep,)
 
 
@@ -466,8 +475,8 @@ def self_attention_qkv_fwd(qkv, num_heads: int,
         return res
     keep = None
     if drop.mode == 2:
-        keep = philox_keep_mask(drop.seed_words, res[1].shape,
-                                drop.rate).to(torch.uint8)
+        keep = philox_keep_mask(drop.seed_words, res[1].shape, drop.rate,
+                                drop.offset).to(torch.uint8)
     return res + (keep,)
 
 
@@ -498,7 +507,7 @@ def self_attention_qkv(qkv, num_heads: int, scale: Optional[float] = None,
                        seed_words: Optional[torch.Tensor] = None,
                        train: bool = False, dropout_impl: str = "kernel",
                        mask: Optional[torch.Tensor] = None,
-                       impl: str = "auto"):
+                       impl: str = "auto", dropout_offset: int = 0):
     """Fused multi-head self-attention on the output of the qkv
     projection, with a backward: qkv is [B, N, 3C] as nn.Linear gives it
     (columns [q|k|v][head][d]), or its [B, N, 3, C] view; the result is
@@ -517,7 +526,7 @@ def self_attention_qkv(qkv, num_heads: int, scale: Optional[float] = None,
         qkv = qkv.reshape(qkv.shape[0], qkv.shape[1], -1)
     scale = _default_scale(qkv.shape[-1] // 3, num_heads, scale)
     drop = make_dropout(qkv, num_heads, dropout_rate, train, dropout_impl,
-                        seed_words, mask, impl)
+                        seed_words, mask, impl, dropout_offset)
     return _SelfAttentionQkv.apply(qkv, num_heads, scale, drop, impl)
 
 
@@ -555,7 +564,7 @@ def self_attention_fused(x, w, num_heads: int, scale: Optional[float] = None,
                          seed_words: Optional[torch.Tensor] = None,
                          train: bool = False, dropout_impl: str = "kernel",
                          mask: Optional[torch.Tensor] = None,
-                         impl: str = "auto"):
+                         impl: str = "auto", dropout_offset: int = 0):
     """Fused multi-head self-attention including the qkv projection, with
     a backward (the mmformer training op). Gradients flow to x and w.
 
@@ -564,14 +573,15 @@ def self_attention_fused(x, w, num_heads: int, scale: Optional[float] = None,
     forward and again inside the backward from `seed_words` (int32 [2] on
     x's device, `ops.dropout.fold_seed_words`); 'hbm' reads `mask`
     ([B, H, N, N] in x's dtype, values {0, 1/(1−rate)}), generated from
-    `seed_words` when not given.
+    `seed_words` when not given. `dropout_offset` (a multiple of 4) is
+    the index of the mask's first element in the generator's stream.
 
     impl="auto" launches the kernels for a CUDA `x` (raising if it
     cannot) and runs their plain versions for a CPU `x`; impl="plain"
     runs the plain versions on any device."""
     scale = _default_scale(x.shape[-1], num_heads, scale)
     drop = make_dropout(x, num_heads, dropout_rate, train, dropout_impl,
-                        seed_words, mask, impl)
+                        seed_words, mask, impl, dropout_offset)
     return _SelfAttentionFused.apply(x, w, num_heads, scale, drop, impl)
 
 

@@ -75,6 +75,7 @@ from gdl_tpu_torch.models.classifier import (
     AVClassifierSwinDGL,
     JointLogits,
 )
+from gdl_tpu_torch.parallel.distributed import local_device
 from gdl_tpu_torch.train.dgl import make_eval_step
 from gdl_tpu_torch.utils.interop import load_reference_pth
 
@@ -83,12 +84,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def resolve_device(device) -> torch.device:
     """torch.device(device), raising where a CUDA device is asked for and
-    none is available (never a silent fall back to the CPU)."""
+    none is available (never a silent fall back to the CPU). Under a
+    process group, "cuda" without an index is this rank's card,
+    cuda:LOCAL_RANK (`parallel.distributed.local_device`)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            f"available")
-    return dev
+    return local_device(dev)
 
 
 class _EvalForward(torch.nn.Module):

@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from gdl_tpu_torch.config import Config
+from gdl_tpu_torch.parallel.distributed import all_reduce_grads
 from gdl_tpu_torch.train.dgl import cross_entropy
 from gdl_tpu_torch.train.optim import global_norm
 
@@ -73,6 +74,7 @@ def _make_step(model, optimizer, loss_fn: Callable,
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch)
         loss.backward()
+        all_reduce_grads(model.parameters())  # the global batch's mean
         gnorm = global_norm(p.grad for p in model.parameters()
                             if p.grad is not None)
         optimizer.step(grad_norm=gnorm)

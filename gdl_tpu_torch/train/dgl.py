@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from gdl_tpu_torch.config import Config
+from gdl_tpu_torch.parallel.distributed import all_reduce_grads
 from gdl_tpu_torch.train.optim import global_norm
 
 
@@ -86,6 +87,11 @@ def make_dgl_train_step(model, cfg: Config, optimizer,
     DropPath, in that order; None uses torch's default generator.
     Autocast, if wanted, is the caller's: it wraps the step.
 
+    Under a process group the gradients are averaged over the ranks
+    after the backward (`parallel.distributed.all_reduce_grads`; no
+    collective at world size 1), so the clip and the update see the
+    global batch's gradient; the metrics stay this rank's.
+
     The metrics are gdl_tpu's, as 0-dim tensors on the device: loss,
     loss_f/a/v, audio/visual_grad_sum (post-clip per-encoder Σ mean|g|;
     0 unless cfg.log_grad_csv), abs_out_a/v (mean |unimodal logits|) and
@@ -98,6 +104,7 @@ def make_dgl_train_step(model, cfg: Config, optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = dgl_loss_fn(model, batch, cfg, generator)
         loss.backward()
+        all_reduce_grads(model.parameters())
 
         named = {n: p.grad for n, p in model.named_parameters()
                  if p.grad is not None}

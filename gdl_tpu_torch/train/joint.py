@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.models.classifier import JointLogits
+from gdl_tpu_torch.parallel.distributed import all_reduce_grads
 from gdl_tpu_torch.train.auxi import regurize
 from gdl_tpu_torch.train.dgl import cross_entropy, make_eval_step
 from gdl_tpu_torch.train.optim import (
@@ -105,7 +106,9 @@ def make_joint_train_step(model, cfg: Config, optimizer,
     DropPath, PE noise and modality drop, then the OGM-GE noise;
     `ogm_noise(name, shape)` replaces the last draws when given. The
     encoders run once a step, so BatchNorm statistics update once.
-    Autocast, if wanted, is the caller's.
+    Under a process group the gradients are averaged over the ranks after
+    the backward, and the OGM scores are the global batch's. Autocast, if
+    wanted, is the caller's.
 
     The metrics are gdl_tpu's (loss, loss_f/a/v, a/v_diversity,
     a/v_re) plus grad_norm (before the clip), as 0-dim tensors."""
@@ -118,6 +121,7 @@ def make_joint_train_step(model, cfg: Config, optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = joint_loss_fn(model, batch, cfg, generator)
         loss.backward()
+        all_reduce_grads(model.parameters())
 
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         gnorm = global_norm(grads)

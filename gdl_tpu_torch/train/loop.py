@@ -4,18 +4,37 @@
 Mirrors the flow of the reference main_dgl.py (:225-418) and main.py:
 seed → model → optimizer/schedule → loaders → epoch loop {train_epoch,
 valid, CSV row, best-acc checkpoint}. Where gdl_tpu runs a jitted step
-over a device mesh, the port runs the eager step on ONE device: the
-mesh, the shardings and the process striding are gone, and the device
-prefetch is a pinned, non-blocking host→device copy kept a batch ahead. Step metrics
-stay on the device and are fetched in chunks, never per step (the
-reference's per-step .item() probes stall every step, SURVEY §3.1).
+over a device mesh, the port runs the eager step on one device a
+process; under `torchrun` the processes form one data-parallel group
+(`parallel/distributed.py`) and compute what gdl_tpu's program computes
+with `--dp N`:
+
+- each rank decodes its contiguous rows of every global batch (the
+  Loader's process striding) and the steps average the gradients over
+  the ranks after the backward;
+- the step metrics (epoch means, grad-CSV probes, printed losses) are
+  averaged over the ranks, one all-reduce a fetched chunk, and
+  `evaluate` sums the per-class counts of every rank's shard, so every
+  rank reports the same numbers; more than one rank needs
+  `--eval_drop_last 1`, as in gdl_tpu;
+- rank 0 alone writes the CSVs, TensorBoard and checkpoints, with a
+  barrier after each checkpoint;
+- with `--sync_bn 0` the running statistics of the per-replica
+  BatchNorms are rank 0's, broadcast before every eval and checkpoint;
+- the preemption guard stops every rank at the same step
+  (`utils/preempt.py`).
+
+The device prefetch is a pinned, non-blocking host→device copy kept a
+batch ahead. Step metrics stay on the device and are fetched in chunks,
+never per step (the reference's per-step .item() probes stall every
+step, SURVEY §3.1).
 
 `dgl=False` selects the joint / OGM-GE lineage (main.py): the joint step
 (`train/joint.py`, its own clip before the modulation, so the optimizer
 does not clip) and the joint eval step. `--pretrained_path` partial-loads
 a torchvision-format backbone into the encoders when the harness is
-built. `--profile_dir` and the multi-GPU options are not ported:
-`check_supported` raises NotImplementedError naming the option.
+built. `--profile_dir` and `--mp` are not ported: `check_supported`
+raises NotImplementedError naming the option.
 """
 
 from __future__ import annotations
@@ -36,6 +55,13 @@ from gdl_tpu_torch.data.preprocess import (
     make_train_preprocess,
 )
 from gdl_tpu_torch.models.classifier import JointLogits
+from gdl_tpu_torch.parallel.distributed import (
+    all_reduce_,
+    broadcast_module,
+    is_primary,
+    process_count,
+    process_index,
+)
 from gdl_tpu_torch.serve import resolve_device
 from gdl_tpu_torch.train.dgl import make_dgl_train_step, make_eval_step
 from gdl_tpu_torch.train.joint import make_joint_train_step
@@ -65,16 +91,26 @@ def check_supported(cfg: Config) -> None:
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute_dtype must be one of {list(_DTYPES)}, "
                          f"got {cfg.compute_dtype!r}")
-    if cfg.bn_groups > 1:
+    if cfg.mp > 1:
         raise NotImplementedError(
-            "--sync_bn 0 with --dp > 1 (per-replica BatchNorm) is not "
-            "ported to gdl_tpu_torch yet: it needs the multi-GPU slice")
-    for flag in ("dp", "mp"):
-        if getattr(cfg, flag) > 1:
+            f"--mp {cfg.mp} (the model-parallel mesh) is not ported to "
+            f"gdl_tpu_torch yet")
+    world = process_count()
+    if cfg.dp > 0 and cfg.dp != world:
+        if world == 1:
             raise NotImplementedError(
-                f"--{flag} {getattr(cfg, flag)} is not ported to "
-                f"gdl_tpu_torch yet: it needs the multi-GPU slice (the port "
-                f"runs on one device; --dp -1 means that one)")
+                f"--dp {cfg.dp} needs {cfg.dp} processes: launch it with "
+                f"torchrun --nproc_per_node {cfg.dp} (this process has no "
+                f"process group; --dp -1 takes torchrun's world size)")
+        raise ValueError(f"--dp {cfg.dp} differs from torchrun's WORLD_SIZE "
+                         f"{world}")
+    if world > 1 and not cfg.sync_bn and cfg.dp < 1:
+        raise ValueError(f"--sync_bn 0 over {world} ranks needs --dp {world} "
+                         f"(the CLIs resolve --dp -1 to it)")
+    if world > 1 and not cfg.eval_drop_last:
+        raise ValueError(f"training or evaluating over {world} ranks needs "
+                         f"--eval_drop_last 1 (a ragged final eval batch "
+                         f"cannot be split evenly over the ranks)")
 
 
 @dataclass
@@ -106,7 +142,8 @@ def assemble_harness(cfg: Config, model: torch.nn.Module,
     out_v)`. `device` overrides cfg.device. With cfg.compute_dtype
     "bfloat16" both steps run under bf16 autocast (f32 parameters).
     cfg.pretrained_path is partial-loaded into the encoders first, before
-    a resume (gdl_tpu/train/loop.py:86-89)."""
+    a resume (gdl_tpu/train/loop.py:86-89); then, under a process group,
+    every rank takes rank 0's parameters and buffers."""
     dev = resolve_device(device if device is not None else cfg.device)
     if cfg.pretrained_path:
         load_pretrained_encoders(model, cfg.pretrained_path)
@@ -142,6 +179,7 @@ def assemble_harness(cfg: Config, model: torch.nn.Module,
         start_epoch, resume_extra = load_train_state(
             cfg.resume, model, optimizer, generator)
         print("Resumed from {} at epoch {}".format(cfg.resume, start_epoch))
+    broadcast_module(model)  # every rank starts from rank 0's weights
     return Harness(cfg=cfg, model=model, optimizer=optimizer, device=dev,
                    generator=generator, train_step=train_step,
                    eval_step=eval_step, start_epoch=start_epoch,
@@ -202,11 +240,15 @@ def _device_prefetch(iterator: Iterable[dict], device: torch.device,
 
 def _to_host(steps: list) -> list:
     """The 0-dim entries of each step's metrics as Python floats, all
-    steps in one device→host copy."""
+    steps in one device→host copy; under a process group their means over
+    the ranks (one all-reduce)."""
     keys = [k for k, v in steps[0].items() if v.dim() == 0]
     table = torch.stack([torch.stack([m[k].detach().float() for k in keys])
-                         for m in steps]).tolist()
-    return [dict(zip(keys, row)) for row in table]
+                         for m in steps])
+    world = process_count()
+    if world > 1:
+        table = all_reduce_(table) / world
+    return [dict(zip(keys, row)) for row in table.tolist()]
 
 
 def train_one_epoch(h: Harness, loader: Iterable[dict], epoch: int,
@@ -312,7 +354,20 @@ def evaluate(h: Harness, loader: Loader) -> tuple:
             consume()
     while inflight:
         consume()
+    if process_count() > 1:  # every rank's shard, the same on every rank
+        arrays = (counters.num, counters.acc, counters.acc_a, counters.acc_v)
+        total = all_reduce_(torch.from_numpy(np.stack(arrays))).numpy()
+        for a, t in zip(arrays, total):
+            a[:] = t
     return counters.results()
+
+
+def sync_replica_stats(h: Harness) -> None:
+    """With --sync_bn 0 over several ranks, every rank takes rank 0's
+    running statistics (gdl_tpu's GroupedBatchNorm keeps replica 0's);
+    called before each eval and checkpoint."""
+    if not h.cfg.sync_bn and process_count() > 1:
+        broadcast_module(h.model, parameters=False)
 
 
 def run_training(cfg: Config, model: torch.nn.Module, train_set, test_set,
@@ -332,17 +387,13 @@ def run_training(cfg: Config, model: torch.nn.Module, train_set, test_set,
     epoch AND step-in-epoch; `--resume` then replays the remainder of
     the interrupted epoch (utils/preempt.py). `preempt_guard` injects a
     pre-configured guard (tests, external schedulers)."""
-    train_loader = Loader(train_set, cfg.batch_size, shuffle=True,
-                          drop_last=True, num_workers=cfg.num_workers,
-                          seed=cfg.random_seed)
-    test_loader = Loader(test_set, cfg.batch_size, shuffle=False,
-                         drop_last=cfg.eval_drop_last,
-                         num_workers=cfg.num_workers, seed=cfg.random_seed)
+    train_loader, test_loader = make_loaders(cfg, train_set, test_set)
     steps_per_epoch = max(len(train_loader), 1)
     h = build_harness(cfg, model, steps_per_epoch, dgl=dgl,
                       raw_batches=raw_batches, device=device)
 
-    os.makedirs(cfg.ckpt_path, exist_ok=True)
+    if is_primary():
+        os.makedirs(cfg.ckpt_path, exist_ok=True)
     acc_csv = CSVLogger(
         os.path.join(cfg.ckpt_path,
                      "{}_{}.csv".format(cfg.dataset, cfg.modality)),
@@ -387,7 +438,21 @@ def run_training(cfg: Config, model: torch.nn.Module, train_set, test_set,
             tb.close()
 
 
+def make_loaders(cfg: Config, train_set, test_set):
+    """(train, test) Loaders of the global batch cfg.batch_size; under a
+    process group each rank decodes its contiguous rows of every batch."""
+    kw = dict(num_workers=cfg.num_workers, seed=cfg.random_seed,
+              process_index=process_index(), process_count=process_count())
+    test = Loader(test_set, cfg.batch_size, shuffle=False,
+                  drop_last=cfg.eval_drop_last, **kw)
+    if train_set is None:
+        return None, test
+    return Loader(train_set, cfg.batch_size, shuffle=True, drop_last=True,
+                  **kw), test
+
+
 def _save_resume(h: Harness, path: str, epoch: int, extra: dict) -> None:
+    sync_replica_stats(h)
     save_train_state(path, h.model, h.optimizer, epoch, h.generator, extra)
 
 
@@ -435,6 +500,7 @@ def _epoch_loop(h: Harness, cfg: Config, train_loader, test_loader,
             # at epoch+1 and would otherwise never eval this epoch
             _save_resume(h, resume_path, epoch + 1, {"step_in_epoch": 0})
             stop_after_epilogue = True
+        sync_replica_stats(h)
         acc, acc_a, acc_v = evaluate(h, test_loader)
         if epoch_callback is not None:
             epoch_callback(epoch=epoch, means=means,
@@ -479,10 +545,9 @@ def run_eval(cfg: Config, model: torch.nn.Module, test_set, ckpt_path: str,
              device=None) -> tuple:
     """Eval mode (main_dgl.py:398-418 / valid.py): load a reference-schema
     `.pth` (strict=False semantics, valid.py:148) and validate.
-    raw_batches as in run_training."""
-    test_loader = Loader(test_set, cfg.batch_size, shuffle=False,
-                         drop_last=cfg.eval_drop_last,
-                         num_workers=cfg.num_workers, seed=cfg.random_seed)
+    raw_batches as in run_training; under a process group each rank
+    evaluates its rows of every batch and all report the same counts."""
+    _, test_loader = make_loaders(cfg, None, test_set)
     h = build_harness(cfg, model, max(len(test_loader), 1), dgl=dgl,
                       raw_batches=raw_batches, device=device)
     result = h.model.load_state_dict(load_best_checkpoint(ckpt_path, cfg),

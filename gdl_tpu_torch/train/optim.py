@@ -36,6 +36,7 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 import torch
 
 from gdl_tpu_torch.config import Config
+from gdl_tpu_torch.parallel.distributed import all_reduce_
 
 MOMENTUM = 0.9
 WEIGHT_DECAY = 1e-4  # coupled: added to the clipped gradient
@@ -202,11 +203,15 @@ def ogm_coefficients(out_a: torch.Tensor, out_v: torch.Tensor,
     """(coeff_a, coeff_v) from the ratio of the summed softmax scores of
     the labels (main.py:287-306), in f32 under any autocast: the
     modality with the larger score gets 1 - tanh(α · relu(ratio)), the
-    other 1."""
+    other 1. Under a process group the scores are summed over every
+    rank's rows (one all-reduce), so every rank gets the global batch's
+    coefficients."""
     idx = torch.arange(labels.shape[0], device=labels.device)
     labels = labels.long()
-    score_a = torch.softmax(out_a.float(), dim=-1)[idx, labels].sum()
-    score_v = torch.softmax(out_v.float(), dim=-1)[idx, labels].sum()
+    scores = torch.stack([
+        torch.softmax(out.float(), dim=-1)[idx, labels].sum()
+        for out in (out_a, out_v)])
+    score_a, score_v = all_reduce_(scores)
     ratio_v = score_v / score_a
     ratio_a = 1.0 / ratio_v
     v_big = ratio_v > 1.0

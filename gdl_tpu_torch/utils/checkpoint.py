@@ -16,6 +16,10 @@ optimizer's momentum buffers and step count, the epoch, the device
 generator's state and a free-form `extra` (step_in_epoch for a mid-epoch
 resume) as one `.pth`.
 
+Under a process group only rank 0 writes either file, and every rank
+waits at a barrier after the save, so a file is whole before any rank
+goes on (the ranks hold the same weights: `train/loop.py`).
+
 The port neither reads nor writes gdl_tpu's msgpack files; given one,
 the loaders raise and say so.
 """
@@ -28,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from gdl_tpu_torch.config import Config
+from gdl_tpu_torch.parallel.distributed import barrier, is_primary
 from gdl_tpu_torch.train.optim import MOMENTUM, WEIGHT_DECAY
 from gdl_tpu_torch.utils.interop import load_reference_pth
 
@@ -64,9 +69,21 @@ def _require_torch_file(path: str) -> None:
 def save_best_checkpoint(cfg: Config, model: torch.nn.Module, epoch: int,
                          acc: float, path: Optional[str] = None) -> str:
     """Write the best-accuracy checkpoint in the reference's schema;
-    returns its full path. As in gdl_tpu's writer the optimizer entry
-    carries the hyperparameters only."""
-    saved = {
+    returns its full path (rank 0 writes it). As in gdl_tpu's writer the
+    optimizer entry carries the hyperparameters only."""
+    if path is None:
+        path = os.path.join(cfg.ckpt_path,
+                            legacy_checkpoint_name(cfg, epoch, acc))
+    if is_primary():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        torch.save(_best_payload(cfg, model, epoch, acc), path)
+    barrier()
+    return path
+
+
+def _best_payload(cfg: Config, model: torch.nn.Module, epoch: int,
+                  acc: float) -> dict:
+    return {
         "saved_epoch": epoch,
         "modulation": cfg.modulation,
         "alpha": cfg.alpha,
@@ -86,12 +103,6 @@ def save_best_checkpoint(cfg: Config, model: torch.nn.Module, epoch: int,
             "gamma": cfg.lr_decay_ratio,
         },
     }
-    if path is None:
-        os.makedirs(cfg.ckpt_path, exist_ok=True)
-        path = os.path.join(cfg.ckpt_path,
-                            legacy_checkpoint_name(cfg, epoch, acc))
-    torch.save(saved, path)
-    return path
 
 
 def load_best_checkpoint(path: str, cfg: Optional[Config] = None) -> dict:
@@ -106,7 +117,13 @@ def save_train_state(path: str, model: torch.nn.Module, optimizer,
                      extra: Optional[dict] = None) -> None:
     """Atomic: written to a sibling tmp file then os.replace'd, so a crash
     (or the tail of a preemption grace window, utils/preempt.py) mid-write
-    never corrupts an existing resume state."""
+    never corrupts an existing resume state. Rank 0 writes it."""
+    if is_primary():
+        _write_train_state(path, model, optimizer, epoch, generator, extra)
+    barrier()
+
+
+def _write_train_state(path, model, optimizer, epoch, generator, extra):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {
         "model": model.state_dict(),

@@ -10,6 +10,9 @@ of `gdl_tpu/utils/logging.py`.
 - Optional TensorBoard 'Loss' / 'Evaluation' scalar groups
   (main_dgl.py:306-331) under --use_tensorboard; `torch.utils.tensorboard`
   (and so the `tensorboard` package) is imported only then.
+
+Under a process group only rank 0 writes: on the other ranks both
+loggers take every call and write nothing.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import csv
 import os
 from typing import Iterable, Optional
 
+from gdl_tpu_torch.parallel.distributed import is_primary
+
 
 class CSVLogger:
     def __init__(self, path: str, sentinel: Optional[Iterable] = None,
@@ -25,14 +30,17 @@ class CSVLogger:
         self.path = path
         self.flush_every = flush_every
         self._buffer = []
+        self.enabled = is_primary()
         dirname = os.path.dirname(path)
-        if dirname:
+        if dirname and self.enabled:
             os.makedirs(dirname, exist_ok=True)
         if sentinel is not None:
             self.write_row(list(sentinel))
             self.flush()
 
     def write_row(self, row):
+        if not self.enabled:
+            return
         self._buffer.append(list(row))
         if len(self._buffer) >= self.flush_every:
             self.flush()
@@ -56,6 +64,9 @@ class TBLogger:
 
     def __init__(self, tensorboard_path: str, dataset: str,
                  fusion_method: str, modulation: str):
+        self.writer = None
+        if not is_primary():
+            return
         from torch.utils.tensorboard import SummaryWriter
 
         writer_path = os.path.join(tensorboard_path, dataset)
@@ -64,8 +75,10 @@ class TBLogger:
         self.writer = SummaryWriter(os.path.join(writer_path, log_name))
 
     def log_epoch(self, epoch: int, losses: dict, accs: dict):
-        self.writer.add_scalars("Loss", losses, epoch)
-        self.writer.add_scalars("Evaluation", accs, epoch)
+        if self.writer is not None:
+            self.writer.add_scalars("Loss", losses, epoch)
+            self.writer.add_scalars("Evaluation", accs, epoch)
 
     def close(self):
-        self.writer.close()
+        if self.writer is not None:
+            self.writer.close()

@@ -15,10 +15,16 @@ remainder of the interrupted epoch:
 - the shuffle order is per-epoch deterministic (Loader.set_epoch), so
   skipping the first k batch index groups re-enters the same stream.
 
-The port runs one process on one device, so a raised flag stops the run
-at once; gdl_tpu's multi-host agreement (an allgather of the flags every
-`sync_every` steps) waits for the multi-GPU slice. `sync_every` is kept
-in the signature so callers carry over.
+Several processes (`torchrun`) must stop at the SAME step, or the
+survivors hang in the next collective. A local flag (each rank gets its
+own SIGTERM from the scheduler) is therefore acted on only at an
+agreement boundary: every `sync_every` steps the ranks all-reduce their
+flags (MAX) and stop iff any rank flagged; a flag raised in the final
+partial window is caught by the epoch-end `agree()` (run_training calls
+it before eval). The all-reduce blocks the host: at the default of 32
+steps that is one wait for the device every 32 steps. A run without a
+process group, or of one rank, stops at once and pays nothing (a local
+Event read).
 """
 
 from __future__ import annotations
@@ -26,6 +32,10 @@ from __future__ import annotations
 import signal
 import threading
 from typing import Optional
+
+import torch
+
+from gdl_tpu_torch.parallel.distributed import all_reduce_, process_count
 
 
 class PreemptionGuard:
@@ -75,14 +85,23 @@ class PreemptionGuard:
     def should_stop(self, step_count: int) -> bool:
         """True when training must stop AFTER the step just completed.
         `step_count` is 1-based within the epoch (skipped batches of a
-        resumed epoch excluded)."""
+        resumed epoch excluded; every rank counts alike)."""
         if (self.trigger_after is not None
                 and step_count >= self.trigger_after):
             self.trigger()
-        return self.triggered()
+        if process_count() == 1:
+            return self.triggered()
+        if step_count % self.sync_every:
+            return False
+        return self.agree()
 
     def agree(self) -> bool:
-        """True iff the flag is raised. run_training calls it at each
-        epoch end, so a flag raised after the last step's check still
-        saves before the next epoch starts."""
-        return self.triggered()
+        """True iff the flag is raised on any rank (an all-reduce MAX of
+        the flags; the local flag without a process group). Every rank
+        calls it at the same points: should_stop's boundaries and
+        run_training's epoch ends, so a flag raised after the last step's
+        check still saves before the next epoch starts."""
+        if process_count() == 1:
+            return self.triggered()
+        flag = torch.tensor([int(self.triggered())], dtype=torch.int32)
+        return bool(all_reduce_(flag, "max").item())

@@ -8,14 +8,24 @@ under --backbone swin), loads a reference-schema `.pth` (strict=False,
 valid.py:148) and runs the per-class accuracy accounting over the test
 split. `--export_path` also writes the serving artifact of the same
 checkpoint (`serve.export_from_checkpoint`, for the CPU and CUDA; with
-`--export_poly_batch 1` one artifact serves any batch size). Runs on
-one CUDA device; `--device cpu` is the one way to ask for the CPU.
+`--export_poly_batch 1` one artifact serves any batch size; rank 0
+writes it). Runs on one CUDA device, or under `torchrun` on one a
+process, each rank evaluating its rows of every batch and all reporting
+the same accuracy (`--eval_drop_last 1`); `--device cpu` is the one way
+to ask for the CPU.
 """
 
 import argparse
 
 from gdl_tpu_torch.config import Config, add_arguments, from_args
 from gdl_tpu_torch.data.datasets import make_dataset
+from gdl_tpu_torch.parallel.distributed import (
+    barrier,
+    data_parallel_size,
+    destroy,
+    is_primary,
+    maybe_initialize,
+)
 from gdl_tpu_torch.serve import (
     build_model,
     export_from_checkpoint,
@@ -45,19 +55,25 @@ def run_valid(cfg: Config, test_set, export_path=None,
     resolve_device(cfg.device)  # raises before any work when CUDA is absent
     model = build_model(cfg, seed=cfg.random_seed)
     result = run_eval(cfg, model, test_set, cfg.ckpt_path, dgl=True)
-    if export_path:
+    if export_path and is_primary():
         export_from_checkpoint(cfg, cfg.ckpt_path, export_path,
                                poly_batch=poly_batch, device=cfg.device)
         print("Serving artifact written to", export_path)
+    barrier()
     return result
 
 
 def main(argv=None):
     args = get_arguments(argv)
     cfg = from_args(args)
-    print(cfg)
-    return run_valid(cfg, make_dataset(cfg, "test"), args.export_path,
-                     bool(args.export_poly_batch))
+    maybe_initialize(device=cfg.device)  # torchrun's process group
+    cfg.dp = data_parallel_size(cfg.dp)
+    try:
+        print(cfg)
+        return run_valid(cfg, make_dataset(cfg, "test"), args.export_path,
+                         bool(args.export_poly_batch))
+    finally:
+        destroy()
 
 
 if __name__ == "__main__":

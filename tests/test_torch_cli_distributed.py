@@ -1,0 +1,119 @@
+"""The port's CLI under `torchrun` on the CPU: two gloo ranks over the
+on-disk fixture tree of tests/test_torch_cli.py.
+
+`python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+gdl_tpu_torch.main_dgl --device cpu --dp 2 --eval_drop_last 1 ...` trains
+with both ranks printing the same accuracy and rank 0 alone writing the
+CSVs (each file holds one run's rows); `gdl_tpu_torch.valid` under two
+ranks reports the one-process accuracy; --dp 3 against two ranks, --mp 2
+and --profile_dir raise by name."""
+
+import glob
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from gdl_tpu_torch import main_dgl
+from gdl_tpu_torch.config import Config
+from gdl_tpu_torch.models.classifier import AVClassifierDGL
+from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
+from tests.test_torch_cli import REPO_ROOT, _fixture_tree
+
+
+def _env():
+    return dict(os.environ, OMP_NUM_THREADS="1",
+                PYTHONPATH=REPO_ROOT + ":" + os.environ.get("PYTHONPATH", ""))
+
+
+def _torchrun(args, cwd, module, nproc=2):
+    """torchrun of `module` → (the launcher's CompletedProcess, each
+    rank's stdout), the ranks' output captured apart."""
+    logs = os.path.join(cwd, f"torchrun_logs_{module}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "--log_dir", logs,
+           "--redirects", "1", "-m", module] + args
+    out = subprocess.run(cmd, cwd=cwd, env=_env(), capture_output=True,
+                         text=True, timeout=300)
+    ranks = []
+    for r in range(nproc):
+        files = glob.glob(os.path.join(logs, "*", "attempt_0", str(r),
+                                       "stdout.log"))
+        ranks.append(open(files[0]).read() if files else "")
+    shutil.rmtree(logs, ignore_errors=True)
+    return out, ranks
+
+
+def _common(audio, visual):
+    return ["--dataset", "CREMAD", "--modulation", "Normal",
+            "--fusion_method", "concat", "--alpha", "4",
+            "--audio_path", audio, "--visual_path", visual,
+            "--batch_size", "4", "--num_workers", "1",
+            "--encoder_width", "8", "--encoder_stages", "1,1,1,1",
+            "--learning_rate", "0.002", "--device", "cpu",
+            "--eval_drop_last", "1"]
+
+
+def _epoch_lines(text):
+    """Each rank's per-epoch "Loss: ..., Acc: ..." line."""
+    return re.findall(r"^Loss: .*Acc: .*$", text, re.M)
+
+
+def test_torchrun_trains_and_evaluates_on_two_ranks(tmp_path):
+    """Two epochs of main_dgl over two ranks: the run ends, each epoch's
+    accuracy is printed once by each rank and alike, and the accuracy CSV
+    and the grad CSV hold one run's rows (rank 1 writes nothing). Then
+    valid under two ranks reports, on both, the accuracy one process
+    reports for the same checkpoint."""
+    audio, visual = _fixture_tree(tmp_path)
+    common = _common(audio, visual)
+    out, ranks = _torchrun(["--train", "--ckpt_path", str(tmp_path / "ckpt"),
+                            "--epochs", "2", "--dp", "2"] + common,
+                           tmp_path, "gdl_tpu_torch.main_dgl")
+    assert out.returncode == 0, (out.stdout + out.stderr)[-4000:]
+    lines = [_epoch_lines(text) for text in ranks]
+    assert len(lines[0]) == 2 and lines[0] == lines[1], ranks
+    rows = (tmp_path / "ckpt" / "CREMAD_full.csv").read_text().split()
+    assert rows[0] == "1000,1000,1000" and len(rows) == 3
+    grad_rows = (tmp_path / "audio_visual_grad_vanilla.csv").read_text()
+    assert len(grad_rows.split()) == 2 * 3  # 12 clips / 4 a step, 2 epochs
+
+    cfg = Config(dataset="CREMAD", modulation="Normal",
+                 fusion_method="concat", alpha=4.0, encoder_width=8,
+                 encoder_stages=[1, 1, 1, 1])
+    model = AVClassifierDGL(cfg, generator=torch.Generator().manual_seed(2))
+    pth = save_best_checkpoint(cfg, model, 1, 0.5,
+                               path=str(tmp_path / "best.pth"))
+    valid = ["--ckpt_path", pth] + common
+    one = subprocess.run([sys.executable, "-m", "gdl_tpu_torch.valid"]
+                         + valid, cwd=tmp_path, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert one.returncode == 0, one.stderr[-3000:]
+    two, ranks = _torchrun(valid, tmp_path, "gdl_tpu_torch.valid")
+    assert two.returncode == 0, (two.stdout + two.stderr)[-4000:]
+    want = re.findall(r"Accuracy: .*", one.stdout)
+    assert len(want) == 1
+    for text in ranks:
+        assert re.findall(r"Accuracy: .*", text) == want
+
+
+def test_refusals_name_the_option(tmp_path):
+    """--dp 3 under two ranks raises on both, naming torchrun's
+    WORLD_SIZE; --mp 2 and --profile_dir raise NotImplementedError naming
+    the option, before any work."""
+    audio, visual = _fixture_tree(tmp_path)
+    common = _common(audio, visual)
+    out, _ = _torchrun(["--train", "--ckpt_path", str(tmp_path / "ckpt"),
+                        "--epochs", "1", "--dp", "3"] + common, tmp_path,
+                       "gdl_tpu_torch.main_dgl")
+    assert out.returncode != 0
+    assert out.stderr.count("differs from torchrun's WORLD_SIZE 2") >= 2
+    assert not (tmp_path / "ckpt").exists()
+    for flag, value in (("--mp", "2"), ("--profile_dir", "p")):
+        with pytest.raises(NotImplementedError, match=flag):
+            main_dgl.main(["--train", "--ckpt_path", str(tmp_path / "c"),
+                           flag, value] + common)

@@ -697,7 +697,7 @@ def test_self_attention_bwd_ds_scratch_matches_plain(cuda, b, n, c, heads,
             qkv.data_ptr(), p.data_ptr(), ptr(drop.mask),
             ptr(drop.seed_words), g.data_ptr(), ds.data_ptr(),
             dqkv.data_ptr(), b, n, c, heads, d, scale, drop.mode,
-            drop.keep_thresh, drop.inv_keep,
+            drop.keep_thresh, drop.inv_keep, drop.offset,
             0 if dtype == "float32" else 1,
             torch.cuda.current_stream(cuda).cuda_stream)
         assert err == 0
@@ -803,6 +803,61 @@ def test_dropout_mask_kernel_is_bit_equal_to_plain(cuda, shape, dtype):
     other = prng_dropout_mask(fold_seed_words(gen, cuda), shape, 0.1, dt)
     if got.numel() > 64:
         assert not torch.equal(got, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_kernels_at_an_offset_are_the_slice_of_the_global_mask(
+        cuda, dtype):
+    """#14 and the in-kernel masks of #10 / #11 / #12 at an element offset
+    (a rank's first row of a data-parallel batch): the second half of a
+    batch computed alone at its offset has, bit for bit, the global
+    launch's second half and the plain version's bits at that offset; #14
+    also past 2^32 elements (the 64-bit counter)."""
+    from gdl_tpu_torch.ops import self_attention as sa
+    from gdl_tpu_torch.ops.dropout import (
+        philox_keep_mask,
+        prng_dropout_mask,
+        prng_dropout_mask_ref,
+    )
+
+    dt = getattr(torch, dtype)
+    words = torch.tensor([1234, -5678], dtype=torch.int32, device=cuda)
+    whole = prng_dropout_mask(words, (8, 3, 44), 0.1, dt)
+    part = prng_dropout_mask(words, (4, 3, 44), 0.1, dt, offset=4 * 132)
+    assert torch.equal(part, whole[4:])
+    for offset in (4 * 132, 2 ** 32 - 8):
+        got = prng_dropout_mask(words, (4, 3, 44), 0.1, dt, offset=offset)
+        want = prng_dropout_mask_ref(words, (4, 3, 44), 0.1, dt, offset)
+        assert torch.equal(got, want), offset
+
+    b, n, c, heads = 4, 40, 64, 2
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((b, n, c), generator=gen, device=cuda).to(dt)
+    w = (torch.randn((3 * c, c), generator=gen, device=cuda)
+         * c ** -0.5).to(dt)
+    g = torch.randn((b, n, c), generator=gen, device=cuda).to(dt)
+    drop = sa.make_dropout(x, heads, 0.2, True, "kernel", words)
+    out, qkv, p, keep = sa.self_attention_fused_fwd(x, w, heads, drop=drop,
+                                                    return_keep=True)
+    dqkv = sa.self_attention_fused_bwd(qkv, p, g, heads, drop=drop)
+    offset = 2 * heads * n * n
+    d = sa.make_dropout(x[2:], heads, 0.2, True, "kernel", words,
+                        offset=offset)
+    o2, q2, p2, k2 = sa.self_attention_fused_fwd(x[2:].contiguous(), w,
+                                                 heads, drop=d,
+                                                 return_keep=True)
+    assert torch.equal(k2, keep[2:])
+    assert torch.equal(k2, philox_keep_mask(words, k2.shape, 0.2, offset)
+                       .to(torch.uint8))
+    assert torch.equal(o2, out[2:]) and torch.equal(p2, p[2:])
+    d2 = sa.self_attention_fused_bwd(q2, p2, g[2:].contiguous(), heads,
+                                     drop=d)
+    assert torch.equal(d2, dqkv[2:])
+    # #12 draws its mask in the kernel as #10 does
+    o12, p12, k12 = sa.self_attention_qkv_fwd(q2, heads, drop=d,
+                                              return_keep=True)
+    assert torch.equal(k12, keep[2:]) and torch.equal(p12, p2)
 
 
 # ---------------------------------------------------------------------------
@@ -2341,3 +2396,52 @@ def test_serving_operators_pass_opcheck(cuda, name):
 
     op = getattr(torch.ops.gdl_tpu_torch, name).default
     torch.library.opcheck(op, _opcheck_cases(cuda)[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_multi_rank_batch_norm_path_matches_batch_norm(cuda, dtype, tol):
+    """The multi-rank BatchNorm's CUDA path (torch's SyncBatchNorm
+    primitives, `models/layers.py`) at world size 1, where its
+    all-reduces are no-ops, on a channels_last batch whose |mean| ≫ std
+    as the spectrogram stem's: output, input gradient and parameter
+    gradients within `tol` × each tensor's largest magnitude of a float64
+    BatchNorm of the same inputs (bf16: about two units in the last
+    place), and the running statistics as nn.BatchNorm2d's."""
+    from gdl_tpu_torch.models.layers import GlobalBatchNorm2d
+
+    g = torch.Generator().manual_seed(23)
+    x = (torch.randn(8, 16, 12, 10, generator=g) * 0.5 + 20.0).to(
+        cuda, dtype).contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(x.shape, generator=g).to(cuda, dtype)
+    weight = torch.rand(16, generator=g) + 0.5
+    bias = torch.randn(16, generator=g)
+
+    xd = x.double().requires_grad_()
+    wd = weight.to(cuda, torch.float64).requires_grad_()
+    bd = bias.to(cuda, torch.float64).requires_grad_()
+    var, mean = torch.var_mean(xd, (0, 2, 3), correction=0, keepdim=True)
+    yd = ((xd - mean) * torch.rsqrt(var + 1e-5) * wd.view(1, -1, 1, 1)
+          + bd.view(1, -1, 1, 1))
+    yd.backward(gy.double())
+
+    ref = torch.nn.BatchNorm2d(16).to(cuda).train()
+    ref(x)
+    bn = GlobalBatchNorm2d(16)
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+    bn = bn.to(cuda).train()
+    xi = x.clone().requires_grad_()
+    y = bn.global_forward(xi)
+    y.backward(gy)
+    assert y.dtype == dtype and xi.grad.dtype == dtype
+    for name, got, want in (("y", y, yd), ("dx", xi.grad, xd.grad),
+                            ("dweight", bn.weight.grad, wd.grad),
+                            ("dbias", bn.bias.grad, bd.grad)):
+        err = float((got.double() - want).abs().max())
+        assert err <= tol * float(want.abs().max()), (name, err)
+    for name in ("running_mean", "running_var", "num_batches_tracked"):
+        torch.testing.assert_close(getattr(bn, name), getattr(ref, name),
+                                   rtol=1e-5, atol=1e-5, msg=name)

@@ -302,13 +302,14 @@ def test_preempt_then_resume_reaches_the_same_parameters(trained):
 def test_unported_options_raise_by_name():
     """Every option the CLI accepts and the port does not implement
     raises NotImplementedError naming it (the DGL and joint lineages take
-    the same options); CUDA without a card raises. --use_tensorboard,
-    the AdaGrad / Adam optimizers and --pretrained_path (loaded when the
-    harness is built, tests/test_torch_pretrained.py) are ported and
-    pass."""
+    the same options); --sync_bn 0 --dp 2 without torchrun's process
+    group raises, naming torchrun; CUDA without a card raises.
+    --use_tensorboard, the AdaGrad / Adam optimizers and
+    --pretrained_path (loaded when the harness is built,
+    tests/test_torch_pretrained.py) are ported and pass."""
     base = dict(KW, device="cpu")
     for kw, word in ((dict(profile_dir="/tmp/p"), "profile_dir"),
-                     (dict(sync_bn=False, dp=2), "sync_bn")):
+                     (dict(sync_bn=False, dp=2), "torchrun")):
         with pytest.raises(NotImplementedError, match=word):
             check_supported(Config(**dict(base, **kw)))
     for kw in (dict(use_tensorboard=True), dict(optimizer="Adam"),

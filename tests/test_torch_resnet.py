@@ -199,8 +199,8 @@ def test_init_distributions_and_unported_options():
     assert float(lin.bias.abs().max()) == 0.0
     bn = batch_norm(8)
     assert bn.eps == 1e-5 and bn.momentum == 0.1
-    with pytest.raises(NotImplementedError, match="per-replica"):
-        batch_norm(8, groups=2)
+    with pytest.raises(ValueError, match="per-replica"):
+        batch_norm(8, groups=2)  # without a process group of 2 ranks
     with pytest.raises(NotImplementedError, match="modality"):
         resnet18("text")
     # the same generator state gives the same weights

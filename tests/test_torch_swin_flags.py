@@ -258,9 +258,13 @@ def test_cli_flags_parse_into_the_config():
 
 @pytest.mark.parametrize("flag", ["dp", "mp"])
 def test_more_than_one_device_raises_by_name(flag):
-    """--dp 2 and --mp 2 raise NotImplementedError naming the flag until
-    the multi-GPU slice; --dp -1 (all devices) and 1 mean the one device."""
-    with pytest.raises(NotImplementedError, match=f"--{flag} 2"):
+    """--mp 2 raises NotImplementedError naming the flag (the
+    model-parallel mesh is not ported); --dp 2 without a process group
+    raises it naming the flag and torchrun, which launches the ranks;
+    --dp -1 (the world size) and 1 mean this one process."""
+    with pytest.raises(NotImplementedError, match=f"--{flag} 2") as err:
         check_supported(Config(device="cpu", **{flag: 2}))
+    if flag == "dp":
+        assert "torchrun" in str(err.value)
     check_supported(Config(device="cpu", **{flag: 1}))
     check_supported(Config(device="cpu", dp=-1))
