@@ -258,7 +258,25 @@ Phases, each printing one JSON line:
               no yardstick); (3) #14 at its four mask shapes and #10 /
               #11's in-kernel masks at [64, 392, 512], 8 heads, at
               offsets 0 and sample 32's: bit-equal to the plain version
-              at that offset and to the global batch's second half;
+              at that offset and to the global batch's second half; and
+              in the three-segment layout of --batched_inter 1 for rank
+              1 of 2 (#14 at [3 x 32 x 392, 512] and [3 x 32 x 392,
+              4096], #10 / #11 at [3 x 32, 392, 512]): bit-equal to the
+              plain version in that layout and to rank 1's rows of the
+              global [3 x 64] launch; (4) phase k's mmformer_n with
+              --batched_inter 1, float32, batch 64 global, over the same
+              two gloo ranks in the same processes: one step from one
+              process's state before it, against that process's step at
+              phase k's bars, exactly 5 / 5 / 20 / 2 launches of #10 /
+              #11 / #14 / #16 a step in the process and a rank-step in
+              each rank (the three inter calls are one);
+  s. profile  --profile_dir (run after phase i): phase i's flagship,
+              float32, batch 64, through build_harness and
+              train_one_epoch: an untraced warm-up epoch, epoch 0 of 14
+              steps traced at steps 10-12, then epoch 1 again: one
+              Chrome trace file, three train_step spans, exactly 6
+              events of #16's kernel among its CUDA kernel events; the
+              traced and untraced epochs' ms/step side by side;
   g. kernels  one line per kernel: route, source, the TPU kernel it
               replaces, launches on its path (d for #1, the kernel arm
               of f for #2 and #4, of i for #16, of k for #10, #11, #13
@@ -272,9 +290,11 @@ Phases, each printing one JSON line:
               fixed artifacts as export_launches, the replays as
               export_replays and their quotient as
               export_launches_per_forward; for #16 its launches a step
-              of r's world-1 run and a rank-step of r's gloo run, for
-              #14, #10 and #11 whether r's offset checks were bit-equal
-              and their launches), error,
+              of r's world-1 run and a rank-step of r's gloo run, and
+              its events in s's trace; for #14, #10 and #11 whether r's
+              offset and segment checks were bit-equal and their
+              launches; for these four, their launches a rank-step of
+              r's --batched_inter 1 run), error,
               times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
               over the float32 peak of 67 TFLOP/s; the times are the
@@ -3264,6 +3284,22 @@ COLLECTIVES = ("all_reduce", "broadcast", "barrier")
 # the four mask shapes of #14 and the attention shape of #10 / #11 at
 # batch 64, each split at sample 32 (the second of two ranks' rows)
 OFFSET_SA = (MM_BATCH, 392, 512)
+# part 3 under --batched_inter 1: rank 1 of 2 holds [3 x 32] of the
+# [3 x 64] stack of three passes; #14's two inter mask widths at 392
+# tokens and #10 / #11's inter attention, in element_layout(passes=3)
+SEG_WORLD, SEG_RANK = 2, 1
+SEG_TOKENS = 392
+SEG_MASK_WIDTHS = (512, 4096)
+SEG_SA = (3 * MM_BATCH // SEG_WORLD, SEG_TOKENS, 512)
+# part 4: phase k's mmformer_n under --batched_inter 1, one step; its
+# three inter calls are one: 4 + 1 attention calls, 4 x 4 + 4 masks
+MM_BATCHED_LAUNCHES = {SA_FWD: 5, SA_BWD: 5, MASK: 20, POOL: 2}
+
+# ---- phase s: --profile_dir -------------------------------------------------
+
+PROFILE_STEPS = 14   # an epoch; steps 10-12 are traced
+PROFILE_SPANS = 3
+PROFILE_POOL_EVENTS = 2 * PROFILE_SPANS  # #16's two launches a step
 
 
 def _free_port() -> int:
@@ -3449,7 +3485,9 @@ def dp_worker(spec: str) -> int:
     one; 3 free steps from phase i's first state, the state before each
     and after the last digested (and saved by rank 0 under free_<dtype>/
     for the parent's replay); one evaluate, the rank-0 files, timed
-    steps. Writes its results as JSON under spec's "dir"."""
+    steps. With spec's "mm_batched", then one step of phase k's
+    mmformer_n under --batched_inter 1 (`mm_batched_rank`). Writes its
+    results as JSON under spec's "dir"."""
     import torch
 
     from gdl_tpu_torch.data.loader import Loader
@@ -3545,6 +3583,8 @@ def dp_worker(spec: str) -> int:
                 local_batch=train_loader.local_batch)
             del h
             torch.cuda.empty_cache()
+        if job.get("mm_batched"):
+            out["mm_batched"] = mm_batched_rank(job["dir"], rank)
     finally:
         with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -3633,6 +3673,215 @@ def phase_offsets(failures):
     return launched, rows
 
 
+def phase_segments(failures):
+    """Rank 1 of 2 under --batched_inter 1, whose [3 x 32] stack holds its
+    rows of the three passes' global batches: #14 at [3 x 32 x 392, 512]
+    and [3 x 32 x 392, 4096], and #10 / #11's in-kernel masks at
+    [3 x 32, 392, 512] with 8 heads, in the three-segment layout of
+    `element_layout(passes=3)`. Each is bit-equal to its plain version in
+    that layout and to rank 1's rows of the global [3 x 64] launch.
+    Returns {kernel: launches made} and the rows."""
+    import torch
+
+    from gdl_tpu_torch import kernels
+    from gdl_tpu_torch.ops import self_attention as sa
+    from gdl_tpu_torch.ops.dropout import (
+        philox_keep_mask,
+        prng_dropout_mask,
+        prng_dropout_mask_ref,
+    )
+
+    dev = torch.device("cuda")
+    kernels.reset_launch_counts()
+    rows, problems = [], []
+    words = torch.tensor([20261018, -77], dtype=torch.int32, device=dev)
+    b = MM_BATCH // SEG_WORLD
+    mine = torch.cat([torch.arange(p * MM_BATCH + SEG_RANK * b,
+                                   p * MM_BATCH + SEG_RANK * b + b,
+                                   device=dev) for p in range(3)])
+
+    def layout(per_sample):
+        return (SEG_RANK * b * per_sample, b * per_sample,
+                MM_BATCH * per_sample)
+
+    note = f"rank {SEG_RANK} of {SEG_WORLD}, three segments"
+    for c in SEG_MASK_WIDTHS:
+        lay = layout(SEG_TOKENS * c)
+        for dt in (torch.float32, torch.bfloat16):
+            shape = (3 * b * SEG_TOKENS, c)
+            part = prng_dropout_mask(words, shape, MM_RATE, dt, offset=lay)
+            ok = _bit_equal(part, prng_dropout_mask_ref(words, shape,
+                                                        MM_RATE, dt, lay))
+            whole = prng_dropout_mask(words, (3 * MM_BATCH * SEG_TOKENS, c),
+                                      MM_RATE, dt)
+            ok &= _bit_equal(part.view(3 * b, SEG_TOKENS, c),
+                             whole.view(3 * MM_BATCH, SEG_TOKENS, c)[mine])
+            del part, whole
+            rows.append({"kernel": MASK, "shape": list(shape),
+                         "dtype": str(dt), "layout": list(lay),
+                         "note": note, "bit_equal": bool(ok)})
+            if not ok:
+                problems.append(f"{MASK} {shape} {dt}: segment bits differ")
+    bl, n, ch = SEG_SA
+    lay = layout(MM_HEADS * n * n)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn((3 * MM_BATCH, n, ch), generator=gen, device=dev)
+             * 0.5).to(dt)
+        w = (torch.randn((3 * ch, ch), generator=gen, device=dev)
+             * ch ** -0.5).to(dt)
+        g = torch.randn((3 * MM_BATCH, n, ch), generator=gen,
+                        device=dev).to(dt)
+        drop = sa.make_dropout(x, MM_HEADS, MM_RATE, True, "kernel", words)
+        out, qkv, p, keep = sa.self_attention_fused_fwd(
+            x, w, MM_HEADS, drop=drop, return_keep=True)
+        dqkv = sa.self_attention_fused_bwd(qkv, p, g, MM_HEADS, drop=drop)
+        d = sa.make_dropout(x[mine], MM_HEADS, MM_RATE, True, "kernel",
+                            words, offset=lay)
+        o2, q2, p2, k2 = sa.self_attention_fused_fwd(
+            x[mine].contiguous(), w, MM_HEADS, drop=d, return_keep=True)
+        plain_keep = philox_keep_mask(words, k2.shape, MM_RATE,
+                                      lay).to(torch.uint8)
+        ok_fwd = (torch.equal(k2, keep[mine]) and torch.equal(k2, plain_keep)
+                  and _bit_equal(o2, out[mine]) and _bit_equal(p2, p[mine]))
+        d2 = sa.self_attention_fused_bwd(q2, p2, g[mine].contiguous(),
+                                         MM_HEADS, drop=d)
+        ok_bwd = _bit_equal(d2, dqkv[mine])
+        torch.cuda.synchronize()
+        del x, g, out, qkv, p, keep, dqkv, o2, q2, p2, k2, d2, plain_keep
+        for name, ok in ((SA_FWD, ok_fwd), (SA_BWD, ok_bwd)):
+            rows.append({"kernel": name, "shape": [bl, n, ch],
+                         "heads": MM_HEADS, "dtype": str(dt),
+                         "layout": list(lay), "note": note,
+                         "bit_equal": bool(ok)})
+            if not ok:
+                problems.append(f"{name} {dt}: segment bits differ")
+    torch.cuda.empty_cache()
+    launched = {k: v for k, v in kernels.launch_counts.items() if v}
+    emit({"phase": "dp_segments", "rows": rows, "launches": launched,
+          "problems": problems, "ok": not problems})
+    failures.extend(f"dp segments: {p}" for p in problems)
+    return launched, rows
+
+
+def mm_batched_config(ckpt: str, **kw):
+    """Phase k's mmformer_n configuration (batch 64 global), float32."""
+    from gdl_tpu_torch.config import Config
+
+    return Config(dataset="CREMAD", fps=1, batch_size=MM_BATCH,
+                  modulation="Normal", log_grad_csv=False,
+                  compute_dtype="float32", ckpt_path=ckpt,
+                  encoder_width=RESNET_WIDTH, **kw)
+
+
+def mm_batched_harness(cfg):
+    """Phase k's mmformer_n (shared streams) with --batched_inter 1, built
+    through main_intermediate from phase k's seed."""
+    from gdl_tpu_torch import main_intermediate
+
+    model, kind = main_intermediate.build_model(
+        "mmformer_n", cfg.n_classes, cfg.encoder_width, share_streams=True,
+        batched_inter=True, seed=777)
+    return main_intermediate.build_harness(cfg, model, kind,
+                                           steps_per_epoch=100)
+
+
+def mm_batched_set(cfg):
+    """One global batch of phase k's training data."""
+    from gdl_tpu_torch.data.synthetic import SyntheticDataset
+
+    return SyntheticDataset(cfg, size=MM_BATCH, seed=1500)
+
+
+def mm_batched_reference(tmp: str) -> dict:
+    """One process's step of mmformer_n under --batched_inter 1 on the
+    global batch (cuDNN deterministic): saves its state before the step
+    for the ranks (mm_snap.pt) and the state after (mm_ref.pt); returns
+    the step's metrics and launches."""
+    import torch
+
+    from gdl_tpu_torch.data.loader import Loader
+
+    cfg = mm_batched_config(tmp, num_workers=8)
+    h = mm_batched_harness(cfg)
+    torch.save(train_snapshot(h), os.path.join(tmp, "mm_snap.pt"))
+    steps = recorded_steps(h)
+    checked_epoch(h, list(Loader(mm_batched_set(cfg), MM_BATCH, shuffle=True,
+                                 drop_last=True, num_workers=8,
+                                 seed=cfg.random_seed)))
+    torch.save({k: v.detach().cpu().clone()
+                for k, v in h.model.state_dict().items()},
+               os.path.join(tmp, "mm_ref.pt"))
+    del h
+    torch.cuda.empty_cache()
+    return {"metrics": [m for m, _ in steps],
+            "launches": [c for _, c in steps]}
+
+
+def mm_batched_rank(job_dir: str, rank: int) -> dict:
+    """A rank's step of mm_batched_reference's, from its state before the
+    step, on the rank's rows of the global batch: metrics, launches, and
+    the (parameters, BN statistics) max |d| against its state after."""
+    import torch
+
+    from gdl_tpu_torch.train.loop import make_loaders
+
+    cfg = mm_batched_config(os.path.join(job_dir, f"mm_rank{rank}"),
+                            num_workers=4, device="cuda:0")
+    h = mm_batched_harness(cfg)
+    restore_snapshot(h, torch.load(os.path.join(job_dir, "mm_snap.pt"),
+                                   weights_only=False))
+    steps = recorded_steps(h)
+    loader, _ = make_loaders(cfg, mm_batched_set(cfg), mm_batched_set(cfg))
+    checked_epoch(h, list(loader))
+    errors = state_errors(h.model, torch.load(
+        os.path.join(job_dir, "mm_ref.pt"), weights_only=False))
+    del h
+    torch.cuda.empty_cache()
+    return {"metrics": [m for m, _ in steps],
+            "launches": [c for _, c in steps], "state_errors": errors,
+            "local_batch": loader.local_batch}
+
+
+def mm_batched_check(ref: dict, ranks: list, problems: list) -> dict:
+    """The ranks' step against one process's at phase k's float32 bars:
+    losses (the mean of the ranks' row means) and gradient norm relative,
+    parameters and BN statistics absolute; the ranks alike; exactly
+    MM_BATCHED_LAUNCHES a step in the process and a rank-step in each."""
+    if None in ranks:
+        problems.append("mm batched: no result from a rank")
+        return {}
+    r0, r1 = ranks
+    launches = [{k: v for k, v in c.items() if v} for c in
+                ref["launches"] + r0["launches"] + r1["launches"]]
+    if len(launches) != 3 or any(c != MM_BATCHED_LAUNCHES for c in launches):
+        problems.append(f"mm batched: launches {launches}")
+    worst = 0.0
+    for key in ("loss", "loss_a", "loss_v", "loss_f", "grad_norm"):
+        m0, m1, m = r0["metrics"][0], r1["metrics"][0], ref["metrics"][0]
+        got = m0[key] if key == "grad_norm" else (m0[key] + m1[key]) / 2
+        worst = max(worst, abs(got - m[key]) / max(abs(m[key]), 1e-12))
+    if r0["metrics"][0]["grad_norm"] != r1["metrics"][0]["grad_norm"]:
+        problems.append("mm batched: the ranks' gradient norms differ")
+    if worst > MM_LOSS_RTOL["float32"]:
+        problems.append(f"mm batched: losses differ by {worst} relative")
+    param_err = max(r0["state_errors"][0], r1["state_errors"][0])
+    stat_err = max(r0["state_errors"][1], r1["state_errors"][1])
+    if r0["state_errors"] != r1["state_errors"]:
+        problems.append("mm batched: the ranks' states differ")
+    if param_err > MM_PARAM_ATOL:
+        problems.append(f"mm batched: parameters differ by {param_err}")
+    if stat_err > MM_STAT_ATOL["float32"]:
+        problems.append(f"mm batched: BN running stats differ by {stat_err}")
+    return {"max_rel_loss_diff": worst, "loss_rtol": MM_LOSS_RTOL["float32"],
+            "max_abs_param_diff": param_err, "param_atol": MM_PARAM_ATOL,
+            "max_abs_bn_stat_diff": stat_err,
+            "bn_stat_atol": MM_STAT_ATOL["float32"],
+            "rank_batch": r0["local_batch"],
+            "launches_per_step": launches[:1],
+            "launches_per_rank_step": launches[1:]}
+
+
 def phase_distributed(failures, smi: str, refs: dict):
     """The flagship ResNet-18 DGL trainer data-parallel (phase i's config):
     1. world size 1 under NCCL from torchrun's variables: 3 checked steps
@@ -3650,9 +3899,16 @@ def phase_distributed(failures, smi: str, refs: dict):
        from the ranks' state before it at the same bars
        (`replay_free_steps`); 2 launches of #16 a rank-step, one evaluate
        with equal accuracies, no file written by rank 1, ms/step;
-    3. the element offsets of #14, #10 and #11 (`phase_offsets`).
+    3. the element offsets of #14, #10 and #11 (`phase_offsets`), and
+       their three-segment layout under --batched_inter 1
+       (`phase_segments`);
+    4. phase k's mmformer_n under --batched_inter 1 over the same two
+       ranks: one step from one process's state before it, against that
+       process's step at phase k's float32 bars, MM_BATCHED_LAUNCHES a
+       rank-step (`mm_batched_check`).
     Returns {"world1": launches a step, "gloo": launches a rank-step,
-    "offsets": (launches, rows)}."""
+    "offsets" and "segments": (launches, rows), "mm_batched": launches a
+    rank-step}."""
     import torch
     import torch.distributed as tdist
 
@@ -3791,9 +4047,11 @@ def phase_distributed(failures, smi: str, refs: dict):
                 "steps": ref["steps"]}]
             for k, snap in enumerate(snaps):
                 torch.save(snap, os.path.join(tmp, f"snap_{dtype}_{k}.pt"))
+        # part 4's one-process step, whose state before it the ranks take
+        mm_ref = mm_batched_reference(tmp)
         wenv = dict(os.environ, WORLD_SIZE=str(DP_RANKS),
                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
-        spec = json.dumps({"dir": tmp})
+        spec = json.dumps({"dir": tmp, "mm_batched": True})
         t = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--dp_worker", spec],
@@ -3938,8 +4196,106 @@ def phase_distributed(failures, smi: str, refs: dict):
               "ok": not problems})
         failures.extend(f"dp gloo: {p}" for p in problems)
 
-    # 3. the offsets
+        # 4. mmformer_n under --batched_inter 1 over the two ranks
+        mm_problems = []
+        mm = mm_batched_check(mm_ref, [rk.get("mm_batched") for rk in ranks],
+                              mm_problems)
+        result["mm_batched"] = mm.get("launches_per_rank_step", [])
+        result["mm_batched_check"] = dict(
+            {"phase": "dp_mm_batched", "ranks": DP_RANKS,
+             "device": "cuda:0", "backend": "gloo", "batch": MM_BATCH,
+             "dtype": "float32",
+             "loss": [m["loss"] for m in mm_ref["metrics"]],
+             "nvidia_smi": smi}, **mm, problems=mm_problems,
+            ok=not mm_problems)
+        emit(result["mm_batched_check"])
+        failures.extend(f"dp mm batched: {p}" for p in mm_problems)
+
+    # 3. the offsets, and the three-segment layout of --batched_inter 1
     result["offsets"] = phase_offsets(failures)
+    result["segments"] = phase_segments(failures)
+    return result
+
+
+def phase_profile(failures, smi: str) -> dict:
+    """--profile_dir on phase i's flagship (float32, batch 64) through
+    build_harness and train_one_epoch: a warm-up epoch (epoch 1, not
+    traced), epoch 0 of PROFILE_STEPS steps with cfg.profile_dir set, then
+    epoch 1 again. One trace file, written in epoch 0; exactly three
+    `train_step` spans in it, and #16's kernel exactly twice a traced step
+    among its CUDA kernel events (the profiler sees the kernels launched
+    through ctypes); the traced and the untraced epoch's ms/step beside
+    each other (no bar). Returns the line it prints."""
+    import glob
+
+    import torch
+
+    from gdl_tpu_torch.data.loader import Loader
+    from gdl_tpu_torch.data.synthetic import SyntheticDataset
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.train.loop import build_harness, train_one_epoch
+
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_dir = os.path.join(tmp, "profile")
+        cfg = resnet_dp_config("float32", tmp, num_workers=8,
+                               profile_dir=prof_dir)
+        batches = list(Loader(
+            SyntheticDataset(cfg, size=RESNET_BATCH * PROFILE_STEPS,
+                             seed=3000), RESNET_BATCH, shuffle=False,
+            drop_last=True, num_workers=8, seed=cfg.random_seed))
+        h = build_harness(cfg, build_model(cfg, seed=777),
+                          steps_per_epoch=PROFILE_STEPS)
+
+        def epoch_ms(epoch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with quiet():
+                train_one_epoch(h, batches, epoch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / len(batches)
+
+        epoch_ms(1)  # warm-up: cuDNN's algorithms, the allocator
+        if os.path.exists(prof_dir):
+            problems.append("an epoch other than 0 wrote a trace")
+        traced = epoch_ms(0)
+        written = sorted(glob.glob(os.path.join(prof_dir, "*")))
+        untraced = epoch_ms(1)
+        files = sorted(glob.glob(os.path.join(prof_dir, "*")))
+        if len(files) != 1 or files != written:
+            problems.append(f"trace files {files} (after epoch 0: "
+                            f"{written})")
+        spans = pool = kernel_events = gpu_spans = 0
+        size = 0
+        if files:
+            size = os.path.getsize(files[0])
+            with open(files[0]) as f:
+                events = json.load(f)["traceEvents"]
+            for e in events:
+                name, cat = e.get("name", ""), e.get("cat", "")
+                spans += name == "train_step" and cat == "user_annotation"
+                gpu_spans += (name == "train_step"
+                              and cat == "gpu_user_annotation")
+                if cat == "kernel":
+                    kernel_events += 1
+                    pool += "maxpool_bwd_kernel" in name
+        if spans != PROFILE_SPANS:
+            problems.append(f"{spans} train_step spans")
+        if pool != PROFILE_POOL_EVENTS:
+            problems.append(f"{pool} events of #16's kernel")
+        del h
+        torch.cuda.empty_cache()
+    result = {"phase": "profile", "batch": RESNET_BATCH, "dtype": "float32",
+              "steps_per_epoch": len(batches), "traced_steps": [10, 11, 12],
+              "trace_files": [os.path.basename(f) for f in files],
+              "trace_bytes": size, "train_step_spans": spans,
+              "gpu_train_step_spans": gpu_spans,
+              "kernel_events": kernel_events, "pool_kernel_events": pool,
+              "traced_epoch_ms_per_step": traced,
+              "untraced_epoch_ms_per_step": untraced, "nvidia_smi": smi,
+              "problems": problems, "ok": not problems}
+    emit(result)
+    failures.extend(f"profile: {p}" for p in problems)
     return result
 
 
@@ -4049,6 +4405,8 @@ def main(argv=None) -> int:
         "maxpool parity", lambda: phase_maxpool_parity(failures), [])
     pool_launches, resnet_refs = run_phase(
         "resnet", lambda: phase_resnet(failures, smi), (0, {}))
+    profile = run_phase("profile", lambda: phase_profile(failures, smi),
+                        {"pool_kernel_events": 0})
     sa_parity, mask_parity = run_phase(
         "sa parity", lambda: phase_sa_parity(failures), ([], []))
     mm_launches = run_phase("mmformer", lambda: phase_mmformer(failures, smi),
@@ -4071,11 +4429,15 @@ def main(argv=None) -> int:
         (dict(zero), {KERNEL: 0, MLP: 0, SA_EVAL: 0}))
     dp = run_phase("distributed",
                    lambda: phase_distributed(failures, smi, resnet_refs),
-                   {"world1": [], "gloo": [], "offsets": ({}, [])})
+                   {"world1": [], "gloo": [], "offsets": ({}, []),
+                    "segments": ({}, []), "mm_batched": []})
     record.update(parity=parity, train_parity=train_parity,
                   maxpool_parity=pool_parity, sa_parity=sa_parity,
                   mask_parity=mask_parity, flag_parity=flag_attn + flag_mlp,
-                  variant_parity=variant_rows, phase_seconds=seconds)
+                  variant_parity=variant_rows, profile=profile,
+                  dp_segments=dp["segments"][1],
+                  dp_mm_batched=dp.get("mm_batched_check"),
+                  phase_seconds=seconds)
     emit({"phase": "wall", "seconds": seconds})
 
     f32 = [r for r in parity if r["dtype"] == "float32"]
@@ -4472,13 +4834,21 @@ def main(argv=None) -> int:
                                                  for c in dp["world1"]]
     entries[3]["dp_gloo_launches_per_rank_step"] = [c[POOL]
                                                     for c in dp["gloo"]]
-    offset_launched, offset_rows = dp["offsets"]
-    for entry in (entries[7], entries[4], entries[5]):
-        mine = [r["bit_equal"] for r in offset_rows
-                if r["kernel"] == entry["name"]]
-        entry["offset_bit_equal"] = all(mine) if mine else None
-        entry["offset_checks"] = len(mine)
-        entry["offset_launches"] = offset_launched.get(entry["name"], 0)
+    # and in the three-segment layout of --batched_inter 1, and their
+    # launches a rank-step of mmformer_n under it over the gloo ranks;
+    # #16's events in phase s's trace
+    for key in ("offset", "segment"):
+        launched, rows = dp["offsets" if key == "offset" else "segments"]
+        for entry in (entries[7], entries[4], entries[5]):
+            mine = [r["bit_equal"] for r in rows
+                    if r["kernel"] == entry["name"]]
+            entry[key + "_bit_equal"] = all(mine) if mine else None
+            entry[key + "_checks"] = len(mine)
+            entry[key + "_launches"] = launched.get(entry["name"], 0)
+    for entry in (entries[7], entries[4], entries[5], entries[3]):
+        entry["dp_batched_inter_launches_per_rank_step"] = [
+            c.get(entry["name"], 0) for c in dp["mm_batched"]]
+    entries[3]["profile_trace_events"] = profile["pool_kernel_events"]
     record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
@@ -4523,9 +4893,13 @@ def main(argv=None) -> int:
             failures.append(f"{POOL} on the data-parallel path: {key} "
                             f"{entries[3][key]}")
     for entry in (entries[7], entries[4], entries[5]):
-        if not entry["offset_bit_equal"] or not entry["offset_launches"]:
-            failures.append(f"{entry['name']}: offsets not checked or "
-                            f"not bit-equal")
+        for key in ("offset", "segment"):
+            if not entry[key + "_bit_equal"] or not entry[key + "_launches"]:
+                failures.append(f"{entry['name']}: {key}s not checked or "
+                                f"not bit-equal")
+        if not any(entry["dp_batched_inter_launches_per_rank_step"]):
+            failures.append(f"{entry['name']} was never launched on the "
+                            f"--batched_inter 1 data-parallel path")
     # every fixed artifact, in both dtypes, replayed and counted in full
     want_export = dict(zero, **{
         k: v * N_REQUESTS * 2 for k, v in SWIN_EXPORT_LAUNCHES.items()}, **{

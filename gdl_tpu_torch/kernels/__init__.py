@@ -81,19 +81,20 @@ LIBRARIES = {
     "self_attention_train": (
         "self_attention_train.cu",
         {"gdl_sa_fwd_launch": ([_vp] * 8 + [_int] * 5
-                               + [_float, _int, _uint, _float, _i64, _int,
-                                  _vp], _int),
+                               + [_float, _int, _uint, _float] + [_i64] * 3
+                               + [_int, _vp], _int),
          "gdl_sa_qkv_fwd_launch": ([_vp] * 6 + [_int] * 5
-                                   + [_float, _int, _uint, _float, _i64,
-                                      _int, _vp], _int),
+                                   + [_float, _int, _uint, _float]
+                                   + [_i64] * 3 + [_int, _vp], _int),
          "gdl_sa_bwd_launch": ([_vp] * 7 + [_int] * 5
-                               + [_float, _int, _uint, _float, _i64, _int,
-                                  _vp], _int)},
+                               + [_float, _int, _uint, _float] + [_i64] * 3
+                               + [_int, _vp], _int)},
     ),
     "dropout_mask": (
         "dropout_mask.cu",
-        {"gdl_dropout_mask_launch": ([_vp, _i64, _i64, _vp, _uint, _float,
-                                      _int, _vp], _int)},
+        {"gdl_dropout_mask_launch": ([_vp] + [_i64] * 4 + [_vp, _uint,
+                                                           _float, _int, _vp],
+                                     _int)},
     ),
     "mlp_fused": (
         "mlp_fused.cu",

@@ -30,10 +30,16 @@
 // rest shared by the round. The stores that do not fill a round, and the
 // last n % (16 / sizeof(T)) elements, are written apart after the walk.
 //
-// Element offset: the mask is elements offset .. offset + n - 1 of the
-// stream (offset a multiple of 4, so the counter of a group is that of
-// group g + offset / 4): a rank of a data-parallel run writes its rows of
-// the global batch's mask. Offset 0 is the mask of before, bit for bit.
+// Layout: local element e of the mask is stream element offset +
+// (e / seg_elems) * seg_stride + e % seg_elems (philox.cuh's Layout; all
+// three multiples of 4, so local group g takes the counter of stream group
+// offset / 4 + (g / (seg_elems / 4)) * (seg_stride / 4) + g % (seg_elems /
+// 4), and a bf16 store, two groups, maps each group apart). One segment
+// (seg_elems == seg_stride) is elements offset .. offset + n - 1: a rank
+// of a data-parallel run writes its rows of the global batch's mask;
+// three segments, its rows of three stacked batches. Offset 0 in one
+// segment is the mask of before, bit for bit; the one-segment kernel does
+// no division (a template parameter).
 //
 // Plain C interface: `out` and `seed` are device pointers, `stream` a
 // cudaStream_t; dtype 0 = float32, 1 = bfloat16. `out` must be 16-byte
@@ -79,16 +85,36 @@ struct Keys {
   uint32_t k0[10], k1[10];
 };
 
-// Philox4x32-10 (philox.cuh's philox4x32_10) of K groups at once, the
-// counters (lo32(goff + group), hi32(goff + group), 0, 0), their rounds
-// interleaved
-template <int K, typename Index>
+// Where local groups lie in the stream, in groups: local group g is
+// stream group goff + g in one segment (SEG false), goff + (g / per) *
+// stride + g % per in segments of `per` groups `stride` groups apart
+template <typename Index>
+struct Groups {
+  Index goff, per, stride;
+};
+
+template <bool SEG, typename Index>
+__device__ __forceinline__ Index stream_group(Index g,
+                                             const Groups<Index>& at) {
+  if constexpr (!SEG) {
+    return g + at.goff;
+  } else {
+    const Index seg = g / at.per;
+    return at.goff + seg * at.stride + (g - seg * at.per);
+  }
+}
+
+// Philox4x32-10 (philox.cuh's philox4x32_10) of K local groups at once,
+// the counters (lo32(s), hi32(s), 0, 0) of their stream groups s, their
+// rounds interleaved
+template <int K, bool SEG, typename Index>
 __device__ __forceinline__ void philox_groups(const Index (&group)[K],
-                                              Index goff, const Keys& key,
+                                              const Groups<Index>& at,
+                                              const Keys& key,
                                               uint32_t (&w)[K][4]) {
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    const Index g = group[j] + goff;
+    const Index g = stream_group<SEG>(group[j], at);
     w[j][0] = static_cast<uint32_t>(g);
     w[j][1] = sizeof(Index) > 4
                   ? static_cast<uint32_t>(static_cast<uint64_t>(g) >> 32)
@@ -131,9 +157,9 @@ __device__ __forceinline__ uint4 pack(const uint32_t (*w)[4], uint32_t thresh,
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-template <typename T, typename Index>
+template <typename T, typename Index, bool SEG>
 __global__ void __launch_bounds__(kThreads)
-dropout_mask_kernel(T* __restrict__ out, Index n, Index goff,
+dropout_mask_kernel(T* __restrict__ out, Index n, Groups<Index> at,
                     const int* __restrict__ seed, uint32_t keep_thresh,
                     uint32_t kept_bits) {
   constexpr int E = Elem<T>::kPerStore;  // elements a store
@@ -161,7 +187,7 @@ dropout_mask_kernel(T* __restrict__ out, Index n, Index goff,
       for (int q = 0; q < G; ++q)
         group[s * G + q] = (base + s * stride) * G + q;
     uint32_t w[kChains][4];
-    philox_groups<kChains, Index>(group, goff, key, w);
+    philox_groups<kChains, SEG, Index>(group, at, key, w);
 #pragma unroll
     for (int s = 0; s < S; ++s)
       dst[base + s * stride] = pack<T, G>(w + s * G, keep_thresh, kept_bits);
@@ -172,7 +198,7 @@ dropout_mask_kernel(T* __restrict__ out, Index n, Index goff,
 #pragma unroll
     for (int q = 0; q < G; ++q) group[q] = st * G + q;
     uint32_t w[G][4];
-    philox_groups<G, Index>(group, goff, key, w);
+    philox_groups<G, SEG, Index>(group, at, key, w);
     dst[st] = pack<T, G>(w, keep_thresh, kept_bits);
   }
   // the last n % E elements (at most G groups), by the grid's thread 0
@@ -181,7 +207,7 @@ dropout_mask_kernel(T* __restrict__ out, Index n, Index goff,
       const Index e0 = stores * E + k;
       Index group[1] = {e0 / 4};
       uint32_t w[1][4];
-      philox_groups<1, Index>(group, goff, key, w);
+      philox_groups<1, SEG, Index>(group, at, key, w);
       uint16_t* o16 = reinterpret_cast<uint16_t*>(out);
       uint32_t* o32 = reinterpret_cast<uint32_t*>(out);
       for (int t = 0; t < 4 && e0 + t < n; ++t) {
@@ -198,13 +224,13 @@ dropout_mask_kernel(T* __restrict__ out, Index n, Index goff,
 
 // the resident grid on the current device: its SMs times the blocks of
 // this kernel an SM holds (the same on every device of a process)
-template <typename T, typename Index>
+template <typename T, typename Index, bool SEG>
 cudaError_t resident_blocks(int* blocks) {
   static int per_sm = 0;
   cudaError_t err = cudaSuccess;
   if (per_sm == 0)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dropout_mask_kernel<T, Index>, kThreads, 0);
+        &per_sm, dropout_mask_kernel<T, Index, SEG>, kThreads, 0);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -213,53 +239,80 @@ cudaError_t resident_blocks(int* blocks) {
   return err;
 }
 
-template <typename T, typename Index>
-int launch_as(void* out, uint64_t n, uint64_t offset, const void* seed,
-              unsigned keep_thresh, uint32_t kept_bits, cudaStream_t stream) {
+template <typename T, typename Index, bool SEG>
+int launch_as(void* out, uint64_t n, const philox::Layout& lay,
+              const void* seed, unsigned keep_thresh, uint32_t kept_bits,
+              cudaStream_t stream) {
   constexpr uint64_t per_block =
       static_cast<uint64_t>(kThreads) * kChains * 4;  // elements a round
   int resident = 0;
-  const cudaError_t err = resident_blocks<T, Index>(&resident);
+  const cudaError_t err = resident_blocks<T, Index, SEG>(&resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   uint64_t blocks = (n + per_block - 1) / per_block;
   if (blocks > static_cast<uint64_t>(resident)) blocks = resident;
-  dropout_mask_kernel<T, Index>
+  const Groups<Index> at{static_cast<Index>(lay.offset / 4),
+                         static_cast<Index>(SEG ? lay.seg_elems / 4 : 1),
+                         static_cast<Index>(SEG ? lay.seg_stride / 4 : 1)};
+  dropout_mask_kernel<T, Index, SEG>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          static_cast<T*>(out), static_cast<Index>(n),
-          static_cast<Index>(offset / 4), static_cast<const int*>(seed),
-          keep_thresh, kept_bits);
+          static_cast<T*>(out), static_cast<Index>(n), at,
+          static_cast<const int*>(seed), keep_thresh, kept_bits);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool SEG>
+int launch_seg(void* out, uint64_t n, const philox::Layout& lay,
+               const void* seed, unsigned keep_thresh, uint32_t kept,
+               cudaStream_t stream) {
+  // one past the last stream element the mask draws
+  const uint64_t end =
+      SEG ? lay.offset + (n - 1) / lay.seg_elems * lay.seg_stride +
+                (n - 1) % lay.seg_elems + 1
+          : lay.offset + n;
+  // a 32-bit counter and indices while every element index fits in 32 bits
+  if (end < (uint64_t{1} << 32))
+    return launch_as<T, uint32_t, SEG>(out, n, lay, seed, keep_thresh, kept,
+                                       stream);
+  return launch_as<T, uint64_t, SEG>(out, n, lay, seed, keep_thresh, kept,
+                                     stream);
+}
+
 template <typename T>
-int launch(void* out, uint64_t n, uint64_t offset, const void* seed,
+int launch(void* out, uint64_t n, const philox::Layout& lay, const void* seed,
            unsigned keep_thresh, float inv_keep, cudaStream_t stream) {
   if (n == 0) return 0;
   if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  if (offset % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool seg = lay.seg_elems != lay.seg_stride;
+  if (lay.offset % 4 != 0 ||
+      (seg && (lay.seg_elems == 0 || lay.seg_elems % 4 != 0 ||
+               lay.seg_stride % 4 != 0 || lay.seg_stride < lay.seg_elems)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const uint32_t kept = Elem<T>::bits(inv_keep);
-  // a 32-bit counter and indices while every element index fits in 32 bits
-  if (offset + n < (uint64_t{1} << 32))
-    return launch_as<T, uint32_t>(out, n, offset, seed, keep_thresh, kept,
-                                  stream);
-  return launch_as<T, uint64_t>(out, n, offset, seed, keep_thresh, kept,
-                                stream);
+  return seg ? launch_seg<T, true>(out, n, lay, seed, keep_thresh, kept,
+                                   stream)
+             : launch_seg<T, false>(out, n, lay, seed, keep_thresh, kept,
+                                    stream);
 }
 
 }  // namespace
 
 extern "C" int gdl_dropout_mask_launch(void* out, long long n,
-                                       long long offset, const void* seed,
+                                       long long offset, long long seg_elems,
+                                       long long seg_stride, const void* seed,
                                        unsigned keep_thresh, float inv_keep,
                                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint64_t count = static_cast<uint64_t>(n);
-  const uint64_t off = static_cast<uint64_t>(offset);
+  if (offset < 0 || seg_elems < 0 || seg_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const philox::Layout lay{static_cast<uint64_t>(offset),
+                           static_cast<uint64_t>(seg_elems),
+                           static_cast<uint64_t>(seg_stride)};
   if (dtype == 0)
-    return launch<float>(out, count, off, seed, keep_thresh, inv_keep, s);
+    return launch<float>(out, count, lay, seed, keep_thresh, inv_keep, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(out, count, off, seed, keep_thresh, inv_keep,
+    return launch<__nv_bfloat16>(out, count, lay, seed, keep_thresh, inv_keep,
                                  s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

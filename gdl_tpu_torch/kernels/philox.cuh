@@ -73,4 +73,22 @@ __host__ __device__ inline void keep4(uint64_t e0, uint32_t k0, uint32_t k1,
   }
 }
 
+// Where a mask lies in the stream: local element e draws stream element
+// offset + (e / seg_elems) * seg_stride + e % seg_elems (all three
+// multiples of 4, so a Philox group never straddles two segments).
+// seg_elems == seg_stride is one segment, elements offset, offset + 1, ...
+// of the stream: a rank's rows of a [B...] tensor; three segments are a
+// rank's rows of three stacked batches [3b...] (ops/dropout.py). A run of
+// elements inside one segment is a run of the stream, so a kernel maps
+// the first element of such a run and draws from there (keep4).
+struct Layout {
+  uint64_t offset, seg_elems, seg_stride;
+
+  __host__ __device__ uint64_t element(uint64_t e) const {
+    if (seg_elems == seg_stride) return offset + e;
+    const uint64_t seg = e / seg_elems;
+    return offset + seg * seg_stride + (e - seg * seg_elems);
+  }
+};
+
 }  // namespace philox

@@ -100,8 +100,11 @@ struct Args {
   unsigned char* keep_out;  // mode 2: the keep mask as bytes, or null
   int heads;
   int dropout_mode;  // 0 none, 1 mask, 2 Philox
-  uint64_t drop_offset;  // mode 2: Philox index of element 0, a multiple
-                         // of 4 (a rank's first row of the global batch)
+  philox::Layout drop;  // mode 2: where the [B, H, N, N] mask lies in the
+                        // stream (a rank's rows of the global batch); its
+                        // segments hold whole [H, N, N] samples, so a
+                        // (batch, head) block's N x N elements are one run
+                        // of the stream, from drop.element(first)
   uint32_t keep_thresh;
   float inv_keep;
   int rowvec;  // 1: N % 4 == 0 and p, mask, keep_out (ds) 16-byte aligned
@@ -529,10 +532,11 @@ __device__ inline void load4(const T* src, float v[4], int valid, bool vec) {
 
 // Row r of the tile holds e = exp(s - max) and `sum` their sum (every lane
 // of the warp): p = e / sum goes to the residual in T, and P = round_T(p *
-// m) stays in the tile. Lane l takes the key quads l, l + 32, ...
+// m) stays in the tile. Lane l takes the key quads l, l + 32, ... The row
+// starts at element rb of the [B, H, N, N] mask, stream element rs.
 template <typename T>
 __device__ void train_row(float* row, float sum, const Args& a, uint64_t rb,
-                          uint32_t k0, uint32_t k1, int lane) {
+                          uint64_t rs, uint32_t k0, uint32_t k1, int lane) {
   const int n = a.n, nquads = (n + 3) / 4;
   const bool vec = a.rowvec != 0;
   T* prow = static_cast<T*>(a.p) + rb;
@@ -546,7 +550,7 @@ __device__ void train_row(float* row, float sum, const Args& a, uint64_t rb,
     float m[4] = {1.f, 1.f, 1.f, 1.f};
     if (a.dropout_mode == 2) {
       bool keep[4];
-      philox::keep4(a.drop_offset + rb + j, k0, k1, a.keep_thresh, keep);
+      philox::keep4(rs + j, k0, k1, a.keep_thresh, keep);
 #pragma unroll
       for (int t = 0; t < 4; ++t) m[t] = keep[t] ? a.inv_keep : 0.f;
       if (a.keep_out != nullptr) {
@@ -580,9 +584,11 @@ __device__ void softmax_rows(float* S, Stats ss, const Args& a, int lds,
                              int npad, int i0, uint64_t bh, int tid) {
   const int n = a.n, lane = tid % 32;
   uint32_t k0 = 0, k1 = 0;
+  uint64_t shift = 0;  // stream element - mask element, over the block
   if (TRAIN && a.dropout_mode == 2) {
     k0 = static_cast<uint32_t>(a.seed[0]);
     k1 = static_cast<uint32_t>(a.seed[1]);
+    shift = a.drop.element(bh * n) - bh * n;
   }
   for (int r = tid / 32; r < R; r += R / 8) {
     float* row = S + r * lds;
@@ -598,9 +604,10 @@ __device__ void softmax_rows(float* S, Stats ss, const Args& a, int lds,
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
     if constexpr (TRAIN) {
       __syncwarp();  // the row's exponentials are in the tile
-      if (i0 + r < n)
-        train_row<T>(row, sum, a, (bh + i0 + r) * static_cast<uint64_t>(n),
-                     k0, k1, lane);
+      if (i0 + r < n) {
+        const uint64_t rb = (bh + i0 + r) * static_cast<uint64_t>(n);
+        train_row<T>(row, sum, a, rb, rb + shift, k0, k1, lane);
+      }
       if (lane == 0) ss.inv[r] = 1.f;
     } else {
       if (lane == 0) ss.inv[r] = 1.f / sum;
@@ -611,16 +618,16 @@ __device__ void softmax_rows(float* S, Stats ss, const Args& a, int lds,
 // ---- the backward's pass: dp in place of s ---------------------------------
 
 // The dropout multiplier m of the four elements e0 .. e0 + 3 of a row-major
-// [B, H, N, N] (`valid` of them in the row; `vec`: valid == 4 and aligned):
-// drawn again by Philox at drop_offset + e0 (mode 2, as the forward drew
-// it), read in T (mode 1), or 1 (mode 0).
+// [B, H, N, N] (`valid` of them in the row; `vec`: valid == 4 and aligned),
+// stream elements s0 .. s0 + 3: drawn again by Philox there (mode 2, as
+// the forward drew it), read in T (mode 1), or 1 (mode 0).
 template <typename T>
-__device__ inline void multiplier4(const Args& a, uint64_t e0, int valid,
-                                   bool vec, uint32_t k0, uint32_t k1,
-                                   float m[4]) {
+__device__ inline void multiplier4(const Args& a, uint64_t e0, uint64_t s0,
+                                   int valid, bool vec, uint32_t k0,
+                                   uint32_t k1, float m[4]) {
   if (a.dropout_mode == 2) {
     bool keep[4];
-    philox::keep4(a.drop_offset + e0, k0, k1, a.keep_thresh, keep);
+    philox::keep4(s0, k0, k1, a.keep_thresh, keep);
 #pragma unroll
     for (int t = 0; t < 4; ++t) m[t] = keep[t] ? a.inv_keep : 0.f;
   } else if (a.dropout_mode == 1) {
@@ -647,9 +654,11 @@ __device__ void bwd_rows(float* S, Stats ss, const Args& a, int lds,
   const bool vec = a.rowvec != 0;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   uint32_t k0 = 0, k1 = 0;
+  uint64_t shift = 0;  // stream element - mask element, over the block
   if (a.dropout_mode == 2) {
     k0 = static_cast<uint32_t>(a.seed[0]);
     k1 = static_cast<uint32_t>(a.seed[1]);
+    shift = a.drop.element(bh * n) - bh * n;
   }
   for (int r = tid / 32; r < R; r += R / 8) {
     float* row = S + r * lds;
@@ -668,7 +677,7 @@ __device__ void bwd_rows(float* S, Stats ss, const Args& a, int lds,
       const float4 s4 = *reinterpret_cast<const float4*>(row + j);
       float pv[4], m[4];
       load4<T>(prow + j, pv, valid, vec);
-      multiplier4<T>(a, rb + j, valid, vec, k0, k1, m);
+      multiplier4<T>(a, rb + j, rb + j + shift, valid, vec, k0, k1, m);
       float dp[4] = {s4.x * m[0], s4.y * m[1], s4.z * m[2], s4.w * m[3]};
 #pragma unroll
       for (int t = 0; t < 4; ++t) {

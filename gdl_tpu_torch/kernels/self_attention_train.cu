@@ -29,8 +29,13 @@
 // dropout_mode: 0 none; 1 the mask [B, H, N, N] in T with values
 // {0, 1/(1-rate)} is read from `mask`; 2 the mask is drawn in the kernel
 // by Philox from the two seed words at `seed` (device memory), keyed on
-// drop_offset + the flat [B, H, N, N] index (drop_offset a multiple of 4:
-// a rank's first element of the global batch's mask, 0 in one process),
+// the flat [B, H, N, N] index e placed in the stream by the layout
+// (drop_offset, seg_elems, seg_stride), at stream element drop_offset +
+// (e / seg_elems) * seg_stride + e % seg_elems (philox.cuh's Layout; all
+// multiples of 4, seg_elems a multiple of H * N * N; seg_elems ==
+// seg_stride is one segment: a rank's rows of the global batch's mask,
+// offset 0 in one process; three segments: its rows of three stacked
+// batches; each kernel maps a (batch, head) block's first element once),
 // keeping an element iff its word <
 // keep_thresh, and drawn again, bit for bit, in the backward. `keep_out`,
 // if not null, receives the mode-2 keep mask as bytes (gdl_tpu's
@@ -285,13 +290,14 @@ __device__ inline void load_scores(int width, T* dst, int lds, const T* src,
 }
 
 // A stage in place, once it is in: p_d = round_T(p * m), m drawn again by
-// Philox on the flat [B, H, N, N] index (mode 2) or read (mode 1), four
-// consecutive keys at a time; and q_s = round_T(q * round_T(scale)).
+// Philox on the flat [B, H, N, N] index placed by the mask's layout (mode
+// 2) or read (mode 1), four consecutive keys at a time; and q_s =
+// round_T(q * round_T(scale)).
 // Elements past N are zeros and stay zeros.
 template <typename K, typename T>
 __device__ inline void prologue(T* pd, T* qs, const Args& a, int i0, int j0,
-                                uint64_t bh, uint32_t k0, uint32_t k1,
-                                float scale_t, int tid) {
+                                uint64_t bh, uint64_t shift, uint32_t k0,
+                                uint32_t k1, float scale_t, int tid) {
   const int n = a.n;
   if (a.dropout_mode != 0) {
     const bool vec = a.rowvec != 0;
@@ -301,8 +307,8 @@ __device__ inline void prologue(T* pd, T* qs, const Args& a, int i0, int j0,
       if (i >= n || j >= n) continue;
       const int valid = n - j < 4 ? n - j : 4;
       float m[4], v[4];
-      sa_rows::multiplier4<T>(a, (bh + i) * static_cast<uint64_t>(n) + j,
-                              valid, vec, k0, k1, m);
+      const uint64_t e0 = (bh + i) * static_cast<uint64_t>(n) + j;
+      sa_rows::multiplier4<T>(a, e0, e0 + shift, valid, vec, k0, k1, m);
       T* s = pd + r * K::LDS + (j - j0);
       sa_rows::load4<T>(s, v, 4, true);
 #pragma unroll
@@ -352,9 +358,11 @@ __global__ void __launch_bounds__(kThreads, DMAX > 64 ? 1 : 2)
   const T* ds_b = static_cast<const T*>(a.ds) + bh * n + j0;
   const int nq = (n + QC - 1) / QC;
   uint32_t k0 = 0, k1 = 0;
+  uint64_t shift = 0;  // stream element - mask element, over the block
   if (a.dropout_mode == 2) {
     k0 = static_cast<uint32_t>(a.seed[0]);
     k1 = static_cast<uint32_t>(a.seed[1]);
+    shift = a.drop.element(bh * n) - bh * n;
   }
   const float scale_t =
       std::is_same<T, float>::value ? a.scale : sa_rows::bf16_round(a.scale);
@@ -391,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, DMAX > 64 ? 1 : 2)
     T* ds = pd + QC * LDS;
     T* dout = ds + QC * LDS;
     T* qs = dout + QC * LDD;
-    prologue<K>(pd, qs, a, t * QC, j0, bh, k0, k1, scale_t, tid);
+    prologue<K>(pd, qs, a, t * QC, j0, bh, shift, k0, k1, scale_t, tid);
     __syncthreads();  // p_d and q_s are in place
     K::step(acc, pd, ds, dout, qs, tid);
   }
@@ -452,6 +460,23 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// the mask's layout in the stream, false unless each part is a whole
+// Philox group, the segments do not overlap and each holds whole samples
+// of `sample` = H * N * N elements (a (batch, head) block is then one run
+// of the stream: a kernel maps its first element, once a block)
+bool make_layout(long long offset, long long seg_elems, long long seg_stride,
+                 long long sample, philox::Layout* lay) {
+  if (offset < 0 || offset % 4 != 0) return false;
+  if (seg_elems != seg_stride &&
+      (seg_elems <= 0 || seg_elems % 4 != 0 || seg_elems % sample != 0 ||
+       seg_stride % 4 != 0 || seg_stride < seg_elems))
+    return false;
+  *lay = philox::Layout{static_cast<uint64_t>(offset),
+                        static_cast<uint64_t>(seg_elems),
+                        static_cast<uint64_t>(seg_stride)};
+  return true;
+}
+
 // the forwards: the projection into qkv when x is given, then the row
 // tiles
 template <typename T>
@@ -459,12 +484,16 @@ int launch_forward(const void* x, const void* w, void* qkv, void* p,
                    void* out, const void* mask, const void* seed,
                    void* keep_out, int batch, int n, int c, int heads, int d,
                    float scale, int dropout_mode, unsigned keep_thresh,
-                   float inv_keep, long long drop_offset, cudaStream_t s) {
+                   float inv_keep, long long drop_offset, long long seg_elems,
+                   long long seg_stride, cudaStream_t s) {
+  sa_rows::Args a{};
+  if (!make_layout(drop_offset, seg_elems, seg_stride,
+                   static_cast<long long>(heads) * n * n, &a.drop))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (x != nullptr) {
     const int err = gemm::launch<T>(x, w, qkv, batch * n, 3 * c, c, s);
     if (err != 0) return err;
   }
-  sa_rows::Args a{};
   a.qkv = qkv;
   a.out = out;
   a.n = n;
@@ -477,7 +506,6 @@ int launch_forward(const void* x, const void* w, void* qkv, void* p,
   a.seed = static_cast<const int*>(seed);
   a.keep_out = static_cast<unsigned char*>(keep_out);
   a.dropout_mode = dropout_mode;
-  a.drop_offset = static_cast<uint64_t>(drop_offset);
   a.keep_thresh = keep_thresh;
   a.inv_keep = inv_keep;
   a.rowvec = n % 4 == 0 && aligned16(p) &&
@@ -509,10 +537,12 @@ extern "C" int gdl_sa_fwd_launch(const void* x, const void* w, void* qkv,
                                  int n, int c, int heads, int d, float scale,
                                  int dropout_mode, unsigned keep_thresh,
                                  float inv_keep, long long drop_offset,
+                                 long long seg_elems, long long seg_stride,
                                  int dtype, void* stream) {
   return forward(dtype, x, w, qkv, p, out, mask, seed, keep_out, batch, n, c,
                  heads, d, scale, dropout_mode, keep_thresh, inv_keep,
-                 drop_offset, static_cast<cudaStream_t>(stream));
+                 drop_offset, seg_elems, seg_stride,
+                 static_cast<cudaStream_t>(stream));
 }
 
 // kernel #12: the row tiles of gdl_sa_fwd_launch alone, on a qkv in T
@@ -522,12 +552,14 @@ extern "C" int gdl_sa_qkv_fwd_launch(const void* qkv, void* p, void* out,
                                      int heads, int d, float scale,
                                      int dropout_mode, unsigned keep_thresh,
                                      float inv_keep, long long drop_offset,
-                                     int dtype, void* stream) {
+                                     long long seg_elems,
+                                     long long seg_stride, int dtype,
+                                     void* stream) {
   return forward(dtype, static_cast<const void*>(nullptr),
                  static_cast<const void*>(nullptr), const_cast<void*>(qkv), p,
                  out, mask, seed, keep_out, batch, n, c, heads, d, scale,
-                 dropout_mode, keep_thresh, inv_keep, drop_offset,
-                 static_cast<cudaStream_t>(stream));
+                 dropout_mode, keep_thresh, inv_keep, drop_offset, seg_elems,
+                 seg_stride, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gdl_sa_bwd_launch(const void* qkv, const void* p,
@@ -536,10 +568,14 @@ extern "C" int gdl_sa_bwd_launch(const void* qkv, const void* p,
                                  int batch, int n, int c, int heads, int d,
                                  float scale, int dropout_mode,
                                  unsigned keep_thresh, float inv_keep,
-                                 long long drop_offset, int dtype,
+                                 long long drop_offset, long long seg_elems,
+                                 long long seg_stride, int dtype,
                                  void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   sa_rows::Args a{};
+  if (!make_layout(drop_offset, seg_elems, seg_stride,
+                   static_cast<long long>(heads) * n * n, &a.drop))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.qkv = qkv;
   a.out = dqkv;
   a.n = n;
@@ -551,7 +587,6 @@ extern "C" int gdl_sa_bwd_launch(const void* qkv, const void* p,
   a.mask = mask;
   a.seed = static_cast<const int*>(seed);
   a.dropout_mode = dropout_mode;
-  a.drop_offset = static_cast<uint64_t>(drop_offset);
   a.keep_thresh = keep_thresh;
   a.inv_keep = inv_keep;
   a.dout = dout;

@@ -11,10 +11,12 @@ frame). Per epoch: train, evaluate, one CSV row in
 `{dataset}_{model}.csv` (after the [1000, 1000, 1000] sentinel row), and
 on a new best accuracy after epoch 0 a reference-schema `.pth`. Runs on
 one CUDA device, or under `torchrun` on one a process, data-parallel
-over the global batch (`train/loop.py`; `--batched_inter 1` is refused
-there); `--device cpu` is the one way to ask for the CPU (gloo between
-processes), and without it a machine without CUDA raises before
-anything runs.
+over the global batch (`train/loop.py`; under `--batched_inter 1` each
+rank's dropout masks of the [3b] inter call take three segments of the
+stream, its rows of each pass's global batch); `--device cpu` is the one
+way to ask for the CPU (gloo between processes), and without it a
+machine without CUDA raises before anything runs. `--profile_dir` is
+refused: gdl_tpu's main_intermediate.py traces nothing.
 `--export_path` writes the serving artifact of the model's eval forward
 from the `.pth` at `--ckpt_path` and exits, as main_intermediate.py does
 (`serve.export_intermediate_from_checkpoint`; `--export_poly_batch 1`
@@ -36,7 +38,6 @@ from gdl_tpu_torch.parallel.distributed import (
     destroy,
     is_primary,
     maybe_initialize,
-    process_count,
 )
 from gdl_tpu_torch.serve import (
     export_intermediate_from_checkpoint,
@@ -108,6 +109,17 @@ def build_model(name: str, n_classes: int, width: int = 64,
                               generator=gen)
 
 
+def check_no_trace(cfg) -> None:
+    """--profile_dir traces the DGL and joint trainers' steps (their loop,
+    as gdl_tpu/train/loop.py does); gdl_tpu's main_intermediate.py runs a
+    loop of its own that never traces, so this trainer refuses it."""
+    if cfg.profile_dir:
+        raise NotImplementedError(
+            "--profile_dir is not supported by main_intermediate: gdl_tpu's "
+            "main_intermediate.py runs its own epoch loop, which traces no "
+            "step (the trace is main_dgl's and main's)")
+
+
 def build_harness(cfg, model, kind: str, steps_per_epoch: int,
                   raw_batches: bool = True, device=None) -> Harness:
     """The loop's `Harness` for an intermediate-family model: the AUXI
@@ -115,14 +127,10 @@ def build_harness(cfg, model, kind: str, steps_per_epoch: int,
     (out, out_a, out_v); both under bf16 autocast when
     cfg.compute_dtype is "bfloat16" (f32 parameters)."""
     check_supported(cfg)
+    check_no_trace(cfg)
     if cfg.resume:  # gdl_tpu's main_intermediate.py has no resume either
         raise NotImplementedError(
             "--resume is not supported by gdl_tpu_torch.main_intermediate")
-    if getattr(model, "batched_inter", False) and process_count() > 1:
-        # the [3B] stack of three passes is not a rank's rows of one
-        # global batch, so its dropout masks cannot take the rank's offset
-        raise NotImplementedError(
-            "--batched_inter 1 over several ranks is not ported")
 
     def make_step(model, optimizer, preprocess, generator):
         if kind == "single":
@@ -190,6 +198,7 @@ def _main(args, cfg):
                                           cfg.strict_compat)
     print(cfg, "model:", args.model)
     check_supported(cfg)
+    check_no_trace(cfg)
     resolve_device(cfg.device)  # raises before any work when CUDA is absent
     if args.export_path:
         if is_primary():

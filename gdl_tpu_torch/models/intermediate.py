@@ -290,11 +290,13 @@ class MMFormerN(nn.Module):
         t = getattr(self, f"pe{i}")(t)
         return getattr(self, f"intra{i}")(t, generator)
 
-    def _inter_tail(self, x, generator):
+    def _inter_tail(self, x, generator, passes: int = 1):
         """PE → inter transformer → token fuse → pool on an already
         seq-concatenated [B', 2·seq_len, C] stream. BN-free and row-wise,
-        so batching fusion passes along B' is exact."""
-        x = self.inter(self.inter_pe(x), generator)
+        so batching fusion passes along B' is exact; B' stacks `passes`
+        passes' batches, which places each pass's dropout masks at that
+        pass's rows of the global batch under a process group."""
+        x = self.inter(self.inter_pe(x), generator, passes)
         x = torch.einsum("bnc,nm->bmc", x, self.token_fuse.to(x.dtype)) \
             + self.token_fuse_bias[None, :, None].to(x.dtype)
         return x.mean(dim=1)
@@ -334,7 +336,8 @@ class MMFormerN(nn.Module):
             ]
         seqs = [torch.cat(p, dim=1) for p in pairs]
         if self.batched_inter:
-            out = self.fc(self._inter_tail(torch.cat(seqs, dim=0), generator))
+            out = self.fc(self._inter_tail(torch.cat(seqs, dim=0), generator,
+                                           passes=len(seqs)))
             x_f, x_r, x_i = out.chunk(3, dim=0)
         else:
             x_f, x_r, x_i = (self.fc(self._inter_tail(s, generator))

@@ -19,7 +19,10 @@ draws its mask in the kernel (`SA_DROPOUT_IMPL = "kernel"`, gdl_tpu's
 default) or reads one from memory ("hbm"). Every draw with a batch
 dimension is this rank's rows of the global batch's under a process
 group (the modality drops through `parallel.distributed.local_rows`, the
-masks through their element offset). In eval mode SelfAttention
+masks through their place in the stream, `element_layout`). A call whose
+batch dimension stacks several passes' batches ([passes·B, ...], the
+batched inter half of mmformer_n) takes `passes`, which reaches every
+mask it draws. In eval mode SelfAttention
 takes the forward-only op (kernel #13). Under CUDA autocast the fused
 op's operands are cast to the autocast dtype, as nn.Linear's would be.
 
@@ -50,7 +53,7 @@ from gdl_tpu_torch.ops.self_attention import (
     self_attention_fused_eval,
     self_attention_qkv,
 )
-from gdl_tpu_torch.parallel.distributed import element_offset, local_rows
+from gdl_tpu_torch.parallel.distributed import element_layout, local_rows
 
 # attention-probability dropout inside the fused op: "kernel" (drawn in
 # the forward and again in the backward) or "hbm" (a mask in memory)
@@ -85,10 +88,11 @@ class Drop(nn.Module):
         self.rate = rate
         self.impl = impl
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                passes: int = 1):
         if not self.training or self.rate == 0.0:
             return x
-        return _dropout(x, self.rate, generator, self.impl)
+        return _dropout(x, self.rate, generator, self.impl, passes)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -127,7 +131,8 @@ class SelfAttention(nn.Module):
             return x.to(dt), w.to(dt)
         return x, w
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                passes: int = 1):
         b, n, c = x.shape
         head_dim = self.dim // self.heads
         scale = head_dim ** -0.5
@@ -143,8 +148,8 @@ class SelfAttention(nn.Module):
                 # batch's [B, H, N, N] mask
                 kw = dict(dropout_rate=self.dropout_rate, seed_words=words,
                           train=self.training, dropout_impl=SA_DROPOUT_IMPL,
-                          impl=self.impl, dropout_offset=element_offset(
-                              b * self.heads * n * n))
+                          impl=self.impl, dropout_offset=element_layout(
+                              b * self.heads * n * n, passes))
                 if SA_FUSED_QKV:
                     x, w = self._autocast(x, w)
                     out = self_attention_fused(x.contiguous(), w.contiguous(),
@@ -162,10 +167,10 @@ class SelfAttention(nn.Module):
             q, k, v = qkv.permute(2, 0, 3, 1, 4)
             attn = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float())
             attn = torch.softmax(attn * scale, dim=-1).to(v.dtype)
-            attn = self.attn_drop(attn, generator)
+            attn = self.attn_drop(attn, generator, passes)
             out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
             out = out.permute(0, 2, 1, 3).reshape(b, n, c)
-        return self.out_drop(self.proj(out), generator)
+        return self.out_drop(self.proj(out), generator, passes)
 
 
 class FeedForward(nn.Module):
@@ -180,9 +185,10 @@ class FeedForward(nn.Module):
         self.drop1 = Drop(dropout_rate, impl)
         self.drop2 = Drop(dropout_rate, impl)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        x = self.drop1(gelu_tanh(self.fc1(x)), generator)
-        return self.drop2(self.fc2(x), generator)
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                passes: int = 1):
+        x = self.drop1(gelu_tanh(self.fc1(x)), generator, passes)
+        return self.drop2(self.fc2(x), generator, passes)
 
 
 class TransformerBlock(nn.Module):
@@ -201,10 +207,11 @@ class TransformerBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.ffn = FeedForward(dim, mlp_dim, dropout_rate, impl, generator)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        y = self.attn(self.norm1(x), generator)
-        x = x + self.drop(y, generator)
-        return x + self.ffn(self.norm2(x), generator)
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                passes: int = 1):
+        y = self.attn(self.norm1(x), generator, passes)
+        x = x + self.drop(y, generator, passes)
+        return x + self.ffn(self.norm2(x), generator, passes)
 
 
 class TransformerModel(nn.Module):
@@ -247,9 +254,10 @@ class MMTransformerModel(nn.Module):
                 dim, heads, mlp_dim, dropout_rate, attn_dropout_rate, impl,
                 generator))
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                passes: int = 1):
         for j in range(self.depth):
-            x = getattr(self, f"cross{j}")(x, generator)
+            x = getattr(self, f"cross{j}")(x, generator, passes)
         return x
 
 

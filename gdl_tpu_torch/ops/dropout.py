@@ -22,13 +22,19 @@ the CPU; impl="plain" runs the plain version anywhere. Nothing falls
 back. The multiply `x * mask` stays outside the kernel, as in gdl_tpu;
 autograd keeps the mask for the backward.
 
-Element offset. Every generator here takes `offset`, a multiple of 4:
-element e of the mask is then element offset + e of the stream, word
-(offset + e) % 4 of group (offset + e) / 4. A rank of a data-parallel run
-passes the flat index of its first row in the global tensor
-(`parallel.distributed.element_offset`), so its mask is its rows of the
-mask one process draws for the global batch, without drawing the rest.
-Offset 0 is the mask of before.
+Counter layout. Every generator here takes `offset`: an element offset
+(a multiple of 4) or a layout (offset, seg_elems, seg_stride), all three
+multiples of 4. Element e of the mask is element
+offset + (e // seg_elems)·seg_stride + e % seg_elems of the stream, word
+s % 4 of group s / 4 for that stream element s; a Philox group never
+straddles two segments. One segment (seg_stride == seg_elems; an int
+offset is one) is elements offset, offset + 1, ... of the stream. A rank
+of a data-parallel run passes where its rows lie in the global tensor
+(`parallel.distributed.element_layout`): one segment for a [B...] tensor,
+and for `passes` stacked batches [passes·b, ...] one segment a pass (pass
+p's b rows are rows p·B + k·b ... of the one-process [passes·B] stack on
+rank k), so its mask is its rows of the mask one process draws for the
+global batch, without drawing the rest. Offset 0 is the mask of before.
 
 Seed words. `fold_seed_words(generator, device)` draws two int32 words
 from the explicit generator as a [2] tensor on the generator's own
@@ -40,12 +46,12 @@ site and every step gets its own mask.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
 from gdl_tpu_torch import kernels
-from gdl_tpu_torch.parallel.distributed import element_offset
+from gdl_tpu_torch.parallel.distributed import element_layout
 
 KERNEL_NAME = "prng_dropout_mask"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -92,17 +98,50 @@ def check_offset(offset: int) -> int:
     return offset
 
 
+class Layout(NamedTuple):
+    """Where a mask's elements lie in the generator's stream: element e
+    draws stream element offset + (e // seg_elems)·seg_stride
+    + e % seg_elems. seg_elems == seg_stride is one segment."""
+    offset: int = 0
+    seg_elems: int = 0
+    seg_stride: int = 0
+
+
+def check_layout(offset: Union[int, Sequence[int]]) -> Layout:
+    """An element offset or an (offset, seg_elems, seg_stride) triple as
+    a `Layout`, one segment as (offset, 0, 0); raising unless every part
+    is a whole number of Philox groups and the segments do not overlap."""
+    if isinstance(offset, (tuple, list)):
+        offset, seg_elems, seg_stride = (int(v) for v in offset)
+    else:
+        seg_elems = seg_stride = 0
+    offset = check_offset(offset)
+    if seg_elems == seg_stride:
+        return Layout(offset)
+    if seg_elems <= 0 or seg_elems % 4 or seg_stride % 4:
+        raise ValueError(f"seg_elems and seg_stride must be positive "
+                         f"multiples of 4, got {seg_elems}, {seg_stride}")
+    if seg_stride < seg_elems:
+        raise ValueError(f"seg_stride {seg_stride} < seg_elems {seg_elems}: "
+                         f"the segments would overlap")
+    return Layout(offset, seg_elems, seg_stride)
+
+
 def philox_u32(seed_words: torch.Tensor, n: int,
-               offset: int = 0) -> torch.Tensor:
-    """Words offset .. offset + n - 1 of the stream of `seed_words` ([2]
-    integer tensor; the low 32 bits of each count), as int64 values in
-    [0, 2³²) on the seed words' device. `offset`: a multiple of 4."""
+               offset: Union[int, Sequence[int]] = 0) -> torch.Tensor:
+    """The n words of the stream of `seed_words` ([2] integer tensor; the
+    low 32 bits of each count) that a mask of n elements at `offset` (an
+    element offset or a layout, `check_layout`) draws, as int64 values in
+    [0, 2³²) on the seed words' device."""
     dev = seed_words.device
     key = seed_words.to(torch.int64) & _U32
     k0, k1 = key[0], key[1]
-    first = check_offset(offset) // 4
-    groups = torch.arange(first, first + (n + 3) // 4, dtype=torch.int64,
-                          device=dev)
+    lay = check_layout(offset)
+    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=dev)
+    if lay.seg_elems:  # local group → stream group
+        per = lay.seg_elems // 4
+        groups = groups // per * (lay.seg_stride // 4) + groups % per
+    groups = groups + lay.offset // 4
     c0, c1 = groups & _U32, groups >> 32
     c2 = torch.zeros_like(groups)
     c3 = torch.zeros_like(groups)
@@ -115,9 +154,10 @@ def philox_u32(seed_words: torch.Tensor, n: int,
 
 
 def philox_keep_mask(seed_words: torch.Tensor, shape: Sequence[int],
-                     rate: float, offset: int = 0) -> torch.Tensor:
-    """The bool keep mask of `shape` (row-major element order), its first
-    element at `offset` of the stream."""
+                     rate: float, offset: Union[int, Sequence[int]] = 0
+                     ) -> torch.Tensor:
+    """The bool keep mask of `shape` (row-major element order), at
+    `offset` (an element offset or a layout) of the stream."""
     n = math.prod(shape)
     return (philox_u32(seed_words, n, offset)
             < keep_threshold(rate)).reshape(tuple(shape))
@@ -125,7 +165,8 @@ def philox_keep_mask(seed_words: torch.Tensor, shape: Sequence[int],
 
 def prng_dropout_mask_ref(seed_words: torch.Tensor, shape: Sequence[int],
                           rate: float, dtype: torch.dtype = torch.float32,
-                          offset: int = 0) -> torch.Tensor:
+                          offset: Union[int, Sequence[int]] = 0
+                          ) -> torch.Tensor:
     """Plain PyTorch version of the mask generator."""
     keep = philox_keep_mask(seed_words, shape, rate, offset)
     kept = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32,
@@ -140,13 +181,13 @@ def _launch_mask(seed_words, shape, rate, dtype, offset):
     if (seed_words.dtype != torch.int32 or tuple(seed_words.shape) != (2,)
             or not seed_words.is_contiguous()):
         raise ValueError("seed_words must be a contiguous int32 tensor [2]")
+    lay = check_layout(offset)
     lib = kernels.load("dropout_mask")
     out = torch.empty(tuple(shape), dtype=dtype, device=seed_words.device)
     stream = torch.cuda.current_stream(seed_words.device).cuda_stream
     err = lib.gdl_dropout_mask_launch(
-        out.data_ptr(), out.numel(), check_offset(offset),
-        seed_words.data_ptr(), keep_threshold(rate), 1.0 / (1.0 - rate),
-        _DTYPE_CODES[dtype], stream)
+        out.data_ptr(), out.numel(), *lay, seed_words.data_ptr(),
+        keep_threshold(rate), 1.0 / (1.0 - rate), _DTYPE_CODES[dtype], stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {err}")
     kernels.launch_counts[KERNEL_NAME] += 1
@@ -155,9 +196,11 @@ def _launch_mask(seed_words, shape, rate, dtype, offset):
 
 def prng_dropout_mask(seed_words: torch.Tensor, shape: Sequence[int],
                       rate: float, dtype: torch.dtype = torch.float32,
-                      impl: str = "auto", offset: int = 0) -> torch.Tensor:
+                      impl: str = "auto",
+                      offset: Union[int, Sequence[int]] = 0) -> torch.Tensor:
     """The {0, 1/(1−rate)} dropout mask of `shape` in `dtype`, on the
-    seed words' device, its first element at `offset` of the stream.
+    seed words' device, at `offset` (an element offset or a layout) of
+    the stream.
     impl="auto": the CUDA kernel for CUDA seed words (raising if it
     cannot), the plain version for CPU ones; "plain": the plain version on
     any device."""
@@ -173,13 +216,13 @@ def prng_dropout_mask(seed_words: torch.Tensor, shape: Sequence[int],
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None,
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", passes: int = 1) -> torch.Tensor:
     """Train-time dropout: x · mask, the mask in x's dtype from fresh seed
     words of `generator`. rate 0 returns x itself. x's leading dimension
-    is the batch: under a process group the mask is this rank's rows of
-    the global batch's (`element_offset`)."""
+    is `passes` stacked batches: under a process group the mask is this
+    rank's rows of the global batches' (`element_layout`)."""
     if rate == 0.0:
         return x
     words = fold_seed_words(generator, x.device)
     return x * prng_dropout_mask(words, x.shape, rate, x.dtype, impl,
-                                 element_offset(x.numel()))
+                                 element_layout(x.numel(), passes))

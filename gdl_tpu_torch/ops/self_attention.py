@@ -23,12 +23,15 @@ Ports of four entries of `gdl_tpu/ops/self_attention.py`:
 Dropout. Mode 'hbm': a mask [B, H, N, N] in x's dtype with values
 {0, 1/(1−rate)} is read by the forward and by the backward. Mode
 'kernel': both draw the mask themselves from two seed words with the
-generator of `ops/dropout.py`, keyed on `dropout_offset` + the flat
-[B, H, N, N] element index, so forward, backward and the plain version
-see the same bits; no score-sized mask reaches memory. A rank of a
-data-parallel run passes the offset of its first row in the global
-batch's mask (a multiple of 4), so its mask is its rows of the one a
-single process draws; 0 by default. gdl_tpu's own bits (the TPU's generator)
+generator of `ops/dropout.py`, keyed on the flat [B, H, N, N] element
+index placed in the stream by `dropout_offset` (an element offset, or a
+layout (offset, seg_elems, seg_stride): `ops.dropout.check_layout`), so
+forward, backward and the plain version see the same bits; no
+score-sized mask reaches memory. A rank of a data-parallel run passes
+where its rows lie in the global batch's mask
+(`parallel.distributed.element_layout`: one segment, or one a pass for
+a batch of stacked passes), so its mask is its rows of the one a single
+process draws; 0 by default. gdl_tpu's own bits (the TPU's generator)
 are not reproduced.
 
 On a CPU tensor every op runs its plain PyTorch version (`*_ref`), which
@@ -47,13 +50,13 @@ Layouts: x [B, N, C]; w [3C, C] in nn.Linear layout, rows ordered
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
 from gdl_tpu_torch import kernels
 from gdl_tpu_torch.ops.dropout import (
-    check_offset,
+    check_layout,
     keep_threshold,
     philox_keep_mask,
     prng_dropout_mask,
@@ -107,15 +110,16 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
 class _Dropout:
     """What the attention-probability dropout of one call needs: the mode
     (0 none, 1 'hbm', 2 'kernel'), the rate, and the mask [B, H, N, N]
-    (mode 1) or the two seed words and the element offset (mode 2)."""
+    (mode 1) or the two seed words and the mask's layout in the stream
+    (mode 2; `offset`, an element offset or a layout)."""
 
     def __init__(self, mode: int = 0, rate: float = 0.0,
                  mask: Optional[torch.Tensor] = None,
                  seed_words: Optional[torch.Tensor] = None,
-                 offset: int = 0):
+                 offset: Union[int, Sequence[int]] = 0):
         self.mode, self.rate, self.mask, self.seed_words = (
             mode, rate, mask, seed_words)
-        self.offset = check_offset(offset)
+        self.layout = check_layout(offset)
 
     @property
     def keep_thresh(self) -> int:
@@ -131,7 +135,7 @@ class _Dropout:
             return self.mask.to(acc)
         if self.mode == 2:
             keep = philox_keep_mask(self.seed_words, shape, self.rate,
-                                    self.offset)
+                                    self.layout)
             # the kernel multiplies by float32(1/(1-rate)), not rounded to T
             return keep.to(acc) * torch.tensor(self.inv_keep,
                                                dtype=torch.float32).item()
@@ -261,6 +265,11 @@ def _check_dropout(drop: _Dropout, like, shape) -> None:
         sw = drop.seed_words
         if sw.dtype != torch.int32 or tuple(sw.shape) != (2,):
             raise ValueError("seed_words must be an int32 tensor [2]")
+        sample = shape[1] * shape[2] * shape[3]  # a block maps its start
+        if drop.layout.seg_elems % sample:
+            raise ValueError(f"the kernels take mask segments of whole "
+                             f"samples: seg_elems {drop.layout.seg_elems} is "
+                             f"not a multiple of H*N*N = {sample}")
         _require_cuda([sw], like)
 
 
@@ -284,7 +293,7 @@ def _launch_fwd(x, w, num_heads, scale, drop: _Dropout,
         x.data_ptr(), w.data_ptr(), qkv.data_ptr(), p.data_ptr(),
         out.data_ptr(), _ptr(drop.mask), _ptr(drop.seed_words), _ptr(keep),
         b, n, c, num_heads, d, float(scale), drop.mode, drop.keep_thresh,
-        drop.inv_keep, drop.offset, _DTYPE_CODES[x.dtype], stream)
+        drop.inv_keep, *drop.layout, _DTYPE_CODES[x.dtype], stream)
     _raise_on(err, FWD_KERNEL_NAME)
     kernels.launch_counts[FWD_KERNEL_NAME] += 1
     return (out, qkv, p, keep) if return_keep else (out, qkv, p)
@@ -321,8 +330,8 @@ def _launch_qkv_fwd(qkv, num_heads, scale, drop: _Dropout,
     err = lib.gdl_sa_qkv_fwd_launch(
         qkv.data_ptr(), p.data_ptr(), out.data_ptr(), _ptr(drop.mask),
         _ptr(drop.seed_words), _ptr(keep), b, n, c, num_heads, d,
-        float(scale), drop.mode, drop.keep_thresh, drop.inv_keep, drop.offset,
-        _DTYPE_CODES[qkv.dtype], stream)
+        float(scale), drop.mode, drop.keep_thresh, drop.inv_keep,
+        *drop.layout, _DTYPE_CODES[qkv.dtype], stream)
     _raise_on(err, QKV_FWD_KERNEL_NAME)
     kernels.launch_counts[QKV_FWD_KERNEL_NAME] += 1
     return (out, p, keep) if return_keep else (out, p)
@@ -345,7 +354,7 @@ def _launch_bwd(qkv, p, dout, num_heads, scale, drop: _Dropout):
         qkv.data_ptr(), p.data_ptr(), _ptr(drop.mask), _ptr(drop.seed_words),
         dout.data_ptr(), ds.data_ptr(), dqkv.data_ptr(), b, n, c, num_heads,
         d, float(scale), drop.mode, drop.keep_thresh, drop.inv_keep,
-        drop.offset, _DTYPE_CODES[qkv.dtype], stream)
+        *drop.layout, _DTYPE_CODES[qkv.dtype], stream)
     _raise_on(err, BWD_KERNEL_NAME)
     kernels.launch_counts[BWD_KERNEL_NAME] += 1
     return dqkv
@@ -397,12 +406,13 @@ def make_dropout(x: torch.Tensor, num_heads: int, rate: float, train: bool,
                  dropout_impl: str = "kernel",
                  seed_words: Optional[torch.Tensor] = None,
                  mask: Optional[torch.Tensor] = None,
-                 impl: str = "auto", offset: int = 0) -> _Dropout:
+                 impl: str = "auto",
+                 offset: Union[int, Sequence[int]] = 0) -> _Dropout:
     """The dropout of one call, as gdl_tpu's `_dropout_setup` resolves it.
     'kernel' needs `seed_words`; 'hbm' takes `mask` [B, H, N, N] in x's
     dtype or, given `seed_words` instead, generates that mask with the
-    mask generator of `ops/dropout.py`. `offset`: the mask's first
-    element in the stream (a multiple of 4)."""
+    mask generator of `ops/dropout.py`. `offset`: where the mask lies in
+    the stream, an element offset (a multiple of 4) or a layout."""
     if not (train and rate > 0.0):
         return _NO_DROPOUT
     if dropout_impl not in ("kernel", "hbm"):
@@ -442,7 +452,7 @@ def self_attention_fused_fwd(x, w, num_heads: int,
     keep = None
     if drop.mode == 2:
         keep = philox_keep_mask(drop.seed_words, res[2].shape, drop.rate,
-                                drop.offset).to(torch.uint8)
+                                drop.layout).to(torch.uint8)
     return res + (keep,)
 
 
@@ -476,7 +486,7 @@ def self_attention_qkv_fwd(qkv, num_heads: int,
     keep = None
     if drop.mode == 2:
         keep = philox_keep_mask(drop.seed_words, res[1].shape, drop.rate,
-                                drop.offset).to(torch.uint8)
+                                drop.layout).to(torch.uint8)
     return res + (keep,)
 
 
@@ -507,7 +517,8 @@ def self_attention_qkv(qkv, num_heads: int, scale: Optional[float] = None,
                        seed_words: Optional[torch.Tensor] = None,
                        train: bool = False, dropout_impl: str = "kernel",
                        mask: Optional[torch.Tensor] = None,
-                       impl: str = "auto", dropout_offset: int = 0):
+                       impl: str = "auto",
+                       dropout_offset: Union[int, Sequence[int]] = 0):
     """Fused multi-head self-attention on the output of the qkv
     projection, with a backward: qkv is [B, N, 3C] as nn.Linear gives it
     (columns [q|k|v][head][d]), or its [B, N, 3, C] view; the result is
@@ -564,7 +575,8 @@ def self_attention_fused(x, w, num_heads: int, scale: Optional[float] = None,
                          seed_words: Optional[torch.Tensor] = None,
                          train: bool = False, dropout_impl: str = "kernel",
                          mask: Optional[torch.Tensor] = None,
-                         impl: str = "auto", dropout_offset: int = 0):
+                         impl: str = "auto",
+                       dropout_offset: Union[int, Sequence[int]] = 0):
     """Fused multi-head self-attention including the qkv projection, with
     a backward (the mmformer training op). Gradients flow to x and w.
 
@@ -573,8 +585,9 @@ def self_attention_fused(x, w, num_heads: int, scale: Optional[float] = None,
     forward and again inside the backward from `seed_words` (int32 [2] on
     x's device, `ops.dropout.fold_seed_words`); 'hbm' reads `mask`
     ([B, H, N, N] in x's dtype, values {0, 1/(1−rate)}), generated from
-    `seed_words` when not given. `dropout_offset` (a multiple of 4) is
-    the index of the mask's first element in the generator's stream.
+    `seed_words` when not given. `dropout_offset` places the mask in the
+    generator's stream: an element offset (a multiple of 4) or a layout
+    (`ops.dropout.check_layout`).
 
     impl="auto" launches the kernels for a CUDA `x` (raising if it
     cannot) and runs their plain versions for a CPU `x`; impl="plain"

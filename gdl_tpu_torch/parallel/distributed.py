@@ -13,9 +13,9 @@ that program computes over the global batch:
   gradients after each backward, in buckets.
 - Every random draw with a batch dimension is made at the global batch
   from the generator that every rank seeds alike, and each rank keeps its
-  own rows (`local_rows`; the dropout masks take an element offset
-  instead, `element_offset`), so the generators stay equal across ranks
-  and N ranks draw what one process draws.
+  own rows (`local_rows`; the dropout masks take their place in the
+  stream instead, `element_layout`), so the generators stay equal across
+  ranks and N ranks draw what one process draws.
 
 Only all-reduce, broadcast and barrier are used: gloo has them for CPU
 and CUDA tensors alike. At world size 1, and without a process group,
@@ -188,10 +188,21 @@ def local_rows(draw: Callable[[int], torch.Tensor],
     return draw(rows * world)[start:start + rows]
 
 
-def element_offset(local_numel: int) -> int:
-    """The flat index in the global tensor of this rank's first element,
-    for a tensor whose leading dimension is the batch and which holds
-    `local_numel` elements a rank: the offset of a counter-based mask
-    (`ops/dropout.py`) that makes a rank's mask its rows of the global
-    one."""
-    return process_index() * local_numel
+def element_layout(local_numel: int, passes: int = 1) -> tuple:
+    """(offset, seg_elems, seg_stride): where this rank's elements lie in
+    the global tensor, for a tensor of `local_numel` elements a rank whose
+    leading dimension is `passes` stacked batches ([passes·b, ...]; rank
+    k's row p·b + r is row p·B + k·b + r of the one-process
+    [passes·B, ...] stack, B = world·b). Its local element e is global
+    element offset + (e // seg_elems)·seg_stride + e % seg_elems: the
+    layout of a counter-based mask (`ops/dropout.py`) that makes a rank's
+    mask its rows of the global one. One pass is one segment
+    (seg_stride == seg_elems), starting at the rank's first element."""
+    if passes < 1 or local_numel % passes:
+        raise ValueError(f"{local_numel} elements are not {passes} equal "
+                         f"passes")
+    seg = local_numel // passes
+    start = process_index() * seg
+    if passes == 1:
+        return start, seg, seg
+    return start, seg, seg * process_count()

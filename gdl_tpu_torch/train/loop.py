@@ -33,7 +33,9 @@ step, SURVEY §3.1).
 (`train/joint.py`, its own clip before the modulation, so the optimizer
 does not clip) and the joint eval step. `--pretrained_path` partial-loads
 a torchvision-format backbone into the encoders when the harness is
-built. `--profile_dir` and `--mp` are not ported: `check_supported`
+built. `--profile_dir` traces steps 10-12 of epoch 0 with torch.profiler
+(`utils/profiling.py`), every step a `train_step` span, and closes the
+trace at the epoch's end. `--mp` is not ported: `check_supported`
 raises NotImplementedError naming the option.
 """
 
@@ -75,6 +77,7 @@ from gdl_tpu_torch.utils.checkpoint import (
 from gdl_tpu_torch.utils.interop import load_pretrained_encoders
 from gdl_tpu_torch.utils.logging import CSVLogger, TBLogger
 from gdl_tpu_torch.utils.metrics import PerClassAccuracy
+from gdl_tpu_torch.utils.profiling import annotate, step_trace, stop_trace
 from gdl_tpu_torch.utils.seed import setup_seed
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -85,9 +88,6 @@ def check_supported(cfg: Config) -> None:
     """Raise for every option the CLI accepts and the port does not
     implement yet; nothing is accepted and ignored. The DGL and joint
     lineages take the same options."""
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir is not ported to gdl_tpu_torch yet")
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute_dtype must be one of {list(_DTYPES)}, "
                          f"got {cfg.compute_dtype!r}")
@@ -264,7 +264,9 @@ def train_one_epoch(h: Harness, loader: Iterable[dict], epoch: int,
     counting only the completed steps (plus `_sums`, the running
     per-metric sums, so the resumed run can finish the epoch with
     unbiased full-epoch means). `init_sums`/`init_count` re-seed those
-    accumulators on a mid-epoch resume."""
+    accumulators on a mid-epoch resume. With cfg.profile_dir, epoch 0's
+    steps 10-12 are traced into it (`utils/profiling.py`); the trace is
+    closed when the epoch ends, whatever its length."""
     cfg = h.cfg
     if epoch < 20:
         print(epoch, lr_for_epoch(cfg, epoch))
@@ -286,23 +288,30 @@ def train_one_epoch(h: Harness, loader: Iterable[dict], epoch: int,
                 sums[k] = sums.get(k, 0.0) + v
         pending.clear()
 
+    profile_dir = cfg.profile_dir if epoch == 0 else None
     preempted = False
-    for step, batch in enumerate(_device_prefetch(loader, h.device)):
-        metrics = h.train_step(batch)
-        pending.append(metrics)
-        if len(pending) >= 512:
-            drain()
-        if step % log_every == 0:
-            m = _to_host([metrics])[0]
-            print("unimodal_loss:", m["loss_a"] + m["loss_v"],
-                  "cls_loss:", m["loss_f"])
-            if "audio_grad_sum" in m:
-                print("grad:", m["audio_grad_sum"], m["visual_grad_sum"])
-                print("unimodal", m["abs_out_a"], m["abs_out_v"])
-        count += 1
-        if guard is not None and guard.should_stop(count):
-            preempted = True
-            break
+    try:
+        for step, batch in enumerate(_device_prefetch(loader, h.device)):
+            with step_trace(profile_dir, step), annotate("train_step"):
+                metrics = h.train_step(batch)
+            pending.append(metrics)
+            if len(pending) >= 512:
+                drain()
+            if step % log_every == 0:
+                m = _to_host([metrics])[0]
+                print("unimodal_loss:", m["loss_a"] + m["loss_v"],
+                      "cls_loss:", m["loss_f"])
+                if "audio_grad_sum" in m:
+                    print("grad:", m["audio_grad_sum"],
+                          m["visual_grad_sum"])
+                    print("unimodal", m["abs_out_a"], m["abs_out_v"])
+            count += 1
+            if guard is not None and guard.should_stop(count):
+                preempted = True
+                break
+    finally:
+        if profile_dir:
+            stop_trace()
     drain()
     if grad_csv is not None:
         grad_csv.flush()

@@ -58,7 +58,7 @@ def is_torch_checkpoint(path: str) -> bool:
     return len(head) == 2 and head[0] == 0x80 and 2 <= head[1] <= 5
 
 
-def _require_torch_file(path: str) -> None:
+def require_torch_file(path: str) -> None:
     if not is_torch_checkpoint(path):
         raise ValueError(
             f"{path} is not a torch checkpoint. gdl_tpu_torch reads and "
@@ -108,7 +108,7 @@ def _best_payload(cfg: Config, model: torch.nn.Module, epoch: int,
 def load_best_checkpoint(path: str, cfg: Optional[Config] = None) -> dict:
     """The state dict of a reference-schema `.pth` (`module.` stripped),
     after the reference's compatibility asserts against `cfg`."""
-    _require_torch_file(path)
+    require_torch_file(path)
     return load_reference_pth(path, cfg)
 
 
@@ -147,7 +147,7 @@ def load_train_state(path: str, model: torch.nn.Module, optimizer,
                      ) -> Tuple[int, dict]:
     """Restore `model`, `optimizer` and `generator` in place from a file
     written by `save_train_state` → (epoch, extra)."""
-    _require_torch_file(path)
+    require_torch_file(path)
     device = next(model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=False)
     if "optimizer_steps" not in payload:

@@ -6,7 +6,7 @@ gdl_tpu_torch.main_dgl --device cpu --dp 2 --eval_drop_last 1 ...` trains
 with both ranks printing the same accuracy and rank 0 alone writing the
 CSVs (each file holds one run's rows); `gdl_tpu_torch.valid` under two
 ranks reports the one-process accuracy; --dp 3 against two ranks, --mp 2
-and --profile_dir raise by name."""
+and main_intermediate's --profile_dir raise by name."""
 
 import glob
 import os
@@ -18,7 +18,7 @@ import sys
 import pytest
 import torch
 
-from gdl_tpu_torch import main_dgl
+from gdl_tpu_torch import main_dgl, main_intermediate
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.models.classifier import AVClassifierDGL
 from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
@@ -103,8 +103,9 @@ def test_torchrun_trains_and_evaluates_on_two_ranks(tmp_path):
 
 def test_refusals_name_the_option(tmp_path):
     """--dp 3 under two ranks raises on both, naming torchrun's
-    WORLD_SIZE; --mp 2 and --profile_dir raise NotImplementedError naming
-    the option, before any work."""
+    WORLD_SIZE; --mp 2 (main_dgl) and --profile_dir (main_intermediate,
+    whose reference loop traces nothing; main_dgl and main take it) raise
+    NotImplementedError naming the option, before any work."""
     audio, visual = _fixture_tree(tmp_path)
     common = _common(audio, visual)
     out, _ = _torchrun(["--train", "--ckpt_path", str(tmp_path / "ckpt"),
@@ -113,7 +114,10 @@ def test_refusals_name_the_option(tmp_path):
     assert out.returncode != 0
     assert out.stderr.count("differs from torchrun's WORLD_SIZE 2") >= 2
     assert not (tmp_path / "ckpt").exists()
-    for flag, value in (("--mp", "2"), ("--profile_dir", "p")):
+    for main, flag, value in ((main_dgl.main, "--mp", "2"),
+                              (main_intermediate.main, "--profile_dir",
+                               "p")):
         with pytest.raises(NotImplementedError, match=flag):
-            main_dgl.main(["--train", "--ckpt_path", str(tmp_path / "c"),
-                           flag, value] + common)
+            main(["--train", "--ckpt_path", str(tmp_path / "c"), flag,
+                  value] + common)
+    assert not (tmp_path / "c").exists() and not (tmp_path / "p").exists()

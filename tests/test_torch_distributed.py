@@ -230,28 +230,29 @@ def test_flagship_per_replica_bn_matches_gdl_tpu_grouped_bn(
 
 
 @pytest.mark.parametrize("scenario", ["augmented", "joint", "swin",
-                                      "mmformer"])
+                                      "mmformer", "mmformer_batched"])
 def test_random_draws_are_rank_invariant(runs, scenario, tmp_path,
                                          one_thread):
     """Every draw with a batch dimension is made at the global batch and
     each rank keeps its rows: with augmentation on (crop and flip), the
     joint lineage's PE noise, modality drop and OGM-GE noise, a tiny
     Swin's DropPath and a tiny mmformer_n's dropout masks (through their
-    element offset), two ranks reach the one-process run's parameters,
-    and the generator states are equal on every rank and to the one
-    process's. The joint run's OGM-GE coefficients are the global
-    batch's."""
+    place in the stream; under --batched_inter 1 three segments of it),
+    two ranks reach the one-process run's parameters, and the generator
+    states are equal on every rank and to the one process's. The joint
+    run's OGM-GE coefficients are the global batch's."""
     r0, r1 = runs["ranks"][scenario]
     _equal_across_ranks((r0, r1))
     fn = getattr(W, scenario)
-    one = fn() if scenario == "mmformer" else fn(str(tmp_path / "one"))
+    one = (fn() if scenario.startswith("mmformer")
+           else fn(str(tmp_path / "one")))
     _close_states(r0["state"], one["state"])
     assert torch.equal(r0["gen"], one["gen"])
     if scenario == "joint":
         assert r0["coeffs"] == r1["coeffs"]
         np.testing.assert_allclose(r0["coeffs"], one["coeffs"], rtol=RTOL)
         assert any(c != 1.0 for step in one["coeffs"] for c in step)
-    if scenario == "mmformer":
+    if scenario.startswith("mmformer"):
         np.testing.assert_allclose(r0["losses"], one["losses"], rtol=RTOL)
     else:
         _close_logs(r0["log"], one["log"])
@@ -379,3 +380,101 @@ def test_attention_dropout_offset_is_a_slice_of_the_global_mask():
                                                return_keep=True)
         assert torch.equal(k12, keep[sl]) and torch.equal(p12, pp)
         np.testing.assert_allclose(o12.numpy(), out[sl].numpy(), atol=1e-6)
+
+
+def _stack_rows(world, rank, b, passes=3):
+    """Rank `rank`'s rows of a [passes·world·b] stack of `passes` global
+    batches: pass p's rows p·B + rank·b .. + b − 1 (B = world·b)."""
+    big = world * b
+    return torch.cat([torch.arange(p * big + rank * b, p * big + rank * b + b)
+                      for p in range(passes)])
+
+
+def test_one_segment_layout_is_the_element_offset(monkeypatch):
+    """A layout of one segment (seg_stride == seg_elems, whatever they
+    are) draws, bit for bit, what its element offset alone draws: the
+    words, #14's plain mask and #10 / #11's plain keep mask. At world size
+    1 every `element_layout` is one segment from 0, stacked passes or
+    not; with one pass it is the rank's first element."""
+    from gdl_tpu_torch.ops.dropout import check_layout
+    from gdl_tpu_torch.parallel import distributed as dist
+
+    words = torch.tensor([4242, -31], dtype=torch.int32)
+    for off, seg in ((0, 40), (8, 12), (64, 6), (4, 0)):
+        assert torch.equal(philox_u32(words, 30, (off, seg, seg)),
+                           philox_u32(words, 30, off))
+        assert torch.equal(
+            prng_dropout_mask(words, (5, 6), 0.3, torch.bfloat16,
+                              offset=(off, seg, seg)),
+            prng_dropout_mask(words, (5, 6), 0.3, torch.bfloat16,
+                              offset=off))
+        assert check_layout((off, seg, seg)) == (off, 0, 0)
+    x = torch.zeros((2, 4, 8))
+    a = make_dropout(x, 2, 0.3, True, "kernel", words, offset=(16, 8, 8))
+    z = make_dropout(x, 2, 0.3, True, "kernel", words, offset=16)
+    assert torch.equal(a.multiplier((2, 2, 4, 4), torch.float32),
+                       z.multiplier((2, 2, 4, 4), torch.float32))
+    assert dist.element_layout(96) == (0, 96, 96)
+    assert dist.element_layout(96, passes=3) == (0, 32, 32)
+    monkeypatch.setattr(dist, "process_count", lambda: 2)
+    monkeypatch.setattr(dist, "process_index", lambda: 1)
+    assert dist.element_layout(96) == (96, 96, 96)
+    assert dist.element_layout(96, passes=3) == (32, 32, 64)
+    for bad in ((2, 0, 0), (0, 6, 12), (0, 8, 4), (0, -4, 8)):
+        with pytest.raises(ValueError):
+            check_layout(bad)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_three_segments_are_a_ranks_rows_of_the_global_stack(rate):
+    """--batched_inter 1 stacks three passes' batches: each rank's [3b]
+    mask, drawn in the three-segment layout of `element_layout`, is bit
+    for bit its rows of the [3B] mask one process draws (#14's plain
+    version, at both dtypes), and so are the keep mask of #10 / #11's
+    plain versions, their forward and dqkv, and #12's forward."""
+    world, b = 2, 2
+    words = torch.tensor([987, 65], dtype=torch.int32)
+    row = (5, 8)
+    per_row = 5 * 8
+    whole = prng_dropout_mask_ref(words, (3 * world * b,) + row, rate)
+    whole16 = prng_dropout_mask_ref(words, (3 * world * b,) + row, rate,
+                                    torch.bfloat16)
+    for k in range(world):
+        lay = (k * b * per_row, b * per_row, world * b * per_row)
+        rows = _stack_rows(world, k, b)
+        assert torch.equal(
+            prng_dropout_mask(words, (3 * b,) + row, rate, offset=lay),
+            whole[rows])
+        assert torch.equal(
+            prng_dropout_mask_ref(words, (3 * b,) + row, rate,
+                                  torch.bfloat16, lay), whole16[rows])
+        assert torch.equal(philox_keep_mask(words, (3 * b,) + row, rate, lay),
+                           philox_keep_mask(words, (3 * world * b,) + row,
+                                            rate)[rows])
+
+    rng = np.random.default_rng(8)
+    n, c, heads = 6, 16, 2
+    big = 3 * world * b
+    x = torch.from_numpy(rng.standard_normal((big, n, c))).float()
+    w = torch.from_numpy(rng.standard_normal((3 * c, c)) * 0.2).float()
+    g = torch.from_numpy(rng.standard_normal((big, n, c))).float()
+    drop = make_dropout(x, heads, rate, True, "kernel", words)
+    out, qkv, p, keep = self_attention_fused_fwd(x, w, heads, drop=drop,
+                                                 return_keep=True)
+    dqkv = self_attention_fused_bwd(qkv, p, g, heads, drop=drop)
+    per_row = heads * n * n
+    for k in range(world):
+        rows = _stack_rows(world, k, b)
+        lay = (k * b * per_row, b * per_row, world * b * per_row)
+        d = make_dropout(x[rows], heads, rate, True, "kernel", words,
+                         offset=lay)
+        o, q, pp, kk = self_attention_fused_fwd(x[rows], w, heads, drop=d,
+                                                return_keep=True)
+        assert torch.equal(kk, keep[rows]) and torch.equal(o, out[rows])
+        assert torch.equal(
+            self_attention_fused_bwd(q, pp, g[rows], heads, drop=d),
+            dqkv[rows])
+        o12, p12, k12 = self_attention_qkv_fwd(q, heads, drop=d,
+                                               return_keep=True)
+        assert torch.equal(k12, keep[rows]) and torch.equal(p12, pp)
+        assert torch.equal(o12, out[rows])

@@ -49,8 +49,26 @@ CASES = {"resnet_dgl": (TINY, True), "swin_dgl": (TINY_SWIN, True),
          "resnet_joint": (TINY, False)}
 
 
+def _first_vml_calls_on_one_thread():
+    """torch.exp, torch.log, ... on CPU float tensors call MKL's vector
+    math library, which picks its code path at a process's first call of
+    each function. When two OpenMP threads make that first call at once,
+    one of them can take a path 1.5e-4 relative from exp for its chunk
+    (2 of 48 fresh processes with two threads; the PE head's std, output
+    2 of mmformer_n's 7-tuple, crossed RTOL so). One call of each on one
+    thread first; every later call is exact to an ulp."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    x = torch.ones(64)
+    for fn in (torch.exp, torch.log, torch.sqrt, torch.tanh, torch.erf,
+               torch.sin, torch.cos):
+        fn(x)
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def _few_torch_threads():
+    _first_vml_calls_on_one_thread()
     before = torch.get_num_threads()
     torch.set_num_threads(2)
     yield

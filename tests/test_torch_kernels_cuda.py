@@ -697,7 +697,7 @@ def test_self_attention_bwd_ds_scratch_matches_plain(cuda, b, n, c, heads,
             qkv.data_ptr(), p.data_ptr(), ptr(drop.mask),
             ptr(drop.seed_words), g.data_ptr(), ds.data_ptr(),
             dqkv.data_ptr(), b, n, c, heads, d, scale, drop.mode,
-            drop.keep_thresh, drop.inv_keep, drop.offset,
+            drop.keep_thresh, drop.inv_keep, *drop.layout,
             0 if dtype == "float32" else 1,
             torch.cuda.current_stream(cuda).cuda_stream)
         assert err == 0
@@ -858,6 +858,80 @@ def test_dropout_kernels_at_an_offset_are_the_slice_of_the_global_mask(
     o12, p12, k12 = sa.self_attention_qkv_fwd(q2, heads, drop=d,
                                               return_keep=True)
     assert torch.equal(k12, keep[2:]) and torch.equal(p12, p2)
+
+
+def _stack_rows(world, rank, b, passes=3):
+    big = world * b
+    return torch.cat([torch.arange(p * big + rank * b, p * big + rank * b + b)
+                      for p in range(passes)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_kernels_in_three_segments_are_a_ranks_rows(cuda, dtype):
+    """#14 and the in-kernel masks of #10 / #11 / #12 in the three-segment
+    layout of `element_layout(passes=3)` (a rank's [3b] stack of three
+    passes' batches under --batched_inter 1): bit for bit the plain
+    version's and the rank's rows of the global [3B] launch. #14 at
+    segments of 12 elements (a bf16 store of 8 spans two segments, each
+    group its own counter) and at a layout past 2^32 (the 64-bit
+    counter); #10 at N = 10 (rows start inside Philox groups). A one-
+    segment layout gives the element offset's bits."""
+    from gdl_tpu_torch.ops import self_attention as sa
+    from gdl_tpu_torch.ops.dropout import (
+        philox_keep_mask,
+        prng_dropout_mask,
+        prng_dropout_mask_ref,
+    )
+
+    dt = getattr(torch, dtype)
+    words = torch.tensor([2468, -1357], dtype=torch.int32, device=cuda)
+    for world, b, row in ((2, 1, (3, 4)), (2, 3, (5, 44)), (4, 2, (7, 8))):
+        per = row[0] * row[1]
+        whole = prng_dropout_mask(words, (3 * world * b,) + row, 0.1, dt)
+        for k in range(world):
+            lay = (k * b * per, b * per, world * b * per)
+            got = prng_dropout_mask(words, (3 * b,) + row, 0.1, dt,
+                                    offset=lay)
+            assert torch.equal(got, whole[_stack_rows(world, k, b)])
+            assert torch.equal(got, prng_dropout_mask_ref(
+                words, (3 * b,) + row, 0.1, dt, lay))
+    far = (2 ** 32 - 8, 132, 2 * 132)
+    assert torch.equal(
+        prng_dropout_mask(words, (3, 132), 0.1, dt, offset=far),
+        prng_dropout_mask_ref(words, (3, 132), 0.1, dt, far))
+    assert torch.equal(
+        prng_dropout_mask(words, (4, 3, 44), 0.1, dt, offset=(528, 8, 8)),
+        prng_dropout_mask(words, (4, 3, 44), 0.1, dt, offset=528))
+
+    world, b, n, c, heads = 2, 2, 10, 64, 2
+    big = 3 * world * b
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((big, n, c), generator=gen, device=cuda).to(dt)
+    w = (torch.randn((3 * c, c), generator=gen, device=cuda)
+         * c ** -0.5).to(dt)
+    g = torch.randn((big, n, c), generator=gen, device=cuda).to(dt)
+    drop = sa.make_dropout(x, heads, 0.2, True, "kernel", words)
+    out, qkv, p, keep = sa.self_attention_fused_fwd(x, w, heads, drop=drop,
+                                                    return_keep=True)
+    dqkv = sa.self_attention_fused_bwd(qkv, p, g, heads, drop=drop)
+    per = heads * n * n
+    for k in range(world):
+        rows = _stack_rows(world, k, b)
+        lay = (k * b * per, b * per, world * b * per)
+        d = sa.make_dropout(x[rows], heads, 0.2, True, "kernel", words,
+                            offset=lay)
+        o2, q2, p2, k2 = sa.self_attention_fused_fwd(
+            x[rows].contiguous(), w, heads, drop=d, return_keep=True)
+        assert torch.equal(k2, keep[rows])
+        assert torch.equal(k2, philox_keep_mask(words, k2.shape, 0.2, lay)
+                           .to(torch.uint8))
+        assert torch.equal(o2, out[rows]) and torch.equal(p2, p[rows])
+        assert torch.equal(sa.self_attention_fused_bwd(
+            q2, p2, g[rows].contiguous(), heads, drop=d), dqkv[rows])
+        o12, p12, k12 = sa.self_attention_qkv_fwd(q2, heads, drop=d,
+                                                  return_keep=True)
+        assert torch.equal(k12, keep[rows]) and torch.equal(p12, p2)
 
 
 # ---------------------------------------------------------------------------

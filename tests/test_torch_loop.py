@@ -304,17 +304,24 @@ def test_unported_options_raise_by_name():
     raises NotImplementedError naming it (the DGL and joint lineages take
     the same options); --sync_bn 0 --dp 2 without torchrun's process
     group raises, naming torchrun; CUDA without a card raises.
-    --use_tensorboard, the AdaGrad / Adam optimizers and
-    --pretrained_path (loaded when the harness is built,
-    tests/test_torch_pretrained.py) are ported and pass."""
+    --use_tensorboard, the AdaGrad / Adam optimizers, --pretrained_path
+    (loaded when the harness is built, tests/test_torch_pretrained.py)
+    and --profile_dir (tests/test_torch_profiling.py) are ported and
+    pass; main_intermediate alone refuses --profile_dir, naming the reason
+    (gdl_tpu's main_intermediate.py traces nothing)."""
+    from gdl_tpu_torch.main_intermediate import check_no_trace
+
     base = dict(KW, device="cpu")
-    for kw, word in ((dict(profile_dir="/tmp/p"), "profile_dir"),
-                     (dict(sync_bn=False, dp=2), "torchrun")):
-        with pytest.raises(NotImplementedError, match=word):
-            check_supported(Config(**dict(base, **kw)))
+    with pytest.raises(NotImplementedError, match="torchrun"):
+        check_supported(Config(**dict(base, sync_bn=False, dp=2)))
     for kw in (dict(use_tensorboard=True), dict(optimizer="Adam"),
-               dict(optimizer="AdaGrad"), dict(pretrained_path="x.pth")):
+               dict(optimizer="AdaGrad"), dict(pretrained_path="x.pth"),
+               dict(profile_dir="/tmp/p")):
         check_supported(Config(**dict(base, **kw)))
+    with pytest.raises(NotImplementedError,
+                       match="profile_dir.*own epoch loop"):
+        check_no_trace(Config(**dict(base, profile_dir="/tmp/p")))
+    check_no_trace(Config(**base))
     with pytest.raises(ValueError, match="compute_dtype"):
         check_supported(Config(**dict(base, compute_dtype="float16")))
     if not torch.cuda.is_available():

@@ -168,9 +168,11 @@ def swin(workdir):
     return dict(state=_state(model), log=log, gen=gen)
 
 
-def mmformer():
+def mmformer(batched_inter=False):
     """A tiny mmformer_n (dropout 0.1 in its blocks and attention) under
-    the AUXI step, two epochs."""
+    the AUXI step, two epochs; with batched_inter its three fusion passes'
+    inter half runs as one [3b] call, whose masks take three segments of
+    the stream on each rank."""
     from gdl_tpu_torch.models.intermediate import MMFormerN
     from gdl_tpu_torch.train.auxi import make_auxi_train_step
     from gdl_tpu_torch.train.loop import (
@@ -180,7 +182,8 @@ def mmformer():
     )
 
     cfg = Config(**dict(KW, ckpt_path="ckpt", alpha=2.0, beta=0.01))
-    model = MMFormerN(generator=torch.Generator().manual_seed(7), **MMF)
+    model = MMFormerN(generator=torch.Generator().manual_seed(7),
+                      batched_inter=batched_inter, **MMF)
     train_set = PreTensorSet(8, 4, (64, 64, 3), (64, 64, 3))
     loader, _ = make_loaders(cfg, train_set, train_set)
 
@@ -196,6 +199,10 @@ def mmformer():
         losses.append(train_one_epoch(h, loader, epoch)["loss"])
     return dict(state=_state(model), losses=losses,
                 gen=h.generator.get_state())
+
+
+def mmformer_batched():
+    return mmformer(batched_inter=True)
 
 
 def preempt(workdir, init):
@@ -288,6 +295,7 @@ def run_all(out_dir, init):
         "joint": lambda: joint(os.path.join(work, f"joint{r}")),
         "swin": lambda: swin(os.path.join(work, f"swin{r}")),
         "mmformer": mmformer,
+        "mmformer_batched": mmformer_batched,
         "preempt": lambda: preempt(os.path.join(work, "preempt"), init),
     }
     for name, fn in scenarios.items():
