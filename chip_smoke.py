@@ -277,6 +277,33 @@ Phases, each printing one JSON line:
               Chrome trace file, three train_step spans, exactly 6
               events of #16's kernel among its CUDA kernel events; the
               traced and untraced epochs' ms/step side by side;
+  t. model parallel
+              --mp (parallel/mesh.py, parallel/row_parallel.py) over gloo
+              ranks on cuda:0, each a process (`chip_smoke.py
+              --mp_worker`): (1) phase i's flagship, float32 and bf16,
+              batch 64 global, on four ranks as --dp 2 --mp 2: 3 checked
+              steps, each from phase i's kernel arm's state before it
+              (fc_out and its momentum cut to each rank's columns),
+              against that arm's step at phase r's bars; the four ranks'
+              gradient norms, whole states and replicated tensors (by
+              digest) equal; the two model ranks' fc_out shards their
+              column halves of phase i's weight, bit for bit; exactly 2
+              launches of #16 a rank-step; rank 0's .pth whole (its
+              fc_out the shards side by side) and loaded strictly by one
+              process; (2) dual Swin-B DGL with --fuse_mlp 1, float32,
+              full width and depth, batch 16, on two ranks as --dp 1
+              --mp 2: one checked step against one process's from phase
+              m's seed at phase m's bars, exactly 48 launches of #15 (on
+              fc2's gathered weight), #2 and #4 a rank-step; (3) phase
+              k's mmformer_n on the same two ranks: one checked step
+              from one process's state before it at phase k's float32
+              bars, exactly 7 / 7 / 28 / 2 of #10 / #11 / #14 / #16 a
+              rank-step. One launch of four processes, ranks 0 and 1
+              regrouped as two for (2) and (3); the one-process
+              references are made while the four start. The median ms of bare
+              steps timed one by one after the checked ones (gloo: no
+              yardstick), peak memory and the seconds of each part a
+              rank, and the phase's seconds;
   g. kernels  one line per kernel: route, source, the TPU kernel it
               replaces, launches on its path (d for #1, the kernel arm
               of f for #2 and #4, of i for #16, of k for #10, #11, #13
@@ -294,7 +321,8 @@ Phases, each printing one JSON line:
               its events in s's trace; for #14, #10 and #11 whether r's
               offset and segment checks were bit-equal and their
               launches; for these four, their launches a rank-step of
-              r's --batched_inter 1 run), error,
+              r's --batched_inter 1 run; for #16, #15, #10, #11 and
+              #14, their launches a rank-step of t's --mp runs), error,
               times, the roofline bound of the same
               work (bytes moved once over 3.35 TB/s against operations
               over the float32 peak of 67 TFLOP/s; the times are the
@@ -315,6 +343,7 @@ import copy
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1141,6 +1170,9 @@ def phase_resnet(failures, smi: str):
                 torch.cuda.synchronize()
             finally:
                 torch.backends.cudnn.deterministic = False
+            # the timed calls run the bare step: the recording wrapper
+            # copies the whole training state to the host before each step
+            h.train_step = inner
             launched = dict(kernels.launch_counts)
             if impl == "auto":  # what phase r's world-1 arm is held to
                 refs[dtype] = dict(
@@ -3380,6 +3412,12 @@ def timed_epoch_ms(h, batches) -> float:
     return (time.perf_counter() - t) * 1e3 / len(batches)
 
 
+def step_ms(h, batches) -> list:
+    """ms of each step over `batches`, each an epoch of its own
+    (`timed_epoch_ms`)."""
+    return [timed_epoch_ms(h, [b]) for b in batches]
+
+
 def profiled_epoch(h, batches) -> dict:
     """Device operations (kernels, copies, sets) and device ms a step of
     one epoch over `batches`, by a torch.profiler trace."""
@@ -3427,8 +3465,13 @@ def train_snapshot(h) -> dict:
 
 
 def restore_snapshot(h, snap: dict) -> None:
+    """Load a `train_snapshot` into `h`; a row-parallel layer (--mp) takes
+    its columns of each whole tensor, its momentum too."""
+    from gdl_tpu_torch.parallel.row_parallel import shard_optimizer_state
+
     h.model.load_state_dict(snap["model"])
-    h.optimizer.load_state_dict(snap["optimizer"])
+    h.optimizer.load_state_dict(shard_optimizer_state(
+        snap["optimizer"], h.optimizer, h.model))
     h.optimizer.steps = snap["steps"]
     h.generator.set_state(snap["generator"])
 
@@ -3463,9 +3506,10 @@ def state_digest(snap: dict) -> str:
 
 def state_errors(model, ref: dict):
     """(max |Δ| of the parameters, of the BN running statistics) against
-    a state dict on the CPU."""
+    a state dict on the CPU; `model` may be a state dict itself."""
     param_err = stat_err = 0.0
-    for k, v in model.state_dict().items():
+    state = model if isinstance(model, dict) else model.state_dict()
+    for k, v in state.items():
         if "num_batches" in k:
             continue
         d = float((v.detach().cpu().double() - ref[k].double()).abs().max())
@@ -3774,14 +3818,14 @@ def mm_batched_config(ckpt: str, **kw):
                   encoder_width=RESNET_WIDTH, **kw)
 
 
-def mm_batched_harness(cfg):
-    """Phase k's mmformer_n (shared streams) with --batched_inter 1, built
-    through main_intermediate from phase k's seed."""
+def mm_batched_harness(cfg, batched_inter: bool = True):
+    """Phase k's mmformer_n (shared streams) with --batched_inter 1 (or
+    without), built through main_intermediate from phase k's seed."""
     from gdl_tpu_torch import main_intermediate
 
     model, kind = main_intermediate.build_model(
         "mmformer_n", cfg.n_classes, cfg.encoder_width, share_streams=True,
-        batched_inter=True, seed=777)
+        batched_inter=batched_inter, seed=777)
     return main_intermediate.build_harness(cfg, model, kind,
                                            steps_per_epoch=100)
 
@@ -3793,54 +3837,75 @@ def mm_batched_set(cfg):
     return SyntheticDataset(cfg, size=MM_BATCH, seed=1500)
 
 
-def mm_batched_reference(tmp: str) -> dict:
-    """One process's step of mmformer_n under --batched_inter 1 on the
-    global batch (cuDNN deterministic): saves its state before the step
-    for the ranks (mm_snap.pt) and the state after (mm_ref.pt); returns
-    the step's metrics and launches."""
+def mm_batched_reference(tmp: str, batched_inter: bool = True,
+                         tag: str = "mm", timed_steps: int = 0) -> dict:
+    """One process's step of mmformer_n under --batched_inter 1 (or
+    without) on the global batch (cuDNN deterministic): saves its state
+    before the step for the ranks (<tag>_snap.pt) and the state after
+    (<tag>_ref.pt); returns the step's metrics and launches, and with
+    `timed_steps` the ms of that many more steps on the batch, one by one,
+    and their median."""
     import torch
 
     from gdl_tpu_torch.data.loader import Loader
 
     cfg = mm_batched_config(tmp, num_workers=8)
-    h = mm_batched_harness(cfg)
-    torch.save(train_snapshot(h), os.path.join(tmp, "mm_snap.pt"))
+    h = mm_batched_harness(cfg, batched_inter)
+    torch.save(train_snapshot(h), os.path.join(tmp, f"{tag}_snap.pt"))
+    bare = h.train_step
     steps = recorded_steps(h)
-    checked_epoch(h, list(Loader(mm_batched_set(cfg), MM_BATCH, shuffle=True,
-                                 drop_last=True, num_workers=8,
-                                 seed=cfg.random_seed)))
+    batches = list(Loader(mm_batched_set(cfg), MM_BATCH, shuffle=True,
+                          drop_last=True, num_workers=8, seed=cfg.random_seed))
+    checked_epoch(h, batches)
+    n = len(steps)
     torch.save({k: v.detach().cpu().clone()
                 for k, v in h.model.state_dict().items()},
-               os.path.join(tmp, "mm_ref.pt"))
+               os.path.join(tmp, f"{tag}_ref.pt"))
+    h.train_step = bare  # timed without the recording's host syncs
+    times = step_ms(h, batches * timed_steps)
     del h
     torch.cuda.empty_cache()
-    return {"metrics": [m for m, _ in steps],
-            "launches": [c for _, c in steps]}
+    return {"metrics": [m for m, _ in steps[:n]],
+            "launches": [c for _, c in steps[:n]], "step_ms": times,
+            "ms_per_step": statistics.median(times) if times else None}
 
 
-def mm_batched_rank(job_dir: str, rank: int) -> dict:
+def mm_batched_rank(job_dir: str, rank: int, batched_inter: bool = True,
+                    tag: str = "mm", **kw) -> dict:
     """A rank's step of mm_batched_reference's, from its state before the
-    step, on the rank's rows of the global batch: metrics, launches, and
-    the (parameters, BN statistics) max |d| against its state after."""
+    step, on the rank's rows of the global batch (`kw`: --dp / --mp):
+    metrics, launches, the (parameters, BN statistics) max |d| of its
+    whole state against the state after; under `kw` also the ms of
+    MP_MM_TIMED_STEPS more steps on the same batch, one by one, their
+    median and its peak memory."""
     import torch
 
+    from gdl_tpu_torch.parallel.row_parallel import full_state_dict
     from gdl_tpu_torch.train.loop import make_loaders
 
-    cfg = mm_batched_config(os.path.join(job_dir, f"mm_rank{rank}"),
-                            num_workers=4, device="cuda:0")
-    h = mm_batched_harness(cfg)
-    restore_snapshot(h, torch.load(os.path.join(job_dir, "mm_snap.pt"),
-                                   weights_only=False))
+    cfg = mm_batched_config(os.path.join(job_dir, f"{tag}_rank{rank}"),
+                            num_workers=4, device="cuda:0", **kw)
+    torch.cuda.reset_peak_memory_stats()
+    h = mm_batched_harness(cfg, batched_inter)
+    restore_snapshot(h, torch.load(
+        os.path.join(job_dir, f"{tag}_snap.pt"), weights_only=False))
+    bare = h.train_step
     steps = recorded_steps(h)
     loader, _ = make_loaders(cfg, mm_batched_set(cfg), mm_batched_set(cfg))
-    checked_epoch(h, list(loader))
-    errors = state_errors(h.model, torch.load(
-        os.path.join(job_dir, "mm_ref.pt"), weights_only=False))
+    batches = list(loader)
+    checked_epoch(h, batches)
+    n = len(steps)
+    errors = state_errors(full_state_dict(h.model), torch.load(
+        os.path.join(job_dir, f"{tag}_ref.pt"), weights_only=False))
+    h.train_step = bare  # timed without the recording's host syncs
+    times = step_ms(h, batches * MP_MM_TIMED_STEPS) if kw else []
     del h
     torch.cuda.empty_cache()
-    return {"metrics": [m for m, _ in steps],
-            "launches": [c for _, c in steps], "state_errors": errors,
-            "local_batch": loader.local_batch}
+    return {"metrics": [m for m, _ in steps[:n]],
+            "launches": [c for _, c in steps[:n]], "state_errors": errors,
+            "local_batch": loader.local_batch, "step_ms": times,
+            "ms_per_step": statistics.median(times) if times else None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
 def mm_batched_check(ref: dict, ranks: list, problems: list) -> dict:
@@ -4332,17 +4397,515 @@ def replay_free_steps(dtype: str, free_dir: str) -> dict:
     return {"metrics": [m for m, _ in steps], "errors": errors}
 
 
+MP_SIZE = 2           # phase t: the model group of every arm
+MP_FLAGSHIP_RANKS = 4  # the flagship's grid, --dp 2 --mp 2
+MP_SWIN_BATCH = 16
+MP_TIMED_STEPS = 3     # phase t's steps timed one by one after the checked
+MP_MM_TIMED_STEPS = 1  # ones (their median); mmformer_n's take seconds
+MP_GO = "mp_go"        # phase t's references are written: "ok" or "failed"
+# a rank-step of phase t's arms: the flagship's (its stems), dual Swin-B
+# with --fuse_mlp 1 (2 encoders x 24 blocks; #2 and #4 of the default
+# attention beside it) and mmformer_n's
+MP_FLAGSHIP_LAUNCHES = {POOL: 2}
+MP_SWIN_LAUNCHES = {MLP: 48, SAVEP: 48, BWD: 48}
+MP_MM_LAUNCHES = MM_STEP_LAUNCHES
+
+
+def replicated_digest(model) -> str:
+    """sha256 of every state tensor of `model` that is not a row-parallel
+    shard: equal on every rank where the replicas agree bit for bit."""
+    import hashlib
+
+    import torch
+
+    from gdl_tpu_torch.parallel.row_parallel import is_sharded
+
+    shards = {id(p) for p in model.parameters() if is_sharded(p)}
+    digest = hashlib.sha256()
+    for name, v in model.state_dict(keep_vars=True).items():
+        if id(v) in shards:
+            continue
+        digest.update(name.encode())
+        digest.update(v.detach().cpu().contiguous().reshape(-1)
+                      .view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def mp_swin_config(**kw):
+    """Phase m's dual Swin-B (VGGSound, fps 1) with --fuse_mlp 1, float32,
+    batch MP_SWIN_BATCH."""
+    from gdl_tpu_torch.config import Config
+
+    return Config(dataset="VGGSound", backbone="swin",
+                  fusion_method="concat", modality="full", fps=1,
+                  batch_size=MP_SWIN_BATCH, log_grad_csv=False,
+                  compute_dtype="float32", fuse_mlp=True, **kw)
+
+
+def mp_swin_step(cfg, tmp: str, reference: bool = False) -> dict:
+    """One checked step of phase t's Swin-B arm from phase m's seed on one
+    synthetic batch (each rank takes all of it: --dp 1): metrics and
+    launches; the one-process `reference` saves its whole state after
+    the step (mp_swin_ref.pt under `tmp`), a rank holds its whole state
+    to that one (`state_errors`). Then the ms of MP_TIMED_STEPS more
+    bare steps, one by one, their median, peak memory and the seconds of
+    each part."""
+    import torch
+
+    from gdl_tpu_torch.data.synthetic import synthetic_batch
+    from gdl_tpu_torch.parallel.row_parallel import full_state_dict
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.train.loop import build_harness
+
+    clock = Stopwatch()
+    torch.cuda.reset_peak_memory_stats()
+    h = build_harness(cfg, build_model(cfg, seed=4321), steps_per_epoch=100)
+    batch = synthetic_batch(cfg, MP_SWIN_BATCH, seed=310)
+    clock.lap("build")
+    bare = h.train_step
+    steps = recorded_steps(h)
+    checked_epoch(h, [batch])
+    clock.lap("checked")
+    state = {k: v.detach().cpu() for k, v in full_state_dict(h.model).items()}
+    path = os.path.join(tmp, "mp_swin_ref.pt")
+    errors = None
+    if reference:
+        torch.save(state, path)
+    else:
+        errors = state_errors(state, torch.load(path))
+    del state
+    clock.lap("state")
+    h.train_step = bare  # timed without the recording's host syncs
+    times = step_ms(h, [batch] * MP_TIMED_STEPS)
+    clock.lap("timed")
+    out = {"metrics": [m for m, _ in steps[:1]],
+           "launches": [c for _, c in steps[:1]], "state_errors": errors,
+           "step_ms": times, "ms_per_step": statistics.median(times),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "seconds": clock.laps}
+    del h
+    torch.cuda.empty_cache()
+    return out
+
+
+class Stopwatch:
+    """Seconds of each named part of a run, in order."""
+
+    def __init__(self):
+        self.laps, self._t = {}, time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        t = time.perf_counter()
+        self.laps[name] = self.laps.get(name, 0.0) + t - self._t
+        self._t = t
+
+
+def mp_flagship_rank(job_dir: str, rank: int) -> dict:
+    """A rank of phase t's flagship arms (--dp 2 --mp 2, batch 64 global):
+    per dtype 3 checked steps, each from phase i's kernel arm's state
+    before it (sliced to this rank's shards), the whole state after it
+    against phase i's next one; the replicated tensors' digest after
+    each; whether this rank's fc_out shard is its columns of phase i's
+    weight, bit for bit; rank 0's best .pth (written whole) and each
+    rank's shard beside it; the ms of bare steps on the checked batches,
+    one by one, their median, peak memory and the seconds of each
+    part."""
+    import torch
+
+    from gdl_tpu_torch.parallel import mesh
+    from gdl_tpu_torch.parallel.row_parallel import full_state_dict
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.train.loop import build_harness, make_loaders
+    from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
+
+    arms = {}
+    for dtype in ("float32", "bfloat16"):
+        clock = Stopwatch()
+        cfg = resnet_dp_config(dtype, os.path.join(job_dir, f"mp{rank}"),
+                               num_workers=2, device="cuda:0",
+                               dp=MP_FLAGSHIP_RANKS // MP_SIZE, mp=MP_SIZE)
+        train_set, test_set, _ = resnet_dp_sets(cfg)
+        train_loader, _ = make_loaders(cfg, train_set, test_set)
+        batches = list(train_loader)
+        torch.cuda.reset_peak_memory_stats()
+        h = build_harness(cfg, build_model(cfg, seed=777),
+                          steps_per_epoch=100)
+        fc = h.model.fusion_module.fc_out
+        snaps = [torch.load(os.path.join(job_dir, f"snap_{dtype}_{k}.pt"),
+                            weights_only=False)
+                 for k in range(DP_CHECKED_STEPS + 1)]
+        restore_snapshot(h, snaps[0])
+        whole = snaps[0]["model"]["fusion_module.fc_out.weight"]
+        shard_exact = torch.equal(fc.weight.detach().cpu(),
+                                  fc.shard_of(whole))
+        clock.lap("build")
+        bare = h.train_step
+        log = recorded_steps(h)
+        errors, digests = [], []
+        for k, batch in enumerate(batches):
+            restore_snapshot(h, snaps[k])
+            checked_epoch(h, [batch])
+            errors.append(state_errors(full_state_dict(h.model),
+                                       snaps[k + 1]["model"]))
+            digests.append(replicated_digest(h.model))
+        del snaps
+        h.train_step = bare  # timed without the recording's host syncs
+        steps = list(log)
+        clock.lap("checked")
+        torch.save(fc.weight.detach().cpu(),
+                   os.path.join(job_dir, f"mp_shard_{dtype}_{rank}.pt"))
+        save_best_checkpoint(cfg, h.model, 1, 0.5, path=os.path.join(
+            job_dir, f"mp_best_{dtype}.pth"))
+        clock.lap("pth")
+        times = step_ms(h, batches[:MP_TIMED_STEPS])
+        clock.lap("timed")
+        arms[dtype] = dict(
+            metrics=[m for m, _ in steps], launches=[c for _, c in steps],
+            state_errors=errors, digests=digests, shard_exact=shard_exact,
+            shard_columns=[fc.index * fc.weight.shape[1],
+                           (fc.index + 1) * fc.weight.shape[1]],
+            coords=[mesh.data_index(), mesh.model_index()],
+            step_ms=times, ms_per_step=statistics.median(times),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            local_batch=train_loader.local_batch, seconds=clock.laps)
+        del h
+        torch.cuda.empty_cache()
+    return arms
+
+
+def mp_worker(spec: str) -> int:
+    """One rank of phase t's gloo run on the one card (torchrun's
+    variables set by the parent): the flagship on four ranks
+    (`mp_flagship_rank`); then ranks 0 and 1 leave that process group for
+    one of two (spec's "port2"), --mp 2, and run the Swin-B step of
+    `mp_swin_step` and the mmformer_n step of `mm_batched_rank`; ranks 2
+    and 3 end. Writes its results as JSON under spec's "dir"."""
+    import torch
+
+    from gdl_tpu_torch.parallel import distributed as dist
+    from gdl_tpu_torch.parallel import mesh
+
+    job = json.loads(spec)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.maybe_initialize(backend="gloo")
+    mesh.init_grid(MP_SIZE)  # every arm's --mp, before its loaders
+    rank = dist.process_index()
+    out = {"rank": rank, "world": dist.process_count(),
+           "start_s": time.time() - job["t0"]}  # its launch to its grid
+    try:
+        go, deadline = os.path.join(job["dir"], MP_GO), time.time() + 300
+        while not os.path.exists(go) and time.time() < deadline:
+            time.sleep(0.05)  # the parent's references, made meanwhile
+        if not os.path.exists(go) or open(go).read() != "ok":
+            raise RuntimeError("phase t's one-process references failed")
+        out["wait_s"] = time.time() - job["t0"] - out["start_s"]
+        t = time.perf_counter()
+        out["arms"] = mp_flagship_rank(job["dir"], rank)
+        dist.destroy()
+        out["flagship_s"] = time.perf_counter() - t
+        if rank < MP_SIZE:
+            t = time.perf_counter()
+            os.environ.update(WORLD_SIZE=str(MP_SIZE),
+                              MASTER_PORT=str(job["port2"]))
+            dist.maybe_initialize(backend="gloo")
+            mesh.init_grid(MP_SIZE)
+            out["regroup_s"] = time.perf_counter() - t
+            grid = dict(dp=1, mp=MP_SIZE)
+            out["swin"] = mp_swin_step(
+                mp_swin_config(device="cuda:0", **grid), job["dir"])
+            t = time.perf_counter()
+            out["mm"] = mm_batched_rank(job["dir"], rank, batched_inter=False,
+                                        tag="mmp", **grid)
+            out["mm"]["seconds"] = time.perf_counter() - t
+    finally:
+        with open(os.path.join(job["dir"], f"mp_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy()
+    return 0
+
+
+def mp_launch(tmp: str, world: int, before=None, timeout: int = 500):
+    """Run `world` ranks of mp_worker, calling `before()` while they start
+    (their work waits for it) → (their JSON results, None for a rank that
+    wrote none; problems; seconds)."""
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    spec = json.dumps({"dir": tmp, "port2": _free_port(), "t0": time.time()})
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mp_worker", spec],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs, ready = [], False
+    try:
+        try:
+            if before is not None:
+                before()
+            ready = True
+        finally:
+            with open(os.path.join(tmp, MP_GO + ".part"), "w") as f:
+                f.write("ok" if ready else "failed")
+            os.replace(os.path.join(tmp, MP_GO + ".part"),
+                       os.path.join(tmp, MP_GO))
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    problems = []
+    if any(p.returncode for p in procs):
+        problems.append(f"workers exited {[p.returncode for p in procs]}: "
+                        + " ".join(o[-1200:] for o in outs))
+    ranks = []
+    for r in range(world):
+        path = os.path.join(tmp, f"mp_rank{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else None)
+        if os.path.exists(path):
+            os.remove(path)
+    return ranks, problems, time.perf_counter() - t
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def mp_check_step(got: dict, ref_metrics: list, rtol: float,
+                  param_atol: float, stat_atol: float, launches: dict,
+                  problems: list, what: str) -> dict:
+    """One rank's checked step(s) against one process's: metrics relative
+    (its loss is the global one: the rank holds every row), the whole
+    state after it, exactly `launches` a step."""
+    worst = 0.0
+    for m, r in zip(got["metrics"], ref_metrics):
+        for key in ("loss", "loss_a", "loss_v", "loss_f", "grad_norm"):
+            worst = max(worst, abs(m[key] - r[key]) / max(abs(r[key]),
+                                                           1e-12))
+    if len(got["metrics"]) != len(ref_metrics):
+        problems.append(f"{what}: {len(got['metrics'])} steps ran")
+    if worst > rtol:
+        problems.append(f"{what}: metrics differ by {worst} relative")
+    param_err, stat_err = got["state_errors"]
+    if param_err > param_atol:
+        problems.append(f"{what}: parameters differ by {param_err}")
+    if stat_err > stat_atol:
+        problems.append(f"{what}: BN running stats differ by {stat_err}")
+    counts = [_nonzero(c) for c in got["launches"]]
+    if not counts or any(c != launches for c in counts):
+        problems.append(f"{what}: launches {counts}, expected {launches}")
+    return {"max_rel_metric_diff": worst, "max_abs_param_diff": param_err,
+            "max_abs_bn_stat_diff": stat_err, "launches_per_rank_step":
+            counts}
+
+
+def phase_model_parallel(failures, smi: str, refs: dict) -> dict:
+    """--mp over gloo ranks on the one card (NCCL refuses two ranks on one
+    device), each rank a process on cuda:0:
+    1. the flagship (phase i's config, float32 and bf16, batch 64 global)
+       on four ranks as --dp 2 --mp 2 (`mp_flagship_rank`): 3 checked
+       steps each from phase i's kernel arm's state before it, against
+       that arm's step at phase r's bars (the loss is the mean of the two
+       data indices' row means); the four ranks' gradient norms,
+       replicated tensors (digests) and whole states equal; fc_out's two
+       shards its column halves of phase i's weight, bit for bit;
+       exactly 2 launches of #16 a rank-step; rank 0's .pth whole, its
+       fc_out the two shards side by side, loaded strictly by a
+       one-process model;
+    2. dual Swin-B DGL with --fuse_mlp 1, float32, full width and depth,
+       batch 16, on two ranks as --dp 1 --mp 2: one checked step from
+       phase m's seed against one process's at phase m's bars, exactly
+       48 launches of #15 (fc2 gathered) and of #2 and #4 a rank-step;
+    3. phase k's mmformer_n on the same two ranks: one checked step from
+       one process's state before it against that process's step at
+       phase k's float32 bars, exactly 7 / 7 / 28 / 2 launches of #10 /
+       #11 / #14 / #16 a rank-step.
+    One launch of four processes: ranks 0 and 1 run 2 and 3 in a process
+    group of their own after 1; the one-process references of 2 and 3 are
+    made (and timed) here while the four start, before any of their
+    work. The median ms of bare steps timed one by
+    one after the checked ones (gloo stages every collective through the
+    host: no yardstick), peak memory and the seconds of each part per
+    rank. Returns {"flagship", "swin", "mm": each rank-step's
+    launches}."""
+    import torch
+
+    from gdl_tpu_torch.serve import build_model
+    from gdl_tpu_torch.utils.checkpoint import load_best_checkpoint
+
+    result = {"flagship": [], "swin": [], "mm": []}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, ref in refs.items():
+            snaps = ref["snapshots"] + [{
+                "model": ref["state"], "generator": ref["generator"],
+                "steps": ref["steps"]}]
+            for k, snap in enumerate(snaps):
+                torch.save(snap, os.path.join(tmp, f"snap_{dtype}_{k}.pt"))
+        made = {}
+
+        def references():  # while the four workers start
+            t = time.perf_counter()
+            made["swin"] = mp_swin_step(mp_swin_config(), tmp, reference=True)
+            made["mm"] = mm_batched_reference(
+                tmp, batched_inter=False, tag="mmp",
+                timed_steps=MP_MM_TIMED_STEPS)
+            made["seconds"] = time.perf_counter() - t
+
+        ranks, problems, workers_s = mp_launch(tmp, MP_FLAGSHIP_RANKS,
+                                               before=references)
+        swin_ref, mm_ref = made["swin"], made["mm"]
+        for dtype in ("float32", "bfloat16"):
+            arms = [r["arms"].get(dtype) if r else None for r in ranks]
+            ref = refs.get(dtype)
+            if None in arms or ref is None:
+                problems.append(f"flagship {dtype}: no result")
+                continue
+            launches = [_nonzero(c) for a in arms for c in a["launches"]]
+            result["flagship"] += launches
+            if (len(arms[0]["launches"]) != DP_CHECKED_STEPS
+                    or any(c != MP_FLAGSHIP_LAUNCHES for c in launches)):
+                problems.append(f"flagship {dtype}: launches {launches}")
+            # data indices 0 and 1 are ranks 0-1 and 2-3
+            losses = [(a["loss"] + b["loss"]) / 2 for a, b in
+                      zip(arms[0]["metrics"], arms[2]["metrics"])]
+            worst = 0.0
+            for i, (got, r) in enumerate(zip(losses, ref["metrics"])):
+                norms = {a["metrics"][i]["grad_norm"] for a in arms}
+                if len(norms) != 1:
+                    problems.append(f"flagship {dtype} step {i}: the ranks' "
+                                    f"gradient norms differ {norms}")
+                for key, v in (("loss", got), ("grad_norm", norms.pop())):
+                    worst = max(worst, abs(v - r[key]) / abs(r[key]))
+            if worst > RESNET_LOSS_RTOL[dtype]:
+                problems.append(f"flagship {dtype}: losses differ by {worst}"
+                                f" relative")
+            errs = [e for a in arms for e in a["state_errors"]]
+            param_err = max(e[0] for e in errs)
+            stat_err = max(e[1] for e in errs)
+            if any(a["state_errors"] != arms[0]["state_errors"]
+                   for a in arms):
+                problems.append(f"flagship {dtype}: the ranks' whole states "
+                                f"differ")
+            if dtype == "float32" and param_err > RESNET_PARAM_ATOL:
+                problems.append(f"flagship {dtype}: parameters differ by "
+                                f"{param_err}")
+            if stat_err > RESNET_STAT_ATOL[dtype]:
+                problems.append(f"flagship {dtype}: BN running stats differ "
+                                f"by {stat_err}")
+            digests_equal = all(a["digests"] == arms[0]["digests"]
+                                for a in arms)
+            if not digests_equal or len(arms[0]["digests"]) != \
+                    DP_CHECKED_STEPS:
+                problems.append(f"flagship {dtype}: the replicated tensors "
+                                f"differ across the ranks")
+            columns = [a["shard_columns"] for a in arms]
+            k = 16 * RESNET_WIDTH // MP_SIZE  # fc_out's [6, 2 · 512] / 2
+            shards_ok = (all(a["shard_exact"] for a in arms) and columns
+                         == [[0, k], [k, 2 * k]] * 2)
+            if not shards_ok:
+                problems.append(f"flagship {dtype}: fc_out shards {columns}, "
+                                f"exact {[a['shard_exact'] for a in arms]}")
+            # rank 0's .pth: whole, strict in one process
+            pth_ok = False
+            try:
+                sd = load_best_checkpoint(os.path.join(
+                    tmp, f"mp_best_{dtype}.pth"))
+                one = build_model(resnet_dp_config(dtype, tmp), seed=777)
+                one.load_state_dict(sd, strict=True)
+                halves = [torch.load(os.path.join(
+                    tmp, f"mp_shard_{dtype}_{r}.pt")) for r in range(2)]
+                pth_ok = (torch.equal(torch.cat(halves, 1),
+                                      sd["fusion_module.fc_out.weight"])
+                          and {k: tuple(v.shape) for k, v in sd.items()}
+                          == {k: tuple(v.shape)
+                              for k, v in one.state_dict().items()})
+            except Exception as e:  # reported, and the phase fails
+                problems.append(f"flagship {dtype}: .pth {e!r}")
+            if not pth_ok:
+                problems.append(f"flagship {dtype}: rank 0's .pth is not "
+                                f"the whole model")
+            emit({"phase": "mp_flagship", "dtype": dtype,
+                  "ranks": MP_FLAGSHIP_RANKS, "dp": 2, "mp": MP_SIZE,
+                  "device": "cuda:0", "backend": "gloo",
+                  "batch": RESNET_BATCH, "rank_batch": arms[0]["local_batch"],
+                  "coords": [a["coords"] for a in arms],
+                  "loss": losses,
+                  "phase_i_loss": [m["loss"] for m in ref["metrics"]],
+                  "max_rel_loss_diff": worst,
+                  "loss_rtol": RESNET_LOSS_RTOL[dtype],
+                  "max_abs_param_diff": param_err,
+                  "max_abs_bn_stat_diff": stat_err,
+                  "launches_per_rank_step": [c.get(POOL, 0)
+                                             for c in launches],
+                  "replicated_digests_equal": digests_equal,
+                  "fc_out_shard_columns": columns,
+                  "fc_out_shards_exact": shards_ok, "pth_whole": pth_ok,
+                  "ms_per_step": [a["ms_per_step"] for a in arms],
+                  "step_ms": [a["step_ms"] for a in arms],
+                  "rank_seconds": [a["seconds"] for a in arms],
+                  "peak_gib": [a["peak_gib"] for a in arms],
+                  "ms_note": "gloo stages every collective through the "
+                             "host: no yardstick", "nvidia_smi": smi})
+        ranks2 = ranks[:MP_SIZE]
+        for part, ref_out, launches, bars in (
+                ("swin", swin_ref, MP_SWIN_LAUNCHES,
+                 (LOSS_RTOL["float32"], PARAM_ATOL, PARAM_ATOL)),
+                ("mm", mm_ref, MP_MM_LAUNCHES,
+                 (MM_LOSS_RTOL["float32"], MM_PARAM_ATOL,
+                  MM_STAT_ATOL["float32"]))):
+            got = [r.get(part) if r else None for r in ranks2]
+            if None in got:
+                problems.append(f"{part}: no result")
+                continue
+            checks = [mp_check_step(g, ref_out["metrics"], *bars, launches,
+                                    problems, f"{part} rank {r}")
+                      for r, g in enumerate(got)]
+            if got[0]["state_errors"] != got[1]["state_errors"]:
+                problems.append(f"{part}: the ranks' whole states differ")
+            result[part] = [c for chk in checks
+                            for c in chk["launches_per_rank_step"]]
+            emit(dict({"phase": f"mp_{part}", "dtype": "float32",
+                       "ranks": MP_SIZE, "dp": 1, "mp": MP_SIZE,
+                       "device": "cuda:0", "backend": "gloo",
+                       "batch": MP_SWIN_BATCH if part == "swin" else MM_BATCH,
+                       "loss": [g["metrics"][0]["loss"] for g in got],
+                       "one_process_loss": ref_out["metrics"][0]["loss"],
+                       "loss_rtol": bars[0], "param_atol": bars[1],
+                       "ms_per_step": [g["ms_per_step"] for g in got],
+                       "step_ms": [g["step_ms"] for g in got],
+                       "rank_seconds": [g["seconds"] for g in got],
+                       "one_process_ms_per_step": ref_out.get("ms_per_step"),
+                       "one_process_step_ms": ref_out.get("step_ms"),
+                       "peak_gib": [g["peak_gib"] for g in got],
+                       "nvidia_smi": smi},
+                      **{k: [c[k] for c in checks] for k in checks[0]}))
+    seconds = time.perf_counter() - t0
+    emit({"phase": "mp_check", "workers_s": workers_s,
+          "refs_s": made.get("seconds"),
+          "worker_seconds": [r and {k: v for k, v in r.items()
+                                    if k.endswith("_s")} for r in ranks],
+          "seconds": seconds, "problems": problems, "ok": not problems})
+    failures.extend(f"model parallel: {p}" for p in problems)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every result line to this JSON file")
     ap.add_argument("--export_job", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp_worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mp_worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.export_job:  # one of phase q's exports, in its own process
         return export_job(args.export_job)
     if args.dp_worker:  # one rank of phase r's gloo run
         return dp_worker(args.dp_worker)
+    if args.mp_worker:  # one rank of phase t's gloo runs
+        return mp_worker(args.mp_worker)
 
     import torch
 
@@ -4431,6 +4994,9 @@ def main(argv=None) -> int:
                    lambda: phase_distributed(failures, smi, resnet_refs),
                    {"world1": [], "gloo": [], "offsets": ({}, []),
                     "segments": ({}, []), "mm_batched": []})
+    mp = run_phase("model parallel",
+                   lambda: phase_model_parallel(failures, smi, resnet_refs),
+                   {"flagship": [], "swin": [], "mm": []})
     record.update(parity=parity, train_parity=train_parity,
                   maxpool_parity=pool_parity, sa_parity=sa_parity,
                   mask_parity=mask_parity, flag_parity=flag_attn + flag_mlp,
@@ -4849,6 +5415,15 @@ def main(argv=None) -> int:
         entry["dp_batched_inter_launches_per_rank_step"] = [
             c.get(entry["name"], 0) for c in dp["mm_batched"]]
     entries[3]["profile_trace_events"] = profile["pool_kernel_events"]
+    # phase t: launches a rank-step under --mp (#16 in the flagship's four
+    # ranks and in mmformer_n's two, #15 in dual Swin-B's two, #10, #11
+    # and #14 in mmformer_n's two)
+    for entry, part in ((entries[3], "flagship"), (entries[11], "swin"),
+                        (entries[4], "mm"), (entries[5], "mm"),
+                        (entries[7], "mm"), (entries[3], "mm")):
+        key = "mp_launches_per_rank_step" + ("_mmformer" if part == "mm"
+                                             and entry is entries[3] else "")
+        entry[key] = [c.get(entry["name"], 0) for c in mp[part]]
     record["kernels"] = {"kernels": entries}
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
@@ -4892,6 +5467,16 @@ def main(argv=None) -> int:
         if not entries[3][key] or set(entries[3][key]) != {2}:
             failures.append(f"{POOL} on the data-parallel path: {key} "
                             f"{entries[3][key]}")
+    for entry, key, want in (
+            (entries[3], "mp_launches_per_rank_step", 2),
+            (entries[3], "mp_launches_per_rank_step_mmformer", 2),
+            (entries[11], "mp_launches_per_rank_step", 48),
+            (entries[4], "mp_launches_per_rank_step", 7),
+            (entries[5], "mp_launches_per_rank_step", 7),
+            (entries[7], "mp_launches_per_rank_step", 28)):
+        if not entry[key] or set(entry[key]) != {want}:
+            failures.append(f"{entry['name']} on the --mp path: {key} "
+                            f"{entry[key]}, not {want}")
     for entry in (entries[7], entries[4], entries[5]):
         for key in ("offset", "segment"):
             if not entry[key + "_bit_equal"] or not entry[key + "_launches"]:

@@ -20,12 +20,11 @@ they do in gdl_tpu (`models/classifier.py::AVClassifierSwinDGL`):
 `use_pallas_attn` and `use_pallas_attn_eval` choose between the attention
 kernels and their plain versions in training and at eval,
 `fuse_qkv_gemm 0` takes the qkv projection out of the attention kernel,
-`fuse_mlp 1` runs each block's MLP as one kernel. Options that are
-accepted and not ported yet raise NotImplementedError where they would
-take effect (`train/loop.py::check_supported`): among them `--mp`
-above 1 (the model-parallel mesh). Data parallelism runs one process a
-device under `torchrun` (`parallel/distributed.py`): `--dp -1` is the
-world size, and any other `--dp` must equal it.
+`fuse_mlp 1` runs each block's MLP as one kernel. Data parallelism runs
+one process a device under `torchrun` (`parallel/distributed.py`), and
+`--mp M` lays the world out as gdl_tpu's (data, model) mesh
+(`parallel/mesh.py`): `--dp -1` is the world size over M, and any other
+`--dp` must equal it (`train/loop.py::check_supported`).
 """
 
 from __future__ import annotations
@@ -130,8 +129,9 @@ class Config:
     gamma: float = 1.0
     # --- gdl_tpu's additions ---
     dp: int = -1  # data-parallel size; -1 = the world size of torchrun's
-    # process group (1 without one); another value must equal it
-    mp: int = 1  # model-parallel mesh size (fusion/classifier dense kernels)
+    # process group over mp (1 without one); another value must equal it
+    mp: int = 1  # model-parallel size: the fusion / classifier heads and
+    # the MLPs' fc2 row-parallel over groups of mp ranks (parallel/mesh.py)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     fast_dropout_rng: bool = True  # gdl_tpu's choice of PRNG lowering;
     # ignored by the port (torch.Generator draws)
@@ -163,8 +163,8 @@ class Config:
     # smaller values give cheap models for tests/CI
     encoder_stages: Optional[List[int]] = None  # blocks per stage; None =
     # backbone default ((2,2,2,2) for resnet18)
-    profile_dir: Optional[str] = None  # capture a profiler trace of a
-    # few steady-state steps of the first epoch (not ported yet: raises)
+    profile_dir: Optional[str] = None  # capture a profiler trace of
+    # steps 10-12 of the first epoch (utils/profiling.py)
     # Swin hyperparameters (reference Swin-B defaults,
     # swin_transformer.py:513-518); overridable for small configs/tests
     swin_embed_dim: int = 128
@@ -214,10 +214,10 @@ class Config:
     @property
     def bn_groups(self) -> int:
         """BN statistic groups: 1 = sync-BN (global batch); with
-        --sync_bn 0, one group per data-parallel rank (DataParallel
-        semantics, each rank's own rows): --dp, which the CLIs set to the
-        world size where it is -1 (`parallel.distributed
-        .data_parallel_size`)."""
+        --sync_bn 0, one group per data index (DataParallel semantics,
+        each replica's own rows): --dp, which the CLIs set to the world
+        size over --mp where it is -1, as gdl_tpu/config.py:234 does
+        (`parallel.distributed.init_parallel`)."""
         return 1 if self.sync_bn else max(self.dp, 1)
 
 

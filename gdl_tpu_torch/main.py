@@ -31,8 +31,8 @@ from gdl_tpu_torch.config import add_arguments, from_args
 from gdl_tpu_torch.data.datasets import make_dataset
 from gdl_tpu_torch.parallel.distributed import (
     barrier,
-    data_parallel_size,
     destroy,
+    init_parallel,
     is_primary,
     maybe_initialize,
 )
@@ -61,8 +61,8 @@ def main(argv=None):
     args = get_arguments(argv)
     cfg = from_args(args)
     maybe_initialize(device=cfg.device)  # torchrun's process group
-    cfg.dp = data_parallel_size(cfg.dp)
     try:
+        init_parallel(cfg)  # --mp's grid and --dp, before a model
         _main(args, cfg)
     finally:
         destroy()

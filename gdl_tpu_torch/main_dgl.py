@@ -21,8 +21,8 @@ import argparse
 from gdl_tpu_torch.config import add_arguments, from_args
 from gdl_tpu_torch.data.datasets import make_dataset
 from gdl_tpu_torch.parallel.distributed import (
-    data_parallel_size,
     destroy,
+    init_parallel,
     maybe_initialize,
 )
 from gdl_tpu_torch.serve import build_model, resolve_device
@@ -38,8 +38,8 @@ def get_arguments(argv=None):
 def main(argv=None):
     cfg = from_args(get_arguments(argv))
     maybe_initialize(device=cfg.device)  # torchrun's process group
-    cfg.dp = data_parallel_size(cfg.dp)
     try:
+        init_parallel(cfg)  # --mp's grid and --dp, before a model
         _main(cfg)
     finally:
         destroy()

@@ -34,8 +34,8 @@ from gdl_tpu_torch.data.datasets import make_dataset
 from gdl_tpu_torch.models.intermediate import TripleLogits, build_intermediate
 from gdl_tpu_torch.parallel.distributed import (
     barrier,
-    data_parallel_size,
     destroy,
+    init_parallel,
     is_primary,
     maybe_initialize,
 )
@@ -185,8 +185,8 @@ def main(argv=None):
     args = get_arguments(argv)
     cfg = from_args(args)
     maybe_initialize(device=cfg.device)
-    cfg.dp = data_parallel_size(cfg.dp)
     try:
+        init_parallel(cfg)  # --mp's grid and --dp, before a model
         _main(args, cfg)
     finally:
         destroy()

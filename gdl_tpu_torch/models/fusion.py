@@ -18,6 +18,10 @@ Net gradient topology per step: encoders ← α·(loss_a + loss_v) only;
 fusion head ← loss_f only; in the gated head fc_x/fc_y get no gradient
 at all (the fused path detaches after them) and stay at their initial
 values, as does the concat head's unused `fc_auxi`.
+
+Under `--mp` the heads' linears are row-parallel over the model group
+(`parallel/row_parallel.py`, swapped in by the trainer's harness); the
+detached unimodal stream calls the same split product.
 """
 
 from __future__ import annotations
@@ -29,13 +33,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from gdl_tpu_torch.models.layers import xavier_linear
+from gdl_tpu_torch.parallel.row_parallel import (
+    RowParallelLinear,
+    row_parallel_linear,
+)
 
 
-def _apply(layer: nn.Linear, x: torch.Tensor, detach: bool = False):
-    """layer(x), with the layer's parameters detached if asked."""
-    if detach:
-        return F.linear(x, layer.weight.detach(), layer.bias.detach())
-    return layer(x)
+def _apply(layer: nn.Module, x: torch.Tensor, detach: bool = False):
+    """layer(x), with the layer's parameters detached if asked; a
+    row-parallel layer (`--mp`) stays row-parallel."""
+    if not detach:
+        return layer(x)
+    w, b = layer.weight.detach(), layer.bias.detach()
+    if isinstance(layer, RowParallelLinear):
+        return row_parallel_linear(x, w, b)
+    return F.linear(x, w, b)
 
 
 class SumFusion(nn.Module):

@@ -23,11 +23,8 @@ import torch
 from torch import nn
 
 from gdl_tpu_torch.ops import maxpool as _maxpool
-from gdl_tpu_torch.parallel.distributed import (
-    all_reduce_,
-    process_count,
-    process_index,
-)
+from gdl_tpu_torch.parallel.distributed import all_reduce_
+from gdl_tpu_torch.parallel.mesh import data_group, data_index, data_size
 
 
 def conv(in_channels: int, features: int, kernel: int, stride: int = 1,
@@ -64,12 +61,14 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 
 class _GlobalBatchNormFn(torch.autograd.Function):
-    """Training-mode BatchNorm over the batch of every rank. The forward
-    all-reduces one [world, 2C + 1] f32 table in which each rank fills its
-    row with its per-channel statistics and count; the backward
-    all-reduces the per-channel sums of dy and dy·(x − mean). The
-    parameters' gradients stay this rank's sums: the gradient all-reduce
-    averages them with the rest.
+    """Training-mode BatchNorm over the global batch: the ranks of the
+    data group (every rank without `--mp`; the M ranks of a data index
+    hold the same rows and are not counted twice). The forward
+    all-reduces over it one [D, 2C + 1] f32 table, D the data size, in
+    which each rank fills the row of its data index with its per-channel
+    statistics and count; the backward all-reduces the per-channel sums
+    of dy and dy·(x − mean). The parameters' gradients stay this rank's
+    sums: the gradient all-reduce averages them with the rest.
 
     On CUDA the passes over x are torch's fused SyncBatchNorm primitives:
     a row is (mean, invstd, count), and `batch_norm_gather_stats_with_counts`
@@ -88,10 +87,11 @@ class _GlobalBatchNormFn(torch.autograd.Function):
         if ctx.fused:
             x = x.contiguous(memory_format=_memory_format(x))
             mean_r, invstd_r = torch.batch_norm_stats(x, eps)
-            table = mean_r.new_zeros((process_count(), 2 * c + 1))
-            table[process_index()] = torch.cat(
+            index, size = data_index(), data_size()
+            table = mean_r.new_zeros((size, 2 * c + 1))
+            table[index] = torch.cat(
                 [mean_r, invstd_r, mean_r.new_full((1,), x.numel() // c)])
-            all_reduce_(table)
+            all_reduce_(table, group=data_group())
             counts = table[:, 2 * c]
             mean, invstd = torch.batch_norm_gather_stats_with_counts(
                 x, table[:, :c], table[:, c:2 * c], running_mean,
@@ -102,10 +102,11 @@ class _GlobalBatchNormFn(torch.autograd.Function):
         xf = x.float()
         var_r, mean_r = torch.var_mean(xf, dims, correction=0)
         n_r = x.numel() // c
-        table = xf.new_zeros((process_count(), 2 * c + 1))
-        table[process_index()] = torch.cat([mean_r, var_r * n_r,
-                                            xf.new_full((1,), n_r)])
-        all_reduce_(table)
+        index, size = data_index(), data_size()
+        table = xf.new_zeros((size, 2 * c + 1))
+        table[index] = torch.cat([mean_r, var_r * n_r,
+                                  xf.new_full((1,), n_r)])
+        all_reduce_(table, group=data_group())
         counts = table[:, 2 * c:]
         n = counts.sum()
         mean = (table[:, :c] * counts).sum(0) / n
@@ -131,7 +132,8 @@ class _GlobalBatchNormFn(torch.autograd.Function):
                 torch.batch_norm_backward_reduce(gy, x, mean, invstd, weight,
                                                  True, True, True))
             c = sum_dy.shape[0]
-            sums = all_reduce_(torch.cat([sum_dy, sum_dy_xmu]))
+            sums = all_reduce_(torch.cat([sum_dy, sum_dy_xmu]),
+                               group=data_group())
             dx = torch.batch_norm_backward_elemt(
                 gy, x, mean, invstd, weight, sums[:c], sums[c:],
                 counts.to(torch.int32))
@@ -144,7 +146,8 @@ class _GlobalBatchNormFn(torch.autograd.Function):
         xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
         sum_dy = gyf.sum(dims)
         sum_dy_xhat = (gyf * xhat).sum(dims)
-        sums = all_reduce_(torch.cat([sum_dy, sum_dy_xhat]))
+        sums = all_reduce_(torch.cat([sum_dy, sum_dy_xhat]),
+                           group=data_group())
         dx = (weight * invstd).view(shape) * (
             gyf - (sums[:c] / n).view(shape)
             - xhat * (sums[c:] / n).view(shape))
@@ -160,13 +163,13 @@ def _memory_format(x: torch.Tensor) -> torch.memory_format:
 
 class GlobalBatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose training statistics are those of the global
-    batch, gdl_tpu's BatchNorm under its one program: with a process group
+    batch, gdl_tpu's BatchNorm under its one program: with a data group
     of more than one rank, `global_forward`; otherwise (and in eval mode)
     nn.BatchNorm2d itself, bit for bit. The state-dict keys are
     nn.BatchNorm2d's."""
 
     def forward(self, x):
-        if not self.training or process_count() == 1:
+        if not self.training or data_size() == 1:
             return super().forward(x)
         return self.global_forward(x)
 
@@ -186,17 +189,17 @@ def batch_norm(features: int, groups: int = 1) -> nn.BatchNorm2d:
     weight 1, bias 0). torch stores the UNBIASED batch variance in
     running_var, which is what gdl_tpu's GroupedBatchNorm copies.
 
-    groups == 1: global batch statistics over every rank
+    groups == 1: global batch statistics over every data index
     (`GlobalBatchNorm2d`). groups > 1 is gdl_tpu's per-replica
-    (DataParallel-semantics) BN, one statistic group per data-parallel
-    rank: a plain nn.BatchNorm2d on each rank's own rows, whose running
+    (DataParallel-semantics) BN, one statistic group per data index: a
+    plain nn.BatchNorm2d on each rank's own rows, whose running
     statistics the loop takes from rank 0 (`train/loop.py`)."""
     if groups == 1:
         return GlobalBatchNorm2d(features, eps=1e-5, momentum=0.1)
-    if groups != process_count():
+    size = data_size()
+    if groups != size:
         raise ValueError(f"per-replica BatchNorm with {groups} groups needs "
-                         f"a process group of {groups} ranks, not "
-                         f"{process_count()}")
+                         f"a data-parallel size of {groups}, not {size}")
     return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
 

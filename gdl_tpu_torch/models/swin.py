@@ -56,6 +56,10 @@ from gdl_tpu_torch.ops.window_attention import (
     window_attention_qkv_fused_eval,
 )
 from gdl_tpu_torch.parallel.distributed import local_rows
+from gdl_tpu_torch.parallel.row_parallel import (
+    RowParallelLinear,
+    gather_columns,
+)
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,7 +188,10 @@ class Mlp(nn.Module):
     """fc1 → exact GELU → fc2. With fuse_mlp the chain is `mlp_fused` on
     the flattened tokens where `mlp_kernel_supported` (kernel #15 on the
     card; `mlp_ref`, the same chain in plain ops, under impl="plain");
-    the parameters are fc1's and fc2's either way."""
+    the parameters are fc1's and fc2's either way. Under `--mp` fc2 is
+    row-parallel (gdl_tpu's `mlp_fc2`): the chain of plain ops runs its
+    split product, and #15, like the Pallas call GSPMD hands the whole
+    operand, takes fc2's weight all-gathered (`gather_columns`)."""
 
     def __init__(self, dim: int, hidden: int, fuse_mlp: bool = False,
                  impl: str = "auto"):
@@ -197,13 +204,16 @@ class Mlp(nn.Module):
     def forward(self, x):
         c, hidden = x.shape[-1], self.fc1.out_features
         m = x.numel() // c
-        if self.fuse_mlp:
+        dt = (torch.get_autocast_dtype(x.device.type)
+              if torch.is_autocast_enabled(x.device.type) else x.dtype)
+        if self.fuse_mlp and mlp_kernel_supported(m, c, hidden, dt):
+            w2 = self.fc2.weight
+            if isinstance(self.fc2, RowParallelLinear):  # --mp: whole
+                w2 = gather_columns(w2)
             args = _autocast_operands(x.reshape(m, c), self.fc1.weight,
-                                      self.fc1.bias, self.fc2.weight,
-                                      self.fc2.bias)
-            if mlp_kernel_supported(m, c, hidden, args[0].dtype):
-                op = mlp_ref if self.impl == "plain" else mlp_fused
-                return op(*args).reshape(x.shape)
+                                      self.fc1.bias, w2, self.fc2.bias)
+            op = mlp_ref if self.impl == "plain" else mlp_fused
+            return op(*args).reshape(x.shape)
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 

@@ -1,3 +1,5 @@
-"""Multi-process data parallelism of the port (`parallel/distributed.py`),
-the counterpart of `gdl_tpu/parallel/`. There is one data group: the
-model-parallel mesh of gdl_tpu (`--mp`) is not ported."""
+"""Multi-process parallelism of the port, the counterpart of
+`gdl_tpu/parallel/`: data parallelism over `torch.distributed`
+(`distributed.py`), gdl_tpu's ('data', 'model') mesh of `--mp` as a grid
+of groups (`mesh.py`), and the row-parallel layers it splits
+(`row_parallel.py`)."""

@@ -23,7 +23,7 @@ import torch
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.parallel.distributed import all_reduce_grads
 from gdl_tpu_torch.train.dgl import cross_entropy
-from gdl_tpu_torch.train.optim import global_norm
+from gdl_tpu_torch.train.optim import gradient_norm
 
 
 def regurize(mu: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
@@ -75,8 +75,7 @@ def _make_step(model, optimizer, loss_fn: Callable,
         loss, metrics = loss_fn(batch)
         loss.backward()
         all_reduce_grads(model.parameters())  # the global batch's mean
-        gnorm = global_norm(p.grad for p in model.parameters()
-                            if p.grad is not None)
+        gnorm = gradient_norm(model.parameters())
         optimizer.step(grad_norm=gnorm)
         out = {k: v.detach() for k, v in metrics.items()}
         out["loss"] = loss.detach()

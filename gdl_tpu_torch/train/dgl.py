@@ -20,8 +20,10 @@ import torch
 import torch.nn.functional as F
 
 from gdl_tpu_torch.config import Config
-from gdl_tpu_torch.parallel.distributed import all_reduce_grads
-from gdl_tpu_torch.train.optim import global_norm
+from gdl_tpu_torch.parallel.distributed import all_reduce_, all_reduce_grads
+from gdl_tpu_torch.parallel.mesh import model_group, model_size
+from gdl_tpu_torch.parallel.row_parallel import is_sharded
+from gdl_tpu_torch.train.optim import gradient_norm
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -29,15 +31,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return F.cross_entropy(logits.float(), labels.long())
 
 
-def _encoder_grad_probe(named_grads: Dict[str, torch.Tensor],
+def _encoder_grad_probe(named_params: Dict[str, torch.Tensor],
                         prefix: str) -> torch.Tensor:
     """Σ over the parameters whose name contains `prefix` of mean|grad|
-    (main_dgl.py:132-143). A parameter without a gradient adds 0."""
-    grads = [g for name, g in named_grads.items() if prefix in name]
-    if not grads:
+    (main_dgl.py:132-143), over the whole gradient of a row-parallel
+    shard (`--mp`: its Σ|g| summed over the model group). A parameter
+    without a gradient adds 0."""
+    params = [p for name, p in named_params.items() if prefix in name]
+    if not params:
         return torch.zeros(())
-    l1 = torch._foreach_norm([g.float() for g in grads], 1)
-    return sum(n / g.numel() for n, g in zip(l1, grads))
+    l1 = list(torch._foreach_norm([p.grad.float() for p in params], 1))
+    numel = [p.numel() for p in params]
+    split = [i for i, p in enumerate(params) if is_sharded(p)]
+    if split:
+        sums = all_reduce_(torch.stack([l1[i] for i in split]),
+                           group=model_group())
+        for j, i in enumerate(split):
+            l1[i], numel[i] = sums[j], numel[i] * model_size()
+    return sum(n / k for n, k in zip(l1, numel))
 
 
 def dgl_loss_fn(model, batch: Dict[str, torch.Tensor], cfg: Config,
@@ -106,9 +117,9 @@ def make_dgl_train_step(model, cfg: Config, optimizer,
         loss.backward()
         all_reduce_grads(model.parameters())
 
-        named = {n: p.grad for n, p in model.named_parameters()
+        named = {n: p for n, p in model.named_parameters()
                  if p.grad is not None}
-        gnorm = global_norm(named.values())
+        gnorm = gradient_norm(model.parameters())
         clip_coef = torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
         zero = torch.zeros((), device=gnorm.device)
         audio_probe = visual_probe = zero

@@ -24,7 +24,7 @@ from gdl_tpu_torch.train.auxi import regurize
 from gdl_tpu_torch.train.dgl import cross_entropy, make_eval_step
 from gdl_tpu_torch.train.optim import (
     apply_ogm,
-    global_norm,
+    gradient_norm,
     ogm_active,
     ogm_coefficients,
     ogm_targets,
@@ -124,7 +124,7 @@ def make_joint_train_step(model, cfg: Config, optimizer,
         all_reduce_grads(model.parameters())
 
         grads = [p.grad for p in model.parameters() if p.grad is not None]
-        gnorm = global_norm(grads)
+        gnorm = gradient_norm(model.parameters())
         torch._foreach_mul_(grads, torch.clamp(
             CLIP_NORM / (gnorm + 1e-12), max=1.0))
         if ogm_active(cfg, optimizer.steps, steps_per_epoch):

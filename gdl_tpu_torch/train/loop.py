@@ -29,14 +29,23 @@ batch ahead. Step metrics stay on the device and are fetched in chunks,
 never per step (the reference's per-step .item() probes stall every
 step, SURVEY §3.1).
 
+With `--mp M` the world of D·M ranks is gdl_tpu's `make_mesh(D, M)`
+(`parallel/mesh.py`): "the ranks" above are the data group's (the M
+ranks of a data index decode, draw and count the same rows, once), the
+heads' and MLPs' linears that gdl_tpu splits are row-parallel over the
+model group (`parallel/row_parallel.py`, swapped in when the harness is
+built, after every rank took rank 0's whole weights), the clip's norm
+sums the shards' squares over the model group, and the checkpoints are
+written whole (the model group of rank 0 all-gathers the shards) and
+sliced again on `--resume`.
+
 `dgl=False` selects the joint / OGM-GE lineage (main.py): the joint step
 (`train/joint.py`, its own clip before the modulation, so the optimizer
 does not clip) and the joint eval step. `--pretrained_path` partial-loads
 a torchvision-format backbone into the encoders when the harness is
 built. `--profile_dir` traces steps 10-12 of epoch 0 with torch.profiler
 (`utils/profiling.py`), every step a `train_step` span, and closes the
-trace at the epoch's end. `--mp` is not ported: `check_supported`
-raises NotImplementedError naming the option.
+trace at the epoch's end.
 """
 
 from __future__ import annotations
@@ -62,8 +71,15 @@ from gdl_tpu_torch.parallel.distributed import (
     broadcast_module,
     is_primary,
     process_count,
-    process_index,
 )
+from gdl_tpu_torch.parallel.mesh import (
+    data_group,
+    data_index,
+    data_size,
+    init_grid,
+    model_size,
+)
+from gdl_tpu_torch.parallel.row_parallel import convert_row_parallel
 from gdl_tpu_torch.serve import resolve_device
 from gdl_tpu_torch.train.dgl import make_dgl_train_step, make_eval_step
 from gdl_tpu_torch.train.joint import make_joint_train_step
@@ -86,26 +102,38 @@ RESUME_FILE = "resume_state.pth"
 
 def check_supported(cfg: Config) -> None:
     """Raise for every option the CLI accepts and the port does not
-    implement yet; nothing is accepted and ignored. The DGL and joint
-    lineages take the same options."""
+    implement, and for a --dp / --mp / --batch_size that the process
+    group cannot lay out; nothing is accepted and ignored. The DGL and
+    joint lineages take the same options."""
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute_dtype must be one of {list(_DTYPES)}, "
                          f"got {cfg.compute_dtype!r}")
-    if cfg.mp > 1:
-        raise NotImplementedError(
-            f"--mp {cfg.mp} (the model-parallel mesh) is not ported to "
-            f"gdl_tpu_torch yet")
     world = process_count()
-    if cfg.dp > 0 and cfg.dp != world:
+    mp = max(cfg.mp, 1)
+    if mp > 1 and world == 1:
+        raise NotImplementedError(
+            f"--mp {mp} needs {mp} processes or a multiple: launch it with "
+            f"torchrun --nproc_per_node {mp * max(cfg.dp, 1)} (this process "
+            f"has no process group)")
+    if world % mp:
+        raise ValueError(f"--mp {mp} does not divide torchrun's WORLD_SIZE "
+                         f"{world}")
+    data = world // mp
+    if cfg.dp > 0 and cfg.dp != data:
         if world == 1:
             raise NotImplementedError(
                 f"--dp {cfg.dp} needs {cfg.dp} processes: launch it with "
                 f"torchrun --nproc_per_node {cfg.dp} (this process has no "
                 f"process group; --dp -1 takes torchrun's world size)")
+        over = f" over --mp {mp}" if mp > 1 else ""
         raise ValueError(f"--dp {cfg.dp} differs from torchrun's WORLD_SIZE "
-                         f"{world}")
-    if world > 1 and not cfg.sync_bn and cfg.dp < 1:
-        raise ValueError(f"--sync_bn 0 over {world} ranks needs --dp {world} "
+                         f"{world}{over}")
+    if mp > 1 and cfg.batch_size % data:  # gdl_tpu/train/loop.py:74-77
+        raise ValueError(
+            f"batch_size {cfg.batch_size} must divide the data-parallel "
+            f"mesh size {data} (set --dp or adjust --batch_size)")
+    if data > 1 and not cfg.sync_bn and cfg.dp < 1:
+        raise ValueError(f"--sync_bn 0 over {data} ranks needs --dp {data} "
                          f"(the CLIs resolve --dp -1 to it)")
     if world > 1 and not cfg.eval_drop_last:
         raise ValueError(f"training or evaluating over {world} ranks needs "
@@ -141,10 +169,13 @@ def assemble_harness(cfg: Config, model: torch.nn.Module,
     `model`) is what the eval step calls, `(audio, visual) -> (out, out_a,
     out_v)`. `device` overrides cfg.device. With cfg.compute_dtype
     "bfloat16" both steps run under bf16 autocast (f32 parameters).
-    cfg.pretrained_path is partial-loaded into the encoders first, before
-    a resume (gdl_tpu/train/loop.py:86-89); then, under a process group,
-    every rank takes rank 0's parameters and buffers."""
+    cfg.pretrained_path is partial-loaded into the encoders first; then,
+    under a process group, every rank takes rank 0's parameters and
+    buffers; under --mp each rank then keeps its shards of the
+    row-parallel layers; then a resume loads its state on every rank
+    (gdl_tpu/train/loop.py:86-89)."""
     dev = resolve_device(device if device is not None else cfg.device)
+    init_grid(cfg.mp)  # for library callers; the CLIs built it already
     if cfg.pretrained_path:
         load_pretrained_encoders(model, cfg.pretrained_path)
     generator = setup_seed(cfg.random_seed, dev)
@@ -152,6 +183,8 @@ def assemble_harness(cfg: Config, model: torch.nn.Module,
     if dev.type == "cuda":  # conv weights as cuDNN reads them beside
         # channels_last activations (models/resnet.py)
         model = model.to(memory_format=torch.channels_last)
+    broadcast_module(model)  # every rank starts from rank 0's weights
+    convert_row_parallel(model)
     optimizer = make_optimizer(cfg, model.parameters(), steps_per_epoch,
                                clip_norm=clip_norm)
     train_pre = make_train_preprocess(cfg, dev) if raw_batches else None
@@ -179,7 +212,6 @@ def assemble_harness(cfg: Config, model: torch.nn.Module,
         start_epoch, resume_extra = load_train_state(
             cfg.resume, model, optimizer, generator)
         print("Resumed from {} at epoch {}".format(cfg.resume, start_epoch))
-    broadcast_module(model)  # every rank starts from rank 0's weights
     return Harness(cfg=cfg, model=model, optimizer=optimizer, device=dev,
                    generator=generator, train_step=train_step,
                    eval_step=eval_step, start_epoch=start_epoch,
@@ -241,13 +273,13 @@ def _device_prefetch(iterator: Iterable[dict], device: torch.device,
 def _to_host(steps: list) -> list:
     """The 0-dim entries of each step's metrics as Python floats, all
     steps in one device→host copy; under a process group their means over
-    the ranks (one all-reduce)."""
+    the data group (one all-reduce)."""
     keys = [k for k, v in steps[0].items() if v.dim() == 0]
     table = torch.stack([torch.stack([m[k].detach().float() for k in keys])
                          for m in steps])
-    world = process_count()
+    world = data_size()
     if world > 1:
-        table = all_reduce_(table) / world
+        table = all_reduce_(table, group=data_group()) / world
     return [dict(zip(keys, row)) for row in table.tolist()]
 
 
@@ -363,9 +395,10 @@ def evaluate(h: Harness, loader: Loader) -> tuple:
             consume()
     while inflight:
         consume()
-    if process_count() > 1:  # every rank's shard, the same on every rank
+    if data_size() > 1:  # every data index's rows, on every rank
         arrays = (counters.num, counters.acc, counters.acc_a, counters.acc_v)
-        total = all_reduce_(torch.from_numpy(np.stack(arrays))).numpy()
+        total = all_reduce_(torch.from_numpy(np.stack(arrays)),
+                            group=data_group()).numpy()
         for a, t in zip(arrays, total):
             a[:] = t
     return counters.results()
@@ -449,9 +482,15 @@ def run_training(cfg: Config, model: torch.nn.Module, train_set, test_set,
 
 def make_loaders(cfg: Config, train_set, test_set):
     """(train, test) Loaders of the global batch cfg.batch_size; under a
-    process group each rank decodes its contiguous rows of every batch."""
+    process group each rank decodes the contiguous rows of its data index
+    in every batch, on the grid that `init_parallel` (or `init_grid`)
+    built for cfg.mp."""
+    if model_size() != max(cfg.mp, 1):
+        raise RuntimeError(f"--mp {cfg.mp}: build its grid (parallel."
+                           f"distributed.init_parallel) before the loaders")
+    index, size = data_index(), data_size()
     kw = dict(num_workers=cfg.num_workers, seed=cfg.random_seed,
-              process_index=process_index(), process_count=process_count())
+              process_index=index, process_count=size)
     test = Loader(test_set, cfg.batch_size, shuffle=False,
                   drop_last=cfg.eval_drop_last, **kw)
     if train_set is None:

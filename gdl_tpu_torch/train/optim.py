@@ -37,6 +37,8 @@ import torch
 
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.parallel.distributed import all_reduce_
+from gdl_tpu_torch.parallel.mesh import data_group, model_group, model_size
+from gdl_tpu_torch.parallel.row_parallel import is_sharded
 
 MOMENTUM = 0.9
 WEIGHT_DECAY = 1e-4  # coupled: added to the clipped gradient
@@ -82,6 +84,27 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def gradient_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """‖g‖ of the gradients of `params` that have one: `global_norm` of
+    them, or under `--mp` √(Σ of the replicated ‖g‖² + the model group's
+    sum of the shards' Σ ‖g‖²) in f32, the whole gradient's norm on every
+    model rank (optax.global_norm's sum in another order, which gdl_tpu
+    takes under mp > 1)."""
+    params = [p for p in params if p.grad is not None]
+    if model_size() == 1 or not params:
+        return global_norm(p.grad for p in params)
+
+    def squares(part):
+        if not part:
+            return torch.zeros((), device=params[0].grad.device)
+        norms = torch._foreach_norm([p.grad.float() for p in part])
+        return torch.stack(norms).square().sum()
+
+    whole = squares([p for p in params if not is_sharded(p)])
+    split = squares([p for p in params if is_sharded(p)])
+    return torch.sqrt(whole + all_reduce_(split, group=model_group()))
+
+
 class _Scheduled:
     """The clip and the schedule in front of a torch optimizer's update:
     clip(max_norm) unless clip_norm is None, then lr = schedule(k) for
@@ -99,10 +122,11 @@ class _Scheduled:
         same gradients (the train step reports it)."""
         if closure is not None:
             raise ValueError(f"{type(self).__name__} takes no closure")
-        grads = [p.grad for g in self.param_groups for p in g["params"]
-                 if p.grad is not None]
+        params = [p for g in self.param_groups for p in g["params"]
+                  if p.grad is not None]
+        grads = [p.grad for p in params]
         if grads and self.clip_norm is not None:
-            norm = global_norm(grads) if grad_norm is None else grad_norm
+            norm = gradient_norm(params) if grad_norm is None else grad_norm
             coef = torch.where(norm < self.clip_norm,
                                torch.ones_like(norm),
                                self.clip_norm / norm)
@@ -203,15 +227,15 @@ def ogm_coefficients(out_a: torch.Tensor, out_v: torch.Tensor,
     """(coeff_a, coeff_v) from the ratio of the summed softmax scores of
     the labels (main.py:287-306), in f32 under any autocast: the
     modality with the larger score gets 1 - tanh(α · relu(ratio)), the
-    other 1. Under a process group the scores are summed over every
-    rank's rows (one all-reduce), so every rank gets the global batch's
+    other 1. Under a process group the scores are summed over the data
+    group's rows (one all-reduce), so every rank gets the global batch's
     coefficients."""
     idx = torch.arange(labels.shape[0], device=labels.device)
     labels = labels.long()
     scores = torch.stack([
         torch.softmax(out.float(), dim=-1)[idx, labels].sum()
         for out in (out_a, out_v)])
-    score_a, score_v = all_reduce_(scores)
+    score_a, score_v = all_reduce_(scores, group=data_group())
     ratio_v = score_v / score_a
     ratio_a = 1.0 / ratio_v
     v_big = ratio_v > 1.0

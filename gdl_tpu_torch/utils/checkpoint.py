@@ -18,7 +18,11 @@ resume) as one `.pth`.
 
 Under a process group only rank 0 writes either file, and every rank
 waits at a barrier after the save, so a file is whole before any rank
-goes on (the ranks hold the same weights: `train/loop.py`).
+goes on (the ranks hold the same weights: `train/loop.py`). Under `--mp`
+the ranks of rank 0's model group first all-gather the row-parallel
+shards, the weights and their optimizer state, so both files hold whole
+tensors in the one-process schema; loading either slices them again
+(`parallel/row_parallel.py`).
 
 The port neither reads nor writes gdl_tpu's msgpack files; given one,
 the loaders raise and say so.
@@ -33,6 +37,12 @@ import torch
 
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.parallel.distributed import barrier, is_primary
+from gdl_tpu_torch.parallel.mesh import data_index
+from gdl_tpu_torch.parallel.row_parallel import (
+    full_optimizer_state,
+    full_state_dict,
+    shard_optimizer_state,
+)
 from gdl_tpu_torch.train.optim import MOMENTUM, WEIGHT_DECAY
 from gdl_tpu_torch.utils.interop import load_reference_pth
 
@@ -74,23 +84,22 @@ def save_best_checkpoint(cfg: Config, model: torch.nn.Module, epoch: int,
     if path is None:
         path = os.path.join(cfg.ckpt_path,
                             legacy_checkpoint_name(cfg, epoch, acc))
+    state = full_state_dict(model) if data_index() == 0 else None
     if is_primary():
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        torch.save(_best_payload(cfg, model, epoch, acc), path)
+        torch.save(_best_payload(cfg, state, epoch, acc), path)
     barrier()
     return path
 
 
-def _best_payload(cfg: Config, model: torch.nn.Module, epoch: int,
-                  acc: float) -> dict:
+def _best_payload(cfg: Config, state: dict, epoch: int, acc: float) -> dict:
     return {
         "saved_epoch": epoch,
         "modulation": cfg.modulation,
         "alpha": cfg.alpha,
         "fusion": cfg.fusion_method,
         "acc": acc,
-        "model": {k: v.detach().cpu().clone()
-                  for k, v in model.state_dict().items()},
+        "model": {k: v.detach().cpu().clone() for k, v in state.items()},
         "optimizer": {
             "state": {},
             "param_groups": [{
@@ -118,16 +127,20 @@ def save_train_state(path: str, model: torch.nn.Module, optimizer,
     """Atomic: written to a sibling tmp file then os.replace'd, so a crash
     (or the tail of a preemption grace window, utils/preempt.py) mid-write
     never corrupts an existing resume state. Rank 0 writes it."""
+    if data_index() == 0:
+        state = (full_state_dict(model),
+                 full_optimizer_state(optimizer, model))
     if is_primary():
-        _write_train_state(path, model, optimizer, epoch, generator, extra)
+        _write_train_state(path, *state, optimizer, epoch, generator, extra)
     barrier()
 
 
-def _write_train_state(path, model, optimizer, epoch, generator, extra):
+def _write_train_state(path, model_state, optimizer_state, optimizer, epoch,
+                       generator, extra):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {
-        "model": model.state_dict(),
-        "optimizer": optimizer.state_dict(),
+        "model": model_state,
+        "optimizer": optimizer_state,
         "optimizer_steps": int(getattr(optimizer, "steps", 0)),
         "generator": (generator.get_state() if generator is not None
                       else None),
@@ -146,7 +159,8 @@ def load_train_state(path: str, model: torch.nn.Module, optimizer,
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[int, dict]:
     """Restore `model`, `optimizer` and `generator` in place from a file
-    written by `save_train_state` → (epoch, extra)."""
+    written by `save_train_state` → (epoch, extra); a row-parallel layer
+    (`--mp`) takes its columns of each whole tensor."""
     require_torch_file(path)
     device = next(model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=False)
@@ -154,7 +168,8 @@ def load_train_state(path: str, model: torch.nn.Module, optimizer,
         raise ValueError(f"{path} is not a resume state written by "
                          f"save_train_state")
     model.load_state_dict(payload["model"], strict=True)
-    optimizer.load_state_dict(payload["optimizer"])
+    optimizer.load_state_dict(shard_optimizer_state(payload["optimizer"],
+                                                    optimizer, model))
     optimizer.steps = int(payload["optimizer_steps"])
     if generator is not None and payload.get("generator") is not None:
         generator.set_state(payload["generator"].cpu())

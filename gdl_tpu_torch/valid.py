@@ -12,7 +12,9 @@ checkpoint (`serve.export_from_checkpoint`, for the CPU and CUDA; with
 writes it). Runs on one CUDA device, or under `torchrun` on one a
 process, each rank evaluating its rows of every batch and all reporting
 the same accuracy (`--eval_drop_last 1`); `--device cpu` is the one way
-to ask for the CPU.
+to ask for the CPU. Under `--mp` it evaluates through the same grid as
+the trainers (gdl_tpu's valid.py reaches `make_mesh` through its
+`run_eval` too), each rank slicing its shards from the whole `.pth`.
 """
 
 import argparse
@@ -21,8 +23,8 @@ from gdl_tpu_torch.config import Config, add_arguments, from_args
 from gdl_tpu_torch.data.datasets import make_dataset
 from gdl_tpu_torch.parallel.distributed import (
     barrier,
-    data_parallel_size,
     destroy,
+    init_parallel,
     is_primary,
     maybe_initialize,
 )
@@ -67,8 +69,8 @@ def main(argv=None):
     args = get_arguments(argv)
     cfg = from_args(args)
     maybe_initialize(device=cfg.device)  # torchrun's process group
-    cfg.dp = data_parallel_size(cfg.dp)
     try:
+        init_parallel(cfg)  # --mp's grid and --dp, before a model
         print(cfg)
         return run_valid(cfg, make_dataset(cfg, "test"), args.export_path,
                          bool(args.export_poly_batch))

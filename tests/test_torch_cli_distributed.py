@@ -5,8 +5,10 @@ on-disk fixture tree of tests/test_torch_cli.py.
 gdl_tpu_torch.main_dgl --device cpu --dp 2 --eval_drop_last 1 ...` trains
 with both ranks printing the same accuracy and rank 0 alone writing the
 CSVs (each file holds one run's rows); `gdl_tpu_torch.valid` under two
-ranks reports the one-process accuracy; --dp 3 against two ranks, --mp 2
-and main_intermediate's --profile_dir raise by name."""
+ranks reports the one-process accuracy; `--dp 2 --mp 2` over four ranks
+trains to the one-process run's losses and accuracies; --dp 3 and --mp 3
+against two ranks, and main_intermediate's --profile_dir, raise by
+name."""
 
 import glob
 import os
@@ -18,7 +20,7 @@ import sys
 import pytest
 import torch
 
-from gdl_tpu_torch import main_dgl, main_intermediate
+from gdl_tpu_torch import main_intermediate
 from gdl_tpu_torch.config import Config
 from gdl_tpu_torch.models.classifier import AVClassifierDGL
 from gdl_tpu_torch.utils.checkpoint import save_best_checkpoint
@@ -101,23 +103,56 @@ def test_torchrun_trains_and_evaluates_on_two_ranks(tmp_path):
         assert re.findall(r"Accuracy: .*", text) == want
 
 
+def test_torchrun_trains_with_model_parallel(tmp_path):
+    """One epoch of main_dgl under `--dp 2 --mp 2` over four ranks: the
+    run ends, the four ranks print the one-process run's epoch line (loss
+    and accuracies), rank 0 writes the one-process run's accuracy CSV,
+    and a resume state whose tensors have the one-process run's shapes."""
+    audio, visual = _fixture_tree(tmp_path)
+    common = _common(audio, visual) + ["--epochs", "1", "--save_every", "1"]
+    out, ranks = _torchrun(["--train", "--ckpt_path",
+                            str(tmp_path / "mp"), "--dp", "2", "--mp", "2"]
+                           + common, tmp_path, "gdl_tpu_torch.main_dgl",
+                           nproc=4)
+    assert out.returncode == 0, (out.stdout + out.stderr)[-4000:]
+    one = subprocess.run([sys.executable, "-m", "gdl_tpu_torch.main_dgl",
+                          "--train", "--ckpt_path", str(tmp_path / "one")]
+                         + common, cwd=tmp_path, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert one.returncode == 0, one.stderr[-3000:]
+    want = _epoch_lines(one.stdout)
+    assert len(want) == 1
+    for text in ranks:
+        assert _epoch_lines(text) == want
+    assert ((tmp_path / "mp" / "CREMAD_full.csv").read_text()
+            == (tmp_path / "one" / "CREMAD_full.csv").read_text())
+    shapes = [{k: tuple(v.shape) for k, v in torch.load(
+        tmp_path / d / "resume_state.pth", weights_only=False)[
+            "model"].items()} for d in ("mp", "one")]
+    assert shapes[0] == shapes[1]
+
+
 def test_refusals_name_the_option(tmp_path):
     """--dp 3 under two ranks raises on both, naming torchrun's
-    WORLD_SIZE; --mp 2 (main_dgl) and --profile_dir (main_intermediate,
-    whose reference loop traces nothing; main_dgl and main take it) raise
-    NotImplementedError naming the option, before any work."""
+    WORLD_SIZE; --mp 3 under two ranks raises ValueError on both, naming
+    --mp; --profile_dir (main_intermediate, whose reference loop traces
+    nothing; main_dgl and main take it) raises NotImplementedError naming
+    the option; all before any work."""
     audio, visual = _fixture_tree(tmp_path)
     common = _common(audio, visual)
-    out, _ = _torchrun(["--train", "--ckpt_path", str(tmp_path / "ckpt"),
-                        "--epochs", "1", "--dp", "3"] + common, tmp_path,
-                       "gdl_tpu_torch.main_dgl")
-    assert out.returncode != 0
-    assert out.stderr.count("differs from torchrun's WORLD_SIZE 2") >= 2
-    assert not (tmp_path / "ckpt").exists()
-    for main, flag, value in ((main_dgl.main, "--mp", "2"),
-                              (main_intermediate.main, "--profile_dir",
-                               "p")):
-        with pytest.raises(NotImplementedError, match=flag):
-            main(["--train", "--ckpt_path", str(tmp_path / "c"), flag,
-                  value] + common)
+    for flag, value, message in (
+            ("--dp", "3", "differs from torchrun's WORLD_SIZE 2"),
+            ("--mp", "3", "ValueError: --mp 3 does not divide torchrun's "
+                          "WORLD_SIZE 2")):
+        out, _ = _torchrun(["--train", "--ckpt_path",
+                            str(tmp_path / "ckpt"), "--epochs", "1", flag,
+                            value] + common, tmp_path,
+                           "gdl_tpu_torch.main_dgl")
+        assert out.returncode != 0
+        assert out.stderr.count(message) >= 2, out.stderr[-3000:]
+        assert not (tmp_path / "ckpt").exists()
+    with pytest.raises(NotImplementedError, match="--profile_dir"):
+        main_intermediate.main(["--train", "--ckpt_path",
+                                str(tmp_path / "c"), "--profile_dir", "p"]
+                               + common)
     assert not (tmp_path / "c").exists() and not (tmp_path / "p").exists()

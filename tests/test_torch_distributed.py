@@ -398,6 +398,7 @@ def test_one_segment_layout_is_the_element_offset(monkeypatch):
     not; with one pass it is the rank's first element."""
     from gdl_tpu_torch.ops.dropout import check_layout
     from gdl_tpu_torch.parallel import distributed as dist
+    from gdl_tpu_torch.parallel import mesh
 
     words = torch.tensor([4242, -31], dtype=torch.int32)
     for off, seg in ((0, 40), (8, 12), (64, 6), (4, 0)):
@@ -416,8 +417,8 @@ def test_one_segment_layout_is_the_element_offset(monkeypatch):
                        z.multiplier((2, 2, 4, 4), torch.float32))
     assert dist.element_layout(96) == (0, 96, 96)
     assert dist.element_layout(96, passes=3) == (0, 32, 32)
-    monkeypatch.setattr(dist, "process_count", lambda: 2)
-    monkeypatch.setattr(dist, "process_index", lambda: 1)
+    monkeypatch.setattr(mesh, "data_size", lambda: 2)  # data index 1 of 2
+    monkeypatch.setattr(mesh, "data_index", lambda: 1)
     assert dist.element_layout(96) == (96, 96, 96)
     assert dist.element_layout(96, passes=3) == (32, 32, 64)
     for bad in ((2, 0, 0), (0, 6, 12), (0, 8, 4), (0, -4, 8)):

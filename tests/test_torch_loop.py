@@ -302,8 +302,8 @@ def test_preempt_then_resume_reaches_the_same_parameters(trained):
 def test_unported_options_raise_by_name():
     """Every option the CLI accepts and the port does not implement
     raises NotImplementedError naming it (the DGL and joint lineages take
-    the same options); --sync_bn 0 --dp 2 without torchrun's process
-    group raises, naming torchrun; CUDA without a card raises.
+    the same options); --sync_bn 0 --dp 2 and --mp 2 without torchrun's
+    process group raise, naming torchrun; CUDA without a card raises.
     --use_tensorboard, the AdaGrad / Adam optimizers, --pretrained_path
     (loaded when the harness is built, tests/test_torch_pretrained.py)
     and --profile_dir (tests/test_torch_profiling.py) are ported and
@@ -314,6 +314,8 @@ def test_unported_options_raise_by_name():
     base = dict(KW, device="cpu")
     with pytest.raises(NotImplementedError, match="torchrun"):
         check_supported(Config(**dict(base, sync_bn=False, dp=2)))
+    with pytest.raises(NotImplementedError, match="--mp 2.*torchrun"):
+        check_supported(Config(**dict(base, mp=2)))
     for kw in (dict(use_tensorboard=True), dict(optimizer="Adam"),
                dict(optimizer="AdaGrad"), dict(pretrained_path="x.pth"),
                dict(profile_dir="/tmp/p")):
@@ -328,3 +330,21 @@ def test_unported_options_raise_by_name():
         cfg = Config(**KW)  # device defaults to "cuda"
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_harness(cfg, AVClassifierDGL(cfg), 4)
+
+
+def test_init_parallel_and_the_loaders_need_the_grid():
+    """Without a process group `init_parallel` resolves --dp -1 to this one
+    process and builds no grid; --mp 2 raises naming torchrun. The
+    loaders refuse a cfg.mp whose grid was not built (they would stride
+    by the rank instead of the data index)."""
+    from gdl_tpu_torch.parallel.distributed import init_parallel
+    from gdl_tpu_torch.parallel.mesh import data_size, model_size
+    from gdl_tpu_torch.train.loop import make_loaders
+
+    cfg = Config(**dict(KW, device="cpu", dp=-1))
+    init_parallel(cfg)
+    assert (cfg.dp, data_size(), model_size()) == (1, 1, 1)
+    with pytest.raises(NotImplementedError, match="--mp 2.*torchrun"):
+        init_parallel(Config(**dict(KW, device="cpu", mp=2)))
+    with pytest.raises(RuntimeError, match="--mp 2.*init_parallel"):
+        make_loaders(Config(**dict(KW, device="cpu", mp=2)), None, [])

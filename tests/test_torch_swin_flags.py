@@ -9,7 +9,7 @@ entries, which run in interpret mode here with its backend gate patched
 patched to the identity, because the two RNGs draw differently. Also
 here: the flags leave the state dict alone, `Config`'s four kernel flags
 reach the modules through `build_model`, and `--dp` / `--mp` above one
-device raise.
+without a process group raise, naming torchrun.
 """
 
 import itertools
@@ -258,13 +258,12 @@ def test_cli_flags_parse_into_the_config():
 
 @pytest.mark.parametrize("flag", ["dp", "mp"])
 def test_more_than_one_device_raises_by_name(flag):
-    """--mp 2 raises NotImplementedError naming the flag (the
-    model-parallel mesh is not ported); --dp 2 without a process group
-    raises it naming the flag and torchrun, which launches the ranks;
-    --dp -1 (the world size) and 1 mean this one process."""
+    """--mp 2 and --dp 2 without a process group raise
+    NotImplementedError naming the flag and torchrun, which launches the
+    ranks; --dp -1 (the world size) and 1, and --mp 1, mean this one
+    process."""
     with pytest.raises(NotImplementedError, match=f"--{flag} 2") as err:
         check_supported(Config(device="cpu", **{flag: 2}))
-    if flag == "dp":
-        assert "torchrun" in str(err.value)
+    assert "torchrun" in str(err.value)
     check_supported(Config(device="cpu", **{flag: 1}))
     check_supported(Config(device="cpu", dp=-1))

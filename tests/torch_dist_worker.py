@@ -129,9 +129,9 @@ def augmented(workdir):
     return dict(state=_state(model), log=log, gen=gen)
 
 
-def joint(workdir):
+def joint(workdir, **kw):
     """The joint lineage under OGM-GE with the PE heads and the modality
-    drop on: the coefficients of every step."""
+    drop on: the coefficients of every step. `kw` overrides the Config."""
     import gdl_tpu_torch.train.joint as joint_mod
     from gdl_tpu_torch.models.classifier import AVClassifier
 
@@ -146,7 +146,7 @@ def joint(workdir):
     joint_mod.ogm_coefficients = recording
     try:
         cfg = Config(**dict(KW, ckpt_path="ckpt", modulation="OGM_GE",
-                            alpha=0.3, pe=1, beta=0.01, drop=1))
+                            alpha=0.3, pe=1, beta=0.01, drop=1, **kw))
         model = AVClassifier(cfg, generator=torch.Generator().manual_seed(5))
         log, gen = _training(workdir, cfg, model, PreTensorSet(16, 0),
                              PreTensorSet(8, 1), dgl=False)
@@ -168,11 +168,11 @@ def swin(workdir):
     return dict(state=_state(model), log=log, gen=gen)
 
 
-def mmformer(batched_inter=False):
+def mmformer(batched_inter=False, epochs=2, **kw):
     """A tiny mmformer_n (dropout 0.1 in its blocks and attention) under
     the AUXI step, two epochs; with batched_inter its three fusion passes'
     inter half runs as one [3b] call, whose masks take three segments of
-    the stream on each rank."""
+    the stream on each rank. `kw` overrides the Config."""
     from gdl_tpu_torch.models.intermediate import MMFormerN
     from gdl_tpu_torch.train.auxi import make_auxi_train_step
     from gdl_tpu_torch.train.loop import (
@@ -181,7 +181,7 @@ def mmformer(batched_inter=False):
         train_one_epoch,
     )
 
-    cfg = Config(**dict(KW, ckpt_path="ckpt", alpha=2.0, beta=0.01))
+    cfg = Config(**dict(KW, ckpt_path="ckpt", alpha=2.0, beta=0.01, **kw))
     model = MMFormerN(generator=torch.Generator().manual_seed(7),
                       batched_inter=batched_inter, **MMF)
     train_set = PreTensorSet(8, 4, (64, 64, 3), (64, 64, 3))
@@ -194,7 +194,7 @@ def mmformer(batched_inter=False):
     h = assemble_harness(cfg, model, len(loader), make_step,
                          raw_batches=False)
     losses = []
-    for epoch in range(2):
+    for epoch in range(epochs):
         loader.set_epoch(epoch)
         losses.append(train_one_epoch(h, loader, epoch)["loss"])
     return dict(state=_state(model), losses=losses,
