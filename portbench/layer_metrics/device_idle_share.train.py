@@ -1,0 +1,12 @@
+"""device_idle_share.train: the share of the traced window in which no
+operation (kernel, copy or set) ran on the device, in percent:
+100 · (1 − union of the operations' intervals / the window), from one
+timeline."""
+
+from __future__ import annotations
+
+
+def read(ctx):
+    if ctx.kind != "train" or ctx.trace is None or not ctx.trace.device_ops:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
