@@ -25,6 +25,7 @@ from gdl_tpu_torch.ops.image_ops import (
     random_resized_crop_flip,
 )
 from gdl_tpu_torch.ops.stft import spectrogram_for_dataset
+from gdl_tpu_torch.utils.profiling import annotate
 
 
 def _host_exact(cfg: Config, batch, frames: torch.Tensor,
@@ -65,19 +66,22 @@ def make_train_preprocess(cfg: Config, device, image_size: int = 224):
 
 
 def make_eval_preprocess(cfg: Config, device, image_size: int = 224):
+    """preprocess(batch) with the eval spectrogram and Resize + Normalize;
+    its copies of the raw arrays to `device` are the span `data.h2d`."""
     swin = cfg.backbone == "swin"
     dataset = cfg.dataset
     device = torch.device(device)
 
     def preprocess(batch):
-        wave = torch.as_tensor(batch["wave"]).to(device)
-        frames = torch.as_tensor(batch["frames"]).to(device)
+        with annotate("data.h2d"):
+            wave = torch.as_tensor(batch["wave"]).to(device)
+            frames = torch.as_tensor(batch["frames"]).to(device)
+            label = torch.as_tensor(batch["label"]).to(device)
         if _host_exact(cfg, batch, frames, image_size):
             visual = normalize_images(frames)
         else:
             visual = eval_preprocess(frames, size=image_size)
         return {"audio": spectrogram_for_dataset(wave, dataset, swin=swin),
-                "visual": visual,
-                "label": torch.as_tensor(batch["label"]).to(device)}
+                "visual": visual, "label": label}
 
     return preprocess

@@ -121,6 +121,8 @@ launch_counts: Dict[str, int] = {"window_attention_qkv_fused_eval": 0,
                                  "self_attention_fused_bwd": 0,
                                  "self_attention_fused_eval": 0,
                                  "prng_dropout_mask": 0}
+# each op wrapper's span (`utils/profiling.py`): its launch_counts key
+span_names: Dict[str, str] = {k: "kernel." + k for k in launch_counts}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -52,6 +52,7 @@ import torch
 
 from gdl_tpu_torch import kernels
 from gdl_tpu_torch.parallel.distributed import element_layout
+from gdl_tpu_torch.utils.profiling import annotate
 
 KERNEL_NAME = "prng_dropout_mask"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -176,21 +177,24 @@ def prng_dropout_mask_ref(seed_words: torch.Tensor, shape: Sequence[int],
 
 
 def _launch_mask(seed_words, shape, rate, dtype, offset):
-    if dtype not in _DTYPE_CODES:
-        raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
-    if (seed_words.dtype != torch.int32 or tuple(seed_words.shape) != (2,)
-            or not seed_words.is_contiguous()):
-        raise ValueError("seed_words must be a contiguous int32 tensor [2]")
-    lay = check_layout(offset)
-    lib = kernels.load("dropout_mask")
-    out = torch.empty(tuple(shape), dtype=dtype, device=seed_words.device)
-    stream = torch.cuda.current_stream(seed_words.device).cuda_stream
-    err = lib.gdl_dropout_mask_launch(
-        out.data_ptr(), out.numel(), *lay, seed_words.data_ptr(),
-        keep_threshold(rate), 1.0 / (1.0 - rate), _DTYPE_CODES[dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {err}")
-    kernels.launch_counts[KERNEL_NAME] += 1
+    with annotate(kernels.span_names[KERNEL_NAME]):
+        if dtype not in _DTYPE_CODES:
+            raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
+        if (seed_words.dtype != torch.int32 or tuple(seed_words.shape) != (2,)
+                or not seed_words.is_contiguous()):
+            raise ValueError(
+                "seed_words must be a contiguous int32 tensor [2]")
+        lay = check_layout(offset)
+        lib = kernels.load("dropout_mask")
+        out = torch.empty(tuple(shape), dtype=dtype, device=seed_words.device)
+        stream = torch.cuda.current_stream(seed_words.device).cuda_stream
+        err = lib.gdl_dropout_mask_launch(
+            out.data_ptr(), out.numel(), *lay, seed_words.data_ptr(),
+            keep_threshold(rate), 1.0 / (1.0 - rate), _DTYPE_CODES[dtype],
+            stream)
+        if err != 0:
+            raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {err}")
+        kernels.launch_counts[KERNEL_NAME] += 1
     return out
 
 

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from gdl_tpu_torch import kernels
+from gdl_tpu_torch.utils.profiling import annotate
 
 KERNEL_NAME = "max_pool_3x3_s2_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,23 +86,25 @@ def max_pool_3x3_s2_bwd_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def _launch_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dx from the CUDA kernel; x and g dense [B, H, W, C] / [B, ho, wo, C]
     on one CUDA device."""
-    _check_shapes(x, g)
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"kernel takes float32 or bfloat16, got {x.dtype}")
-    if not (x.is_cuda and g.is_cuda and g.device == x.device):
-        raise ValueError("x and g must be on one CUDA device")
-    if not (x.is_contiguous() and g.is_contiguous()):
-        raise ValueError("x and g must be contiguous")
-    b, h, w, c = x.shape
-    lib = kernels.load("maxpool_bwd")
-    dx = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gdl_maxpool_bwd_launch(x.data_ptr(), g.data_ptr(),
-                                     dx.data_ptr(), b, h, w, c,
-                                     _DTYPE_CODES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {err}")
-    kernels.launch_counts[KERNEL_NAME] += 1
+    with annotate(kernels.span_names[KERNEL_NAME]):
+        _check_shapes(x, g)
+        if x.dtype not in _DTYPE_CODES:
+            raise ValueError(
+                f"kernel takes float32 or bfloat16, got {x.dtype}")
+        if not (x.is_cuda and g.is_cuda and g.device == x.device):
+            raise ValueError("x and g must be on one CUDA device")
+        if not (x.is_contiguous() and g.is_contiguous()):
+            raise ValueError("x and g must be contiguous")
+        b, h, w, c = x.shape
+        lib = kernels.load("maxpool_bwd")
+        dx = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gdl_maxpool_bwd_launch(x.data_ptr(), g.data_ptr(),
+                                         dx.data_ptr(), b, h, w, c,
+                                         _DTYPE_CODES[x.dtype], stream)
+        if err != 0:
+            raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {err}")
+        kernels.launch_counts[KERNEL_NAME] += 1
     return dx
 
 

@@ -45,6 +45,7 @@ from gdl_tpu_torch.ops.window_attention import (
     _require_cuda,
     _use_kernel,
 )
+from gdl_tpu_torch.utils.profiling import annotate
 
 KERNEL_NAME = "mlp_fused"
 # kept from the first design (see mlp_kernel_supported)
@@ -107,24 +108,25 @@ def mlp_kernel_supported(m: int, c: int, hidden: int,
 
 
 def _launch(x, w1, b1, w2, b2):
-    m, c = x.shape
-    hidden = w1.shape[0]
-    for arg, t, shape in (("w1", w1, (hidden, c)), ("b1", b1, (hidden,)),
-                          ("w2", w2, (c, hidden)), ("b2", b2, (c,))):
-        if tuple(t.shape) != shape or t.dtype != x.dtype:
-            raise ValueError(f"{arg}: expected {shape} {x.dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    _require_cuda([x, w1, b1, w2, b2], x)
-    lib = kernels.load("mlp_fused")
-    g = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gdl_mlp_fused_launch(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), g.data_ptr(), out.data_ptr(), m, c, hidden,
-        _DTYPE_CODES[x.dtype], stream)
-    _raise_on(err, KERNEL_NAME)
-    kernels.launch_counts[KERNEL_NAME] += 1
+    with annotate(kernels.span_names[KERNEL_NAME]):
+        m, c = x.shape
+        hidden = w1.shape[0]
+        for arg, t, shape in (("w1", w1, (hidden, c)), ("b1", b1, (hidden,)),
+                              ("w2", w2, (c, hidden)), ("b2", b2, (c,))):
+            if tuple(t.shape) != shape or t.dtype != x.dtype:
+                raise ValueError(f"{arg}: expected {shape} {x.dtype}, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
+        _require_cuda([x, w1, b1, w2, b2], x)
+        lib = kernels.load("mlp_fused")
+        g = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
+        out = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gdl_mlp_fused_launch(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), g.data_ptr(), out.data_ptr(), m, c, hidden,
+            _DTYPE_CODES[x.dtype], stream)
+        _raise_on(err, KERNEL_NAME)
+        kernels.launch_counts[KERNEL_NAME] += 1
     return out
 
 

@@ -61,6 +61,7 @@ from gdl_tpu_torch.ops.dropout import (
     philox_keep_mask,
     prng_dropout_mask,
 )
+from gdl_tpu_torch.utils.profiling import annotate
 
 FWD_KERNEL_NAME = "self_attention_fused_fwd"
 QKV_FWD_KERNEL_NAME = "self_attention_qkv_fwd"
@@ -279,23 +280,24 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launch_fwd(x, w, num_heads, scale, drop: _Dropout,
                 return_keep: bool = False):
-    b, n, c, d = _check_kernel_operands(FWD_KERNEL_NAME, x, w, num_heads)
-    pshape = (b, num_heads, n, n)
-    _check_dropout(drop, x, pshape)
-    lib = kernels.load("self_attention_train")
-    out = torch.empty_like(x)
-    qkv = torch.empty((b, n, 3 * c), dtype=x.dtype, device=x.device)
-    p = torch.empty(pshape, dtype=x.dtype, device=x.device)
-    keep = (torch.empty(pshape, dtype=torch.uint8, device=x.device)
-            if return_keep and drop.mode == 2 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gdl_sa_fwd_launch(
-        x.data_ptr(), w.data_ptr(), qkv.data_ptr(), p.data_ptr(),
-        out.data_ptr(), _ptr(drop.mask), _ptr(drop.seed_words), _ptr(keep),
-        b, n, c, num_heads, d, float(scale), drop.mode, drop.keep_thresh,
-        drop.inv_keep, *drop.layout, _DTYPE_CODES[x.dtype], stream)
-    _raise_on(err, FWD_KERNEL_NAME)
-    kernels.launch_counts[FWD_KERNEL_NAME] += 1
+    with annotate(kernels.span_names[FWD_KERNEL_NAME]):
+        b, n, c, d = _check_kernel_operands(FWD_KERNEL_NAME, x, w, num_heads)
+        pshape = (b, num_heads, n, n)
+        _check_dropout(drop, x, pshape)
+        lib = kernels.load("self_attention_train")
+        out = torch.empty_like(x)
+        qkv = torch.empty((b, n, 3 * c), dtype=x.dtype, device=x.device)
+        p = torch.empty(pshape, dtype=x.dtype, device=x.device)
+        keep = (torch.empty(pshape, dtype=torch.uint8, device=x.device)
+                if return_keep and drop.mode == 2 else None)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gdl_sa_fwd_launch(
+            x.data_ptr(), w.data_ptr(), qkv.data_ptr(), p.data_ptr(),
+            out.data_ptr(), _ptr(drop.mask), _ptr(drop.seed_words), _ptr(keep),
+            b, n, c, num_heads, d, float(scale), drop.mode, drop.keep_thresh,
+            drop.inv_keep, *drop.layout, _DTYPE_CODES[x.dtype], stream)
+        _raise_on(err, FWD_KERNEL_NAME)
+        kernels.launch_counts[FWD_KERNEL_NAME] += 1
     return (out, qkv, p, keep) if return_keep else (out, qkv, p)
 
 
@@ -317,60 +319,64 @@ def _check_qkv(name, qkv, num_heads):
 
 def _launch_qkv_fwd(qkv, num_heads, scale, drop: _Dropout,
                     return_keep: bool = False):
-    b, n, c, d = _check_qkv(QKV_FWD_KERNEL_NAME, qkv, num_heads)
-    _require_cuda([qkv], qkv)
-    pshape = (b, num_heads, n, n)
-    _check_dropout(drop, qkv, pshape)
-    lib = kernels.load("self_attention_train")
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-    p = torch.empty(pshape, dtype=qkv.dtype, device=qkv.device)
-    keep = (torch.empty(pshape, dtype=torch.uint8, device=qkv.device)
-            if return_keep and drop.mode == 2 else None)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.gdl_sa_qkv_fwd_launch(
-        qkv.data_ptr(), p.data_ptr(), out.data_ptr(), _ptr(drop.mask),
-        _ptr(drop.seed_words), _ptr(keep), b, n, c, num_heads, d,
-        float(scale), drop.mode, drop.keep_thresh, drop.inv_keep,
-        *drop.layout, _DTYPE_CODES[qkv.dtype], stream)
-    _raise_on(err, QKV_FWD_KERNEL_NAME)
-    kernels.launch_counts[QKV_FWD_KERNEL_NAME] += 1
+    with annotate(kernels.span_names[QKV_FWD_KERNEL_NAME]):
+        b, n, c, d = _check_qkv(QKV_FWD_KERNEL_NAME, qkv, num_heads)
+        _require_cuda([qkv], qkv)
+        pshape = (b, num_heads, n, n)
+        _check_dropout(drop, qkv, pshape)
+        lib = kernels.load("self_attention_train")
+        out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+        p = torch.empty(pshape, dtype=qkv.dtype, device=qkv.device)
+        keep = (torch.empty(pshape, dtype=torch.uint8, device=qkv.device)
+                if return_keep and drop.mode == 2 else None)
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.gdl_sa_qkv_fwd_launch(
+            qkv.data_ptr(), p.data_ptr(), out.data_ptr(), _ptr(drop.mask),
+            _ptr(drop.seed_words), _ptr(keep), b, n, c, num_heads, d,
+            float(scale), drop.mode, drop.keep_thresh, drop.inv_keep,
+            *drop.layout, _DTYPE_CODES[qkv.dtype], stream)
+        _raise_on(err, QKV_FWD_KERNEL_NAME)
+        kernels.launch_counts[QKV_FWD_KERNEL_NAME] += 1
     return (out, p, keep) if return_keep else (out, p)
 
 
 def _launch_bwd(qkv, p, dout, num_heads, scale, drop: _Dropout):
-    b, n, c, d = _check_qkv(BWD_KERNEL_NAME, qkv, num_heads)
-    pshape = (b, num_heads, n, n)
-    for arg, t, shape in (("p", p, pshape), ("dout", dout, (b, n, c))):
-        if tuple(t.shape) != shape or t.dtype != qkv.dtype:
-            raise ValueError(f"{arg}: expected {shape} {qkv.dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    _require_cuda([qkv, p, dout], qkv)
-    _check_dropout(drop, qkv, pshape)
-    lib = kernels.load("self_attention_train")
-    dqkv = torch.empty_like(qkv)
-    ds = torch.empty_like(p)  # scratch between the two backward kernels
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.gdl_sa_bwd_launch(
-        qkv.data_ptr(), p.data_ptr(), _ptr(drop.mask), _ptr(drop.seed_words),
-        dout.data_ptr(), ds.data_ptr(), dqkv.data_ptr(), b, n, c, num_heads,
-        d, float(scale), drop.mode, drop.keep_thresh, drop.inv_keep,
-        *drop.layout, _DTYPE_CODES[qkv.dtype], stream)
-    _raise_on(err, BWD_KERNEL_NAME)
-    kernels.launch_counts[BWD_KERNEL_NAME] += 1
+    with annotate(kernels.span_names[BWD_KERNEL_NAME]):
+        b, n, c, d = _check_qkv(BWD_KERNEL_NAME, qkv, num_heads)
+        pshape = (b, num_heads, n, n)
+        for arg, t, shape in (("p", p, pshape), ("dout", dout, (b, n, c))):
+            if tuple(t.shape) != shape or t.dtype != qkv.dtype:
+                raise ValueError(f"{arg}: expected {shape} {qkv.dtype}, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
+        _require_cuda([qkv, p, dout], qkv)
+        _check_dropout(drop, qkv, pshape)
+        lib = kernels.load("self_attention_train")
+        dqkv = torch.empty_like(qkv)
+        ds = torch.empty_like(p)  # scratch between the two backward kernels
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.gdl_sa_bwd_launch(
+            qkv.data_ptr(), p.data_ptr(), _ptr(drop.mask),
+            _ptr(drop.seed_words), dout.data_ptr(), ds.data_ptr(),
+            dqkv.data_ptr(), b, n, c, num_heads, d, float(scale), drop.mode,
+            drop.keep_thresh, drop.inv_keep, *drop.layout, _DTYPE_CODES[qkv.dtype], stream)
+        _raise_on(err, BWD_KERNEL_NAME)
+        kernels.launch_counts[BWD_KERNEL_NAME] += 1
     return dqkv
 
 
 def _launch_eval(x, w, num_heads, scale):
-    b, n, c, d = _check_kernel_operands(EVAL_KERNEL_NAME, x, w, num_heads)
-    lib = kernels.load("self_attention_eval")
-    out = torch.empty_like(x)
-    qkv = torch.empty((b, n, 3 * c), dtype=x.dtype, device=x.device)  # scratch
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gdl_sa_eval_launch(
-        x.data_ptr(), w.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, n, c,
-        num_heads, d, float(scale), _DTYPE_CODES[x.dtype], stream)
-    _raise_on(err, EVAL_KERNEL_NAME)
-    kernels.launch_counts[EVAL_KERNEL_NAME] += 1
+    with annotate(kernels.span_names[EVAL_KERNEL_NAME]):
+        b, n, c, d = _check_kernel_operands(EVAL_KERNEL_NAME, x, w, num_heads)
+        lib = kernels.load("self_attention_eval")
+        out = torch.empty_like(x)
+        qkv = torch.empty((b, n, 3 * c), dtype=x.dtype,
+                          device=x.device)  # scratch
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gdl_sa_eval_launch(
+            x.data_ptr(), w.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, n,
+            c, num_heads, d, float(scale), _DTYPE_CODES[x.dtype], stream)
+        _raise_on(err, EVAL_KERNEL_NAME)
+        kernels.launch_counts[EVAL_KERNEL_NAME] += 1
     return out
 
 

@@ -74,6 +74,7 @@ from typing import Optional
 import torch
 
 from gdl_tpu_torch import kernels
+from gdl_tpu_torch.utils.profiling import annotate
 
 KERNEL_NAME = "window_attention_qkv_fused_eval"
 SAVEP_KERNEL_NAME = "window_attention_qkv_fused_savep"
@@ -363,21 +364,22 @@ def _fwd_windows_per_block(bw: int, num_heads: int) -> int:
 
 
 def _launch(x, w, b, bias, mask, num_heads, scale):
-    bw, n, c, d, nw = _check_forward_operands(
-        "window_attention_qkv_fused_eval", x, w, b, bias, mask, num_heads)
-    lib = kernels.load("window_attention_eval")
-    out = torch.empty_like(x)
-    # the projection's output, read once by the attention launch
-    qkv = torch.empty((bw, n, 3 * c), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gdl_wa_eval_launch(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, qkv.data_ptr(),
-        out.data_ptr(), bw, n, c, num_heads, d, nw,
-        _fwd_windows_per_block(bw, num_heads), float(scale),
-        _DTYPE_CODES[x.dtype], stream)
-    _raise_on(err, KERNEL_NAME)
-    kernels.launch_counts[KERNEL_NAME] += 1
+    with annotate(kernels.span_names[KERNEL_NAME]):
+        bw, n, c, d, nw = _check_forward_operands(
+            "window_attention_qkv_fused_eval", x, w, b, bias, mask, num_heads)
+        lib = kernels.load("window_attention_eval")
+        out = torch.empty_like(x)
+        # the projection's output, read once by the attention launch
+        qkv = torch.empty((bw, n, 3 * c), dtype=x.dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gdl_wa_eval_launch(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, qkv.data_ptr(),
+            out.data_ptr(), bw, n, c, num_heads, d, nw,
+            _fwd_windows_per_block(bw, num_heads), float(scale),
+            _DTYPE_CODES[x.dtype], stream)
+        _raise_on(err, KERNEL_NAME)
+        kernels.launch_counts[KERNEL_NAME] += 1
     return out
 
 
@@ -397,21 +399,22 @@ def _(x, w, b, bias, mask, num_heads, scale):
 
 
 def _launch_savep(x, w, b, bias, mask, num_heads, scale):
-    bw, n, c, d, nw = _check_forward_operands(
-        SAVEP_KERNEL_NAME, x, w, b, bias, mask, num_heads)
-    lib = kernels.load("window_attention_train")
-    out = torch.empty_like(x)
-    qkv = torch.empty((bw, n, 3 * c), dtype=x.dtype, device=x.device)
-    p = torch.empty((bw, num_heads, n, n), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gdl_wa_savep_launch(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        qkv.data_ptr(), p.data_ptr(), bw, n, c, num_heads, d, nw,
-        _fwd_windows_per_block(bw, num_heads), float(scale),
-        _DTYPE_CODES[x.dtype], stream)
-    _raise_on(err, SAVEP_KERNEL_NAME)
-    kernels.launch_counts[SAVEP_KERNEL_NAME] += 1
+    with annotate(kernels.span_names[SAVEP_KERNEL_NAME]):
+        bw, n, c, d, nw = _check_forward_operands(
+            SAVEP_KERNEL_NAME, x, w, b, bias, mask, num_heads)
+        lib = kernels.load("window_attention_train")
+        out = torch.empty_like(x)
+        qkv = torch.empty((bw, n, 3 * c), dtype=x.dtype, device=x.device)
+        p = torch.empty((bw, num_heads, n, n), dtype=x.dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gdl_wa_savep_launch(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr(),
+            qkv.data_ptr(), p.data_ptr(), bw, n, c, num_heads, d, nw,
+            _fwd_windows_per_block(bw, num_heads), float(scale),
+            _DTYPE_CODES[x.dtype], stream)
+        _raise_on(err, SAVEP_KERNEL_NAME)
+        kernels.launch_counts[SAVEP_KERNEL_NAME] += 1
     return out, qkv, p
 
 
@@ -454,28 +457,29 @@ def _launch_bwd(qkv, p, dout, num_heads, scale, delta=None, rows=False):
         name = BWD_ROWS_KERNEL_NAME
     else:
         name = BWD_KERNEL_NAME if delta is None else BWD_DELTA_KERNEL_NAME
-    extra = () if delta is None else ((
-        "delta", delta, (qkv.shape[0], num_heads, qkv.shape[1]),
-        torch.float32),)
-    bw, n, c, d = _check_bwd_operands(name, qkv, p, dout, num_heads, extra)
-    g = head_group(num_heads, d) if rows else 1
-    wpb = _bwd_windows_per_block(bw, num_heads // g)
-    lib = kernels.load("window_attention_train")
-    dqkv = torch.empty_like(qkv)
-    parts = torch.empty((-(-bw // wpb), num_heads, n, n), dtype=torch.float32,
-                        device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    ptrs = (qkv.data_ptr(), p.data_ptr(), dout.data_ptr())
-    tail = (dqkv.data_ptr(), parts.data_ptr(), bw, n, c, num_heads, d, wpb,
-            float(scale), _DTYPE_CODES[qkv.dtype], stream)
-    if rows:
-        err = lib.gdl_wa_bwd_rows_launch(*ptrs, *tail[:7], g, *tail[7:])
-    elif delta is None:
-        err = lib.gdl_wa_bwd_launch(*ptrs, *tail)
-    else:
-        err = lib.gdl_wa_bwd_delta_launch(*ptrs, delta.data_ptr(), *tail)
-    _raise_on(err, name)
-    kernels.launch_counts[name] += 1
+    with annotate(kernels.span_names[name]):
+        extra = () if delta is None else ((
+            "delta", delta, (qkv.shape[0], num_heads, qkv.shape[1]),
+            torch.float32),)
+        bw, n, c, d = _check_bwd_operands(name, qkv, p, dout, num_heads, extra)
+        g = head_group(num_heads, d) if rows else 1
+        wpb = _bwd_windows_per_block(bw, num_heads // g)
+        lib = kernels.load("window_attention_train")
+        dqkv = torch.empty_like(qkv)
+        parts = torch.empty((-(-bw // wpb), num_heads, n, n),
+                            dtype=torch.float32, device=qkv.device)
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        ptrs = (qkv.data_ptr(), p.data_ptr(), dout.data_ptr())
+        tail = (dqkv.data_ptr(), parts.data_ptr(), bw, n, c, num_heads, d, wpb,
+                float(scale), _DTYPE_CODES[qkv.dtype], stream)
+        if rows:
+            err = lib.gdl_wa_bwd_rows_launch(*ptrs, *tail[:7], g, *tail[7:])
+        elif delta is None:
+            err = lib.gdl_wa_bwd_launch(*ptrs, *tail)
+        else:
+            err = lib.gdl_wa_bwd_delta_launch(*ptrs, delta.data_ptr(), *tail)
+        _raise_on(err, name)
+        kernels.launch_counts[name] += 1
     return dqkv, parts.sum(0)
 
 
@@ -499,60 +503,64 @@ def _launch_qkv_savep(qkv, bias, mask, num_heads, scale, rows=False):
     """Kernel #5, or with rows=True #6's forward: the same launch (#6's
     entry makes #5's), counted under its own name."""
     name = QKV_SAVEP_ROWS_KERNEL_NAME if rows else QKV_SAVEP_KERNEL_NAME
-    bw, n, c, d, nw = _check_qkv_operands(name, qkv, bias, mask, num_heads)
-    lib = kernels.load("window_attention_train")
-    out = torch.empty((bw, n, c), dtype=qkv.dtype, device=qkv.device)
-    p = torch.empty((bw, num_heads, n, n), dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    launch = (lib.gdl_wa_qkv_savep_rows_launch if rows
-              else lib.gdl_wa_qkv_savep_launch)
-    err = launch(
-        qkv.data_ptr(), bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        p.data_ptr(), bw, n, c, num_heads, d, nw,
-        _fwd_windows_per_block(bw, num_heads), float(scale),
-        _DTYPE_CODES[qkv.dtype], stream)
-    _raise_on(err, name)
-    kernels.launch_counts[name] += 1
+    with annotate(kernels.span_names[name]):
+        bw, n, c, d, nw = _check_qkv_operands(name, qkv, bias, mask, num_heads)
+        lib = kernels.load("window_attention_train")
+        out = torch.empty((bw, n, c), dtype=qkv.dtype, device=qkv.device)
+        p = torch.empty((bw, num_heads, n, n), dtype=qkv.dtype,
+                        device=qkv.device)
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        launch = (lib.gdl_wa_qkv_savep_rows_launch if rows
+                  else lib.gdl_wa_qkv_savep_launch)
+        err = launch(
+            qkv.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr(),
+            p.data_ptr(), bw, n, c, num_heads, d, nw,
+            _fwd_windows_per_block(bw, num_heads), float(scale),
+            _DTYPE_CODES[qkv.dtype], stream)
+        _raise_on(err, name)
+        kernels.launch_counts[name] += 1
     return out, p
 
 
 def _launch_qkv_fwd(qkv, bias, mask, num_heads, scale):
-    bw, n, c, d, nw = _check_qkv_operands(QKV_FWD_KERNEL_NAME, qkv, bias,
-                                          mask, num_heads)
-    lib = kernels.load("window_attention_train")
-    out = torch.empty((bw, n, c), dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.gdl_wa_qkv_fwd_launch(
-        qkv.data_ptr(), bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(), bw, n,
-        c, num_heads, d, nw, _fwd_windows_per_block(bw, num_heads),
-        float(scale), _DTYPE_CODES[qkv.dtype], stream)
-    _raise_on(err, QKV_FWD_KERNEL_NAME)
-    kernels.launch_counts[QKV_FWD_KERNEL_NAME] += 1
+    with annotate(kernels.span_names[QKV_FWD_KERNEL_NAME]):
+        bw, n, c, d, nw = _check_qkv_operands(QKV_FWD_KERNEL_NAME, qkv, bias,
+                                              mask, num_heads)
+        lib = kernels.load("window_attention_train")
+        out = torch.empty((bw, n, c), dtype=qkv.dtype, device=qkv.device)
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.gdl_wa_qkv_fwd_launch(
+            qkv.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr(),
+            bw, n, c, num_heads, d, nw, _fwd_windows_per_block(bw, num_heads),
+            float(scale), _DTYPE_CODES[qkv.dtype], stream)
+        _raise_on(err, QKV_FWD_KERNEL_NAME)
+        kernels.launch_counts[QKV_FWD_KERNEL_NAME] += 1
     return out
 
 
 def _launch_bwd_recompute(qkv, bias, mask, dout, num_heads, scale):
     name = BWD_RECOMPUTE_KERNEL_NAME
-    bw, n, c, d, nw = _check_qkv_operands(name, qkv, bias, mask, num_heads)
-    if tuple(dout.shape) != (bw, n, c) or dout.dtype != qkv.dtype:
-        raise ValueError(f"dout: expected {(bw, n, c)} {qkv.dtype}, got "
-                         f"{tuple(dout.shape)} {dout.dtype}")
-    _require_cuda([dout], qkv)
-    wpb = _bwd_windows_per_block(bw, num_heads)
-    lib = kernels.load("window_attention_train")
-    dqkv = torch.empty_like(qkv)
-    parts = torch.empty((-(-bw // wpb), num_heads, n, n), dtype=torch.float32,
-                        device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.gdl_wa_bwd_recompute_launch(
-        qkv.data_ptr(), bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, dout.data_ptr(),
-        dqkv.data_ptr(), parts.data_ptr(), bw, n, c, num_heads, d, nw, wpb,
-        float(scale), _DTYPE_CODES[qkv.dtype], stream)
-    _raise_on(err, name)
-    kernels.launch_counts[name] += 1
+    with annotate(kernels.span_names[name]):
+        bw, n, c, d, nw = _check_qkv_operands(name, qkv, bias, mask, num_heads)
+        if tuple(dout.shape) != (bw, n, c) or dout.dtype != qkv.dtype:
+            raise ValueError(f"dout: expected {(bw, n, c)} {qkv.dtype}, got "
+                             f"{tuple(dout.shape)} {dout.dtype}")
+        _require_cuda([dout], qkv)
+        wpb = _bwd_windows_per_block(bw, num_heads)
+        lib = kernels.load("window_attention_train")
+        dqkv = torch.empty_like(qkv)
+        parts = torch.empty((-(-bw // wpb), num_heads, n, n),
+                            dtype=torch.float32, device=qkv.device)
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.gdl_wa_bwd_recompute_launch(
+            qkv.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, dout.data_ptr(),
+            dqkv.data_ptr(), parts.data_ptr(), bw, n, c, num_heads, d, nw, wpb,
+            float(scale), _DTYPE_CODES[qkv.dtype], stream)
+        _raise_on(err, name)
+        kernels.launch_counts[name] += 1
     return dqkv, parts.sum(0)
 
 
@@ -560,32 +568,35 @@ def _launch_bhnd(q, k, v, bias, mask, scale, packed):
     """Kernel #8, or with packed=True #9: the same launch (#9's entry makes
     #8's), counted under its own name."""
     name = PACKED_KERNEL_NAME if packed else BHND_KERNEL_NAME
-    b, h, n, d = q.shape
-    _check_head_shape(name, n, h * d, h, q.dtype)
-    for arg, t, shape, dtype in (
-            ("k", k, (b, h, n, d), q.dtype), ("v", v, (b, h, n, d), q.dtype),
-            ("bias", bias, (h, n, n), torch.float32)):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{arg}: expected {shape} {dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    nw = 1
-    if mask is not None:
-        nw = mask.shape[0]
-        if tuple(mask.shape) != (nw, n, n) or mask.dtype != torch.float32:
-            raise ValueError(f"mask: expected [nW, {n}, {n}] float32, got "
-                             f"{tuple(mask.shape)} {mask.dtype}")
-    _require_cuda([q, k, v, bias] + ([mask] if mask is not None else []), q)
-    lib = kernels.load("window_attention_bhnd")
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    launch = lib.gdl_wa_packed_launch if packed else lib.gdl_wa_bhnd_launch
-    err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(), b, n,
-        h, d, nw, _fwd_windows_per_block(b, h), float(scale),
-        _DTYPE_CODES[q.dtype], stream)
-    _raise_on(err, name)
-    kernels.launch_counts[name] += 1
+    with annotate(kernels.span_names[name]):
+        b, h, n, d = q.shape
+        _check_head_shape(name, n, h * d, h, q.dtype)
+        for arg, t, shape, dtype in (
+                ("k", k, (b, h, n, d), q.dtype),
+                ("v", v, (b, h, n, d), q.dtype),
+                ("bias", bias, (h, n, n), torch.float32)):
+            if tuple(t.shape) != shape or t.dtype != dtype:
+                raise ValueError(f"{arg}: expected {shape} {dtype}, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
+        nw = 1
+        if mask is not None:
+            nw = mask.shape[0]
+            if tuple(mask.shape) != (nw, n, n) or mask.dtype != torch.float32:
+                raise ValueError(f"mask: expected [nW, {n}, {n}] float32, got "
+                                 f"{tuple(mask.shape)} {mask.dtype}")
+        _require_cuda([q, k, v, bias]
+                      + ([mask] if mask is not None else []), q)
+        lib = kernels.load("window_attention_bhnd")
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        launch = lib.gdl_wa_packed_launch if packed else lib.gdl_wa_bhnd_launch
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr(),
+            b, n, h, d, nw, _fwd_windows_per_block(b, h), float(scale),
+            _DTYPE_CODES[q.dtype], stream)
+        _raise_on(err, name)
+        kernels.launch_counts[name] += 1
     return out
 
 
@@ -628,30 +639,31 @@ def _launch_bwd_fused_parts(qkv, p, dout, x, w, num_heads, scale):
     """Kernel #3's three launches → (dqkv, the workspace in T; dx in T;
     dW's float32 partials [ceil(Bw·N / kc), 3C, C], unrounded; db's
     [runs, 3C] and dbias's [runs, H, N, N] float32 partials)."""
-    c = qkv.shape[2] // 3
-    extra = (("x", x, (*qkv.shape[:2], c), qkv.dtype),
-             ("w", w, (3 * c, c), qkv.dtype))
-    bw, n, c, d = _check_bwd_operands(BWD_FUSED_KERNEL_NAME, qkv, p, dout,
-                                      num_heads, extra)
-    tokens = bw * n
-    wpb = _bwd_windows_per_block(bw, num_heads)
-    kc = _fused_bwd_split(tokens, c)
-    runs = -(-bw // wpb)
-    lib = kernels.load("window_attention_train")
-    f32 = dict(dtype=torch.float32, device=qkv.device)
-    dqkv = torch.empty_like(qkv)  # the workspace: dqkv in T
-    dx = torch.empty_like(x)
-    dw_parts = torch.empty((-(-tokens // kc), 3 * c, c), **f32)
-    db_parts = torch.empty((runs, 3 * c), **f32)
-    dbias_parts = torch.empty((runs, num_heads, n, n), **f32)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.gdl_wa_bwd_fused_launch(
-        qkv.data_ptr(), p.data_ptr(), dout.data_ptr(), x.data_ptr(),
-        w.data_ptr(), dqkv.data_ptr(), dx.data_ptr(), dw_parts.data_ptr(),
-        db_parts.data_ptr(), dbias_parts.data_ptr(), bw, n, c, num_heads, d,
-        wpb, kc, float(scale), _DTYPE_CODES[qkv.dtype], stream)
-    _raise_on(err, BWD_FUSED_KERNEL_NAME)
-    kernels.launch_counts[BWD_FUSED_KERNEL_NAME] += 1
+    with annotate(kernels.span_names[BWD_FUSED_KERNEL_NAME]):
+        c = qkv.shape[2] // 3
+        extra = (("x", x, (*qkv.shape[:2], c), qkv.dtype),
+                 ("w", w, (3 * c, c), qkv.dtype))
+        bw, n, c, d = _check_bwd_operands(BWD_FUSED_KERNEL_NAME, qkv, p, dout,
+                                          num_heads, extra)
+        tokens = bw * n
+        wpb = _bwd_windows_per_block(bw, num_heads)
+        kc = _fused_bwd_split(tokens, c)
+        runs = -(-bw // wpb)
+        lib = kernels.load("window_attention_train")
+        f32 = dict(dtype=torch.float32, device=qkv.device)
+        dqkv = torch.empty_like(qkv)  # the workspace: dqkv in T
+        dx = torch.empty_like(x)
+        dw_parts = torch.empty((-(-tokens // kc), 3 * c, c), **f32)
+        db_parts = torch.empty((runs, 3 * c), **f32)
+        dbias_parts = torch.empty((runs, num_heads, n, n), **f32)
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.gdl_wa_bwd_fused_launch(
+            qkv.data_ptr(), p.data_ptr(), dout.data_ptr(), x.data_ptr(),
+            w.data_ptr(), dqkv.data_ptr(), dx.data_ptr(), dw_parts.data_ptr(),
+            db_parts.data_ptr(), dbias_parts.data_ptr(), bw, n, c, num_heads,
+            d, wpb, kc, float(scale), _DTYPE_CODES[qkv.dtype], stream)
+        _raise_on(err, BWD_FUSED_KERNEL_NAME)
+        kernels.launch_counts[BWD_FUSED_KERNEL_NAME] += 1
     return dqkv, dx, dw_parts, db_parts, dbias_parts
 
 

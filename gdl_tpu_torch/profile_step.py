@@ -15,9 +15,11 @@ port's `build_harness` (`main_intermediate`'s for mmformer) and
 collected beforehand, times `--steps` untraced steps (host clock, one
 synchronize at the end), then traces the same number of steps with
 `torch.profiler` and prints one JSON object: untraced ms/step, device
-ms/step (the sum of the CUDA kernels' and copies' self time), busy share
-(device ms over untraced ms), device time by kind of kernel and the
-largest kernels by name, and every kernel of the kind "other" by name.
+ms/step (the sum of the CUDA kernels' and copies' self time in the traced
+pass), device time by kind of kernel and the largest kernels by name,
+and every kernel of the kind "other" by name. The device's idle share of
+a step, on one timeline, is the benchmark's
+(`portbench/layer_metrics/device_idle_share.train.py`).
 Needs a CUDA device; TF32 is off for matrix products and convolutions,
 as in `chip_smoke.py`. `--fuse_qkv_gemm` to `--fused_projection_backward`
 are for the Swin backbone: the CLI's two kernel flags, and the two module
@@ -201,9 +203,7 @@ def main(argv=None) -> int:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
         epoch()
-        traced = (time.perf_counter() - t) * 1e3 / args.steps
 
     by_kind, by_name, n_kernels = {}, {}, 0
     for evt in prof.key_averages():
@@ -229,10 +229,9 @@ def main(argv=None) -> int:
         "sa_fused_qkv": (bool(args.sa_fused_qkv)
                          if args.backbone == "mmformer" else None),
         "batch": cfg.batch_size, "steps": args.steps,
-        "untraced_ms_per_step": untraced, "traced_ms_per_step": traced,
+        "untraced_ms_per_step": untraced,
         "clips_per_s": cfg.batch_size / untraced * 1e3,
         "device_ms_per_step": device,
-        "busy_share": device / untraced,
         "device_launches_per_step": n_kernels / args.steps,
         "kernel_launch_counts_per_step": {k: v / args.steps
                                           for k, v in launches.items()},

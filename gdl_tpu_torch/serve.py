@@ -78,6 +78,7 @@ from gdl_tpu_torch.models.classifier import (
 from gdl_tpu_torch.parallel.distributed import local_device
 from gdl_tpu_torch.train.dgl import make_eval_step
 from gdl_tpu_torch.utils.interop import load_reference_pth
+from gdl_tpu_torch.utils.profiling import annotate
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -132,6 +133,7 @@ class ServedModel:
                                      self.device.type)
         self._eval_step = make_eval_step(
             self._forward, make_eval_preprocess(cfg, self.device))
+        self._requests = 0  # the unit of the next request's spans
 
     @torch.inference_mode()
     def __call__(self, audio, visual):
@@ -140,8 +142,11 @@ class ServedModel:
 
     def eval_batch(self, batch: dict) -> dict:
         """Raw batch {'wave', 'frames', 'label'} → preprocessing on the
-        device → forward → argmaxes (and logits) of the eval step."""
-        return self._eval_step(batch)
+        device → forward → argmaxes (and logits) of the eval step; the
+        span `request` while a profiler records."""
+        unit, self._requests = self._requests, self._requests + 1
+        with annotate("request", unit=unit):
+            return self._eval_step(batch)
 
 
 def build_model(cfg: Config, attn_impl: str = "auto",

@@ -24,6 +24,7 @@ from gdl_tpu_torch.parallel.distributed import all_reduce_, all_reduce_grads
 from gdl_tpu_torch.parallel.mesh import model_group, model_size
 from gdl_tpu_torch.parallel.row_parallel import is_sharded
 from gdl_tpu_torch.train.optim import gradient_norm
+from gdl_tpu_torch.utils.profiling import annotate
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -106,31 +107,41 @@ def make_dgl_train_step(model, cfg: Config, optimizer,
     The metrics are gdl_tpu's, as 0-dim tensors on the device: loss,
     loss_f/a/v, audio/visual_grad_sum (post-clip per-encoder Σ mean|g|;
     0 unless cfg.log_grad_csv), abs_out_a/v (mean |unimodal logits|) and
-    grad_norm (before the clip)."""
+    grad_norm (before the clip).
+
+    While a profiler records, the step's stages are spans
+    (`utils/profiling.py`): `preprocess`, `forward` (the loss included),
+    `backward` (with the gradients' all-reduce), `clip` (the norm, the
+    coefficient and the probes) and `optimizer`."""
 
     def train_step(batch):
         if preprocess is not None:
-            batch = preprocess(batch, generator)
+            with annotate("preprocess"):
+                batch = preprocess(batch, generator)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = dgl_loss_fn(model, batch, cfg, generator)
-        loss.backward()
-        all_reduce_grads(model.parameters())
+        with annotate("forward"):
+            loss, metrics = dgl_loss_fn(model, batch, cfg, generator)
+        with annotate("backward"):
+            loss.backward()
+            all_reduce_grads(model.parameters())
 
-        named = {n: p for n, p in model.named_parameters()
-                 if p.grad is not None}
-        gnorm = gradient_norm(model.parameters())
-        clip_coef = torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
-        zero = torch.zeros((), device=gnorm.device)
-        audio_probe = visual_probe = zero
-        if cfg.log_grad_csv:  # diagnostics only
-            if cfg.modality in ("full", "audio"):
-                audio_probe = clip_coef * _encoder_grad_probe(named,
-                                                              "audio_net")
-            if cfg.modality in ("full", "visual"):
-                visual_probe = clip_coef * _encoder_grad_probe(named,
-                                                               "visual_net")
-        optimizer.step(grad_norm=gnorm)
+        with annotate("clip"):
+            named = {n: p for n, p in model.named_parameters()
+                     if p.grad is not None}
+            gnorm = gradient_norm(model.parameters())
+            clip_coef = torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
+            zero = torch.zeros((), device=gnorm.device)
+            audio_probe = visual_probe = zero
+            if cfg.log_grad_csv:  # diagnostics only
+                if cfg.modality in ("full", "audio"):
+                    audio_probe = clip_coef * _encoder_grad_probe(
+                        named, "audio_net")
+                if cfg.modality in ("full", "visual"):
+                    visual_probe = clip_coef * _encoder_grad_probe(
+                        named, "visual_net")
+        with annotate("optimizer"):
+            optimizer.step(grad_norm=gnorm)
         return {
             "loss": loss.detach(),
             "loss_f": metrics["loss_f"].detach(),
@@ -153,21 +164,25 @@ def make_eval_step(model, preprocess: Optional[Callable] = None) -> Callable:
     An nn.Module is put in eval mode (BatchNorm then uses its running
     statistics, main_dgl.py:186; the train step puts it back in training
     mode); a plain callable is used as it is. The caller chooses the
-    autocast dtype."""
+    autocast dtype. Its spans: `preprocess`, `forward`, `answer` (the
+    argmaxes)."""
 
     @torch.inference_mode()
     def eval_step(batch):
         if isinstance(model, torch.nn.Module):
             model.eval()
         if preprocess is not None:
-            batch = preprocess(batch)
-        out, out_a, out_v = model(batch["audio"], batch["visual"])
-        return {
-            "pred": out.argmax(dim=-1),
-            "pred_a": out_a.argmax(dim=-1),
-            "pred_v": out_v.argmax(dim=-1),
-            "label": batch["label"],
-            "logits": (out, out_a, out_v),
-        }
+            with annotate("preprocess"):
+                batch = preprocess(batch)
+        with annotate("forward"):
+            out, out_a, out_v = model(batch["audio"], batch["visual"])
+        with annotate("answer"):
+            return {
+                "pred": out.argmax(dim=-1),
+                "pred_a": out_a.argmax(dim=-1),
+                "pred_v": out_v.argmax(dim=-1),
+                "label": batch["label"],
+                "logits": (out, out_a, out_v),
+            }
 
     return eval_step

@@ -44,13 +44,16 @@ sliced again on `--resume`.
 does not clip) and the joint eval step. `--pretrained_path` partial-loads
 a torchvision-format backbone into the encoders when the harness is
 built. `--profile_dir` traces steps 10-12 of epoch 0 with torch.profiler
-(`utils/profiling.py`), every step a `train_step` span, and closes the
-trace at the epoch's end.
+(`utils/profiling.py`) and closes the trace at the epoch's end. While a
+profiler records, the loop logs its spans (`data.next`, `data.pin`,
+`data.h2d` of each batch, `train_step` of each step, `metrics.fetch` of
+each device→host fetch) and the DGL step those of its stages.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import os
 import time
 from dataclasses import dataclass, field
@@ -243,27 +246,33 @@ def build_harness(cfg: Config, model: torch.nn.Module, steps_per_epoch: int,
                             clip_norm=40.0 if dgl else None)
 
 
-def _put_batch(batch: dict, device: torch.device) -> dict:
+def _put_batch(batch: dict, device: torch.device, unit=None) -> dict:
     """Host batch → tensors on `device`. On CUDA the arrays pass through
-    pinned memory and the copy does not block the host."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(v)
-        if device.type == "cuda" and not t.is_cuda:
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
-        out[k] = t
-    return out
+    pinned memory and the copy does not block the host. `unit` is the
+    step whose batch it is, for the spans."""
+    host = {k: torch.as_tensor(v) for k, v in batch.items()}
+    if device.type == "cuda":
+        with annotate("data.pin", unit=unit):
+            host = {k: t if t.is_cuda else t.pin_memory()
+                    for k, t in host.items()}
+    with annotate("data.h2d", unit=unit):
+        return {k: t.to(device, non_blocking=True) for k, t in host.items()}
 
 
 def _device_prefetch(iterator: Iterable[dict], device: torch.device,
                      depth: int = 2):
     """Keep `depth` batches in flight on the device while the current
-    step runs."""
+    step runs. The spans of a batch's fetch carry the index of the step
+    it feeds; the last `data.next`, which finds the iterator's end, that
+    of the step after the last."""
     queue = collections.deque()
-    for batch in iterator:
-        queue.append(_put_batch(batch, device))
+    iterator = iter(iterator)
+    for unit in itertools.count():
+        with annotate("data.next", unit=unit):
+            batch = next(iterator, None)
+        if batch is None:
+            break
+        queue.append(_put_batch(batch, device, unit))
         if len(queue) >= depth:
             yield queue.popleft()
     while queue:
@@ -274,13 +283,14 @@ def _to_host(steps: list) -> list:
     """The 0-dim entries of each step's metrics as Python floats, all
     steps in one device→host copy; under a process group their means over
     the data group (one all-reduce)."""
-    keys = [k for k, v in steps[0].items() if v.dim() == 0]
-    table = torch.stack([torch.stack([m[k].detach().float() for k in keys])
-                         for m in steps])
-    world = data_size()
-    if world > 1:
-        table = all_reduce_(table, group=data_group()) / world
-    return [dict(zip(keys, row)) for row in table.tolist()]
+    with annotate("metrics.fetch"):
+        keys = [k for k, v in steps[0].items() if v.dim() == 0]
+        table = torch.stack([torch.stack([m[k].detach().float()
+                                          for k in keys]) for m in steps])
+        world = data_size()
+        if world > 1:
+            table = all_reduce_(table, group=data_group()) / world
+        return [dict(zip(keys, row)) for row in table.tolist()]
 
 
 def train_one_epoch(h: Harness, loader: Iterable[dict], epoch: int,
@@ -324,7 +334,8 @@ def train_one_epoch(h: Harness, loader: Iterable[dict], epoch: int,
     preempted = False
     try:
         for step, batch in enumerate(_device_prefetch(loader, h.device)):
-            with step_trace(profile_dir, step), annotate("train_step"):
+            with step_trace(profile_dir, step), annotate("train_step",
+                                                          unit=step):
                 metrics = h.train_step(batch)
             pending.append(metrics)
             if len(pending) >= 512:
